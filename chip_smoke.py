@@ -20,7 +20,23 @@ Phases (any failure exits non-zero):
    ``generate``/``inference`` entry with ``--dtype q40 --decode device``:
    greedy twice, sampled twice, and once on the f32 (dequant) kernel path;
    assert identical streams for identical seeds, tokens in range, and
-   4 * n_layers + 1 kernel launches per forward.
+   4 * n_layers + 1 kernel launches per forward; then show the chunk
+   pipeline's delivery: chunk k's tokens reach the host while chunk k+1
+   still runs (the delivery lag before and after the pinned-copy repair);
+6. (a) hold K2, the paged-attention kernel, against its plain version at
+   Llama-2-7B heads (K=32, M=1, hd=128; and a K=8, M=4 GQA case), S=2048,
+   page 64, rows whose matched lengths put chunks in the pool-only, mixed
+   and slab-only segments, T=1 and T=3, bf16 and f32 caches, timed against
+   the bound (live KV bytes + q/out/tables over 3.35 TB/s), the plain
+   version and the library yardstick (a page-table gather plus
+   scaled_dot_product_attention, SDPA alone in brackets);
+   (b) start the port's API server in process over the phase-5 model with
+   --parallel 4 --max-seq-len 2048, send a cold request with a ~600-token
+   system prompt and then four concurrent ones sharing it (greedy and
+   sampled, SSE and JSON); assert 200s, prefix hits, K2 launches equal to
+   n_layers x batched forwards, and a hit's first-token logits within 5%
+   of a cold prefill's; report TTFT cold vs hit, aggregate decode tok/s at
+   1 and 4 rows and the device idle share.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -35,9 +51,12 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -57,12 +76,26 @@ SHAPES = {
 # kernel vs plain version: K1's block sums are exact integers in both, K3's
 # bf16 products are exact in f32 in both; only f32 summation order differs
 TOL_REL = {"q40_int8": 1e-5, "q40_dequant": 1e-4}
+# K2 vs its plain version, of max |out|: f32 caches differ only in the order
+# of f32 sums; bf16 caches also round the softmax weights to bf16 before
+# the value mix, where an ulp of exp can flip one rounding
+K2_TOL_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-4}
 KERNEL_INFO = {
     "q40_int8": ("distributed_llama_tpu_torch/csrc/q40_int8.cu",
                  "distributed_llama_tpu/ops/q40.py:725 (_make_q40_int8_kernel)"),
     "q40_dequant": ("distributed_llama_tpu_torch/csrc/q40_dequant.cu",
                     "distributed_llama_tpu/ops/q40.py:493 (_make_q40_kernel)"),
+    "paged_attention": ("distributed_llama_tpu_torch/csrc/paged_attention.cu",
+                        "distributed_llama_tpu/ops/attention.py:371 (_fused_paged_attention)"),
 }
+SERVER_SEQ_LEN = 2048  # --max-seq-len of the phase-6 server
+K2_S, K2_PAGE = 2048, 64
+# (label, K, M, pos per row, matched per row): the segment mixes of phase 6a
+K2_CASES = [
+    ("B1 K32 M1", 32, 1, [1500], [1024]),
+    ("B4 K32 M1", 32, 1, [1900, 800, 1300, 2000], [0, 576, 1024, 576]),
+    ("B4 K8 M4", 8, 4, [1900, 800, 1300, 2000], [0, 576, 1024, 576]),
+]
 OUT_FILE = ROOT / "build" / "chip_smoke.json"  # the full results
 
 
@@ -170,6 +203,140 @@ def kernel_checks(q40) -> dict:
     return rows
 
 
+def event_ms(fn, reps: int) -> float:
+    """Milliseconds per ``fn(i)`` between CUDA events over ``reps`` eager
+    calls (for code that reads the device, which a CUDA graph cannot hold)."""
+    fn(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k2_checks(attn, kvc) -> list:
+    """Phase 6a: K2 against its plain version at the 7B heads, timed."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    hd, n_table = 128, K2_S // K2_PAGE
+    rows = []
+    for label, K, M, pos_l, matched_l in K2_CASES:
+        B = len(pos_l)
+        for dtype in (torch.bfloat16, torch.float32):
+            esz = torch.empty(0, dtype=dtype).element_size()
+            n_pages = B * n_table
+            set_bytes = 2 * (B * K2_S + n_pages * K2_PAGE) * K * hd * esz
+            copies = max(2, math.ceil(256e6 / set_bytes))  # each timed launch reads its KV from HBM
+            sets = []
+            for _ in range(copies):
+                slab = torch.randn((2, B, K2_S, K, hd), device=dev, generator=g).to(dtype)
+                pool = torch.randn((2, n_pages, K2_PAGE, K, hd), device=dev, generator=g).to(dtype)
+                sets.append((slab, pool))
+            tables = torch.stack([torch.randperm(n_pages, device=dev, generator=g)[:n_table] for _ in range(B)])
+            tables = tables.to(torch.int32)
+            pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+            matched = torch.tensor(matched_l, dtype=torch.int32, device=dev)
+            for T in (1, 3):
+                shape = (B, T, K, M, hd) if T > 1 else (B, K, M, hd)
+                qg = torch.randn(shape, device=dev, generator=g)
+                fn = attn.fused_paged_verify_attention if T > 1 else attn.fused_paged_decode_attention
+
+                def paged(i):
+                    slab, pool = sets[i % copies]
+                    return (pool[0], pool[1], tables, matched)
+
+                run = lambda i: fn(qg, sets[i % copies][0][0], sets[i % copies][0][1], pos, 512, paged(i))
+                plain = lambda i: attn.paged_attention_plain(qg, sets[0][0][0], sets[0][0][1], pos, 512, paged(0))
+                got, want = run(0), plain(0)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                tol = K2_TOL_REL[dtype]
+                check(math.isfinite(err) and err <= tol * scale,
+                      f"paged_attention {label} T={T} {dtype}: max abs err {err} > {tol} x {scale}")
+                ms = cuda_ms(run, reps=50)
+                plain_ms = event_ms(plain, reps=5)
+                # the library yardstick: gather every row's pages into a
+                # dense view (the page-table gather), then SDPA over the live
+                # length with a causal mask per row and query
+                L = min(max(pos_l) + T, K2_S)
+                kpos = torch.arange(L, device=dev)
+                qpos = (pos[:, None] + torch.arange(T, device=dev)[None, :]).repeat_interleave(M, dim=1)
+                mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # [B, 1, T*M, L]
+                q_sd = qg.reshape(B, T, K, M, hd).permute(0, 2, 1, 3, 4).reshape(B, K, T * M, hd).to(dtype)
+
+                def gather(i):
+                    slab, pool = sets[i % copies]
+                    kv = [kvc.virtual_rows_batched(slab[h], pool[h], tables, matched)[:, :L].transpose(1, 2)
+                          for h in (0, 1)]
+                    return kv
+
+                def library(i):
+                    k_sd, v_sd = gather(i)
+                    return torch.nn.functional.scaled_dot_product_attention(q_sd, k_sd, v_sd, attn_mask=mask)
+
+                lib_ms = cuda_ms(library, reps=5, warmup=1)
+                k_sd, v_sd = gather(0)
+                sdpa_ms = cuda_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+                    q_sd, k_sd, v_sd, attn_mask=mask), reps=20)
+                live = sum(min(p + T, K2_S) for p in pos_l)
+                need_bytes = 2 * live * K * hd * esz + 2 * qg.numel() * 4 + tables.numel() * 4 + 2 * B * 4
+                bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = 4.0 * live * K * M * T * hd / BF16_OPS_PER_S * 1e3
+                row = dict(kernel="paged_attention", case=label, B=B, K=K, M=M, T=T, dtype=str(dtype),
+                           pos=pos_l, matched=matched_l, max_abs_err=err, max_rel_err=err / max(scale, 1e-30),
+                           tol_rel=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, sdpa_only_ms=sdpa_ms,
+                           bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                rows.append(row)
+                print(f"paged_attention {label} T={T} {str(dtype)[6:]:8s} err {err:.3e} (rel "
+                      f"{row['max_rel_err']:.1e} <= {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                      f"library {lib_ms:.4f} ms (SDPA alone {sdpa_ms:.4f}) bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']})", flush=True)
+            del sets
+            torch.cuda.empty_cache()
+    return rows
+
+
+def chunk_delivery(engine, first: int, sleep_cycles: int = 200_000_000) -> dict:
+    """Phase 5, chunk delivery: how late chunk k's tokens reach the host after
+    chunk k+1 is issued, fetched the old way (a blocking ``.cpu()``, queued
+    behind chunk k+1) and the repaired way (a pinned copy started at
+    dispatch, waited on by its own event). Measured on the real decode and
+    with ``torch.cuda._sleep`` of ``sleep_cycles`` queued at the end of chunk
+    k+1, which stands for a chunk whose device time outlasts its issue."""
+    from distributed_llama_tpu_torch.platform import HostFetch
+
+    stream = engine.default_stream
+    out = {}
+    for sleep in (False, True):
+        for way in ("blocking .cpu()", "pinned copy + event"):
+            engine.reset()
+            engine.prefill([1, 5, 9, first])
+            torch.cuda.synchronize()
+            toks_k = stream._dispatch_chunk(first, 8, 0.0, 0.9, 0, 0)
+            fetch_k = HostFetch(toks_k)
+            toks_k1 = stream._dispatch_chunk(toks_k[-1], 8, 0.0, 0.9, 0, 0)
+            if sleep:
+                torch.cuda._sleep(sleep_cycles)
+            fetch_k1 = HostFetch(toks_k1)
+            t0 = time.perf_counter()
+            got = toks_k.cpu().numpy() if way == "blocking .cpu()" else fetch_k.wait()
+            lag_ms = (time.perf_counter() - t0) * 1e3
+            k1_running = not fetch_k1.ready()
+            fetch_k1.wait()
+            check(np.array_equal(got, fetch_k.wait()), "chunk tokens differ between the two fetches")
+            key = f"{way}{' + device sleep' if sleep else ''}"
+            out[key] = dict(lag_ms=lag_ms, next_chunk_still_running=k1_running)
+            print(f"  chunk k fetched by {key}: {lag_ms:.3f} ms after chunk k+1 was issued; "
+                  f"chunk k+1 still running then: {k1_running}")
+    check(out["pinned copy + event + device sleep"]["next_chunk_still_running"],
+          "chunk k's tokens did not reach the host while chunk k+1 was still running")
+    return out
+
+
 def device_profile(engine, first: int, decode_ms: float, steps: int = 8) -> dict:
     """Device busy time per decoded token from a torch.profiler trace of
     ``steps`` greedy decode steps (kernel durations on the card, which the
@@ -231,6 +398,170 @@ def small_reference_check(synthetic, InferenceEngine, FloatType, workdir: Path) 
         del gpu, cpu
 
 
+def _post(url: str, body: dict):
+    """POST a completion; returns (status, seconds to the first SSE event or
+    the JSON body, total seconds, the JSON body or the SSE events)."""
+    req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not body.get("stream"):
+            payload = json.loads(r.read())
+            t = time.perf_counter() - t0
+            return r.status, t, t, payload
+        events, first = [], None
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if first is None:
+                first = time.perf_counter() - t0
+            if line[6:] != "[DONE]":
+                events.append(json.loads(line[6:]))
+        return r.status, first, time.perf_counter() - t0, events
+
+
+def server_run(server_api, attn, model: str, tok_path: str) -> dict:
+    """Phase 6b: the port's API server over the 7B-width model, batched
+    (--parallel 4) with the prefix cache on."""
+    from distributed_llama_tpu_torch.tokenizer import ChatItem
+
+    args = server_api.build_parser().parse_args([
+        "generate", "--model", model, "--tokenizer", tok_path, "--dtype", "q40", "--max-seq-len",
+        str(SERVER_SEQ_LEN), "--parallel", "4", "--decode-chunk", "8", "--chat-template", "chatml",
+        "--host", "127.0.0.1", "--port", "0", "--temperature", "0"])
+    t0 = time.perf_counter()
+    server, state = server_api.make_server(args)
+    sched = state.batch
+    check(sched is not None and sched._prefix is not None, "the server did not build a paged BatchScheduler")
+    n_layers = state.engine.cfg.n_layers
+    print(f"server up in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+          f"the card, {sched._prefix.capacity} pool pages of {sched._prefix.page}")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    out: dict = {}
+    try:
+        def prompt_tokens(system: str, user: str) -> list[int]:
+            text = state.template.generate([ChatItem("system", system), ChatItem("user", user)])
+            return state.tokenizer.encode(text, add_bos=True)
+
+        system = "You are a helpful assistant. "
+        while len(prompt_tokens(system, "hello")) < 600:
+            system += "hello world, "
+        n_prompt = len(prompt_tokens(system, "hello"))
+
+        def body(user, stream, temperature=0.0, seed=1):
+            return {"messages": [{"role": "system", "content": system}, {"role": "user", "content": user}],
+                    "max_tokens": 24, "stream": stream, "temperature": temperature, "seed": seed}
+
+        attn.reset_launches()  # the main path's counts start here
+        f0 = sched.decode_forwards
+        status, ttft_cold, total_cold, events = _post(url, body("hello", True))
+        check(status == 200 and events, "cold request failed")
+        print(f"cold request: {n_prompt} prompt tokens, TTFT {ttft_cold * 1e3:.1f} ms, total {total_cold:.2f} s")
+        results: dict = {}
+        variants = {"greedy SSE": body("hello world", True), "sampled SSE": body("world", True, 0.8, 5),
+                    "greedy JSON": body("world hello", False), "sampled JSON": body("hello hello", False, 0.8, 9)}
+
+        def run(name):
+            results[name] = _post(url, variants[name])
+
+        threads = [threading.Thread(target=run, args=(n,)) for n in variants]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall4 = time.perf_counter() - t1
+        for name, (status, ttft, total, payload) in results.items():
+            if isinstance(payload, dict):
+                n_out = payload["usage"]["completion_tokens"]
+                check(payload["usage"]["prompt_tokens"] > 500, f"{name}: prompt tokens {payload['usage']}")
+            else:
+                n_out = len(payload)
+            check(status == 200 and n_out > 0, f"{name}: status {status}, {n_out} outputs")
+            print(f"  {name}: 200, {n_out} {'tokens' if isinstance(payload, dict) else 'SSE events'}, "
+                  f"first response {ttft * 1e3:.1f} ms, total {total:.2f} s")
+        status, ttft_hit, total_hit, events = _post(url, body("hello", True, seed=2))
+        check(status == 200 and events, "lone hit request failed")
+        launches = attn.launches["paged_attention"]
+        forwards = sched.decode_forwards - f0
+        print(f"K2 launches {launches} = {n_layers} layers x {forwards} batched forwards; prefix hits "
+              f"{sched._prefix.hits}, misses {sched._prefix.misses}; lone hit TTFT {ttft_hit * 1e3:.1f} ms "
+              f"vs cold {ttft_cold * 1e3:.1f} ms")
+        check(launches == n_layers * forwards and forwards > 0, "K2 launches != n_layers x batched forwards")
+        check(sched._prefix.hits >= 5, f"expected prefix hits, got {sched._prefix.hits}")
+        sched.check_prefix()
+        out.update(prompt_tokens=n_prompt, ttft_cold_ms=ttft_cold * 1e3, ttft_hit_alone_ms=ttft_hit * 1e3,
+                   ttft_hit_concurrent_ms={k: v[1] * 1e3 for k, v in results.items() if k.endswith("SSE")},
+                   concurrent_wall_s=wall4, main_path_launches=launches, batched_forwards=forwards,
+                   prefix_hits=sched._prefix.hits, prefix_misses=sched._prefix.misses)
+
+        # a hit's first-token logits against a cold prefill of the same prompt
+        row = sched._streams[0]
+        toks = prompt_tokens(system, "hello")
+        row.reset()
+        row.prefix_cache_enabled = False
+        cold = row.prefill(toks)
+        row.reset()
+        hit = row.prefill(toks)
+        check(row.matched_len > 0, "the logit check's second prefill did not hit")
+        err, tol = float(np.abs(hit - cold).max()), 0.05 * float(np.abs(cold).max())
+        print(f"hit vs cold first-token logits: max diff {err:.4g} (tolerance {tol:.4g}, 5% of max |logit|), "
+              f"{row.matched_len} positions from the pool")
+        check(np.isfinite(hit).all() and err <= tol, "hit and cold logits disagree")
+        row.reset()
+        out.update(hit_vs_cold_logit_diff=err, hit_vs_cold_tol=tol)
+
+        # aggregate decode rate at 1 and 4 rows, straight through the lanes
+        def decode_rows(n_rows, n_tok=32):
+            lanes = sched._streams[:n_rows]
+            firsts = []
+            for r, lane in enumerate(lanes):
+                lane.reset()
+                firsts.append(lane.prefill_device([1, 300 + r, 17, 42], 0.0, 0.9, 1))
+            torch.cuda.synchronize()
+
+            def go(lane, first):
+                lane.stream_decode(first, lambda p, t: True, 0.0, 0.9, seed=1, limit=lane.pos + n_tok,
+                                   first_prev=42)
+
+            ts = [threading.Thread(target=go, args=a) for a in zip(lanes, firsts)]
+            t = time.perf_counter()
+            for th in ts:
+                th.start()
+            for th in ts:
+                th.join()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, n_rows * n_tok
+
+        for n_rows in (1, 4):
+            decode_rows(n_rows, 8)  # warm
+            wall, n_tok = decode_rows(n_rows)
+            out[f"decode_tok_per_s_{n_rows}_rows"] = n_tok / wall
+            print(f"aggregate decode at {n_rows} row(s): {n_tok / wall:.2f} tok/s ({wall:.2f} s for {n_tok} tokens)")
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_p, n_tok = decode_rows(4)
+        busy_ms = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
+        wall_ms = n_tok / out["decode_tok_per_s_4_rows"] * 1e3
+        if busy_ms == 0.0:
+            print("profiler recorded no device time: device idle share not measured")
+        else:
+            out["device_busy_ms_per_step_4_rows"] = busy_ms / (n_tok / 4)
+            out["device_idle_share_4_rows"] = 1 - busy_ms / wall_ms
+            print(f"4-row decode: device busy {busy_ms / (n_tok / 4):.2f} ms per batched step, idle "
+                  f"{100 * out['device_idle_share_4_rows']:.1f}% of the unprofiled {wall_ms / (n_tok / 4):.2f} ms")
+    finally:
+        server.shutdown()
+        server.server_close()
+    del state, sched
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this smoke test needs a GPU", flush=True)
@@ -240,7 +571,10 @@ def main() -> None:
     from distributed_llama_tpu_torch.engine import InferenceEngine
     from distributed_llama_tpu_torch.formats import synthetic
     from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.ops import attention as attn
     from distributed_llama_tpu_torch.ops import cuda_build, q40
+    from distributed_llama_tpu_torch.ops import kv_cache as kvc
+    from distributed_llama_tpu_torch.server import api as server_api
     from distributed_llama_tpu_torch.quants import FloatType
 
     t_all = time.perf_counter()
@@ -360,9 +694,35 @@ def main() -> None:
             check(len(toks) == 32, "decode chunk length")
             timing[path].update(device_profile(engine, first, decode_ms))
         summary["timing"] = timing
+        engine.q40_path = "int8"
+        print("chunk delivery (chunks of 8 greedy tokens):")
+        summary["chunk_delivery"] = chunk_delivery(engine, first)
         print(f"phase 5: {time.perf_counter() - t:.1f} s")
+        del engine, built
+        torch.cuda.empty_cache()
+
+        t = phase("6a. K2 paged attention vs its plain version at the Llama-2-7B heads")
+        k2_rows = k2_checks(attn, kvc)
+        summary["k2_rows"] = k2_rows
+        print(f"phase 6a: {time.perf_counter() - t:.1f} s")
+
+        t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {N_LAYERS} layers")
+        summary["server"] = server_run(server_api, attn, model, tok)
+        main_launches["paged_attention"] = summary["server"]["main_path_launches"]
+        print(f"phase 6b: {time.perf_counter() - t:.1f} s")
 
     kernels = []
+    # K2 on the server's step: 4 rows, 32 kv heads, one query each, bf16
+    # cache, one launch per layer per batched forward
+    k2 = next(r for r in k2_rows if r["case"] == "B4 K32 M1" and r["T"] == 1 and r["dtype"] == "torch.bfloat16")
+    src, replaces = KERNEL_INFO["paged_attention"]
+    kernels_k2 = dict(
+        name="paged_attention", route="cuda", source=src, replaces=replaces,
+        launches=main_launches["paged_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in k2_rows),
+        **{k: k2[k] * N_LAYERS for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by=k2["bound_by"],
+    )
     for name in ("q40_int8", "q40_dequant"):
         src, replaces = KERNEL_INFO[name]
         mine = [r for r in rows if r["kernel"] == name and r["T"] == 1]
@@ -376,14 +736,16 @@ def main() -> None:
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by="bytes" if bytes_bound else "operations", library_ms=tot["library_ms"],
         ))
+    kernels.append(kernels_k2)
     summary["kernels"] = kernels
     summary["total_s"] = time.perf_counter() - t_all
     OUT_FILE.parent.mkdir(exist_ok=True)
     OUT_FILE.write_text(json.dumps(summary, indent=1))
     print(f"\ntotal {summary['total_s']:.1f} s; details in {OUT_FILE}")
     print("kernel numbers: ms/plain_ms/bound_ms/library_ms are one decoded token's worth of "
-          "launches at 32 layers (T=1, each shape times its launches per token); "
-          "launches are the main path's")
+          "launches at 32 layers (T=1, each shape times its launches per token; paged_attention: "
+          "one batched step of 4 rows at the phase-6a positions, 32 launches); "
+          "launches are the main path's (phase 5 for the Q40 kernels, phase 6b for paged_attention)")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

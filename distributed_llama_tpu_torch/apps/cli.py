@@ -43,6 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--q40-path", choices=["int8", "f32"], default="int8",
                    help="Q40 kernel: int8 (Q80 activations, int8 block dots) or f32 "
                    "(bf16 dequantize-in-registers)")
+    p.add_argument("--chat-template", default=None, choices=[None, "llama2", "llama3", "zephyr", "chatml"],
+                   help="chat template of the API server (default: sniffed from the tokenizer)")
     p.add_argument("--decode", choices=["device", "host"], default="device")
     p.add_argument("--decode-chunk", type=int, default=32, help="tokens per device decode chunk")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

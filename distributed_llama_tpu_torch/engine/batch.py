@@ -1,0 +1,555 @@
+"""Batched multi-stream decode: one weight read per step for B requests.
+
+The port's copy of the JAX package's ``engine/batch.py`` serving core.
+
+* :class:`BatchScheduler` owns ONE slab KV cache
+  (``llama.init_batch_cache``: per-layer [2, B_max, S, K, hd] leaves) and
+  coalesces every joined stream's next chunk into one batched dispatch
+  (``sampling.decode_chunk_batched[_paged]``).
+* :class:`BatchStream` is one slab row wearing the
+  :class:`~distributed_llama_tpu_torch.engine.engine.EngineStream` serving
+  surface (``prefill_device`` / ``stream_decode`` / ``rollback`` / ...), so
+  the API server's lanes submit into the shared scheduler unchanged.
+* Requests join and leave between chunks: a dispatch covers a power-of-two
+  row bucket (:func:`decode_bucket`) with an active-row mask; an inactive
+  row writes no K/V, so a retired row's cache stays intact for reuse.
+* Prefill stays per request, on the row's view of the slab, through the
+  ordinary single-stream forward. Long prompts dispatch in
+  ``prefill_chunk``-token pieces with the scheduler lock released between
+  them, so other rows' decode chunks interleave.
+* With ``prefix_cache=True`` the scheduler also owns a page pool and a
+  radix tree over token blocks (``engine/prefix_cache.py``). An admission
+  prefill (row position 0) binds its matched prefix pages to the row as
+  its page table (no bytes move); the row's attention then reads those
+  positions from the pool, and only the unmatched suffix prefills into
+  the slab. Completed full pages are published back (the one copy). The
+  matched chain stays pinned for the row's lifetime. Every batched step of
+  a pool-enabled scheduler goes through the paged attention (K2 on the
+  card), rows without a hit reading matched 0.
+* Per-row seeds, temperatures, top-p and top-k ride the batched step;
+  coins are keyed on (seed, position), so a row's stream equals the
+  single-stream decode for the same seed.
+
+Left out (each in ROADMAP.md): the stall watchdog, fault sites, retries,
+silent-corruption checks, preemption, speculative verify dispatch, the
+host spill tier, the tensor-parallel backend, telemetry spans and the lock
+witness. A plain ``threading.Condition`` guards the scheduler.
+
+Thread model: request threads call into their own :class:`BatchStream`;
+whichever thread needs tokens first dispatches the shared chunk for
+everyone under the scheduler lock, then fetches outside it. The dispatch
+starts the chunk's copy to the host (:class:`platform.HostFetch`), so the
+fetch waits for that copy alone, not for the next chunk queued behind it.
+An epoch counter per stream keeps a late fetch from delivering a previous
+request's tokens to a new occupant.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+
+import numpy as np
+import torch
+
+from distributed_llama_tpu_torch import prng
+from distributed_llama_tpu_torch.engine import integrity
+from distributed_llama_tpu_torch.engine.engine import Stopwatch, StreamStats, _prefill_bucket, _stats, next_pow2
+from distributed_llama_tpu_torch.engine.prefix_cache import PrefixCache
+from distributed_llama_tpu_torch.models import llama, sampling
+from distributed_llama_tpu_torch.ops import kv_cache as kvc
+from distributed_llama_tpu_torch.platform import HostFetch, to_device
+
+
+class RowQuarantined(RuntimeError):
+    """A batch row was retired because its chunk came back corrupt; the
+    other rows of the dispatch are unaffected."""
+
+
+class NonFiniteLogits(RowQuarantined):
+    """A row's decode produced non-finite logits (the device-side flag)."""
+
+
+def decode_bucket(n: int, b_max: int) -> int:
+    """Power-of-two row bucket covering rows 0..n-1 (capped at b_max)."""
+    return min(next_pow2(n), b_max)
+
+
+class BatchStream(StreamStats):
+    """One slab row of a :class:`BatchScheduler`, wearing the EngineStream
+    serving surface. All mutable request state lives here; the scheduler
+    snapshots it per dispatch under its lock."""
+
+    def __init__(self, scheduler: "BatchScheduler", row: int):
+        super().__init__()
+        self.scheduler = scheduler
+        self.row = row
+        self._queue: collections.deque[int] = collections.deque()
+        self._joined = False
+        self._epoch = 0  # bumped per join/leave: stale fetches cannot deliver
+        self._first = None  # device scalar (or host int) feeding the next chunk
+        self._seed32 = 0
+        self._temperature = 0.0
+        self._topp = 0.9
+        self._topk = 0
+        # per-request prefix-cache opt-out (the API body's `cache: off`)
+        self.prefix_cache_enabled = True
+        # the matched radix chain bound to this row: positions below
+        # matched_len are read through _alias_ids (its page table)
+        self._alias_chain: list = []
+        self._alias_ids: list[int] = []
+        self.matched_len = 0
+        self._fetch_error: BaseException | None = None
+
+    @property
+    def cfg(self):
+        return self.scheduler.engine.cfg
+
+    @property
+    def engine(self):
+        return self.scheduler.engine
+
+    def reset(self) -> None:
+        self.scheduler._leave(self)
+        self.scheduler._release_row_pins(self)
+        self._clear_stats()
+        self._fetch_error = None
+        self.prefix_cache_enabled = True
+
+    def rollback(self, pos: int) -> None:
+        """Rewind to ``pos``; slab slots beyond it are stale but unreachable.
+        A rollback below the aliased prefix truncates the alias to ``pos``
+        and unpins the pages the shortened table no longer reaches."""
+        if not 0 <= pos <= self.pos:
+            raise ValueError(f"cannot rollback to {pos} from {self.pos}")
+        self.pos = pos
+        if self.matched_len > pos:
+            self.scheduler._truncate_alias(self, pos)
+
+    def prefill(self, tokens) -> np.ndarray:
+        """Prefill into this slab row; returns the last token's logits."""
+        tokens = np.asarray(tokens, dtype=np.int64)
+        sw = Stopwatch()
+        logits, last = self.scheduler._prefill_row(self, tokens)
+        out = logits[last].cpu().numpy()
+        self.stats.append(_stats(sw.elapsed_ms(), tokens.shape[0]))
+        return out
+
+    def prefill_device(self, tokens, temperature, topp, seed: int, topk: int = 0) -> torch.Tensor:
+        """Prefill and sample the first token on the device; returns it as a
+        device scalar whose copy to the host has started
+        (:meth:`StreamStats._sample_first`)."""
+        tokens = np.asarray(tokens, dtype=np.int64)
+        sw = Stopwatch()
+        logits, last = self.scheduler._prefill_row(self, tokens)
+        return self._sample_first(logits[last], tokens.shape[0], sw, temperature, topp, seed, topk)
+
+    def stream_decode(self, first_token, on_token, temperature: float = 0.0, topp: float = 0.9, seed: int = 0,
+                      chunk: int | None = None, limit: int | None = None, first_prev: int | None = None,
+                      topk: int = 0) -> int:
+        """EngineStream.stream_decode over the shared batched dispatch: the
+        stream joins the scheduler's active set and consumes its row of
+        every batched chunk (the scheduler's chunk size governs; ``chunk``
+        is accepted for signature parity). Owns the early-stop rollback;
+        returns the tokens consumed."""
+        sched = self.scheduler
+        start_pos = self.pos
+        stop = self.cfg.seq_len if limit is None else min(limit, self.cfg.seq_len)
+        fused_first = first_prev is not None
+        prev = first_prev if fused_first else int(first_token)
+        consumed = 0
+        keep = True
+        sched._join(self, first_token, temperature, topp, seed, topk)
+        try:
+            if fused_first:
+                # the first token is delivered before chunk 1 is issued (the
+                # JAX package issues first and fetches under the chunk's
+                # compute): its copy started at prefill, so the wait is the
+                # prefill's device tail, while issuing a chunk here costs the
+                # host one eager forward per step and would hold it back
+                tok = self._fetch_fused_first(first_token)
+                consumed += 1
+                keep = on_token(prev, tok)
+                prev = tok
+            while keep is not False:
+                fed = consumed - 1 if fused_first else consumed
+                if start_pos + fed >= stop:
+                    break
+                tok = sched.next_token(self)
+                consumed += 1
+                keep = on_token(prev, tok)
+                prev = tok
+        finally:
+            sched._leave(self)
+            fed = max(consumed - 1, 0) if fused_first else consumed
+            self.rollback(min(start_pos + fed, self.pos))
+        return consumed
+
+
+class BatchScheduler:
+    """Owns the [B_max] slab cache (and the page pool) and coalesces joined
+    streams into one batched decode dispatch per chunk."""
+
+    def __init__(self, engine, n_rows: int, chunk: int = 32, prefix_cache: bool = False,
+                 kv_pages: int | None = None, page_size: int = 64, prefill_chunk: int = 0):
+        if n_rows < 1:
+            raise ValueError(f"need at least one batch row, got {n_rows}")
+        self.engine = engine
+        self.b_max = n_rows
+        self.chunk = int(chunk)
+        self.prefill_chunk = max(0, int(prefill_chunk or 0))
+        cfg = engine.cfg
+        self._prefix: PrefixCache | None = None
+        self._pool = None
+        if prefix_cache:
+            # misconfiguration disables only the prefix cache, with its reason
+            page_ok = 1 <= page_size <= cfg.seq_len
+            n_table = -(-cfg.seq_len // page_size) if page_ok else 0
+            slab_pages = n_rows * n_table
+            if kv_pages is None and page_ok:
+                # the pool is the primary store of cached prefixes (rows hold
+                # no copies): every row's worth plus 25%, at least one row
+                kv_pages = slab_pages + max(slab_pages // 4, n_table)
+            if not page_ok:
+                print(f"⚠️ prefix cache disabled: page size {page_size} must be in [1, seq_len {cfg.seq_len}]")
+            elif kv_pages < 1:
+                print("⚠️ prefix cache disabled: --kv-pages 0")
+            else:
+                if kv_pages < slab_pages:
+                    print(f"⚠️ --kv-pages {kv_pages} is smaller than one slab's worth ({slab_pages} pages for "
+                          f"{n_rows} rows x seq_len {cfg.seq_len}): concurrent long prompts will contend for "
+                          "pages (pinned-page soft failures)")
+                self._prefix = PrefixCache(kv_pages, page_size)
+                self._pool = llama.init_page_pool(cfg, kv_pages, page_size, engine.cache_dtype, engine.device)
+                self._n_table = n_table
+        self._slab = llama.init_batch_cache(cfg, n_rows, engine.cache_dtype, engine.device)
+        self._streams: list[BatchStream] = []
+        self._cond = threading.Condition()
+        # one dispatched-but-unfetched chunk at a time
+        self._pending = None
+        self._fetching = False
+        # batched forward steps dispatched (one forward of every bucket row
+        # each), for launch accounting
+        self.decode_forwards = 0
+
+    def new_stream(self) -> BatchStream:
+        """Hand out the next slab row as an EngineStream-like serving lane."""
+        with self._cond:
+            if len(self._streams) >= self.b_max:
+                raise ValueError(f"all {self.b_max} batch rows are allocated")
+            s = BatchStream(self, len(self._streams))
+            self._streams.append(s)
+            return s
+
+    # ------------------------------------------------------------------
+    # Prefill (serialized with batched chunks by the lock)
+    # ------------------------------------------------------------------
+
+    def _prefill_row(self, stream: BatchStream, tokens: np.ndarray):
+        """Prefill ``tokens`` into the stream's slab row. An admission
+        prefill (row position 0, prefix cache on, request not opted out)
+        binds the matched chain to the row first and dispatches only the
+        unmatched suffix, then publishes the completed full pages. Returns
+        (device logits of the final dispatch, index of the last real row)."""
+        n = tokens.shape[0]
+        if n == 0:
+            raise ValueError("empty token batch: at least one token required")
+        if stream.pos + n > self.engine.cfg.seq_len:
+            raise ValueError(f"context overflow: pos {stream.pos} + {n} > {self.engine.cfg.seq_len}")
+        admission = self._prefix is not None and stream.pos == 0 and stream.prefix_cache_enabled
+        chain: list = []
+        suffix = tokens
+        if admission:
+            chain = self._match_alias(stream, tokens)
+            suffix = tokens[len(chain) * self._prefix.page :]
+        try:
+            logits, last = self._dispatch_prefill_chunks(stream, suffix)
+        except BaseException:
+            if chain:  # unwind the alias bind: the row is clean for its next occupant
+                self._release_row_pins(stream)
+                stream.pos = 0
+            raise
+        if admission:
+            self._publish_row(stream, tokens, chain)
+        return logits, last
+
+    def _dispatch_prefill_chunks(self, stream: BatchStream, tokens: np.ndarray):
+        """Dispatch a prompt at ``stream.pos`` in ``prefill_chunk``-token
+        pieces, releasing the lock between pieces so other rows' decode
+        chunks interleave."""
+        engine = self.engine
+        n = tokens.shape[0]
+        step = self.prefill_chunk if self.prefill_chunk > 0 else n
+        logits, off, c = None, 0, n
+        while off < n:
+            if stream._fetch_error is not None:
+                err, stream._fetch_error = stream._fetch_error, None
+                raise err
+            c = min(step, n - off)
+            bucket = _prefill_bucket(c)
+            if stream.pos + bucket > engine.cfg.seq_len:
+                bucket = c  # exact length near the context limit
+            padded = np.zeros(bucket, dtype=np.int64)
+            padded[:c] = tokens[off : off + c]
+            with self._cond:
+                paged = None
+                if self._pool is not None:
+                    # an unaliased row reads matched 0: the same bytes as the
+                    # plain prefill, so one path serves hits and misses
+                    table, matched = self._alias_row_arrays_locked(stream)
+                    paged = (self._pool, table, matched)
+                row_cache = [kvc.slab_row(leaf, stream.row) for leaf in self._slab]
+                logits, _ = llama.forward_tokens(engine.cfg, engine.params, to_device(padded, engine.device),
+                                                 row_cache, stream.pos, engine.q40_path, paged=paged)
+                stream.pos += c
+            off += c
+        return logits, c - 1
+
+    # ------------------------------------------------------------------
+    # Prefix cache: admission match/alias bind + publish
+    # ------------------------------------------------------------------
+
+    def _match_alias(self, stream: BatchStream, tokens: np.ndarray) -> list:
+        """Bind the prompt's longest published prefix to the row: its page
+        ids become the row's page table and its position moves past the
+        matched tokens. No bytes move; the chain stays pinned."""
+        prefix = self._prefix
+        with self._cond:
+            self._release_pins_locked(stream)  # a stale alias left by a caller that skipped reset
+            chain = prefix.match(tokens)
+            if chain:
+                stream._alias_chain = chain
+                stream._alias_ids = [nd.page_id for nd in chain]
+                stream.matched_len = len(chain) * prefix.page
+                stream.pos = stream.matched_len
+        return chain
+
+    def _publish_row(self, stream: BatchStream, tokens: np.ndarray, chain: list) -> None:
+        """Copy the admission prefill's completed full pages beyond the
+        matched chain into fresh pool pages (in place) and insert them into
+        the tree. A failed copy unwinds the insert: the request itself is
+        fine, publishing is an optimization."""
+        prefix = self._prefix
+        with self._cond:
+            new_ids, new_blocks = prefix.publish(tokens, tokens.shape[0], chain)
+            if not new_ids:
+                return
+            try:
+                for leaf, (pk, pv) in zip(self._slab, self._pool):
+                    kvc.publish_row_pages(pk, leaf[0], stream.row, new_blocks, new_ids, prefix.page)
+                    kvc.publish_row_pages(pv, leaf[1], stream.row, new_blocks, new_ids, prefix.page)
+            except Exception as e:
+                prefix.unpublish(tokens, new_ids, new_blocks)
+                print(f"⚠️ prefix publish failed; pages unwound: {e}")
+
+    def _release_pins_locked(self, stream: BatchStream) -> None:
+        """Release the row's page pins and clear its table (lock held)."""
+        if stream._alias_chain and self._prefix is not None:
+            self._prefix.release(stream._alias_chain)
+        stream._alias_chain = []
+        stream._alias_ids = []
+        stream.matched_len = 0
+
+    def _release_row_pins(self, stream: BatchStream) -> None:
+        if not stream._alias_chain:
+            stream._alias_ids = []
+            stream.matched_len = 0
+            return
+        with self._cond:
+            self._release_pins_locked(stream)
+
+    def _truncate_alias(self, stream: BatchStream, pos: int) -> None:
+        """Shrink the row's alias to ``pos`` after a rollback below it:
+        positions < pos keep reading the pool (a rollback lands on a shared
+        token prefix), pages wholly at or beyond ``pos`` lose their pins."""
+        with self._cond:
+            if stream.matched_len <= pos:
+                return
+            if self._prefix is not None:
+                keep = -(-pos // self._prefix.page)
+                drop = stream._alias_chain[keep:]
+                if drop:
+                    self._prefix.release(drop)
+                stream._alias_chain = stream._alias_chain[:keep]
+                stream._alias_ids = stream._alias_ids[:keep]
+            stream.matched_len = pos
+
+    def _alias_arrays_locked(self, rows, live):
+        """Per-dispatch page tables [len(rows), n_table] and matched lengths
+        on the device. Live rows without an alias get matched 0 (slab-only
+        reads). Bucket-padding rows get the largest live matched length, so
+        they never pull the pool-only segment bound down; their zero tables
+        read pool page 0, and their outputs are discarded."""
+        tables = np.zeros((len(rows), self._n_table), np.int32)
+        matched = np.zeros(len(rows), np.int32)
+        live = np.array(live, bool)
+        for b, s in enumerate(rows):
+            if live[b] and s._alias_ids:
+                tables[b, : len(s._alias_ids)] = s._alias_ids
+                matched[b] = s.matched_len
+        if live.any():
+            matched[~live] = matched[live].max()
+        dev = self.engine.device
+        return to_device(tables, dev), to_device(matched, dev)
+
+    def _row_dispatch_arrays_locked(self, rows):
+        """Per-row dispatch inputs: liveness, host positions, sampling
+        settings (inert defaults in non-live slots) and, with the pool on,
+        the alias arrays."""
+        live = [s._joined and s._fetch_error is None for s in rows]
+        pos = [s.pos if ok else 0 for s, ok in zip(rows, live)]
+        temps = [s._temperature if ok else 1.0 for s, ok in zip(rows, live)]
+        topps = [s._topp if ok else 0.9 for s, ok in zip(rows, live)]
+        topks = [s._topk if ok else 0 for s, ok in zip(rows, live)]
+        seeds = [s._seed32 if ok else 0 for s, ok in zip(rows, live)]
+        tables = matched = None
+        if self._pool is not None:
+            tables, matched = self._alias_arrays_locked(rows, live)
+        return live, pos, temps, topps, topks, seeds, tables, matched
+
+    def _alias_row_arrays_locked(self, stream: BatchStream):
+        """Single-row alias arrays of a prefill: (device table, host matched)."""
+        table = np.zeros(self._n_table, np.int32)
+        table[: len(stream._alias_ids)] = stream._alias_ids
+        return to_device(table, self.engine.device), stream.matched_len
+
+    def check_prefix(self) -> None:
+        """Tree invariants plus alias tracking: no page freed or unpinned
+        while a live row's table references it."""
+        with self._cond:
+            if self._prefix is not None:
+                self._prefix.check(row_pages=[list(s._alias_ids) for s in self._streams if s._alias_ids])
+
+    # ------------------------------------------------------------------
+    # Join/leave (between chunks)
+    # ------------------------------------------------------------------
+
+    def _join(self, stream: BatchStream, first_token, temperature, topp, seed, topk) -> None:
+        with self._cond:
+            stream._first = first_token
+            stream._temperature = float(temperature)
+            stream._topp = float(topp)
+            stream._topk = int(topk)
+            stream._seed32 = prng.fold_seed(seed)
+            stream._queue.clear()
+            stream._epoch += 1
+            stream._joined = True
+            stream._fetch_error = None
+            self._cond.notify_all()
+
+    def _leave(self, stream: BatchStream) -> None:
+        with self._cond:
+            if not stream._joined and not stream._queue:
+                return
+            stream._joined = False
+            stream._queue.clear()
+            stream._epoch += 1
+            self._cond.notify_all()
+        # a chunk issued ahead of the last consumed token may be left
+        # unfetched: drain it when no joined stream remains
+        self._drain_if_idle()
+
+    def _drain_if_idle(self) -> None:
+        pend = None
+        with self._cond:
+            if self._pending is not None and not self._fetching and not any(s._joined for s in self._streams):
+                pend, self._pending = self._pending, None
+                self._fetching = True
+        if pend is not None:
+            self._fetch(pend)
+
+    # ------------------------------------------------------------------
+    # The pump: dispatch under the lock, fetch outside it
+    # ------------------------------------------------------------------
+
+    def next_token(self, stream: BatchStream) -> int:
+        """Next decoded token for ``stream``; whichever thread runs dry
+        first dispatches and fetches the shared chunk for everyone. Raises
+        the row's RowQuarantined when its chunk came back corrupt."""
+        while True:
+            with self._cond:
+                if stream._fetch_error is not None:
+                    err, stream._fetch_error = stream._fetch_error, None
+                    raise err
+                if stream._queue:
+                    return stream._queue.popleft()
+                if not stream._joined:
+                    raise RuntimeError("next_token on a stream that left the batch")
+                if self._pending is None:
+                    # dispatch even while another thread is mid-fetch: the next
+                    # chunk's compute then overlaps that fetch (at most one
+                    # chunk runs ahead: the single pending slot bounds it)
+                    self._dispatch_locked()
+                if self._pending is not None and not self._fetching:
+                    pend, self._pending = self._pending, None
+                    self._fetching = True
+                else:
+                    self._cond.wait(timeout=0.1)  # another thread is mid-fetch
+                    continue
+            self._fetch(pend)
+
+    def _dispatch_locked(self) -> None:
+        """Build and dispatch one batched chunk from the joined streams
+        (lock held). Bucket rows that are not joined ride along inactive:
+        they write nothing and their outputs are discarded."""
+        engine = self.engine
+        joined = [s for s in self._streams if s._joined and s._fetch_error is None]
+        if not joined:
+            return
+        bucket = decode_bucket(max(s.row for s in joined) + 1, self.b_max)
+        rows = self._streams[:bucket]
+        live, pos, temps, topps, topks, seeds, tables, matched = self._row_dispatch_arrays_locked(rows)
+        dev = engine.device
+        first = torch.stack([
+            s._first.reshape(()).to(torch.int64) if ok and isinstance(s._first, torch.Tensor)
+            else to_device(int(s._first) if ok else 0, dev, torch.int64)
+            for s, ok in zip(rows, live)
+        ])
+        settings = dict(
+            temperature=to_device(temps, dev, torch.float32), topp=to_device(topps, dev, torch.float32),
+            topk=to_device(topks, dev, torch.int64), seeds=to_device(seeds, dev, torch.int64),
+            path=engine.q40_path,
+            may_partition=sampling.may_partition_rows(temps, topps, topks, engine.cfg.vocab_size),
+        )
+        sw = Stopwatch()
+        if self._pool is not None:
+            out, self._slab = sampling.decode_chunk_batched_paged(
+                engine.cfg, engine.params, first, self._slab, pos, live, self._pool, self.chunk,
+                tables=tables, matched=matched, **settings)
+        else:
+            out, self._slab = sampling.decode_chunk_batched(
+                engine.cfg, engine.params, first, self._slab, pos, live, self.chunk, **settings)
+        self.decode_forwards += self.chunk
+        for s in joined:
+            # the next chunk starts from this chunk's last token, on the device
+            s._first = out[self.chunk - 1, s.row]
+            s.pos += self.chunk
+        self._pending = (HostFetch(out), [(s, s._epoch) for s in joined], sw)
+
+    def _fetch(self, pend) -> None:
+        """Wait for a dispatched chunk's host copy (no lock held) and deliver
+        each joined row's column to its queue. A row whose tokens are out of
+        vocab or whose logits were non-finite is retired alone."""
+        fetch, snapshot, sw = pend
+        toks, _, finite = integrity.split_chunk_outputs(fetch.wait(), self.chunk)
+        entry = _stats(sw.elapsed_ms() / self.chunk)
+        vocab = self.engine.cfg.vocab_size
+        with self._cond:
+            # deliver and release fetch ownership in one block, so the next
+            # pending chunk is taken only after this one's tokens are queued
+            self._fetching = False
+            for s, epoch in snapshot:
+                if not (s._joined and s._epoch == epoch):
+                    continue
+                col = toks[:, s.row]
+                if not finite[s.row]:
+                    s._fetch_error = NonFiniteLogits("batch row retired: decode produced non-finite logits")
+                elif not ((col >= 0) & (col < vocab)).all():
+                    s._fetch_error = RowQuarantined("batch row retired: chunk produced out-of-vocab tokens")
+                if s._fetch_error is not None:
+                    self._release_pins_locked(s)
+                    continue
+                s._queue.extend(int(t) for t in col)
+                s.stats.extend([entry] * self.chunk)
+            self._cond.notify_all()
+        self._drain_if_idle()

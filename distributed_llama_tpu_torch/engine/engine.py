@@ -5,7 +5,10 @@ state (KV cache, position, stats) lives in :class:`EngineStream`, and the
 engine delegates the single-stream surface to a default stream. Decode runs
 in chunks: each chunk is ``chunk`` forward+sample steps issued back to back
 with the sampled token fed to the next step on the device, and the next
-chunk is issued before the previous chunk's tokens are fetched.
+chunk is issued before the previous chunk's tokens are fetched. Each
+chunk's tokens start their copy to the host when the chunk is issued
+(:class:`platform.HostFetch`), and the fetch waits for that copy alone, so
+chunk k's tokens reach the host while chunk k+1 still runs.
 
 Every stats entry covers the host time of its dispatch plus fetch; on a
 single device there is no transfer share (``transfer_ms`` is 0).
@@ -24,7 +27,7 @@ from distributed_llama_tpu_torch.engine import weights as weights_lib
 from distributed_llama_tpu_torch.models import llama, sampling
 from distributed_llama_tpu_torch.models.config import LlamaConfig
 from distributed_llama_tpu_torch.ops.q40 import PATHS
-from distributed_llama_tpu_torch.platform import resolve_device
+from distributed_llama_tpu_torch.platform import HostFetch, resolve_device, to_device
 
 
 def next_pow2(n: int) -> int:
@@ -63,28 +66,93 @@ def _stats(ms: float, n_tokens: int = 1) -> TokenStats:
     return TokenStats(ms, ms, 0.0, n_tokens=n_tokens)
 
 
-class EngineStream:
+class StreamStats:
+    """What a serving lane (:class:`EngineStream`, or a batch row) keeps
+    besides its cache: per-step stats, and the device-sampled first token
+    of its last ``prefill_device`` with the host copy started for it."""
+
+    def __init__(self):
+        self.pos = 0
+        self.stats: list[TokenStats] = []
+        # the prefill_device entry awaiting its compute-drain time
+        self._pending_prefill_entry: TokenStats | None = None
+        # (device token, its host copy) of the last prefill_device
+        self._first_fetch: tuple[torch.Tensor, HostFetch] | None = None
+
+    def _clear_stats(self) -> None:
+        self.pos = 0
+        self.stats.clear()
+        self._pending_prefill_entry = None
+        self._first_fetch = None
+
+    def _sample_first(self, last_logits: torch.Tensor, n: int, sw: Stopwatch, temperature, topp, seed: int,
+                      topk: int) -> torch.Tensor:
+        """Sample the first generated token on the device from the prompt's
+        last logits (its coin keyed on the last prompt token's position,
+        pos - 1), start its copy to the host, and record the prefill's
+        stats entry, which gains the drain time when the token is fetched."""
+        token = sampling.sample_token(last_logits, prng.fold_seed(seed), self.pos - 1, float(temperature),
+                                      float(topp), int(topk))
+        entry = _stats(sw.elapsed_ms(), n)
+        self.stats.append(entry)
+        self._pending_prefill_entry = entry
+        self._first_fetch = (token, HostFetch(token))
+        return token
+
+    def fetch_first_token(self, first_token) -> int:
+        """Fetch a ``prefill_device`` token without starting a decode."""
+        return self._fetch_fused_first(first_token)
+
+    def _fetch_fused_first(self, first_token) -> int:
+        sw = Stopwatch()
+        if self._first_fetch is not None and self._first_fetch[0] is first_token:
+            tok = int(self._first_fetch[1].wait())
+            self._first_fetch = None
+        elif isinstance(first_token, torch.Tensor):
+            tok = int(first_token.item())
+        else:
+            tok = int(first_token)
+        entry = self._pending_prefill_entry
+        if entry is not None:
+            drained = sw.elapsed_ms()
+            entry.generation_ms += drained
+            entry.inference_ms += drained
+            self._pending_prefill_entry = None
+        return tok
+
+    def avg_stats(self) -> TokenStats:
+        """Per-token averages, prefill entries weighted by their token count."""
+        if not self.stats:
+            return TokenStats(0.0, 0.0, 0.0)
+        n = sum(s.n_tokens for s in self.stats)
+        return TokenStats(
+            sum(s.generation_ms for s in self.stats) / n,
+            sum(s.inference_ms for s in self.stats) / n,
+            sum(s.transfer_ms for s in self.stats) / n,
+            n_tokens=n,
+        )
+
+    def total_tokens(self) -> int:
+        return sum(s.n_tokens for s in self.stats)
+
+
+class EngineStream(StreamStats):
     """One generation stream: its own KV cache, position and stats over the
     engine's weights."""
 
     def __init__(self, engine: "InferenceEngine", cache):
+        super().__init__()
         self.engine = engine
         self.cache = cache
-        self.pos = 0
-        self.stats: list[TokenStats] = []
         # forward passes issued (a prefill is one, a decode chunk n_steps)
         self.forwards = 0
-        # the prefill_device entry awaiting its compute-drain time
-        self._pending_prefill_entry: TokenStats | None = None
 
     @property
     def cfg(self) -> LlamaConfig:
         return self.engine.cfg
 
     def reset(self) -> None:
-        self.pos = 0
-        self.stats.clear()
-        self._pending_prefill_entry = None
+        self._clear_stats()
 
     def rollback(self, pos: int) -> None:
         """Rewind to ``pos``; cache slots beyond it are stale but
@@ -110,7 +178,7 @@ class EngineStream:
                 bucket = n  # exact length near the context limit
             padded = np.zeros(bucket, dtype=np.int64)
             padded[:n] = tokens
-        toks = torch.from_numpy(np.asarray(padded, np.int64)).to(engine.device)
+        toks = to_device(np.asarray(padded, np.int64), engine.device)
         logits, self.cache = llama.forward_tokens(
             engine.cfg, engine.params, toks, self.cache, self.pos, engine.q40_path
         )
@@ -138,21 +206,13 @@ class EngineStream:
 
     def prefill_device(self, tokens, temperature, topp, seed: int, topk: int = 0) -> torch.Tensor:
         """Prefill and sample the first generated token on the device;
-        returns it as a device scalar, not fetched. Its coin is keyed on the
-        last prompt token's position. The stats entry gains the prefill's
-        drain time when the token is fetched."""
+        returns it as a device scalar whose copy to the host has started
+        (:meth:`StreamStats._sample_first`)."""
         tokens = np.asarray(tokens, dtype=np.int64)
         n = tokens.shape[0]
         sw = Stopwatch()
         logits = self._forward_device(tokens)
-        token = sampling.sample_token(
-            logits[n - 1], prng.fold_seed(seed), self.pos - 1, float(temperature),
-            float(topp), int(topk),
-        )
-        entry = _stats(sw.elapsed_ms(), n)
-        self.stats.append(entry)
-        self._pending_prefill_entry = entry
-        return token
+        return self._sample_first(logits[n - 1], n, sw, temperature, topp, seed, topk)
 
     def decode_step(self, token: int) -> np.ndarray:
         """One autoregressive step; returns f32 logits [vocab]."""
@@ -186,54 +246,39 @@ class EngineStream:
         """Generator of device-decoded tokens, ``chunk`` per dispatch.
         ``first_token`` is consumed first, not yielded (a host int, or a
         :meth:`prefill_device` scalar: with ``emit_first`` that unseen token
-        is fetched and yielded after chunk 1 is issued). Chunk k+1 is issued
+        is fetched and yielded before chunk 1 is issued, since issuing a
+        chunk is host work that would hold it back). Chunk k+1 is issued
         off chunk k's device-resident last token before chunk k is fetched.
         ``limit`` stops issuing once pos reaches it (the last chunk may
         overshoot: callers that stop early must ``rollback``)."""
         engine = self.engine
         seed32 = prng.fold_seed(seed)
         stop = engine.cfg.seq_len if limit is None else min(limit, engine.cfg.seq_len)
+        if emit_first:
+            yield self._fetch_fused_first(first_token)
         if self.pos >= stop:
-            if emit_first:
-                yield self._fetch_fused_first(first_token)
             return
         if isinstance(first_token, (int, np.integer)):
             first_token = int(first_token)
         k = min(chunk, engine.cfg.seq_len - self.pos)
         pending = self._dispatch_chunk(first_token, k, temperature, topp, topk, seed32)
-        pending_n = k
-        if emit_first:
-            yield self._fetch_fused_first(first_token)
+        fetch, pending_n = HostFetch(pending), k
         while True:
             sw = Stopwatch()
             if self.pos < stop:
                 k = min(chunk, engine.cfg.seq_len - self.pos)
                 nxt = self._dispatch_chunk(pending[-1], k, temperature, topp, topk, seed32)
+                nxt_fetch = HostFetch(nxt)
             else:
                 nxt, k = None, 0
-            toks = pending.cpu().numpy()
+            toks = fetch.wait()
             per_token_ms = sw.elapsed_ms() / pending_n
             self.stats.extend([_stats(per_token_ms)] * pending_n)
             for t in toks.tolist():
                 yield int(t)
             if nxt is None:
                 return
-            pending, pending_n = nxt, k
-
-    def fetch_first_token(self, first_token) -> int:
-        """Fetch a :meth:`prefill_device` token without starting a decode."""
-        return self._fetch_fused_first(first_token)
-
-    def _fetch_fused_first(self, first_token) -> int:
-        sw = Stopwatch()
-        tok = int(first_token.item()) if isinstance(first_token, torch.Tensor) else int(first_token)
-        entry = self._pending_prefill_entry
-        if entry is not None:
-            drained = sw.elapsed_ms()
-            entry.generation_ms += drained
-            entry.inference_ms += drained
-            self._pending_prefill_entry = None
-        return tok
+            pending, fetch, pending_n = nxt, nxt_fetch, k
 
     def stream_decode(self, first_token, on_token, temperature: float = 0.0, topp: float = 0.9,
                       seed: int = 0, chunk: int = 32, limit: int | None = None,
@@ -263,21 +308,6 @@ class EngineStream:
             fed = max(consumed - 1, 0) if fused_first else consumed
             self.rollback(min(start_pos + fed, self.pos))
         return consumed
-
-    def avg_stats(self) -> TokenStats:
-        """Per-token averages, prefill entries weighted by their token count."""
-        if not self.stats:
-            return TokenStats(0.0, 0.0, 0.0)
-        n = sum(s.n_tokens for s in self.stats)
-        return TokenStats(
-            sum(s.generation_ms for s in self.stats) / n,
-            sum(s.inference_ms for s in self.stats) / n,
-            sum(s.transfer_ms for s in self.stats) / n,
-            n_tokens=n,
-        )
-
-    def total_tokens(self) -> int:
-        return sum(s.n_tokens for s in self.stats)
 
 
 class InferenceEngine:

@@ -30,6 +30,7 @@ from distributed_llama_tpu_torch.ops.q40 import (
     rmsnorm_q40_matmul,
     rmsnorm_ref,
 )
+from distributed_llama_tpu_torch.platform import to_device
 
 Params = dict[str, Any]
 
@@ -97,10 +98,13 @@ def embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor) -> torch.Tenso
 
 
 def attention(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tensor, pos: int,
-              rope_rows: torch.Tensor, path: str = "int8"):
+              rope_rows: torch.Tensor, path: str = "int8", paged=None):
     """Causal GQA attention for T tokens at positions pos..pos+T-1 over the
     fused [2, S, K, hd] leaf (written in place). Returns (mix [T, H*hd],
-    cache_l)."""
+    cache_l). ``paged`` = (pool_k, pool_v, table, matched: int): positions
+    below ``matched`` are read from the page pool through ``table`` (the
+    blocked scan's per-position select, or a virtual row for the full-S
+    branch), the same bytes a row holding copies of the pages would give."""
     T = x.shape[0]
     S = cache_l.shape[1]
     hd = cfg.head_size
@@ -111,10 +115,15 @@ def attention(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tens
     cdt = kvc.compute_dtype(keys)
     qg = q.reshape(T, K, H // K, hd).to(cdt)
     use_blocked = S % ATT_CHUNK == 0 and S > ATT_CHUNK and (T <= 8 or S >= ATT_BLOCK_PREFILL_S)
+    if paged is not None and not (use_blocked and ATT_CHUNK % kvc.pool_page_size(paged[0]) == 0):
+        pool_k, pool_v, table, matched = paged
+        keys = kvc.virtual_row(keys, pool_k, table, matched)
+        values = kvc.virtual_row(values, pool_v, table, matched)
+        paged = None
     if use_blocked:
         from distributed_llama_tpu_torch.ops.attention import blocked_attention
 
-        att = blocked_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK)
+        att = blocked_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK, paged=paged)
         return att.to(torch.float32).reshape(T, H * hd), cache_l
     scores = kvc.scores_einsum(qg, keys) / math.sqrt(hd)
     t_idx = pos + torch.arange(T, device=x.device)[:, None]
@@ -143,8 +152,8 @@ def block_tail(cfg: LlamaConfig, x: torch.Tensor, att: torch.Tensor, lp: Params,
     return x + ffn(cfg, x, lp, path).to(x.dtype)
 
 
-def block_forward(cfg, x, lp, cache_l, pos: int, rope_rows, path: str = "int8"):
-    att, cache_l = attention(cfg, x, lp, cache_l, pos, rope_rows, path)
+def block_forward(cfg, x, lp, cache_l, pos: int, rope_rows, path: str = "int8", paged=None):
+    att, cache_l = attention(cfg, x, lp, cache_l, pos, rope_rows, path, paged=paged)
     return block_tail(cfg, x, att, lp, path), cache_l
 
 
@@ -153,16 +162,111 @@ def final_logits(cfg: LlamaConfig, params: Params, x: torch.Tensor, path: str = 
 
 
 def forward_tokens(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache: list, pos: int,
-                   path: str = "int8"):
+                   path: str = "int8", paged=None):
     """Run T tokens (int [T] on the params' device) from absolute position
-    ``pos``. ``cache`` is the per-layer list of fused leaves, updated in
-    place. Returns (logits f32 [T, vocab], cache)."""
+    ``pos``. ``cache`` is the per-layer list of fused leaves (or slab-row
+    views), updated in place. ``paged`` = (pool, table, matched): this
+    row's positions below ``matched`` live in the per-layer ``(keys,
+    values)`` pool halves, read through ``table``. Returns (logits f32
+    [T, vocab], cache)."""
     T = tokens.shape[0]
     x = embed(cfg, params, tokens)
     rope_rows = params["rope_table"][pos : pos + T]
     for l, lp in enumerate(params["layers"]):
-        x, cache[l] = block_forward(cfg, x, lp, cache[l], pos, rope_rows, path)
+        paged_l = None
+        if paged is not None:
+            pool, table, matched = paged
+            paged_l = (pool[l][0], pool[l][1], table, matched)
+        x, cache[l] = block_forward(cfg, x, lp, cache[l], pos, rope_rows, path, paged=paged_l)
     return final_logits(cfg, params, x, path), cache
+
+
+def attention_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tensor,
+                      pos: torch.Tensor, rope_rows: torch.Tensor, write, path: str = "int8",
+                      paged=None):
+    """One decode step of B independent rows over the slab leaf
+    [2, B_max, S, K, hd]: ``write`` = (rows, slots) places each writing
+    row's K/V (:func:`ops.kv_cache.write_index`; inactive rows write
+    nothing), and row b attends over its own slab row masked by ``pos[b]``
+    (inactive rows pass 0). ``paged`` = (pool_k, pool_v, tables [B, n_table],
+    matched [B]). Returns (mix [B, H*hd], cache_l)."""
+    B = x.shape[0]
+    S = cache_l.shape[2]
+    hd = cfg.head_size
+    q, k, v = project_qkv(cfg, lp, x, rope_rows, path)
+    H, K = q.shape[1], k.shape[1]
+    kvc.fused_update_row_batched(cache_l, k, v, write)
+    keys, values = cache_l[0], cache_l[1]
+    cdt = kvc.compute_dtype(keys)
+    qg = q.reshape(B, K, H // K, hd).to(cdt)
+    use_blocked = S % ATT_CHUNK == 0 and S > ATT_CHUNK
+    from distributed_llama_tpu_torch.ops.attention import batched_decode_attention
+
+    if use_blocked and (paged is None or ATT_CHUNK % kvc.pool_page_size(paged[0]) == 0):
+        att = batched_decode_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK, paged=paged)
+        return att.reshape(B, H * hd), cache_l
+    keys_b, values_b = keys[:B], values[:B]
+    if paged is not None:
+        pool_k, pool_v, tables, matched = paged
+        keys_b = kvc.virtual_rows_batched(keys_b, pool_k, tables, matched)
+        values_b = kvc.virtual_rows_batched(values_b, pool_v, tables, matched)
+        if use_blocked:
+            att = batched_decode_attention(qg.to(torch.float32), keys_b.contiguous(), values_b.contiguous(),
+                                           pos, ATT_CHUNK)
+            return att.reshape(B, H * hd), cache_l
+    scores = kvc.scores_einsum_batched(qg, keys_b) / math.sqrt(hd)
+    mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    scores = torch.where(mask[:, None, None, :], scores, float("-inf"))
+    att = kvc.mix_einsum_batched(softmax(scores, dim=-1), values_b, cdt).reshape(B, H * hd)
+    return att, cache_l
+
+
+def forward_step_batched(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache: list, pos,
+                         active, path: str = "int8", paged=None):
+    """One batched decode step: B tokens (one per row, int [B] on the
+    device) at the host positions ``pos`` through the whole model, each
+    weight matrix read once for all rows. ``active`` (host bools) masks
+    rows that write no K/V and read from position 0. ``paged`` = (pool,
+    tables, matched) with device tables/matched. Returns (logits f32
+    [B, vocab], cache)."""
+    S = cfg.seq_len
+    dev = tokens.device
+    pos, active = [int(p) for p in pos], [bool(a) for a in active]
+    idx = to_device([[p if a else 0 for p, a in zip(pos, active)], [min(max(p, 0), S - 1) for p in pos]],
+                    dev, torch.int64)
+    read_pos, rope_rows = idx[0], params["rope_table"][idx[1]]
+    write = kvc.write_index([p if a else S for p, a in zip(pos, active)], S, dev)
+    x = embed(cfg, params, tokens)
+    for l, lp in enumerate(params["layers"]):
+        paged_l = None
+        if paged is not None:
+            pool, tables, matched = paged
+            paged_l = (pool[l][0], pool[l][1], tables, matched)
+        att, cache[l] = attention_batched(cfg, x, lp, cache[l], read_pos, rope_rows, write, path, paged=paged_l)
+        x = block_tail(cfg, x, att, lp, path)
+    return final_logits(cfg, params, x, path), cache
+
+
+def init_batch_cache(cfg: LlamaConfig, b_max: int, dtype: torch.dtype, device) -> list:
+    """Slab KV cache for ``b_max`` rows: per-layer fused [2, b_max, S, K, hd]
+    leaves; ``leaf[0]``/``leaf[1]`` are the (keys, values) halves."""
+    shape = (b_max, cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
+    return [kvc.init_fused(shape, dtype, device) for _ in range(cfg.n_layers)]
+
+
+def init_page_pool(cfg: LlamaConfig, n_pages: int, page: int, dtype: torch.dtype, device) -> list:
+    """Prefix-cache page pool: per-layer ``(keys, values)`` halves of
+    [n_pages, page, K, hd]. Its memory is n_pages x :func:`page_pool_bytes`."""
+    return [
+        tuple(kvc.init_page_pool_half(n_pages, page, cfg.n_kv_heads, cfg.head_size, dtype, device)
+              for _ in range(2))
+        for _ in range(cfg.n_layers)
+    ]
+
+
+def page_pool_bytes(cfg: LlamaConfig, page: int, dtype: torch.dtype) -> int:
+    """KV bytes one pool page holds across all layers and both halves."""
+    return 2 * cfg.n_layers * page * cfg.n_kv_heads * cfg.head_size * torch.empty(0, dtype=dtype).element_size()
 
 
 def init_cache(cfg: LlamaConfig, dtype: torch.dtype, device) -> list:

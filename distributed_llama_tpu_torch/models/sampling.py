@@ -27,8 +27,10 @@ from __future__ import annotations
 import torch
 
 from distributed_llama_tpu_torch import prng
+from distributed_llama_tpu_torch.engine import integrity
 from distributed_llama_tpu_torch.models import llama
 from distributed_llama_tpu_torch.models.config import LlamaConfig
+from distributed_llama_tpu_torch.platform import to_device
 
 # width of the sorted-candidate fast path
 TOPP_FAST_K = 128
@@ -177,7 +179,7 @@ def sample_token(logits, seed32: int, pos: int, temperature: float, topp: float,
     may_partition = 0.0 < topp < 1.0 and not 0 < topk < logits.shape[-1]
 
     def row(v, dtype):
-        return torch.tensor([v], dtype=dtype, device=dev)
+        return to_device([v], dev, dtype)
 
     return fused_sample_batched(
         logits[None], row(seed32, torch.int64), row(pos, torch.int64),
@@ -206,3 +208,58 @@ def decode_chunk(cfg: LlamaConfig, params, first_token, cache, pos: int, n_steps
                  temperature: float, topp: float, topk: int, seed32: int, path: str = "int8"):
     """One chunk of the streaming decode (the JAX package's argument order)."""
     return decode_scan(cfg, params, first_token, cache, pos, seed32, n_steps, temperature, topp, topk, path)
+
+
+def may_partition_rows(temperature, topp, topk, vocab_size: int) -> bool:
+    """Whether any sampled row has top-p on and top-k off (host settings):
+    only then may :func:`fused_pick` read the device for the partition
+    search."""
+    return any(t > 0.0 and 0.0 < p < 1.0 and not 0 < k < vocab_size
+               for t, p, k in zip(temperature, topp, topk))
+
+
+def batched_decode_scan(cfg: LlamaConfig, params, first_tokens, cache, pos, active, seeds, n_steps: int,
+                        temperature, topp, topk, paged=None, path: str = "int8", may_partition: bool = True):
+    """B rows step together, each weight matrix read once per step: per row
+    the same forward -> sample -> feed-back chain as :func:`decode_scan`
+    with the same position-keyed coins, so a row's stream equals the
+    single-stream decode for its seed. ``pos``/``active`` are host
+    sequences (positions of ``first_tokens``; inactive rows neither write
+    nor advance); ``seeds``/``temperature``/``topp``/``topk`` are [B]
+    device tensors. Returns (tokens [n_steps, B], cache, fingerprints,
+    finite flags) (engine/integrity.py)."""
+    dev = first_tokens.device
+    B = first_tokens.shape[0]
+    steps = [[p + i if a else p for p, a in zip(pos, active)] for i in range(n_steps)]
+    coin_pos = to_device(steps, dev, torch.int64)
+    h, ok = integrity.fingerprint_init(B, dev)
+    tokens, out = first_tokens.to(torch.int64), []
+    for i in range(n_steps):
+        logits, cache = llama.forward_step_batched(cfg, params, tokens, cache, steps[i], active, path, paged)
+        tokens = fused_sample_batched(logits, seeds, coin_pos[i], temperature, topp, topk,
+                                      may_partition=may_partition)
+        h, ok = integrity.fingerprint_fold(h, ok, logits, tokens)
+        out.append(tokens)
+    return torch.stack(out), cache, h, ok
+
+
+def decode_chunk_batched(cfg: LlamaConfig, params, first_tokens, cache, pos, active, n_steps: int,
+                         temperature, topp, topk, seeds, path: str = "int8", may_partition: bool = True):
+    """One chunk of the batched decode (the JAX package's argument order).
+    Returns (the packed [n_steps + 2, B] int32 tokens + fingerprint +
+    finite rows, cache); the slab is written in place."""
+    tokens, cache, h, ok = batched_decode_scan(cfg, params, first_tokens, cache, pos, active, seeds, n_steps,
+                                               temperature, topp, topk, path=path, may_partition=may_partition)
+    return integrity.pack_chunk_outputs(tokens, h, ok), cache
+
+
+def decode_chunk_batched_paged(cfg: LlamaConfig, params, first_tokens, cache, pos, active, pool, n_steps: int,
+                               temperature, topp, topk, seeds, tables, matched, path: str = "int8",
+                               may_partition: bool = True):
+    """:func:`decode_chunk_batched` with the prefix read: row b's positions
+    below matched[b] come from the (read-only) page pool through its page
+    table (tables [B, n_table] and matched [B] on the device)."""
+    tokens, cache, h, ok = batched_decode_scan(cfg, params, first_tokens, cache, pos, active, seeds, n_steps,
+                                               temperature, topp, topk, paged=(pool, tables, matched),
+                                               path=path, may_partition=may_partition)
+    return integrity.pack_chunk_outputs(tokens, h, ok), cache

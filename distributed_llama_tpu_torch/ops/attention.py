@@ -1,9 +1,20 @@
-"""Online-softmax (flash-style) attention over the single-stream cache.
+"""Online-softmax (flash-style) attention: the single-stream cache, the
+batched slab, and the prefix cache's paged reads.
 
 A chunk of key/value rows is scored at once and partials merge with the
 (max, exp-sum, weighted-sum) algebra; chunks beyond the last live position
-are never read. Plain PyTorch: the JAX package computes these in XLA, not
-in a Pallas kernel.
+are never read. The single-stream and prefill paths are plain PyTorch (the
+JAX package computes them in XLA). The batched decode and verify paths go
+through K2, the hand-written fused paged-attention kernel
+(``csrc/paged_attention.cu``, replacing the Pallas ``_fused_paged_attention``):
+its wrappers :func:`fused_paged_decode_attention` and
+:func:`fused_paged_verify_attention` launch it for CUDA tensors and count
+each launch in :data:`launches`; for CPU tensors they compute its plain
+version, the segmented chunk scan (:func:`_segmented_batched_scan`).
+
+On the card every batched step takes the kernel, paged or not (a row with
+matched 0 reads only its slab row), so no step reads the device to bound
+its chunk loop. The plain version reads pos and matched on the host.
 """
 
 from __future__ import annotations
@@ -15,6 +26,15 @@ import torch
 from distributed_llama_tpu_torch.ops import kv_cache as kvc
 
 _NEG_INF = float("-inf")
+
+# kernel name -> launches since the last reset_launches(); the wrapper adds
+# one where it launches the CUDA kernel and nowhere else
+launches: dict[str, int] = {"paged_attention": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
 
 
 def chunk_attention(
@@ -89,9 +109,240 @@ def blocked_attention(
     values: torch.Tensor,
     pos: int,  # absolute position of query row 0
     chunk: int,
+    paged=None,  # (pool_k, pool_v, table [n_table], matched: int)
 ) -> torch.Tensor:
     """Causal attention of T query rows over the cache, blocked along the
     key axis: only chunks holding positions <= pos+T-1 are read. Returns
-    [T, K, M, hd] f32. Requires S % chunk == 0."""
-    m, l, o = blocked_partials(qg, keys, values, pos, 0, chunk)
+    [T, K, M, hd] f32. Requires S % chunk == 0.
+
+    ``paged``: a slab row's prefill whose positions below ``matched`` live
+    in the page pool. ONE loop covers every chunk with a per-position
+    pool-or-slab select, on purpose: the JAX package found that splitting
+    it into pool / mixed / slab loops perturbs the merge by ulps under
+    XLA's per-loop codegen, and a prefix hit must equal the cold prefill.
+    Requires chunk % page == 0."""
+    if paged is None:
+        m, l, o = blocked_partials(qg, keys, values, pos, 0, chunk)
+        return o / torch.clamp_min(l, 1e-30)[..., None]
+    pool_k, pool_v, table, matched = paged
+    T, K, M, hd = qg.shape
+    S = keys.shape[0]
+    ppc = chunk // kvc.pool_page_size(pool_k)
+    n_chunks = -(-min(pos + T, S) // chunk)
+    dev = qg.device
+    q_pos = pos + torch.arange(T, device=dev)
+    m = torch.full((T, K, M), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((T, K, M), dtype=torch.float32, device=dev)
+    o = torch.zeros((T, K, M, hd), dtype=torch.float32, device=dev)
+    for i in range(n_chunks):
+        k_pos = i * chunk + torch.arange(chunk, device=dev)
+        sel = k_pos < matched
+        kc = kvc.select_kv(sel, kvc.pool_chunk_row(pool_k, table, i, ppc), kvc.slice_rows(keys, i * chunk, chunk))
+        vc = kvc.select_kv(sel, kvc.pool_chunk_row(pool_v, table, i, ppc), kvc.slice_rows(values, i * chunk, chunk))
+        m, l, o = merge_partials(m, l, o, *chunk_attention(qg, kc, vc, q_pos, k_pos))
     return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Batched decode / verify over the slab, with the paged prefix read
+# ---------------------------------------------------------------------------
+
+
+def _host_ints(t) -> list[int]:
+    return [int(v) for v in (t.tolist() if isinstance(t, torch.Tensor) else t)]
+
+
+def paged_segments(matched: list[int], chunk: int, n_chunks: int) -> tuple[int, int]:
+    """Segment bounds of a paged chunk scan: chunks [0, a) lie below every
+    row's matched length (pool-only reads), chunks [a, b) mix pool and slab
+    per position, chunks [b, n_chunks) lie past every row's matched length
+    (slab-only)."""
+    a = min(min(matched) // chunk, n_chunks)
+    b = min(max(-(-max(matched) // chunk), a), n_chunks)
+    return a, b
+
+
+def _segmented_batched_scan(partial, keys, values, paged, chunk: int, n_chunks: int, init, rows: int):
+    """Run ``partial(kc, vc, start, carry)`` over every chunk, reading each
+    from the slab (``paged`` None) or through the pool-only / mixed /
+    slab-only segment split with per-position selects in the mixed span.
+    Shared by decode and verify; it is K2's plain version."""
+
+    def slab_chunk(i):
+        return (kvc.slice_rows_batched(keys, i * chunk, chunk, rows=rows),
+                kvc.slice_rows_batched(values, i * chunk, chunk, rows=rows))
+
+    carry = init
+    if paged is None:
+        for i in range(n_chunks):
+            carry = partial(*slab_chunk(i), i * chunk, carry)
+        return carry
+    pool_k, pool_v, tables, matched = paged
+    ppc = chunk // kvc.pool_page_size(pool_k)
+    matched_h = _host_ints(matched)
+    a, b = paged_segments(matched_h, chunk, n_chunks)
+    for i in range(a):
+        carry = partial(kvc.pool_chunk(pool_k, tables, i, ppc), kvc.pool_chunk(pool_v, tables, i, ppc),
+                        i * chunk, carry)
+    matched_t = torch.as_tensor(matched_h, device=keys.device)
+    for i in range(a, b):
+        kc_s, vc_s = slab_chunk(i)
+        sel = (i * chunk + torch.arange(chunk, device=keys.device))[None, :] < matched_t[:, None]
+        carry = partial(kvc.select_kv(sel, kvc.pool_chunk(pool_k, tables, i, ppc), kc_s),
+                        kvc.select_kv(sel, kvc.pool_chunk(pool_v, tables, i, ppc), vc_s), i * chunk, carry)
+    for i in range(b, n_chunks):
+        carry = partial(*slab_chunk(i), i * chunk, carry)
+    return carry
+
+
+def _softmax_partial(scores, mask):
+    """Masked chunk scores -> (m, p, l): the per-chunk online-softmax step
+    shared by decode and verify (m = -inf for a fully masked chunk)."""
+    scores = torch.where(mask, scores, _NEG_INF)
+    m = scores.amax(dim=-1)
+    safe_m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask, torch.exp(scores - safe_m[..., None]), 0.0)
+    return m, p, p.sum(dim=-1)
+
+
+def _decode_partial(qg, pos, chunk: int, cdt):
+    """The per-chunk arithmetic of the batched decode scan (qg [B,K,M,hd],
+    row b's query at pos[b])."""
+    hd = qg.shape[-1]
+    q = qg.to(cdt)
+
+    def partial(kc, vc, start, carry):
+        k_pos = start + torch.arange(chunk, device=qg.device)
+        scores = kvc.scores_einsum_batched(q, kc) / math.sqrt(hd)
+        mask = (k_pos[None, :] <= pos[:, None])[:, None, None, :]
+        ms, p, ls = _softmax_partial(scores, mask)
+        return merge_partials(*carry, ms, ls, kvc.mix_einsum_batched(p, vc, cdt))
+
+    return partial
+
+
+def _verify_partial(qg, pos, chunk: int, cdt):
+    """The per-chunk arithmetic of the batched verify scan (qg
+    [B,T,K,M,hd], row b's query t at pos[b]+t)."""
+    T, hd = qg.shape[1], qg.shape[-1]
+    q = qg.to(cdt)
+    q_pos = pos[:, None] + torch.arange(T, device=qg.device)[None, :]
+
+    def partial(kc, vc, start, carry):
+        k_pos = start + torch.arange(chunk, device=qg.device)
+        scores = kvc.scores_einsum_verify(q, kc) / math.sqrt(hd)
+        mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, :, None, None, :]
+        ms, p, ls = _softmax_partial(scores, mask)
+        return merge_partials(*carry, ms, ls, kvc.mix_einsum_verify(p, vc, cdt))
+
+    return partial
+
+
+def paged_attention_plain(qg, keys, values, pos, chunk: int, paged=None) -> torch.Tensor:
+    """K2's plain version: the segmented chunk scan over every row's slab
+    row (and pool pages), decode for qg [B,K,M,hd], verify for qg
+    [B,T,K,M,hd]. Reads max(pos) and matched on the host."""
+    verify = qg.dim() == 5
+    B, hd = qg.shape[0], qg.shape[-1]
+    T = qg.shape[1] if verify else 1
+    S = keys.shape[1]
+    cdt = kvc.compute_dtype(keys)
+    pos = pos.to(device=qg.device, dtype=torch.int64)
+    n_chunks = -(-min(max(_host_ints(pos)) + T, S) // chunk)
+    lead = qg.shape[:-1]
+    init = (torch.full(lead, _NEG_INF, dtype=torch.float32, device=qg.device),
+            torch.zeros(lead, dtype=torch.float32, device=qg.device),
+            torch.zeros(qg.shape, dtype=torch.float32, device=qg.device))
+    partial = (_verify_partial if verify else _decode_partial)(qg, pos, chunk, cdt)
+    m, l, o = _segmented_batched_scan(partial, keys, values, paged, chunk, n_chunks, init, rows=B)
+    return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def _fused_paged_eligible(keys, paged, chunk: int) -> bool:
+    """Shape gate of K2: chunks are whole pages and the slab blocks evenly."""
+    page = chunk if paged is None else kvc.pool_page_size(paged[0])
+    return chunk % page == 0 and keys.shape[1] % chunk == 0
+
+
+def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Tensor:
+    """Launch K2 for CUDA tensors (or raise); compute its plain version for
+    CPU tensors. ``paged`` None reads only the slab (matched 0)."""
+    dev = qg.device
+    if dev.type == "cpu":
+        return paged_attention_plain(qg, keys, values, pos, chunk, paged)
+    if dev.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {dev}")
+    verify = qg.dim() == 5
+    B, hd = qg.shape[0], qg.shape[-1]
+    T = qg.shape[1] if verify else 1
+    K, M = qg.shape[-3], qg.shape[-2]
+    S = keys.shape[1]
+    if not _fused_paged_eligible(keys, paged, chunk):
+        raise ValueError(f"paged_attention: chunk {chunk} must be whole pages and divide S {S}")
+    for name, t in (("keys", keys), ("values", values)):
+        if t.device != dev or t.dtype not in (torch.bfloat16, torch.float32) or not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} must be a contiguous bf16/f32 tensor on {dev}")
+        if t.shape[0] < B or tuple(t.shape[1:]) != (S, K, hd):
+            raise ValueError(f"paged_attention: {name} shape {tuple(t.shape)} does not hold {B} rows of {(S, K, hd)}")
+    if values.dtype != keys.dtype:
+        raise ValueError("paged_attention: keys and values differ in dtype")
+    q = qg.to(torch.float32).contiguous()
+    pos32 = pos.to(device=dev, dtype=torch.int32).contiguous()
+    if paged is None:  # matched 0: the kernel reads neither the pool nor the table
+        pool_k = pool_v = None
+        page, tables, matched = chunk, torch.zeros((B, 1), dtype=torch.int32, device=dev), torch.zeros_like(pos32)
+        n_table = 1
+    else:
+        pool_k, pool_v, tables, matched = paged
+        page = kvc.pool_page_size(pool_k)
+        for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
+            if t.device != dev or t.dtype != keys.dtype or not t.is_contiguous() or tuple(t.shape[2:]) != (K, hd):
+                raise ValueError(f"paged_attention: {name} must be a contiguous [P, page, {K}, {hd}] "
+                                 f"{keys.dtype} tensor on {dev}")
+        tables = tables.to(device=dev, dtype=torch.int32).contiguous()
+        matched = matched.to(device=dev, dtype=torch.int32).contiguous()
+        n_table = tables.shape[1]
+        if tables.shape[0] != B or n_table < chunk // page:
+            raise ValueError(f"paged_attention: tables shape {tuple(tables.shape)} for {B} rows")
+    from distributed_llama_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.function("paged_attention")
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    err = fn(q.data_ptr(), keys.data_ptr(), values.data_ptr(),
+             0 if pool_k is None else pool_k.data_ptr(), 0 if pool_v is None else pool_v.data_ptr(),
+             tables.data_ptr(), pos32.data_ptr(), matched.data_ptr(), out.data_ptr(),
+             B, T, K, M, hd, S, page, n_table, chunk, int(keys.dtype == torch.bfloat16),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
+    launches["paged_attention"] += 1
+    return out
+
+
+def fused_paged_decode_attention(qg, keys, values, pos, chunk: int, paged=None) -> torch.Tensor:
+    """K2 on a decode step: qg [B, K, M, hd] f32 (row b's query at pos[b]),
+    slab halves [B_max, S, K, hd], ``paged`` = (pool_k, pool_v, tables
+    [B, n_table], matched [B]) or None. Returns [B, K, M, hd] f32."""
+    return _fused_paged_attention(qg, keys, values, pos, chunk, paged)
+
+
+def fused_paged_verify_attention(qg, keys, values, pos, chunk: int, paged=None) -> torch.Tensor:
+    """K2 on a verify window: qg [B, T, K, M, hd] f32, row b's query t at
+    pos[b]+t; otherwise as :func:`fused_paged_decode_attention`. Returns
+    [B, T, K, M, hd] f32."""
+    return _fused_paged_attention(qg, keys, values, pos, chunk, paged)
+
+
+def batched_decode_attention(qg, keys, values, pos, chunk: int, paged=None) -> torch.Tensor:
+    """Blocked causal attention of B single-token queries, each over its own
+    slab row masked by its own position (inactive rows pass pos 0); with
+    ``paged``, row b's positions below matched[b] come from the page pool
+    through its table. Only the first B slab rows are read. Requires
+    S % chunk == 0 and chunk % page == 0. Returns [B, K, M, hd] f32."""
+    return fused_paged_decode_attention(qg, keys, values, pos, chunk, paged)
+
+
+def batched_verify_attention(qg, keys, values, pos, chunk: int, paged=None) -> torch.Tensor:
+    """:func:`batched_decode_attention` for T-token verify windows
+    (speculative decode): qg [B, T, K, M, hd]. Returns [B, T, K, M, hd] f32."""
+    return fused_paged_verify_attention(qg, keys, values, pos, chunk, paged)

@@ -1,0 +1,528 @@
+"""OpenAI-compatible API server: POST /v1/chat/completions, GET /v1/models.
+
+    python -m distributed_llama_tpu_torch.server.api --model m.m --tokenizer t.t \\
+        --parallel 4 [--port 9990] [--device cpu]
+
+The port's copy of the JAX package's ``server/api.py`` serving core, one
+replica over one engine: SSE streaming and plain JSON responses, per-request
+temperature / top-p / top-k / seed / max_tokens / stop overrides, and the
+``NaiveCache`` longest-message-prefix reuse of each lane's KV cache.
+
+``--parallel N`` (default 2) serves N completions concurrently. With N > 1
+and ``--batch-decode`` (the default, with ``--decode device``) the N lanes
+are rows of one :class:`~distributed_llama_tpu_torch.engine.batch.BatchScheduler`:
+concurrent completions coalesce into one batched decode dispatch per chunk,
+reading each weight matrix once per step for all of them, and with
+``--prefix-cache`` (the default) repeated prompt prefixes are served from
+the shared page pool. Otherwise each lane is its own
+:class:`~distributed_llama_tpu_torch.engine.engine.EngineStream`. A request
+takes the free lane whose chat-prefix cache matches best; when every lane
+is busy it waits in a bounded queue, and past ``--admission-queue`` waiters
+(default 2 x --parallel) it gets 429 with Retry-After.
+
+Replicas, fleet operations, tenants and fair admission, deadlines, tracing,
+the integrity canary and weight rollout are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import sys
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from distributed_llama_tpu_torch.tokenizer import (
+    ChatItem,
+    ChatTemplate,
+    ChatTemplateType,
+    EosDetector,
+    EosDetectorResult,
+    Sampler,
+    Tokenizer,
+    chat_stops,
+    is_safe_piece,
+)
+
+MODEL_NAME = "Distributed Model"
+MAX_BODY_BYTES = 1 << 20  # request bodies beyond this get 413 unread
+
+
+def new_request_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+class BadRequest(ValueError):
+    """Client error in a request body (HTTP 400)."""
+
+
+class AdmissionRejected(RuntimeError):
+    """Every lane is busy and the wait queue is full (HTTP 429)."""
+
+
+@dataclasses.dataclass
+class CacheItem:
+    end_pos: int
+    role: str
+    content: str
+
+
+class NaiveCache:
+    """Longest-message-prefix chat cache of one lane."""
+
+    def __init__(self):
+        self.items: list[CacheItem] = []
+
+    def push(self, end_pos: int, role: str, content: str) -> None:
+        self.items.append(CacheItem(end_pos, role, content))
+
+    def clear(self) -> None:
+        self.items.clear()
+
+    def resolve_delta_prompt(self, messages: list[dict]) -> tuple[int, list[dict]]:
+        """Returns (start_pos, remaining_messages)."""
+        if self.match_len(messages) == 0:
+            self.clear()
+            return 0, messages
+        return self.items[-1].end_pos, messages[len(self.items):]
+
+    def match_len(self, messages: list[dict]) -> int:
+        """Number of cached messages this request would reuse (0 = none)."""
+        n = len(self.items)
+        if n == 0 or len(messages) <= n:
+            return 0
+        if all(self.items[i].role == messages[i]["role"] and self.items[i].content == messages[i]["content"]
+               for i in range(n)):
+            return n
+        return 0
+
+
+@dataclasses.dataclass
+class StreamSlot:
+    """One concurrent completion lane: an engine stream plus its chat-prefix
+    cache and (host-decode) sampler. ``busy`` is guarded by the state's
+    lane lock."""
+
+    stream: object  # EngineStream or BatchStream
+    cache: NaiveCache
+    sampler: Sampler
+    busy: bool = False
+
+
+class ApiState:
+    def __init__(self, engine, tokenizer: Tokenizer, sampler: Sampler, args):
+        self.engine = engine
+        self.tokenizer = tokenizer
+        self.args = args
+        self.stops = chat_stops(tokenizer)
+        template_type = getattr(args, "chat_template", None) or ChatTemplateType.UNKNOWN
+        self.template = ChatTemplate(template_type, tokenizer.chat_template, self.stops[0])
+        n = max(1, int(getattr(args, "parallel", 2) or 1))
+        self.batch = self._make_scheduler(engine, n)
+        if self.batch is not None:
+            streams = [self.batch.new_stream() for _ in range(n)]
+        else:
+            streams = [engine.default_stream] + [engine.new_stream() for _ in range(n - 1)]
+        self.slots = [
+            StreamSlot(s, NaiveCache(), sampler if i == 0 else Sampler(
+                vocab_size=sampler.vocab_size, temperature=sampler.temperature, topp=sampler.topp,
+                topk=sampler.topk, seed=sampler.seed + i))
+            for i, s in enumerate(streams)
+        ]
+        aq = getattr(args, "admission_queue", None)
+        self.queue_limit = max(0, int(aq)) if aq is not None else 2 * n
+        self._lanes = threading.Condition()
+        self._waiting = 0
+
+    def _make_scheduler(self, engine, n: int):
+        """The lanes' BatchScheduler, or None for independent streams (one
+        lane, --no-batch-decode or --decode host)."""
+        args = self.args
+        if not (getattr(args, "batch_decode", True) and getattr(args, "decode", "device") == "device" and n > 1):
+            return None
+        from distributed_llama_tpu_torch.engine.batch import BatchScheduler
+
+        return BatchScheduler(
+            engine, n_rows=n, chunk=getattr(args, "decode_chunk", 32),
+            prefix_cache=getattr(args, "prefix_cache", True), kv_pages=getattr(args, "kv_pages", None),
+            page_size=getattr(args, "kv_page_size", 64), prefill_chunk=getattr(args, "prefill_chunk", 256),
+        )
+
+    def _acquire_slot(self, messages: list[dict]) -> StreamSlot:
+        """Take the free lane whose chat-prefix cache matches best (an
+        empty cache on ties); wait in the bounded queue when none is free."""
+        with self._lanes:
+            if not any(not s.busy for s in self.slots):
+                if self._waiting >= self.queue_limit:
+                    raise AdmissionRejected(
+                        f"all {len(self.slots)} lanes busy and {self._waiting} requests queued")
+                self._waiting += 1
+                try:
+                    while not any(not s.busy for s in self.slots):
+                        self._lanes.wait()
+                finally:
+                    self._waiting -= 1
+            slot = max((s for s in self.slots if not s.busy),
+                       key=lambda s: (s.cache.match_len(messages), 0 if s.cache.items else 1))
+            slot.busy = True
+            return slot
+
+    def _release_slot(self, slot: StreamSlot) -> None:
+        with self._lanes:
+            slot.busy = False
+            self._lanes.notify()
+
+    def complete(self, body: dict, send_chunk, params: dict | None = None,
+                 request_id: str | None = None) -> dict | None:
+        """Run one completion. ``send_chunk(str)`` streams SSE data lines when
+        the request has stream=true (then returns None); otherwise returns
+        the response JSON."""
+        if params is None:
+            params = self._parse(body)
+        if request_id is None:
+            request_id = new_request_id()
+        if params.get("seed") is None:
+            params["seed"] = int(time.time_ns() % (1 << 31))
+        slot = self._acquire_slot(params["messages"])
+        try:
+            slot.stream.prefix_cache_enabled = params.get("cache", "on") != "off"
+            return self._complete_on(slot, params, send_chunk, request_id)
+        finally:
+            slot.stream.prefix_cache_enabled = True
+            self._release_slot(slot)
+
+    def _complete_on(self, slot: StreamSlot, params: dict, send_chunk, request_id: str) -> dict | None:
+        engine, tokenizer = slot.stream, self.tokenizer
+        stream = params["stream"]
+        start_pos, delta_messages = slot.cache.resolve_delta_prompt(params["messages"])
+        engine.rollback(min(start_pos, engine.pos))
+        if engine.pos != start_pos:  # the cache would resume further than the stream's state
+            engine.reset()
+            slot.cache.clear()
+            start_pos = 0
+            delta_messages = params["messages"]
+        items = [ChatItem(m["role"], m["content"]) for m in delta_messages]
+        prompt_tokens = tokenizer.encode(self.template.generate(items, append_generation_prompt=True), add_bos=True)
+        seq_len = engine.cfg.seq_len
+        budget = seq_len - engine.pos
+        warning = None
+        if len(prompt_tokens) > budget:
+            warning = f"prompt truncated: {len(prompt_tokens)} tokens > {budget} remaining context (seq_len {seq_len})"
+            print(f"⚠️ {warning}")
+            prompt_tokens = prompt_tokens[:budget]
+        prompt_end = start_pos + len(prompt_tokens)
+        for m in delta_messages:
+            slot.cache.push(prompt_end, m["role"], m["content"])
+
+        max_pos = prompt_end + params["max_tokens"] if params["max_tokens"] > 0 else seq_len
+        max_pos = min(max_pos, seq_len)
+        max_new = max_pos - prompt_end  # the completion budget in emitted tokens
+        topp, topk, seed = params["topp"], params["topk"], params["seed"]
+        slot.sampler.temperature = params["temperature"]
+        slot.sampler.topp = topp
+        slot.sampler.topk = topk
+        slot.sampler.set_seed(seed)
+
+        device_decode = getattr(self.args, "decode", "device") == "device" and max_new > 0
+        if device_decode:
+            # the first token is sampled on the device; its host copy starts
+            # here and is fetched before decode chunk 1 is issued
+            first_dev = engine.prefill_device(prompt_tokens, params["temperature"], topp, seed, topk)
+        else:
+            logits = engine.prefill(prompt_tokens)
+
+        stops = self.stops + params["stop"]
+        max_stop = max(len(s) for s in stops) if stops else 0
+        detector = EosDetector({tokenizer.chat_eos_id}, stops, padding_left=max_stop, padding_right=max_stop)
+        buffer: list[str] = []
+        emitted = 0
+        finish_reason = "length"
+
+        def feed(prev: int, token: int) -> int:
+            nonlocal emitted
+            emitted += 1
+            piece = tokenizer.decode_piece(prev, token)
+            res = detector.append(token, piece if is_safe_piece(piece) else b"")
+            if res in (EosDetectorResult.NOT_EOS, EosDetectorResult.EOS):
+                delta = detector.get_delta()
+                if delta:
+                    text = delta.decode("utf-8", errors="replace")
+                    buffer.append(text)
+                    if stream:
+                        send_chunk(self._chunk_json(text, stop=False, request_id=request_id))
+                detector.clear()
+            return res
+
+        if device_decode:
+            if max_new == 1:
+                # a one-token completion fetches the first token directly
+                if feed(prompt_tokens[-1], engine.fetch_first_token(first_dev)) == EosDetectorResult.EOS:
+                    finish_reason = "stop"
+            else:
+                def on_token(prev: int, t: int) -> bool:
+                    nonlocal finish_reason
+                    if feed(prev, t) == EosDetectorResult.EOS:
+                        finish_reason = "stop"
+                        return False
+                    return emitted < max_new
+
+                engine.stream_decode(first_dev, on_token, params["temperature"], topp, seed=seed,
+                                     chunk=getattr(self.args, "decode_chunk", 32), limit=max_pos,
+                                     first_prev=prompt_tokens[-1], topk=topk)
+        elif max_new > 0:
+            # --decode host: each token samples on the host from fetched
+            # logits; the counter sampler replays the device stream
+            token = slot.sampler.sample(logits, pos=engine.pos - 1)
+            res = feed(prompt_tokens[-1], token)
+            while res != EosDetectorResult.EOS and emitted < max_new and engine.pos < seq_len:
+                prev = token
+                token = slot.sampler.sample(engine.decode_step(prev), pos=engine.pos - 1)
+                res = feed(prev, token)
+            if res == EosDetectorResult.EOS:
+                finish_reason = "stop"
+        if finish_reason == "length":
+            # flush text held back as a possible stop-string prefix
+            tail = detector.flush_delta()
+            if tail:
+                text = tail.decode("utf-8", errors="replace")
+                buffer.append(text)
+                if stream:
+                    send_chunk(self._chunk_json(text, stop=False, request_id=request_id))
+
+        content = "".join(buffer)
+        if engine.pos >= seq_len:
+            slot.cache.clear()
+        else:
+            slot.cache.push(engine.pos, "assistant", content)
+        if stream:
+            send_chunk(self._chunk_json("", stop=True, finish_reason=finish_reason, warning=warning,
+                                        request_id=request_id))
+            send_chunk("[DONE]")
+            return None
+        result = {
+            "id": f"chatcmpl-{request_id}",
+            "object": "chat.completion",
+            "created": int(time.time()),
+            "model": MODEL_NAME,
+            "usage": {
+                "prompt_tokens": len(prompt_tokens),
+                "completion_tokens": emitted,
+                "total_tokens": len(prompt_tokens) + emitted,
+            },
+            "choices": [{"index": 0, "message": {"role": "assistant", "content": content},
+                         "finish_reason": finish_reason}],
+        }
+        if warning is not None:
+            result["warning"] = warning
+        return result
+
+    def _chunk_json(self, delta_text: str, stop: bool, finish_reason: str = "stop", warning: str | None = None,
+                    request_id: str = "0") -> str:
+        choice: dict = {"index": 0, "finish_reason": finish_reason if stop else ""}
+        choice["delta"] = {"role": "", "content": ""} if stop else {"role": "assistant", "content": delta_text}
+        payload = {"id": f"chatcmpl-{request_id}", "object": "chat.completion", "created": int(time.time()),
+                   "model": MODEL_NAME, "choices": [choice]}
+        if warning is not None:
+            payload["warning"] = warning
+        return json.dumps(payload)
+
+    def _parse(self, body: dict) -> dict:
+        """Validate and normalize a request body; raises :class:`BadRequest`."""
+        if not isinstance(body, dict):
+            raise BadRequest("request body must be a JSON object")
+        messages = body.get("messages")
+        if not isinstance(messages, list) or not messages:
+            raise BadRequest("'messages' must be a non-empty array")
+        for i, m in enumerate(messages):
+            if not isinstance(m, dict) or not isinstance(m.get("role"), str) or not isinstance(m.get("content"), str):
+                raise BadRequest(f"messages[{i}] must be an object with string 'role' and 'content'")
+        stop = body.get("stop", ["<|eot_id|>"])
+        if stop is None:
+            stop = []
+        elif isinstance(stop, str):
+            stop = [stop]
+        if not isinstance(stop, list) or not all(isinstance(s, str) for s in stop):
+            raise BadRequest("'stop' must be a string, an array of strings, or null")
+        try:
+            temperature = float(body.get("temperature", self.args.temperature))
+            topp = float(body.get("top_p", self.args.topp))
+            topk = int(body.get("top_k", getattr(self.args, "topk", 0) or 0))
+            max_tokens = int(body.get("max_tokens", -1))
+            seed = body.get("seed")
+            if seed is not None:
+                seed = int(seed)
+        except (TypeError, ValueError) as e:
+            raise BadRequest(f"invalid numeric field: {e}") from None
+        cache = body.get("cache", "on")
+        if cache not in ("on", "off"):
+            raise BadRequest("'cache' must be \"on\" or \"off\"")
+        if not (0.0 <= topp <= 1.0) or not math.isfinite(topp):
+            raise BadRequest("'top_p' must be a number in [0, 1]")
+        if topk < 0:
+            raise BadRequest("'top_k' must be a non-negative integer (0 = off)")
+        return {
+            "cache": cache,
+            "messages": [{"role": m["role"], "content": m["content"]} for m in messages],
+            "stream": bool(body.get("stream", False)),
+            "temperature": temperature,
+            "topp": topp,
+            "topk": topk,
+            "seed": seed,
+            "max_tokens": max_tokens,
+            "stop": [s for s in stop if s],
+        }
+
+
+def make_handler(state: ApiState):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *a):
+            print(f"🔷 {self.command} {self.path}")
+
+        def _send_json(self, status: int, payload: dict, request_id: str | None = None,
+                       extra_headers: dict | None = None) -> None:
+            data = json.dumps(payload).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            if request_id is not None:
+                self.send_header("X-Request-Id", request_id)
+            for k, v in (extra_headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _error(self, status: int, message: str, err_type: str, rid: str, extra_headers=None) -> None:
+            body = {"error": {"message": message, "type": err_type, "request_id": rid}}
+            self._send_json(status, body, request_id=rid, extra_headers=extra_headers)
+
+        def do_GET(self):
+            if self.path == "/v1/models":
+                self._send_json(200, {"object": "list",
+                                      "data": [{"id": "dl", "object": "model", "created": 0, "owned_by": "user"}]})
+            else:
+                self.send_error(404)
+
+        def do_POST(self):
+            rid = new_request_id()
+            if self.path != "/v1/chat/completions":
+                self.send_error(404)
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+            except (TypeError, ValueError):
+                self._error(400, "invalid Content-Length", "invalid_request_error", rid)
+                self.close_connection = True
+                return
+            if length > MAX_BODY_BYTES:
+                # reject without reading; the unread body makes the connection unusable
+                self._error(413, f"request body {length} bytes exceeds the {MAX_BODY_BYTES}-byte limit",
+                            "request_too_large", rid)
+                self.close_connection = True
+                return
+            try:
+                body = json.loads(self.rfile.read(max(length, 0)) or b"{}")
+                params = state._parse(body)
+            except json.JSONDecodeError as e:
+                self._error(400, f"malformed JSON: {e}", "invalid_request_error", rid)
+                return
+            except BadRequest as e:
+                self._error(400, str(e), "invalid_request_error", rid)
+                return
+            # SSE headers go out with the first event, so a request rejected
+            # before any token still gets a clean HTTP status
+            sse_started = False
+
+            def send_chunk(data: str):
+                nonlocal sse_started
+                if not sse_started:
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/event-stream")
+                    self.send_header("Cache-Control", "no-cache")
+                    self.send_header("Connection", "close")
+                    self.send_header("X-Request-Id", rid)
+                    self.end_headers()
+                    sse_started = True
+                self.wfile.write(f"data: {data}\r\n\r\n".encode())
+                self.wfile.flush()
+
+            try:
+                if params["stream"]:
+                    state.complete(body, send_chunk, params=params, request_id=rid)
+                    self.close_connection = True
+                else:
+                    self._send_json(200, state.complete(body, lambda s: None, params=params, request_id=rid),
+                                    request_id=rid)
+            except BrokenPipeError:
+                self.close_connection = True  # the client went away mid-stream
+            except AdmissionRejected as e:
+                self._error(429, str(e), "overloaded", rid, extra_headers={"Retry-After": "1"})
+            except Exception as e:  # an engine failure: surface it, keep serving
+                print(f"🛑 request {rid} failed: {type(e).__name__}: {e}")
+                if sse_started:
+                    err = json.dumps({"error": {"message": str(e), "type": "server_error", "request_id": rid}})
+                    self.wfile.write(f"data: {err}\r\n\r\ndata: [DONE]\r\n\r\n".encode())
+                    self.close_connection = True
+                else:
+                    self._error(500, str(e), "server_error", rid)
+
+    return Handler
+
+
+def make_server(args, state: ApiState | None = None) -> tuple[ThreadingHTTPServer, ApiState]:
+    """Build the engine (unless ``state`` is given) and a threaded HTTP
+    server on ``args.host:args.port`` (port 0 picks a free one)."""
+    if state is None:
+        from distributed_llama_tpu_torch.apps.cli import make_engine
+
+        engine, tokenizer, sampler = make_engine(args)
+        state = ApiState(engine, tokenizer, sampler, args)
+    server = ThreadingHTTPServer((getattr(args, "host", "0.0.0.0"), args.port), make_handler(state))
+    server.daemon_threads = True
+    return server, state
+
+
+def serve(args) -> None:
+    server, _ = make_server(args)
+    print(f"Server URL: http://127.0.0.1:{server.server_address[1]}/v1/")
+    server.serve_forever()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from distributed_llama_tpu_torch.apps.cli import build_parser as cli_parser
+
+    p = cli_parser()
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9990)
+    p.add_argument("--parallel", type=int, default=2, help="concurrent in-flight completions")
+    p.add_argument("--batch-decode", action=argparse.BooleanOptionalAction, default=True,
+                   help="coalesce concurrent completions into one batched decode dispatch per chunk "
+                   "(--decode device, --parallel > 1)")
+    p.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction, default=True,
+                   help="reuse published KV pages for repeated prompt prefixes (batched serving); "
+                   "requests opt out with the body field 'cache': \"off\"")
+    p.add_argument("--kv-pages", type=int, default=None,
+                   help="page-pool budget in pages (default --parallel x ceil(seq_len/page) plus 25%%; "
+                   "0 disables the prefix cache)")
+    p.add_argument("--kv-page-size", type=int, default=64, help="positions per KV page")
+    p.add_argument("--prefill-chunk", type=int, default=256,
+                   help="tokens per prefill dispatch in batched serving (0 = the whole prompt at once)")
+    p.add_argument("--admission-queue", type=int, default=None,
+                   help="requests that may wait for a lane before 429 (default 2 x --parallel)")
+    return p
+
+
+def main(argv=None) -> None:
+    raw = list(sys.argv[1:] if argv is None else argv)
+    if not raw or raw[0] not in ("inference", "generate"):
+        raw = ["generate"] + raw  # the shared parser's mode is meaningless here
+    serve(build_parser().parse_args(raw))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,17 +1,19 @@
-"""Tokenizer and host sampler.
+"""Tokenizer, host sampler, chat templates and the streaming stop detector.
 
 The port's copy of the JAX package's tokenizer: SentencePiece-style BPE
 encode (optional BOS, dummy-prefix space, UTF-8 codepoint split with byte
 fallback at +3, then greedy highest-score pair merging), piece decoding,
-and the host ``Sampler`` in its counter mode, which replays the device
-sampler's stream from fetched logits. Host-side Python and numpy only.
+the host ``Sampler`` in its counter mode, which replays the device
+sampler's stream from fetched logits, the chat-template renderers and the
+``EosDetector`` the API server streams through. Host-side Python and numpy
+only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -29,6 +31,9 @@ class Tokenizer:
         self.scores: list[float] = data.scores
         self.bos_id = data.bos_id
         self.eos_id = data.eos_id
+        self.chat_eos_id = data.chat_eos_id
+        self.chat_template = data.chat_template
+        self.chat_stop = data.chat_stop
         # first-wins (lowest id) for duplicate pieces
         self._index: dict[bytes, int] = {}
         for i, tok in enumerate(self.vocab):
@@ -185,3 +190,157 @@ class Sampler:
         r = coin * cum[n_keep - 1]
         idx = min(int(np.sum(cum[:n_keep] <= r)), n_keep - 1)
         return int(order[idx])
+
+
+# ---------------------------------------------------------------------------
+# Chat templates
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ChatItem:
+    role: str
+    message: str
+
+
+class ChatTemplateType:
+    UNKNOWN = "unknown"
+    LLAMA2 = "llama2"
+    LLAMA3 = "llama3"
+    ZEPHYR = "zephyr"
+    CHATML = "chatml"
+
+
+def detect_chat_template(template: str | None) -> str:
+    """Substring-sniff the tokenizer's embedded jinja template."""
+    if template is None:
+        raise ValueError("the tokenizer does not include a chat template")
+    if "[INST]" in template:
+        return ChatTemplateType.LLAMA2
+    if "<|start_header_id|>" in template:
+        return ChatTemplateType.LLAMA3
+    if "<|user|>" in template:
+        return ChatTemplateType.ZEPHYR
+    if "<|im_start|>" in template:
+        return ChatTemplateType.CHATML
+    raise ValueError("unsupported chat template")
+
+
+class ChatTemplate:
+    """Hardcoded renderers per detected template family."""
+
+    def __init__(self, template_type: str, chat_template: str | None, eos: str):
+        if template_type == ChatTemplateType.UNKNOWN:
+            template_type = detect_chat_template(chat_template)
+        self.type = template_type
+        self.eos = eos
+
+    def generate(self, items: Sequence[ChatItem], append_generation_prompt: bool = True) -> str:
+        out: list[str] = []
+        if self.type == ChatTemplateType.LLAMA2:
+            i = 0
+            if len(items) >= 2 and items[0].role == "system" and items[1].role == "user":
+                out.append(f"[INST] <<SYS>>\n{items[0].message}\n<</SYS>>\n\n{items[1].message} [/INST]{self.eos}")
+                i = 2
+            for item in items[i:]:
+                if item.role == "assistant":
+                    out.append(f"{item.message}{self.eos}")
+                elif item.role == "user":
+                    out.append(f"[INST] {item.message} [/INST]{self.eos}")
+        elif self.type == ChatTemplateType.LLAMA3:
+            for item in items:
+                out.append(f"<|start_header_id|>{item.role}<|end_header_id|>\n\n{item.message}{self.eos}")
+            if append_generation_prompt:
+                out.append("<|start_header_id|>assistant<|end_header_id|>\n\n")
+        elif self.type == ChatTemplateType.CHATML:
+            for item in items:
+                out.append(f"<|im_start|>{item.role}\n{item.message}<|im_end|>\n")
+            if append_generation_prompt:
+                out.append("<|im_start|>assistant\n")
+        elif self.type == ChatTemplateType.ZEPHYR:
+            for item in items:
+                out.append(f"<|{item.role}|>\n{item.message}{self.eos}\n")
+            if append_generation_prompt:
+                out.append("<|assistant|>\n")
+        else:
+            raise ValueError(f"unsupported chat template type: {self.type}")
+        return "".join(out)
+
+
+def chat_stops(tokenizer: Tokenizer) -> list[str]:
+    """Stop strings for chat mode: the chat EOS token's text plus the
+    tokenizer's optional extra stop string."""
+    stops = [tokenizer.vocab[tokenizer.chat_eos_id].decode("utf-8", errors="replace")]
+    if tokenizer.chat_stop:
+        stops.append(tokenizer.chat_stop)
+    return stops
+
+
+# ---------------------------------------------------------------------------
+# Streaming EOS / stop-sequence detection
+# ---------------------------------------------------------------------------
+
+
+class EosDetectorResult:
+    NOT_EOS = 0
+    EOS = 1
+    MAYBE_EOS = 2
+
+
+class EosDetector:
+    """Streaming multi-token stop-string matcher: when a prefix of a stop
+    string is seen at the tail the result is MAYBE_EOS (hold the output), a
+    full match is EOS, otherwise NOT_EOS and the buffered delta is safe to
+    emit. ``padding_left`` lets a stop string begin up to N characters into
+    the buffer, ``padding_right`` allows trailing characters after it."""
+
+    def __init__(self, eos_ids: int | Iterable[int], stops: Sequence[str], padding_left: int = 0,
+                 padding_right: int = 0):
+        self.eos_ids = {eos_ids} if isinstance(eos_ids, int) else set(eos_ids)
+        self.stops = [s.encode("utf-8") if isinstance(s, str) else s for s in stops]
+        self.padding_left = padding_left
+        self.padding_right = padding_right
+        self.buffer = bytearray()
+        self.eos_pos = -1
+
+    def append(self, token_id: int, piece: bytes | str) -> int:
+        if isinstance(piece, str):
+            piece = piece.encode("utf-8")
+        self.buffer += piece
+        if token_id in self.eos_ids:
+            self.eos_pos = len(self.buffer) - len(piece)
+            return EosDetectorResult.EOS
+        self.eos_pos = -1
+        for stop in self.stops:
+            stop_size = len(stop)
+            if len(self.buffer) > stop_size + self.padding_left + self.padding_right:
+                continue
+            for lo in range(self.padding_left + 1):
+                n = len(self.buffer) - lo
+                if n == 0 or n > stop_size + self.padding_right:
+                    continue
+                n = min(n, stop_size)
+                if self.buffer[lo : lo + n] == stop[:n]:
+                    if n == stop_size:
+                        self.eos_pos = lo
+                        return EosDetectorResult.EOS
+                    return EosDetectorResult.MAYBE_EOS
+        return EosDetectorResult.NOT_EOS
+
+    def get_delta(self) -> bytes | None:
+        """Text safe to emit after the last :meth:`append`."""
+        if self.eos_pos == -1:
+            return bytes(self.buffer) if self.buffer else b""
+        if self.eos_pos == 0:
+            return None
+        return bytes(self.buffer[: self.eos_pos])
+
+    def flush_delta(self) -> bytes:
+        """Drain buffered text on a non-EOS exit (a length limit): text held
+        back as a possible stop-string prefix would otherwise be lost."""
+        delta = self.get_delta() or b""
+        self.clear()
+        return delta
+
+    def clear(self) -> None:
+        self.buffer = bytearray()

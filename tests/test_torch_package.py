@@ -15,8 +15,10 @@ import distributed_llama_tpu_torch
 from distributed_llama_tpu_torch import platform
 from distributed_llama_tpu_torch.apps import cli
 from distributed_llama_tpu_torch.engine import InferenceEngine, weights
+from distributed_llama_tpu_torch.engine.batch import BatchScheduler
 from distributed_llama_tpu_torch.formats import synthetic
 from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
+from distributed_llama_tpu_torch.server import api as server_api
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(Path(distributed_llama_tpu_torch.__file__).parent.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -43,9 +45,9 @@ def test_port_sources_exist():
     for mod in ("quants", "formats/model_file", "formats/tokenizer_file", "tokenizer",
                 "models/config", "ops/q40", "models/rope", "ops/kv_cache", "ops/attention",
                 "models/llama", "engine/weights", "prng", "models/sampling", "engine/engine",
-                "apps/cli"):
+                "apps/cli", "engine/integrity", "engine/prefix_cache", "engine/batch", "server/api"):
         assert f"distributed_llama_tpu_torch/{mod}.py" in names
-    for src in ("q40_int8.cu", "q40_dequant.cu"):
+    for src in ("q40_int8.cu", "q40_dequant.cu", "paged_attention.cu"):
         assert (ROOT / "distributed_llama_tpu_torch" / "csrc" / src).is_file()
 
 
@@ -78,6 +80,10 @@ def test_entry_points_default_to_the_card(no_cuda, tiny_files):
         weights.params_from_jax({"embedding": np.zeros((4, 8), np.float32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["generate", "--model", model, "--tokenizer", tok, "--prompt", "hi"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server_api.main(["--model", model, "--tokenizer", tok, "--port", "0"])
+    args = server_api.build_parser().parse_args(["generate", "--model", model, "--tokenizer", tok])
+    assert (args.device, args.parallel, args.batch_decode, args.prefix_cache) == ("cuda", 2, True, True)
 
 
 def test_cpu_only_when_asked(no_cuda, tiny_files):
@@ -90,3 +96,5 @@ def test_cpu_only_when_asked(no_cuda, tiny_files):
     out = cli.main(["generate", "--model", model, "--tokenizer", tok, "--prompt", "hi",
                     "--device", "cpu", "--steps", "6", "--temperature", "0"])
     assert all(0 <= t < 512 for t in out["tokens"])
+    sched = BatchScheduler(engine, n_rows=2, prefix_cache=True, page_size=8)
+    assert sched._slab[0].device.type == "cpu" and sched._pool[0][0].device.type == "cpu"

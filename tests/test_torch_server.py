@@ -1,0 +1,162 @@
+"""The port's API server held against the JAX package's.
+
+Both ``ApiState``s serve the same synthetic f32 model (seq_len 1024) and
+tokenizer (a ChatML template) with two batched lanes and the prefix cache
+on. A greedy conversation runs through both: a plain JSON completion, the
+same prompt again as SSE on the other lane (a prefix-cache hit), and a
+follow-up turn that resumes the first lane's chat-prefix cache. Texts,
+finish reasons and usage must be identical. The port's HTTP handler then
+serves /v1/models, an SSE stream, and a 429 past the admission queue.
+"""
+
+import json
+import sys
+import threading
+import types
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from distributed_llama_tpu.engine import InferenceEngine as JaxEngine
+from distributed_llama_tpu.server.api import ApiState as JaxApiState
+from distributed_llama_tpu.tokenizer import Sampler as JaxSampler
+from distributed_llama_tpu.tokenizer import Tokenizer as JaxTokenizer
+
+from distributed_llama_tpu_torch.engine import InferenceEngine as TorchEngine
+from distributed_llama_tpu_torch.formats import synthetic as tsyn
+from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+from distributed_llama_tpu_torch.server import api as tapi
+from distributed_llama_tpu_torch.tokenizer import Sampler as TorchSampler
+from distributed_llama_tpu_torch.tokenizer import Tokenizer as TorchTokenizer
+
+SPEC = dict(dim=64, hidden_dim=128, n_layers=2, n_heads=4, n_kv_heads=2, vocab_size=512, seq_len=1024)
+CHATML = "{% for m in messages %}<|im_start|>{{m.role}}...{% endfor %}"
+SYSTEM = "hello world " * 12
+ARGS = dict(temperature=0.0, topp=0.9, topk=0, seed=1, chat_template=None, parallel=2, batch_decode=True,
+            decode="device", decode_chunk=4, prefix_cache=True, kv_page_size=64, prefill_chunk=256)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_server")
+    tsyn.write_synthetic_model(str(d / "m.m"), tsyn.tiny_spec(**SPEC), seed=2)
+    data = tsyn.synthetic_tokenizer_data(vocab_size=SPEC["vocab_size"])
+    data.chat_template = CHATML
+    with open(d / "t.t", "wb") as f:
+        write_tokenizer_file(f, data)
+    return str(d / "m.m"), str(d / "t.t")
+
+
+def torch_state(files, **overrides):
+    model, tok = files
+    args = types.SimpleNamespace(**{**ARGS, **overrides})
+    engine = TorchEngine(model, dtype=torch.float32, device="cpu")
+    sampler = TorchSampler(vocab_size=SPEC["vocab_size"], temperature=0.0, topp=0.9, seed=1)
+    return tapi.ApiState(engine, TorchTokenizer.from_file(tok), sampler, args)
+
+
+def conversation(state):
+    """Three greedy completions; returns what each client saw."""
+    msgs = [{"role": "system", "content": SYSTEM}, {"role": "user", "content": "hello"}]
+    first = state.complete({"messages": msgs, "max_tokens": 8}, lambda s: None)
+    chunks = []
+    assert state.complete({"messages": msgs, "max_tokens": 8, "stream": True}, chunks.append) is None
+    assert chunks[-1] == "[DONE]"
+    events = [json.loads(c) for c in chunks[:-1]]
+    sse = ("".join(e["choices"][0]["delta"]["content"] for e in events), events[-1]["choices"][0]["finish_reason"])
+    follow = msgs + [{"role": "assistant", "content": first["choices"][0]["message"]["content"]},
+                     {"role": "user", "content": "world"}]
+    third = state.complete({"messages": follow, "max_tokens": 6}, lambda s: None)
+    return [(r["choices"][0]["message"]["content"], r["choices"][0]["finish_reason"], r["usage"])
+            for r in (first, third)] + [sse]
+
+
+def test_api_state_matches_jax(monkeypatch, files):
+    monkeypatch.setenv("DLT_FUSED_PAGED", "0")
+    model, tok = files
+    jstate = JaxApiState(JaxEngine(model, dtype=jnp.float32), JaxTokenizer.from_file(tok),
+                         JaxSampler(vocab_size=SPEC["vocab_size"], temperature=0.0, topp=0.9, seed=1),
+                         types.SimpleNamespace(**ARGS))
+    want = conversation(jstate)
+    state = torch_state(files)
+    got = conversation(state)
+    assert got == want
+    assert want[0][2]["completion_tokens"] == 8 and want[0][2]["prompt_tokens"] > 64
+    assert state.batch is not None and state.batch._prefix.hits >= 1  # the SSE rerun hit the cold run's pages
+    assert state.slots[0].cache.items  # the follow-up resumed a lane's chat-prefix cache
+
+
+def _post(url, body):
+    req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=60)
+
+
+def test_concurrent_clients_get_their_single_stream_answers(files):
+    """Stress: 12 client threads (more than the cores) share 3 batched lanes
+    through the bounded queue, with a short interpreter switch interval;
+    every greedy answer equals the one a lone single-stream lane gives, and
+    the prefix tree's invariants hold at the end."""
+    prompts = [f"hello {'world ' * (i % 4)}{i}" for i in range(12)]
+
+    def ask(state, i):
+        body = {"messages": [{"role": "system", "content": SYSTEM}, {"role": "user", "content": prompts[i]}],
+                "max_tokens": 5}
+        return state.complete(body, lambda s: None)["choices"][0]["message"]["content"]
+
+    lone = torch_state(files, parallel=1)
+    want = [ask(lone, i) for i in range(len(prompts))]
+    state = torch_state(files, parallel=3, admission_queue=len(prompts))
+    got: dict = {}
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=lambda i=i: got.__setitem__(i, ask(state, i))) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert [got.get(i) for i in range(len(prompts))] == want
+    state.batch.check_prefix()
+    assert state.batch._prefix.hits > 0 and not any(s.busy for s in state.slots)
+
+
+def test_http_handler_sse_models_and_429(files):
+    state = torch_state(files, parallel=1, admission_queue=0)
+    assert state.batch is None  # one lane: an EngineStream
+    server, _ = tapi.make_server(types.SimpleNamespace(host="127.0.0.1", port=0), state=state)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(url + "/v1/models", timeout=10) as r:
+            assert json.loads(r.read())["data"][0]["id"] == "dl"
+        body = {"messages": [{"role": "user", "content": "hello"}], "max_tokens": 4, "stream": True}
+        with _post(url, body) as r:
+            assert r.headers["Content-Type"] == "text/event-stream"
+            chunks = [c[len("data: "):] for c in r.read().decode().split("\r\n\r\n") if c.startswith("data: ")]
+        assert chunks[-1] == "[DONE]"
+        assert json.loads(chunks[-2])["choices"][0]["finish_reason"] in ("stop", "length")
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(url, {"messages": "nope"})
+        assert e.value.code == 400
+        slot = state._acquire_slot(body["messages"])  # the only lane is busy, the queue bound is 0
+        try:
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post(url, {**body, "stream": False})
+            assert e.value.code == 429 and e.value.headers["Retry-After"]
+        finally:
+            state._release_slot(slot)
+        with _post(url, {**body, "stream": False}) as r:
+            usage = json.loads(r.read())["usage"]
+        assert usage["total_tokens"] == usage["prompt_tokens"] + usage["completion_tokens"]
+    finally:
+        server.shutdown()
+        server.server_close()
