@@ -26,17 +26,26 @@ Phases (any failure exits non-zero):
 6. (a) hold K2, the paged-attention kernel, against its plain version at
    Llama-2-7B heads (K=32, M=1, hd=128; and a K=8, M=4 GQA case), S=2048,
    page 64, rows whose matched lengths put chunks in the pool-only, mixed
-   and slab-only segments, T=1 and T=3, bf16 and f32 caches, timed against
-   the bound (live KV bytes + q/out/tables over 3.35 TB/s), the plain
-   version and the library yardstick (a page-table gather plus
-   scaled_dot_product_attention, SDPA alone in brackets);
+   and slab-only segments: bf16 and f32 caches at T=1 and T=3, and the
+   int8 cache (halves from ``quantize_rows``) at T=1 and T=5, the verify
+   window of --spec-draft 4; timed against the bound (live KV bytes, 2 K
+   (hd + 4) per position for int8, + q/out/tables over 3.35 TB/s), the
+   plain version and the library yardstick (a page-table gather, for int8
+   a dequantize to bf16, then scaled_dot_product_attention, SDPA alone in
+   brackets);
    (b) start the port's API server in process over the phase-5 model with
    --parallel 4 --max-seq-len 2048, send a cold request with a ~600-token
    system prompt and then four concurrent ones sharing it (greedy and
-   sampled, SSE and JSON); assert 200s, prefix hits, K2 launches equal to
-   n_layers x batched forwards, and a hit's first-token logits within 5%
-   of a cold prefill's; report TTFT cold vs hit, aggregate decode tok/s at
-   1 and 4 rows and the device idle share.
+   sampled, SSE and JSON) and a lone hit; assert 200s, prefix hits, K2
+   launches equal to n_layers x batched forwards, and a hit's first-token
+   logits within 5% of a cold prefill's; report TTFT cold vs hit,
+   aggregate decode tok/s at 1 and 4 rows and the device idle share;
+   (c) the same server and requests with --cache-dtype i8 --spec-draft 4
+   (the slice's path): K2 launched only in its int8 form, verify steps
+   with their drafted/accepted counts and tokens per row-step, the KV
+   bytes of slab and pool beside bf16's, and every greedy completion's
+   token ids equal to what a spec_draft=0 BatchScheduler on the same engine
+   and cache decodes for the same prompt.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -44,6 +53,8 @@ The last two lines of standard output are one JSON object per kernel
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import math
 import os
@@ -77,9 +88,10 @@ SHAPES = {
 # bf16 products are exact in f32 in both; only f32 summation order differs
 TOL_REL = {"q40_int8": 1e-5, "q40_dequant": 1e-4}
 # K2 vs its plain version, of max |out|: f32 caches differ only in the order
-# of f32 sums; bf16 caches also round the softmax weights to bf16 before
-# the value mix, where an ulp of exp can flip one rounding
-K2_TOL_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-4}
+# of f32 sums; bf16 and int8 caches also round the softmax weights (for
+# int8 scaled by the value scale) to bf16 before the value mix, where an
+# ulp of exp can flip one rounding
+K2_TOL_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-4, "i8": 4e-4}
 KERNEL_INFO = {
     "q40_int8": ("distributed_llama_tpu_torch/csrc/q40_int8.cu",
                  "distributed_llama_tpu/ops/q40.py:725 (_make_q40_int8_kernel)"),
@@ -87,6 +99,9 @@ KERNEL_INFO = {
                     "distributed_llama_tpu/ops/q40.py:493 (_make_q40_kernel)"),
     "paged_attention": ("distributed_llama_tpu_torch/csrc/paged_attention.cu",
                         "distributed_llama_tpu/ops/attention.py:371 (_fused_paged_attention)"),
+    "paged_attention_i8": ("distributed_llama_tpu_torch/csrc/paged_attention.cu",
+                           "distributed_llama_tpu/ops/attention.py:371 (_fused_paged_attention, "
+                           "int8 halves :389-413)"),
 }
 SERVER_SEQ_LEN = 2048  # --max-seq-len of the phase-6 server
 K2_S, K2_PAGE = 2048, 64
@@ -217,29 +232,35 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k2_checks(attn, kvc) -> list:
-    """Phase 6a: K2 against its plain version at the 7B heads, timed."""
+def k2_checks(attn, kvc, dtypes=(torch.bfloat16, torch.float32, "i8")) -> list:
+    """Phase 6a: K2 against its plain version at the 7B heads, timed, for
+    bf16 and f32 caches (T = 1 and 3) and the int8 cache (T = 1 and 5, the
+    verify window of --spec-draft 4), whose halves are ``quantize_rows`` of
+    the same kind of random inputs."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     hd, n_table = 128, K2_S // K2_PAGE
     rows = []
     for label, K, M, pos_l, matched_l in K2_CASES:
         B = len(pos_l)
-        for dtype in (torch.bfloat16, torch.float32):
-            esz = torch.empty(0, dtype=dtype).element_size()
+        for dtype in dtypes:
+            i8 = dtype == "i8"
+            # bytes of one cache position of one half and row
+            pos_bytes = K * (hd + 4) if i8 else K * hd * torch.empty(0, dtype=dtype).element_size()
+
+            def half(shape):
+                x = torch.randn(shape, device=dev, generator=g)
+                return kvc.QuantizedKV(*kvc.quantize_rows(x)) if i8 else x.to(dtype)
+
             n_pages = B * n_table
-            set_bytes = 2 * (B * K2_S + n_pages * K2_PAGE) * K * hd * esz
+            set_bytes = 2 * (B * K2_S + n_pages * K2_PAGE) * pos_bytes
             copies = max(2, math.ceil(256e6 / set_bytes))  # each timed launch reads its KV from HBM
-            sets = []
-            for _ in range(copies):
-                slab = torch.randn((2, B, K2_S, K, hd), device=dev, generator=g).to(dtype)
-                pool = torch.randn((2, n_pages, K2_PAGE, K, hd), device=dev, generator=g).to(dtype)
-                sets.append((slab, pool))
+            sets = [(half((2, B, K2_S, K, hd)), half((2, n_pages, K2_PAGE, K, hd))) for _ in range(copies)]
             tables = torch.stack([torch.randperm(n_pages, device=dev, generator=g)[:n_table] for _ in range(B)])
             tables = tables.to(torch.int32)
             pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
             matched = torch.tensor(matched_l, dtype=torch.int32, device=dev)
-            for T in (1, 3):
+            for T in (1, 5) if i8 else (1, 3):
                 shape = (B, T, K, M, hd) if T > 1 else (B, K, M, hd)
                 qg = torch.randn(shape, device=dev, generator=g)
                 fn = attn.fused_paged_verify_attention if T > 1 else attn.fused_paged_decode_attention
@@ -255,23 +276,30 @@ def k2_checks(attn, kvc) -> list:
                 err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
                 tol = K2_TOL_REL[dtype]
+                name = f"paged_attention{'_i8' if i8 else ''}"
                 check(math.isfinite(err) and err <= tol * scale,
-                      f"paged_attention {label} T={T} {dtype}: max abs err {err} > {tol} x {scale}")
+                      f"{name} {label} T={T} {dtype}: max abs err {err} > {tol} x {scale}")
                 ms = cuda_ms(run, reps=50)
                 plain_ms = event_ms(plain, reps=5)
                 # the library yardstick: gather every row's pages into a
-                # dense view (the page-table gather), then SDPA over the live
-                # length with a causal mask per row and query
+                # dense view (the page-table gather; for int8 then
+                # dequantized, data * scale, to bf16), then SDPA over the
+                # live length with a causal mask per row and query
+                sd_dtype = torch.bfloat16 if i8 else dtype
                 L = min(max(pos_l) + T, K2_S)
                 kpos = torch.arange(L, device=dev)
                 qpos = (pos[:, None] + torch.arange(T, device=dev)[None, :]).repeat_interleave(M, dim=1)
                 mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]  # [B, 1, T*M, L]
-                q_sd = qg.reshape(B, T, K, M, hd).permute(0, 2, 1, 3, 4).reshape(B, K, T * M, hd).to(dtype)
+                q_sd = qg.reshape(B, T, K, M, hd).permute(0, 2, 1, 3, 4).reshape(B, K, T * M, hd).to(sd_dtype)
 
                 def gather(i):
                     slab, pool = sets[i % copies]
-                    kv = [kvc.virtual_rows_batched(slab[h], pool[h], tables, matched)[:, :L].transpose(1, 2)
-                          for h in (0, 1)]
+                    kv = []
+                    for h in (0, 1):
+                        v = kvc.virtual_rows_batched(slab[h], pool[h], tables, matched)[:, :L]
+                        if i8:
+                            v = (v.data.to(torch.float32) * v.scales).to(torch.bfloat16)
+                        kv.append(v.transpose(1, 2))
                     return kv
 
                 def library(i):
@@ -283,15 +311,15 @@ def k2_checks(attn, kvc) -> list:
                 sdpa_ms = cuda_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
                     q_sd, k_sd, v_sd, attn_mask=mask), reps=20)
                 live = sum(min(p + T, K2_S) for p in pos_l)
-                need_bytes = 2 * live * K * hd * esz + 2 * qg.numel() * 4 + tables.numel() * 4 + 2 * B * 4
+                need_bytes = 2 * live * pos_bytes + 2 * qg.numel() * 4 + tables.numel() * 4 + 2 * B * 4
                 bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
                 ops_ms = 4.0 * live * K * M * T * hd / BF16_OPS_PER_S * 1e3
-                row = dict(kernel="paged_attention", case=label, B=B, K=K, M=M, T=T, dtype=str(dtype),
+                row = dict(kernel=name, case=label, B=B, K=K, M=M, T=T, dtype=str(dtype),
                            pos=pos_l, matched=matched_l, max_abs_err=err, max_rel_err=err / max(scale, 1e-30),
                            tol_rel=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, sdpa_only_ms=sdpa_ms,
                            bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
                 rows.append(row)
-                print(f"paged_attention {label} T={T} {str(dtype)[6:]:8s} err {err:.3e} (rel "
+                print(f"{name} {label} T={T} {str(dtype).replace('torch.', ''):8s} err {err:.3e} (rel "
                       f"{row['max_rel_err']:.1e} <= {tol:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                       f"library {lib_ms:.4f} ms (SDPA alone {sdpa_ms:.4f}) bound {row['bound_ms']:.4f} ms "
                       f"({row['bound_by']})", flush=True)
@@ -421,26 +449,103 @@ def _post(url: str, body: dict):
         return r.status, first, time.perf_counter() - t0, events
 
 
-def server_run(server_api, attn, model: str, tok_path: str) -> dict:
-    """Phase 6b: the port's API server over the 7B-width model, batched
-    (--parallel 4) with the prefix cache on."""
+def _capture_streams(state, captured: list) -> None:
+    """Record each completion's decoded token ids: every lane's
+    ``stream_decode`` is wrapped so that (prompt tokens, temperature, seed,
+    ids) is appended to ``captured`` when the request's decode ends."""
+    lock = threading.Lock()
+    for slot in state.slots:
+        orig = slot.stream.stream_decode
+
+        def wrapped(first, on_token, temperature=0.0, *a, _orig=orig, **kw):
+            ids = []
+
+            def rec(prev, t):
+                ids.append(t)
+                return on_token(prev, t)
+
+            try:
+                return _orig(first, rec, temperature, *a, **kw)
+            finally:
+                with lock:
+                    captured.append((list(kw["prompt_tokens"]), float(temperature), kw["seed"], ids))
+
+        slot.stream.stream_decode = wrapped
+
+
+def _reference_streams(server_api, state, args, captured: list) -> int:
+    """Phase 6c's correctness check: replay every greedy completion, in the
+    order the server finished them, through a second BatchScheduler on the
+    same engine and cache dtype with spec_draft 0 (the same prefix-cache
+    hits, so the same prefill pieces) and compare token ids. Returns the
+    number of tokens compared; a mismatch fails with its first diverging
+    position."""
+    ref_args = argparse.Namespace(**{**vars(args), "spec_draft": 0})
+    ref = server_api.ApiState(state.engine, state.tokenizer, state.slots[0].sampler, ref_args).batch
+    check(ref is not None and ref.spec_draft == 0 and ref._prefix is not None, "reference scheduler")
+    lane = ref._streams[0]
+    n = 0
+    for prompt, temperature, seed, ids in captured:
+        if temperature != 0.0:
+            continue
+        lane.reset()
+        first = lane.prefill_device(prompt, 0.0, 0.9, seed)
+        got = []
+
+        def on_token(prev, t):
+            got.append(t)
+            return len(got) < len(ids)
+
+        lane.stream_decode(first, on_token, 0.0, 0.9, seed=seed, limit=lane.pos + len(ids), first_prev=prompt[-1])
+        if got != ids:
+            at = next((i for i, (x, y) in enumerate(zip(got, ids)) if x != y), min(len(got), len(ids)))
+            fail(f"speculative stream differs from the spec_draft=0 stream at position {at} of "
+                 f"{len(ids)}: {ids[max(0, at - 2):at + 3]} vs {got[max(0, at - 2):at + 3]} "
+                 f"({len(prompt)}-token prompt, prefix hit {lane.matched_len} positions)")
+        n += len(ids)
+    lane.reset()
+    return n
+
+
+def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, extra=(), spec: bool = False) -> dict:
+    """Phase 6b (bf16 cache) and 6c (``extra`` = the int8 cache and
+    speculative decoding, ``spec`` True): the port's API server over the
+    7B-width model, batched (--parallel 4) with the prefix cache on."""
     from distributed_llama_tpu_torch.tokenizer import ChatItem
 
     args = server_api.build_parser().parse_args([
         "generate", "--model", model, "--tokenizer", tok_path, "--dtype", "q40", "--max-seq-len",
         str(SERVER_SEQ_LEN), "--parallel", "4", "--decode-chunk", "8", "--chat-template", "chatml",
-        "--host", "127.0.0.1", "--port", "0", "--temperature", "0"])
+        "--host", "127.0.0.1", "--port", "0", "--temperature", "0", *extra])
     t0 = time.perf_counter()
     server, state = server_api.make_server(args)
     sched = state.batch
     check(sched is not None and sched._prefix is not None, "the server did not build a paged BatchScheduler")
-    n_layers = state.engine.cfg.n_layers
+    engine = state.engine
+    cfg = engine.cfg
+    n_layers = cfg.n_layers
+    i8 = kvc.is_quantized_cache_dtype(engine.cache_dtype)
+    kernel = "paged_attention_i8" if i8 else "paged_attention"
     print(f"server up in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
-          f"the card, {sched._prefix.capacity} pool pages of {sched._prefix.page}")
+          f"the card, {sched._prefix.capacity} pool pages of {sched._prefix.page}, cache {engine.cache_dtype}, "
+          f"spec draft {sched.spec_draft}")
+    out: dict = {"cache_dtype": str(engine.cache_dtype), "spec_draft": sched.spec_draft}
+    # the KV memory of the slab and pool, beside what bf16 halves would take
+    slab_bytes = sum(kvc.half_bytes(leaf) for leaf in sched._slab)
+    pool_bytes = sum(kvc.half_bytes(h) for pair in sched._pool for h in pair)
+    bf16_slab = 2 * n_layers * sched.b_max * cfg.seq_len * cfg.n_kv_heads * cfg.head_size * 2
+    bf16_pool = sched._prefix.capacity * llama.page_pool_bytes(cfg, sched._prefix.page, torch.bfloat16)
+    check(pool_bytes == sched._prefix.capacity * llama.page_pool_bytes(cfg, sched._prefix.page, engine.cache_dtype),
+          "pool bytes differ from page_pool_bytes")
+    ratio = (slab_bytes + pool_bytes) / (bf16_slab + bf16_pool)
+    print(f"KV memory: slab {slab_bytes / 1e9:.3f} GB + pool {pool_bytes / 1e9:.3f} GB; bf16 halves of the same "
+          f"shape: {bf16_slab / 1e9:.3f} + {bf16_pool / 1e9:.3f} GB ({ratio:.4f}x)")
+    out.update(slab_bytes=slab_bytes, pool_bytes=pool_bytes, bf16_slab_bytes=bf16_slab, bf16_pool_bytes=bf16_pool)
+    captured: list = []
+    _capture_streams(state, captured)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
-    out: dict = {}
     try:
         def prompt_tokens(system: str, user: str) -> list[int]:
             text = state.template.generate([ChatItem("system", system), ChatItem("user", user)])
@@ -457,6 +562,7 @@ def server_run(server_api, attn, model: str, tok_path: str) -> dict:
 
         attn.reset_launches()  # the main path's counts start here
         f0 = sched.decode_forwards
+        s0 = (sched.spec_row_steps, sched.spec_drafted, sched.spec_emitted)
         status, ttft_cold, total_cold, events = _post(url, body("hello", True))
         check(status == 200 and events, "cold request failed")
         print(f"cold request: {n_prompt} prompt tokens, TTFT {ttft_cold * 1e3:.1f} ms, total {total_cold:.2f} s")
@@ -483,20 +589,39 @@ def server_run(server_api, attn, model: str, tok_path: str) -> dict:
             check(status == 200 and n_out > 0, f"{name}: status {status}, {n_out} outputs")
             print(f"  {name}: 200, {n_out} {'tokens' if isinstance(payload, dict) else 'SSE events'}, "
                   f"first response {ttft * 1e3:.1f} ms, total {total:.2f} s")
+        n_out_4 = sum(len(ids) for _, _, _, ids in captured[1:])
         status, ttft_hit, total_hit, events = _post(url, body("hello", True, seed=2))
         check(status == 200 and events, "lone hit request failed")
-        launches = attn.launches["paged_attention"]
+        launches = attn.launches[kernel]
+        others = {k: v for k, v in attn.launches.items() if k != kernel and v}
         forwards = sched.decode_forwards - f0
-        print(f"K2 launches {launches} = {n_layers} layers x {forwards} batched forwards; prefix hits "
-              f"{sched._prefix.hits}, misses {sched._prefix.misses}; lone hit TTFT {ttft_hit * 1e3:.1f} ms "
-              f"vs cold {ttft_cold * 1e3:.1f} ms")
+        print(f"K2 ({kernel}) launches {launches} = {n_layers} layers x {forwards} batched forwards; other K2 "
+              f"launches {others or 0}; prefix hits {sched._prefix.hits}, misses {sched._prefix.misses}; lone hit "
+              f"TTFT {ttft_hit * 1e3:.1f} ms vs cold {ttft_cold * 1e3:.1f} ms")
         check(launches == n_layers * forwards and forwards > 0, "K2 launches != n_layers x batched forwards")
+        check(not others, f"the server launched another form of K2: {others}")
         check(sched._prefix.hits >= 5, f"expected prefix hits, got {sched._prefix.hits}")
         sched.check_prefix()
         out.update(prompt_tokens=n_prompt, ttft_cold_ms=ttft_cold * 1e3, ttft_hit_alone_ms=ttft_hit * 1e3,
                    ttft_hit_concurrent_ms={k: v[1] * 1e3 for k, v in results.items() if k.endswith("SSE")},
-                   concurrent_wall_s=wall4, main_path_launches=launches, batched_forwards=forwards,
+                   concurrent_wall_s=wall4, concurrent_tokens=n_out_4, concurrent_tok_per_s=n_out_4 / wall4,
+                   main_path_launches=launches, batched_forwards=forwards,
                    prefix_hits=sched._prefix.hits, prefix_misses=sched._prefix.misses)
+        print(f"4 concurrent requests: {n_out_4} tokens in {wall4:.2f} s = {n_out_4 / wall4:.2f} tok/s "
+              f"(prefill included)")
+        if spec:
+            steps, drafted, emitted = (x - y for x, y in zip(
+                (sched.spec_row_steps, sched.spec_drafted, sched.spec_emitted), s0))
+            out.update(spec_row_steps=steps, spec_drafted=drafted, spec_accepted=emitted - steps,
+                       spec_emitted=emitted, tokens_per_verify_row_step=emitted / max(steps, 1))
+            print(f"verify steps: {steps} row-steps, {drafted} drafted, {emitted - steps} accepted, {emitted} "
+                  f"emitted = {emitted / max(steps, 1):.3f} tokens per row-step")
+            check(steps > 0, "no verify step was delivered")
+            n_cmp = _reference_streams(server_api, state, args, captured)
+            print(f"greedy speculative streams equal the spec_draft=0 scheduler's: {n_cmp} tokens over "
+                  f"{sum(1 for c in captured if c[1] == 0.0)} requests")
+            check(n_cmp > 0, "no greedy stream was compared")
+            out["greedy_tokens_compared"] = n_cmp
 
         # a hit's first-token logits against a cold prefill of the same prompt
         row = sched._streams[0]
@@ -514,7 +639,7 @@ def server_run(server_api, attn, model: str, tok_path: str) -> dict:
         row.reset()
         out.update(hit_vs_cold_logit_diff=err, hit_vs_cold_tol=tol)
 
-        # aggregate decode rate at 1 and 4 rows, straight through the lanes
+        # aggregate decode rate straight through the lanes (speculative in 6c)
         def decode_rows(n_rows, n_tok=32):
             lanes = sched._streams[:n_rows]
             firsts = []
@@ -523,38 +648,41 @@ def server_run(server_api, attn, model: str, tok_path: str) -> dict:
                 firsts.append(lane.prefill_device([1, 300 + r, 17, 42], 0.0, 0.9, 1))
             torch.cuda.synchronize()
 
-            def go(lane, first):
+            def go(lane, first, r):
                 lane.stream_decode(first, lambda p, t: True, 0.0, 0.9, seed=1, limit=lane.pos + n_tok,
-                                   first_prev=42)
+                                   first_prev=42, spec_draft=sched.spec_draft, prompt_tokens=[1, 300 + r, 17, 42])
 
-            ts = [threading.Thread(target=go, args=a) for a in zip(lanes, firsts)]
+            ts = [threading.Thread(target=go, args=(lane, first, r))
+                  for r, (lane, first) in enumerate(zip(lanes, firsts))]
+            f1 = sched.decode_forwards
             t = time.perf_counter()
             for th in ts:
                 th.start()
             for th in ts:
                 th.join()
             torch.cuda.synchronize()
-            return time.perf_counter() - t, n_rows * n_tok
+            return time.perf_counter() - t, n_rows * n_tok, sched.decode_forwards - f1
 
-        for n_rows in (1, 4):
+        for n_rows in (1, 4) if not spec else (4,):
             decode_rows(n_rows, 8)  # warm
-            wall, n_tok = decode_rows(n_rows)
+            wall, n_tok, steps = decode_rows(n_rows)
             out[f"decode_tok_per_s_{n_rows}_rows"] = n_tok / wall
-            print(f"aggregate decode at {n_rows} row(s): {n_tok / wall:.2f} tok/s ({wall:.2f} s for {n_tok} tokens)")
+            print(f"aggregate decode at {n_rows} row(s): {n_tok / wall:.2f} tok/s ({wall:.2f} s for {n_tok} tokens, "
+                  f"{steps} batched steps, {wall / steps * 1e3:.2f} ms per step)")
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_p, n_tok = decode_rows(4)
+            wall_p, n_tok, steps = decode_rows(4)
         busy_ms = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
         wall_ms = n_tok / out["decode_tok_per_s_4_rows"] * 1e3
         if busy_ms == 0.0:
             print("profiler recorded no device time: device idle share not measured")
         else:
-            out["device_busy_ms_per_step_4_rows"] = busy_ms / (n_tok / 4)
+            out["device_busy_ms_per_step_4_rows"] = busy_ms / steps
             out["device_idle_share_4_rows"] = 1 - busy_ms / wall_ms
-            print(f"4-row decode: device busy {busy_ms / (n_tok / 4):.2f} ms per batched step, idle "
-                  f"{100 * out['device_idle_share_4_rows']:.1f}% of the unprofiled {wall_ms / (n_tok / 4):.2f} ms")
+            print(f"4-row decode: device busy {busy_ms / steps:.2f} ms per batched step, idle "
+                  f"{100 * out['device_idle_share_4_rows']:.1f}% of the unprofiled {wall_ms / steps:.2f} ms")
     finally:
         server.shutdown()
         server.server_close()
@@ -571,6 +699,7 @@ def main() -> None:
     from distributed_llama_tpu_torch.engine import InferenceEngine
     from distributed_llama_tpu_torch.formats import synthetic
     from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.models import llama
     from distributed_llama_tpu_torch.ops import attention as attn
     from distributed_llama_tpu_torch.ops import cuda_build, q40
     from distributed_llama_tpu_torch.ops import kv_cache as kvc
@@ -707,22 +836,33 @@ def main() -> None:
         print(f"phase 6a: {time.perf_counter() - t:.1f} s")
 
         t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {N_LAYERS} layers")
-        summary["server"] = server_run(server_api, attn, model, tok)
+        summary["server"] = server_run(server_api, attn, kvc, llama, model, tok)
         main_launches["paged_attention"] = summary["server"]["main_path_launches"]
         print(f"phase 6b: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = phase(f"6c. the slice's path: the API server, --cache-dtype i8 --spec-draft 4, {N_LAYERS} layers")
+        summary["server_i8_spec"] = server_run(server_api, attn, kvc, llama, model, tok,
+                                               extra=("--cache-dtype", "i8", "--spec-draft", "4"), spec=True)
+        main_launches["paged_attention_i8"] = summary["server_i8_spec"]["main_path_launches"]
+        print(f"phase 6c: {time.perf_counter() - t:.1f} s")
 
     kernels = []
-    # K2 on the server's step: 4 rows, 32 kv heads, one query each, bf16
-    # cache, one launch per layer per batched forward
-    k2 = next(r for r in k2_rows if r["case"] == "B4 K32 M1" and r["T"] == 1 and r["dtype"] == "torch.bfloat16")
-    src, replaces = KERNEL_INFO["paged_attention"]
-    kernels_k2 = dict(
-        name="paged_attention", route="cuda", source=src, replaces=replaces,
-        launches=main_launches["paged_attention"],
-        max_abs_err=max(r["max_abs_err"] for r in k2_rows),
-        **{k: k2[k] * N_LAYERS for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        bound_by=k2["bound_by"],
-    )
+    # K2 on the servers' steps: 4 rows, 32 kv heads, one launch per layer
+    # per batched forward; a decode step (T=1) over the bf16 cache in 6b, a
+    # verify step (T=5) over the int8 cache in 6c
+    k2_entries = []
+    for name, dtype, T in (("paged_attention", "torch.bfloat16", 1), ("paged_attention_i8", "i8", 5)):
+        k2 = next(r for r in k2_rows if r["case"] == "B4 K32 M1" and r["T"] == T and r["dtype"] == dtype)
+        src, replaces = KERNEL_INFO[name]
+        k2_entries.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=main_launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in k2_rows if r["kernel"] == name),
+            **{k: k2[k] * N_LAYERS for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            bound_by=k2["bound_by"],
+        ))
     for name in ("q40_int8", "q40_dequant"):
         src, replaces = KERNEL_INFO[name]
         mine = [r for r in rows if r["kernel"] == name and r["T"] == 1]
@@ -736,7 +876,7 @@ def main() -> None:
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by="bytes" if bytes_bound else "operations", library_ms=tot["library_ms"],
         ))
-    kernels.append(kernels_k2)
+    kernels.extend(k2_entries)
     summary["kernels"] = kernels
     summary["total_s"] = time.perf_counter() - t_all
     OUT_FILE.parent.mkdir(exist_ok=True)
@@ -744,8 +884,9 @@ def main() -> None:
     print(f"\ntotal {summary['total_s']:.1f} s; details in {OUT_FILE}")
     print("kernel numbers: ms/plain_ms/bound_ms/library_ms are one decoded token's worth of "
           "launches at 32 layers (T=1, each shape times its launches per token; paged_attention: "
-          "one batched step of 4 rows at the phase-6a positions, 32 launches); "
-          "launches are the main path's (phase 5 for the Q40 kernels, phase 6b for paged_attention)")
+          "one batched decode step of 4 rows at the phase-6a positions, 32 launches; paged_attention_i8: "
+          "one batched verify step, T=5, of 4 rows there); launches are the main path's (phase 5 for "
+          "the Q40 kernels, phase 6b for paged_attention, phase 6c for paged_attention_i8)")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,6 +24,7 @@ from distributed_llama_tpu_torch.engine.weights import QUANTIZED_DTYPE
 from distributed_llama_tpu_torch.tokenizer import Sampler, Tokenizer, is_safe_piece
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "q40": QUANTIZED_DTYPE}
+_CACHE_DTYPES = {"auto": None, "bf16": torch.bfloat16, "f32": torch.float32, "i8": "i8"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,6 +48,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="chat template of the API server (default: sniffed from the tokenizer)")
     p.add_argument("--decode", choices=["device", "host"], default="device")
     p.add_argument("--decode-chunk", type=int, default=32, help="tokens per device decode chunk")
+    p.add_argument("--spec-draft", type=int, default=0,
+                   help="self-speculative decoding: up to K prompt-lookup draft tokens (n-gram matches over "
+                   "the request's own prompt and output) verified per step in one weight read; greedy output "
+                   "equals plain decode. 0 (default) = off; --decode device only")
+    p.add_argument("--spec-ngram", type=int, default=3,
+                   help="widest n-gram the prompt-lookup drafter matches (falls through to shorter ones)")
+    p.add_argument("--cache-dtype", choices=list(_CACHE_DTYPES), default="auto",
+                   help="KV cache dtype (auto = bf16, or f32 with --dtype f32); i8 stores int8 rows with "
+                   "per-(slot, head) scales: half the cache memory of bf16")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -55,6 +65,7 @@ def make_engine(args):
     engine = InferenceEngine(
         args.model, dtype=_DTYPES[args.dtype], max_seq_len=args.max_seq_len,
         device=args.device, q40_path=args.q40_path,
+        cache_dtype=_CACHE_DTYPES[getattr(args, "cache_dtype", "auto")],
     )
     tokenizer = Tokenizer.from_file(args.tokenizer, engine.cfg.vocab_size)
     # wall-clock as entropy for a default sampling seed, never a duration
@@ -132,7 +143,9 @@ def generate(args, benchmark: bool, built=None) -> dict:
 
         engine.stream_decode(
             first_dev, on_token, args.temperature, args.topp, seed=sampler.seed,
-            chunk=args.decode_chunk, limit=args.steps, first_prev=prompt_tokens[-1], topk=args.topk,
+            chunk=args.decode_chunk, limit=args.steps, first_prev=prompt_tokens[-1],
+            spec_draft=getattr(args, "spec_draft", 0), spec_ngram=getattr(args, "spec_ngram", 3),
+            prompt_tokens=prompt_tokens, topk=args.topk,
         )
         print_p_line()
     else:

@@ -29,9 +29,19 @@ The port's copy of the JAX package's ``engine/batch.py`` serving core.
 * Per-row seeds, temperatures, top-p and top-k ride the batched step;
   coins are keyed on (seed, position), so a row's stream equals the
   single-stream decode for the same seed.
+* With ``spec_draft`` k > 0 every dispatch is a speculative VERIFY step
+  (``sampling.spec_verify_chunk_batched``): each joined row's previous
+  token and up to k prompt-lookup drafts from its own history ride one
+  weight read, the accept/reject runs on the device, and rows advance a
+  variable 1..k+1 positions, applied when the step is fetched. A row whose
+  request asked for no speculation rides the same step with no drafts (a
+  plain decode step), so spec and plain requests share one slab. A verify
+  step is never dispatched while another is being fetched: its drafts
+  depend on that step's tokens.
+* The slab and the pool take the engine's cache dtype, "i8" included.
 
 Left out (each in ROADMAP.md): the stall watchdog, fault sites, retries,
-silent-corruption checks, preemption, speculative verify dispatch, the
+silent-corruption checks beyond the per-row token checks, preemption, the
 host spill tier, the tensor-parallel backend, telemetry spans and the lock
 witness. A plain ``threading.Condition`` guards the scheduler.
 
@@ -56,6 +66,7 @@ from distributed_llama_tpu_torch import prng
 from distributed_llama_tpu_torch.engine import integrity
 from distributed_llama_tpu_torch.engine.engine import Stopwatch, StreamStats, _prefill_bucket, _stats, next_pow2
 from distributed_llama_tpu_torch.engine.prefix_cache import PrefixCache
+from distributed_llama_tpu_torch.engine.speculative import PromptLookupDrafter
 from distributed_llama_tpu_torch.models import llama, sampling
 from distributed_llama_tpu_torch.ops import kv_cache as kvc
 from distributed_llama_tpu_torch.platform import HostFetch, to_device
@@ -100,6 +111,12 @@ class BatchStream(StreamStats):
         self._alias_ids: list[int] = []
         self.matched_len = 0
         self._fetch_error: BaseException | None = None
+        # speculative mode: the request's lookup corpus (prompt + emitted
+        # tokens, extended at delivery), its drafter, and whether it drafts
+        # at all (False rides the verify steps with zero drafts)
+        self._history: list[int] = []
+        self._drafter: PromptLookupDrafter | None = None
+        self._spec_on = False
 
     @property
     def cfg(self):
@@ -115,6 +132,9 @@ class BatchStream(StreamStats):
         self._clear_stats()
         self._fetch_error = None
         self.prefix_cache_enabled = True
+        self._history = []
+        self._drafter = None
+        self._spec_on = False
 
     def rollback(self, pos: int) -> None:
         """Rewind to ``pos``; slab slots beyond it are stale but unreachable.
@@ -146,22 +166,42 @@ class BatchStream(StreamStats):
 
     def stream_decode(self, first_token, on_token, temperature: float = 0.0, topp: float = 0.9, seed: int = 0,
                       chunk: int | None = None, limit: int | None = None, first_prev: int | None = None,
-                      topk: int = 0) -> int:
+                      spec_draft: int = 0, spec_ngram: int = 3, prompt_tokens=None, topk: int = 0) -> int:
         """EngineStream.stream_decode over the shared batched dispatch: the
         stream joins the scheduler's active set and consumes its row of
         every batched chunk (the scheduler's chunk size governs; ``chunk``
         is accepted for signature parity). Owns the early-stop rollback;
-        returns the tokens consumed."""
+        returns the tokens consumed.
+
+        With the scheduler in speculative mode every dispatch is a verify
+        step; ``spec_draft`` 0 on the call keeps this row's drafts empty,
+        ``prompt_tokens`` seeds its lookup corpus, and the scheduler's
+        drafter settings govern (``spec_ngram`` is accepted for signature
+        parity)."""
         sched = self.scheduler
         start_pos = self.pos
         stop = self.cfg.seq_len if limit is None else min(limit, self.cfg.seq_len)
         fused_first = first_prev is not None
+        spec_mode = sched.spec_draft > 0
         prev = first_prev if fused_first else int(first_token)
         consumed = 0
         keep = True
+        if spec_mode:
+            # the drafter needs host token values: the fused first token
+            # is fetched before the row joins
+            if fused_first:
+                tok = self._fetch_fused_first(first_token)
+                consumed = 1
+                keep = on_token(prev, tok)
+                prev = tok
+            self._history = [int(t) for t in (prompt_tokens if prompt_tokens is not None else [])]
+            self._history.append(prev)
+            self._drafter = None
+            self._spec_on = bool(spec_draft and spec_draft > 0)
+            first_token = prev  # host int: the next verify window's feed[0]
         sched._join(self, first_token, temperature, topp, seed, topk)
         try:
-            if fused_first:
+            if fused_first and not spec_mode:
                 # the first token is delivered before chunk 1 is issued (the
                 # JAX package issues first and fetches under the chunk's
                 # compute): its copy started at prefill, so the wait is the
@@ -191,7 +231,8 @@ class BatchScheduler:
     streams into one batched decode dispatch per chunk."""
 
     def __init__(self, engine, n_rows: int, chunk: int = 32, prefix_cache: bool = False,
-                 kv_pages: int | None = None, page_size: int = 64, prefill_chunk: int = 0):
+                 kv_pages: int | None = None, page_size: int = 64, prefill_chunk: int = 0,
+                 spec_draft: int = 0, spec_ngram: int = 3):
         if n_rows < 1:
             raise ValueError(f"need at least one batch row, got {n_rows}")
         self.engine = engine
@@ -223,6 +264,19 @@ class BatchScheduler:
                 self._pool = llama.init_page_pool(cfg, kv_pages, page_size, engine.cache_dtype, engine.device)
                 self._n_table = n_table
         self._slab = llama.init_batch_cache(cfg, n_rows, engine.cache_dtype, engine.device)
+        # speculative decode: spec_draft > 0 turns every dispatch into a
+        # verify step; misconfiguration disables it with its reason
+        self.spec_draft = 0
+        self.spec_ngram = max(1, int(spec_ngram))
+        if spec_draft and int(spec_draft) > 0:
+            if cfg.is_moe:
+                print("⚠️ speculative decode disabled: MoE verify windows have no decode parity contract")
+            else:
+                self.spec_draft = int(spec_draft)
+        # verify steps' row totals: rows stepped, drafted and emitted tokens
+        self.spec_row_steps = 0
+        self.spec_drafted = 0
+        self.spec_emitted = 0
         self._streams: list[BatchStream] = []
         self._cond = threading.Condition()
         # one dispatched-but-unfetched chunk at a time
@@ -491,7 +545,11 @@ class BatchScheduler:
     def _dispatch_locked(self) -> None:
         """Build and dispatch one batched chunk from the joined streams
         (lock held). Bucket rows that are not joined ride along inactive:
-        they write nothing and their outputs are discarded."""
+        they write nothing and their outputs are discarded. In speculative
+        mode the chunk is one verify step (:meth:`_dispatch_spec_locked`)."""
+        if self.spec_draft > 0:
+            self._dispatch_spec_locked()
+            return
         engine = self.engine
         joined = [s for s in self._streams if s._joined and s._fetch_error is None]
         if not joined:
@@ -524,13 +582,59 @@ class BatchScheduler:
             # the next chunk starts from this chunk's last token, on the device
             s._first = out[self.chunk - 1, s.row]
             s.pos += self.chunk
-        self._pending = (HostFetch(out), [(s, s._epoch) for s in joined], sw)
+        self._pending = ("chunk", HostFetch(out), [(s, s._epoch) for s in joined], sw, None)
+
+    def _dispatch_spec_locked(self) -> None:
+        """Build and dispatch one speculative verify step (lock held): each
+        joined row's window is its previous token and up to ``spec_draft``
+        prompt-lookup drafts from its own history, all rows in one
+        ``sampling.spec_verify_chunk_batched`` step. Positions advance at
+        delivery (the advance is data-dependent), so no verify step is
+        dispatched while another is being fetched."""
+        if self._fetching:
+            return
+        engine = self.engine
+        joined = [s for s in self._streams if s._joined and s._fetch_error is None]
+        if not joined:
+            return
+        bucket = decode_bucket(max(s.row for s in joined) + 1, self.b_max)
+        rows = self._streams[:bucket]
+        T, S = self.spec_draft + 1, engine.cfg.seq_len
+        live, pos, temps, topps, topks, seeds, tables, matched = self._row_dispatch_arrays_locked(rows)
+        feed = np.zeros((bucket, T), np.int64)
+        lens = np.zeros(bucket, np.int64)
+        for s, ok in zip(rows, live):
+            if not ok:
+                continue
+            feed[s.row, :] = int(s._first)  # padding positions write stale, unreachable K/V
+            # accepted positions stay inside the cache: never draft past seq_len
+            budget = max(0, min(self.spec_draft, S - s.pos - 1))
+            if budget > 0 and s._spec_on:
+                if s._drafter is None:
+                    s._drafter = PromptLookupDrafter(self.spec_draft, max_ngram=self.spec_ngram)
+                d = s._drafter.draft(s._history, limit=budget)
+                feed[s.row, 1 : 1 + len(d)] = d
+                lens[s.row] = len(d)
+        dev = engine.device
+        sw = Stopwatch()
+        out, self._slab = sampling.spec_verify_chunk_batched(
+            engine.cfg, engine.params, to_device(feed, dev), self._slab, pos, live, to_device(lens, dev),
+            to_device(temps, dev, torch.float32), to_device(topps, dev, torch.float32),
+            to_device(topks, dev, torch.int64), to_device(seeds, dev, torch.int64),
+            paged=None if self._pool is None else (self._pool, tables, matched), path=engine.q40_path,
+            sampled=any(t > 0.0 for t, ok in zip(temps, live) if ok))
+        self.decode_forwards += 1
+        self._pending = ("spec", HostFetch(out), [(s, s._epoch) for s in joined], sw, lens)
 
     def _fetch(self, pend) -> None:
         """Wait for a dispatched chunk's host copy (no lock held) and deliver
         each joined row's column to its queue. A row whose tokens are out of
         vocab or whose logits were non-finite is retired alone."""
-        fetch, snapshot, sw = pend
+        mode, fetch, snapshot, sw, lens = pend
+        if mode == "spec":
+            self._deliver_spec(fetch.wait(), snapshot, sw, lens)
+            self._drain_if_idle()
+            return
         toks, _, finite = integrity.split_chunk_outputs(fetch.wait(), self.chunk)
         entry = _stats(sw.elapsed_ms() / self.chunk)
         vocab = self.engine.cfg.vocab_size
@@ -553,3 +657,34 @@ class BatchScheduler:
                 s.stats.extend([entry] * self.chunk)
             self._cond.notify_all()
         self._drain_if_idle()
+
+    def _deliver_spec(self, out: np.ndarray, snapshot, sw, lens) -> None:
+        """Deliver one fetched verify step: row b's ``out[b]`` is [n_emit,
+        tokens...]. Each row advances by its n_emit, extends its history and
+        queues the emitted tokens; a row whose n_emit falls outside 1..(its
+        own drafts + 1) or whose tokens are out of vocab is retired alone."""
+        vocab = self.engine.cfg.vocab_size
+        step_ms = sw.elapsed_ms()
+        with self._cond:
+            self._fetching = False
+            for s, epoch in snapshot:
+                if not (s._joined and s._epoch == epoch):
+                    continue
+                n_emit = int(out[s.row, 0])
+                col = out[s.row, 1 : 1 + n_emit]
+                # the row's own draft budget bounds n_emit: a value past it
+                # would advance the position beyond the dispatch's seq_len clamp
+                if not 1 <= n_emit <= int(lens[s.row]) + 1 or not ((col >= 0) & (col < vocab)).all():
+                    s._fetch_error = RowQuarantined("batch row retired: verify step produced corrupt tokens")
+                    self._release_pins_locked(s)
+                    continue
+                toks = [int(t) for t in col]
+                s.pos += n_emit
+                s._first = toks[-1]  # host int: the next window's feed[0]
+                s._history.extend(toks)
+                s._queue.extend(toks)
+                s.stats.append(_stats(step_ms, n_emit))
+                self.spec_row_steps += 1
+                self.spec_drafted += int(lens[s.row])
+                self.spec_emitted += n_emit
+            self._cond.notify_all()

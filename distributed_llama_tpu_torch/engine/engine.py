@@ -282,13 +282,23 @@ class EngineStream(StreamStats):
 
     def stream_decode(self, first_token, on_token, temperature: float = 0.0, topp: float = 0.9,
                       seed: int = 0, chunk: int = 32, limit: int | None = None,
-                      first_prev: int | None = None, topk: int = 0) -> int:
+                      first_prev: int | None = None, spec_draft: int = 0, spec_ngram: int = 3,
+                      prompt_tokens=None, topk: int = 0) -> int:
         """Drive the chunked decode with host-side stop handling.
         ``on_token(prev, token) -> bool`` is called per decoded token (False
         stops). With ``first_prev`` set, ``first_token`` is an unseen
         :meth:`prefill_device` scalar that is also passed to ``on_token``.
         On exit the position is rewound to just after the last decoded
-        token's feed. Returns the number of decoded tokens."""
+        token's feed. Returns the number of decoded tokens.
+
+        ``spec_draft`` > 0 routes through self-speculative decoding
+        (:meth:`_stream_decode_spec`): prompt-lookup drafts over
+        ``prompt_tokens`` and the emitted output are verified up to
+        ``spec_draft`` at a time in one weight read per step. Greedy output
+        is the same either way."""
+        if spec_draft and spec_draft > 0:
+            return self._stream_decode_spec(first_token, on_token, temperature, topp, seed, spec_draft,
+                                            spec_ngram, limit, first_prev, prompt_tokens, topk)
         start_pos = self.pos
         consumed = 0
         fused_first = first_prev is not None
@@ -309,17 +319,89 @@ class EngineStream(StreamStats):
             self.rollback(min(start_pos + fed, self.pos))
         return consumed
 
+    def _stream_decode_spec(self, first_token, on_token, temperature: float, topp: float, seed: int,
+                            spec_draft: int, spec_ngram: int, limit: int | None, first_prev: int | None,
+                            prompt_tokens, topk: int = 0) -> int:
+        """Self-speculative decode: per step the host drafts up to
+        ``spec_draft`` tokens by prompt lookup over the prompt and the
+        output so far, one verify forward scores draft and bonus positions
+        in a single weight read, and the on-device accept/reject keeps the
+        longest valid prefix: 1..k+1 tokens per weight read. Each step is
+        issued and fetched before the next, by design: the next drafts
+        depend on this step's tokens. The [T+1] result comes back through
+        :class:`HostFetch`."""
+        from distributed_llama_tpu_torch.engine.speculative import PromptLookupDrafter
+
+        engine = self.engine
+        seed32 = prng.fold_seed(seed)
+        stop = engine.cfg.seq_len if limit is None else min(limit, engine.cfg.seq_len)
+        drafter = PromptLookupDrafter(spec_draft, max_ngram=spec_ngram)
+        # the lookup corpus: the prompt (without the first decoded token,
+        # appended below) and everything emitted
+        history = [int(t) for t in (prompt_tokens if prompt_tokens is not None else [])]
+        start_pos = self.pos
+        fused = first_prev is not None
+        consumed = 0
+        keep = True
+        try:
+            if fused:
+                # the drafter needs the first token's host value before it
+                # can propose anything: this fetch is the step boundary
+                prev = self._fetch_fused_first(first_token)
+                consumed = 1
+                history.append(prev)
+                keep = on_token(first_prev, prev)
+            else:
+                prev = int(first_token)
+                history.append(prev)
+            while keep is not False:
+                fed = consumed - 1 if fused else consumed
+                if start_pos + fed >= stop:
+                    break
+                # the window never writes past seq_len: it shrinks at the tail
+                T = min(spec_draft + 1, engine.cfg.seq_len - self.pos)
+                if T < 1:
+                    break
+                draft = drafter.draft(history, limit=T - 1)
+                feed = np.full(T, prev, np.int64)  # padding positions write stale K/V
+                feed[1 : 1 + len(draft)] = draft
+                sw = Stopwatch()
+                out_dev, self.cache = sampling.spec_verify_step(
+                    engine.cfg, engine.params, to_device(feed, engine.device), self.cache, self.pos, len(draft),
+                    float(temperature), float(topp), int(topk), seed32, engine.q40_path)
+                out = HostFetch(out_dev).wait()  # [T+1]: n_emit, tokens...
+                self.forwards += 1
+                n_emit = max(1, min(int(out[0]), T))
+                toks = [int(t) for t in out[1 : 1 + n_emit]]
+                self.pos += n_emit
+                self.stats.append(_stats(sw.elapsed_ms(), n_emit))
+                for t in toks:
+                    consumed += 1
+                    history.append(t)
+                    keep = on_token(prev, t)
+                    prev = t
+                    fed = consumed - 1 if fused else consumed
+                    if keep is False or start_pos + fed >= stop:
+                        break
+        finally:
+            # positions past the last consumed token (a rejected draft, or
+            # tokens emitted past an early stop) are stale: rewind to it
+            fed = max(consumed - 1, 0) if fused else consumed
+            self.rollback(min(start_pos + fed, self.pos))
+        return consumed
+
 
 class InferenceEngine:
     """One model instance on one device. ``dtype`` is "q40" (4-bit weights
-    through the CUDA kernels), torch.bfloat16 or torch.float32 (the KV cache
-    takes bf16 for q40, else the weights' dtype);
+    through the CUDA kernels), torch.bfloat16 or torch.float32;
+    ``cache_dtype`` is the KV cache's (default bf16 for q40, else the
+    weights' dtype; "i8" stores int8 rows with per-(slot, head) scales);
     ``q40_path`` picks the int8 kernel ("int8", the default) or the bf16
     dequant kernel ("f32"). ``device`` defaults to the card and raises
     without one; pass "cpu" to run the kernels' plain versions."""
 
     def __init__(self, model_path: str, dtype="q40", max_seq_len: int | None = None,
-                 device="cuda", q40_path: str = "int8"):
+                 device="cuda", q40_path: str = "int8", cache_dtype=None):
         from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
         from distributed_llama_tpu_torch.models.config import config_from_spec
 
@@ -330,8 +412,10 @@ class InferenceEngine:
         reader = ModelFileReader(model_path)
         self.spec = reader.spec.clamp_seq_len(max_seq_len)
         self.cfg = config_from_spec(self.spec)
-        # q40 is a weights-only format; its KV cache is bf16
-        self.cache_dtype = torch.bfloat16 if dtype == weights_lib.QUANTIZED_DTYPE else dtype
+        if cache_dtype is None:
+            # q40 is a weights-only format; its KV cache is bf16
+            cache_dtype = torch.bfloat16 if dtype == weights_lib.QUANTIZED_DTYPE else dtype
+        self.cache_dtype = cache_dtype
         self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device)
         reader.close()
         self._default: EngineStream | None = None

@@ -247,16 +247,90 @@ def forward_step_batched(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     return final_logits(cfg, params, x, path), cache
 
 
-def init_batch_cache(cfg: LlamaConfig, b_max: int, dtype: torch.dtype, device) -> list:
+def attention_verify_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l, pos: torch.Tensor,
+                             rope_rows: torch.Tensor, write, path: str = "int8", paged=None):
+    """One speculative-verify attention step of B independent T-token
+    windows (x [B, T, dim]): row b's query t sits at ``pos[b] + t`` (device
+    read positions, inactive rows 0), its K/V land per ``write``
+    (:func:`ops.kv_cache.verify_write_index`: inactive rows and slots at or
+    beyond S write nothing) in one indexed copy per layer, and it attends
+    its own slab row causally. Returns (mix [B, T, H*hd], cache_l)."""
+    B, T = x.shape[0], x.shape[1]
+    S = cache_l.shape[2]
+    hd = cfg.head_size
+    # projections and rope are per token: one matmul per matrix for all B*T
+    q, k, v = project_qkv(cfg, lp, x.reshape(B * T, -1), rope_rows.reshape((B * T,) + rope_rows.shape[2:]), path)
+    H, K = q.shape[1], k.shape[1]
+    k, v = k.reshape(B, T, K, hd), v.reshape(B, T, K, hd)
+    kvc.fused_update_verify_batched(cache_l, k, v, write)
+    keys, values = cache_l[0], cache_l[1]
+    cdt = kvc.compute_dtype(keys)
+    qg = q.reshape(B, T, K, H // K, hd).to(cdt)
+    use_blocked = S % ATT_CHUNK == 0 and S > ATT_CHUNK
+    from distributed_llama_tpu_torch.ops.attention import batched_verify_attention
+
+    if use_blocked and (paged is None or ATT_CHUNK % kvc.pool_page_size(paged[0]) == 0):
+        att = batched_verify_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK, paged=paged)
+        return att.reshape(B, T, H * hd), cache_l
+    keys_b, values_b = keys[:B], values[:B]
+    if paged is not None:
+        pool_k, pool_v, tables, matched = paged
+        keys_b = kvc.virtual_rows_batched(keys_b, pool_k, tables, matched)
+        values_b = kvc.virtual_rows_batched(values_b, pool_v, tables, matched)
+        if use_blocked:
+            att = batched_verify_attention(qg.to(torch.float32), keys_b.contiguous(), values_b.contiguous(),
+                                           pos, ATT_CHUNK)
+            return att.reshape(B, T, H * hd), cache_l
+    scores = kvc.scores_einsum_verify(qg, keys_b) / math.sqrt(hd)
+    q_pos = pos[:, None] + torch.arange(T, device=x.device)[None, :]
+    mask = torch.arange(S, device=x.device)[None, None, :] <= q_pos[:, :, None]
+    scores = torch.where(mask[:, :, None, None, :], scores, float("-inf"))
+    att = kvc.mix_einsum_verify(softmax(scores, dim=-1), values_b, cdt).reshape(B, T, H * hd)
+    return att, cache_l
+
+
+def forward_verify_batched(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache: list, pos, active,
+                           path: str = "int8", paged=None):
+    """The speculative-decode verify forward: every row's T-token window
+    (tokens int [B, T] on the device: the previous token and up to T-1
+    drafts) at host positions ``pos`` in one weight read. ``logits[b, t]``
+    is the next-token distribution after ``tokens[b, :t+1]``; the T == 1
+    case is :func:`forward_step_batched`. ``active`` (host bools) masks rows
+    that write no K/V and read from position 0. Returns (logits f32
+    [B, T, vocab], cache)."""
+    S = cfg.seq_len
+    B, T = tokens.shape
+    dev = tokens.device
+    pos, active = [int(p) for p in pos], [bool(a) for a in active]
+    read_pos = to_device([p if a else 0 for p, a in zip(pos, active)], dev, torch.int64)
+    rope_rows = params["rope_table"][to_device([[min(max(p + t, 0), S - 1) for t in range(T)] for p in pos],
+                                               dev, torch.int64)]
+    write = kvc.verify_write_index(pos, active, T, S, dev)
+    x = embed(cfg, params, tokens.reshape(-1)).reshape(B, T, -1)
+    for l, lp in enumerate(params["layers"]):
+        paged_l = None
+        if paged is not None:
+            pool, tables, matched = paged
+            paged_l = (pool[l][0], pool[l][1], tables, matched)
+        att, cache[l] = attention_verify_batched(cfg, x, lp, cache[l], read_pos, rope_rows, write, path,
+                                                 paged=paged_l)
+        x = block_tail(cfg, x.reshape(B * T, -1), att.reshape(B * T, -1), lp, path).reshape(B, T, -1)
+    logits = final_logits(cfg, params, x.reshape(B * T, -1), path)
+    return logits.reshape(B, T, -1), cache
+
+
+def init_batch_cache(cfg: LlamaConfig, b_max: int, dtype, device) -> list:
     """Slab KV cache for ``b_max`` rows: per-layer fused [2, b_max, S, K, hd]
-    leaves; ``leaf[0]``/``leaf[1]`` are the (keys, values) halves."""
+    leaves (``"i8"``: int8 data and [2, b_max, S, K, 1] f32 scales);
+    ``leaf[0]``/``leaf[1]`` are the (keys, values) halves."""
     shape = (b_max, cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
     return [kvc.init_fused(shape, dtype, device) for _ in range(cfg.n_layers)]
 
 
-def init_page_pool(cfg: LlamaConfig, n_pages: int, page: int, dtype: torch.dtype, device) -> list:
+def init_page_pool(cfg: LlamaConfig, n_pages: int, page: int, dtype, device) -> list:
     """Prefix-cache page pool: per-layer ``(keys, values)`` halves of
-    [n_pages, page, K, hd]. Its memory is n_pages x :func:`page_pool_bytes`."""
+    [n_pages, page, K, hd] (int8 with scales for ``"i8"``). Its memory is
+    n_pages x :func:`page_pool_bytes`."""
     return [
         tuple(kvc.init_page_pool_half(n_pages, page, cfg.n_kv_heads, cfg.head_size, dtype, device)
               for _ in range(2))
@@ -264,13 +338,20 @@ def init_page_pool(cfg: LlamaConfig, n_pages: int, page: int, dtype: torch.dtype
     ]
 
 
-def page_pool_bytes(cfg: LlamaConfig, page: int, dtype: torch.dtype) -> int:
-    """KV bytes one pool page holds across all layers and both halves."""
-    return 2 * cfg.n_layers * page * cfg.n_kv_heads * cfg.head_size * torch.empty(0, dtype=dtype).element_size()
+def page_pool_bytes(cfg: LlamaConfig, page: int, dtype) -> int:
+    """KV bytes one pool page holds across all layers and both halves
+    (int8 data plus f32 scales for ``"i8"``)."""
+    kl, hd = cfg.n_kv_heads, cfg.head_size
+    if kvc.is_quantized_cache_dtype(dtype):
+        per_half = page * kl * hd + page * kl * 4
+    else:
+        per_half = page * kl * hd * torch.empty(0, dtype=dtype).element_size()
+    return 2 * cfg.n_layers * per_half
 
 
-def init_cache(cfg: LlamaConfig, dtype: torch.dtype, device) -> list:
+def init_cache(cfg: LlamaConfig, dtype, device) -> list:
     """Per-layer fused [2, S, K, hd] cache leaves (the JAX package's
-    ``layered=True`` layout, the only one ported)."""
+    ``layered=True`` layout, the only one ported; ``"i8"`` builds int8
+    leaves with per-(slot, head) scales)."""
     shape = (cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
     return [kvc.init_fused(shape, dtype, device) for _ in range(cfg.n_layers)]

@@ -263,3 +263,134 @@ def decode_chunk_batched_paged(cfg: LlamaConfig, params, first_tokens, cache, po
                                                temperature, topp, topk, paged=(pool, tables, matched),
                                                path=path, may_partition=may_partition)
     return integrity.pack_chunk_outputs(tokens, h, ok), cache
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative decoding: the host drafts up to k tokens by prompt lookup
+# (engine/speculative.py), one verify forward scores [prev, d_1..d_k] in one
+# weight read, and the accept/reject below runs on the device, so only
+# (n_emit, tokens) cross to the host per step.
+# ---------------------------------------------------------------------------
+
+
+def _filtered_dist(logits, temperature, topp, topk):
+    """The renormalized filtered distribution p [R, V] the speculative
+    accept/redraw draws from, for logits [R, V] with per-row settings [R]:
+    the fused sampler's candidate semantics (descending scaled logit, ties
+    by lower id; top-k and nucleus prefix) as a mask and a renormalization.
+    Returns (p, greedy targets [R])."""
+    logits = logits.to(torch.float32)
+    greedy_targets = torch.argmax(logits, dim=-1)
+    scaled = logits / torch.clamp_min(temperature, 1e-6)[:, None]
+    probs = llama.softmax(scaled, dim=-1)
+    order = torch.sort(scaled, dim=-1, descending=True, stable=True).indices
+    pv = torch.gather(probs, 1, order)
+    n_keep = _keep_count(pv, torch.cumsum(pv, dim=-1), topp, topk)
+    ranks = torch.empty_like(order).scatter_(1, order, torch.arange(order.shape[-1], device=order.device)
+                                             .expand_as(order).contiguous())
+    filt = torch.where(ranks < n_keep[:, None], probs, 0.0)
+    return filt / filt.sum(dim=-1, keepdim=True), greedy_targets
+
+
+def _cdf_pick(p, coin):
+    """Vocab-order inverse-CDF draw from per-row distributions ``p`` [R, V]
+    with coins [R] (mass scaled by the row total, so zeroed entries never
+    draw)."""
+    cdf = torch.cumsum(p, dim=-1)
+    r = coin * cdf[:, -1]
+    return torch.clamp_max((cdf <= r[:, None]).sum(dim=-1), p.shape[-1] - 1)
+
+
+def spec_accept_rows(logits, draft, draft_len, seeds, pos, temperature, topp, topk, sampled: bool = True):
+    """Accept/reject each row's draft against its verify logits.
+
+    ``logits`` [B, T, V] f32 (T = k + 1): ``logits[b, i]`` is the next-token
+    distribution after feed position i (stream position pos[b] + i);
+    ``draft`` [B, k] (entries at or beyond ``draft_len[b]`` are padding);
+    ``draft_len``, ``seeds``, ``pos``, ``temperature``, ``topp``, ``topk``
+    [B] on the device. Returns (n_emit [B], tokens [B, T]): ``tokens[b,
+    :n_emit[b]]`` are the accepted drafts and one correction or bonus token.
+
+    Greedy rows (temperature 0) accept the longest prefix equal to the
+    argmax targets, so every emitted token is plain decode's argmax at its
+    position. Sampled rows run Leviathan rejection sampling with the
+    point-mass draft: position i accepts with probability p_i(draft_i) on
+    the coin keyed (seed, pos + i, DRAW_SPEC_ACCEPT), and a rejection
+    redraws from p with the draft token removed on the DRAW_SPEC_REDRAW coin
+    of the emit position. ``sampled`` False (the caller knows every row is
+    greedy) skips the filtered distribution, which greedy rows never read.
+    The per-row pass of the JAX package's ``_spec_accept_row``, batched over
+    rows."""
+    B, T, V = logits.shape
+    k = T - 1
+    dev = logits.device
+    t_idx = torch.arange(T, device=dev)
+    if sampled:
+        rep = lambda v: v[:, None].expand(B, T).reshape(-1)  # noqa: E731
+        p, greedy_targets = _filtered_dist(logits.reshape(B * T, V), rep(temperature), rep(topp), rep(topk))
+        p, greedy_targets = p.reshape(B, T, V), greedy_targets.reshape(B, T)
+    else:
+        greedy_targets = torch.argmax(logits.to(torch.float32), dim=-1)
+    greedy = temperature == 0.0
+    draft = draft.to(torch.int64)
+    in_draft = t_idx[None, :k] < draft_len[:, None]
+    ok = draft == greedy_targets[:, :k]
+    if sampled:
+        steps = pos.to(torch.int64)[:, None] + t_idx[None, :]
+        seeds_bt = seeds[:, None].expand(B, T)
+        u = prng.device_coin(seeds_bt, steps, prng.DRAW_SPEC_ACCEPT)
+        redraw = prng.device_coin(seeds_bt, steps, prng.DRAW_SPEC_REDRAW)
+        p_draft = torch.gather(p[:, :k], 2, draft[..., None])[..., 0]
+        ok = torch.where(greedy[:, None], ok, u[:, :k] < p_draft)
+    n_acc = torch.cumprod((ok & in_draft).to(torch.int64), dim=1).sum(dim=1)
+    corr = torch.gather(greedy_targets, 1, n_acc[:, None])[:, 0]
+    if sampled:
+        q = torch.where(torch.arange(V, device=dev)[None, None, :] == draft[..., None], 0.0, p[:, :k])
+        resid = _cdf_pick(q.reshape(B * k, V), redraw[:, :k].reshape(-1)).reshape(B, k)
+        full = _cdf_pick(p.reshape(B * T, V), redraw.reshape(-1)).reshape(B, T)
+        resid = torch.cat([resid, torch.zeros((B, 1), dtype=resid.dtype, device=dev)], dim=1)
+        rejected = n_acc < draft_len
+        corr_sampled = torch.where(rejected, torch.gather(resid, 1, n_acc[:, None])[:, 0],
+                                   torch.gather(full, 1, n_acc[:, None])[:, 0])
+        corr = torch.where(greedy, corr, corr_sampled)
+    draft_padded = torch.cat([draft, torch.zeros((B, 1), dtype=draft.dtype, device=dev)], dim=1)
+    tokens = torch.where(t_idx[None, :] < n_acc[:, None], draft_padded, 0)
+    tokens = torch.where(t_idx[None, :] == n_acc[:, None], corr[:, None], tokens)
+    return n_acc + 1, tokens
+
+
+def spec_verify_step(cfg: LlamaConfig, params, feed, cache, pos: int, draft_len: int, temperature: float,
+                     topp: float, topk: int, seed32: int, path: str = "int8"):
+    """One single-stream speculative step: the verify forward (T = len(feed)
+    tokens from host position ``pos``) and the on-device accept/reject.
+    Returns (out int64 [T+1] = [n_emit, tokens...] on the device, cache).
+    Cache slots past the accepted prefix hold rejected drafts' K/V: stale
+    but unreachable, since the next step writes them before any query can
+    see them."""
+    dev = params["embedding"].device
+    logits, cache = llama.forward_tokens(cfg, params, feed, cache, pos, path)
+    row = lambda v, dt: to_device([v], dev, dt)  # noqa: E731
+    n_emit, tokens = spec_accept_rows(
+        logits[None], feed[None, 1:], row(draft_len, torch.int64), row(seed32, torch.int64),
+        row(pos, torch.int64), row(temperature, torch.float32), row(topp, torch.float32),
+        row(topk, torch.int64), sampled=temperature != 0.0)
+    return torch.cat([n_emit, tokens[0]]), cache
+
+
+def spec_verify_chunk_batched(cfg: LlamaConfig, params, feed, cache, pos, active, draft_len, temperature, topp,
+                              topk, seeds, paged=None, path: str = "int8", sampled: bool = True):
+    """One batched speculative step: every row's verify window (feed int
+    [B, T] on the device) rides one weight read
+    (:func:`llama.forward_verify_batched`) and the per-row accept/reject
+    runs on the device. ``pos``/``active`` are host sequences; the rest are
+    [B] device tensors; ``paged`` = (pool, tables, matched) reads each
+    row's matched prefix from the page pool. Returns (out [B, T+1] with
+    ``out[b] = [n_emit_b, tokens_b...]``, cache): rows advance a variable
+    number of positions, which the caller applies once it has the result.
+    Inactive rows compute garbage into dropped cache slots."""
+    logits, cache = llama.forward_verify_batched(cfg, params, feed, cache, pos, active, path, paged)
+    dev = feed.device
+    n_emit, tokens = spec_accept_rows(logits, feed[:, 1:], draft_len, seeds,
+                                      to_device([int(p) for p in pos], dev, torch.int64), temperature, topp, topk,
+                                      sampled=sampled)
+    return torch.cat([n_emit[:, None], tokens], dim=1), cache

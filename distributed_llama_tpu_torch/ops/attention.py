@@ -9,7 +9,8 @@ through K2, the hand-written fused paged-attention kernel
 (``csrc/paged_attention.cu``, replacing the Pallas ``_fused_paged_attention``):
 its wrappers :func:`fused_paged_decode_attention` and
 :func:`fused_paged_verify_attention` launch it for CUDA tensors and count
-each launch in :data:`launches`; for CPU tensors they compute its plain
+each launch in :data:`launches`, by cache kind (bf16/f32 halves, or int8
+halves with per-slot scales); for CPU tensors they compute its plain
 version, the segmented chunk scan (:func:`_segmented_batched_scan`).
 
 On the card every batched step takes the kernel, paged or not (a row with
@@ -29,7 +30,7 @@ _NEG_INF = float("-inf")
 
 # kernel name -> launches since the last reset_launches(); the wrapper adds
 # one where it launches the CUDA kernel and nowhere else
-launches: dict[str, int] = {"paged_attention": 0}
+launches: dict[str, int] = {"paged_attention": 0, "paged_attention_i8": 0}
 
 
 def reset_launches() -> None:
@@ -258,16 +259,48 @@ def paged_attention_plain(qg, keys, values, pos, chunk: int, paged=None) -> torc
     return o / torch.clamp_min(l, 1e-30)[..., None]
 
 
-def _fused_paged_eligible(keys, paged, chunk: int) -> bool:
-    """Shape gate of K2: chunks are whole pages and the slab blocks evenly."""
+def _fused_paged_eligible(keys, values, paged, chunk: int) -> bool:
+    """Gate of K2: slab and pool halves share one quantization class (all
+    int8 with scales, or none), chunks are whole pages and the slab blocks
+    evenly. Mixed classes raise: no operand set of the kernel fits them."""
+    quant = isinstance(keys, kvc.QuantizedKV)
+    halves = (values,) if paged is None else (values, paged[0], paged[1])
+    if any(isinstance(h, kvc.QuantizedKV) is not quant for h in halves):
+        raise ValueError("paged_attention: keys, values and the pool halves mix int8 and float caches")
     page = chunk if paged is None else kvc.pool_page_size(paged[0])
     return chunk % page == 0 and keys.shape[1] % chunk == 0
 
 
+def _check_half(name: str, h, rows: int | None, n: int, K: int, hd: int, dev, dtype) -> None:
+    """A K2 operand half: contiguous on ``dev``, [rows, n, K, hd] of
+    ``dtype`` (rows None: any count, a pool; a quantized half holds int8
+    data and [rows, n, K, 1] f32 scales)."""
+    parts = ((h.data, torch.int8, hd), (h.scales, torch.float32, 1)) if isinstance(h, kvc.QuantizedKV) \
+        else ((h, dtype, hd),)
+    for t, dt, last in parts:
+        if not (t.device == dev and t.dtype == dt and t.is_contiguous() and t.dim() == 4
+                and tuple(t.shape[1:]) == (n, K, last) and (rows is None or t.shape[0] >= rows)):
+            raise ValueError(f"paged_attention: {name} must be a contiguous {dt} tensor "
+                             f"[{'P' if rows is None else f'>= {rows}'}, {n}, {K}, {last}] on {dev}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _ptrs(h) -> tuple[int, int]:
+    """(data pointer, scales pointer or 0) of a K2 operand half."""
+    if h is None:
+        return 0, 0
+    if isinstance(h, kvc.QuantizedKV):
+        return h.data.data_ptr(), h.scales.data_ptr()
+    return h.data_ptr(), 0
+
+
 def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Tensor:
     """Launch K2 for CUDA tensors (or raise); compute its plain version for
-    CPU tensors. ``paged`` None reads only the slab (matched 0)."""
+    CPU tensors. ``paged`` None reads only the slab (matched 0). Float
+    halves launch the bf16/f32 form (counted as ``paged_attention``), int8
+    halves the int8 form (``paged_attention_i8``)."""
     dev = qg.device
+    eligible = _fused_paged_eligible(keys, values, paged, chunk)
     if dev.type == "cpu":
         return paged_attention_plain(qg, keys, values, pos, chunk, paged)
     if dev.type != "cuda":
@@ -277,15 +310,14 @@ def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Te
     T = qg.shape[1] if verify else 1
     K, M = qg.shape[-3], qg.shape[-2]
     S = keys.shape[1]
-    if not _fused_paged_eligible(keys, paged, chunk):
+    if not eligible:
         raise ValueError(f"paged_attention: chunk {chunk} must be whole pages and divide S {S}")
+    quant = isinstance(keys, kvc.QuantizedKV)
+    dtype = keys.dtype
+    if not quant and dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"paged_attention: cache dtype {dtype} (bf16, f32, or int8 with scales)")
     for name, t in (("keys", keys), ("values", values)):
-        if t.device != dev or t.dtype not in (torch.bfloat16, torch.float32) or not t.is_contiguous():
-            raise ValueError(f"paged_attention: {name} must be a contiguous bf16/f32 tensor on {dev}")
-        if t.shape[0] < B or tuple(t.shape[1:]) != (S, K, hd):
-            raise ValueError(f"paged_attention: {name} shape {tuple(t.shape)} does not hold {B} rows of {(S, K, hd)}")
-    if values.dtype != keys.dtype:
-        raise ValueError("paged_attention: keys and values differ in dtype")
+        _check_half(name, t, B, S, K, hd, dev, dtype)
     q = qg.to(torch.float32).contiguous()
     pos32 = pos.to(device=dev, dtype=torch.int32).contiguous()
     if paged is None:  # matched 0: the kernel reads neither the pool nor the table
@@ -296,9 +328,7 @@ def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Te
         pool_k, pool_v, tables, matched = paged
         page = kvc.pool_page_size(pool_k)
         for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
-            if t.device != dev or t.dtype != keys.dtype or not t.is_contiguous() or tuple(t.shape[2:]) != (K, hd):
-                raise ValueError(f"paged_attention: {name} must be a contiguous [P, page, {K}, {hd}] "
-                                 f"{keys.dtype} tensor on {dev}")
+            _check_half(name, t, None, page, K, hd, dev, dtype)
         tables = tables.to(device=dev, dtype=torch.int32).contiguous()
         matched = matched.to(device=dev, dtype=torch.int32).contiguous()
         n_table = tables.shape[1]
@@ -308,14 +338,14 @@ def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Te
 
     fn = cuda_build.function("paged_attention")
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
-    err = fn(q.data_ptr(), keys.data_ptr(), values.data_ptr(),
-             0 if pool_k is None else pool_k.data_ptr(), 0 if pool_v is None else pool_v.data_ptr(),
+    (sk, sks), (sv, svs), (pk, pks), (pv, pvs) = map(_ptrs, (keys, values, pool_k, pool_v))
+    err = fn(q.data_ptr(), sk, sv, pk, pv, sks, svs, pks, pvs,
              tables.data_ptr(), pos32.data_ptr(), matched.data_ptr(), out.data_ptr(),
-             B, T, K, M, hd, S, page, n_table, chunk, int(keys.dtype == torch.bfloat16),
+             B, T, K, M, hd, S, page, n_table, chunk, 2 if quant else int(dtype == torch.bfloat16),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
-    launches["paged_attention"] += 1
+    launches["paged_attention_i8" if quant else "paged_attention"] += 1
     return out
 
 

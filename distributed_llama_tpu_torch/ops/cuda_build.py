@@ -33,7 +33,7 @@ _I = ctypes.c_int
 KERNELS = {
     "q40_int8": ("q40_int8.cu", "q40_int8_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "q40_dequant": ("q40_dequant.cu", "q40_dequant_matmul", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "paged_attention": ("paged_attention.cu", "paged_attention", [_P] * 9 + [_I] * 10 + [_P]),
+    "paged_attention": ("paged_attention.cu", "paged_attention", [_P] * 13 + [_I] * 10 + [_P]),
 }
 
 _lock = threading.Lock()

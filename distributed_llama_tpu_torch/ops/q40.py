@@ -270,11 +270,28 @@ def q40_int8(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, scales: torch
     return out
 
 
+# row count below which matmuls and row norms run at exactly this many rows
+ROW_BUCKET = 64
+
+
+def _at_row_bucket(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a row-wise op on x [N, ...], run on x zero-padded to
+    ROW_BUCKET rows when N is smaller. The summation order of cuBLAS's
+    matmul and of PyTorch's row reductions may depend on the row count;
+    at one fixed shape a decode step (B rows), a verify window (B*T rows)
+    and a single-stream step all give each row the value of that row
+    alone, so a speculative step computes what plain decode computes."""
+    n = x.shape[0]
+    if x.dim() != 2 or n >= ROW_BUCKET:
+        return fn(x)
+    return fn(torch.nn.functional.pad(x, (0, 0, 0, ROW_BUCKET - n)))[:n]
+
+
 def _true_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in full f32 (no TF32): the bias correction is ~5x the output
     magnitude, so TF32 rounding would leak straight into the result."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    return a @ b
+    return _at_row_bucket(lambda x: x @ b, a)
 
 
 def _int8_core(xq: torch.Tensor, sx: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
@@ -384,9 +401,10 @@ def q40_matmul(x: torch.Tensor, qm: QuantizedMatrix, path: str = "int8") -> torc
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMS-normalize over the last axis in f32, result in x.dtype — the one
     rmsnorm definition the fused entry below inlines."""
-    xf = x.to(torch.float32)
-    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (weight.to(torch.float32) * (xf * torch.rsqrt(ms + eps))).to(x.dtype)
+    def norm(xf):
+        return weight.to(torch.float32) * (xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps))
+
+    return _at_row_bucket(norm, x.to(torch.float32)).to(x.dtype)
 
 
 def rmsnorm_q40_matmul(x: torch.Tensor, weight: torch.Tensor, qm: QuantizedMatrix,

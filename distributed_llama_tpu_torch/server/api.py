@@ -8,6 +8,10 @@ replica over one engine: SSE streaming and plain JSON responses, per-request
 temperature / top-p / top-k / seed / max_tokens / stop overrides, and the
 ``NaiveCache`` longest-message-prefix reuse of each lane's KV cache.
 
+``--cache-dtype i8`` keeps the KV cache (slab and page pool) in int8 with
+per-(slot, head) scales; ``--spec-draft k`` decodes speculatively with
+prompt-lookup drafts, on batched and single-stream lanes alike.
+
 ``--parallel N`` (default 2) serves N completions concurrently. With N > 1
 and ``--batch-decode`` (the default, with ``--decode device``) the N lanes
 are rows of one :class:`~distributed_llama_tpu_torch.engine.batch.BatchScheduler`:
@@ -150,6 +154,7 @@ class ApiState:
             engine, n_rows=n, chunk=getattr(args, "decode_chunk", 32),
             prefix_cache=getattr(args, "prefix_cache", True), kv_pages=getattr(args, "kv_pages", None),
             page_size=getattr(args, "kv_page_size", 64), prefill_chunk=getattr(args, "prefill_chunk", 256),
+            spec_draft=getattr(args, "spec_draft", 0), spec_ngram=getattr(args, "spec_ngram", 3),
         )
 
     def _acquire_slot(self, messages: list[dict]) -> StreamSlot:
@@ -270,9 +275,13 @@ class ApiState:
                         return False
                     return emitted < max_new
 
+                # --spec-draft k: prompt-lookup drafts over this request's
+                # prompt and output, verified k at a time in one weight read
                 engine.stream_decode(first_dev, on_token, params["temperature"], topp, seed=seed,
                                      chunk=getattr(self.args, "decode_chunk", 32), limit=max_pos,
-                                     first_prev=prompt_tokens[-1], topk=topk)
+                                     first_prev=prompt_tokens[-1], spec_draft=getattr(self.args, "spec_draft", 0),
+                                     spec_ngram=getattr(self.args, "spec_ngram", 3), prompt_tokens=prompt_tokens,
+                                     topk=topk)
         elif max_new > 0:
             # --decode host: each token samples on the host from fetched
             # logits; the counter sampler replays the device stream

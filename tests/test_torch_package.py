@@ -45,7 +45,8 @@ def test_port_sources_exist():
     for mod in ("quants", "formats/model_file", "formats/tokenizer_file", "tokenizer",
                 "models/config", "ops/q40", "models/rope", "ops/kv_cache", "ops/attention",
                 "models/llama", "engine/weights", "prng", "models/sampling", "engine/engine",
-                "apps/cli", "engine/integrity", "engine/prefix_cache", "engine/batch", "server/api"):
+                "apps/cli", "engine/integrity", "engine/prefix_cache", "engine/batch", "server/api",
+                "engine/speculative"):
         assert f"distributed_llama_tpu_torch/{mod}.py" in names
     for src in ("q40_int8.cu", "q40_dequant.cu", "paged_attention.cu"):
         assert (ROOT / "distributed_llama_tpu_torch" / "csrc" / src).is_file()

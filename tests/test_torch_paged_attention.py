@@ -6,11 +6,14 @@ its own tests run it, and against its XLA segmented scan
 Inputs are made with numpy from a seed: a slab of B_max = 4 rows (3 read),
 S = 1024, a page pool of 64-position pages, per-row page tables, and
 positions/matched lengths chosen so that the pool-only, mixed and
-slab-only segments all occur. Tolerance, as a share of max |out|: 1e-6
+slab-only segments all occur. The int8 cache's halves are each package's
+``quantize_rows`` of the same f32 inputs (bit-identical,
+tests/test_torch_kv_int8.py). Tolerance, as a share of max |out|: 1e-6
 for an f32 cache (products are exact in f32 in both packages; only the
-order of f32 sums and an ulp of exp differ) and 4e-4 for a bf16 cache (the
-softmax weights are rounded to bf16 before the value mix, and an ulp of
-exp can flip one such rounding, as tests/test_torch_attention.py reads it).
+order of f32 sums and an ulp of exp differ) and 4e-4 for a bf16 or int8
+cache (the softmax weights, for int8 after the value scale folds in, are
+rounded to bf16 before the value mix, and an ulp of exp can flip one such
+rounding, as tests/test_torch_attention.py reads it).
 The verify window is held only at tolerance: the JAX kernel's own verify
 bit-parity test fails at this tree.
 """
@@ -28,8 +31,32 @@ from distributed_llama_tpu_torch.ops import attention as tattn
 from distributed_llama_tpu_torch.ops import kv_cache as tkvc
 
 S, CHUNK, PAGE, B_MAX, K, M, HD, P = 1024, 512, 64, 4, 2, 2, 16, 20
-TOL = {"f32": 1e-6, "bf16": 4e-4}
-DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"f32": 1e-6, "bf16": 4e-4, "i8": 4e-4}
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16), "i8": ("i8", "i8")}
+
+
+def _jhalf(a: np.ndarray, dtype):
+    """A JAX cache half (or leaf) holding f32 values ``a`` in ``dtype``."""
+    if dtype == "i8":
+        return jkvc.QuantizedKV(*jkvc.quantize_rows(jnp.asarray(a)))
+    return jnp.asarray(a).astype(DTYPES[dtype][0])
+
+
+def _thalf(a: np.ndarray, dtype):
+    """The port's cache half (or leaf) holding f32 values ``a`` in ``dtype``."""
+    if dtype == "i8":
+        return tkvc.QuantizedKV(*tkvc.quantize_rows(torch.from_numpy(a)))
+    return torch.from_numpy(a).to(DTYPES[dtype][1])
+
+
+def _np(h) -> list:
+    """The stored arrays of a half of either package (data and scales for
+    int8), as numpy."""
+    if isinstance(h, (jkvc.QuantizedKV, tkvc.QuantizedKV)):
+        return _np(h.data) + _np(h.scales)
+    if isinstance(h, torch.Tensor):
+        return [h.numpy() if h.dtype in (torch.int8, torch.float32) else h.float().numpy()]
+    return [np.asarray(h if h.dtype in (jnp.int8, jnp.float32) else h.astype(jnp.float32))]
 
 # name -> (pos [B], matched [B], T): the segments each case visits
 CASES = {
@@ -60,22 +87,22 @@ def _inputs(case, dtype):
 
 
 def _jax(q, slab, pool, tables, pos, matched, dtype):
-    jdt = DTYPES[dtype][0]
-    slab, pool = jnp.asarray(slab).astype(jdt), jnp.asarray(pool).astype(jdt)
+    slab, pool = _jhalf(slab, dtype), _jhalf(pool, dtype)
     return (jnp.asarray(q), slab[0], slab[1], jnp.asarray(pos),
             (pool[0], pool[1], jnp.asarray(tables), jnp.asarray(matched)))
 
 
 def _torch(q, slab, pool, tables, pos, matched, dtype):
-    tdt = DTYPES[dtype][1]
-    slab, pool = torch.from_numpy(slab).to(tdt), torch.from_numpy(pool).to(tdt)
+    slab, pool = _thalf(slab, dtype), _thalf(pool, dtype)
     return (torch.from_numpy(q), slab[0], slab[1], torch.from_numpy(pos),
             (pool[0], pool[1], torch.from_numpy(tables), torch.from_numpy(matched)))
 
 
 # the JAX kernel in interpret mode takes ~9 s a case on the CPU: it is the
-# reference for one case per segment mix and dtype, the XLA scan for all
-FUSED_REF = {("mixed_then_slab", "f32"), ("pool_then_mixed", "bf16"), ("verify_pool_then_mixed", "f32")}
+# reference for a few cases (one decode and one verify for int8), the XLA
+# scan for all
+FUSED_REF = {("mixed_then_slab", "f32"), ("pool_then_mixed", "bf16"), ("verify_pool_then_mixed", "f32"),
+             ("pool_then_mixed", "i8"), ("verify_mixed_then_slab", "i8")}
 
 
 def _port(arrays, dtype, verify):
@@ -139,20 +166,23 @@ def test_publish_and_paged_reads_match_jax(dtype):
     rng = np.random.RandomState(3)
     slab = rng.randn(2, S, K, HD).astype(np.float32)
     ids, src = [4, 2, 0, P], [0, 1, 2, 3]  # the last entry is padding: dropped
-    jpool = jkvc.publish_row_pages(jkvc.init_page_pool_half(P, PAGE, K, HD, jdt), jnp.asarray(slab).astype(jdt),
+    jpool = jkvc.publish_row_pages(jkvc.init_page_pool_half(P, PAGE, K, HD, jdt), _jhalf(slab, dtype),
                                    jnp.int32(1), jnp.asarray(src, jnp.int32), jnp.asarray(ids, jnp.int32), PAGE)
     tpool = tkvc.publish_row_pages(tkvc.init_page_pool_half(P, PAGE, K, HD, tdt, "cpu"),
-                                   torch.from_numpy(slab).to(tdt), 1, src, ids, PAGE)
-    np.testing.assert_array_equal(tpool.float().numpy(), np.asarray(jpool.astype(jnp.float32)))
+                                   _thalf(slab, dtype), 1, src, ids, PAGE)
+    for got, want in zip(_np(tpool), _np(jpool), strict=True):
+        np.testing.assert_array_equal(got, want)
     table = np.zeros(S // PAGE, np.int32)
     table[:3] = ids[:3]
-    jrow = jnp.asarray(slab[0]).astype(jdt)
-    trow = torch.from_numpy(slab[0]).to(tdt)
+    jrow = _jhalf(slab[0], dtype)
+    trow = _thalf(slab[0], dtype)
     for matched in (0, 130, 192):
         want = jkvc.virtual_row(jrow, jpool, jnp.asarray(table), jnp.int32(matched))
         got = tkvc.virtual_row(trow, tpool, torch.from_numpy(table), matched)
-        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+        for g, w in zip(_np(got), _np(want), strict=True):
+            np.testing.assert_array_equal(g, w)
     want = jkvc.pool_chunk_row(jpool, jnp.asarray(table), 0, CHUNK // PAGE)
     got = tkvc.pool_chunk_row(tpool, torch.from_numpy(table), 0, CHUNK // PAGE)
-    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    for g, w in zip(_np(got), _np(want), strict=True):
+        np.testing.assert_array_equal(g, w)
 

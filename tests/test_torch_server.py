@@ -5,7 +5,8 @@ tokenizer (a ChatML template) with two batched lanes and the prefix cache
 on. A greedy conversation runs through both: a plain JSON completion, the
 same prompt again as SSE on the other lane (a prefix-cache hit), and a
 follow-up turn that resumes the first lane's chat-prefix cache. Texts,
-finish reasons and usage must be identical. The port's HTTP handler then
+finish reasons and usage must be identical, with the default cache and with
+``--cache-dtype i8 --spec-draft 3``. The port's HTTP handler then
 serves /v1/models, an SSE stream, and a 429 past the admission queue.
 """
 
@@ -51,10 +52,10 @@ def files(tmp_path_factory):
     return str(d / "m.m"), str(d / "t.t")
 
 
-def torch_state(files, **overrides):
+def torch_state(files, cache_dtype=None, **overrides):
     model, tok = files
     args = types.SimpleNamespace(**{**ARGS, **overrides})
-    engine = TorchEngine(model, dtype=torch.float32, device="cpu")
+    engine = TorchEngine(model, dtype=torch.float32, device="cpu", cache_dtype=cache_dtype)
     sampler = TorchSampler(vocab_size=SPEC["vocab_size"], temperature=0.0, topp=0.9, seed=1)
     return tapi.ApiState(engine, TorchTokenizer.from_file(tok), sampler, args)
 
@@ -90,17 +91,42 @@ def test_api_state_matches_jax(monkeypatch, files):
     assert state.slots[0].cache.items  # the follow-up resumed a lane's chat-prefix cache
 
 
+@pytest.mark.parametrize("parallel", [2, 1])
+def test_api_state_i8_spec_matches_jax(monkeypatch, files, parallel):
+    """The same conversation with the int8 KV cache and speculative decoding
+    (3 drafts per verify step) on both servers: batched lanes with the
+    prefix cache, and one single-stream lane."""
+    monkeypatch.setenv("DLT_FUSED_PAGED", "0")
+    model, tok = files
+    spec = dict(spec_draft=3, spec_ngram=3, parallel=parallel)
+    jstate = JaxApiState(JaxEngine(model, dtype=jnp.float32, cache_dtype="i8"), JaxTokenizer.from_file(tok),
+                         JaxSampler(vocab_size=SPEC["vocab_size"], temperature=0.0, topp=0.9, seed=1),
+                         types.SimpleNamespace(**{**ARGS, **spec}))
+    want = conversation(jstate)
+    state = torch_state(files, cache_dtype="i8", **spec)
+    got = conversation(state)
+    assert got == want
+    if parallel > 1:
+        assert state.batch.spec_draft == 3 and state.batch.spec_row_steps > 0
+        assert state.batch._prefix.hits >= 1
+    else:
+        assert state.batch is None and state.engine.cache_dtype == "i8"
+
+
 def _post(url, body):
     req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     return urllib.request.urlopen(req, timeout=60)
 
 
-def test_concurrent_clients_get_their_single_stream_answers(files):
+@pytest.mark.parametrize("cache_dtype,spec_draft", [(None, 0), ("i8", 3)])
+def test_concurrent_clients_get_their_single_stream_answers(files, cache_dtype, spec_draft):
     """Stress: 12 client threads (more than the cores) share 3 batched lanes
     through the bounded queue, with a short interpreter switch interval;
-    every greedy answer equals the one a lone single-stream lane gives, and
-    the prefix tree's invariants hold at the end."""
+    every greedy answer equals the one a lone single-stream lane gives
+    without speculation, and the prefix tree's invariants hold at the end.
+    The second case serves with the int8 cache and speculative decoding,
+    whose rows advance by a variable count per verify step."""
     prompts = [f"hello {'world ' * (i % 4)}{i}" for i in range(12)]
 
     def ask(state, i):
@@ -108,9 +134,10 @@ def test_concurrent_clients_get_their_single_stream_answers(files):
                 "max_tokens": 5}
         return state.complete(body, lambda s: None)["choices"][0]["message"]["content"]
 
-    lone = torch_state(files, parallel=1)
+    lone = torch_state(files, cache_dtype=cache_dtype, parallel=1)
     want = [ask(lone, i) for i in range(len(prompts))]
-    state = torch_state(files, parallel=3, admission_queue=len(prompts))
+    state = torch_state(files, cache_dtype=cache_dtype, parallel=3, admission_queue=len(prompts),
+                        spec_draft=spec_draft)
     got: dict = {}
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
