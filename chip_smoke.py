@@ -18,11 +18,15 @@ Phases (any failure exits non-zero):
 5. write a Q40 `.m` file at full Llama-2-7B width (random blocks from a
    seed) and a tokenizer padded to vocab 32000, and drive the port's CLI
    ``generate``/``inference`` entry with ``--dtype q40 --decode device``:
-   greedy twice, sampled twice, and once on the f32 (dequant) kernel path;
-   assert identical streams for identical seeds, tokens in range, and
-   4 * n_layers + 1 kernel launches per forward; then show the chunk
-   pipeline's delivery: chunk k's tokens reach the host while chunk k+1
-   still runs (the delivery lag before and after the pinned-copy repair);
+   greedy twice, sampled twice, once on the f32 (dequant) kernel path and
+   once greedy with ``--spec-draft 4``; assert identical streams for
+   identical seeds, the speculative stream equal to the plain greedy one
+   token for token, tokens in range, and 4 * n_layers + 1 kernel launches
+   per forward; hold a verify window's logits against the same decode
+   steps' (0 apart with per-position attention; the T-row einsums' gap is
+   reported as the size before the repair); then show the chunk pipeline's
+   delivery: chunk k's tokens reach the host while chunk k+1 still runs
+   (the delivery lag before and after the pinned-copy repair);
 6. (a) hold K2, the paged-attention kernel, against its plain version at
    Llama-2-7B heads (K=32, M=1, hd=128; and a K=8, M=4 GQA case), S=2048,
    page 64, rows whose matched lengths put chunks in the pool-only, mixed
@@ -45,7 +49,23 @@ Phases (any failure exits non-zero):
    with their drafted/accepted counts and tokens per row-step, the KV
    bytes of slab and pool beside bf16's, and every greedy completion's
    token ids equal to what a spec_draft=0 BatchScheduler on the same engine
-   and cache decodes for the same prompt.
+   and cache decodes for the same prompt;
+7. (a) hold K4, the ring all-reduce kernel, against its plain version bit
+   for bit on every rank, for 2 and 4 ranks at [1, 4096] and [16, 4096],
+   timed against the bound (n inputs read and n outputs written over
+   3.35 TB/s, beside the measured launch floor), the plain version and the
+   library yardstick (torch.stack(xs).sum(0) and n copies);
+   (b) hold K5, the int8 matmul fused into the ring, bit for bit against
+   the K1 kernel, then the bias correction, then the K4 kernel, and within
+   K1's tolerance of its plain version, at the 7B wo and down shard shapes
+   for tp = 2 and 4 (T = 1 and 8), timed likewise (library: per-rank
+   dequantize + bf16 matmul, then the stacked sum);
+   (c) the slice's path: the CLI ``generate`` at 7B width, 32 layers, with
+   ``--tp 1``, then ``--tp 2 --allreduce ring`` and ``--tp 4 --allreduce
+   ring`` (the ranks share the card): K4 and K5 launched, every rank's
+   residual stream byte-identical, first-step logits within 2.5e-2 of max
+   |logit| of tp=1's, the greedy tokens matching tp=1's before the first
+   divergence counted, and ms/token beside the device-busy ms/token.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -103,6 +123,19 @@ KERNEL_INFO = {
                            "distributed_llama_tpu/ops/attention.py:371 (_fused_paged_attention, "
                            "int8 halves :389-413)"),
 }
+KERNEL_INFO.update({
+    "ring_all_reduce": ("distributed_llama_tpu_torch/csrc/ring_all_reduce.cu",
+                        "distributed_llama_tpu/ops/collectives.py:460 (_make_ring_kernel)"),
+    "fused_matmul_ring": ("distributed_llama_tpu_torch/csrc/fused_matmul_ring.cu",
+                          "distributed_llama_tpu/ops/collectives.py:181 (_make_fused_matmul_ring_kernel)"),
+})
+DIM, HIDDEN = 4096, 11008  # Llama-2-7B widths of the tensor-parallel shards
+TP_SIZES = (2, 4)
+# phase 7c: tp=n logits against tp=1's in the same run, of max |logit|: the
+# ranks' partial sums associate differently and Q80 re-quantization
+# amplifies an ulp apart (the JAX package's own tp=2/tp=4 q40 logits differ
+# from its tp=1 logits by 1.70% / 1.40% of max |logit| on its test model)
+TP_LOGIT_TOL = 2.5e-2
 SERVER_SEQ_LEN = 2048  # --max-seq-len of the phase-6 server
 K2_S, K2_PAGE = 2048, 64
 # (label, K, M, pos per row, matched per row): the segment mixes of phase 6a
@@ -326,6 +359,241 @@ def k2_checks(attn, kvc, dtypes=(torch.bfloat16, torch.float32, "i8")) -> list:
             del sets
             torch.cuda.empty_cache()
     return rows
+
+
+def launch_floor_ms() -> float:
+    """Device ms of the smallest kernel, an in-place add to one element,
+    timed as the kernels are (one CUDA graph of many launches): the floor
+    under any one launch."""
+    tiny = torch.zeros(1, device="cuda")
+    return cuda_ms(lambda i: tiny.add_(1.0), reps=200)
+
+
+def k4_checks(coll) -> list:
+    """Phase 7a: K4 against its plain version, bit for bit on every rank,
+    for n = 2 and 4 ranks at the decode payload [1, 4096] and a prefill
+    payload [16, 4096], timed against the bound (n inputs read and n outputs
+    written over 3.35 TB/s), the plain version and the library yardstick
+    (torch.stack(xs).sum(0) and the n copies)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for n in TP_SIZES:
+        for R in (1, 16):
+            xs = [torch.randn((R, DIM), device=dev, generator=g) for _ in range(n)]
+            got = coll.ring_all_reduce(xs)
+            want = coll.ring_all_reduce_plain(xs)
+            torch.cuda.synchronize()
+            check(all(torch.equal(o, got[0]) for o in got), f"K4 n={n} R={R}: ranks hold different bytes")
+            check(all(torch.equal(o, w) for o, w in zip(got, want)), f"K4 n={n} R={R}: differs from its plain version")
+            err = max((o - w).abs().max().item() for o, w in zip(got, want))
+            ms = cuda_ms(lambda i: coll.ring_all_reduce(xs), reps=200)
+            plain_ms = event_ms(lambda i: coll.ring_all_reduce_plain(xs), reps=20)
+
+            def library(i):
+                s = torch.stack(xs).sum(0)
+                return [s.clone() for _ in range(n)]
+
+            lib_ms = cuda_ms(library, reps=50)
+            bound_ms = 2 * n * R * DIM * 4 / HBM_BYTES_PER_S * 1e3
+            row = dict(kernel="ring_all_reduce", n=n, R=R, d=DIM, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by="bytes")
+            rows.append(row)
+            print(f"ring_all_reduce n={n} [{R}, {DIM}] bit-equal to plain on every rank; kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms library {lib_ms:.4f} ms bound {bound_ms:.6f} ms (bytes)", flush=True)
+    return rows
+
+
+def k5_checks(q40, coll) -> list:
+    """Phase 7b: K5 at the 7B wo and down shard shapes for tp = 2 and 4
+    (T = 1, and T = 8, a prefill bucket): bit-equal to the K1 kernel, then
+    the bias correction, then the K4 kernel on the same inputs, and within
+    K1's tolerance of its plain version; timed against the bound (the whole
+    matrix's Q40 bytes, the activations, corrections and the n outputs over
+    3.35 TB/s), the plain version and the library yardstick (per rank
+    dequantize + bf16 matmul, then the stacked sum)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for n in TP_SIZES:
+        for shape, (n_full, d) in (("wo", (DIM, DIM)), ("down", (HIDDEN, DIM))):
+            n_shard = n_full // n
+            n_pad = q40._n_padded(n_shard)
+            w_bytes = n * (n_pad // 2 * d + n_pad // 32 * d * 4)
+            copies = max(2, math.ceil(256e6 / w_bytes))  # each timed launch reads its weights cold
+            sets = [[q40.QuantizedMatrix(
+                torch.randint(0, 256, (n_pad // 2, d), dtype=torch.uint8, device=dev, generator=g),
+                torch.rand((n_pad // 32, d), device=dev, generator=g) / (4.6 * math.sqrt(n_full)),
+                n_logical=n_shard, d_logical=d) for _ in range(n)] for _ in range(copies)]
+            for T in (1, 8):
+                xs = [torch.randn((T, n_shard), device=dev, generator=g).to(torch.bfloat16) for _ in range(n)]
+                qms = sets[0]
+                check(coll.fused_ring_eligible(xs, qms), f"K5 {shape} tp={n} T={T} not eligible")
+                l0 = coll.launches["fused_matmul_ring"]
+                fused = coll.fused_matmul_ring_all_reduce(xs, qms)
+                check(coll.launches["fused_matmul_ring"] == l0 + 1, "K5 did not launch")
+                unfused = coll.ring_all_reduce([q40._int8_core(*q40.quantize_for(x, qm), qm)
+                                                for x, qm in zip(xs, qms)])
+                preps = [q40.quantize_for(x, qm) for x, qm in zip(xs, qms)]
+                corrs = [q40.bias_correction(xq, sx, qm) for (xq, sx), qm in zip(preps, qms)]
+                args = ([p[0] for p in preps], [p[1] for p in preps], corrs)
+                plain = coll.fused_matmul_ring_plain(*args, [qm.qs for qm in qms], [qm.scales for qm in qms])
+                torch.cuda.synchronize()
+                check(all(torch.equal(f, fused[0]) for f in fused), f"K5 {shape} tp={n}: ranks hold different bytes")
+                check(all(torch.equal(f, u) for f, u in zip(fused, unfused)),
+                      f"K5 {shape} tp={n} T={T}: differs from K1 + correction + K4")
+                err = (fused[0] - plain[0]).abs().max().item()
+                scale = plain[0].abs().max().item()
+                check(math.isfinite(err) and err <= TOL_REL["q40_int8"] * scale,
+                      f"K5 {shape} tp={n} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
+
+                def run(i):
+                    c = sets[i % copies]
+                    return coll.fused_matmul_ring(*args, [qm.qs for qm in c], [qm.scales for qm in c])
+
+                ms = cuda_ms(run, reps=50)
+                plain_ms = event_ms(lambda i: coll.fused_matmul_ring_plain(
+                    *args, [qm.qs for qm in qms], [qm.scales for qm in qms]), reps=3)
+
+                def library(i):
+                    c = sets[i % copies]
+                    return torch.stack([x @ q40.dequantize_tpu(qm).to(torch.bfloat16) for x, qm in zip(xs, c)]).sum(0)
+
+                lib_ms = cuda_ms(library, reps=5, warmup=1)
+                need_bytes = w_bytes + n * T * (n_pad + n_pad // 32 * 4) + 2 * n * T * d * 4
+                bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = 2.0 * T * n * n_pad * d / INT8_OPS_PER_S * 1e3
+                row = dict(kernel="fused_matmul_ring", shape=shape, tp=n, n_shard=n_shard, d=d, T=T,
+                           max_abs_err=err, max_rel_err=err / max(scale, 1e-30), tol_rel=TOL_REL["q40_int8"],
+                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                rows.append(row)
+                print(f"fused_matmul_ring {shape:5s} tp={n} T={T} == K1 + correction + K4 bit for bit; err vs plain "
+                      f"{err:.3e} (rel {row['max_rel_err']:.1e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                      f"library {lib_ms:.4f} ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            del sets
+            torch.cuda.empty_cache()
+    return rows
+
+
+def tp_runs(cli, llama, coll, q40, model: str, tok: str) -> dict:
+    """Phase 7c: the CLI ``generate`` at 7B width with ``--tp 1``, ``--tp 2
+    --allreduce ring`` and ``--tp 4 --allreduce ring`` on one card. For each
+    tp > 1: K4 and K5 launched on the run, every rank's residual stream
+    byte-identical after a prefill, first-step logits within TP_LOGIT_TOL of
+    max |logit| of tp=1's, and the greedy tokens matching tp=1's before the
+    first divergence; ms/token and device-busy ms/token of each tp."""
+    prompt = "hello world, hello hello world " * 3
+
+    def args(tp):
+        return cli.build_parser().parse_args([
+            "inference", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--decode", "device",
+            "--max-seq-len", str(SEQ_LEN), "--steps", "64", "--decode-chunk", "8", "--temperature", "0",
+            "--seed", "1", "--prompt", prompt, "--tp", str(tp), "--allreduce", "ring"])
+
+    out: dict = {}
+    ref_logits = ref_tokens = None
+    for tp in (1, *TP_SIZES):
+        t_load = time.perf_counter()
+        built = cli.make_engine(args(tp))
+        engine = built[0]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t_load
+        prompt_tokens = built[1].encode(prompt, add_bos=True)
+        check(len(prompt_tokens) > 8, "the phase-7 prompt must prefill past the K5 gate (T > 8)")
+        engine.reset()
+        logits = engine.prefill(prompt_tokens)
+        check(bool(np.isfinite(logits).all()) and logits.shape == (engine.cfg.vocab_size,), "tp logits")
+        row = dict(tp=tp, load_s=load_s, transfer_ms_per_token=engine._transfer_ms)
+        if tp > 1:
+            # every rank's residual stream after the prompt, byte for byte
+            caches = engine.tp_backend.init_cache(engine.cache_dtype)
+            toks = torch.tensor(prompt_tokens, dtype=torch.int64, device=engine.device)
+            xs, _ = llama.forward_hidden_tp(engine.cfg, engine.params, toks, caches, 0, "int8", "ring")
+            check(all(torch.equal(x, xs[0]) for x in xs), f"tp={tp}: rank residual streams differ")
+            del caches, xs
+            err = float(np.abs(logits - ref_logits).max())
+            tol = TP_LOGIT_TOL * float(np.abs(ref_logits).max())
+            print(f"tp={tp}: ranks' residual streams byte-identical; first-step logits vs tp=1 max diff {err:.4g} "
+                  f"(tolerance {tol:.4g}, {TP_LOGIT_TOL} of max |logit|), argmax {int(logits.argmax())} vs "
+                  f"{int(ref_logits.argmax())}")
+            check(err <= tol, f"tp={tp}: first-step logits differ from tp=1's by {err} > {tol}")
+            row.update(logit_diff=err, logit_tol=tol, residuals_identical=True)
+        else:
+            ref_logits = logits
+        engine.reset()
+        coll.reset_launches()
+        q40.reset_launches()
+        stream = engine.default_stream
+        f0 = stream.forwards
+        res = cli.generate(args(tp), benchmark=False, built=built)
+        torch.cuda.synchronize()
+        launches = {**coll.launches, **q40.launches}
+        forwards = stream.forwards - f0
+        tokens = res["tokens"]
+        check(len(tokens) > 0 and all(0 <= t < engine.cfg.vocab_size for t in tokens), f"tp={tp}: tokens")
+        if tp == 1:
+            ref_tokens = tokens
+        else:
+            check(launches["ring_all_reduce"] > 0 and launches["fused_matmul_ring"] > 0,
+                  f"tp={tp}: K4/K5 not launched on the path: {launches}")
+            same = next((i for i, (a, b) in enumerate(zip(tokens, ref_tokens)) if a != b),
+                        min(len(tokens), len(ref_tokens)))
+            row.update(tokens_equal_to_tp1_before_divergence=same, tokens_compared=min(len(tokens), len(ref_tokens)))
+            print(f"tp={tp}: {same} of {min(len(tokens), len(ref_tokens))} greedy tokens equal tp=1's before the "
+                  f"first divergence")
+        row.update(tokens=tokens, forwards=forwards, launches=launches)
+        print(f"tp={tp}: {len(tokens)} tokens in {forwards} forwards; launches {launches}; engine load {load_s:.1f} s, "
+              f"transfer probe {engine._transfer_ms:.3f} ms/token")
+        # decode timing of the same engine, fenced by synchronize
+        engine.reset()
+        first = int(engine.prefill(prompt_tokens).argmax())
+        engine.decode_chunk(first, 4, 0.0, 0.9)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode_chunk(first, 8, 0.0, 0.9)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 8
+        row["decode_ms_per_token"] = decode_ms
+        print(f"tp={tp}: decode {decode_ms:.2f} ms/token over 8 greedy tokens")
+        row.update(device_profile(engine, first, decode_ms, steps=4))
+        row["wall_s"] = time.perf_counter() - t_load
+        print(f"tp={tp}: {row['wall_s']:.1f} s in all")
+        out[f"tp{tp}"] = row
+        del engine, built
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def spec_window_check(engine, llama, prompt_tokens: list, k: int = 4) -> dict:
+    """Phase 5, the single-stream verify window against decode: after the
+    prompt, k + 1 greedy decode steps one at a time give k + 1 logit rows;
+    the same k + 1 tokens as one verify window (what ``--spec-draft k``
+    runs) give them again, once with each query row attending on its own
+    (``per_position``, the repaired window) and once through T-row
+    attention einsums (the window before the repair). Returns the max abs
+    difference of each from the decode rows; the repaired one must be 0."""
+    stream = engine.default_stream
+    engine.reset()
+    logits = engine.prefill(prompt_tokens)
+    start = engine.pos
+    feed, rows = [int(logits.argmax())], []
+    for _ in range(k + 1):
+        rows.append(engine.decode_step(feed[-1]))
+        feed.append(int(rows[-1].argmax()))
+    decode = torch.from_numpy(np.stack(rows)).to(engine.device)
+    toks = torch.tensor(feed[: k + 1], dtype=torch.int64, device=engine.device)
+    out = {}
+    for name, per_position in (("before", False), ("after", True)):
+        stream.rollback(start)
+        window, stream.cache = llama.forward_tokens(engine.cfg, engine.params, toks, stream.cache, start,
+                                                    engine.q40_path, per_position=per_position)
+        out[name] = float((window - decode).abs().max())
+    engine.reset()
+    print(f"  verify window of {k + 1} vs {k + 1} decode steps: max |logit diff| {out['before']:.3e} with T-row "
+          f"attention (before the repair), {out['after']:.3e} per position (after)")
+    check(out["after"] == 0.0, "the repaired verify window differs from decode")
+    return out
 
 
 def chunk_delivery(engine, first: int, sleep_cycles: int = 200_000_000) -> dict:
@@ -701,6 +969,7 @@ def main() -> None:
     from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
     from distributed_llama_tpu_torch.models import llama
     from distributed_llama_tpu_torch.ops import attention as attn
+    from distributed_llama_tpu_torch.ops import collectives as coll
     from distributed_llama_tpu_torch.ops import cuda_build, q40
     from distributed_llama_tpu_torch.ops import kv_cache as kvc
     from distributed_llama_tpu_torch.server import api as server_api
@@ -770,6 +1039,8 @@ def main() -> None:
             ("sampled", "int8", ["--prompt", "hello hello world", "--temperature", "0.8", "--topp", "0.9", "--seed", "42"]),
             ("sampled again", "int8", ["--prompt", "hello hello world", "--temperature", "0.8", "--topp", "0.9", "--seed", "42"]),
             ("greedy f32 path", "f32", ["--prompt", "hello world, hello", "--temperature", "0", "--seed", "1"]),
+            ("greedy spec 4", "int8", ["--prompt", "hello world, hello", "--temperature", "0", "--seed", "1",
+                                       "--spec-draft", "4"]),
         ]
         streams = {}
         q40.reset_launches()  # the main path's counts start here
@@ -795,6 +1066,11 @@ def main() -> None:
         main_launches = dict(q40.launches)
         check(streams["greedy"] == streams["greedy again"], "greedy streams differ between runs")
         check(streams["sampled"] == streams["sampled again"], "sampled streams differ for one seed")
+        check(streams["greedy spec 4"] == streams["greedy"],
+              "greedy --spec-draft 4 differs from --spec-draft 0: "
+              f"{streams['greedy spec 4']} vs {streams['greedy']}")
+        print(f"greedy --spec-draft 4 equals --spec-draft 0 token for token ({len(streams['greedy'])} tokens)")
+        summary["spec_window"] = spec_window_check(engine, llama, built[1].encode("hello world, hello", add_bos=True))
         check(all(v > 0 for v in main_launches.values()), f"a kernel was never launched: {main_launches}")
         summary["streams"] = streams
         summary["main_path_launches"] = main_launches
@@ -847,6 +1123,24 @@ def main() -> None:
                                                extra=("--cache-dtype", "i8", "--spec-draft", "4"), spec=True)
         main_launches["paged_attention_i8"] = summary["server_i8_spec"]["main_path_launches"]
         print(f"phase 6c: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = phase("7a. K4 ring all-reduce vs its plain version")
+        summary["launch_floor_ms"] = launch_floor_ms()
+        print(f"launch floor (one-element add, in a CUDA graph): {summary['launch_floor_ms']:.4f} ms")
+        k4_rows = k4_checks(coll)
+        summary["k4_rows"] = k4_rows
+        t = phase("7b. K5 fused int8 matmul + ring vs K1 + correction + K4, at the 7B wo/down shards")
+        k5_rows = k5_checks(q40, coll)
+        summary["k5_rows"] = k5_rows
+        print(f"phases 7a-7b: {time.perf_counter() - t:.1f} s")
+
+        t = phase(f"7c. the slice's path: CLI generate --tp 2/4 --allreduce ring, {N_LAYERS} layers")
+        summary["tp"] = tp_runs(cli, llama, coll, q40, model, tok)
+        for name in ("ring_all_reduce", "fused_matmul_ring"):
+            main_launches[name] = summary["tp"]["tp2"]["launches"][name]
+        print(f"phase 7c: {time.perf_counter() - t:.1f} s")
 
     kernels = []
     # K2 on the servers' steps: 4 rows, 32 kv heads, one launch per layer
@@ -877,6 +1171,18 @@ def main() -> None:
             bound_by="bytes" if bytes_bound else "operations", library_ms=tot["library_ms"],
         ))
     kernels.extend(k2_entries)
+    # K4: one call at the decode payload [1, 4096], 2 ranks; K5: one decoded
+    # token's launches at tp=2 (wo and down at T=1 in each of 32 layers)
+    k4 = next(r for r in k4_rows if r["n"] == 2 and r["R"] == 1)
+    k5 = [r for r in k5_rows if r["tp"] == 2 and r["T"] == 1]
+    for name, rows_, scale_ in (("ring_all_reduce", [k4], 1), ("fused_matmul_ring", k5, N_LAYERS)):
+        src, replaces = KERNEL_INFO[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces, launches=main_launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in (k4_rows if name == "ring_all_reduce" else k5_rows)),
+            **{k: sum(r[k] for r in rows_) * scale_ for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows_) else "operations",
+        ))
     summary["kernels"] = kernels
     summary["total_s"] = time.perf_counter() - t_all
     OUT_FILE.parent.mkdir(exist_ok=True)
@@ -886,7 +1192,9 @@ def main() -> None:
           "launches at 32 layers (T=1, each shape times its launches per token; paged_attention: "
           "one batched decode step of 4 rows at the phase-6a positions, 32 launches; paged_attention_i8: "
           "one batched verify step, T=5, of 4 rows there); launches are the main path's (phase 5 for "
-          "the Q40 kernels, phase 6b for paged_attention, phase 6c for paged_attention_i8)")
+          "the Q40 kernels, phase 6b for paged_attention, phase 6c for paged_attention_i8, phase 7c's --tp 2 "
+          "run for ring_all_reduce and fused_matmul_ring); ring_all_reduce: one call at [1, 4096] over 2 ranks; "
+          "fused_matmul_ring: one decoded token's wo and down launches at --tp 2 (T=1, 32 layers)")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

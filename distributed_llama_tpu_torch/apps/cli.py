@@ -1,14 +1,16 @@
 """The port's CLI: ``inference`` and ``generate`` modes on one GPU.
 
   python -m distributed_llama_tpu_torch.apps.cli generate --model m.m \\
-      --tokenizer t.t --prompt "hello" --steps 64 --dtype q40
+      --tokenizer t.t --prompt "hello" --steps 64 --dtype q40 [--tp 2 --allreduce ring]
 
 The prompt is prefilled in one batched forward; with ``--decode device``
 (the default) the first token is sampled on the device and the decode runs
 in chunks with sampling on the device; ``--decode host`` samples each token
 on the host from fetched logits (the counter-mode sampler replays the
 device stream token for token). ``--device cpu`` runs on the CPU with the
-kernels' plain PyTorch versions; the default is the card.
+kernels' plain PyTorch versions; the default is the card. ``--tp N`` runs
+N tensor-parallel ranks on that one device, their two all-reduces per layer
+summed by the ``--allreduce`` arm.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from distributed_llama_tpu_torch.engine.engine import InferenceEngine, Stopwatch
 from distributed_llama_tpu_torch.engine.weights import QUANTIZED_DTYPE
+from distributed_llama_tpu_torch.ops.collectives import IMPLS
 from distributed_llama_tpu_torch.tokenizer import Sampler, Tokenizer, is_safe_piece
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "q40": QUANTIZED_DTYPE}
@@ -58,6 +61,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="KV cache dtype (auto = bf16, or f32 with --dtype f32); i8 stores int8 rows with "
                    "per-(slot, head) scales: half the cache memory of bf16")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (a power of two), all on --device")
+    p.add_argument("--allreduce", choices=list(IMPLS), default="psum",
+                   help="all-reduce of the tensor-parallel ranks: psum (the plain sum in rank order), ring_xla "
+                   "(the plain ring schedule) or ring (the hand-written ring kernel, fused with the int8 "
+                   "matmul for wo/down at T <= 8)")
     return p
 
 
@@ -66,6 +75,7 @@ def make_engine(args):
         args.model, dtype=_DTYPES[args.dtype], max_seq_len=args.max_seq_len,
         device=args.device, q40_path=args.q40_path,
         cache_dtype=_CACHE_DTYPES[getattr(args, "cache_dtype", "auto")],
+        tp=getattr(args, "tp", 1), allreduce=getattr(args, "allreduce", "psum"),
     )
     tokenizer = Tokenizer.from_file(args.tokenizer, engine.cfg.vocab_size)
     # wall-clock as entropy for a default sampling seed, never a duration

@@ -235,6 +235,9 @@ class BatchScheduler:
                  spec_draft: int = 0, spec_ngram: int = 3):
         if n_rows < 1:
             raise ValueError(f"need at least one batch row, got {n_rows}")
+        if getattr(engine, "tp_backend", None) is not None:
+            raise NotImplementedError("the batched scheduler over tensor-parallel ranks is not ported yet "
+                                      "(ROADMAP.md Queue 1: the batched TP scheduler)")
         self.engine = engine
         self.b_max = n_rows
         self.chunk = int(chunk)

@@ -10,8 +10,11 @@ chunk's tokens start their copy to the host when the chunk is issued
 (:class:`platform.HostFetch`), and the fetch waits for that copy alone, so
 chunk k's tokens reach the host while chunk k+1 still runs.
 
-Every stats entry covers the host time of its dispatch plus fetch; on a
-single device there is no transfer share (``transfer_ms`` is 0).
+Every stats entry covers the host time of its dispatch plus fetch. On a
+single device there is no transfer share (``transfer_ms`` is 0); under
+tensor parallelism (``tp`` > 1, :mod:`parallel.tensor_parallel`) it is the
+measured per-token time of the collective sequence, re-measured at a
+quiescent point every ``TRANSFER_REFRESH_TOKENS`` tokens.
 """
 
 from __future__ import annotations
@@ -93,11 +96,15 @@ class StreamStats:
         stats entry, which gains the drain time when the token is fetched."""
         token = sampling.sample_token(last_logits, prng.fold_seed(seed), self.pos - 1, float(temperature),
                                       float(topp), int(topk))
-        entry = _stats(sw.elapsed_ms(), n)
+        entry = self._entry(sw.elapsed_ms(), n)
         self.stats.append(entry)
         self._pending_prefill_entry = entry
         self._first_fetch = (token, HostFetch(token))
         return token
+
+    def _entry(self, ms: float, n_tokens: int = 1) -> TokenStats:
+        """The stats entry of ``ms`` of host time covering ``n_tokens``."""
+        return _stats(ms, n_tokens)
 
     def fetch_first_token(self, first_token) -> int:
         """Fetch a ``prefill_device`` token without starting a decode."""
@@ -151,6 +158,9 @@ class EngineStream(StreamStats):
     def cfg(self) -> LlamaConfig:
         return self.engine.cfg
 
+    def _entry(self, ms: float, n_tokens: int = 1) -> TokenStats:
+        return self.engine.split_stats(ms, n_tokens)
+
     def reset(self) -> None:
         self._clear_stats()
 
@@ -179,9 +189,7 @@ class EngineStream(StreamStats):
             padded = np.zeros(bucket, dtype=np.int64)
             padded[:n] = tokens
         toks = to_device(np.asarray(padded, np.int64), engine.device)
-        logits, self.cache = llama.forward_tokens(
-            engine.cfg, engine.params, toks, self.cache, self.pos, engine.q40_path
-        )
+        logits, self.cache = engine.forward_fn(toks, self.cache, self.pos)
         self.pos += n
         self.forwards += 1
         return logits
@@ -192,7 +200,7 @@ class EngineStream(StreamStats):
         n = tokens.shape[0]
         sw = Stopwatch()
         logits = self._forward_device(tokens)[:n].cpu().numpy()
-        self.stats.append(_stats(sw.elapsed_ms(), n))
+        self.stats.append(self._entry(sw.elapsed_ms(), n))
         return logits
 
     def prefill(self, tokens) -> np.ndarray:
@@ -201,7 +209,7 @@ class EngineStream(StreamStats):
         n = tokens.shape[0]
         sw = Stopwatch()
         logits = self._forward_device(tokens)[n - 1].cpu().numpy()
-        self.stats.append(_stats(sw.elapsed_ms(), n))
+        self.stats.append(self._entry(sw.elapsed_ms(), n))
         return logits
 
     def prefill_device(self, tokens, temperature, topp, seed: int, topk: int = 0) -> torch.Tensor:
@@ -222,10 +230,8 @@ class EngineStream(StreamStats):
         """Issue one decode chunk without fetching; returns the device token
         tensor and advances pos by n_steps."""
         engine = self.engine
-        tokens, self.cache = sampling.decode_chunk(
-            engine.cfg, engine.params, first_token, self.cache, self.pos, n_steps,
-            float(temperature), float(topp), int(topk), seed32, engine.q40_path,
-        )
+        tokens, self.cache = engine.decode_chunk_fn(
+            first_token, self.cache, self.pos, n_steps, float(temperature), float(topp), int(topk), seed32)
         self.pos += n_steps
         self.forwards += n_steps
         return tokens
@@ -237,7 +243,7 @@ class EngineStream(StreamStats):
             first_token, n_steps, temperature, topp, topk, prng.fold_seed(seed)
         ).cpu().numpy()
         per_token_ms = sw.elapsed_ms() / n_steps
-        self.stats.extend([_stats(per_token_ms)] * n_steps)
+        self.stats.extend([self._entry(per_token_ms)] * n_steps)
         return tokens
 
     def generate_chunks(self, first_token, temperature: float = 0.0, topp: float = 0.9,
@@ -273,7 +279,7 @@ class EngineStream(StreamStats):
                 nxt, k = None, 0
             toks = fetch.wait()
             per_token_ms = sw.elapsed_ms() / pending_n
-            self.stats.extend([_stats(per_token_ms)] * pending_n)
+            self.stats.extend([self._entry(per_token_ms)] * pending_n)
             for t in toks.tolist():
                 yield int(t)
             if nxt is None:
@@ -295,10 +301,16 @@ class EngineStream(StreamStats):
         (:meth:`_stream_decode_spec`): prompt-lookup drafts over
         ``prompt_tokens`` and the emitted output are verified up to
         ``spec_draft`` at a time in one weight read per step. Greedy output
-        is the same either way."""
+        is the same either way. Single-device engines only: under tensor
+        parallelism it is ignored with a one-time warning, as in the JAX
+        package."""
         if spec_draft and spec_draft > 0:
-            return self._stream_decode_spec(first_token, on_token, temperature, topp, seed, spec_draft,
-                                            spec_ngram, limit, first_prev, prompt_tokens, topk)
+            if self.engine.tp_backend is None:
+                return self._stream_decode_spec(first_token, on_token, temperature, topp, seed, spec_draft,
+                                                spec_ngram, limit, first_prev, prompt_tokens, topk)
+            if not self.engine._spec_fallback_warned:
+                self.engine._spec_fallback_warned = True
+                print("⚠️ --spec-draft ignored: single-chip backend only for now; plain chunked decode")
         start_pos = self.pos
         consumed = 0
         fused_first = first_prev is not None
@@ -317,6 +329,9 @@ class EngineStream(StreamStats):
         finally:
             fed = max(consumed - 1, 0) if fused_first else consumed
             self.rollback(min(start_pos + fed, self.pos))
+        # the stream is drained here: the quiescent point where a due
+        # re-measurement of the transfer share cannot time queued compute
+        self.engine.refresh_transfer()
         return consumed
 
     def _stream_decode_spec(self, first_token, on_token, temperature: float, topp: float, seed: int,
@@ -374,7 +389,7 @@ class EngineStream(StreamStats):
                 n_emit = max(1, min(int(out[0]), T))
                 toks = [int(t) for t in out[1 : 1 + n_emit]]
                 self.pos += n_emit
-                self.stats.append(_stats(sw.elapsed_ms(), n_emit))
+                self.stats.append(self._entry(sw.elapsed_ms(), n_emit))
                 for t in toks:
                     consumed += 1
                     history.append(t)
@@ -392,35 +407,92 @@ class EngineStream(StreamStats):
 
 
 class InferenceEngine:
-    """One model instance on one device. ``dtype`` is "q40" (4-bit weights
-    through the CUDA kernels), torch.bfloat16 or torch.float32;
-    ``cache_dtype`` is the KV cache's (default bf16 for q40, else the
-    weights' dtype; "i8" stores int8 rows with per-(slot, head) scales);
-    ``q40_path`` picks the int8 kernel ("int8", the default) or the bf16
-    dequant kernel ("f32"). ``device`` defaults to the card and raises
-    without one; pass "cpu" to run the kernels' plain versions."""
+    """One model instance. ``dtype`` is "q40" (4-bit weights through the
+    CUDA kernels), torch.bfloat16 or torch.float32; ``cache_dtype`` is the
+    KV cache's (default bf16 for q40, else the weights' dtype; "i8" stores
+    int8 rows with per-(slot, head) scales); ``q40_path`` picks the int8
+    kernel ("int8", the default) or the bf16 dequant kernel ("f32").
+    ``device`` defaults to the card and raises without one; pass "cpu" to
+    run the kernels' plain versions. ``tp`` > 1 runs that many
+    tensor-parallel ranks, all on ``device``, summed by the ``allreduce``
+    arm ("psum", "ring_xla" or "ring": K4 and K5); a list of several
+    devices raises NotImplementedError."""
+
+    TRANSFER_REFRESH_TOKENS = 512
 
     def __init__(self, model_path: str, dtype="q40", max_seq_len: int | None = None,
-                 device="cuda", q40_path: str = "int8", cache_dtype=None):
+                 device="cuda", q40_path: str = "int8", cache_dtype=None, tp: int = 1,
+                 allreduce: str = "psum"):
         from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
         from distributed_llama_tpu_torch.models.config import config_from_spec
 
-        self.device = resolve_device(device)
         if q40_path not in PATHS:
             raise ValueError(f"unknown q40 path {q40_path!r}; expected one of {PATHS}")
         self.q40_path = q40_path
         reader = ModelFileReader(model_path)
         self.spec = reader.spec.clamp_seq_len(max_seq_len)
         self.cfg = config_from_spec(self.spec)
+        from distributed_llama_tpu_torch.parallel import tensor_parallel
+
+        if isinstance(device, (list, tuple)):  # one device per rank: several cards raise
+            device = tensor_parallel.rank_devices(tp, devices=device)[0]
+        self.device = resolve_device(device)
+        self.tp = tp
+        self.tp_backend = None
+        if tp > 1:
+            self.tp_backend = tensor_parallel.TensorParallelForward(
+                self.cfg, tp, device=self.device, quantized=dtype == weights_lib.QUANTIZED_DTYPE,
+                allreduce=allreduce)
         if cache_dtype is None:
             # q40 is a weights-only format; its KV cache is bf16
             cache_dtype = torch.bfloat16 if dtype == weights_lib.QUANTIZED_DTYPE else dtype
         self.cache_dtype = cache_dtype
-        self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device)
+        self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device, tp=tp)
         reader.close()
         self._default: EngineStream | None = None
+        self._spec_fallback_warned = False
+        self._transfer_ms = 0.0
+        self._tokens = 0  # tokens covered by stats entries, the re-measurement cadence
+        self._transfer_measured_at = 0
+        if self.tp_backend is not None:
+            self._transfer_ms = self.tp_backend.measure_transfer_ms()
+
+    def forward_fn(self, tokens: torch.Tensor, cache, pos: int):
+        """One forward of ``tokens`` from ``pos`` over this engine's params:
+        (logits f32 [T, vocab], cache)."""
+        if self.tp_backend is not None:
+            return self.tp_backend.forward(self.params, tokens, cache, pos, self.q40_path)
+        return llama.forward_tokens(self.cfg, self.params, tokens, cache, pos, self.q40_path)
+
+    def decode_chunk_fn(self, first_token, cache, pos: int, n_steps: int, temperature: float, topp: float,
+                        topk: int, seed32: int):
+        """One decode chunk of ``n_steps`` steps: (tokens [n_steps] on the
+        device, cache)."""
+        if self.tp_backend is not None:
+            return self.tp_backend.decode_chunk(self.params, first_token, cache, pos, n_steps, temperature,
+                                                topp, topk, seed32, self.q40_path)
+        return sampling.decode_chunk(self.cfg, self.params, first_token, cache, pos, n_steps, temperature, topp,
+                                     topk, seed32, self.q40_path)
+
+    def split_stats(self, ms: float, n_tokens: int = 1) -> TokenStats:
+        """A stats entry with its transfer share: the measured collective
+        time per token (an upper bound), clamped to the entry's time."""
+        self._tokens += n_tokens
+        transfer = min(self._transfer_ms * n_tokens, ms)
+        return TokenStats(ms, ms - transfer, transfer, n_tokens=n_tokens)
+
+    def refresh_transfer(self) -> None:
+        """Re-measure the transfer share when ``TRANSFER_REFRESH_TOKENS``
+        tokens have passed since the last measurement (callers are at a
+        quiescent point: nothing of theirs is queued on the device)."""
+        if self.tp_backend is None or self._tokens - self._transfer_measured_at < self.TRANSFER_REFRESH_TOKENS:
+            return
+        self._transfer_ms = self.tp_backend.measure_transfer_ms()
+        self._transfer_measured_at = self._tokens
 
     def _new_cache(self):
+        if self.tp_backend is not None:
+            return self.tp_backend.init_cache(self.cache_dtype)
         return llama.init_cache(self.cfg, self.cache_dtype, self.device)
 
     def new_stream(self) -> EngineStream:
@@ -429,7 +501,7 @@ class InferenceEngine:
     @property
     def default_stream(self) -> EngineStream:
         if self._default is None:
-            self._default = EngineStream(self, self._new_cache())
+            self._default = self.new_stream()
         return self._default
 
     @property

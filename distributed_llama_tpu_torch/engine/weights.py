@@ -36,55 +36,67 @@ def check_supported(cfg: LlamaConfig) -> None:
 
 
 def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=QUANTIZED_DTYPE,
-                device="cuda") -> Params:
+                device="cuda", tp: int = 1):
     """Build the params dict on ``device`` (the card unless "cpu" is
     asked for). ``dtype`` is "q40", torch.bfloat16 or torch.float32 for the
-    matmul weights."""
+    matmul weights. ``tp`` > 1 returns one params dict per rank, each
+    matmul leaf built from that rank's own byte ranges of the file as the
+    rule table (:mod:`parallel.sharding`) cuts it: output shards are row
+    ranges of each source matrix (a fused qkv shard is [q_s | k_s | v_s]),
+    input shards quant-block-aligned column ranges, and wcls is
+    vocab-sharded when the vocab divides. The replicated leaves are one
+    tensor shared by every rank."""
+    from distributed_llama_tpu_torch.parallel import sharding
+    from distributed_llama_tpu_torch.parallel.tensor_parallel import validate_tp
+
     device = resolve_device(device)
     cfg = cfg or config_from_spec(reader.spec)
     check_supported(cfg)
     quantized = dtype == QUANTIZED_DTYPE
+    validate_tp(cfg, tp, quantized=quantized)
+    table = sharding.param_rules("q40" if quantized else "layered", shard_vocab=cfg.vocab_size % tp == 0)
 
     def f32(name: str) -> torch.Tensor:
         return torch.from_numpy(reader.tensor(name)).to(device)
 
-    def plain(name: str) -> torch.Tensor:
-        w = np.ascontiguousarray(reader.tensor(name).T)  # file [d_out, d_in] -> [d_in, d_out]
-        return torch.from_numpy(w).to(device=device, dtype=dtype)
-
-    def packed(names: list[str]) -> QuantizedMatrix:
-        """Matrices sharing an input dim as ONE packed matmul, their output
-        dims concatenated."""
+    def matmul_leaf(path: str, names: list[str], s: int):
+        """Rank s's leaf ``path`` of the file matrices ``names`` (several
+        share an input dim and pack as ONE matmul, their output dims
+        concatenated), in x@W orientation: a QuantizedMatrix for q40, else
+        a [d_in, d_out] tensor of ``dtype``."""
         entries = [reader.entries[n] for n in names]
-        d_out = sum(e.shape[0] for e in entries)
-        if all(e.float_type == FloatType.Q40 for e in entries):
-            raw = np.concatenate([reader.raw(n) for n in names])
-            return pack_q40_raw(raw, (d_out, entries[0].shape[1]), device)
-        w = np.concatenate([reader.tensor(n).T for n in names], axis=1)
-        return quantize_q40_tpu(w, device)
-
-    layers = []
-    for l in range(cfg.n_layers):
-        p = f"layers.{l}."
+        if table.cut(path) == sharding.IN:
+            (name,), (e,) = names, entries
+            d_out, d_in = e.shape
+            lo, hi = d_in * s // tp, d_in * (s + 1) // tp
+            if quantized and e.float_type == FloatType.Q40:
+                return pack_q40_raw(reader.raw_row_blocks(name, lo, hi).reshape(-1), (d_out, hi - lo), device)
+            w = reader.tensor_cols(name, lo, hi).T
+        else:  # an output shard, or the whole matrix where the table replicates it
+            parts, s = (1, 0) if table.cut(path) is None else (tp, s)
+            bounds = [(e.shape[0] * s // parts, e.shape[0] * (s + 1) // parts) for e in entries]
+            if quantized and all(e.float_type == FloatType.Q40 for e in entries):
+                raw = np.concatenate([reader.raw_rows(n, lo, hi) for n, (lo, hi) in zip(names, bounds)])
+                return pack_q40_raw(raw, (sum(hi - lo for lo, hi in bounds), entries[0].shape[1]), device)
+            w = np.concatenate([reader.tensor_rows(n, lo, hi).T for n, (lo, hi) in zip(names, bounds)], axis=1)
         if quantized:
-            lp = {
-                "qkv": packed([p + "q", p + "k", p + "v"]),
-                "wo": packed([p + "wo"]),
-                "gate_up": packed([p + "gate", p + "up"]),
-                "down": packed([p + "down"]),
-            }
-        else:
-            lp = {n: plain(p + n) for n in ("q", "k", "v", "wo", "gate", "down", "up")}
-        lp["rms_att"] = f32(p + "rms_att")
-        lp["rms_ffn"] = f32(p + "rms_ffn")
-        layers.append(lp)
-    return {
-        "embedding": f32("embedding"),
-        "layers": layers,
-        "rms_final": f32("rms_final"),
-        "wcls": packed(["wcls"]) if quantized else plain("wcls"),
-        "rope_table": torch.from_numpy(build_rope_table(cfg)).to(device),
-    }
+            return quantize_q40_tpu(np.ascontiguousarray(w), device)
+        return torch.from_numpy(np.ascontiguousarray(w)).to(device=device, dtype=dtype)
+
+    shared = {"embedding": f32("embedding"), "rms_final": f32("rms_final"),
+              "rope_table": torch.from_numpy(build_rope_table(cfg)).to(device)}
+    norms = [{n: f32(f"layers.{l}.{n}") for n in ("rms_att", "rms_ffn")} for l in range(cfg.n_layers)]
+    fused = {"qkv": ("q", "k", "v"), "wo": ("wo",), "gate_up": ("gate", "up"), "down": ("down",)}
+    if not quantized:
+        fused = {n: (n,) for n in ("q", "k", "v", "wo", "gate", "down", "up")}
+    wcls_full = matmul_leaf("wcls", ["wcls"], 0) if table.cut("wcls") is None else None
+    ranks = []
+    for s in range(tp):
+        layers = [{**{leaf: matmul_leaf(f"layers/{l}/{leaf}", [f"layers.{l}.{n}" for n in srcs], s)
+                      for leaf, srcs in fused.items()}, **norms[l]} for l in range(cfg.n_layers)]
+        wcls = wcls_full if wcls_full is not None else matmul_leaf("wcls", ["wcls"], s)
+        ranks.append({**shared, "layers": layers, "wcls": wcls})
+    return ranks if tp > 1 else ranks[0]
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -96,13 +108,21 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def params_from_jax(tree: Params, device="cuda") -> Params:
+def params_from_jax(tree, device="cuda", tp: int = 1):
     """The port's params on ``device`` (the card unless "cpu" is asked for)
     from the JAX package's ``load_params`` tree with every leaf as numpy and
     each ``QuantizedMatrix`` flattened by the caller into ``{"qs", "scales",
     "n", "d"}`` — so both packages compute the same function from the same
-    bytes, and this package imports nothing of the JAX one."""
+    bytes, and this package imports nothing of the JAX one. With ``tp`` > 1,
+    ``tree`` is a list of one such tree per rank, each leaf the rank's shard
+    of the JAX TP engine's placed array (its device's block along the mesh
+    axis, or the whole array where it is replicated), and the result is the
+    per-rank params list :func:`load_params` builds for that ``tp``."""
     device = resolve_device(device)
+    if tp > 1:
+        if len(tree) != tp:
+            raise ValueError(f"{len(tree)} rank trees for tp={tp}")
+        return [params_from_jax(t, device) for t in tree]
 
     def conv(v):
         if isinstance(v, dict) and set(v) == {"qs", "scales", "n", "d"}:

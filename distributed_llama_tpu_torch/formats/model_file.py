@@ -36,6 +36,7 @@ from typing import BinaryIO, Iterator
 import numpy as np
 
 from distributed_llama_tpu_torch.quants import (
+    QK,
     FloatType,
     deserialize_tensor,
     serialize_tensor,
@@ -334,6 +335,58 @@ class ModelFileReader:
         """Dequantized float32 tensor in its logical shape."""
         e = self.entries[name]
         return deserialize_tensor(self.raw(name), e.float_type, e.n_values).reshape(e.shape)
+
+    # -- per-shard range readers (tensor parallelism): each rank's pack is
+    # -- built from its own byte ranges, the read-time form of the
+    # -- reference's RowMatmulSlice / ColMatmulSlice
+
+    def raw_rows(self, name: str, row_start: int, row_end: int) -> np.ndarray:
+        """Raw bytes of a contiguous row (output-dim) range: the exact-repack
+        shard read of an output-sharded Q40 matrix."""
+        e = self.entries[name]
+        row_bytes = tensor_bytes(e.float_type, e.shape[1])
+        start = e.offset + row_start * row_bytes
+        return self._mmap[start : start + (row_end - row_start) * row_bytes]
+
+    def raw_row_blocks(self, name: str, col_start: int, col_end: int) -> np.ndarray:
+        """Raw bytes of a column (input-dim) range of every row, cut on
+        quant-block boundaries: the shard read of an input-sharded Q40
+        matrix. Returns [d_out, col_bytes] bytes."""
+        e = self.entries[name]
+        d_out, d_in = e.shape
+        if col_start % QK or col_end % QK:
+            raise ValueError(f"column range ({col_start},{col_end}) not {QK}-aligned")
+        lo, hi = tensor_bytes(e.float_type, col_start), tensor_bytes(e.float_type, col_end)
+        rows = self._mmap[e.offset : e.offset + e.nbytes].reshape(d_out, tensor_bytes(e.float_type, d_in))
+        return np.ascontiguousarray(rows[:, lo:hi])
+
+    def tensor_rows(self, name: str, row_start: int, row_end: int) -> np.ndarray:
+        """f32 rows [row_start, row_end) of a matrix, reading only them."""
+        e = self.entries[name]
+        if len(e.shape) != 2:
+            raise ValueError(f"tensor_rows on non-matrix {name}")
+        n = e.shape[1]
+        nrows = row_end - row_start
+        return deserialize_tensor(self.raw_rows(name, row_start, row_end), e.float_type, nrows * n).reshape(nrows, n)
+
+    def tensor_cols(self, name: str, col_start: int, col_end: int) -> np.ndarray:
+        """f32 columns [col_start, col_end) of every row of a matrix: block
+        formats (Q40/Q80) cut on quant-block boundaries when the range is
+        aligned, else decode whole rows. Returns [d_out, cols]."""
+        e = self.entries[name]
+        if len(e.shape) != 2:
+            raise ValueError(f"tensor_cols on non-matrix {name}")
+        d_out, d_in = e.shape
+        ncols = col_end - col_start
+        if e.float_type in (FloatType.Q40, FloatType.Q80):
+            if col_start % QK == 0 and col_end % QK == 0:
+                buf = self.raw_row_blocks(name, col_start, col_end)
+                return deserialize_tensor(buf.reshape(-1), e.float_type, d_out * ncols).reshape(d_out, ncols)
+            return self.tensor(name)[:, col_start:col_end]
+        lo, hi = tensor_bytes(e.float_type, col_start), tensor_bytes(e.float_type, col_end)
+        rows = self._mmap[e.offset : e.offset + e.nbytes].reshape(d_out, tensor_bytes(e.float_type, d_in))
+        buf = np.ascontiguousarray(rows[:, lo:hi])
+        return deserialize_tensor(buf.reshape(-1), e.float_type, d_out * ncols).reshape(d_out, ncols)
 
     def close(self):
         del self._mmap

@@ -6,7 +6,9 @@ JAX package: rmsnorm eps 1e-5 added to the mean square, scores scaled by
 1/sqrt(head_size), SwiGLU silu(w1 x) * (w3 x) then w2, all matmuls with f32
 accumulation. Q40 weights route to the hand-written kernels through
 :func:`ops.q40.q40_matmul` / :func:`ops.q40.rmsnorm_q40_matmul`: four
-launches per layer (qkv, wo, gate_up, down) and one for ``wcls``.
+launches per layer (qkv, wo, gate_up, down) and one for ``wcls``. Under
+tensor parallelism (:func:`forward_tokens_tp`) the same functions run per
+rank, with wo and down summed over the ranks by ``ops.collectives``.
 
 Positions are host ints throughout, so no step reads back from the device
 to decide a shape or a chunk bound.
@@ -98,22 +100,36 @@ def embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor) -> torch.Tenso
 
 
 def attention(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tensor, pos: int,
-              rope_rows: torch.Tensor, path: str = "int8", paged=None):
+              rope_rows: torch.Tensor, path: str = "int8", paged=None, per_position: bool = False):
     """Causal GQA attention for T tokens at positions pos..pos+T-1 over the
     fused [2, S, K, hd] leaf (written in place). Returns (mix [T, H*hd],
     cache_l). ``paged`` = (pool_k, pool_v, table, matched: int): positions
     below ``matched`` are read from the page pool through ``table`` (the
     blocked scan's per-position select, or a virtual row for the full-S
-    branch), the same bytes a row holding copies of the pages would give."""
+    branch), the same bytes a row holding copies of the pages would give.
+    ``per_position`` attends each query row on its own, exactly as a T=1
+    decode step at that position does (a speculative verify window)."""
     T = x.shape[0]
-    S = cache_l.shape[1]
-    hd = cfg.head_size
     q, k, v = project_qkv(cfg, lp, x, rope_rows, path)
     H, K = q.shape[1], k.shape[1]
     cache_l = kvc.fused_update_rows(cache_l, k, v, pos)
     keys, values = cache_l[0], cache_l[1]
+    qg = q.reshape(T, K, H // K, cfg.head_size).to(kvc.compute_dtype(keys))
+    if per_position and T > 1:
+        # the einsums' summation order may depend on their row count (T*M
+        # query rows here, M in a decode step), so one row at a time is the
+        # only shape that computes what decode computes
+        rows = [_attend(qg[t : t + 1], keys, values, pos + t, paged) for t in range(T)]
+        return torch.cat(rows), cache_l
+    return _attend(qg, keys, values, pos, paged), cache_l
+
+
+def _attend(qg: torch.Tensor, keys, values, pos: int, paged) -> torch.Tensor:
+    """Grouped queries qg [T, K, M, hd] (cache compute dtype) at positions
+    pos..pos+T-1 against the cache halves [S, K, hd]: mix [T, K*M*hd] f32."""
+    T, hd = qg.shape[0], qg.shape[-1]
+    S = keys.shape[0]
     cdt = kvc.compute_dtype(keys)
-    qg = q.reshape(T, K, H // K, hd).to(cdt)
     use_blocked = S % ATT_CHUNK == 0 and S > ATT_CHUNK and (T <= 8 or S >= ATT_BLOCK_PREFILL_S)
     if paged is not None and not (use_blocked and ATT_CHUNK % kvc.pool_page_size(paged[0]) == 0):
         pool_k, pool_v, table, matched = paged
@@ -124,25 +140,27 @@ def attention(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tens
         from distributed_llama_tpu_torch.ops.attention import blocked_attention
 
         att = blocked_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK, paged=paged)
-        return att.to(torch.float32).reshape(T, H * hd), cache_l
+        return att.to(torch.float32).reshape(T, -1)
     scores = kvc.scores_einsum(qg, keys) / math.sqrt(hd)
-    t_idx = pos + torch.arange(T, device=x.device)[:, None]
-    s_idx = torch.arange(S, device=x.device)[None, :]
+    t_idx = pos + torch.arange(T, device=qg.device)[:, None]
+    s_idx = torch.arange(S, device=qg.device)[None, :]
     scores = torch.where((s_idx <= t_idx)[:, None, None, :], scores, float("-inf"))
-    att = kvc.mix_einsum(softmax(scores, dim=-1), values, cdt).reshape(T, H * hd)
-    return att, cache_l
+    return kvc.mix_einsum(softmax(scores, dim=-1), values, cdt).reshape(T, -1)
+
+
+def ffn_hidden(cfg: LlamaConfig, x: torch.Tensor, lp: Params, path: str = "int8") -> torch.Tensor:
+    """The SwiGLU FFN up to the down projection's input h."""
+    if "gate_up" in lp:
+        fused = _norm_matmul(x, lp["rms_ffn"], lp["gate_up"], path)
+        hidden = fused.shape[-1] // 2
+        return _activation(fused[:, :hidden], cfg.hidden_act) * fused[:, hidden:]
+    xn = rmsnorm(x, lp["rms_ffn"]).to(lp["gate"].dtype)
+    return _activation(_matmul(xn, lp["gate"], path), cfg.hidden_act) * _matmul(xn, lp["up"], path)
 
 
 def ffn(cfg: LlamaConfig, x: torch.Tensor, lp: Params, path: str = "int8") -> torch.Tensor:
     """SwiGLU FFN."""
-    if "gate_up" in lp:
-        fused = _norm_matmul(x, lp["rms_ffn"], lp["gate_up"], path)
-        hidden = fused.shape[-1] // 2
-        h = _activation(fused[:, :hidden], cfg.hidden_act) * fused[:, hidden:]
-    else:
-        xn = rmsnorm(x, lp["rms_ffn"]).to(lp["gate"].dtype)
-        h = _activation(_matmul(xn, lp["gate"], path), cfg.hidden_act) * _matmul(xn, lp["up"], path)
-    return _matmul(h.to(lp["down"].dtype), lp["down"], path)
+    return _matmul(ffn_hidden(cfg, x, lp, path).to(lp["down"].dtype), lp["down"], path)
 
 
 def block_tail(cfg: LlamaConfig, x: torch.Tensor, att: torch.Tensor, lp: Params, path: str = "int8") -> torch.Tensor:
@@ -152,8 +170,9 @@ def block_tail(cfg: LlamaConfig, x: torch.Tensor, att: torch.Tensor, lp: Params,
     return x + ffn(cfg, x, lp, path).to(x.dtype)
 
 
-def block_forward(cfg, x, lp, cache_l, pos: int, rope_rows, path: str = "int8", paged=None):
-    att, cache_l = attention(cfg, x, lp, cache_l, pos, rope_rows, path, paged=paged)
+def block_forward(cfg, x, lp, cache_l, pos: int, rope_rows, path: str = "int8", paged=None,
+                  per_position: bool = False):
+    att, cache_l = attention(cfg, x, lp, cache_l, pos, rope_rows, path, paged=paged, per_position=per_position)
     return block_tail(cfg, x, att, lp, path), cache_l
 
 
@@ -162,13 +181,14 @@ def final_logits(cfg: LlamaConfig, params: Params, x: torch.Tensor, path: str = 
 
 
 def forward_tokens(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache: list, pos: int,
-                   path: str = "int8", paged=None):
+                   path: str = "int8", paged=None, per_position: bool = False):
     """Run T tokens (int [T] on the params' device) from absolute position
     ``pos``. ``cache`` is the per-layer list of fused leaves (or slab-row
     views), updated in place. ``paged`` = (pool, table, matched): this
     row's positions below ``matched`` live in the per-layer ``(keys,
-    values)`` pool halves, read through ``table``. Returns (logits f32
-    [T, vocab], cache)."""
+    values)`` pool halves, read through ``table``. ``per_position``: the
+    attention of every query row is that of a T=1 step (see
+    :func:`attention`). Returns (logits f32 [T, vocab], cache)."""
     T = tokens.shape[0]
     x = embed(cfg, params, tokens)
     rope_rows = params["rope_table"][pos : pos + T]
@@ -177,8 +197,66 @@ def forward_tokens(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache
         if paged is not None:
             pool, table, matched = paged
             paged_l = (pool[l][0], pool[l][1], table, matched)
-        x, cache[l] = block_forward(cfg, x, lp, cache[l], pos, rope_rows, path, paged=paged_l)
+        x, cache[l] = block_forward(cfg, x, lp, cache[l], pos, rope_rows, path, paged=paged_l,
+                                    per_position=per_position)
     return final_logits(cfg, params, x, path), cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: ``params`` and ``caches`` are per-rank lists (each rank
+# holds its output shards of qkv/gate_up, its input shards of wo/down, its
+# kv heads of the cache and, when the vocab divides, its vocab shard of
+# wcls). The ranks step in lockstep through each layer; the two all-reduces
+# per layer (after wo and after down) go through the ops.collectives seam
+# and leave every rank's residual stream byte-identical.
+# ---------------------------------------------------------------------------
+
+
+def block_tail_tp(cfg: LlamaConfig, xs: list, atts: list, lps: list, path: str = "int8",
+                  impl: str = "psum") -> list:
+    """:func:`block_tail` over the ranks, split at its two all-reduce points:
+    wo + all-reduce, the residual per rank, the FFN up to h per rank, down +
+    all-reduce, the residual per rank."""
+    from distributed_llama_tpu_torch.ops import collectives
+
+    outs = collectives.matmul_all_reduce([a.to(lp["wo"].dtype) for a, lp in zip(atts, lps)],
+                                         [lp["wo"] for lp in lps], impl, path)
+    xs = [x + o.to(x.dtype) for x, o in zip(xs, outs)]
+    hs = [ffn_hidden(cfg, x, lp, path).to(lp["down"].dtype) for x, lp in zip(xs, lps)]
+    outs = collectives.matmul_all_reduce(hs, [lp["down"] for lp in lps], impl, path)
+    return [x + o.to(x.dtype) for x, o in zip(xs, outs)]
+
+
+def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
+                      path: str = "int8", impl: str = "psum") -> tuple[list, list]:
+    """The layer loop under tensor parallelism: T tokens from ``pos``
+    through every layer, attention per rank on its own heads and cache.
+    Returns (each rank's final residual stream [T, dim], caches)."""
+    T = tokens.shape[0]
+    xs = [embed(cfg, p, tokens.to(p["embedding"].device)) for p in params]
+    ropes = [p["rope_table"][pos : pos + T] for p in params]
+    for l in range(cfg.n_layers):
+        lps = [p["layers"][l] for p in params]
+        atts = []
+        for r, lp in enumerate(lps):
+            att, caches[r][l] = attention(cfg, xs[r], lp, caches[r][l], pos, ropes[r], path)
+            atts.append(att)
+        xs = block_tail_tp(cfg, xs, atts, lps, path, impl)
+    return xs, caches
+
+
+def forward_tokens_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
+                      path: str = "int8", impl: str = "psum"):
+    """:func:`forward_tokens` over per-rank params and caches. Final logits
+    per rank; a vocab-sharded wcls gives each rank a slice, and the
+    all-gather is a ``torch.cat`` in rank order onto rank 0's device.
+    Returns (logits f32 [T, vocab], caches)."""
+    xs, caches = forward_hidden_tp(cfg, params, tokens, caches, pos, path, impl)
+    logits = [final_logits(cfg, p, x, path) for p, x in zip(params, xs)]
+    if logits[0].shape[-1] == cfg.vocab_size:  # wcls replicated: every rank holds the full logits
+        return logits[0], caches
+    dev = logits[0].device
+    return torch.cat([lg.to(dev) for lg in logits], dim=-1), caches
 
 
 def attention_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tensor,

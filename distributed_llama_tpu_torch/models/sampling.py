@@ -189,25 +189,39 @@ def sample_token(logits, seed32: int, pos: int, temperature: float, topp: float,
 
 
 def decode_scan(cfg: LlamaConfig, params, first_token, cache, pos: int, seed32: int, n_steps: int,
-                temperature: float, topp: float, topk: int = 0, path: str = "int8"):
+                temperature: float, topp: float, topk: int = 0, path: str = "int8", forward=None):
     """forward -> sample -> feed back, ``n_steps`` times. ``first_token`` is
     a host int or a device scalar (it never has to visit the host); step i
-    consumes position pos+i. Returns (tokens [n_steps] on the device,
+    consumes position pos+i. ``forward(tokens, cache, pos) -> (logits,
+    cache)`` stands in for the single-device forward over ``params``: the
+    tensor-parallel backend passes its own, whose logits every rank holds
+    byte-identical, so the one sample drawn here is the token each rank
+    would draw from its own copy. Returns (tokens [n_steps] on the device,
     cache)."""
-    dev = params["embedding"].device
-    token = torch.as_tensor(first_token, dtype=torch.int64, device=dev).reshape(1)
+    if forward is None:
+        def forward(tokens, c, p):
+            return llama.forward_tokens(cfg, params, tokens, c, p, path)
     out = []
+    token = first_token
     for i in range(n_steps):
-        logits, cache = llama.forward_tokens(cfg, params, token, cache, pos + i, path)
+        logits, cache = forward(_feed(token, params), cache, pos + i)
         token = sample_token(logits[0], seed32, pos + i, temperature, topp, topk).reshape(1)
         out.append(token)
     return torch.cat(out), cache
 
 
+def _feed(token, params) -> torch.Tensor:
+    """A token (host int or device scalar) as int64 [1] on the device of
+    ``params`` (a rank list's first rank under tensor parallelism)."""
+    dev = (params[0] if isinstance(params, list) else params)["embedding"].device
+    return torch.as_tensor(token, dtype=torch.int64, device=dev).reshape(1)
+
+
 def decode_chunk(cfg: LlamaConfig, params, first_token, cache, pos: int, n_steps: int,
-                 temperature: float, topp: float, topk: int, seed32: int, path: str = "int8"):
+                 temperature: float, topp: float, topk: int, seed32: int, path: str = "int8", forward=None):
     """One chunk of the streaming decode (the JAX package's argument order)."""
-    return decode_scan(cfg, params, first_token, cache, pos, seed32, n_steps, temperature, topp, topk, path)
+    return decode_scan(cfg, params, first_token, cache, pos, seed32, n_steps, temperature, topp, topk, path,
+                       forward=forward)
 
 
 def may_partition_rows(temperature, topp, topk, vocab_size: int) -> bool:
@@ -368,7 +382,9 @@ def spec_verify_step(cfg: LlamaConfig, params, feed, cache, pos: int, draft_len:
     but unreachable, since the next step writes them before any query can
     see them."""
     dev = params["embedding"].device
-    logits, cache = llama.forward_tokens(cfg, params, feed, cache, pos, path)
+    # per_position: each window row attends as a T=1 decode step at its
+    # position, so a greedy speculative stream is the plain decode stream
+    logits, cache = llama.forward_tokens(cfg, params, feed, cache, pos, path, per_position=True)
     row = lambda v, dt: to_device([v], dev, dt)  # noqa: E731
     n_emit, tokens = spec_accept_rows(
         logits[None], feed[None, 1:], row(draft_len, torch.int64), row(seed32, torch.int64),

@@ -2,8 +2,8 @@
 
 Each source under ``csrc/`` has a plain C entry point. It is compiled by
 ``nvcc`` for sm_90a into its own shared library under ``build/kernels/``
-(named by a hash of the source, so an edited kernel rebuilds) at first use,
-and loaded with ``ctypes``. Nothing here runs at import time: the package
+(named by a hash of the source and the headers beside it, so an edited
+kernel rebuilds) at first use, and loaded with ``ctypes``. Nothing here runs at import time: the package
 imports on machines without CUDA, where the kernels' wrappers take their
 plain PyTorch versions for CPU tensors.
 """
@@ -29,11 +29,14 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers, one per rank
 # kernel library name -> (source file, C function, argtypes)
 KERNELS = {
     "q40_int8": ("q40_int8.cu", "q40_int8_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "q40_dequant": ("q40_dequant.cu", "q40_dequant_matmul", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "paged_attention": ("paged_attention.cu", "paged_attention", [_P] * 13 + [_I] * 10 + [_P]),
+    "ring_all_reduce": ("ring_all_reduce.cu", "ring_all_reduce", [_PP, _PP, _I, ctypes.c_longlong, _I, _P]),
+    "fused_matmul_ring": ("fused_matmul_ring.cu", "fused_matmul_ring", [_PP] * 6 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -50,7 +53,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

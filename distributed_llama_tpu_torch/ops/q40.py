@@ -294,14 +294,19 @@ def _true_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _at_row_bucket(lambda x: x @ b, a)
 
 
+def bias_correction(xq: torch.Tensor, sx: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
+    """(sx * block sums of xq) @ scales in true f32, [T, d_pad]: the kernel
+    output minus 8x this is the matmul of the dequantized Q80 activations
+    (exactly the values the kernel consumed) with the unbiased weights."""
+    T, n_pad = xq.shape
+    qsum = xq.to(torch.float32).reshape(T, n_pad // QK, QK).sum(dim=-1)
+    return _true_f32_matmul(sx * qsum, qm.scales)
+
+
 def _int8_core(xq: torch.Tensor, sx: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
     """Kernel + bias epilogue on already-quantized Q80 activations, trimmed
-    to the logical d. The correction uses the dequantized Q80 block sums
-    (exactly the values the kernel consumed)."""
-    T, n_pad = xq.shape
-    out = q40_int8(xq, sx, qm.qs, qm.scales)
-    qsum = xq.to(torch.float32).reshape(T, n_pad // QK, QK).sum(dim=-1)
-    out = out - 8.0 * _true_f32_matmul(sx * qsum, qm.scales)
+    to the logical d."""
+    out = q40_int8(xq, sx, qm.qs, qm.scales) - 8.0 * bias_correction(xq, sx, qm)
     return out[:, : qm.d] if qm.d_padded != qm.d else out
 
 
@@ -309,9 +314,15 @@ def _pad_to(x: torch.Tensor, n_pad: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, n_pad - x.shape[-1])) if x.shape[-1] != n_pad else x
 
 
-def _q40_matmul_int8(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
+def quantize_for(x: torch.Tensor, qm: QuantizedMatrix) -> tuple[torch.Tensor, torch.Tensor]:
+    """Activations x [T, n] zero-padded to qm's input width and quantized to
+    Q80: the (xq, sx) the int8 kernel takes for ``x @ qm``."""
     xq, sx = quantize_q80(_pad_to(x, qm.n_padded))
-    return _int8_core(xq.contiguous(), sx.contiguous(), qm)
+    return xq.contiguous(), sx.contiguous()
+
+
+def _q40_matmul_int8(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
+    return _int8_core(*quantize_for(x, qm), qm)
 
 
 # ---------------------------------------------------------------------------
@@ -409,11 +420,8 @@ def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> tor
 
 def rmsnorm_q40_matmul(x: torch.Tensor, weight: torch.Tensor, qm: QuantizedMatrix,
                        eps: float = 1e-5, path: str = "int8") -> torch.Tensor:
-    """y = rmsnorm(x, weight) @ dequant(qm). On the int8 path the op order
-    is rmsnorm in f32 -> x.dtype -> bf16 -> zero-pad -> Q80, exactly the
-    unfused chain's, so fused and unfused are bit-identical."""
-    if path != "int8" or not kernel_eligible(qm):
-        return q40_matmul(rmsnorm_ref(x, weight, eps).to(torch.bfloat16), qm, path)
-    xb = rmsnorm_ref(x, weight, eps).to(torch.bfloat16)
-    xq, sx = quantize_q80(_pad_to(xb, qm.n_padded))
-    return _int8_core(xq.contiguous(), sx.contiguous(), qm)
+    """y = rmsnorm(x, weight) @ dequant(qm): rmsnorm in f32 -> x.dtype ->
+    bf16, then :func:`q40_matmul` (zero-pad -> Q80 on the int8 path), the
+    op order of the JAX package's fused rmsnorm->Q80 entry, which is
+    bit-identical to its unfused chain."""
+    return q40_matmul(rmsnorm_ref(x, weight, eps).to(torch.bfloat16), qm, path)

@@ -119,6 +119,9 @@ class StreamSlot:
 
 class ApiState:
     def __init__(self, engine, tokenizer: Tokenizer, sampler: Sampler, args):
+        if getattr(engine, "tp_backend", None) is not None:
+            raise NotImplementedError("serving tensor-parallel ranks is not ported yet "
+                                      "(ROADMAP.md Queue 1: the batched TP scheduler)")
         self.engine = engine
         self.tokenizer = tokenizer
         self.args = args

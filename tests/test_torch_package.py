@@ -46,9 +46,11 @@ def test_port_sources_exist():
                 "models/config", "ops/q40", "models/rope", "ops/kv_cache", "ops/attention",
                 "models/llama", "engine/weights", "prng", "models/sampling", "engine/engine",
                 "apps/cli", "engine/integrity", "engine/prefix_cache", "engine/batch", "server/api",
-                "engine/speculative"):
+                "engine/speculative", "ops/collectives", "parallel/__init__", "parallel/sharding",
+                "parallel/tensor_parallel"):
         assert f"distributed_llama_tpu_torch/{mod}.py" in names
-    for src in ("q40_int8.cu", "q40_dequant.cu", "paged_attention.cu"):
+    for src in ("q40_int8.cu", "q40_int8_tile.cuh", "q40_dequant.cu", "paged_attention.cu", "ring_all_reduce.cu",
+                "fused_matmul_ring.cu"):
         assert (ROOT / "distributed_llama_tpu_torch" / "csrc" / src).is_file()
 
 

@@ -197,6 +197,28 @@ def test_greedy_spec_equals_plain(models, cache_dtype):
     sched.check_prefix()
 
 
+@pytest.mark.parametrize("seq_len,cache_dtype", [(96, None), (1024, None), (1024, "i8")])
+def test_verify_window_equals_per_position_decode(models, seq_len, cache_dtype):
+    """The single-stream verify window (``spec_verify_step``'s forward, each
+    query row attending on its own) gives, bit for bit, the logits of the
+    same tokens fed as T=1 decode steps: full-S and blocked attention, bf16
+    and int8 caches."""
+    from distributed_llama_tpu_torch.models import llama
+
+    engine = torch_engine(models, seq_len, cache_dtype)
+    stream = engine.default_stream
+    engine.reset()
+    logits = engine.prefill([1, 5, 9, 13, 2])
+    start, feed, rows = engine.pos, [int(logits.argmax())], []
+    for _ in range(K + 1):
+        rows.append(engine.decode_step(feed[-1]))
+        feed.append(int(rows[-1].argmax()))
+    stream.rollback(start)
+    window, stream.cache = llama.forward_tokens(engine.cfg, engine.params, torch.tensor(feed[: K + 1]),
+                                                stream.cache, start, per_position=True)
+    assert torch.equal(window, torch.from_numpy(np.stack(rows)))
+
+
 # ---------------------------------------------------------------------------
 # The port against the JAX package (tests/test_speculative.py's cases)
 # ---------------------------------------------------------------------------
