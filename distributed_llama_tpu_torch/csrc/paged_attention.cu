@@ -12,54 +12,85 @@
 //   m = max s (-inf when the chunk is fully masked), p = exp(s - m), l = sum p
 //   o = sum round_cdt(p) * v              f32 accumulation
 //
-// merged into the running (m, l, o) with the online-softmax formula and
-// its isfinite guards (`merge_partials`); the output is o / max(l, 1e-30).
-// round_cdt rounds to the compute dtype: the cache dtype for bf16 and f32
-// caches, bf16 for the int8 cache. The merge granularity stays the
-// 512-position chunk: p's bf16 rounding depends on the chunk max.
+// and the chunks' (m, l, o) partials fold in chunk order with the
+// online-softmax formula and its isfinite guards; the output is
+// o / max(l, 1e-30). round_cdt rounds to the compute dtype: the cache dtype
+// for bf16 and f32 caches, bf16 for the int8 cache. The chunk stays the
+// softmax unit: p's bf16 rounding depends on the chunk max.
 //
 // The int8 cache (the JAX QuantizedKV) stores int8 rows with one f32 scale
-// per (position, kv head), in four more arrays laid out as the data with
-// hd replaced by 1. Its arithmetic is the JAX package's, in its order:
+// per (position, kv head), laid out as the data with hd replaced by 1. Its
+// arithmetic is the JAX package's, in its order:
 //
 //   s = (dot(round_bf16(q), k_int8) * kscale) / sqrt(hd)   each product exact in f32
 //   w = round_bf16(p * vscale), o = sum w * v_int8         l sums the unscaled p
 //
-// so the value scale folds into the weight before its bf16 rounding.
-//
 // What bounds it on an H100: the bytes. Each live KV position is read once
 // (2 * K * hd * sizeof(cache dtype) per position and row, plus 2 * K * 4
-// bytes of scales for int8) and the arithmetic per byte is a few FMAs per
-// query, far below the card's operations-per-byte ridge, so the bound is
-// live KV bytes / 3.35 TB/s.
+// bytes of scales for int8) with a few FMAs per byte and query, far below
+// the card's operations-per-byte ridge: the bound is live KV bytes over
+// 3.35 TB/s. Reaching it takes tens of KB in flight on every SM.
 //
-// Design (simple and right first; wgmma, TMA and double buffering are
-// later work): one CTA per (row, kv head), 256 threads. The TPU kernel's
-// sequential chunk grid becomes a loop inside the CTA, up to the row's own
-// bound ceil((pos[b]+T)/512) (chunks past it are empty partials, which the
-// merge passes through exactly). Per chunk: (1) each position's K/V row
-// address (and, for int8, its two scales) is resolved once (pool page or
-// slab row) into shared memory; (2) one warp per position scores it against
-// every query (lanes split hd, shuffle-reduced; an int8 row is read as one
-// 4-byte word per lane); (3) one warp per query takes the chunk max, exp
-// and sum and stores the rounded weights; (4) threads split hd in pairs and
-// the positions into slices to mix V; (5) the slices are summed in a fixed
-// order and merged into the running o. Everything stays in shared memory
-// and registers; the output is written once.
+// Design. Two launches:
+// (1) `partials_kernel`, grid (S/512 chunks x kClusterCtas, K, B), 128
+//     threads, fixed by S and never by max(pos). Each chunk is shared by a
+//     thread-block cluster of kClusterCtas = 4 CTAs, each taking 128
+//     positions (two 64-position pages). A CTA resolves its page ids once
+//     per page and each slot's source once, then issues q, the int8
+//     scales and its K slice as one cp.async group and its V slice as a
+//     second, 16 bytes a thread: 32-64 KB in flight per CTA, V landing
+//     while the scores and the softmax run. A row's 16-byte segments are
+//     stored XOR-swizzled by row, so neighbouring rows read at one segment
+//     hit distinct banks. Scores: a thread per slot, each query's dot one
+//     f32 chain over hd in order, no cross-lane sums. The CTAs of a
+//     cluster exchange their per-query maxima through distributed shared
+//     memory, so every p is rounded against the chunk max, as a one-CTA
+//     chunk would. p is exp rounded once to f32 (through f64): an ulp of
+//     exp flips a bf16 weight, and the correctly rounded value is what the
+//     plain version's CPU exp returns for ~99% of arguments. The value mix
+//     gives a thread 4 elements of hd and a group of 32 slots summed in
+//     order, the 4 groups then summed in order; the cluster sums its CTAs'
+//     (l, o) in rank order, and the chunk's (m, l, o) go to the workspace
+//     f32 [B, K, S/512, T*M, hd + 2]. A cluster whose chunk lies past the
+//     row's live bound ceil((pos[b]+T)/512) writes the empty partial
+//     (m = -inf, l = 0, o = 0) and exits.
+// (2) `merge_kernel`, one CTA per (row, kv head), folds chunks 0..S/512-1
+//     in order (the empty partial folds as an exact identity) and writes
+//     o / max(l, 1e-30).
+//
+// Contracts:
+// - A query's arithmetic is fixed by absolute position (chunk, cluster
+//   rank, lane) and never by T, B, the other rows, max(pos) or the SM
+//   count: a verify window's row t equals a decode launch at pos+t, and a
+//   row is the same alone or in a batch, bit for bit. A position that a
+//   query masks adds exact zeros; positions past the live bound are
+//   neither read nor summed.
+// - The same KV through a pool page or the slab gives the same bits.
+// - No atomics, no floating-point sum in an order that depends on timing:
+//   two launches on the same inputs give the same bits.
+// - pos and matched stay on the device; the kernels allocate nothing (the
+//   caller passes the workspace).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kChunk = 512;
-constexpr int kThreads = 256;
+constexpr int kClusterCtas = 4;
+constexpr int kSlice = kChunk / kClusterCtas;  // positions per CTA
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMergeThreads = 128;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
 
 // storage traits: the compute dtype queries and weights round to, and
 // whether the cache carries per-position scales
@@ -83,51 +114,61 @@ __device__ __forceinline__ float round_cdt<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
-__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  a = __low2float(v);
-  b = __high2float(v);
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
-__device__ __forceinline__ void load_pair(const int8_t* p, float& a, float& b) {
-  const char2 v = *reinterpret_cast<const char2*>(p);
-  a = static_cast<float>(v.x);
-  b = static_cast<float>(v.y);
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// EPL = 16 / sizeof(T) elements of a row as floats, from one 16-byte word
+template <typename T, int EPL>
+__device__ __forceinline__ void unpack16(const T* p, float (&x)[EPL]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+  for (int i = 0; i < EPL; ++i) x[i] = to_f(e[i]);
 }
 
-// One lane's EPL elements of a key row for the score dot, and the query
-// element each pairs with. Float rows: elements e * 32 + lane (coalesced
-// 2- or 4-byte loads). Int8 rows: EPL contiguous bytes at lane * EPL, one
-// 4-byte (hd 128) or 2-byte (hd 64) load converted in registers.
-template <typename T, int EPL>
-__device__ __forceinline__ void load_key(const T* kp, int lane, float (&kv)[EPL]) {
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) kv[e] = to_f(kp[e * 32 + lane]);
+// 4 consecutive row elements as floats (8, 4 or 16 bytes)
+__device__ __forceinline__ void unpack4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
+  x[0] = __low2float(a);
+  x[1] = __high2float(a);
+  x[2] = __low2float(b);
+  x[3] = __high2float(b);
 }
-template <>
-__device__ __forceinline__ void load_key<int8_t, 4>(const int8_t* kp, int lane, float (&kv)[4]) {
-  const char4 v = *reinterpret_cast<const char4*>(kp + lane * 4);
-  kv[0] = static_cast<float>(v.x);
-  kv[1] = static_cast<float>(v.y);
-  kv[2] = static_cast<float>(v.z);
-  kv[3] = static_cast<float>(v.w);
+__device__ __forceinline__ void unpack4(const int8_t* p, float (&x)[4]) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  x[0] = static_cast<float>(v.x);
+  x[1] = static_cast<float>(v.y);
+  x[2] = static_cast<float>(v.z);
+  x[3] = static_cast<float>(v.w);
 }
-template <>
-__device__ __forceinline__ void load_key<int8_t, 2>(const int8_t* kp, int lane, float (&kv)[2]) {
-  load_pair(kp + lane * 2, kv[0], kv[1]);
+__device__ __forceinline__ void unpack4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
 }
-template <typename T, int EPL>
-__device__ __forceinline__ int key_elem(int e, int lane) {
-  return Cache<T>::kQuant ? lane * EPL + e : e * 32 + lane;
-}
+
+// exp rounded once to f32, from the f64 exp: p an ulp off can flip a
+// weight's bf16 rounding, and CUDA's expf (up to 2 ulp) is off far more
+// often than the correctly rounded value, which the plain version's exp on
+// the CPU returns for all but ~1% of arguments
+__device__ __forceinline__ float exp_rn(float x) { return __double2float_rn(exp(static_cast<double>(x))); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 __device__ __forceinline__ float warp_max(float v) {
@@ -136,206 +177,336 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// shared memory of one CTA, in floats before the two pointer arrays
-__host__ __device__ constexpr int smem_floats(int tm, int hd) {
-  return tm * hd                                  // q (rounded)
-         + tm * kChunk                            // scores, then rounded weights
-         + (kThreads / (hd / 2)) * tm * hd        // per-slice value partials
-         + tm * hd                                // running o
-         + 4 * tm                                 // running m, l; merge factors a1, a2
-         + 2 * kChunk;                            // per-position k and v scales (int8)
+// shared memory of one partials CTA, in bytes: K and V slices, then f32
+// arrays, then the slots' offsets and the page ids
+template <typename T, int HD>
+__host__ __device__ constexpr size_t kv_bytes() {
+  return (size_t)kSlice * HD * sizeof(T);
 }
-
-__host__ __device__ constexpr size_t smem_bytes(int tm, int hd) {
-  return ((size_t)smem_floats(tm, hd) + 1) / 2 * 2 * sizeof(float) + 2 * kChunk * sizeof(void*);
+// queries per value-mix pass (4 accumulators each, at most 32 registers)
+__host__ __device__ constexpr int mix_queries(int tmax) { return tmax < 8 ? tmax : 8; }
+// f32 words of one partials CTA after the K and V slices; qr = min(T*M, QB)
+__host__ __device__ constexpr int smem_floats(int tm, int hd, int qr) {
+  return 2 * kSlice            // k and v scales (int8)
+         + tm * hd             // q (rounded)
+         + tm * kSlice         // scores, then rounded weights
+         + kThreads * 4 * qr   // the value mix's per-group partials
+         + tm * hd             // this CTA's o (read by the cluster)
+         + 3 * tm;             // local max (read by the cluster), chunk max, local l
+}
+template <typename T, int HD, int TMAX>
+__host__ __device__ constexpr size_t smem_bytes(int tm) {
+  const int qr = tm < mix_queries(TMAX) ? tm : mix_queries(TMAX);
+  return 2 * kv_bytes<T, HD>() + (size_t)((smem_floats(tm, HD, qr) + 1) & ~1) * sizeof(float) +
+         kSlice * (sizeof(long long) + sizeof(int));
 }
 
 template <typename T, int HD, int TMAX>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const float* __restrict__ q, const T* __restrict__ slab_k,
-                       const T* __restrict__ slab_v, const T* __restrict__ pool_k,
-                       const T* __restrict__ pool_v, const float* __restrict__ slab_ks,
-                       const float* __restrict__ slab_vs, const float* __restrict__ pool_ks,
-                       const float* __restrict__ pool_vs, const int* __restrict__ tables,
-                       const int* __restrict__ pos, const int* __restrict__ matched,
-                       float* __restrict__ out, int T_, int K, int M, int S, int page, int n_table,
-                       float scale) {
-  constexpr int EPL = HD / 32;                // elements of a row per lane (scores)
-  constexpr int kPairLanes = HD / 2;          // threads per position (value mix)
-  constexpr int kSlices = kThreads / kPairLanes;
+__global__ void __cluster_dims__(kClusterCtas, 1, 1) __launch_bounds__(kThreads)
+partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const T* __restrict__ slab_v,
+                const T* __restrict__ pool_k, const T* __restrict__ pool_v,
+                const float* __restrict__ slab_ks, const float* __restrict__ slab_vs,
+                const float* __restrict__ pool_ks, const float* __restrict__ pool_vs,
+                const int* __restrict__ tables, const int* __restrict__ pos, const int* __restrict__ matched,
+                float* __restrict__ ws, int T_, int K, int M, int S, int page, int n_table, float scale) {
+  constexpr int EPL = 16 / sizeof(T);  // row elements in one 16-byte segment
+  constexpr int LPR = HD / EPL;        // segments per row
+  constexpr int SWZ = (LPR < 8 ? LPR : 8) - 1;
+  constexpr int kMixLanes = HD / 4;    // threads per row in the value mix
+  constexpr int kGroups = kThreads / kMixLanes;
+  constexpr int kGroupLen = kSlice / kGroups;
+  constexpr int QB = mix_queries(TMAX);
+  static_assert(kThreads == kSlice, "the scores take a thread per slot");
   constexpr bool kQuant = Cache<T>::kQuant;
   using Cdt = typename Cache<T>::Compute;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int TM = T_ * M;
-  float* s_q = smem;
+  const int QR = TM < QB ? TM : QB;
+  T* s_k = reinterpret_cast<T*>(smem_raw);
+  T* s_v = s_k + kSlice * HD;
+  float* s_ks = reinterpret_cast<float*>(smem_raw + 2 * kv_bytes<T, HD>());
+  float* s_vs = s_ks + kSlice;
+  float* s_q = s_vs + kSlice;
   float* s_p = s_q + TM * HD;
-  float* s_red = s_p + TM * kChunk;
-  float* s_o = s_red + kSlices * TM * HD;
-  float* s_m = s_o + TM * HD;
-  float* s_l = s_m + TM;
-  float* s_a1 = s_l + TM;
-  float* s_a2 = s_a1 + TM;
-  float* s_ks = s_a2 + TM;
-  float* s_vs = s_ks + kChunk;
-  const T** s_kp = reinterpret_cast<const T**>(smem + (smem_floats(TM, HD) + 1) / 2 * 2);
-  const T** s_vp = s_kp + kChunk;
+  float* s_red = s_p + TM * kSlice;  // 16-byte aligned, as s_q and s_o
+  float* s_o = s_red + kThreads * 4 * QR;
+  float* s_mx = s_o + TM * HD;
+  float* s_cm = s_mx + TM;
+  float* s_l = s_cm + TM;
+  long long* s_off = reinterpret_cast<long long*>(s_ks + ((smem_floats(TM, HD, QR) + 1) & ~1));
+  int* s_pid = reinterpret_cast<int*>(s_off + kSlice);
 
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int chunk = blockIdx.x / kClusterCtas;
   const int k = blockIdx.y;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int n_chunks = S / kChunk;
   const int p0 = pos[b];
   const int mt = matched[b];
   const int live = min(p0 + T_, S);  // positions any query of this row may see
-  const int n_chunks = (live + kChunk - 1) / kChunk;
+  float* wsc = ws + (((size_t)b * K + k) * n_chunks + chunk) * TM * (HD + 2);
+  if (chunk * kChunk >= live) {  // the whole cluster: the empty partial
+    for (int e = rank * kThreads + tid; e < TM * (HD + 2); e += kClusterCtas * kThreads)
+      wsc[e] = e % (HD + 2) == 0 ? -INFINITY : 0.f;
+    return;
+  }
+  const int off0 = rank * kSlice;           // this CTA's first slot in the chunk
+  const int start = chunk * kChunk + off0;  // its absolute position
+  const int n_live = max(0, min(kSlice, live - start));
+  const long long row_stride = (long long)K * HD;  // elements between two positions
+
+  // page ids once per page touching this CTA's slots (when any is pooled),
+  // each slot's offset once (a pool page's row stored as ~offset), then q,
+  // the scales and K as one cp.async group and V as a second, landing
+  // while the scores and the softmax run
   const int ppc = kChunk / page;
-  const size_t row_stride = (size_t)K * HD;  // elements between two positions
-
-  for (int e = tid; e < TM * HD; e += kThreads) {
-    const int qi = e / HD;
-    const int t = qi / M;
-    const int m = qi % M;
-    s_q[e] = round_cdt<Cdt>(q[((((size_t)b * T_ + t) * K + k) * M + m) * HD + e % HD]);
-    s_o[e] = 0.f;
+  const int pg0 = off0 / page;
+  if (mt > start) {
+    const int base = min(max(chunk * ppc, 0), n_table - ppc);
+    const int npg = (off0 + kSlice - 1) / page - pg0 + 1;
+    for (int i = tid; i < npg; i += kThreads) s_pid[i] = tables[(size_t)b * n_table + base + pg0 + i];
   }
-  for (int qi = tid; qi < TM; qi += kThreads) {
-    s_m[qi] = -INFINITY;
-    s_l[qi] = 0.f;
-  }
-
-  for (int i = 0; i < n_chunks; ++i) {
-    const int start = i * kChunk;
-    const int n_live = min(kChunk, live - start);
-    // (1) each position's source: a pool page through the table, or the
-    // slab; an int8 position's scales sit at the data offset / hd
-    const int base = min(max(i * ppc, 0), n_table - ppc);
-    for (int j = tid; j < n_live; j += kThreads) {
-      const int a = start + j;
-      const bool pooled = a < mt;
-      size_t off;
-      if (pooled) {
-        const int pid = tables[(size_t)b * n_table + base + j / page];
-        off = ((size_t)pid * page + j % page) * row_stride + (size_t)k * HD;
-      } else {
-        off = ((size_t)b * S + a) * row_stride + (size_t)k * HD;
-      }
-      s_kp[j] = (pooled ? pool_k : slab_k) + off;
-      s_vp[j] = (pooled ? pool_v : slab_v) + off;
-      if (kQuant) {
-        s_ks[j] = (pooled ? pool_ks : slab_ks)[off / HD];
-        s_vs[j] = (pooled ? pool_vs : slab_vs)[off / HD];
-      }
+  __syncthreads();
+  for (int j = tid; j < n_live; j += kThreads) {
+    long long o;
+    if (start + j < mt) {
+      const int r = off0 + j;
+      o = ~(((long long)s_pid[r / page - pg0] * page + r % page) * row_stride + (long long)k * HD);
+    } else {
+      o = ((long long)b * S + start + j) * row_stride + (long long)k * HD;
     }
-    __syncthreads();
+    s_off[j] = o;
+    if (kQuant) {  // an int8 slot's scales sit at its data offset / hd
+      const bool pooled = o < 0;
+      const long long so = (pooled ? ~o : o) / HD;
+      cp_async4(s_ks + j, (pooled ? pool_ks : slab_ks) + so);
+      cp_async4(s_vs + j, (pooled ? pool_vs : slab_vs) + so);
+    }
+  }
+  for (int s = tid; s < TM * HD / 4; s += kThreads) {
+    const int qi = s * 4 / HD;
+    cp_async16(s_q + s * 4, q + ((((size_t)b * T_ + qi / M) * K + k) * M + qi % M) * HD + s * 4 % HD);
+  }
+  __syncthreads();
+  // a row's 16-byte segment seg lands at seg ^ (j & SWZ), so that eight
+  // neighbouring rows read at one logical segment hit distinct banks
+  for (int s = tid; s < n_live * LPR; s += kThreads) {
+    const int j = s / LPR;
+    const int seg = s % LPR;
+    const long long o = s_off[j];
+    cp_async16(s_k + j * HD + (seg ^ (j & SWZ)) * EPL, (o < 0 ? pool_k + ~o : slab_k + o) + seg * EPL);
+  }
+  cp_commit();
+  for (int s = tid; s < n_live * LPR; s += kThreads) {
+    const int j = s / LPR;
+    const int seg = s % LPR;
+    const long long o = s_off[j];
+    cp_async16(s_v + j * HD + (seg ^ (j & SWZ)) * EPL, (o < 0 ? pool_v + ~o : slab_v + o) + seg * EPL);
+  }
+  cp_commit();
+  cp_wait<1>();  // q, the scales and K
+  __syncthreads();
+  for (int e = tid; e < TM * HD; e += kThreads) s_q[e] = round_cdt<Cdt>(s_q[e]);
+  __syncthreads();
 
-    // (2) scores: one warp per position, lanes split hd as load_key reads it
-    for (int j = warp; j < kChunk; j += kWarps) {
-      if (j < n_live) {
-        float kv[EPL];
-        load_key<T, EPL>(s_kp[j], lane, kv);
-        const float ks = kQuant ? s_ks[j] : 1.f;
+  // scores: a thread per slot, every query's dot in one f32 chain over
+  // hd in order (the queries are read as broadcasts), no cross-lane sums
+  {
+    const int j = tid;
+    if (j < n_live) {
+      float acc[TMAX];
+#pragma unroll
+      for (int qi = 0; qi < TMAX; ++qi) acc[qi] = 0.f;
+      const T* kr = s_k + j * HD;
+#pragma unroll 2
+      for (int seg = 0; seg < LPR; ++seg) {
+        float kx[EPL];
+        unpack16<T, EPL>(kr + (seg ^ (j & SWZ)) * EPL, kx);
 #pragma unroll
         for (int qi = 0; qi < TMAX; ++qi) {
           if (qi < TM) {
-            const float* qq = s_q + qi * HD;
-            float acc = 0.f;
+            const float4* qq = reinterpret_cast<const float4*>(s_q + qi * HD + seg * EPL);
 #pragma unroll
-            for (int e = 0; e < EPL; ++e) acc = fmaf(qq[key_elem<T, EPL>(e, lane)], kv[e], acc);
-            acc = warp_sum(acc);
-            if (kQuant) acc = __fmul_rn(acc, ks);  // the key scale after the raw dot
-            if (lane == 0) s_p[qi * kChunk + j] = acc / scale;
+            for (int e4 = 0; e4 < EPL / 4; ++e4) {
+              const float4 q4 = qq[e4];
+              acc[qi] = fmaf(q4.x, kx[4 * e4], acc[qi]);
+              acc[qi] = fmaf(q4.y, kx[4 * e4 + 1], acc[qi]);
+              acc[qi] = fmaf(q4.z, kx[4 * e4 + 2], acc[qi]);
+              acc[qi] = fmaf(q4.w, kx[4 * e4 + 3], acc[qi]);
+            }
           }
         }
       }
-    }
-    __syncthreads();
-
-    // (3) per query: chunk max, exp, sum; rounded weights; merge factors
-    for (int qi = warp; qi < TM; qi += kWarps) {
-      float* sp = s_p + qi * kChunk;
-      const int last = p0 + qi / M - start;  // the query sees chunk slots j <= last
-      float mx = -INFINITY;
-      for (int j = lane; j < kChunk; j += 32)
-        if (j <= last) mx = fmaxf(mx, sp[j]);
-      mx = warp_max(mx);
-      const float safe = isfinite(mx) ? mx : 0.f;
-      float sum = 0.f;
-      for (int j = lane; j < kChunk; j += 32) {
-        const float p = j <= last ? expf(sp[j] - safe) : 0.f;
-        sum += p;
-        // int8: the value scale folds into the weight before its rounding
-        sp[j] = kQuant ? (j <= last ? round_cdt<Cdt>(__fmul_rn(p, s_vs[j])) : 0.f) : round_cdt<Cdt>(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float m_old = s_m[qi];
-        const float m_new = fmaxf(m_old, mx);
-        const float sf = isfinite(m_new) ? m_new : 0.f;
-        const float a1 = isfinite(m_old) ? expf(m_old - sf) : 0.f;
-        const float a2 = isfinite(mx) ? expf(mx - sf) : 0.f;
-        s_a1[qi] = a1;
-        s_a2[qi] = a2;
-        s_m[qi] = m_new;
-        s_l[qi] = __fadd_rn(__fmul_rn(s_l[qi], a1), __fmul_rn(sum, a2));
-      }
-    }
-    __syncthreads();
-
-    // (4) value mix: thread = (pair of hd elements, slice of positions)
-    {
-      const int hp = tid % kPairLanes;
-      const int sl = tid / kPairLanes;
-      float acc[TMAX][2];
-#pragma unroll
-      for (int qi = 0; qi < TMAX; ++qi) acc[qi][0] = acc[qi][1] = 0.f;
-      for (int j = sl; j < n_live; j += kSlices) {
-        float v0, v1;
-        load_pair(s_vp[j] + 2 * hp, v0, v1);
-#pragma unroll
-        for (int qi = 0; qi < TMAX; ++qi) {
-          if (qi < TM) {
-            const float w = s_p[qi * kChunk + j];
-            acc[qi][0] = fmaf(w, v0, acc[qi][0]);
-            acc[qi][1] = fmaf(w, v1, acc[qi][1]);
-          }
-        }
-      }
+      const float ks = kQuant ? s_ks[j] : 1.f;
 #pragma unroll
       for (int qi = 0; qi < TMAX; ++qi) {
         if (qi < TM) {
-          float* r = s_red + ((size_t)sl * TM + qi) * HD + 2 * hp;
-          r[0] = acc[qi][0];
-          r[1] = acc[qi][1];
+          float a = acc[qi];
+          if (kQuant) a = __fmul_rn(a, ks);  // the key scale after the raw dot
+          s_p[qi * kSlice + j] = a / scale;
         }
       }
     }
-    __syncthreads();
-
-    // (5) sum the slices in a fixed order and merge into the running o
-    for (int e = tid; e < TM * HD; e += kThreads) {
-      const int qi = e / HD;
-      float oc = 0.f;
-#pragma unroll
-      for (int s2 = 0; s2 < kSlices; ++s2) oc += s_red[(size_t)s2 * TM * HD + e];
-      s_o[e] = __fadd_rn(__fmul_rn(s_o[e], s_a1[qi]), __fmul_rn(oc, s_a2[qi]));
-    }
-    __syncthreads();
   }
+  __syncthreads();
 
-  for (int e = tid; e < TM * HD; e += kThreads) {
+  // this CTA's max per query over the slots it sees, shared with the cluster
+  for (int qi = warp; qi < TM; qi += kWarps) {
+    const int lim = min(p0 + qi / M - start, n_live - 1);  // visible slots j <= lim
+    float mx = -INFINITY;
+    for (int j = lane; j <= lim; j += 32) mx = fmaxf(mx, s_p[qi * kSlice + j]);
+    mx = warp_max(mx);
+    if (lane == 0) s_mx[qi] = mx;
+  }
+  cluster.sync();
+
+  // the chunk max (exact in any order), p, l over this slice, rounded weights
+  for (int qi = warp; qi < TM; qi += kWarps) {
+    float mx = -INFINITY;
+    for (int r = 0; r < kClusterCtas; ++r) mx = fmaxf(mx, cluster.map_shared_rank(s_mx, r)[qi]);
+    const float safe = isfinite(mx) ? mx : 0.f;
+    const int lim = min(p0 + qi / M - start, n_live - 1);
+    float* sp = s_p + qi * kSlice;
+    float sum = 0.f;
+    for (int j = lane; j < kSlice; j += 32) {
+      float w = 0.f;
+      if (j <= lim) {
+        const float p = exp_rn(sp[j] - safe);
+        sum = __fadd_rn(sum, p);
+        // int8: the value scale folds into the weight before its rounding
+        w = kQuant ? round_cdt<Cdt>(__fmul_rn(p, s_vs[j])) : round_cdt<Cdt>(p);
+      }
+      sp[j] = w;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      s_cm[qi] = mx;
+      s_l[qi] = sum;
+    }
+  }
+  cp_wait<0>();  // V
+  __syncthreads();
+
+  // value mix: thread = (4 elements of hd, group of kGroupLen slots
+  // summed in order), QB queries at a time; the groups then sum in order
+  {
+    const int e0 = (tid % kMixLanes) * 4;
+    const int g = tid / kMixLanes;
+    const int j_begin = g * kGroupLen;
+    const int j_end = min(j_begin + kGroupLen, n_live);
+    for (int q0 = 0; q0 < TM; q0 += QB) {
+      float acc[QB][4];
+#pragma unroll
+      for (int i = 0; i < QB; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      for (int j = j_begin; j < j_end; ++j) {
+        float vx[4];
+        unpack4(s_v + j * HD + ((e0 / EPL) ^ (j & SWZ)) * EPL + e0 % EPL, vx);
+#pragma unroll
+        for (int i = 0; i < QB; ++i) {
+          if (q0 + i < TM) {
+            const float w = s_p[(q0 + i) * kSlice + j];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(w, vx[e], acc[i][e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < QB; ++i)
+        if (q0 + i < TM)
+          *reinterpret_cast<float4*>(s_red + ((size_t)g * QR + i) * HD + e0) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      __syncthreads();
+      for (int e = tid; e < QR * HD; e += kThreads) {
+        if (q0 + e / HD < TM) {
+          float o = s_red[e];
+#pragma unroll
+          for (int g2 = 1; g2 < kGroups; ++g2) o = __fadd_rn(o, s_red[(size_t)g2 * QR * HD + e]);
+          s_o[q0 * HD + e] = o;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  cluster.sync();
+
+  // the chunk's (m, l, o): l and o summed over the cluster in rank order,
+  // each CTA writing a share of the elements
+  for (int e = rank * kThreads + tid; e < TM * (HD + 2); e += kClusterCtas * kThreads) {
+    const int qi = e / (HD + 2);
+    const int f = e % (HD + 2);
+    float v;
+    if (f == 0) {
+      v = s_cm[qi];
+    } else {
+      float* src = f == 1 ? s_l + qi : s_o + qi * HD + (f - 2);
+      v = *cluster.map_shared_rank(src, 0);
+#pragma unroll
+      for (int r = 1; r < kClusterCtas; ++r) v = __fadd_rn(v, *cluster.map_shared_rank(src, r));
+    }
+    wsc[e] = v;
+  }
+  cluster.sync();  // no CTA leaves while the cluster reads its shared memory
+}
+
+// fold the chunk partials of one (row, kv head) in chunk order: a thread
+// per query folds (m, l) and keeps each chunk's two factors in shared
+// memory; then every (query, hd element) folds its o with those factors,
+// its loads independent of one another
+template <int HD>
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const float* __restrict__ ws, float* __restrict__ out, int T_, int K, int M, int n_chunks) {
+  extern __shared__ float s_f[];  // [TM][n_chunks] a1, then a2, then the final l [TM]
+  const int k = blockIdx.x;
+  const int b = blockIdx.y;
+  const int TM = T_ * M;
+  float* s_a1 = s_f;
+  float* s_a2 = s_a1 + TM * n_chunks;
+  float* s_lf = s_a2 + TM * n_chunks;
+  const float* w = ws + ((size_t)b * K + k) * n_chunks * TM * (HD + 2);
+  for (int qi = threadIdx.x; qi < TM; qi += kMergeThreads) {
+    float m = -INFINITY, l = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const float* pc = w + ((size_t)c * TM + qi) * (HD + 2);
+      const float mc = pc[0];
+      const float m_new = fmaxf(m, mc);
+      const float sf = isfinite(m_new) ? m_new : 0.f;
+      const float a1 = isfinite(m) ? expf(m - sf) : 0.f;
+      const float a2 = isfinite(mc) ? expf(mc - sf) : 0.f;
+      l = __fadd_rn(__fmul_rn(l, a1), __fmul_rn(pc[1], a2));
+      m = m_new;
+      s_a1[qi * n_chunks + c] = a1;
+      s_a2[qi * n_chunks + c] = a2;
+    }
+    s_lf[qi] = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < TM * HD; e += kMergeThreads) {
     const int qi = e / HD;
+    const int h = e % HD;
+    const float* pc = w + (size_t)qi * (HD + 2) + 2 + h;
+    const float* a1 = s_a1 + qi * n_chunks;
+    const float* a2 = s_a2 + qi * n_chunks;
+    float o = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < n_chunks; ++c)
+      o = __fadd_rn(__fmul_rn(o, a1[c]), __fmul_rn(pc[(size_t)c * TM * (HD + 2)], a2[c]));
     const int t = qi / M;
-    const int m = qi % M;
-    out[((((size_t)b * T_ + t) * K + k) * M + m) * HD + e % HD] = s_o[e] / fmaxf(s_l[qi], 1e-30f);
+    const int mm = qi % M;
+    out[((((size_t)b * T_ + t) * K + k) * M + mm) * HD + h] = o / s_lf[qi];
   }
 }
 
+// a[] = q, slab_k, slab_v, pool_k, pool_v, slab_ks, slab_vs, pool_ks,
+// pool_vs, tables, pos, matched, out, ws; d[] = B, T, K, M, S, page, n_table
 template <typename T, int HD, int TMAX>
-int launch(const void* const* a, const int* d, cudaStream_t stream) {
+int launch_partials(const void* const* a, const int* d, cudaStream_t stream) {
   const int B = d[0], nT = d[1], K = d[2], M = d[3], S = d[4], page = d[5], n_table = d[6];
-  auto kernel = paged_attention_kernel<T, HD, TMAX>;
-  const size_t bytes = smem_bytes(nT * M, HD);
+  auto kernel = partials_kernel<T, HD, TMAX>;
+  const size_t bytes = smem_bytes<T, HD, TMAX>(nT * M);
   static size_t configured = 0;  // the opt-in above 48 KB, set once per instantiation
   if (bytes > configured) {
     const cudaError_t err =
@@ -344,24 +515,38 @@ int launch(const void* const* a, const int* d, cudaStream_t stream) {
     configured = bytes;
   }
   const float scale = sqrtf(static_cast<float>(HD));
-  kernel<<<dim3(B, K), kThreads, bytes, stream>>>(
+  kernel<<<dim3(S / kChunk * kClusterCtas, K, B), kThreads, bytes, stream>>>(
       static_cast<const float*>(a[0]), static_cast<const T*>(a[1]), static_cast<const T*>(a[2]),
       static_cast<const T*>(a[3]), static_cast<const T*>(a[4]), static_cast<const float*>(a[5]),
       static_cast<const float*>(a[6]), static_cast<const float*>(a[7]),
       static_cast<const float*>(a[8]), static_cast<const int*>(a[9]),
       static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
-      static_cast<float*>(const_cast<void*>(a[12])), nT, K, M, S, page, n_table, scale);
+      static_cast<float*>(const_cast<void*>(a[13])), nT, K, M, S, page, n_table, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_merge(const void* ws, void* out, int B, int T, int K, int M, int hd, int S, cudaStream_t stream) {
+  const dim3 grid(K, B);
+  const int n_chunks = S / kChunk;
+  const size_t bytes = (size_t)T * M * (2 * n_chunks + 1) * sizeof(float);
+  if (bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (hd == 128)
+    merge_kernel<128><<<grid, kMergeThreads, bytes, stream>>>(static_cast<const float*>(ws),
+                                                              static_cast<float*>(out), T, K, M, n_chunks);
+  else
+    merge_kernel<64><<<grid, kMergeThreads, bytes, stream>>>(static_cast<const float*>(ws),
+                                                             static_cast<float*>(out), T, K, M, n_chunks);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int launch_tm(const void* const* a, const int* d, cudaStream_t stream) {
   const int tm = d[1] * d[3];
-  if (tm <= 1) return launch<T, HD, 1>(a, d, stream);
-  if (tm <= 4) return launch<T, HD, 4>(a, d, stream);
-  if (tm <= 8) return launch<T, HD, 8>(a, d, stream);
-  if (tm <= 16) return launch<T, HD, 16>(a, d, stream);
-  return launch<T, HD, 32>(a, d, stream);
+  if (tm <= 1) return launch_partials<T, HD, 1>(a, d, stream);
+  if (tm <= 4) return launch_partials<T, HD, 4>(a, d, stream);
+  if (tm <= 8) return launch_partials<T, HD, 8>(a, d, stream);
+  if (tm <= 16) return launch_partials<T, HD, 16>(a, d, stream);
+  return launch_partials<T, HD, 32>(a, d, stream);
 }
 
 template <int HD>
@@ -374,33 +559,68 @@ int launch_dtype(int dtype, const void* const* a, const int* d, cudaStream_t str
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
-// C entry point, bound with ctypes. Shapes: q f32 [B, T, K, M, hd]; slab
-// halves [B_max >= B, S, K, hd] and pool halves [P, page, K, hd], all of one
-// cache dtype (dtype 0 = f32, 1 = bf16, 2 = int8), contiguous; for int8 the
-// four scale arrays are f32 [B_max, S, K, 1] (slab) and [P, page, K, 1]
-// (pool), null otherwise; tables int32 [B, n_table]; pos, matched int32
-// [B]; out f32 [B, T, K, M, hd]. The pool pointers may be null when every
-// matched[b] is 0. Requires chunk == 512, hd in {64, 128}, T * M <= 32,
-// chunk % page == 0, S % chunk == 0 and n_table >= chunk / page. Returns
-// the launch's cudaError_t.
-extern "C" int paged_attention(const void* q, const void* slab_k, const void* slab_v,
-                               const void* pool_k, const void* pool_v, const void* slab_ks,
-                               const void* slab_vs, const void* pool_ks, const void* pool_vs,
-                               const void* tables, const void* pos, const void* matched, void* out,
-                               int B, int T, int K, int M, int hd, int S, int page, int n_table,
-                               int chunk, int dtype, void* stream) {
-  if (chunk != kChunk || B < 1 || T < 1 || K < 1 || M < 1 || T * M > 32 || page < 1 ||
-      chunk % page || S % chunk || n_table < chunk / page)
+int partials(const void* q, const void* slab_k, const void* slab_v, const void* pool_k, const void* pool_v,
+             const void* slab_ks, const void* slab_vs, const void* pool_ks, const void* pool_vs,
+             const void* tables, const void* pos, const void* matched, void* out, void* ws, int B, int T, int K,
+             int M, int hd, int S, int page, int n_table, int chunk, int dtype, cudaStream_t stream) {
+  if (chunk != kChunk || B < 1 || T < 1 || K < 1 || M < 1 || T * M > 32 || page < 1 || chunk % page ||
+      S % chunk || n_table < chunk / page || (hd != 64 && hd != 128) || !ws)
     return (int)cudaErrorInvalidValue;
   if (dtype == 2 && (!slab_ks || !slab_vs || (pool_k && (!pool_ks || !pool_vs))))
     return (int)cudaErrorInvalidValue;
-  const void* const a[13] = {q,       slab_k,  slab_v, pool_k, pool_v,  slab_ks, slab_vs,
-                             pool_ks, pool_vs, tables, pos,    matched, out};
+  if (misaligned(slab_k) || misaligned(slab_v) || misaligned(pool_k) || misaligned(pool_v))
+    return (int)cudaErrorMisalignedAddress;
+  const void* const a[14] = {q,       slab_k,  slab_v, pool_k,  pool_v, slab_ks, slab_vs,
+                             pool_ks, pool_vs, tables, pos,     matched, out,   ws};
   const int d[7] = {B, T, K, M, S, page, n_table};
+  return hd == 128 ? launch_dtype<128>(dtype, a, d, stream) : launch_dtype<64>(dtype, a, d, stream);
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes. Shapes: q f32 [B, T, K, M, hd]; slab
+// halves [B_max >= B, S, K, hd] and pool halves [P, page, K, hd], all of one
+// cache dtype (dtype 0 = f32, 1 = bf16, 2 = int8), contiguous and 16-byte
+// aligned; for int8 the four scale arrays are f32 [B_max, S, K, 1] (slab)
+// and [P, page, K, 1] (pool), null otherwise; tables int32 [B, n_table];
+// pos, matched int32 [B]; out f32 [B, T, K, M, hd]; ws f32 workspace
+// [B, K, S / chunk, T * M, hd + 2], written whole by the first pass. The
+// pool pointers may be null when every matched[b] is 0. Requires
+// chunk == 512, hd in {64, 128}, T * M <= 32, chunk % page == 0,
+// S % chunk == 0 and n_table >= chunk / page. Each returns the cudaError_t
+// of its launches.
+//
+// paged_attention: both passes (the chunk partials, then the fold).
+extern "C" int paged_attention(const void* q, const void* slab_k, const void* slab_v, const void* pool_k,
+                               const void* pool_v, const void* slab_ks, const void* slab_vs,
+                               const void* pool_ks, const void* pool_vs, const void* tables, const void* pos,
+                               const void* matched, void* out, void* ws, int B, int T, int K, int M, int hd,
+                               int S, int page, int n_table, int chunk, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (hd == 128) return launch_dtype<128>(dtype, a, d, s);
-  if (hd == 64) return launch_dtype<64>(dtype, a, d, s);
-  return (int)cudaErrorInvalidValue;
+  const int err = partials(q, slab_k, slab_v, pool_k, pool_v, slab_ks, slab_vs, pool_ks, pool_vs, tables, pos,
+                           matched, out, ws, B, T, K, M, hd, S, page, n_table, chunk, dtype, s);
+  if (err != 0) return err;
+  return launch_merge(ws, out, B, T, K, M, hd, S, s);
+}
+
+// paged_attention_partials: the first pass alone (writes ws; out unused)
+extern "C" int paged_attention_partials(const void* q, const void* slab_k, const void* slab_v,
+                                        const void* pool_k, const void* pool_v, const void* slab_ks,
+                                        const void* slab_vs, const void* pool_ks, const void* pool_vs,
+                                        const void* tables, const void* pos, const void* matched, void* out,
+                                        void* ws, int B, int T, int K, int M, int hd, int S, int page,
+                                        int n_table, int chunk, int dtype, void* stream) {
+  return partials(q, slab_k, slab_v, pool_k, pool_v, slab_ks, slab_vs, pool_ks, pool_vs, tables, pos, matched,
+                  out, ws, B, T, K, M, hd, S, page, n_table, chunk, dtype, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// paged_attention_merge: the second pass alone, ws -> out
+extern "C" int paged_attention_merge(const void* ws, void* out, int B, int T, int K, int M, int hd, int S,
+                                     int chunk, void* stream) {
+  if (chunk != kChunk || B < 1 || T < 1 || K < 1 || M < 1 || T * M > 32 || S % chunk ||
+      (hd != 64 && hd != 128))
+    return (int)cudaErrorInvalidValue;
+  return launch_merge(ws, out, B, T, K, M, hd, S, reinterpret_cast<cudaStream_t>(stream));
 }

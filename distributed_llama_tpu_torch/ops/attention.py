@@ -8,8 +8,9 @@ JAX package computes them in XLA). The batched decode and verify paths go
 through K2, the hand-written fused paged-attention kernel
 (``csrc/paged_attention.cu``, replacing the Pallas ``_fused_paged_attention``):
 its wrappers :func:`fused_paged_decode_attention` and
-:func:`fused_paged_verify_attention` launch it for CUDA tensors and count
-each launch in :data:`launches`, by cache kind (bf16/f32 halves, or int8
+:func:`fused_paged_verify_attention` launch it for CUDA tensors (two
+kernels: the chunk partials into a workspace, then their fold in chunk
+order) and count each call in :data:`launches`, by cache kind (bf16/f32 halves, or int8
 halves with per-slot scales); for CPU tensors they compute its plain
 version, the segmented chunk scan (:func:`_segmented_batched_scan`).
 
@@ -206,56 +207,124 @@ def _softmax_partial(scores, mask):
     return m, p, p.sum(dim=-1)
 
 
-def _decode_partial(qg, pos, chunk: int, cdt):
-    """The per-chunk arithmetic of the batched decode scan (qg [B,K,M,hd],
-    row b's query at pos[b])."""
+def _decode_chunk(qg, pos, chunk: int, cdt):
+    """The per-chunk partial (m, l, o) of the batched decode scan (qg
+    [B,K,M,hd], row b's query at pos[b])."""
     hd = qg.shape[-1]
     q = qg.to(cdt)
 
-    def partial(kc, vc, start, carry):
+    def part(kc, vc, start):
         k_pos = start + torch.arange(chunk, device=qg.device)
         scores = kvc.scores_einsum_batched(q, kc) / math.sqrt(hd)
         mask = (k_pos[None, :] <= pos[:, None])[:, None, None, :]
         ms, p, ls = _softmax_partial(scores, mask)
-        return merge_partials(*carry, ms, ls, kvc.mix_einsum_batched(p, vc, cdt))
+        return ms, ls, kvc.mix_einsum_batched(p, vc, cdt)
 
-    return partial
+    return part
 
 
-def _verify_partial(qg, pos, chunk: int, cdt):
-    """The per-chunk arithmetic of the batched verify scan (qg
+def _verify_chunk(qg, pos, chunk: int, cdt):
+    """The per-chunk partial (m, l, o) of the batched verify scan (qg
     [B,T,K,M,hd], row b's query t at pos[b]+t)."""
     T, hd = qg.shape[1], qg.shape[-1]
     q = qg.to(cdt)
     q_pos = pos[:, None] + torch.arange(T, device=qg.device)[None, :]
 
-    def partial(kc, vc, start, carry):
+    def part(kc, vc, start):
         k_pos = start + torch.arange(chunk, device=qg.device)
         scores = kvc.scores_einsum_verify(q, kc) / math.sqrt(hd)
         mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, :, None, None, :]
         ms, p, ls = _softmax_partial(scores, mask)
-        return merge_partials(*carry, ms, ls, kvc.mix_einsum_verify(p, vc, cdt))
+        return ms, ls, kvc.mix_einsum_verify(p, vc, cdt)
 
-    return partial
+    return part
+
+
+def _plain_chunks(qg, keys, pos, chunk: int):
+    """(chunk partial function, live chunk count, pos as int64) of K2's
+    plain version; the count reads max(pos) on the host."""
+    verify = qg.dim() == 5
+    T = qg.shape[1] if verify else 1
+    pos = pos.to(device=qg.device, dtype=torch.int64)
+    n_chunks = -(-min(max(_host_ints(pos)) + T, keys.shape[1]) // chunk)
+    part = (_verify_chunk if verify else _decode_chunk)(qg, pos, chunk, kvc.compute_dtype(keys))
+    return part, n_chunks, pos
 
 
 def paged_attention_plain(qg, keys, values, pos, chunk: int, paged=None) -> torch.Tensor:
     """K2's plain version: the segmented chunk scan over every row's slab
     row (and pool pages), decode for qg [B,K,M,hd], verify for qg
     [B,T,K,M,hd]. Reads max(pos) and matched on the host."""
-    verify = qg.dim() == 5
-    B, hd = qg.shape[0], qg.shape[-1]
-    T = qg.shape[1] if verify else 1
-    S = keys.shape[1]
-    cdt = kvc.compute_dtype(keys)
-    pos = pos.to(device=qg.device, dtype=torch.int64)
-    n_chunks = -(-min(max(_host_ints(pos)) + T, S) // chunk)
+    part, n_chunks, _ = _plain_chunks(qg, keys, pos, chunk)
     lead = qg.shape[:-1]
     init = (torch.full(lead, _NEG_INF, dtype=torch.float32, device=qg.device),
             torch.zeros(lead, dtype=torch.float32, device=qg.device),
             torch.zeros(qg.shape, dtype=torch.float32, device=qg.device))
-    partial = (_verify_partial if verify else _decode_partial)(qg, pos, chunk, cdt)
-    m, l, o = _segmented_batched_scan(partial, keys, values, paged, chunk, n_chunks, init, rows=B)
+
+    def partial(kc, vc, start, carry):
+        return merge_partials(*carry, *part(kc, vc, start))
+
+    m, l, o = _segmented_batched_scan(partial, keys, values, paged, chunk, n_chunks, init, rows=qg.shape[0])
+    return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+# K2 runs as two passes: the chunk partials into a workspace f32
+# [B, K, S/chunk, T*M, hd + 2] holding (m, l, o[hd]) per query (query index
+# t*M + m), then their fold in chunk order. Their plain versions below
+# compose to paged_attention_plain bit for bit.
+
+
+def _partial_to_ws(m, l, o, verify: bool) -> torch.Tensor:
+    """One chunk's (m, l, o) in the query layout -> [B, K, T*M, hd + 2]."""
+    x = torch.cat((m[..., None], l[..., None], o), dim=-1)
+    if verify:  # [B, T, K, M, hd+2] -> [B, K, T*M, hd+2]
+        B, T, K, M, w = x.shape
+        return x.permute(0, 2, 1, 3, 4).reshape(B, K, T * M, w)
+    return x
+
+
+def _ws_to_partial(x: torch.Tensor, T: int, verify: bool):
+    """Inverse of :func:`_partial_to_ws`, each part contiguous in the
+    layout the scan's carry has."""
+    if verify:
+        B, K, TM, w = x.shape
+        x = x.reshape(B, K, T, TM // T, w).permute(0, 2, 1, 3, 4)
+    return x[..., 0].contiguous(), x[..., 1].contiguous(), x[..., 2:].contiguous()
+
+
+def paged_attention_partials_plain(qg, keys, values, pos, chunk: int, paged=None) -> torch.Tensor:
+    """K2's first pass, plainly: every chunk's online-softmax partial, the
+    chunks past every row's live bound (and fully masked ones) holding the
+    empty partial (m = -inf, l = 0, o = 0). Returns the workspace f32
+    [B, K, S/chunk, T*M, hd + 2]."""
+    verify = qg.dim() == 5
+    B, hd = qg.shape[0], qg.shape[-1]
+    T = qg.shape[1] if verify else 1
+    K, M = qg.shape[-3], qg.shape[-2]
+    part, n_chunks, _ = _plain_chunks(qg, keys, pos, chunk)
+    ws = torch.zeros((B, K, keys.shape[1] // chunk, T * M, hd + 2), dtype=torch.float32, device=qg.device)
+    ws[..., 0] = _NEG_INF
+    chunks: list = []
+    _segmented_batched_scan(lambda kc, vc, start, carry: chunks.append(part(kc, vc, start)),
+                            keys, values, paged, chunk, n_chunks, None, rows=B)
+    for i, (m, l, o) in enumerate(chunks):
+        ws[:, :, i] = _partial_to_ws(m, l, o, verify)
+    return ws
+
+
+def paged_attention_fold_plain(ws: torch.Tensor, q_shape) -> torch.Tensor:
+    """K2's second pass, plainly: fold the workspace's chunk partials in
+    chunk order with :func:`merge_partials`, then o / max(l, 1e-30), in the
+    queries' shape ``q_shape`` ([B, K, M, hd] or [B, T, K, M, hd])."""
+    verify = len(q_shape) == 5
+    T = q_shape[1] if verify else 1
+    dev = ws.device
+    carry = (torch.full(tuple(q_shape[:-1]), _NEG_INF, dtype=torch.float32, device=dev),
+             torch.zeros(tuple(q_shape[:-1]), dtype=torch.float32, device=dev),
+             torch.zeros(tuple(q_shape), dtype=torch.float32, device=dev))
+    for i in range(ws.shape[2]):
+        carry = merge_partials(*carry, *_ws_to_partial(ws[:, :, i], T, verify))
+    m, l, o = carry
     return o / torch.clamp_min(l, 1e-30)[..., None]
 
 
@@ -294,17 +363,14 @@ def _ptrs(h) -> tuple[int, int]:
     return h.data_ptr(), 0
 
 
-def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Tensor:
-    """Launch K2 for CUDA tensors (or raise); compute its plain version for
-    CPU tensors. ``paged`` None reads only the slab (matched 0). Float
-    halves launch the bf16/f32 form (counted as ``paged_attention``), int8
-    halves the int8 form (``paged_attention_i8``)."""
+def _k2_operands(qg, keys, values, pos, chunk: int, paged):
+    """Check K2's operands on the card and lay them out for its C entry
+    points: (pointer arguments, int arguments, out, workspace, the tensors
+    the pointers point into). Raises on what the kernel does not take."""
     dev = qg.device
-    eligible = _fused_paged_eligible(keys, values, paged, chunk)
-    if dev.type == "cpu":
-        return paged_attention_plain(qg, keys, values, pos, chunk, paged)
     if dev.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {dev}")
+    eligible = _fused_paged_eligible(keys, values, paged, chunk)
     verify = qg.dim() == 5
     B, hd = qg.shape[0], qg.shape[-1]
     T = qg.shape[1] if verify else 1
@@ -334,18 +400,60 @@ def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Te
         n_table = tables.shape[1]
         if tables.shape[0] != B or n_table < chunk // page:
             raise ValueError(f"paged_attention: tables shape {tuple(tables.shape)} for {B} rows")
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    ws = torch.empty((B, K, S // chunk, T * M, hd + 2), dtype=torch.float32, device=dev)
+    (sk, sks), (sv, svs), (pk, pks), (pv, pvs) = map(_ptrs, (keys, values, pool_k, pool_v))
+    ptrs = (q.data_ptr(), sk, sv, pk, pv, sks, svs, pks, pvs, tables.data_ptr(), pos32.data_ptr(),
+            matched.data_ptr(), out.data_ptr(), ws.data_ptr())
+    ints = (B, T, K, M, hd, S, page, n_table, chunk, 2 if quant else int(dtype == torch.bfloat16))
+    return ptrs, ints, out, ws, (q, pos32, tables, matched)
+
+
+def _k2_call(dev, symbol: str, *args) -> None:
     from distributed_llama_tpu_torch.ops import cuda_build
 
-    fn = cuda_build.function("paged_attention")
-    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
-    (sk, sks), (sv, svs), (pk, pks), (pv, pvs) = map(_ptrs, (keys, values, pool_k, pool_v))
-    err = fn(q.data_ptr(), sk, sv, pk, pv, sks, svs, pks, pvs,
-             tables.data_ptr(), pos32.data_ptr(), matched.data_ptr(), out.data_ptr(),
-             B, T, K, M, hd, S, page, n_table, chunk, 2 if quant else int(dtype == torch.bfloat16),
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = cuda_build.function("paged_attention", symbol)(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
-    launches["paged_attention_i8" if quant else "paged_attention"] += 1
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
+
+
+def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Tensor:
+    """Launch K2 for CUDA tensors (or raise); compute its plain version for
+    CPU tensors. ``paged`` None reads only the slab (matched 0). Float
+    halves launch the bf16/f32 form (counted as ``paged_attention``), int8
+    halves the int8 form (``paged_attention_i8``). One call is one count,
+    though it runs two kernels (the chunk partials into a workspace, then
+    their fold); the wrapper allocates the workspace."""
+    if qg.device.type == "cpu":
+        _fused_paged_eligible(keys, values, paged, chunk)
+        return paged_attention_plain(qg, keys, values, pos, chunk, paged)
+    ptrs, ints, out, _ws, _keep = _k2_operands(qg, keys, values, pos, chunk, paged)
+    _k2_call(qg.device, "paged_attention", *ptrs, *ints)
+    launches["paged_attention_i8" if isinstance(keys, kvc.QuantizedKV) else "paged_attention"] += 1
+    return out
+
+
+def paged_attention_partials(qg, keys, values, pos, chunk: int, paged=None) -> torch.Tensor:
+    """K2's first pass alone on the card (to hold it against
+    :func:`paged_attention_partials_plain`; not counted in ``launches``):
+    returns the workspace f32 [B, K, S/chunk, T*M, hd + 2]."""
+    ptrs, ints, _out, ws, _keep = _k2_operands(qg, keys, values, pos, chunk, paged)
+    _k2_call(qg.device, "paged_attention_partials", *ptrs, *ints)
+    return ws
+
+
+def paged_attention_fold(ws: torch.Tensor, q_shape) -> torch.Tensor:
+    """K2's second pass alone on the card (to hold it against
+    :func:`paged_attention_fold_plain`; not counted in ``launches``)."""
+    verify = len(q_shape) == 5
+    B, K, n_chunks, TM, w = ws.shape
+    T = q_shape[1] if verify else 1
+    if not (ws.device.type == "cuda" and ws.dtype == torch.float32 and ws.is_contiguous()
+            and tuple(q_shape[:1]) + tuple(q_shape[-3:-1]) == (B, K, TM // T) and w == q_shape[-1] + 2):
+        raise ValueError(f"paged_attention_fold: workspace {tuple(ws.shape)} for queries {tuple(q_shape)}")
+    out = torch.empty(tuple(q_shape), dtype=torch.float32, device=ws.device)
+    _k2_call(ws.device, "paged_attention_merge", ws.data_ptr(), out.data_ptr(), B, T, K, TM // T, w - 2,
+             n_chunks * 512, 512)
     return out
 
 

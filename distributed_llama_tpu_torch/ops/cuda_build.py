@@ -34,9 +34,17 @@ _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers, one pe
 KERNELS = {
     "q40_int8": ("q40_int8.cu", "q40_int8_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "q40_dequant": ("q40_dequant.cu", "q40_dequant_matmul", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "paged_attention": ("paged_attention.cu", "paged_attention", [_P] * 13 + [_I] * 10 + [_P]),
+    "paged_attention": ("paged_attention.cu", "paged_attention", [_P] * 14 + [_I] * 10 + [_P]),
     "ring_all_reduce": ("ring_all_reduce.cu", "ring_all_reduce", [_PP, _PP, _I, ctypes.c_longlong, _I, _P]),
     "fused_matmul_ring": ("fused_matmul_ring.cu", "fused_matmul_ring", [_PP] * 6 + [_I] * 4 + [_P]),
+}
+# further C functions of a kernel library: its passes, called alone to hold
+# each against its plain version
+SYMBOLS = {
+    "paged_attention": {
+        "paged_attention_partials": [_P] * 14 + [_I] * 10 + [_P],
+        "paged_attention_merge": [_P, _P] + [_I] * 7 + [_P],
+    },
 }
 
 _lock = threading.Lock()
@@ -88,16 +96,18 @@ def build(names: list[str] | None = None) -> float:
     return time.perf_counter() - start
 
 
-def function(name: str):
-    """The ctypes function of kernel ``name``, building its library first
-    if needed."""
+def function(name: str, symbol: str | None = None):
+    """The ctypes function of kernel ``name`` (or its library's C function
+    ``symbol``, one of ``SYMBOLS[name]``), building the library first if
+    needed."""
+    _src, fn_name, argtypes = KERNELS[name]
+    if symbol is not None and symbol != fn_name:
+        fn_name, argtypes = symbol, SYMBOLS[name][symbol]
     with _lock:
-        if name not in _loaded:
+        if fn_name not in _loaded:
             build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            _src, fn_name, argtypes = KERNELS[name]
-            fn = getattr(lib, fn_name)
+            fn = getattr(ctypes.CDLL(str(_lib_path(name))), fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
-        return _loaded[name]
+            _loaded[fn_name] = fn
+        return _loaded[fn_name]

@@ -186,3 +186,60 @@ def test_publish_and_paged_reads_match_jax(dtype):
     for g, w in zip(_np(got), _np(want), strict=True):
         np.testing.assert_array_equal(g, w)
 
+
+
+# K2 runs on the card as two passes: the chunk partials into a workspace,
+# then their fold in chunk order. Their plain versions must compose to the
+# plain scan bit for bit (the fold repeats the scan's merges in its order,
+# and every chunk past the live bound is the empty partial, an exact
+# identity), and so agree with the JAX kernel as the scan does.
+TWO_PASS = [(case, dtype, True) for case in CASES for dtype in DTYPES] + [("no_hit", dtype, False) for dtype in DTYPES]
+
+
+def _two_pass(arrays, dtype, paged: bool):
+    tq, tk, tv, tpos, tpaged = _torch(*arrays, dtype)
+    tpaged = tpaged if paged else None
+    ws = tattn.paged_attention_partials_plain(tq, tk, tv, tpos, CHUNK, tpaged)
+    return ws, tattn.paged_attention_fold_plain(ws, tq.shape), (tq, tk, tv, tpos, tpaged)
+
+
+@pytest.mark.parametrize("case,dtype,paged", TWO_PASS)
+def test_two_pass_plain_equals_plain_scan_bit_for_bit(case, dtype, paged):
+    arrays = _inputs(case, dtype)
+    ws, got, (tq, tk, tv, tpos, tpaged) = _two_pass(arrays, dtype, paged)
+    pos, _matched, T = CASES[case]
+    B, K_, M_ = len(pos), tq.shape[-3], tq.shape[-2]
+    assert ws.shape == (B, K_, S // CHUNK, T * M_, HD + 2) and ws.dtype == torch.float32
+    for b, p in enumerate(pos):  # chunks past the row's live bound: the empty partial
+        for c in range(-(-(p + T) // CHUNK), S // CHUNK):
+            assert torch.isneginf(ws[b, :, c, :, 0]).all() and not ws[b, :, c, :, 1:].any()
+    want = tattn.paged_attention_plain(tq, tk, tv, tpos, CHUNK, tpaged)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case,dtype", sorted(FUSED_REF))
+def test_two_pass_plain_matches_jax_fused_kernel(case, dtype):
+    arrays = _inputs(case, dtype)
+    verify = CASES[case][2] > 1
+    jq, jk, jv, jpos, jpaged = _jax(*arrays, dtype)
+    jfused = jattn.fused_paged_verify_attention if verify else jattn.fused_paged_decode_attention
+    want = np.asarray(jfused(jq, jk, jv, jpos, CHUNK, jpaged, interpret=True))
+    _ws, got, _ = _two_pass(arrays, dtype, True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL[dtype] * np.abs(want).max())
+
+
+def test_workspace_layout_round_trips():
+    """A partial in the query layout survives the workspace layout (query
+    index t*M + m) unchanged, decode and verify."""
+    rng = np.random.RandomState(7)
+    for shape in ((3, K, M), (3, 4, K, M)):
+        m, l = (torch.from_numpy(rng.randn(*shape).astype(np.float32)) for _ in range(2))
+        o = torch.from_numpy(rng.randn(*shape, HD).astype(np.float32))
+        verify = len(shape) == 4
+        x = tattn._partial_to_ws(m, l, o, verify)
+        assert x.shape == (3, K, shape[1] * M if verify else M, HD + 2)
+        if verify:
+            assert torch.equal(x[1, 0, 2 * M + 1], torch.cat((m[1, 2, 0, 1:2], l[1, 2, 0, 1:2], o[1, 2, 0, 1])))
+        for got, want in zip(tattn._ws_to_partial(x, shape[1] if verify else 1, verify), (m, l, o), strict=True):
+            assert torch.equal(got, want)
