@@ -9,10 +9,16 @@ Phases (any failure exits non-zero):
    with nvcc, one process per source, started together;
 3. hold each kernel against its plain PyTorch version at the five
    Llama-2-7B matmul shapes (qkv 4096->12288, wo 4096->4096, gate_up
-   4096->22016, down 11008->4096, wcls 4096->32000) at T=1, T=20 and T=64, and
-   time kernel, plain version and the library yardstick (dequantize +
-   torch.matmul in bf16) against the bound (the logical output columns'
-   bytes over 3.35 TB/s, or their operations over the tensor-core peak);
+   4096->22016, down 11008->4096, wcls 4096->32000): K1 at T = 1, 2, 5,
+   20, 64 and 512, both of its tiles (dp4a, and the int8 tensor cores) equal
+   bit for bit to ``q40_int8_ordered_plain`` and every row of a T > 1
+   launch equal to a T = 1 launch of that row; K3 at T = 1, 20 and 64; and
+   time each against the plain version, the library yardstick (dequantize
+   + torch.matmul in bf16, and the bf16 matmul alone) and the bound (the
+   logical output columns' bytes over 3.35 TB/s, their operations over the
+   tensor-core peak, or for K1 its f32 epilogue over the f32 rate); also
+   what the 64-row blocks of the bias correction and rmsnorm cost a
+   prefill forward;
 4. check the port's forward on the card against the same engine on the CPU
    on a small synthetic model;
 5. write a Q40 `.m` file at full Llama-2-7B width (random blocks from a
@@ -35,7 +41,9 @@ Phases (any failure exits non-zero):
    caches at T=1 and T=3, and the int8 cache (halves from
    ``quantize_rows``) at T=1 and T=5, the verify window of --spec-draft 4;
    also at Llama-2-7B's full context, S=4096, rows near position 4000
-   (bf16 and int8); at "B4 K32 M1" check K2's contracts bit for bit (a
+   (bf16 and int8); at 40 queries per (row, kv head) with S = 131072, and
+   at head sizes 64, 96 and 256; at "B4 K32 M1" and those new cases check K2's
+   contracts bit for bit (a
    verify row t equals a decode at pos+t, a row alone equals it in the
    batch, pool pages equal the same KV through the slab, repeat launches
    are equal) and hold each of its two passes (chunk partials, fold)
@@ -51,12 +59,15 @@ Phases (any failure exits non-zero):
    launches equal to n_layers x batched forwards, and a hit's first-token
    logits within 5% of a cold prefill's; report TTFT cold vs hit,
    aggregate decode tok/s at 1 and 4 rows and the device idle share;
-   (c) the same server and requests with --cache-dtype i8 --spec-draft 4
-   (the slice's path): K2 launched only in its int8 form, verify steps
-   with their drafted/accepted counts and tokens per row-step, the KV
-   bytes of slab and pool beside bf16's, and every greedy completion's
-   token ids equal to what a spec_draft=0 BatchScheduler on the same engine
-   and cache decodes for the same prompt;
+   (c) the same server and requests with --cache-dtype i8 --spec-draft 4:
+   K2 launched only in its int8 form, K1's tensor-core tile on every
+   verify forward, verify steps with their drafted/accepted counts and
+   tokens per row-step, the KV bytes of slab and pool beside bf16's, and
+   every greedy completion's token ids equal to what a spec_draft=0
+   BatchScheduler on the same engine and cache decodes for the same
+   prompt; then a second server at --parallel 16 --max-seq-len 1000 (the
+   einsum attention) with 16 concurrent greedy requests, whose verify
+   forwards reach 80 rows, held to the same equality;
 7. (a) hold K4, the ring all-reduce kernel, against its plain version bit
    for bit on every rank, for 2 and 4 ranks at [1, 4096] and [16, 4096],
    timed against the bound (n inputs read and n outputs written over
@@ -74,9 +85,9 @@ Phases (any failure exits non-zero):
    |logit| of tp=1's, the greedy tokens matching tp=1's before the first
    divergence counted, and ms/token beside the device-busy ms/token.
 
-``--k2`` runs phase 6a alone (``--root DIR``: the port under DIR, e.g. an
-earlier commit unpacked with ``git archive``, to time two designs in one
-call).
+``--k1`` runs phase 3's K1 part alone and ``--k2`` phase 6a alone
+(``--root DIR``: the port under DIR, e.g. an earlier commit unpacked with
+``git archive``, to time two designs in one call).
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -104,6 +115,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1979e12
+# f32 adds and multiplies outside the tensor cores, each rounded on its own:
+# one per lane and cycle, half the 67 TFLOP/s that counts an FMA as two
+F32_OPS_PER_S = 33.5e12
 BF16_OPS_PER_S = 989e12
 N_LAYERS = 32  # Llama-2-7B's depth; the smoke runs all of it
 SEQ_LEN = 1024  # --max-seq-len of the driven runs
@@ -115,6 +129,11 @@ SHAPES = {
     "down": (11008, 4096, N_LAYERS),
     "wcls": (4096, 32000, 1),
 }
+# K1's rows: decode, a 2-row decode step (the tensor-core tile's switch
+# point), a 1-row --spec-draft 4 window, 4 rows' windows, a prefill piece,
+# a prefill; K3's (the --q40-path f32 arm)
+K1_TS = (1, 2, 5, 20, 64, 512)
+K3_TS = (1, 20, 64)
 # kernel vs plain version: K1's block sums are exact integers in both, K3's
 # bf16 products are exact in f32 in both; only f32 summation order differs
 TOL_REL = {"q40_int8": 1e-5, "q40_dequant": 1e-4}
@@ -126,6 +145,8 @@ K2_TOL_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-4, "i8": 4e-4}
 KERNEL_INFO = {
     "q40_int8": ("distributed_llama_tpu_torch/csrc/q40_int8.cu",
                  "distributed_llama_tpu/ops/q40.py:725 (_make_q40_int8_kernel)"),
+    "q40_int8_mma": ("distributed_llama_tpu_torch/csrc/q40_int8_mma.cuh",
+                     "distributed_llama_tpu/ops/q40.py:725 (_make_q40_int8_kernel, T >= 2)"),
     "q40_dequant": ("distributed_llama_tpu_torch/csrc/q40_dequant.cu",
                     "distributed_llama_tpu/ops/q40.py:493 (_make_q40_kernel)"),
     "paged_attention": ("distributed_llama_tpu_torch/csrc/paged_attention.cu",
@@ -148,17 +169,32 @@ TP_SIZES = (2, 4)
 # from its tp=1 logits by 1.70% / 1.40% of max |logit| on its test model)
 TP_LOGIT_TOL = 2.5e-2
 SERVER_SEQ_LEN = 2048  # --max-seq-len of the phase-6 server
+# phase 6c's second server: 16 rows at S = 1000 (the einsum attention), so
+# that verify forwards reach 16 x 5 = 80 rows
+WIDE_ROWS, WIDE_SEQ_LEN = 16, 1000
 K2_PAGE = 64
 K2_DTYPES = (torch.bfloat16, torch.float32, "i8")
-# (label, K, M, pos per row, matched per row, S, cache kinds): the segment
-# mixes of phase 6a, and Llama-2-7B's full context
+# (label, K, M, hd, pos per row, matched per row, S, cache kinds, T values
+# (None: 1 and 3 for float caches, 1 and 5 for int8), whether K2's
+# bit-for-bit contracts and its two passes are checked there): the segment
+# mixes of phase 6a, Llama-2-7B's full context, and the shapes K2 refused
+# before this slice: 40 queries per (row, kv head) (Llama-2/3-70B's GQA
+# M = 8 under --spec-draft 4), with the fold factors of S = 131072 over
+# 48 KB, and head sizes 64, 96 and 256 (an f32 cache at 256, whose K and V
+# slices do not fit a CTA together, loads V into K's buffer)
 K2_CASES = [
-    ("B1 K32 M1", 32, 1, [1500], [1024], 2048, K2_DTYPES),
-    ("B4 K32 M1", 32, 1, [1900, 800, 1300, 2000], [0, 576, 1024, 576], 2048, K2_DTYPES),
-    ("B4 K8 M4", 8, 4, [1900, 800, 1300, 2000], [0, 576, 1024, 576], 2048, K2_DTYPES),
-    ("B4 K32 M1 S4096", 32, 1, [4000, 3950, 4090, 3900], [0, 1024, 2048, 576], 4096, (torch.bfloat16, "i8")),
+    ("B1 K32 M1", 32, 1, 128, [1500], [1024], 2048, K2_DTYPES, None, False),
+    ("B4 K32 M1", 32, 1, 128, [1900, 800, 1300, 2000], [0, 576, 1024, 576], 2048, K2_DTYPES, None, True),
+    ("B4 K8 M4", 8, 4, 128, [1900, 800, 1300, 2000], [0, 576, 1024, 576], 2048, K2_DTYPES, None, False),
+    ("B4 K32 M1 S4096", 32, 1, 128, [4000, 3950, 4090, 3900], [0, 1024, 2048, 576], 4096,
+     (torch.bfloat16, "i8"), None, False),
+    ("B1 K8 M8 S131072", 8, 8, 128, [131000], [65536], 131072, (torch.bfloat16, "i8"), (5,), True),
+    ("B2 K4 M8 hd64", 4, 8, 64, [1900, 1300], [576, 1024], 2048, (torch.bfloat16,), (1, 5), True),
+    ("B2 K4 M8 hd96", 4, 8, 96, [1900, 1300], [576, 1024], 2048, (torch.bfloat16,), (1, 5), True),
+    ("B2 K4 M2 hd256", 4, 2, 256, [1900, 1300], [576, 1024], 2048, (torch.bfloat16, torch.float32), (1, 3), True),
 ]
-K2_CONTRACT_CASE = "B4 K32 M1"  # where phase 6a checks K2's bit-for-bit contracts and each pass
+# the cases an earlier tree's K2 refuses (skipped when timing one)
+K2_NEW_CASES = ("B1 K8 M8 S131072", "B2 K4 M8 hd64", "B2 K4 M8 hd96", "B2 K4 M2 hd256")
 # K2's fold alone against its plain version, of max |out|: the same f32
 # formula in the same order; only exp's last ulp may differ
 K2_FOLD_TOL_REL = 1e-6
@@ -204,69 +240,195 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def kernel_checks(q40) -> dict:
-    """Phase 3: every kernel against its plain version at the 7B shapes."""
+def k1_bound(n_pad: int, d: int, T: int) -> tuple[float, str]:
+    """K1's least time on the card (ms) and what sets it: the larger of its
+    bytes (the half-split pack forces all n_pad rows, since one byte holds
+    rows i and i + n_pad/2, while padded output columns carry zero scales
+    and are trimmed, so only the logical d columns count; the Q80
+    activations; the f32 output) over the memory rate, its int8 products on
+    the tensor cores, and its f32 epilogue: for every row, column and block
+    half (dot * sw) * sx and its sum, three separately rounded operations
+    that no FMA may fuse, at one per lane and cycle."""
+    need_bytes = n_pad // 2 * d + n_pad // 32 * d * 4 + T * n_pad + T * n_pad // 32 * 4 + T * d * 4
+    times = {"bytes": need_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(2.0 * T * n_pad * d / INT8_OPS_PER_S, 3.0 * T * d * (n_pad // 32) / F32_OPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def _weight_copies(q40, n: int, d: int, g) -> tuple[list, list, int, int]:
+    """Enough random Q40 weight copies of [n, d] to exceed the 50 MB L2
+    cache, so each timed launch reads its weights cold, as a decode step
+    does."""
+    dev = torch.device("cuda")
+    n_pad, d_pad = q40._n_padded(n), q40._d_padded(d)
+    w_bytes = n_pad // 2 * d_pad + n_pad // 32 * d_pad * 4
+    copies = max(2, math.ceil(256e6 / w_bytes))
+    qs = [torch.randint(0, 256, (n_pad // 2, d_pad), dtype=torch.uint8, device=dev, generator=g)
+          for _ in range(copies)]
+    scales = [torch.rand((n_pad // 32, d_pad), device=dev, generator=g) / (4.6 * math.sqrt(n))
+              for _ in range(copies)]
+    return qs, scales, n_pad, copies
+
+
+def k1_checks(q40, strict: bool = True) -> list:
+    """K1 at the five 7B shapes and T in K1_TS. For this tree's port: every
+    launch of each tile equal bit for bit to ``q40_int8_ordered_plain`` on
+    the same inputs, the wrapper's launch (the tile it picks) too, and each
+    row of a T > 1 launch equal to a T = 1 launch of that row alone; within
+    TOL_REL of the plain version; each tile timed beside the plain version,
+    the library chain (dequantize + bf16 matmul), the bf16 matmul alone and
+    the bound. For another tree's port (``strict`` False: an earlier
+    design, timed in the same call) the wrapper alone, reported against
+    the plain version."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    own = hasattr(q40, "q40_int8_ordered_plain")
     rows = []
     for shape, (n, d, per_token) in SHAPES.items():
-        n_pad, d_pad = q40._n_padded(n), q40._d_padded(d)
-        w_bytes = n_pad // 2 * d_pad + n_pad // 32 * d_pad * 4
-        # enough weight copies to exceed the 50 MB L2 cache: each timed
-        # launch reads its weights cold, as a decode step does
-        copies = max(2, math.ceil(256e6 / w_bytes))
-        qs = [torch.randint(0, 256, (n_pad // 2, d_pad), dtype=torch.uint8, device=dev, generator=g)
-              for _ in range(copies)]
-        scales = [torch.rand((n_pad // 32, d_pad), device=dev, generator=g) / (4.6 * math.sqrt(n))
-                  for _ in range(copies)]
-        for T in (1, 20, 64):  # decode, a 4-row verify window of --spec-draft 4, a prefill piece
+        qs, scales, n_pad, copies = _weight_copies(q40, n, d, g)
+        w_bf16 = q40.dequantize_tpu(q40.QuantizedMatrix(qs[0], scales[0])).to(torch.bfloat16)
+        for T in K1_TS:
             x = torch.randn((T, n_pad), device=dev, generator=g)
             xq, sx = q40.quantize_q80(x)
             xb = x.to(torch.bfloat16)
-            w_bf16 = q40.dequantize_tpu(q40.QuantizedMatrix(qs[0], scales[0])).to(torch.bfloat16)
-            for name in ("q40_int8", "q40_dequant"):
-                if name == "q40_int8":
-                    run = lambda i: q40.q40_int8(xq, sx, qs[i % copies], scales[i % copies])
-                    plain = lambda i: q40.q40_int8_plain(xq, sx, qs[0], scales[0])
-                    x_bytes, ops_rate = xq.numel() + sx.numel() * 4, INT8_OPS_PER_S
-                else:
-                    run = lambda i: q40.q40_dequant(xb, qs[i % copies], scales[i % copies])
-                    plain = lambda i: q40.q40_dequant_plain(xb, qs[0], scales[0])
-                    x_bytes, ops_rate = xb.numel() * 2, BF16_OPS_PER_S
-                got = run(0)
-                want = plain(0)
+            args0 = (xq, sx, qs[0], scales[0])
+            got = q40.q40_int8(*args0)
+            want = q40.q40_int8_plain(*args0)
+            row = dict(kernel="q40_int8", shape=shape, n=n, d=d, T=T, per_token=per_token)
+            if own:
+                ordered = q40.q40_int8_ordered_plain(*args0)
+                tiles = {tile: q40._q40_int8_launch(*args0, tile) for tile in q40.K1_TILES}
                 torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                check(math.isfinite(err) and err <= TOL_REL[name] * scale,
-                      f"{name} {shape} T={T}: max abs err {err} > {TOL_REL[name]} x {scale}")
-                ms = cuda_ms(run, reps=50)
-                plain_ms = cuda_ms(plain, reps=5, warmup=1)
-                lib_ms = cuda_ms(lambda i: xb @ q40.dequantize_tpu(
-                    q40.QuantizedMatrix(qs[i % copies], scales[i % copies])).to(torch.bfloat16), reps=5, warmup=1)
-                mm_ms = cuda_ms(lambda i: xb @ w_bf16, reps=20)
-                # the function's bytes: the half-split pack forces all n_pad
-                # rows (one byte holds rows i and i + n_pad/2), while padded
-                # output columns carry zero scales and are trimmed, so only
-                # the logical d columns count
-                need_bytes = n_pad // 2 * d + n_pad // 32 * d * 4 + x_bytes + T * d * 4
-                bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
-                ops_ms = 2.0 * T * n_pad * d / ops_rate * 1e3
-                row = dict(kernel=name, shape=shape, n=n, d=d, T=T, per_token=per_token,
-                           max_abs_err=err, max_rel_err=err / max(scale, 1e-30), tol_rel=TOL_REL[name],
-                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bf16_matmul_only_ms=mm_ms,
-                           bound_ms=max(bytes_ms, ops_ms),
-                           bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-                rows.append(row)
-                print(f"{name:12s} {shape:8s} T={T:3d} err {err:.3e} (rel {row['max_rel_err']:.1e} <= "
-                      f"{TOL_REL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                      f"library {lib_ms:.4f} ms (bf16 matmul alone {mm_ms:.4f}) bound {row['bound_ms']:.4f} ms "
-                      f"({row['bound_by']})", flush=True)
-        del qs, scales
+                for tile, out in tiles.items():
+                    check(torch.equal(out, ordered),
+                          f"K1 {tile} tile {shape} T={T}: differs from q40_int8_ordered_plain "
+                          f"(max abs diff {(out - ordered).abs().max().item()})")
+                check(torch.equal(got, tiles[q40.k1_tile(T)]), f"K1 {shape} T={T}: the wrapper's launch differs")
+                if T > 1:
+                    alone = torch.cat([q40._q40_int8_launch(xq[t:t + 1], sx[t:t + 1], qs[0], scales[0], "dp4a")
+                                       for t in range(T)])
+                    check(torch.equal(got, alone), f"K1 {shape} T={T}: a row differs from its T=1 launch")
+                row["tile"] = q40.k1_tile(T)
+                for tile in q40.K1_TILES:
+                    row[f"{tile}_ms"] = cuda_ms(lambda i, tile=tile: q40._q40_int8_launch(
+                        xq, sx, qs[i % copies], scales[i % copies], tile), reps=50)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            ok = math.isfinite(err) and err <= TOL_REL["q40_int8"] * scale
+            if strict:
+                check(ok, f"q40_int8 {shape} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
+            elif not ok:
+                print(f"OUT OF TOLERANCE: q40_int8 {shape} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
+            ms = cuda_ms(lambda i: q40.q40_int8(xq, sx, qs[i % copies], scales[i % copies]), reps=50)
+            plain_ms = event_ms(lambda i: q40.q40_int8_plain(*args0), reps=3)
+            lib_ms = cuda_ms(lambda i: xb @ q40.dequantize_tpu(
+                q40.QuantizedMatrix(qs[i % copies], scales[i % copies])).to(torch.bfloat16), reps=5, warmup=1)
+            mm_ms = cuda_ms(lambda i: xb @ w_bf16, reps=20)
+            bound_ms, bound_by = k1_bound(n_pad, d, T)
+            row.update(max_abs_err=err, max_rel_err=err / max(scale, 1e-30), tol_rel=TOL_REL["q40_int8"],
+                       bit_equal_ordered_plain=own, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bf16_matmul_only_ms=mm_ms, bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            tiles_txt = "; ".join(f"{t} {row[f'{t}_ms']:.4f}" for t in ("dp4a", "mma") if f"{t}_ms" in row)
+            print(f"q40_int8     {shape:8s} T={T:3d} err {err:.3e} (rel {row['max_rel_err']:.1e} <= "
+                  f"{TOL_REL['q40_int8']:.0e}){' both tiles == ordered plain bit for bit' if own else ''} "
+                  f"kernel {ms:.4f} ms{f' ({tiles_txt})' if own else ''} plain {plain_ms:.4f} ms "
+                  f"library {lib_ms:.4f} ms (bf16 matmul alone {mm_ms:.4f}) bound {bound_ms:.4f} ms ({bound_by})",
+                  flush=True)
+        del qs, scales, w_bf16
         torch.cuda.empty_cache()
     return rows
+
+
+def k3_checks(q40) -> list:
+    """K3 against its plain version at the 7B shapes and T in K3_TS, timed
+    like K1 (its bound: the bytes, or its bf16 products on the tensor
+    cores)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for shape, (n, d, per_token) in SHAPES.items():
+        qs, scales, n_pad, copies = _weight_copies(q40, n, d, g)
+        w_bf16 = q40.dequantize_tpu(q40.QuantizedMatrix(qs[0], scales[0])).to(torch.bfloat16)
+        for T in K3_TS:
+            xb = torch.randn((T, n_pad), device=dev, generator=g).to(torch.bfloat16)
+            got = q40.q40_dequant(xb, qs[0], scales[0])
+            want = q40.q40_dequant_plain(xb, qs[0], scales[0])
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            check(math.isfinite(err) and err <= TOL_REL["q40_dequant"] * scale,
+                  f"q40_dequant {shape} T={T}: max abs err {err} > {TOL_REL['q40_dequant']} x {scale}")
+            ms = cuda_ms(lambda i: q40.q40_dequant(xb, qs[i % copies], scales[i % copies]), reps=50)
+            plain_ms = event_ms(lambda i: q40.q40_dequant_plain(xb, qs[0], scales[0]), reps=3)
+            lib_ms = cuda_ms(lambda i: xb @ q40.dequantize_tpu(
+                q40.QuantizedMatrix(qs[i % copies], scales[i % copies])).to(torch.bfloat16), reps=5, warmup=1)
+            mm_ms = cuda_ms(lambda i: xb @ w_bf16, reps=20)
+            need_bytes = n_pad // 2 * d + n_pad // 32 * d * 4 + xb.numel() * 2 + T * d * 4
+            bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2.0 * T * n_pad * d / BF16_OPS_PER_S * 1e3
+            row = dict(kernel="q40_dequant", shape=shape, n=n, d=d, T=T, per_token=per_token,
+                       max_abs_err=err, max_rel_err=err / max(scale, 1e-30), tol_rel=TOL_REL["q40_dequant"],
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bf16_matmul_only_ms=mm_ms,
+                       bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            rows.append(row)
+            print(f"q40_dequant  {shape:8s} T={T:3d} err {err:.3e} (rel {row['max_rel_err']:.1e} <= "
+                  f"{TOL_REL['q40_dequant']:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+                  f"{lib_ms:.4f} ms (bf16 matmul alone {mm_ms:.4f}) bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})", flush=True)
+        del qs, scales, w_bf16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k1_forward_rows(rows: list) -> list:
+    """K1 per forward at each T: each shape's numbers times its launches
+    per forward (4 per layer and one wcls)."""
+    out = []
+    for T in sorted({r["T"] for r in rows}):
+        mine = [r for r in rows if r["T"] == T]
+        keys = [k for k in ("ms", "dp4a_ms", "mma_ms", "plain_ms", "library_ms", "bf16_matmul_only_ms", "bound_ms")
+                if all(k in r for r in mine)]
+        out.append(dict(T=T, **{k: sum(r[k] * r["per_token"] for r in mine) for k in keys},
+                        per_call_ms={r["shape"]: r["ms"] for r in mine}))
+        print(f"K1 per forward at T={T}: " + ", ".join(f"{k} {out[-1][k]:.3f}" for k in keys), flush=True)
+    return out
+
+
+def row_block_cost(q40, Ts=(600, 1024)) -> dict:
+    """What pinning the bias correction's matmul and rmsnorm to 64-row
+    blocks costs one prefill forward of T rows (a ~600-token prompt runs at
+    its exact length, or at its bucket of 1024 rows): device ms of the
+    forward's row-count-dependent ops (a correction matmul per Q40 matmul
+    at the 7B shapes, two rmsnorms per layer and the final one) in 64-row
+    blocks, against the same ops on all T rows at once."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for T in Ts:
+        res = {"blocked_ms": 0.0, "one_call_ms": 0.0}
+        for n, d, per in SHAPES.values():
+            sc = torch.rand((q40._n_padded(n) // 32, q40._d_padded(d)), device=dev, generator=g)
+            xsum = torch.randn((T, q40._n_padded(n) // 32), device=dev, generator=g)
+            res["blocked_ms"] += per * cuda_ms(lambda i: q40._true_f32_matmul(xsum, sc), reps=10)
+            res["one_call_ms"] += per * cuda_ms(lambda i: xsum @ sc, reps=10)
+        xr = torch.randn((T, DIM), device=dev, generator=g)
+        wr = torch.rand(DIM, device=dev, generator=g)
+
+        def norm(x):
+            return wr * (x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + 1e-5))
+
+        norms = 2 * N_LAYERS + 1
+        res["blocked_ms"] += norms * cuda_ms(lambda i: q40._at_row_bucket(norm, xr), reps=10)
+        res["one_call_ms"] += norms * cuda_ms(lambda i: norm(xr), reps=10)
+        out[T] = res
+        print(f"64-row blocks at a {T}-row prefill forward: correction matmuls + rmsnorms {res['blocked_ms']:.3f} ms "
+              f"in blocks vs {res['one_call_ms']:.3f} ms in one call each", flush=True)
+    return out
 
 
 def event_ms(fn, reps: int) -> float:
@@ -364,18 +526,19 @@ def k2_pass_checks(attn, fn, qg, halves, pos, paged_args, label: str, tol: float
 
 
 def k2_checks(attn, kvc, contracts: bool = True, strict: bool = True) -> list:
-    """Phase 6a: K2 against its plain version at the 7B heads, timed, for
+    """Phase 6a: K2 against its plain version at the K2_CASES, timed, for
     bf16 and f32 caches (T = 1 and 3) and the int8 cache (T = 1 and 5, the
     verify window of --spec-draft 4), whose halves are ``quantize_rows`` of
-    the same kind of random inputs; at the contract case also its
+    the same kind of random inputs; at the contract cases also its
     bit-for-bit contracts and each of its two passes (``contracts``).
-    ``strict`` False (timing another tree's K2) reports a result out of
-    tolerance and goes on."""
+    ``strict`` False (timing another tree's K2) skips the cases that tree
+    refuses, reports a result out of tolerance and goes on."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    hd = 128
     rows = []
-    for label, K, M, pos_l, matched_l, S, dtypes in K2_CASES:
+    for label, K, M, hd, pos_l, matched_l, S, dtypes, Ts, with_contracts in K2_CASES:
+        if not strict and label in K2_NEW_CASES:
+            continue
         B = len(pos_l)
         n_table = S // K2_PAGE
         for dtype in dtypes:
@@ -395,7 +558,7 @@ def k2_checks(attn, kvc, contracts: bool = True, strict: bool = True) -> list:
             tables = tables.to(torch.int32)
             pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
             matched = torch.tensor(matched_l, dtype=torch.int32, device=dev)
-            for T in (1, 5) if i8 else (1, 3):
+            for T in Ts or ((1, 5) if i8 else (1, 3)):
                 shape = (B, T, K, M, hd) if T > 1 else (B, K, M, hd)
                 qg = torch.randn(shape, device=dev, generator=g)
                 fn = attn.fused_paged_verify_attention if T > 1 else attn.fused_paged_decode_attention
@@ -425,7 +588,7 @@ def k2_checks(attn, kvc, contracts: bool = True, strict: bool = True) -> list:
                 else:
                     print(f"OUT OF TOLERANCE: {name} {label} T={T} {dtype}: max abs err {err} > {tol} x {scale}")
                 extra = {}
-                if contracts and label == K2_CONTRACT_CASE:
+                if contracts and with_contracts:
                     k2_contracts(attn, kvc, fn, qg, sets[0][0], pos, paged(0), T, f"{label} T={T} {dtype}")
                     extra = k2_pass_checks(attn, fn, qg, sets[0][0], pos, paged(0), f"{label} T={T} {dtype}", tol)
                     extra["partials_ms"] = cuda_ms(lambda i: attn.paged_attention_partials(
@@ -470,7 +633,7 @@ def k2_checks(attn, kvc, contracts: bool = True, strict: bool = True) -> list:
                 need_bytes = 2 * live * pos_bytes + 2 * qg.numel() * 4 + tables.numel() * 4 + 2 * B * 4
                 bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
                 ops_ms = 4.0 * live * K * M * T * hd / BF16_OPS_PER_S * 1e3
-                row = dict(kernel=name, case=label, S=S, B=B, K=K, M=M, T=T, dtype=str(dtype),
+                row = dict(kernel=name, case=label, S=S, B=B, K=K, M=M, hd=hd, T=T, dtype=str(dtype),
                            pos=pos_l, matched=matched_l, max_abs_err=err, max_rel_err=err / max(scale, 1e-30),
                            tol_rel=tol, card_plain_rel_err=card_err / max(scale, 1e-30), ms=ms, plain_ms=plain_ms, library_ms=lib_ms, sdpa_only_ms=sdpa_ms,
                            bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -900,7 +1063,7 @@ def _reference_streams(server_api, state, args, captured: list) -> int:
     return n
 
 
-def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, extra=(), spec: bool = False) -> dict:
+def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, extra=(), spec: bool = False) -> dict:
     """Phase 6b (bf16 cache) and 6c (``extra`` = the int8 cache and
     speculative decoding, ``spec`` True): the port's API server over the
     7B-width model, batched (--parallel 4) with the prefix cache on."""
@@ -954,6 +1117,7 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, extra=()
                     "max_tokens": 24, "stream": stream, "temperature": temperature, "seed": seed}
 
         attn.reset_launches()  # the main path's counts start here
+        q40.reset_launches()
         f0 = sched.decode_forwards
         s0 = (sched.spec_row_steps, sched.spec_drafted, sched.spec_emitted)
         status, ttft_cold, total_cold, events = _post(url, body("hello", True))
@@ -988,6 +1152,11 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, extra=()
         launches = attn.launches[kernel]
         others = {k: v for k, v in attn.launches.items() if k != kernel and v}
         forwards = sched.decode_forwards - f0
+        tiles = dict(q40.tile_launches)
+        out["k1_tile_launches"] = tiles
+        print(f"K1 launches by tile {tiles} ({4 * n_layers + 1} per forward)")
+        if spec:  # every verify forward (5 rows or more) runs K1's tensor-core tile
+            check(tiles["mma"] >= (4 * n_layers + 1) * forwards, f"K1's tensor-core tile on the verify path: {tiles}")
         print(f"K2 ({kernel}) launches {launches} = {n_layers} layers x {forwards} batched forwards; other K2 "
               f"launches {others or 0}; prefix hits {sched._prefix.hits}, misses {sched._prefix.misses}; lone hit "
               f"TTFT {ttft_hit * 1e3:.1f} ms vs cold {ttft_cold * 1e3:.1f} ms")
@@ -1083,6 +1252,101 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, extra=()
     return out
 
 
+def wide_spec_run(server_api, q40, model: str, tok_path: str) -> dict:
+    """Phase 6c, second server: ``--parallel 16 --max-seq-len 1000
+    --cache-dtype i8 --spec-draft 4``. S = 1000 takes the einsum attention
+    (no K2), and 16 concurrent greedy requests put up to 16 rows x 5 = 80
+    rows in a verify forward: K1's rows and the 64-row blocks of the bias
+    correction and rmsnorm at widths of 64 rows and more. Every greedy
+    completion must equal what a spec_draft=0 scheduler on the same engine
+    decodes for the same prompt."""
+    from distributed_llama_tpu_torch.tokenizer import ChatItem
+
+    args = server_api.build_parser().parse_args([
+        "generate", "--model", model, "--tokenizer", tok_path, "--dtype", "q40", "--max-seq-len",
+        str(WIDE_SEQ_LEN), "--parallel", str(WIDE_ROWS), "--decode-chunk", "8", "--chat-template", "chatml",
+        "--host", "127.0.0.1", "--port", "0", "--temperature", "0", "--cache-dtype", "i8", "--spec-draft", "4"])
+    server, state = server_api.make_server(args)
+    sched = state.batch
+    check(sched is not None and sched.spec_draft == 4 and sched.b_max == WIDE_ROWS, "the 16-row server")
+    captured: list = []
+    _capture_streams(state, captured)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    out: dict = {}
+    try:
+        system = "You are a helpful assistant. "
+        while len(state.tokenizer.encode(state.template.generate(
+                [ChatItem("system", system), ChatItem("user", "hello")]), add_bos=True)) < 600:
+            system += "hello world, "
+
+        def body(user):
+            return {"messages": [{"role": "system", "content": system}, {"role": "user", "content": user}],
+                    "max_tokens": 16, "stream": False, "temperature": 0.0, "seed": 1}
+
+        status, _, _, _ = _post(url, body("hello"))  # publishes the system prompt's pages
+        check(status == 200, "the 16-row server's first request failed")
+        q40.reset_launches()
+        f0, r0 = sched.decode_forwards, sched.spec_row_steps
+        results: dict = {}
+        users = [" ".join(("hello", "world")[(i >> k) & 1] for k in range(4)) for i in range(WIDE_ROWS)]
+
+        def run(i):
+            results[i] = _post(url, body(users[i]))
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(WIDE_ROWS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        for i, (status, _, _, payload) in results.items():
+            check(status == 200 and payload["usage"]["completion_tokens"] > 0, f"16-row request {i}: {status}")
+        tiles = dict(q40.tile_launches)
+        print(f"{WIDE_ROWS} concurrent requests in {wall:.2f} s: {sched.decode_forwards - f0} verify forwards, "
+              f"{sched.spec_row_steps - r0} row-steps, the widest {sched.spec_rows_max} rows; K1 tiles {tiles}")
+        check(sched.spec_rows_max >= 64, f"no verify forward reached 64 rows (widest {sched.spec_rows_max})")
+        check(tiles["mma"] > 0, "K1's tensor-core tile was not launched")
+        n_cmp = _reference_streams(server_api, state, args, captured)
+        print(f"greedy speculative streams at up to {sched.spec_rows_max} rows equal the spec_draft=0 scheduler's: "
+              f"{n_cmp} tokens over {len(captured)} requests")
+        check(n_cmp > 0, "no greedy stream was compared")
+        out.update(rows=WIDE_ROWS, seq_len=WIDE_SEQ_LEN, wall_s=wall, verify_forwards=sched.decode_forwards - f0,
+                   widest_verify_rows=sched.spec_rows_max, k1_tile_launches=tiles, greedy_tokens_compared=n_cmp)
+    finally:
+        server.shutdown()
+        server.server_close()
+    del state, sched
+    return out
+
+
+def k1_only(root: Path, smi: str) -> None:
+    """``--k1``: phase 3's K1 part alone, the port under ``root`` (another
+    tree, e.g. an unpacked earlier commit, to time two designs in one call:
+    its wrapper only, against the plain version). Rows go to
+    build/chip_smoke_k1.json under this script's tree."""
+    sys.path.insert(0, str(root))
+    from distributed_llama_tpu_torch.ops import cuda_build, q40
+
+    check(Path(q40.__file__).resolve().is_relative_to(root.resolve()), f"imported {q40.__file__}, not {root}")
+    phase(f"2. build K1 from {root}")
+    print(f"nvcc build: {cuda_build.build(['q40_int8']):.1f} s")
+    for line in cuda_build.build_log.get("q40_int8", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {line.strip()}")
+    t = phase("3. K1 vs its plain version at the Llama-2-7B shapes")
+    rows = k1_checks(q40, strict=root.resolve() == ROOT)
+    forwards = k1_forward_rows(rows)
+    print(f"phase 3 (K1): {time.perf_counter() - t:.1f} s")
+    out = ROOT / "build" / "chip_smoke_k1.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({"root": str(root), "card": smi, "rows": rows, "per_forward": forwards}, indent=1))
+    print(f"card: {smi}")
+    print(json.dumps({"k1": forwards}))
+
+
 def k2_only(root: Path, smi: str) -> None:
     """``--k2``: phase 6a alone, K2 of the port under ``root`` (another
     tree, e.g. an unpacked earlier commit, to time two designs in one
@@ -1114,18 +1378,20 @@ def k2_only(root: Path, smi: str) -> None:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port on one NVIDIA GPU")
+    parser.add_argument("--k1", action="store_true", help="phase 3's K1 part alone (K1 checked and timed)")
     parser.add_argument("--k2", action="store_true", help="phase 6a alone (K2 checked and timed)")
-    parser.add_argument("--root", type=Path, default=ROOT, help="with --k2: the tree whose port is imported")
+    parser.add_argument("--root", type=Path, default=ROOT,
+                        help="with --k1 or --k2: the tree whose port is imported")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this smoke test needs a GPU", flush=True)
         sys.exit(2)
-    if opts.k2:
+    if opts.k1 or opts.k2:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
         print(f"nvidia-smi: {smi}; torch: {torch.cuda.get_device_name(0)}, torch {torch.__version__}")
-        k2_only(opts.root, smi)
+        (k1_only if opts.k1 else k2_only)(opts.root, smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return
@@ -1166,8 +1432,10 @@ def main() -> None:
     summary["build_s"] = build_s
 
     t = phase("3. kernels vs plain versions at the Llama-2-7B shapes")
-    rows = kernel_checks(q40)
-    summary["kernel_rows"] = rows
+    k1_rows = k1_checks(q40)
+    k1_forward = k1_forward_rows(k1_rows)
+    k3_rows = k3_checks(q40)
+    summary.update(kernel_rows=k1_rows + k3_rows, k1_per_forward=k1_forward, row_blocks=row_block_cost(q40))
     print(f"phase 3: {time.perf_counter() - t:.1f} s")
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1212,6 +1480,7 @@ def main() -> None:
         streams = {}
         q40.reset_launches()  # the main path's counts start here
         for label, path, extra in runs:
+            tiles0 = dict(q40.tile_launches)
             engine.reset()
             stream = engine.default_stream
             f0, l0 = stream.forwards, dict(q40.launches)
@@ -1221,8 +1490,9 @@ def main() -> None:
             forwards = stream.forwards - f0
             d_int8 = q40.launches["q40_int8"] - l0["q40_int8"]
             d_deq = q40.launches["q40_dequant"] - l0["q40_dequant"]
+            tiles = {k: v - tiles0[k] for k, v in q40.tile_launches.items()}
             print(f"{label}: {len(res['tokens'])} tokens, {forwards} forwards, launches int8 {d_int8} "
-                  f"dequant {d_deq} (expected {per_forward} per forward on the {path} path)")
+                  f"(by tile {tiles}) dequant {d_deq} (expected {per_forward} per forward on the {path} path)")
             check(len(res["tokens"]) > 0, f"{label}: no tokens generated")
             check(all(0 <= t_ < spec.vocab_size for t_ in res["tokens"]), f"{label}: token out of range")
             if path == "int8":
@@ -1231,6 +1501,11 @@ def main() -> None:
                 check(d_deq == per_forward * forwards and d_int8 == 0, f"{label}: launch count")
             streams[label] = res["tokens"]
         main_launches = dict(q40.launches)
+        main_tiles = dict(q40.tile_launches)
+        # decode steps take the dp4a tile; prefills (T >= 8) and the spec-4
+        # verify windows the tensor-core tile
+        check(all(v > 0 for v in main_tiles.values()), f"a K1 tile was never launched: {main_tiles}")
+        summary["main_path_k1_tiles"] = main_tiles
         check(streams["greedy"] == streams["greedy again"], "greedy streams differ between runs")
         check(streams["sampled"] == streams["sampled again"], "sampled streams differ for one seed")
         check(streams["greedy spec 4"] == streams["greedy"],
@@ -1279,16 +1554,20 @@ def main() -> None:
         print(f"phase 6a: {time.perf_counter() - t:.1f} s")
 
         t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {N_LAYERS} layers")
-        summary["server"] = server_run(server_api, attn, kvc, llama, model, tok)
+        summary["server"] = server_run(server_api, attn, kvc, llama, model, tok, q40)
         main_launches["paged_attention"] = summary["server"]["main_path_launches"]
         print(f"phase 6b: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 
         t = phase(f"6c. the slice's path: the API server, --cache-dtype i8 --spec-draft 4, {N_LAYERS} layers")
-        summary["server_i8_spec"] = server_run(server_api, attn, kvc, llama, model, tok,
+        summary["server_i8_spec"] = server_run(server_api, attn, kvc, llama, model, tok, q40,
                                                extra=("--cache-dtype", "i8", "--spec-draft", "4"), spec=True)
         main_launches["paged_attention_i8"] = summary["server_i8_spec"]["main_path_launches"]
+        main_launches["q40_int8_mma"] = summary["server_i8_spec"]["k1_tile_launches"]["mma"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary["server_wide"] = wide_spec_run(server_api, q40, model, tok)
         print(f"phase 6c: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
@@ -1324,18 +1603,20 @@ def main() -> None:
             **{k: k2[k] * N_LAYERS for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             bound_by=k2["bound_by"],
         ))
-    for name in ("q40_int8", "q40_dequant"):
+    # K1's dp4a tile and K3: one decoded token at 32 layers (T=1, each shape
+    # weighted by its launches per token); K1's tensor-core tile: one verify
+    # forward of 6c's 4-row --spec-draft 4 windows (T=20)
+    for name, rows_, T in (("q40_int8", k1_rows, 1), ("q40_int8_mma", k1_rows, 20), ("q40_dequant", k3_rows, 1)):
         src, replaces = KERNEL_INFO[name]
-        mine = [r for r in rows if r["kernel"] == name and r["T"] == 1]
-        # one decoded token at 32 layers: each shape weighted by its launches per token
+        mine = [r for r in rows_ if r["T"] == T]
         tot = {k: sum(r[k] * r["per_token"] for r in mine) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        bytes_bound = all(r["bound_by"] == "bytes" for r in mine)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=main_launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+            launches=main_tiles["dp4a"] if name == "q40_int8" else main_launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows_),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-            bound_by="bytes" if bytes_bound else "operations", library_ms=tot["library_ms"],
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in mine) else "operations",
+            library_ms=tot["library_ms"],
         ))
     kernels.extend(k2_entries)
     # K4: one call at the decode payload [1, 4096], 2 ranks; K5: one decoded
@@ -1356,7 +1637,8 @@ def main() -> None:
     OUT_FILE.write_text(json.dumps(summary, indent=1))
     print(f"\ntotal {summary['total_s']:.1f} s; details in {OUT_FILE}")
     print("kernel numbers: ms/plain_ms/bound_ms/library_ms are one decoded token's worth of "
-          "launches at 32 layers (T=1, each shape times its launches per token; paged_attention: "
+          "launches at 32 layers (T=1, each shape times its launches per token; q40_int8_mma: one verify "
+          "forward at T=20 likewise, its launches phase 6c's; paged_attention: "
           "one batched decode step of 4 rows at the phase-6a positions, 32 launches; paged_attention_i8: "
           "one batched verify step, T=5, of 4 rows there); launches are the main path's (phase 5 for "
           "the Q40 kernels, phase 6b for paged_attention, phase 6c for paged_attention_i8, phase 7c's --tp 2 "

@@ -32,31 +32,41 @@
 // 3.35 TB/s. Reaching it takes tens of KB in flight on every SM.
 //
 // Design. Two launches:
-// (1) `partials_kernel`, grid (S/512 chunks x kClusterCtas, K, B), 128
-//     threads, fixed by S and never by max(pos). Each chunk is shared by a
-//     thread-block cluster of kClusterCtas = 4 CTAs, each taking 128
-//     positions (two 64-position pages). A CTA resolves its page ids once
-//     per page and each slot's source once, then issues q, the int8
-//     scales and its K slice as one cp.async group and its V slice as a
-//     second, 16 bytes a thread: 32-64 KB in flight per CTA, V landing
-//     while the scores and the softmax run. A row's 16-byte segments are
-//     stored XOR-swizzled by row, so neighbouring rows read at one segment
-//     hit distinct banks. Scores: a thread per slot, each query's dot one
-//     f32 chain over hd in order, no cross-lane sums. The CTAs of a
-//     cluster exchange their per-query maxima through distributed shared
-//     memory, so every p is rounded against the chunk max, as a one-CTA
-//     chunk would. p is exp rounded once to f32 (through f64): an ulp of
-//     exp flips a bf16 weight, and the correctly rounded value is what the
-//     plain version's CPU exp returns for ~99% of arguments. The value mix
-//     gives a thread 4 elements of hd and a group of 32 slots summed in
-//     order, the 4 groups then summed in order; the cluster sums its CTAs'
-//     (l, o) in rank order, and the chunk's (m, l, o) go to the workspace
-//     f32 [B, K, S/512, T*M, hd + 2]. A cluster whose chunk lies past the
-//     row's live bound ceil((pos[b]+T)/512) writes the empty partial
-//     (m = -inf, l = 0, o = 0) and exits.
-// (2) `merge_kernel`, one CTA per (row, kv head), folds chunks 0..S/512-1
-//     in order (the empty partial folds as an exact identity) and writes
+// (1) `partials_kernel`, grid (S/512 chunks x kClusterCtas, K, B x query
+//     blocks), 128 threads, fixed by S and never by max(pos). Each chunk is
+//     shared by a thread-block cluster of kClusterCtas = 4 CTAs, each
+//     taking 128 positions (two 64-position pages). A CTA takes at most 32
+//     of a row's T*M queries (fewer where they would not fit its shared
+//     memory): more queries add query blocks, each reading the slice again,
+//     and leave every query's arithmetic as it is. A CTA resolves its page
+//     ids once per page and each slot's source once, then issues q, the
+//     int8 scales and its K slice as one cp.async group and its V slice as
+//     a second, 16 bytes a thread: 32-64 KB in flight per CTA, V landing
+//     while the scores and the softmax run (where both slices and the
+//     queries' arrays would not fit the 227 KB a CTA may opt into, as for
+//     an f32 cache at hd 256, V lands in K's buffer after the scores). A
+//     row's 16-byte segments are stored XOR-swizzled by row, so
+//     neighbouring rows read at one segment hit distinct banks. Scores: a
+//     thread per slot, each query's dot one f32 chain over hd in order, no
+//     cross-lane sums. The CTAs of a cluster exchange their per-query
+//     maxima through distributed shared memory, so every p is rounded
+//     against the chunk max, as a one-CTA chunk would. p is exp rounded
+//     once to f32 (through f64): an ulp of exp flips a bf16 weight, and
+//     the correctly rounded value is what the plain version's CPU exp
+//     returns for ~99% of arguments. The value mix gives a thread 4
+//     elements of hd and a group of slots summed in order (hd 128: 4
+//     groups of 32), the groups then summed in order; the cluster sums its
+//     CTAs' (l, o) in rank order, and the chunk's (m, l, o) go to the
+//     workspace f32 [B, K, S/512, T*M, hd + 2]. A cluster whose chunk lies
+//     past the row's live bound ceil((pos[b]+T)/512) writes the empty
+//     partial (m = -inf, l = 0, o = 0) and exits.
+// (2) `merge_kernel`, one CTA per (row, kv head, block of queries whose
+//     fold factors fit 48 KB of shared memory), folds chunks 0..S/512-1 in
+//     order (the empty partial folds as an exact identity) and writes
 //     o / max(l, 1e-30).
+//
+// Head sizes: any multiple of 16 up to 256; 64 and 128 are compiled for
+// their size, the others read it at run time.
 //
 // Contracts:
 // - A query's arithmetic is fixed by absolute position (chunk, cluster
@@ -87,6 +97,7 @@ constexpr int kSlice = kChunk / kClusterCtas;  // positions per CTA
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMergeThreads = 128;
+constexpr int kMaxHeadSize = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -177,15 +188,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// shared memory of one partials CTA, in bytes: K and V slices, then f32
-// arrays, then the slots' offsets and the page ids
-template <typename T, int HD>
-__host__ __device__ constexpr size_t kv_bytes() {
-  return (size_t)kSlice * HD * sizeof(T);
-}
+// shared memory of one partials CTA, in bytes: the K slice and (unless
+// `serial`, where V lands in K's buffer once the scores are done) the V
+// slice, then f32 arrays, then the slots' offsets and the page ids
+__host__ __device__ constexpr size_t kv_bytes(int esize, int hd) { return (size_t)kSlice * hd * esize; }
 // queries per value-mix pass (4 accumulators each, at most 32 registers)
 __host__ __device__ constexpr int mix_queries(int tmax) { return tmax < 8 ? tmax : 8; }
-// f32 words of one partials CTA after the K and V slices; qr = min(T*M, QB)
+// f32 words of one partials CTA after the KV slices; qr = min(tm, QB)
 __host__ __device__ constexpr int smem_floats(int tm, int hd, int qr) {
   return 2 * kSlice            // k and v scales (int8)
          + tm * hd             // q (rounded)
@@ -194,53 +203,69 @@ __host__ __device__ constexpr int smem_floats(int tm, int hd, int qr) {
          + tm * hd             // this CTA's o (read by the cluster)
          + 3 * tm;             // local max (read by the cluster), chunk max, local l
 }
-template <typename T, int HD, int TMAX>
-__host__ __device__ constexpr size_t smem_bytes(int tm) {
-  const int qr = tm < mix_queries(TMAX) ? tm : mix_queries(TMAX);
-  return 2 * kv_bytes<T, HD>() + (size_t)((smem_floats(tm, HD, qr) + 1) & ~1) * sizeof(float) +
+// tm: the queries of one CTA (its query block)
+__host__ __device__ constexpr size_t smem_bytes(int esize, int hd, int tm, int tmax, bool serial) {
+  const int qr = tm < mix_queries(tmax) ? tm : mix_queries(tmax);
+  return (serial ? 1 : 2) * kv_bytes(esize, hd) + (size_t)((smem_floats(tm, hd, qr) + 1) & ~1) * sizeof(float) +
          kSlice * (sizeof(long long) + sizeof(int));
 }
+// the value mix's slot groups: a power of two of them, each taking hd / 4
+// threads (4 elements of hd a thread)
+__host__ __device__ constexpr int mix_groups(int hd) {
+  int g = 1;
+  while (2 * g * (hd / 4) <= kThreads) g *= 2;
+  return g;
+}
 
-template <typename T, int HD, int TMAX>
+// HD_: the head size, or 0 for one read at run time (`hd`); TMAX: the most
+// queries a CTA takes. A CTA takes the queries [qb * QBLK, + TMl) of its row
+// (grid z = row x query block): a query's arithmetic never depends on
+// which others share its CTA.
+template <typename T, int HD_, int TMAX, bool SERIAL>
 __global__ void __cluster_dims__(kClusterCtas, 1, 1) __launch_bounds__(kThreads)
 partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const T* __restrict__ slab_v,
                 const T* __restrict__ pool_k, const T* __restrict__ pool_v,
                 const float* __restrict__ slab_ks, const float* __restrict__ slab_vs,
                 const float* __restrict__ pool_ks, const float* __restrict__ pool_vs,
                 const int* __restrict__ tables, const int* __restrict__ pos, const int* __restrict__ matched,
-                float* __restrict__ ws, int T_, int K, int M, int S, int page, int n_table, float scale) {
+                float* __restrict__ ws, int T_, int K, int M, int S, int page, int n_table, float scale, int hd,
+                int qblk) {
   constexpr int EPL = 16 / sizeof(T);  // row elements in one 16-byte segment
-  constexpr int LPR = HD / EPL;        // segments per row
-  constexpr int SWZ = (LPR < 8 ? LPR : 8) - 1;
-  constexpr int kMixLanes = HD / 4;    // threads per row in the value mix
-  constexpr int kGroups = kThreads / kMixLanes;
-  constexpr int kGroupLen = kSlice / kGroups;
+  const int HD = HD_ ? HD_ : hd;
+  const int LPR = HD / EPL;            // segments per row
+  const int SWZ = ((LPR & -LPR) < 8 ? (LPR & -LPR) : 8) - 1;  // stays inside the row
+  const int kMixLanes = HD / 4;        // threads per row in the value mix
+  const int kGroups = mix_groups(HD);
+  const int kGroupLen = kSlice / kGroups;
   constexpr int QB = mix_queries(TMAX);
   static_assert(kThreads == kSlice, "the scores take a thread per slot");
   constexpr bool kQuant = Cache<T>::kQuant;
   using Cdt = typename Cache<T>::Compute;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int TM = T_ * M;
-  const int QR = TM < QB ? TM : QB;
+  const int TM = T_ * M;                // the row's queries
+  const int nqb = (TM + qblk - 1) / qblk;
+  const int q_base = (int)(blockIdx.z % nqb) * qblk;
+  const int TMl = min(qblk, TM - q_base);  // this CTA's queries
+  const int QR = TMl < QB ? TMl : QB;
   T* s_k = reinterpret_cast<T*>(smem_raw);
-  T* s_v = s_k + kSlice * HD;
-  float* s_ks = reinterpret_cast<float*>(smem_raw + 2 * kv_bytes<T, HD>());
+  T* s_v = SERIAL ? s_k : s_k + kSlice * HD;
+  float* s_ks = reinterpret_cast<float*>(smem_raw + (SERIAL ? 1 : 2) * kv_bytes(sizeof(T), HD));
   float* s_vs = s_ks + kSlice;
   float* s_q = s_vs + kSlice;
-  float* s_p = s_q + TM * HD;
-  float* s_red = s_p + TM * kSlice;  // 16-byte aligned, as s_q and s_o
+  float* s_p = s_q + TMl * HD;
+  float* s_red = s_p + TMl * kSlice;  // 16-byte aligned, as s_q and s_o
   float* s_o = s_red + kThreads * 4 * QR;
-  float* s_mx = s_o + TM * HD;
-  float* s_cm = s_mx + TM;
-  float* s_l = s_cm + TM;
-  long long* s_off = reinterpret_cast<long long*>(s_ks + ((smem_floats(TM, HD, QR) + 1) & ~1));
+  float* s_mx = s_o + TMl * HD;
+  float* s_cm = s_mx + TMl;
+  float* s_l = s_cm + TMl;
+  long long* s_off = reinterpret_cast<long long*>(s_ks + ((smem_floats(TMl, HD, QR) + 1) & ~1));
   int* s_pid = reinterpret_cast<int*>(s_off + kSlice);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int chunk = blockIdx.x / kClusterCtas;
   const int k = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / nqb;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -248,9 +273,9 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
   const int p0 = pos[b];
   const int mt = matched[b];
   const int live = min(p0 + T_, S);  // positions any query of this row may see
-  float* wsc = ws + (((size_t)b * K + k) * n_chunks + chunk) * TM * (HD + 2);
+  float* wsc = ws + ((((size_t)b * K + k) * n_chunks + chunk) * TM + q_base) * (HD + 2);
   if (chunk * kChunk >= live) {  // the whole cluster: the empty partial
-    for (int e = rank * kThreads + tid; e < TM * (HD + 2); e += kClusterCtas * kThreads)
+    for (int e = rank * kThreads + tid; e < TMl * (HD + 2); e += kClusterCtas * kThreads)
       wsc[e] = e % (HD + 2) == 0 ? -INFINITY : 0.f;
     return;
   }
@@ -262,7 +287,8 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
   // page ids once per page touching this CTA's slots (when any is pooled),
   // each slot's offset once (a pool page's row stored as ~offset), then q,
   // the scales and K as one cp.async group and V as a second, landing
-  // while the scores and the softmax run
+  // while the scores and the softmax run (SERIAL: V once the scores are
+  // done, into K's buffer)
   const int ppc = kChunk / page;
   const int pg0 = off0 / page;
   if (mt > start) {
@@ -287,30 +313,31 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
       cp_async4(s_vs + j, (pooled ? pool_vs : slab_vs) + so);
     }
   }
-  for (int s = tid; s < TM * HD / 4; s += kThreads) {
-    const int qi = s * 4 / HD;
+  for (int s = tid; s < TMl * HD / 4; s += kThreads) {
+    const int qi = q_base + s * 4 / HD;
     cp_async16(s_q + s * 4, q + ((((size_t)b * T_ + qi / M) * K + k) * M + qi % M) * HD + s * 4 % HD);
   }
   __syncthreads();
-  // a row's 16-byte segment seg lands at seg ^ (j & SWZ), so that eight
+  // a row's 16-byte segment seg lands at seg ^ (j & SWZ), so that
   // neighbouring rows read at one logical segment hit distinct banks
-  for (int s = tid; s < n_live * LPR; s += kThreads) {
-    const int j = s / LPR;
-    const int seg = s % LPR;
-    const long long o = s_off[j];
-    cp_async16(s_k + j * HD + (seg ^ (j & SWZ)) * EPL, (o < 0 ? pool_k + ~o : slab_k + o) + seg * EPL);
+  auto issue_rows = [&](T* dst, const T* slab, const T* pool) {
+    for (int s = tid; s < n_live * LPR; s += kThreads) {
+      const int j = s / LPR;
+      const int seg = s % LPR;
+      const long long o = s_off[j];
+      cp_async16(dst + j * HD + (seg ^ (j & SWZ)) * EPL, (o < 0 ? pool + ~o : slab + o) + seg * EPL);
+    }
+    cp_commit();
+  };
+  issue_rows(s_k, slab_k, pool_k);
+  if (!SERIAL) {
+    issue_rows(s_v, slab_v, pool_v);
+    cp_wait<1>();  // q, the scales and K
+  } else {
+    cp_wait<0>();
   }
-  cp_commit();
-  for (int s = tid; s < n_live * LPR; s += kThreads) {
-    const int j = s / LPR;
-    const int seg = s % LPR;
-    const long long o = s_off[j];
-    cp_async16(s_v + j * HD + (seg ^ (j & SWZ)) * EPL, (o < 0 ? pool_v + ~o : slab_v + o) + seg * EPL);
-  }
-  cp_commit();
-  cp_wait<1>();  // q, the scales and K
   __syncthreads();
-  for (int e = tid; e < TM * HD; e += kThreads) s_q[e] = round_cdt<Cdt>(s_q[e]);
+  for (int e = tid; e < TMl * HD; e += kThreads) s_q[e] = round_cdt<Cdt>(s_q[e]);
   __syncthreads();
 
   // scores: a thread per slot, every query's dot in one f32 chain over
@@ -328,7 +355,7 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
         unpack16<T, EPL>(kr + (seg ^ (j & SWZ)) * EPL, kx);
 #pragma unroll
         for (int qi = 0; qi < TMAX; ++qi) {
-          if (qi < TM) {
+          if (qi < TMl) {
             const float4* qq = reinterpret_cast<const float4*>(s_q + qi * HD + seg * EPL);
 #pragma unroll
             for (int e4 = 0; e4 < EPL / 4; ++e4) {
@@ -344,7 +371,7 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
       const float ks = kQuant ? s_ks[j] : 1.f;
 #pragma unroll
       for (int qi = 0; qi < TMAX; ++qi) {
-        if (qi < TM) {
+        if (qi < TMl) {
           float a = acc[qi];
           if (kQuant) a = __fmul_rn(a, ks);  // the key scale after the raw dot
           s_p[qi * kSlice + j] = a / scale;
@@ -353,10 +380,11 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
     }
   }
   __syncthreads();
+  if (SERIAL) issue_rows(s_v, slab_v, pool_v);  // K is read: V takes its buffer
 
   // this CTA's max per query over the slots it sees, shared with the cluster
-  for (int qi = warp; qi < TM; qi += kWarps) {
-    const int lim = min(p0 + qi / M - start, n_live - 1);  // visible slots j <= lim
+  for (int qi = warp; qi < TMl; qi += kWarps) {
+    const int lim = min(p0 + (q_base + qi) / M - start, n_live - 1);  // visible slots j <= lim
     float mx = -INFINITY;
     for (int j = lane; j <= lim; j += 32) mx = fmaxf(mx, s_p[qi * kSlice + j]);
     mx = warp_max(mx);
@@ -365,11 +393,11 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
   cluster.sync();
 
   // the chunk max (exact in any order), p, l over this slice, rounded weights
-  for (int qi = warp; qi < TM; qi += kWarps) {
+  for (int qi = warp; qi < TMl; qi += kWarps) {
     float mx = -INFINITY;
     for (int r = 0; r < kClusterCtas; ++r) mx = fmaxf(mx, cluster.map_shared_rank(s_mx, r)[qi]);
     const float safe = isfinite(mx) ? mx : 0.f;
-    const int lim = min(p0 + qi / M - start, n_live - 1);
+    const int lim = min(p0 + (q_base + qi) / M - start, n_live - 1);
     float* sp = s_p + qi * kSlice;
     float sum = 0.f;
     for (int j = lane; j < kSlice; j += 32) {
@@ -395,10 +423,10 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
   // summed in order), QB queries at a time; the groups then sum in order
   {
     const int e0 = (tid % kMixLanes) * 4;
-    const int g = tid / kMixLanes;
+    const int g = tid / kMixLanes;  // threads past the last group only sync
     const int j_begin = g * kGroupLen;
     const int j_end = min(j_begin + kGroupLen, n_live);
-    for (int q0 = 0; q0 < TM; q0 += QB) {
+    for (int q0 = 0; q0 < TMl; q0 += QB) {
       float acc[QB][4];
 #pragma unroll
       for (int i = 0; i < QB; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
@@ -407,21 +435,23 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
         unpack4(s_v + j * HD + ((e0 / EPL) ^ (j & SWZ)) * EPL + e0 % EPL, vx);
 #pragma unroll
         for (int i = 0; i < QB; ++i) {
-          if (q0 + i < TM) {
+          if (q0 + i < TMl) {
             const float w = s_p[(q0 + i) * kSlice + j];
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(w, vx[e], acc[i][e]);
           }
         }
       }
+      if (g < kGroups) {
 #pragma unroll
-      for (int i = 0; i < QB; ++i)
-        if (q0 + i < TM)
-          *reinterpret_cast<float4*>(s_red + ((size_t)g * QR + i) * HD + e0) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        for (int i = 0; i < QB; ++i)
+          if (q0 + i < TMl)
+            *reinterpret_cast<float4*>(s_red + ((size_t)g * QR + i) * HD + e0) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
       __syncthreads();
       for (int e = tid; e < QR * HD; e += kThreads) {
-        if (q0 + e / HD < TM) {
+        if (q0 + e / HD < TMl) {
           float o = s_red[e];
 #pragma unroll
           for (int g2 = 1; g2 < kGroups; ++g2) o = __fadd_rn(o, s_red[(size_t)g2 * QR * HD + e]);
@@ -435,7 +465,7 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
 
   // the chunk's (m, l, o): l and o summed over the cluster in rank order,
   // each CTA writing a share of the elements
-  for (int e = rank * kThreads + tid; e < TM * (HD + 2); e += kClusterCtas * kThreads) {
+  for (int e = rank * kThreads + tid; e < TMl * (HD + 2); e += kClusterCtas * kThreads) {
     const int qi = e / (HD + 2);
     const int f = e % (HD + 2);
     float v;
@@ -452,22 +482,26 @@ partials_kernel(const float* __restrict__ q, const T* __restrict__ slab_k, const
   cluster.sync();  // no CTA leaves while the cluster reads its shared memory
 }
 
-// fold the chunk partials of one (row, kv head) in chunk order: a thread
-// per query folds (m, l) and keeps each chunk's two factors in shared
-// memory; then every (query, hd element) folds its o with those factors,
-// its loads independent of one another
-template <int HD>
+// fold the chunk partials of one (row, kv head, query block) in chunk
+// order: a thread per query folds (m, l) and keeps each chunk's two factors
+// in shared memory; then every (query, hd element) folds its o with those
+// factors, its loads independent of one another. HD_ as partials_kernel.
+template <int HD_>
 __global__ void __launch_bounds__(kMergeThreads)
-merge_kernel(const float* __restrict__ ws, float* __restrict__ out, int T_, int K, int M, int n_chunks) {
-  extern __shared__ float s_f[];  // [TM][n_chunks] a1, then a2, then the final l [TM]
+merge_kernel(const float* __restrict__ ws, float* __restrict__ out, int T_, int K, int M, int n_chunks, int hd,
+             int qblk) {
+  extern __shared__ float s_f[];  // [QM][n_chunks] a1, then a2, then the final l [QM]
+  const int HD = HD_ ? HD_ : hd;
   const int k = blockIdx.x;
   const int b = blockIdx.y;
   const int TM = T_ * M;
+  const int q_base = blockIdx.z * qblk;
+  const int TMl = min(qblk, TM - q_base);
   float* s_a1 = s_f;
-  float* s_a2 = s_a1 + TM * n_chunks;
-  float* s_lf = s_a2 + TM * n_chunks;
-  const float* w = ws + ((size_t)b * K + k) * n_chunks * TM * (HD + 2);
-  for (int qi = threadIdx.x; qi < TM; qi += kMergeThreads) {
+  float* s_a2 = s_a1 + TMl * n_chunks;
+  float* s_lf = s_a2 + TMl * n_chunks;
+  const float* w = ws + (((size_t)b * K + k) * n_chunks * TM + q_base) * (HD + 2);
+  for (int qi = threadIdx.x; qi < TMl; qi += kMergeThreads) {
     float m = -INFINITY, l = 0.f;
     for (int c = 0; c < n_chunks; ++c) {
       const float* pc = w + ((size_t)c * TM + qi) * (HD + 2);
@@ -484,7 +518,7 @@ merge_kernel(const float* __restrict__ ws, float* __restrict__ out, int T_, int 
     s_lf[qi] = fmaxf(l, 1e-30f);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < TM * HD; e += kMergeThreads) {
+  for (int e = threadIdx.x; e < TMl * HD; e += kMergeThreads) {
     const int qi = e / HD;
     const int h = e % HD;
     const float* pc = w + (size_t)qi * (HD + 2) + 2 + h;
@@ -494,79 +528,122 @@ merge_kernel(const float* __restrict__ ws, float* __restrict__ out, int T_, int 
 #pragma unroll 4
     for (int c = 0; c < n_chunks; ++c)
       o = __fadd_rn(__fmul_rn(o, a1[c]), __fmul_rn(pc[(size_t)c * TM * (HD + 2)], a2[c]));
-    const int t = qi / M;
-    const int mm = qi % M;
-    out[((((size_t)b * T_ + t) * K + k) * M + mm) * HD + h] = o / s_lf[qi];
+    const int qg = q_base + qi;
+    out[((((size_t)b * T_ + qg / M) * K + k) * M + qg % M) * HD + h] = o / s_lf[qi];
   }
 }
 
+int max_smem_optin() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return bytes;
+}
+
 // a[] = q, slab_k, slab_v, pool_k, pool_v, slab_ks, slab_vs, pool_ks,
-// pool_vs, tables, pos, matched, out, ws; d[] = B, T, K, M, S, page, n_table
-template <typename T, int HD, int TMAX>
-int launch_partials(const void* const* a, const int* d, cudaStream_t stream) {
-  const int B = d[0], nT = d[1], K = d[2], M = d[3], S = d[4], page = d[5], n_table = d[6];
-  auto kernel = partials_kernel<T, HD, TMAX>;
-  const size_t bytes = smem_bytes<T, HD, TMAX>(nT * M);
-  static size_t configured = 0;  // the opt-in above 48 KB, set once per instantiation
+// pool_vs, tables, pos, matched, out, ws; d[] = B, T, K, M, S, page,
+// n_table, hd; the query block qblk as launch_tm chose it
+template <typename T, int HD_, int TMAX, bool SERIAL>
+int launch_partials(const void* const* a, const int* d, int qblk, cudaStream_t stream) {
+  const int B = d[0], nT = d[1], K = d[2], M = d[3], S = d[4], page = d[5], n_table = d[6], hd = d[7];
+  auto kernel = partials_kernel<T, HD_, TMAX, SERIAL>;
+  const int tm = nT * M;
+  const size_t bytes = smem_bytes(sizeof(T), hd, tm < qblk ? tm : qblk, TMAX, SERIAL);
+  static size_t configured = 0;  // the opt-in above 48 KB, raised as needed per instantiation
   if (bytes > configured) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     configured = bytes;
   }
-  const float scale = sqrtf(static_cast<float>(HD));
-  kernel<<<dim3(S / kChunk * kClusterCtas, K, B), kThreads, bytes, stream>>>(
+  const float scale = sqrtf(static_cast<float>(hd));
+  const int nqb = (tm + qblk - 1) / qblk;
+  kernel<<<dim3(S / kChunk * kClusterCtas, K, B * nqb), kThreads, bytes, stream>>>(
       static_cast<const float*>(a[0]), static_cast<const T*>(a[1]), static_cast<const T*>(a[2]),
       static_cast<const T*>(a[3]), static_cast<const T*>(a[4]), static_cast<const float*>(a[5]),
       static_cast<const float*>(a[6]), static_cast<const float*>(a[7]),
       static_cast<const float*>(a[8]), static_cast<const int*>(a[9]),
       static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
-      static_cast<float*>(const_cast<void*>(a[13])), nT, K, M, S, page, n_table, scale);
+      static_cast<float*>(const_cast<void*>(a[13])), nT, K, M, S, page, n_table, scale, hd, qblk);
   return (int)cudaGetLastError();
 }
 
 int launch_merge(const void* ws, void* out, int B, int T, int K, int M, int hd, int S, cudaStream_t stream) {
-  const dim3 grid(K, B);
   const int n_chunks = S / kChunk;
-  const size_t bytes = (size_t)T * M * (2 * n_chunks + 1) * sizeof(float);
-  if (bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int tm = T * M;
+  // queries per CTA such that their fold factors fit in 48 KB
+  const int per_q = (2 * n_chunks + 1) * (int)sizeof(float);
+  const int qblk = max(1, min(tm, 48 * 1024 / per_q));
+  if ((size_t)qblk * per_q > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const dim3 grid(K, B, (tm + qblk - 1) / qblk);
+  const size_t bytes = (size_t)qblk * per_q;
+  const auto* w = static_cast<const float*>(ws);
+  auto* o = static_cast<float*>(out);
   if (hd == 128)
-    merge_kernel<128><<<grid, kMergeThreads, bytes, stream>>>(static_cast<const float*>(ws),
-                                                              static_cast<float*>(out), T, K, M, n_chunks);
+    merge_kernel<128><<<grid, kMergeThreads, bytes, stream>>>(w, o, T, K, M, n_chunks, hd, qblk);
+  else if (hd == 64)
+    merge_kernel<64><<<grid, kMergeThreads, bytes, stream>>>(w, o, T, K, M, n_chunks, hd, qblk);
   else
-    merge_kernel<64><<<grid, kMergeThreads, bytes, stream>>>(static_cast<const float*>(ws),
-                                                             static_cast<float*>(out), T, K, M, n_chunks);
+    merge_kernel<0><<<grid, kMergeThreads, bytes, stream>>>(w, o, T, K, M, n_chunks, hd, qblk);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_tm(const void* const* a, const int* d, cudaStream_t stream) {
-  const int tm = d[1] * d[3];
-  if (tm <= 1) return launch_partials<T, HD, 1>(a, d, stream);
-  if (tm <= 4) return launch_partials<T, HD, 4>(a, d, stream);
-  if (tm <= 8) return launch_partials<T, HD, 8>(a, d, stream);
-  if (tm <= 16) return launch_partials<T, HD, 16>(a, d, stream);
-  return launch_partials<T, HD, 32>(a, d, stream);
+// the query block (at most 32 queries, the most that fit the opt-in shared
+// memory), then the TMAX instantiation; SERIAL (V in K's buffer) only where
+// no query block fits both slices, which only an f32 cache at a head size
+// read at run time reaches
+template <typename T, int HD_, bool SERIAL>
+int launch_fitting(const void* const* a, const int* d, cudaStream_t stream) {
+  const int tm = d[1] * d[3], hd = d[7];
+  const size_t limit = (size_t)max_smem_optin();
+  const int qblks[] = {32, 16, 8, 4, 1};
+  for (const int qblk : qblks) {
+    const int q = tm < qblk ? tm : qblk;
+    const int tmax = q <= 1 ? 1 : q <= 4 ? 4 : q <= 8 ? 8 : q <= 16 ? 16 : 32;
+    if (smem_bytes(sizeof(T), hd, q, tmax, SERIAL) > limit) continue;
+    switch (tmax) {
+      case 1: return launch_partials<T, HD_, 1, SERIAL>(a, d, q, stream);
+      case 4: return launch_partials<T, HD_, 4, SERIAL>(a, d, q, stream);
+      case 8: return launch_partials<T, HD_, 8, SERIAL>(a, d, q, stream);
+      case 16: return launch_partials<T, HD_, 16, SERIAL>(a, d, q, stream);
+      default: return launch_partials<T, HD_, 32, SERIAL>(a, d, q, stream);
+    }
+  }
+  return -1;  // nothing fits
 }
 
-template <int HD>
+template <typename T, int HD_>
+int launch_tm(const void* const* a, const int* d, cudaStream_t stream) {
+  const int err = launch_fitting<T, HD_, false>(a, d, stream);
+  if (err != -1) return err;
+  if constexpr (HD_ == 0 && sizeof(T) == 4) return launch_fitting<T, HD_, true>(a, d, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int HD_>
 int launch_dtype(int dtype, const void* const* a, const int* d, cudaStream_t stream) {
   switch (dtype) {
-    case 0: return launch_tm<float, HD>(a, d, stream);
-    case 1: return launch_tm<__nv_bfloat16, HD>(a, d, stream);
-    case 2: return launch_tm<int8_t, HD>(a, d, stream);
+    case 0: return launch_tm<float, HD_>(a, d, stream);
+    case 1: return launch_tm<__nv_bfloat16, HD_>(a, d, stream);
+    case 2: return launch_tm<int8_t, HD_>(a, d, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
+// the head sizes K2 serves: multiples of 16 up to 256
+bool head_size_ok(int hd) { return hd >= 16 && hd <= kMaxHeadSize && hd % 16 == 0; }
+
 int partials(const void* q, const void* slab_k, const void* slab_v, const void* pool_k, const void* pool_v,
              const void* slab_ks, const void* slab_vs, const void* pool_ks, const void* pool_vs,
              const void* tables, const void* pos, const void* matched, void* out, void* ws, int B, int T, int K,
              int M, int hd, int S, int page, int n_table, int chunk, int dtype, cudaStream_t stream) {
-  if (chunk != kChunk || B < 1 || T < 1 || K < 1 || M < 1 || T * M > 32 || page < 1 || chunk % page ||
-      S % chunk || n_table < chunk / page || (hd != 64 && hd != 128) || !ws)
+  if (chunk != kChunk || B < 1 || T < 1 || K < 1 || M < 1 || page < 1 || chunk % page || S % chunk ||
+      n_table < chunk / page || !head_size_ok(hd) || !ws)
     return (int)cudaErrorInvalidValue;
   if (dtype == 2 && (!slab_ks || !slab_vs || (pool_k && (!pool_ks || !pool_vs))))
     return (int)cudaErrorInvalidValue;
@@ -574,8 +651,10 @@ int partials(const void* q, const void* slab_k, const void* slab_v, const void* 
     return (int)cudaErrorMisalignedAddress;
   const void* const a[14] = {q,       slab_k,  slab_v, pool_k,  pool_v, slab_ks, slab_vs,
                              pool_ks, pool_vs, tables, pos,     matched, out,   ws};
-  const int d[7] = {B, T, K, M, S, page, n_table};
-  return hd == 128 ? launch_dtype<128>(dtype, a, d, stream) : launch_dtype<64>(dtype, a, d, stream);
+  const int d[8] = {B, T, K, M, S, page, n_table, hd};
+  if (hd == 128) return launch_dtype<128>(dtype, a, d, stream);
+  if (hd == 64) return launch_dtype<64>(dtype, a, d, stream);
+  return launch_dtype<0>(dtype, a, d, stream);
 }
 
 }  // namespace
@@ -588,9 +667,9 @@ int partials(const void* q, const void* slab_k, const void* slab_v, const void* 
 // pos, matched int32 [B]; out f32 [B, T, K, M, hd]; ws f32 workspace
 // [B, K, S / chunk, T * M, hd + 2], written whole by the first pass. The
 // pool pointers may be null when every matched[b] is 0. Requires
-// chunk == 512, hd in {64, 128}, T * M <= 32, chunk % page == 0,
-// S % chunk == 0 and n_table >= chunk / page. Each returns the cudaError_t
-// of its launches.
+// chunk == 512, hd a multiple of 16 in [16, 256], chunk % page == 0,
+// S % chunk == 0 and n_table >= chunk / page; any T * M. Each returns the
+// cudaError_t of its launches.
 //
 // paged_attention: both passes (the chunk partials, then the fold).
 extern "C" int paged_attention(const void* q, const void* slab_k, const void* slab_v, const void* pool_k,
@@ -619,8 +698,7 @@ extern "C" int paged_attention_partials(const void* q, const void* slab_k, const
 // paged_attention_merge: the second pass alone, ws -> out
 extern "C" int paged_attention_merge(const void* ws, void* out, int B, int T, int K, int M, int hd, int S,
                                      int chunk, void* stream) {
-  if (chunk != kChunk || B < 1 || T < 1 || K < 1 || M < 1 || T * M > 32 || S % chunk ||
-      (hd != 64 && hd != 128))
+  if (chunk != kChunk || B < 1 || T < 1 || K < 1 || M < 1 || S % chunk || !head_size_ok(hd))
     return (int)cudaErrorInvalidValue;
   return launch_merge(ws, out, B, T, K, M, hd, S, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -280,6 +280,7 @@ class BatchScheduler:
         self.spec_row_steps = 0
         self.spec_drafted = 0
         self.spec_emitted = 0
+        self.spec_rows_max = 0  # the most rows (bucket x window) one verify forward ran
         self._streams: list[BatchStream] = []
         self._cond = threading.Condition()
         # one dispatched-but-unfetched chunk at a time
@@ -627,6 +628,7 @@ class BatchScheduler:
             paged=None if self._pool is None else (self._pool, tables, matched), path=engine.q40_path,
             sampled=any(t > 0.0 for t, ok in zip(temps, live) if ok))
         self.decode_forwards += 1
+        self.spec_rows_max = max(self.spec_rows_max, bucket * T)
         self._pending = ("spec", HostFetch(out), [(s, s._epoch) for s in joined], sw, lens)
 
     def _fetch(self, pend) -> None:

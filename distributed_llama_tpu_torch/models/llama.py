@@ -277,26 +277,58 @@ def attention_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: to
     keys, values = cache_l[0], cache_l[1]
     cdt = kvc.compute_dtype(keys)
     qg = q.reshape(B, K, H // K, hd).to(cdt)
-    use_blocked = S % ATT_CHUNK == 0 and S > ATT_CHUNK
-    from distributed_llama_tpu_torch.ops.attention import batched_decode_attention
+    if S % ATT_CHUNK == 0 and S > ATT_CHUNK:
+        from distributed_llama_tpu_torch.ops.attention import batched_decode_attention
 
-    if use_blocked and (paged is None or ATT_CHUNK % kvc.pool_page_size(paged[0]) == 0):
-        att = batched_decode_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK, paged=paged)
-        return att.reshape(B, H * hd), cache_l
-    keys_b, values_b = keys[:B], values[:B]
-    if paged is not None:
-        pool_k, pool_v, tables, matched = paged
-        keys_b = kvc.virtual_rows_batched(keys_b, pool_k, tables, matched)
-        values_b = kvc.virtual_rows_batched(values_b, pool_v, tables, matched)
-        if use_blocked:
+        if paged is None or ATT_CHUNK % kvc.pool_page_size(paged[0]) == 0:
+            att = batched_decode_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK, paged=paged)
+        else:
+            keys_b, values_b = (_virtual_rows(h, paged, i, B) for i, h in enumerate((keys, values)))
             att = batched_decode_attention(qg.to(torch.float32), keys_b.contiguous(), values_b.contiguous(),
                                            pos, ATT_CHUNK)
-            return att.reshape(B, H * hd), cache_l
-    scores = kvc.scores_einsum_batched(qg, keys_b) / math.sqrt(hd)
-    mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+        return att.reshape(B, H * hd), cache_l
+    keys_r, values_r, pos_r = _einsum_rows(keys, values, pos, paged)
+    return _attend_rows_einsum(qg, keys_r, values_r, pos_r, cdt).reshape(B, H * hd), cache_l
+
+
+def _virtual_rows(half, paged, which: int, rows: int):
+    """Rows [0, rows) of a slab half with each row's positions below
+    matched[b] taken from the pool (``which`` 0 = keys, 1 = values)."""
+    pool, tables, matched = paged[which], paged[2], paged[3]
+    return kvc.virtual_rows_batched(half[:rows], pool, tables[:rows], matched[:rows])
+
+
+def _einsum_rows(keys, values, pos: torch.Tensor, paged):
+    """The einsum branch's operands over EVERY slab row: (keys, values,
+    read positions), the B stepping rows first and the slab's other rows
+    after them at position 0 (and matched 0), so that the einsums and the
+    softmax's row reductions always run at the slab's row count."""
+    rows = keys.shape[0]
+    pad = rows - pos.shape[0]
+    pos = torch.nn.functional.pad(pos, (0, pad))
+    if paged is None:
+        return keys, values, pos
+    tables = torch.nn.functional.pad(paged[2], (0, 0, 0, pad))
+    matched = torch.nn.functional.pad(paged[3], (0, pad))
+    full = (paged[0], paged[1], tables, matched)
+    return _virtual_rows(keys, full, 0, rows), _virtual_rows(values, full, 1, rows), pos
+
+
+def _attend_rows_einsum(qg: torch.Tensor, keys, values, pos: torch.Tensor, cdt) -> torch.Tensor:
+    """Full-S masked softmax attention of B single queries qg [B, K, M, hd]
+    (row b at pos[b], over its own row of ``keys``/``values``, which hold
+    R >= B rows, the first B of them these rows'), computed at R rows
+    whatever B is: the einsums' and reductions' summation order may depend
+    on the row count, and at one shape a decode step at any row count and
+    each position of a verify window give a row the same bits. Returns
+    [B, K, M, hd] f32."""
+    B, hd = qg.shape[0], qg.shape[-1]
+    R, S = pos.shape[0], keys.shape[1]
+    qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, R - B))
+    scores = kvc.scores_einsum_batched(qg, keys) / math.sqrt(hd)
+    mask = torch.arange(S, device=qg.device)[None, :] <= pos[:, None]
     scores = torch.where(mask[:, None, None, :], scores, float("-inf"))
-    att = kvc.mix_einsum_batched(softmax(scores, dim=-1), values_b, cdt).reshape(B, H * hd)
-    return att, cache_l
+    return kvc.mix_einsum_batched(softmax(scores, dim=-1), values, cdt)[:B]
 
 
 def forward_step_batched(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache: list, pos,
@@ -344,27 +376,22 @@ def attention_verify_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cach
     keys, values = cache_l[0], cache_l[1]
     cdt = kvc.compute_dtype(keys)
     qg = q.reshape(B, T, K, H // K, hd).to(cdt)
-    use_blocked = S % ATT_CHUNK == 0 and S > ATT_CHUNK
-    from distributed_llama_tpu_torch.ops.attention import batched_verify_attention
+    if S % ATT_CHUNK == 0 and S > ATT_CHUNK:
+        from distributed_llama_tpu_torch.ops.attention import batched_verify_attention
 
-    if use_blocked and (paged is None or ATT_CHUNK % kvc.pool_page_size(paged[0]) == 0):
-        att = batched_verify_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK, paged=paged)
-        return att.reshape(B, T, H * hd), cache_l
-    keys_b, values_b = keys[:B], values[:B]
-    if paged is not None:
-        pool_k, pool_v, tables, matched = paged
-        keys_b = kvc.virtual_rows_batched(keys_b, pool_k, tables, matched)
-        values_b = kvc.virtual_rows_batched(values_b, pool_v, tables, matched)
-        if use_blocked:
+        if paged is None or ATT_CHUNK % kvc.pool_page_size(paged[0]) == 0:
+            att = batched_verify_attention(qg.to(torch.float32), keys, values, pos, ATT_CHUNK, paged=paged)
+        else:
+            keys_b, values_b = (_virtual_rows(h, paged, i, B) for i, h in enumerate((keys, values)))
             att = batched_verify_attention(qg.to(torch.float32), keys_b.contiguous(), values_b.contiguous(),
                                            pos, ATT_CHUNK)
-            return att.reshape(B, T, H * hd), cache_l
-    scores = kvc.scores_einsum_verify(qg, keys_b) / math.sqrt(hd)
-    q_pos = pos[:, None] + torch.arange(T, device=x.device)[None, :]
-    mask = torch.arange(S, device=x.device)[None, None, :] <= q_pos[:, :, None]
-    scores = torch.where(mask[:, :, None, None, :], scores, float("-inf"))
-    att = kvc.mix_einsum_verify(softmax(scores, dim=-1), values_b, cdt).reshape(B, T, H * hd)
-    return att, cache_l
+        return att.reshape(B, T, H * hd), cache_l
+    # window position t is scored and mixed as one decode step at pos + t
+    # (the shape attention_batched uses), never as T*M-row einsums, so a
+    # verify row computes what a decode step computes
+    keys_r, values_r, pos_r = _einsum_rows(keys, values, pos, paged)
+    att = torch.stack([_attend_rows_einsum(qg[:, t], keys_r, values_r, pos_r + t, cdt) for t in range(T)], dim=1)
+    return att.reshape(B, T, H * hd), cache_l
 
 
 def forward_verify_batched(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache: list, pos, active,

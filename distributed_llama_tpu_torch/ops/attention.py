@@ -340,6 +340,18 @@ def _fused_paged_eligible(keys, values, paged, chunk: int) -> bool:
     return chunk % page == 0 and keys.shape[1] % chunk == 0
 
 
+# K2 serves head sizes that are multiples of 16 up to this (the JAX kernel
+# takes any; ROADMAP.md records the difference)
+K2_MAX_HEAD_SIZE = 256
+
+
+def check_head_size(hd: int) -> None:
+    """Raise ValueError for a head size K2 does not serve, before any launch."""
+    if hd % 16 or not 16 <= hd <= K2_MAX_HEAD_SIZE:
+        raise ValueError(f"paged_attention: head size {hd} is not served: K2 takes head sizes that are "
+                         f"multiples of 16 from 16 to {K2_MAX_HEAD_SIZE}")
+
+
 def _check_half(name: str, h, rows: int | None, n: int, K: int, hd: int, dev, dtype) -> None:
     """A K2 operand half: contiguous on ``dev``, [rows, n, K, hd] of
     ``dtype`` (rows None: any count, a pool; a quantized half holds int8
@@ -378,6 +390,7 @@ def _k2_operands(qg, keys, values, pos, chunk: int, paged):
     S = keys.shape[1]
     if not eligible:
         raise ValueError(f"paged_attention: chunk {chunk} must be whole pages and divide S {S}")
+    check_head_size(hd)
     quant = isinstance(keys, kvc.QuantizedKV)
     dtype = keys.dtype
     if not quant and dtype not in (torch.bfloat16, torch.float32):
@@ -424,6 +437,7 @@ def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Te
     halves the int8 form (``paged_attention_i8``). One call is one count,
     though it runs two kernels (the chunk partials into a workspace, then
     their fold); the wrapper allocates the workspace."""
+    check_head_size(qg.shape[-1])
     if qg.device.type == "cpu":
         _fused_paged_eligible(keys, values, paged, chunk)
         return paged_attention_plain(qg, keys, values, pos, chunk, paged)
@@ -448,6 +462,7 @@ def paged_attention_fold(ws: torch.Tensor, q_shape) -> torch.Tensor:
     verify = len(q_shape) == 5
     B, K, n_chunks, TM, w = ws.shape
     T = q_shape[1] if verify else 1
+    check_head_size(q_shape[-1])
     if not (ws.device.type == "cuda" and ws.dtype == torch.float32 and ws.is_contiguous()
             and tuple(q_shape[:1]) + tuple(q_shape[-3:-1]) == (B, K, TM // T) and w == q_shape[-1] + 2):
         raise ValueError(f"paged_attention_fold: workspace {tuple(ws.shape)} for queries {tuple(q_shape)}")

@@ -49,13 +49,18 @@ from distributed_llama_tpu_torch.quants import Q40_BLOCK_BYTES, QK, quantize_q40
 # kernel name -> launches since the last reset_launches(); a wrapper adds one
 # where it launches its CUDA kernel and nowhere else
 launches: dict[str, int] = {"q40_int8": 0, "q40_dequant": 0}
+# K1's launches by the tile that ran (their sum is launches["q40_int8"]):
+# "dp4a" (csrc/q40_int8_tile.cuh, CUDA cores) or "mma" (csrc/q40_int8_mma.cuh,
+# int8 tensor cores)
+tile_launches: dict[str, int] = {"dp4a": 0, "mma": 0}
 
 PATHS = ("int8", "f32")
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, tile_launches):
+        for k in d:
+            d[k] = 0
 
 
 @dataclasses.dataclass
@@ -218,6 +223,16 @@ def _check_launch(err: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+# K1's accumulation slices (csrc/q40_int8_tile.cuh kSlices): block b adds
+# into slice b % 16
+K1_SLICES = 16
+# rows from which K1 runs its tensor-core tile ("mma"); fewer take the dp4a
+# tile. Both compute every row bit for bit alike, so the switch point is a
+# matter of speed only (PERF.md: measured with ``chip_smoke.py --k1``)
+K1_MMA_MIN_T = 2
+K1_TILES = ("dp4a", "mma")
+
+
 def q40_int8_plain(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the int8 kernel: out [T, d_pad] f32 =
     sum_b sx[t,b] * sw[b,d] * P[b,t,d] with P the per-block dot of int8
@@ -239,10 +254,68 @@ def q40_int8_plain(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, scales:
     return lo + hi
 
 
+def q40_int8_ordered_plain(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor,
+                           scales: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel in the kernel's own f32
+    order, which both its tiles follow bit for bit: block b (of each half)
+    belongs to slice b % 16; within a slice the blocks run in increasing
+    b, each adding ``(P_lo * sw_lo) * sx_lo`` and then the high half's term
+    to the slice's partial, every product and sum rounded on its own; the
+    16 partials are then added in slice order, starting from 0. The block
+    dots P are the exact f32 ``bmm`` of :func:`q40_int8_plain`; the slices
+    run side by side."""
+    T, n_pad = xq.shape
+    half, nb = n_pad // 2, n_pad // 64
+    d = qs.shape[1]
+
+    def dots(x_win, nib):  # exact int32 block sums [nb, T, d]
+        xb = x_win.to(torch.float32).reshape(T, nb, QK).transpose(0, 1)
+        return torch.bmm(xb, nib.to(torch.float32).reshape(nb, QK, d))
+
+    p_lo, p_hi = dots(xq[:, :half], qs & 0xF), dots(xq[:, half:], qs >> 4)
+    sx_t = sx.t()[:, :, None]  # [n_pad/32, T, 1]
+    acc = torch.zeros((K1_SLICES, T, d), dtype=torch.float32, device=xq.device)
+    for b0 in range(0, nb, K1_SLICES):  # the step-th block of every slice
+        s = min(K1_SLICES, nb - b0)
+        lo = (p_lo[b0 : b0 + s] * scales[b0 : b0 + s, None, :]) * sx_t[b0 : b0 + s]
+        acc[:s] = acc[:s] + lo
+        hi = (p_hi[b0 : b0 + s] * scales[nb + b0 : nb + b0 + s, None, :]) * sx_t[nb + b0 : nb + b0 + s]
+        acc[:s] = acc[:s] + hi
+    out = torch.zeros((T, d), dtype=torch.float32, device=xq.device)
+    for k in range(K1_SLICES):
+        out = out + acc[k]
+    return out
+
+
+def k1_tile(T: int) -> str:
+    """The K1 tile that :func:`q40_int8` launches for T rows."""
+    return "mma" if T >= K1_MMA_MIN_T else "dp4a"
+
+
+def _q40_int8_launch(xq, sx, qs, scales, tile: str) -> torch.Tensor:
+    """Launch K1's ``tile`` on checked CUDA operands (not counted: the
+    wrapper counts; ``chip_smoke.py`` calls this to hold each tile against
+    the plain version at any T)."""
+    from distributed_llama_tpu_torch.ops import cuda_build
+
+    T, n_pad = xq.shape
+    d_pad = qs.shape[1]
+    fn = cuda_build.function("q40_int8")
+    out = torch.empty((T, d_pad), dtype=torch.float32, device=qs.device)
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
+    _check_launch(
+        fn(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(), scales.data_ptr(), out.data_ptr(),
+           T, n_pad, d_pad, K1_TILES.index(tile), stream),
+        "q40_int8",
+    )
+    return out
+
+
 def q40_int8(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Wrapper of the int8 kernel: out f32 [T, d_pad], before the +8 bias
     correction. CPU tensors take :func:`q40_int8_plain`; CUDA tensors
-    launch ``csrc/q40_int8.cu`` or raise."""
+    launch ``csrc/q40_int8.cu`` (the tile :func:`k1_tile` picks) or
+    raise."""
     T, n_pad = xq.shape
     d_pad = qs.shape[1]
     dev = qs.device
@@ -256,35 +329,34 @@ def q40_int8(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, scales: torch
         raise ValueError(f"q40_int8: unsupported device {dev}")
     if n_pad % 64 or d_pad % 64:
         raise ValueError(f"q40_int8: n_pad {n_pad} and d_pad {d_pad} must be multiples of 64")
-    from distributed_llama_tpu_torch.ops import cuda_build
-
-    fn = cuda_build.function("q40_int8")
-    out = torch.empty((T, d_pad), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _check_launch(
-        fn(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(), scales.data_ptr(), out.data_ptr(),
-           T, n_pad, d_pad, stream),
-        "q40_int8",
-    )
+    tile = k1_tile(T)
+    out = _q40_int8_launch(xq, sx, qs, scales, tile)
     launches["q40_int8"] += 1
+    tile_launches[tile] += 1
     return out
 
 
-# row count below which matmuls and row norms run at exactly this many rows
+# row block at which matmuls and row norms run, whatever the row count
 ROW_BUCKET = 64
 
 
 def _at_row_bucket(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn(x)`` for a row-wise op on x [N, ...], run on x zero-padded to
-    ROW_BUCKET rows when N is smaller. The summation order of cuBLAS's
-    matmul and of PyTorch's row reductions may depend on the row count;
-    at one fixed shape a decode step (B rows), a verify window (B*T rows)
-    and a single-stream step all give each row the value of that row
-    alone, so a speculative step computes what plain decode computes."""
+    """``fn(x)`` for a row-wise op on x [N, ...], run on consecutive
+    ROW_BUCKET-row blocks of x, the last one zero-padded, and concatenated.
+    The summation order of cuBLAS's matmul and of PyTorch's row reductions
+    may depend on the row count; at one fixed shape a decode step (B rows),
+    a verify window (B*T rows, also 64 or more) and a single-stream step
+    all give each row the value of that row alone, so a speculative step
+    computes what plain decode computes."""
     n = x.shape[0]
-    if x.dim() != 2 or n >= ROW_BUCKET:
+    if x.dim() != 2:
         return fn(x)
-    return fn(torch.nn.functional.pad(x, (0, 0, 0, ROW_BUCKET - n)))[:n]
+    pad = -n % ROW_BUCKET
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    if x.shape[0] == ROW_BUCKET:
+        return fn(x)[:n]
+    return torch.cat([fn(blk) for blk in x.split(ROW_BUCKET)])[:n]
 
 
 def _true_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
