@@ -12,8 +12,9 @@ Phases (any failure exits non-zero):
    4096->22016, down 11008->4096, wcls 4096->32000): K1 at T = 1, 2, 5,
    20, 64 and 512, both of its tiles (dp4a, and the int8 tensor cores) equal
    bit for bit to ``q40_int8_ordered_plain`` and every row of a T > 1
-   launch equal to a T = 1 launch of that row; K3 at T = 1, 20 and 64; and
-   time each against the plain version, the library yardstick (dequantize
+   launch equal to a T = 1 launch of that row; K3 at T = 1, 2, 5, 20, 64
+   and 512, repeat launches bit-equal and every row of a T > 1 launch equal
+   to a T = 1 launch of that row; and time each against the plain version, the library yardstick (dequantize
    + torch.matmul in bf16, and the bf16 matmul alone) and the bound (the
    logical output columns' bytes over 3.35 TB/s, their operations over the
    tensor-core peak, or for K1 its f32 epilogue over the f32 rate); also
@@ -25,10 +26,10 @@ Phases (any failure exits non-zero):
    seed) and a tokenizer padded to vocab 32000, and drive the port's CLI
    ``generate``/``inference`` entry with ``--dtype q40 --decode device``:
    greedy twice, sampled twice, once on the f32 (dequant) kernel path and
-   once greedy with ``--spec-draft 4``; assert identical streams for
-   identical seeds, the speculative stream equal to the plain greedy one
-   token for token, tokens in range, and 4 * n_layers + 1 kernel launches
-   per forward; hold a verify window's logits against the same decode
+   greedy with ``--spec-draft 4`` on each path; assert identical streams
+   for identical seeds, each speculative stream equal to its path's plain
+   greedy one token for token, tokens in range, and 4 * n_layers + 1
+   kernel launches per forward; hold a verify window's logits against the same decode
    steps' (0 apart with per-position attention; the T-row einsums' gap is
    reported as the size before the repair); then show the chunk pipeline's
    delivery: chunk k's tokens reach the host while chunk k+1 still runs
@@ -76,7 +77,8 @@ Phases (any failure exits non-zero):
    (b) hold K5, the int8 matmul fused into the ring, bit for bit against
    the K1 kernel, then the bias correction, then the K4 kernel, and within
    K1's tolerance of its plain version, at the 7B wo and down shard shapes
-   for tp = 2 and 4 (T = 1 and 8), timed likewise (library: per-rank
+   for tp = 2 and 4 (T = 1 and 8), repeat launches bit-equal, the cluster
+   shape it launches with printed, timed likewise (library: per-rank
    dequantize + bf16 matmul, then the stacked sum);
    (c) the slice's path: the CLI ``generate`` at 7B width, 32 layers, with
    ``--tp 1``, then ``--tp 2 --allreduce ring`` and ``--tp 4 --allreduce
@@ -85,9 +87,10 @@ Phases (any failure exits non-zero):
    |logit| of tp=1's, the greedy tokens matching tp=1's before the first
    divergence counted, and ms/token beside the device-busy ms/token.
 
-``--k1`` runs phase 3's K1 part alone and ``--k2`` phase 6a alone
-(``--root DIR``: the port under DIR, e.g. an earlier commit unpacked with
-``git archive``, to time two designs in one call).
+``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
+phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
+e.g. an earlier commit unpacked with ``git archive``, to time two designs in
+one call).
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -133,7 +136,7 @@ SHAPES = {
 # point), a 1-row --spec-draft 4 window, 4 rows' windows, a prefill piece,
 # a prefill; K3's (the --q40-path f32 arm)
 K1_TS = (1, 2, 5, 20, 64, 512)
-K3_TS = (1, 20, 64)
+K3_TS = (1, 2, 5, 20, 64, 512)
 # kernel vs plain version: K1's block sums are exact integers in both, K3's
 # bf16 products are exact in f32 in both; only f32 summation order differs
 TOL_REL = {"q40_int8": 1e-5, "q40_dequant": 1e-4}
@@ -209,6 +212,15 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def gate(strict: bool, ok: bool, msg: str) -> None:
+    """``check`` for this tree's port; for another tree's (an earlier design
+    timed in the same call) a failed check is printed, not fatal."""
+    if strict:
+        check(ok, msg)
+    elif not ok:
+        print(f"OUT OF CONTRACT: {msg}")
 
 
 def phase(name: str) -> float:
@@ -318,11 +330,8 @@ def k1_checks(q40, strict: bool = True) -> list:
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            ok = math.isfinite(err) and err <= TOL_REL["q40_int8"] * scale
-            if strict:
-                check(ok, f"q40_int8 {shape} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
-            elif not ok:
-                print(f"OUT OF TOLERANCE: q40_int8 {shape} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
+            gate(strict, math.isfinite(err) and err <= TOL_REL["q40_int8"] * scale,
+                 f"q40_int8 {shape} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
             ms = cuda_ms(lambda i: q40.q40_int8(xq, sx, qs[i % copies], scales[i % copies]), reps=50)
             plain_ms = event_ms(lambda i: q40.q40_int8_plain(*args0), reps=3)
             lib_ms = cuda_ms(lambda i: xb @ q40.dequantize_tpu(
@@ -344,25 +353,40 @@ def k1_checks(q40, strict: bool = True) -> list:
     return rows
 
 
-def k3_checks(q40) -> list:
-    """K3 against its plain version at the 7B shapes and T in K3_TS, timed
-    like K1 (its bound: the bytes, or its bf16 products on the tensor
-    cores)."""
+def k3_checks(q40, strict: bool = True) -> list:
+    """K3 at the 7B shapes and T in K3_TS: within TOL_REL of its plain
+    version, repeat launches bit-equal, and every row of a T > 1 launch
+    equal bit for bit to a T = 1 launch of that row (what the f32 path's
+    speculative verify needs to give what plain decode gives); timed like
+    K1 (its bound: the bytes, or its bf16 products on the tensor cores).
+    For another tree's port (``strict`` False: an earlier design, timed in
+    the same call) a failed check is printed, not fatal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
+
     for shape, (n, d, per_token) in SHAPES.items():
         qs, scales, n_pad, copies = _weight_copies(q40, n, d, g)
         w_bf16 = q40.dequantize_tpu(q40.QuantizedMatrix(qs[0], scales[0])).to(torch.bfloat16)
         for T in K3_TS:
             xb = torch.randn((T, n_pad), device=dev, generator=g).to(torch.bfloat16)
             got = q40.q40_dequant(xb, qs[0], scales[0])
+            again = q40.q40_dequant(xb, qs[0], scales[0])
             want = q40.q40_dequant_plain(xb, qs[0], scales[0])
             torch.cuda.synchronize()
+            gate(strict, torch.equal(got, again), f"q40_dequant {shape} T={T}: repeat launches differ")
+            rows_equal = True
+            if T > 1:
+                alone = torch.cat([q40.q40_dequant(xb[t:t + 1], qs[0], scales[0]) for t in range(T)])
+                rows_equal = torch.equal(got, alone)
+                gate(strict, rows_equal, f"q40_dequant {shape} T={T}: a row differs from its T=1 launch "
+                     f"(max abs diff {(got - alone).abs().max().item()})")
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            check(math.isfinite(err) and err <= TOL_REL["q40_dequant"] * scale,
-                  f"q40_dequant {shape} T={T}: max abs err {err} > {TOL_REL['q40_dequant']} x {scale}")
+            gate(strict, math.isfinite(err) and err <= TOL_REL["q40_dequant"] * scale,
+                 f"q40_dequant {shape} T={T}: max abs err {err} > {TOL_REL['q40_dequant']} x {scale}")
             ms = cuda_ms(lambda i: q40.q40_dequant(xb, qs[i % copies], scales[i % copies]), reps=50)
             plain_ms = event_ms(lambda i: q40.q40_dequant_plain(xb, qs[0], scales[0]), reps=3)
             lib_ms = cuda_ms(lambda i: xb @ q40.dequantize_tpu(
@@ -373,11 +397,13 @@ def k3_checks(q40) -> list:
             ops_ms = 2.0 * T * n_pad * d / BF16_OPS_PER_S * 1e3
             row = dict(kernel="q40_dequant", shape=shape, n=n, d=d, T=T, per_token=per_token,
                        max_abs_err=err, max_rel_err=err / max(scale, 1e-30), tol_rel=TOL_REL["q40_dequant"],
-                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bf16_matmul_only_ms=mm_ms,
-                       bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                       rows_equal_t1=rows_equal, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bf16_matmul_only_ms=mm_ms, bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations")
             rows.append(row)
             print(f"q40_dequant  {shape:8s} T={T:3d} err {err:.3e} (rel {row['max_rel_err']:.1e} <= "
-                  f"{TOL_REL['q40_dequant']:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+                  f"{TOL_REL['q40_dequant']:.0e}){' rows == T=1 launches, repeats bit-equal' if rows_equal else ''} "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
                   f"{lib_ms:.4f} ms (bf16 matmul alone {mm_ms:.4f}) bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']})", flush=True)
         del qs, scales, w_bf16
@@ -385,9 +411,9 @@ def k3_checks(q40) -> list:
     return rows
 
 
-def k1_forward_rows(rows: list) -> list:
-    """K1 per forward at each T: each shape's numbers times its launches
-    per forward (4 per layer and one wcls)."""
+def k1_forward_rows(rows: list, label: str = "K1") -> list:
+    """K1's (or K3's) numbers per forward at each T: each shape's numbers
+    times its launches per forward (4 per layer and one wcls)."""
     out = []
     for T in sorted({r["T"] for r in rows}):
         mine = [r for r in rows if r["T"] == T]
@@ -395,7 +421,7 @@ def k1_forward_rows(rows: list) -> list:
                 if all(k in r for r in mine)]
         out.append(dict(T=T, **{k: sum(r[k] * r["per_token"] for r in mine) for k in keys},
                         per_call_ms={r["shape"]: r["ms"] for r in mine}))
-        print(f"K1 per forward at T={T}: " + ", ".join(f"{k} {out[-1][k]:.3f}" for k in keys), flush=True)
+        print(f"{label} per forward at T={T}: " + ", ".join(f"{k} {out[-1][k]:.3f}" for k in keys), flush=True)
     return out
 
 
@@ -582,11 +608,8 @@ def k2_checks(attn, kvc, contracts: bool = True, strict: bool = True) -> list:
                 card_err = (got - want_card).abs().max().item()
                 tol = K2_TOL_REL[dtype]
                 name = f"paged_attention{'_i8' if i8 else ''}"
-                if strict or (math.isfinite(err) and err <= tol * scale):
-                    check(math.isfinite(err) and err <= tol * scale,
-                          f"{name} {label} T={T} {dtype}: max abs err {err} > {tol} x {scale}")
-                else:
-                    print(f"OUT OF TOLERANCE: {name} {label} T={T} {dtype}: max abs err {err} > {tol} x {scale}")
+                gate(strict, math.isfinite(err) and err <= tol * scale,
+                     f"{name} {label} T={T} {dtype}: max abs err {err} > {tol} x {scale}")
                 extra = {}
                 if contracts and with_contracts:
                     k2_contracts(attn, kvc, fn, qg, sets[0][0], pos, paged(0), T, f"{label} T={T} {dtype}")
@@ -692,18 +715,23 @@ def k4_checks(coll) -> list:
     return rows
 
 
-def k5_checks(q40, coll) -> list:
+def k5_checks(q40, coll, strict: bool = True) -> list:
     """Phase 7b: K5 at the 7B wo and down shard shapes for tp = 2 and 4
     (T = 1, and T = 8, a prefill bucket): bit-equal to the K1 kernel, then
     the bias correction, then the K4 kernel on the same inputs, and within
     K1's tolerance of its plain version; timed against the bound (the whole
     matrix's Q40 bytes, the activations, corrections and the n outputs over
     3.35 TB/s), the plain version and the library yardstick (per rank
-    dequantize + bf16 matmul, then the stacked sum)."""
+    dequantize + bf16 matmul, then the stacked sum). Prints the cluster
+    shape K5 launches with. For another tree's port (``strict`` False) a
+    failed check is printed, not fatal."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     rows = []
+
     for n in TP_SIZES:
+        cluster = coll.k5_cluster_dims(n) if hasattr(coll, "k5_cluster_dims") else None
+        print(f"K5 at tp={n}: cluster shape {cluster} (CTAs per cluster along x, y, z)")
         for shape, (n_full, d) in (("wo", (DIM, DIM)), ("down", (HIDDEN, DIM))):
             n_shard = n_full // n
             n_pad = q40._n_padded(n_shard)
@@ -727,13 +755,18 @@ def k5_checks(q40, coll) -> list:
                 args = ([p[0] for p in preps], [p[1] for p in preps], corrs)
                 plain = coll.fused_matmul_ring_plain(*args, [qm.qs for qm in qms], [qm.scales for qm in qms])
                 torch.cuda.synchronize()
-                check(all(torch.equal(f, fused[0]) for f in fused), f"K5 {shape} tp={n}: ranks hold different bytes")
-                check(all(torch.equal(f, u) for f, u in zip(fused, unfused)),
-                      f"K5 {shape} tp={n} T={T}: differs from K1 + correction + K4")
+                gate(strict, all(torch.equal(f, fused[0]) for f in fused),
+                     f"K5 {shape} tp={n}: ranks hold different bytes")
+                gate(strict, all(torch.equal(f, u) for f, u in zip(fused, unfused)),
+                     f"K5 {shape} tp={n} T={T}: differs from K1 + correction + K4")
+                again = coll.fused_matmul_ring_all_reduce(xs, qms)
+                torch.cuda.synchronize()
+                gate(strict, all(torch.equal(f, a) for f, a in zip(fused, again)),
+                     f"K5 {shape} tp={n} T={T}: repeats differ")
                 err = (fused[0] - plain[0]).abs().max().item()
                 scale = plain[0].abs().max().item()
-                check(math.isfinite(err) and err <= TOL_REL["q40_int8"] * scale,
-                      f"K5 {shape} tp={n} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
+                gate(strict, math.isfinite(err) and err <= TOL_REL["q40_int8"] * scale,
+                     f"K5 {shape} tp={n} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
 
                 def run(i):
                     c = sets[i % copies]
@@ -751,7 +784,7 @@ def k5_checks(q40, coll) -> list:
                 need_bytes = w_bytes + n * T * (n_pad + n_pad // 32 * 4) + 2 * n * T * d * 4
                 bytes_ms = need_bytes / HBM_BYTES_PER_S * 1e3
                 ops_ms = 2.0 * T * n * n_pad * d / INT8_OPS_PER_S * 1e3
-                row = dict(kernel="fused_matmul_ring", shape=shape, tp=n, n_shard=n_shard, d=d, T=T,
+                row = dict(kernel="fused_matmul_ring", shape=shape, tp=n, n_shard=n_shard, d=d, T=T, cluster=cluster,
                            max_abs_err=err, max_rel_err=err / max(scale, 1e-30), tol_rel=TOL_REL["q40_int8"],
                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(bytes_ms, ops_ms),
                            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -1322,20 +1355,31 @@ def wide_spec_run(server_api, q40, model: str, tok_path: str) -> dict:
     return out
 
 
+def _import_port(root: Path, name: str):
+    """The port's ``ops`` module ``name`` from the tree under ``root``."""
+    sys.path.insert(0, str(root))
+    import importlib
+
+    mod = importlib.import_module(f"distributed_llama_tpu_torch.ops.{name}")
+    check(Path(mod.__file__).resolve().is_relative_to(root.resolve()), f"imported {mod.__file__}, not {root}")
+    return mod
+
+
+def _build_alone(cuda_build, name: str, root: Path) -> None:
+    phase(f"2. build {name} from {root}")
+    print(f"nvcc build: {cuda_build.build([name]):.1f} s")
+    for line in cuda_build.build_log.get(name, "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {line.strip()}")
+
+
 def k1_only(root: Path, smi: str) -> None:
     """``--k1``: phase 3's K1 part alone, the port under ``root`` (another
     tree, e.g. an unpacked earlier commit, to time two designs in one call:
     its wrapper only, against the plain version). Rows go to
     build/chip_smoke_k1.json under this script's tree."""
-    sys.path.insert(0, str(root))
-    from distributed_llama_tpu_torch.ops import cuda_build, q40
-
-    check(Path(q40.__file__).resolve().is_relative_to(root.resolve()), f"imported {q40.__file__}, not {root}")
-    phase(f"2. build K1 from {root}")
-    print(f"nvcc build: {cuda_build.build(['q40_int8']):.1f} s")
-    for line in cuda_build.build_log.get("q40_int8", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    q40 = _import_port(root, "q40")
+    _build_alone(_import_port(root, "cuda_build"), "q40_int8", root)
     t = phase("3. K1 vs its plain version at the Llama-2-7B shapes")
     rows = k1_checks(q40, strict=root.resolve() == ROOT)
     forwards = k1_forward_rows(rows)
@@ -1347,23 +1391,53 @@ def k1_only(root: Path, smi: str) -> None:
     print(json.dumps({"k1": forwards}))
 
 
+def k3_only(root: Path, smi: str) -> None:
+    """``--k3``: phase 3's K3 part alone, the port under ``root`` (another
+    tree, e.g. an unpacked earlier commit, to time two designs in one call:
+    its failed checks are printed, not fatal). Rows go to
+    build/chip_smoke_k3.json under this script's tree."""
+    q40 = _import_port(root, "q40")
+    _build_alone(_import_port(root, "cuda_build"), "q40_dequant", root)
+    t = phase("3. K3 vs its plain version at the Llama-2-7B shapes")
+    rows = k3_checks(q40, strict=root.resolve() == ROOT)
+    forwards = k1_forward_rows(rows, "K3")
+    print(f"phase 3 (K3): {time.perf_counter() - t:.1f} s")
+    out = ROOT / "build" / "chip_smoke_k3.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({"root": str(root), "card": smi, "rows": rows, "per_forward": forwards}, indent=1))
+    print(f"card: {smi}")
+    print(json.dumps({"k3": forwards}))
+
+
+def k5_only(root: Path, smi: str) -> None:
+    """``--k5``: phase 7b alone, K5 of the port under ``root`` (another
+    tree, e.g. an unpacked earlier commit, to time two designs in one call:
+    its failed checks are printed, not fatal). Rows go to
+    build/chip_smoke_k5.json under this script's tree."""
+    q40 = _import_port(root, "q40")
+    coll = _import_port(root, "collectives")
+    cuda_build = _import_port(root, "cuda_build")
+    _build_alone(cuda_build, "fused_matmul_ring", root)
+    cuda_build.build(["q40_int8", "ring_all_reduce"])  # the unfused chain it is held against
+    t = phase("7b. K5 fused int8 matmul + ring vs K1 + correction + K4, at the 7B wo/down shards")
+    rows = k5_checks(q40, coll, strict=root.resolve() == ROOT)
+    print(f"phase 7b: {time.perf_counter() - t:.1f} s")
+    out = ROOT / "build" / "chip_smoke_k5.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({"root": str(root), "card": smi, "rows": rows}, indent=1))
+    print(f"card: {smi}")
+    print(json.dumps({"k5": [{k: r[k] for k in ("shape", "tp", "T", "cluster", "ms", "bound_ms", "plain_ms",
+                                                 "library_ms", "max_rel_err")} for r in rows]}))
+
+
 def k2_only(root: Path, smi: str) -> None:
     """``--k2``: phase 6a alone, K2 of the port under ``root`` (another
     tree, e.g. an unpacked earlier commit, to time two designs in one
     call); the contract and per-pass checks run where the port has the
     passes. Rows go to build/chip_smoke_k2.json under this script's tree."""
-    sys.path.insert(0, str(root))
-    from distributed_llama_tpu_torch.ops import attention as attn
-    from distributed_llama_tpu_torch.ops import cuda_build
-    from distributed_llama_tpu_torch.ops import kv_cache as kvc
-
-    check(Path(attn.__file__).resolve().is_relative_to(root.resolve()), f"imported {attn.__file__}, not {root}")
-    t = phase(f"2. build K2 from {root}")
-    build_s = cuda_build.build(["paged_attention"])
-    for line in cuda_build.build_log.get("paged_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
-    print(f"nvcc build: {build_s:.1f} s")
+    attn = _import_port(root, "attention")
+    kvc = _import_port(root, "kv_cache")
+    _build_alone(_import_port(root, "cuda_build"), "paged_attention", root)
     t = phase("6a. K2 paged attention vs its plain version at the Llama-2-7B heads")
     own = root.resolve() == ROOT
     rows = k2_checks(attn, kvc, contracts=hasattr(attn, "paged_attention_partials"), strict=own)
@@ -1380,18 +1454,23 @@ def main() -> None:
     parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port on one NVIDIA GPU")
     parser.add_argument("--k1", action="store_true", help="phase 3's K1 part alone (K1 checked and timed)")
     parser.add_argument("--k2", action="store_true", help="phase 6a alone (K2 checked and timed)")
+    parser.add_argument("--k3", action="store_true", help="phase 3's K3 part alone (K3 checked and timed)")
+    parser.add_argument("--k5", action="store_true", help="phase 7b alone (K5 checked and timed)")
     parser.add_argument("--root", type=Path, default=ROOT,
-                        help="with --k1 or --k2: the tree whose port is imported")
+                        help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this smoke test needs a GPU", flush=True)
         sys.exit(2)
-    if opts.k1 or opts.k2:
+    alone = [f for f, on in ((k1_only, opts.k1), (k2_only, opts.k2), (k3_only, opts.k3), (k5_only, opts.k5)) if on]
+    if len(alone) > 1:
+        parser.error("at most one of --k1, --k2, --k3, --k5")
+    if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
         print(f"nvidia-smi: {smi}; torch: {torch.cuda.get_device_name(0)}, torch {torch.__version__}")
-        (k1_only if opts.k1 else k2_only)(opts.root, smi)
+        alone[0](opts.root, smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return
@@ -1435,7 +1514,9 @@ def main() -> None:
     k1_rows = k1_checks(q40)
     k1_forward = k1_forward_rows(k1_rows)
     k3_rows = k3_checks(q40)
-    summary.update(kernel_rows=k1_rows + k3_rows, k1_per_forward=k1_forward, row_blocks=row_block_cost(q40))
+    k3_forward = k1_forward_rows(k3_rows, "K3")
+    summary.update(kernel_rows=k1_rows + k3_rows, k1_per_forward=k1_forward, k3_per_forward=k3_forward,
+                   row_blocks=row_block_cost(q40))
     print(f"phase 3: {time.perf_counter() - t:.1f} s")
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -1476,6 +1557,8 @@ def main() -> None:
             ("greedy f32 path", "f32", ["--prompt", "hello world, hello", "--temperature", "0", "--seed", "1"]),
             ("greedy spec 4", "int8", ["--prompt", "hello world, hello", "--temperature", "0", "--seed", "1",
                                        "--spec-draft", "4"]),
+            ("greedy f32 spec 4", "f32", ["--prompt", "hello world, hello", "--temperature", "0", "--seed", "1",
+                                          "--spec-draft", "4"]),
         ]
         streams = {}
         q40.reset_launches()  # the main path's counts start here
@@ -1512,6 +1595,13 @@ def main() -> None:
               "greedy --spec-draft 4 differs from --spec-draft 0: "
               f"{streams['greedy spec 4']} vs {streams['greedy']}")
         print(f"greedy --spec-draft 4 equals --spec-draft 0 token for token ({len(streams['greedy'])} tokens)")
+        # K3's rows equal its T=1 launches, so the f32 path's verify windows
+        # give what its decode steps give
+        check(streams["greedy f32 spec 4"] == streams["greedy f32 path"],
+              "greedy --q40-path f32 --spec-draft 4 differs from --spec-draft 0: "
+              f"{streams['greedy f32 spec 4']} vs {streams['greedy f32 path']}")
+        print(f"greedy --q40-path f32 --spec-draft 4 equals --spec-draft 0 token for token "
+              f"({len(streams['greedy f32 path'])} tokens)")
         summary["spec_window"] = spec_window_check(engine, llama, built[1].encode("hello world, hello", add_bos=True))
         check(all(v > 0 for v in main_launches.values()), f"a kernel was never launched: {main_launches}")
         summary["streams"] = streams

@@ -182,7 +182,8 @@ def fused_matmul_ring(xqs: list, sxs: list, corrs: list, qss: list, scaless: lis
     (:func:`ops.q40.bias_correction`) and the Q40 pack (qs, scales); out
     f32 [T, d_pad] per rank, equal to K1, then ``- 8 corr``, then K4. T <= 8
     and d_pad a multiple of 2n x 64. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    CUDA tensors launch the kernel as clusters of n CTAs or raise (a refused
+    cluster launch included)."""
     n = len(xqs)
     T, n_pad = xqs[0].shape
     d_pad = qss[0].shape[1]
@@ -207,6 +208,17 @@ def fused_matmul_ring(xqs: list, sxs: list, corrs: list, qss: list, scaless: lis
                          n, T, n_pad, d_pad, torch.cuda.current_stream(dev).cuda_stream), "fused_matmul_ring")
     launches["fused_matmul_ring"] += 1
     return outs
+
+
+def k5_cluster_dims(n: int) -> tuple[int, int, int]:
+    """The thread-block cluster shape K5 launches with for ``n`` ranks (one
+    CTA per rank of a column tile), as its C library reports it."""
+    from distributed_llama_tpu_torch.ops import cuda_build
+
+    dims = (ctypes.c_int * 3)()
+    q40._check_launch(cuda_build.function("fused_matmul_ring", "fused_matmul_ring_cluster")(n, dims),
+                      "fused_matmul_ring_cluster")
+    return tuple(dims)
 
 
 def fused_ring_eligible(xs: list, ws: list, path: str = "int8") -> bool:

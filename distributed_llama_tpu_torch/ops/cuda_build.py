@@ -39,8 +39,9 @@ KERNELS = {
     "fused_matmul_ring": ("fused_matmul_ring.cu", "fused_matmul_ring", [_PP] * 6 + [_I] * 4 + [_P]),
 }
 # further C functions of a kernel library: its passes, called alone to hold
-# each against its plain version
+# each against its plain version, and K5's launch shape
 SYMBOLS = {
+    "fused_matmul_ring": {"fused_matmul_ring_cluster": [_I, ctypes.POINTER(ctypes.c_int)]},
     "paged_attention": {
         "paged_attention_partials": [_P] * 14 + [_I] * 10 + [_P],
         "paged_attention_merge": [_P, _P] + [_I] * 7 + [_P],

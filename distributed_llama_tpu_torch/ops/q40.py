@@ -22,7 +22,7 @@ Two kernels sit behind :func:`q40_matmul`:
     (:func:`quantize_q80`) and ``csrc/q40_int8.cu`` runs exact int32 block
     dots with a scale-product epilogue;
   * ``path="f32"``: ``csrc/q40_dequant.cu`` dequantizes nibbles x scale in
-    bf16 and accumulates bf16 products in f32.
+    bf16 and accumulates bf16 products in f32 on the bf16 tensor cores.
 
 Both leave the +8 nibble bias to the caller, which subtracts
 ``8 * (block sums of x) @ scales`` in true f32. Matrices whose padded input
@@ -408,10 +408,17 @@ def q40_dequant_plain(xb: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) 
     then a matmul of ``xb`` with f32 accumulation. For bf16 the products
     of two bf16 values are exact in f32, so the f32 matmul of the upcast
     operands is bf16 products with f32 accumulation."""
-    cdt = xb.dtype
-    nib = torch.cat([qs & 0xF, qs >> 4], dim=0).to(cdt)
-    w = nib * _block_rows(scales.to(cdt))
+    w = dequant_weights(qs, scales, xb.dtype)
     return _true_f32_matmul(xb.to(torch.float32), w.to(torch.float32))
+
+
+def dequant_weights(qs: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weights the dequant kernel multiplies, [n_pad, d_pad] in
+    ``dtype``: each biased nibble times its block scale rounded to
+    ``dtype``, the product rounded to ``dtype`` once (for bf16 what the
+    kernel's splice, HSUB2 and HMUL2 give bit for bit)."""
+    nib = torch.cat([qs & 0xF, qs >> 4], dim=0).to(dtype)
+    return nib * _block_rows(scales.to(dtype))
 
 
 def q40_dequant(xb: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -448,12 +455,13 @@ def q40_dequant(xb: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> tor
 def _q40_matmul_f32(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
     """The dequant path: bf16 compute on the card, f32 on the CPU (where the
     JAX package's interpret mode computes in f32 too)."""
-    T = x.shape[0]
     n_pad = qm.n_padded
     cdt = torch.float32 if qm.device.type == "cpu" else torch.bfloat16
     xb = _pad_to(x, n_pad).to(cdt).contiguous()
     out = q40_dequant(xb, qm.qs, qm.scales)
-    xsum = xb.to(torch.float32).reshape(T, n_pad // QK, QK).sum(dim=-1)
+    # the block sums of bf16 values are not exact in f32, so they too run
+    # at the fixed row block: a row's bits do not depend on the row count
+    xsum = _at_row_bucket(lambda v: v.reshape(-1, n_pad // QK, QK).sum(dim=-1), xb.to(torch.float32))
     out = out - 8.0 * _true_f32_matmul(xsum, qm.scales)
     return out[:, : qm.d] if qm.d_padded != qm.d else out
 

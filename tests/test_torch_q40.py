@@ -79,7 +79,7 @@ def test_quantize_q80_bit_exact(T):
 _REL_TOL = 1e-5
 
 
-@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("T", [1, 2, 5, 20])
 @pytest.mark.parametrize("path", ["int8", "f32"])
 def test_matmul_matches_jax_kernel(T, path):
     jm, tm = _pair(1024, 1536, seed=4)
