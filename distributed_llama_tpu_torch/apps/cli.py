@@ -10,7 +10,9 @@ on the host from fetched logits (the counter-mode sampler replays the
 device stream token for token). ``--device cpu`` runs on the CPU with the
 kernels' plain PyTorch versions; the default is the card. ``--tp N`` runs
 N tensor-parallel ranks on that one device, their two all-reduces per layer
-summed by the ``--allreduce`` arm.
+summed by the ``--allreduce`` arm. Mixtral and Grok-1 files run at ``--tp
+1``; ``--moe-capacity F`` opts their Q40 prefill into capacity-bucketed
+experts.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from distributed_llama_tpu_torch.engine.engine import InferenceEngine, Stopwatch
 from distributed_llama_tpu_torch.engine.weights import QUANTIZED_DTYPE
+from distributed_llama_tpu_torch.formats.model_file import ArchType
 from distributed_llama_tpu_torch.ops.collectives import IMPLS
 from distributed_llama_tpu_torch.tokenizer import Sampler, Tokenizer, is_safe_piece
 
@@ -60,6 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cache-dtype", choices=list(_CACHE_DTYPES), default="auto",
                    help="KV cache dtype (auto = bf16, or f32 with --dtype f32); i8 stores int8 rows with "
                    "per-(slot, head) scales: half the cache memory of bf16")
+    p.add_argument("--moe-capacity", type=float, default=0.0,
+                   help="MoE prefill capacity factor: per-expert buckets hold ceil(F*T*k/E) rows and overflow rows "
+                   "DROP (lossy). 0 (default) = exact: every expert computes every prompt row. Applies to the q40 "
+                   "experts at prompts of >= 32 tokens")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks (a power of two), all on --device")
@@ -76,6 +83,7 @@ def make_engine(args):
         device=args.device, q40_path=args.q40_path,
         cache_dtype=_CACHE_DTYPES[getattr(args, "cache_dtype", "auto")],
         tp=getattr(args, "tp", 1), allreduce=getattr(args, "allreduce", "psum"),
+        moe_capacity_factor=getattr(args, "moe_capacity", 0.0) or 0.0,
     )
     tokenizer = Tokenizer.from_file(args.tokenizer, engine.cfg.vocab_size)
     # wall-clock as entropy for a default sampling seed, never a duration
@@ -101,7 +109,8 @@ def generate(args, benchmark: bool, built=None) -> dict:
         raise SystemExit("Prompt is required")
     engine, tokenizer, sampler = built if built is not None else make_engine(args)
     engine.q40_path = args.q40_path  # a reused engine runs this call's kernel path
-    prompt_tokens = tokenizer.encode(args.prompt, add_bos=True)
+    # Grok-1 prompts start without BOS, as in the JAX package's CLI
+    prompt_tokens = tokenizer.encode(args.prompt, add_bos=engine.cfg.arch != ArchType.GROK1)
     n_prompt = len(prompt_tokens)
     if n_prompt < 1:
         raise SystemExit("Expected at least 1 prompt token")

@@ -358,7 +358,7 @@ class BatchScheduler:
                     paged = (self._pool, table, matched)
                 row_cache = [kvc.slab_row(leaf, stream.row) for leaf in self._slab]
                 logits, _ = llama.forward_tokens(engine.cfg, engine.params, to_device(padded, engine.device),
-                                                 row_cache, stream.pos, engine.q40_path, paged=paged)
+                                                 row_cache, stream.pos, engine.q40_path, paged=paged, n_real=c)
                 stream.pos += c
             off += c
         return logits, c - 1

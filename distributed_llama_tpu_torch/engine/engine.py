@@ -189,7 +189,7 @@ class EngineStream(StreamStats):
             padded = np.zeros(bucket, dtype=np.int64)
             padded[:n] = tokens
         toks = to_device(np.asarray(padded, np.int64), engine.device)
-        logits, self.cache = engine.forward_fn(toks, self.cache, self.pos)
+        logits, self.cache = engine.forward_fn(toks, self.cache, self.pos, n_real=n)
         self.pos += n
         self.forwards += 1
         return logits
@@ -303,14 +303,18 @@ class EngineStream(StreamStats):
         ``spec_draft`` at a time in one weight read per step. Greedy output
         is the same either way. Single-device engines only: under tensor
         parallelism it is ignored with a one-time warning, as in the JAX
-        package."""
+        package; so it is for MoE models, whose verify windows would take the
+        all-experts path, which has no decode parity contract (the batch
+        scheduler's gate too)."""
         if spec_draft and spec_draft > 0:
-            if self.engine.tp_backend is None:
+            if self.engine.tp_backend is None and not self.engine.cfg.is_moe:
                 return self._stream_decode_spec(first_token, on_token, temperature, topp, seed, spec_draft,
                                                 spec_ngram, limit, first_prev, prompt_tokens, topk)
             if not self.engine._spec_fallback_warned:
                 self.engine._spec_fallback_warned = True
-                print("⚠️ --spec-draft ignored: single-chip backend only for now; plain chunked decode")
+                reason = ("single-chip backend only for now" if self.engine.tp_backend is not None
+                          else "MoE verify windows have no decode parity contract")
+                print(f"⚠️ --spec-draft ignored: {reason}; plain chunked decode")
         start_pos = self.pos
         consumed = 0
         fused_first = first_prev is not None
@@ -416,13 +420,15 @@ class InferenceEngine:
     run the kernels' plain versions. ``tp`` > 1 runs that many
     tensor-parallel ranks, all on ``device``, summed by the ``allreduce``
     arm ("psum", "ring_xla" or "ring": K4 and K5); a list of several
-    devices raises NotImplementedError."""
+    devices raises NotImplementedError, and so does a MoE model at ``tp``
+    > 1. ``moe_capacity_factor`` > 0 opts a MoE model's Q40 prefill into
+    capacity-bucketed experts (lossy: overflow rows drop)."""
 
     TRANSFER_REFRESH_TOKENS = 512
 
     def __init__(self, model_path: str, dtype="q40", max_seq_len: int | None = None,
                  device="cuda", q40_path: str = "int8", cache_dtype=None, tp: int = 1,
-                 allreduce: str = "psum"):
+                 allreduce: str = "psum", moe_capacity_factor: float = 0.0):
         from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
         from distributed_llama_tpu_torch.models.config import config_from_spec
 
@@ -431,7 +437,7 @@ class InferenceEngine:
         self.q40_path = q40_path
         reader = ModelFileReader(model_path)
         self.spec = reader.spec.clamp_seq_len(max_seq_len)
-        self.cfg = config_from_spec(self.spec)
+        self.cfg = config_from_spec(self.spec, moe_capacity_factor=moe_capacity_factor)
         from distributed_llama_tpu_torch.parallel import tensor_parallel
 
         if isinstance(device, (list, tuple)):  # one device per rank: several cards raise
@@ -457,12 +463,14 @@ class InferenceEngine:
         if self.tp_backend is not None:
             self._transfer_ms = self.tp_backend.measure_transfer_ms()
 
-    def forward_fn(self, tokens: torch.Tensor, cache, pos: int):
+    def forward_fn(self, tokens: torch.Tensor, cache, pos: int, n_real: int | None = None):
         """One forward of ``tokens`` from ``pos`` over this engine's params:
-        (logits f32 [T, vocab], cache)."""
+        (logits f32 [T, vocab], cache). ``n_real``: the real rows of a
+        bucket-padded prompt (the capacity-bucketed MoE prefill's pad mask;
+        the tensor-parallel backend runs no MoE and ignores it)."""
         if self.tp_backend is not None:
             return self.tp_backend.forward(self.params, tokens, cache, pos, self.q40_path)
-        return llama.forward_tokens(self.cfg, self.params, tokens, cache, pos, self.q40_path)
+        return llama.forward_tokens(self.cfg, self.params, tokens, cache, pos, self.q40_path, n_real=n_real)
 
     def decode_chunk_fn(self, first_token, cache, pos: int, n_steps: int, temperature: float, topp: float,
                         topk: int, seed32: int):

@@ -6,6 +6,13 @@ packed 4-bit (:class:`ops.q40.QuantizedMatrix`), q|k|v and gate|up fused as
 one matmul each (the file's row-major blocks concatenate exactly), and the
 repack runs with torch ops on the target device. Embeddings and norm
 weights stay f32.
+
+MoE layers (Mixtral, Grok-1) hold a ``router`` [dim, E] and, for q40, an
+``experts`` list of per-expert ``{"gate_up", "down"}`` Q40 leaves, else
+stacked ``moe_up``/``moe_gate``/``moe_down`` banks [E, d_in, d_out] of the
+weight dtype. The router is read in f32 and stored in the weight dtype
+(bf16 under q40), as the JAX package stores it; it is multiplied in f32.
+Grok-1 layers add the ``rms_moe`` and ``rms_ffn2`` norms.
 """
 
 from __future__ import annotations
@@ -27,14 +34,6 @@ Params = dict[str, Any]
 QUANTIZED_DTYPE = "q40"  # keep matmul weights 4-bit on the device
 
 
-def check_supported(cfg: LlamaConfig) -> None:
-    """The port runs dense Llama-architecture models so far."""
-    if cfg.is_moe or cfg.arch != ArchType.LLAMA:
-        raise NotImplementedError(
-            f"{cfg.arch.name} with {cfg.n_experts} experts: only dense Llama models are ported"
-        )
-
-
 def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=QUANTIZED_DTYPE,
                 device="cuda", tp: int = 1):
     """Build the params dict on ``device`` (the card unless "cpu" is
@@ -51,7 +50,6 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
 
     device = resolve_device(device)
     cfg = cfg or config_from_spec(reader.spec)
-    check_supported(cfg)
     quantized = dtype == QUANTIZED_DTYPE
     validate_tp(cfg, tp, quantized=quantized)
     table = sharding.param_rules("q40" if quantized else "layered", shard_vocab=cfg.vocab_size % tp == 0)
@@ -59,13 +57,15 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
     def f32(name: str) -> torch.Tensor:
         return torch.from_numpy(reader.tensor(name)).to(device)
 
-    def matmul_leaf(path: str, names: list[str], s: int):
+    def matmul_leaf(path: str | None, names: list[str], s: int):
         """Rank s's leaf ``path`` of the file matrices ``names`` (several
         share an input dim and pack as ONE matmul, their output dims
         concatenated), in x@W orientation: a QuantizedMatrix for q40, else
-        a [d_in, d_out] tensor of ``dtype``."""
+        a [d_in, d_out] tensor of ``dtype``. ``path`` None: the whole
+        matrix, uncut (the MoE leaves, loaded at tp = 1 only)."""
         entries = [reader.entries[n] for n in names]
-        if table.cut(path) == sharding.IN:
+        cut = None if path is None else table.cut(path)
+        if cut == sharding.IN:
             (name,), (e,) = names, entries
             d_out, d_in = e.shape
             lo, hi = d_in * s // tp, d_in * (s + 1) // tp
@@ -73,7 +73,7 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
                 return pack_q40_raw(reader.raw_row_blocks(name, lo, hi).reshape(-1), (d_out, hi - lo), device)
             w = reader.tensor_cols(name, lo, hi).T
         else:  # an output shard, or the whole matrix where the table replicates it
-            parts, s = (1, 0) if table.cut(path) is None else (tp, s)
+            parts, s = (1, 0) if cut is None else (tp, s)
             bounds = [(e.shape[0] * s // parts, e.shape[0] * (s + 1) // parts) for e in entries]
             if quantized and all(e.float_type == FloatType.Q40 for e in entries):
                 raw = np.concatenate([reader.raw_rows(n, lo, hi) for n, (lo, hi) in zip(names, bounds)])
@@ -85,15 +85,34 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
 
     shared = {"embedding": f32("embedding"), "rms_final": f32("rms_final"),
               "rope_table": torch.from_numpy(build_rope_table(cfg)).to(device)}
-    norms = [{n: f32(f"layers.{l}.{n}") for n in ("rms_att", "rms_ffn")} for l in range(cfg.n_layers)]
-    fused = {"qkv": ("q", "k", "v"), "wo": ("wo",), "gate_up": ("gate", "up"), "down": ("down",)}
+    norm_names = ("rms_att", "rms_ffn") + (("rms_moe", "rms_ffn2") if cfg.arch == ArchType.GROK1 else ())
+    norms = [{n: f32(f"layers.{l}.{n}") for n in norm_names} for l in range(cfg.n_layers)]
+    fused = {"qkv": ("q", "k", "v"), "wo": ("wo",)}
+    if not cfg.is_moe:
+        fused.update({"gate_up": ("gate", "up"), "down": ("down",)})
     if not quantized:
-        fused = {n: (n,) for n in ("q", "k", "v", "wo", "gate", "down", "up")}
+        fused = {n: (n,) for n in ("q", "k", "v", "wo") + (() if cfg.is_moe else ("gate", "down", "up"))}
+
+    def moe_leaves(l: int) -> Params:
+        """Layer l's router and expert weights (tp = 1)."""
+        p = f"layers.{l}."
+        leaves = {"router": torch.from_numpy(np.ascontiguousarray(reader.tensor(p + "moe_router").T)).to(
+            device=device, dtype=torch.bfloat16 if quantized else dtype)}
+        experts = [f"{p}experts.{e}." for e in range(cfg.n_experts)]
+        if quantized:
+            leaves["experts"] = [{"gate_up": matmul_leaf(None, [ep + "gate", ep + "up"], 0),
+                                  "down": matmul_leaf(None, [ep + "down"], 0)} for ep in experts]
+        else:
+            for leaf in ("up", "gate", "down"):
+                leaves[f"moe_{leaf}"] = torch.stack([matmul_leaf(None, [ep + leaf], 0) for ep in experts])
+        return leaves
+
     wcls_full = matmul_leaf("wcls", ["wcls"], 0) if table.cut("wcls") is None else None
     ranks = []
     for s in range(tp):
         layers = [{**{leaf: matmul_leaf(f"layers/{l}/{leaf}", [f"layers.{l}.{n}" for n in srcs], s)
-                      for leaf, srcs in fused.items()}, **norms[l]} for l in range(cfg.n_layers)]
+                      for leaf, srcs in fused.items()}, **norms[l], **(moe_leaves(l) if cfg.is_moe else {})}
+                  for l in range(cfg.n_layers)]
         wcls = wcls_full if wcls_full is not None else matmul_leaf("wcls", ["wcls"], s)
         ranks.append({**shared, "layers": layers, "wcls": wcls})
     return ranks if tp > 1 else ranks[0]

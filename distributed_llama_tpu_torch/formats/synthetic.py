@@ -57,6 +57,32 @@ def llama2_7b_spec(n_layers: int = 32, seq_len: int = 4096) -> ModelSpec:
     )
 
 
+def mixtral_8x7b_spec(n_layers: int = 32, seq_len: int = 32768) -> ModelSpec:
+    """Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+    config.json: dim 4096, hidden 14336, 32 heads, 8 kv heads, 8 experts, 2
+    active, vocab 32000, rope theta 1e6, silu) with Q40 weights; the rope is
+    the interleaved (Llama) one the converter writes for Mixtral."""
+    return ModelSpec(
+        arch_type=ArchType.MIXTRAL, dim=4096, hidden_dim=14336, n_layers=n_layers,
+        n_heads=32, n_kv_heads=8, n_experts=8, n_active_experts=2, vocab_size=32000, seq_len=seq_len,
+        hidden_act=HiddenAct.SILU, rope_theta=1000000.0, rope_type=RopeType.LLAMA,
+        weights_float_type=FloatType.Q40,
+    )
+
+
+def grok1_spec(n_layers: int = 64, seq_len: int = 8192) -> ModelSpec:
+    """Grok-1's published widths (xai-org/grok-1 run.py: emb 6144, ffn
+    32768, 48 heads, 8 kv heads, 8 experts, 2 selected, vocab 131072,
+    gelu) with Q40 weights; the header names no rope, so it resolves to
+    the falcon/neox rope, as a converted Grok-1 file does."""
+    return ModelSpec(
+        arch_type=ArchType.GROK1, dim=6144, hidden_dim=32768, n_layers=n_layers,
+        n_heads=48, n_kv_heads=8, n_experts=8, n_active_experts=2, vocab_size=131072, seq_len=seq_len,
+        hidden_act=HiddenAct.GELU, rope_theta=10000.0, rope_type=RopeType.UNKNOWN,
+        weights_float_type=FloatType.Q40,
+    )
+
+
 def _is_norm(name: str) -> bool:
     return name.startswith("rms") or ".rms" in name
 

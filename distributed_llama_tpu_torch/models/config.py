@@ -31,8 +31,9 @@ class LlamaConfig:
     # apply the Llama-3.1 frequency scaling to the rotated values instead of
     # the frequencies, bug-for-bug with the reference C++ runtime
     rope_llama3_reference_quirk: bool = False
-    # MoE capacity factor (MoE models are not ported yet; the field keeps
-    # the config field-for-field equal to the JAX package's)
+    # MoE prefill capacity factor (--moe-capacity): > 0 gathers each Q40
+    # expert's routed rows into buckets of ceil(F*T*k/E) rows, overflow
+    # dropping (models.moe); 0 = every expert computes every row (exact)
     moe_capacity_factor: float = 0.0
 
     @property

@@ -1,4 +1,4 @@
-"""Llama-family transformer forward over one stream (dense models).
+"""Llama-family transformer forward over one stream (Llama, Mixtral, Grok-1).
 
 The layer loop is unrolled over a list of per-layer parameter dicts; each
 layer's KV cache leaf is written in place. Numerical conventions follow the
@@ -6,7 +6,10 @@ JAX package: rmsnorm eps 1e-5 added to the mean square, scores scaled by
 1/sqrt(head_size), SwiGLU silu(w1 x) * (w3 x) then w2, all matmuls with f32
 accumulation. Q40 weights route to the hand-written kernels through
 :func:`ops.q40.q40_matmul` / :func:`ops.q40.rmsnorm_q40_matmul`: four
-launches per layer (qkv, wo, gate_up, down) and one for ``wcls``. Under
+launches per layer (qkv, wo, gate_up, down) and one for ``wcls``. A MoE
+layer's FFN is :func:`models.moe.moe_block`: 2 + 2k launches per layer for
+one row (the k selected experts), 2 + 2E for several. Grok-1 scales the
+embedding and the logits and norms the attention output. Under
 tensor parallelism (:func:`forward_tokens_tp`) the same functions run per
 rank, with wo and down summed over the ranks by ``ops.collectives``.
 
@@ -21,7 +24,7 @@ from typing import Any
 
 import torch
 
-from distributed_llama_tpu_torch.formats.model_file import HiddenAct
+from distributed_llama_tpu_torch.formats.model_file import ArchType, HiddenAct
 from distributed_llama_tpu_torch.models.config import LlamaConfig
 from distributed_llama_tpu_torch.models.rope import apply_rope
 from distributed_llama_tpu_torch.ops import kv_cache as kvc
@@ -96,7 +99,11 @@ def project_qkv(cfg: LlamaConfig, lp: Params, x: torch.Tensor, rope_rows: torch.
 
 
 def embed(cfg: LlamaConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens].to(torch.float32)
+    """Embedding rows in f32 (Grok-1 scales them by 78.38367176906169)."""
+    x = params["embedding"][tokens].to(torch.float32)
+    if cfg.arch == ArchType.GROK1:
+        x = x * 78.38367176906169
+    return x
 
 
 def attention(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tensor, pos: int,
@@ -163,32 +170,50 @@ def ffn(cfg: LlamaConfig, x: torch.Tensor, lp: Params, path: str = "int8") -> to
     return _matmul(ffn_hidden(cfg, x, lp, path).to(lp["down"].dtype), lp["down"], path)
 
 
-def block_tail(cfg: LlamaConfig, x: torch.Tensor, att: torch.Tensor, lp: Params, path: str = "int8") -> torch.Tensor:
-    """wo projection, residual, FFN, residual."""
+def block_tail(cfg: LlamaConfig, x: torch.Tensor, att: torch.Tensor, lp: Params, path: str = "int8",
+               n_real: int | None = None) -> torch.Tensor:
+    """wo projection, residual (Grok-1 norms the projection with
+    ``rms_ffn`` first), then the FFN or MoE half with its residual.
+    ``n_real``: the real rows of a bucket-padded prefill, which only the
+    capacity-bucketed MoE path reads."""
     out = _matmul(att.to(lp["wo"].dtype), lp["wo"], path)
-    x = x + out.to(x.dtype)
+    if cfg.arch == ArchType.GROK1:
+        x = x + rmsnorm(out.to(x.dtype), lp["rms_ffn"])
+    else:
+        x = x + out.to(x.dtype)
+    if cfg.is_moe:
+        from distributed_llama_tpu_torch.models import moe
+
+        return moe.moe_block(cfg, x, lp, n_real=n_real, path=path)
     return x + ffn(cfg, x, lp, path).to(x.dtype)
 
 
 def block_forward(cfg, x, lp, cache_l, pos: int, rope_rows, path: str = "int8", paged=None,
-                  per_position: bool = False):
+                  per_position: bool = False, n_real: int | None = None):
     att, cache_l = attention(cfg, x, lp, cache_l, pos, rope_rows, path, paged=paged, per_position=per_position)
-    return block_tail(cfg, x, att, lp, path), cache_l
+    return block_tail(cfg, x, att, lp, path, n_real=n_real), cache_l
 
 
 def final_logits(cfg: LlamaConfig, params: Params, x: torch.Tensor, path: str = "int8") -> torch.Tensor:
-    return _norm_matmul(x, params["rms_final"], params["wcls"], path)
+    """Final rmsnorm + logits head (Grok-1 scales the logits by
+    0.5773502691896257)."""
+    logits = _norm_matmul(x, params["rms_final"], params["wcls"], path)
+    if cfg.arch == ArchType.GROK1:
+        logits = logits * 0.5773502691896257
+    return logits
 
 
 def forward_tokens(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache: list, pos: int,
-                   path: str = "int8", paged=None, per_position: bool = False):
+                   path: str = "int8", paged=None, per_position: bool = False, n_real: int | None = None):
     """Run T tokens (int [T] on the params' device) from absolute position
     ``pos``. ``cache`` is the per-layer list of fused leaves (or slab-row
     views), updated in place. ``paged`` = (pool, table, matched): this
     row's positions below ``matched`` live in the per-layer ``(keys,
     values)`` pool halves, read through ``table``. ``per_position``: the
     attention of every query row is that of a T=1 step (see
-    :func:`attention`). Returns (logits f32 [T, vocab], cache)."""
+    :func:`attention`). ``n_real``: the real (non-pad) token count of a
+    bucket-padded prompt, for the capacity-bucketed MoE prefill; None = all
+    rows real. Returns (logits f32 [T, vocab], cache)."""
     T = tokens.shape[0]
     x = embed(cfg, params, tokens)
     rope_rows = params["rope_table"][pos : pos + T]
@@ -198,7 +223,7 @@ def forward_tokens(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache
             pool, table, matched = paged
             paged_l = (pool[l][0], pool[l][1], table, matched)
         x, cache[l] = block_forward(cfg, x, lp, cache[l], pos, rope_rows, path, paged=paged_l,
-                                    per_position=per_position)
+                                    per_position=per_position, n_real=n_real)
     return final_logits(cfg, params, x, path), cache
 
 

@@ -452,11 +452,17 @@ def q40_dequant(xb: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> tor
     return out
 
 
+# the dequant path's compute dtype on the CPU: f32, as the JAX package's
+# interpret mode computes; bf16 gives the card's arithmetic (all but the
+# order of f32 sums), a CPU witness of a run on the card
+CPU_DEQUANT_DTYPE = torch.float32
+
+
 def _q40_matmul_f32(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
-    """The dequant path: bf16 compute on the card, f32 on the CPU (where the
-    JAX package's interpret mode computes in f32 too)."""
+    """The dequant path: bf16 compute on the card, :data:`CPU_DEQUANT_DTYPE`
+    on the CPU."""
     n_pad = qm.n_padded
-    cdt = torch.float32 if qm.device.type == "cpu" else torch.bfloat16
+    cdt = CPU_DEQUANT_DTYPE if qm.device.type == "cpu" else torch.bfloat16
     xb = _pad_to(x, n_pad).to(cdt).contiguous()
     out = q40_dequant(xb, qm.qs, qm.scales)
     # the block sums of bf16 values are not exact in f32, so they too run

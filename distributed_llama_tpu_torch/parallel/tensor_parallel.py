@@ -31,10 +31,21 @@ from distributed_llama_tpu_torch.platform import resolve_device
 from distributed_llama_tpu_torch.quants import QK
 
 
+def check_moe_tp(cfg: LlamaConfig, tp: int) -> None:
+    """MoE layers run at tp = 1 only: their expert leaves are not sharded
+    yet, so a MoE model with tp > 1 raises before any weight is read."""
+    if cfg.is_moe and tp > 1:
+        raise NotImplementedError(
+            f"{cfg.arch.name} with {cfg.n_experts} experts at tp={tp}: MoE under tensor parallelism is not "
+            "ported yet (ROADMAP.md Queue 1: MoE under --tp); run it at --tp 1")
+
+
 def validate_tp(cfg: LlamaConfig, tp: int, quantized: bool = False) -> None:
     """The sharding-divisibility constraint: tp a power of two dividing the
     heads, kv heads and hidden dim; for q40 the input-dim shards must land
-    on quant-block boundaries (dim and hidden_dim divisible by tp*32)."""
+    on quant-block boundaries (dim and hidden_dim divisible by tp*32).
+    MoE models raise NotImplementedError at tp > 1 (:func:`check_moe_tp`)."""
+    check_moe_tp(cfg, tp)
     if tp < 1 or tp & (tp - 1):
         raise ValueError(f"tp must be a power of two, got {tp}")
     for name, value in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads), ("hidden_dim", cfg.hidden_dim)):

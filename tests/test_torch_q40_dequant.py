@@ -156,3 +156,23 @@ def test_cli_f32_path_spec_generate_equals_plain(tmp_path, monkeypatch):
     spec_run = cli.main(base + ["--spec-draft", "3"])
     assert spec_run["tokens"] == plain["tokens"] and len(plain["tokens"]) > 0
     assert max(calls) > 1  # verify windows (or the prefill) went through the dequant path
+
+
+def test_cpu_witness_computes_the_f32_path_in_the_cards_arithmetic(monkeypatch):
+    """``CPU_DEQUANT_DTYPE`` bf16 gives the CPU the card's f32 path: x
+    rounded to bf16 times the weights as the kernel dequantizes them
+    (``dequant_weights`` in bf16), less the bias correction on the f32
+    scales, equal to that formula in f64 up to f32 sums; the f32 default
+    (the JAX package's interpret mode) lies two orders further from it."""
+    tm = _pack(1024, 1536, seed=6)
+    x = torch.from_numpy(np.random.RandomState(8).randn(3, 1024).astype(np.float32))
+    default = tq.q40_matmul(x, tm, "f32")
+    monkeypatch.setattr(tq, "CPU_DEQUANT_DTYPE", torch.bfloat16)
+    got = tq.q40_matmul(x, tm, "f32")
+    xb = x.to(torch.bfloat16).double()
+    w = tq.dequant_weights(tm.qs, tm.scales, torch.bfloat16).double()
+    want = (xb @ w - 8.0 * xb.reshape(3, -1, 32).sum(-1) @ tm.scales.double())[:, :tm.d]
+    scale = want.abs().max().item()
+    err = (got.double() - want).abs().max().item()
+    assert err <= 2e-6 * scale  # measured 5.0e-7
+    assert (default.double() - want).abs().max().item() >= 100 * err
