@@ -106,12 +106,36 @@ Phases (any failure exits non-zero):
    server over that model as in 6b, then with ``--cache-dtype i8``, each
    greedy completion's first 8 tokens against the single-stream decode
    (reported, not failed: a 4-row step sums the experts in another
-   order); (d) Grok-1's widths cut to 2 layers through the CLI.
+   order); (d) Grok-1's widths cut to 2 layers through the CLI;
+9. telemetry, request tracing and the load generator (run after 7b, over
+   phase 5's 7B-width file): the port's API server in process with
+   ``--telemetry --parallel 4 --max-seq-len 2048`` (prefix cache on,
+   ``--admission-queue 24``), driven through the port's load generator's
+   ``--url`` path (``python -m distributed_llama_tpu_torch.loadgen``): 24
+   requests, Poisson at 2 requests/s, seed 0, 4 shared ~600-token prefixes
+   under Zipf s = 1.1, 6 suffixes, max_tokens 32, half sampled
+   (``--sampled-share 0.5``), after 2 unmeasured warmup requests. Asserts
+   every request completed, ``--assert`` (greedy consistency) and a zero
+   host-sampler fallback delta; over the window, the chat-route 200s and
+   the TTFT observations equal 24, prefix hits + misses equal the
+   scheduler's admissions (24), tokens generated equal the tokens the
+   scheduler delivered to rows plus the 24 first tokens (the requests
+   consume the rest; chunk tails past a stop are counted, as in the JAX
+   package); the client/server skew within ``SKEW_BOUND_MS`` per request;
+   ``dllama_kernel_path_total`` naming only K1's tiles and K2 (no
+   ``plain``), K1 and K2 launched in the window; one request's
+   ``/debug/trace/<id>`` (JSON and Chrome) with its queue, prefill and
+   decode stages; ``/healthz`` and ``/readyz`` 200. Prints the client's
+   TTFT/TPOT/E2E percentiles, the server's mean stage times, the summed
+   dispatch spans (the host's issue) against the fetch spans (the wait for
+   the card), and the 4-row decode step with telemetry on beside phase 6b's
+   (off), a reading that does not fail the run.
 
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
-one call); ``--moe`` runs phase 4's MoE part and phase 8 alone.
+one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
+``--loadgen`` writes phase 5's files and runs phase 9 alone.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -130,6 +154,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -242,6 +267,17 @@ K2_NEW_CASES = ("B1 K8 M8 S131072", "B2 K4 M8 hd64", "B2 K4 M8 hd96", "B2 K4 M2 
 # formula in the same order; only exp's last ulp may differ
 K2_FOLD_TOL_REL = 1e-6
 OUT_FILE = ROOT / "build" / "chip_smoke.json"  # the full results
+# phase 9: 24 requests, Poisson at 2 requests/s, 4 shared ~600-token prefixes
+# (6b's system prompt) under Zipf s = 1.1, 32 tokens each, half sampled
+LOADGEN_REQUESTS = 24
+LOADGEN_RATE = 2.0
+LOADGEN_PREFIX_TOKENS = 600
+LOADGEN_MAX_TOKENS = 32
+# client E2E minus the server's stage sums, per request: what the server
+# cannot see (connect, HTTP parse, the last SSE frames), a few ms on one
+# host, with room for handler threads waiting on the interpreter lock behind
+# the scheduler's eager launches
+SKEW_BOUND_MS = 250.0
 # phase 8: Mixtral-8x7B and Grok-1 at their published widths, depth cut to
 # fit the run (a Mixtral file of 8 of 32 layers is ~7.1 GB, a Grok-1 file
 # of 2 of 64 layers ~9.2 GB)
@@ -1120,6 +1156,20 @@ def chunk_delivery(engine, first: int, sleep_cycles: int = 200_000_000) -> dict:
     return out
 
 
+def device_ms_by_name(prof) -> dict[str, float]:
+    """Device time by kernel name from a finished torch.profiler trace, read
+    from its raw kineto events: the durations ``prof.events()`` gives its
+    device events, without building the host-side event tree, which took
+    14-32 s per server-phase profile (PR 9's third chip call)."""
+    from torch.autograd import DeviceType
+
+    out: dict[str, float] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return out
+
+
 def device_profile(engine, first: int, decode_ms: float, steps: int = 8) -> dict:
     """Device busy time per decoded token from a torch.profiler trace of
     ``steps`` greedy decode steps (kernel durations on the card, which the
@@ -1132,11 +1182,11 @@ def device_profile(engine, first: int, decode_ms: float, steps: int = 8) -> dict
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.decode_chunk(first, steps, 0.0, 0.9)
         torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    by_name = device_ms_by_name(prof)
     busy = sum(by_name.values()) / steps
+    # the raw events against the event tree, on this short window
+    tree_ms = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"  device time from the raw events {busy * steps:.3f} ms, from prof.events() {tree_ms:.3f} ms")
     if busy == 0.0:
         print("profiler recorded no device time: device busy share not measured")
         return {"device_busy_ms_per_token": None}
@@ -1537,6 +1587,32 @@ def _reference_streams(server_api, state, args, captured: list) -> int:
     return n
 
 
+def decode_rows(sched, n_rows: int, n_tok: int = 32) -> tuple[float, int, int]:
+    """Aggregate decode straight through the scheduler's first ``n_rows``
+    lanes, one thread each, from position 4 (speculative when the scheduler
+    is): (wall seconds, tokens, batched steps)."""
+    lanes = sched._streams[:n_rows]
+    firsts = []
+    for r, lane in enumerate(lanes):
+        lane.reset()
+        firsts.append(lane.prefill_device([1, 300 + r, 17, 42], 0.0, 0.9, 1))
+    torch.cuda.synchronize()
+
+    def go(lane, first, r):
+        lane.stream_decode(first, lambda p, t: True, 0.0, 0.9, seed=1, limit=lane.pos + n_tok,
+                           first_prev=42, spec_draft=sched.spec_draft, prompt_tokens=[1, 300 + r, 17, 42])
+
+    ts = [threading.Thread(target=go, args=(lane, first, r)) for r, (lane, first) in enumerate(zip(lanes, firsts))]
+    f1 = sched.decode_forwards
+    t = time.perf_counter()
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, n_rows * n_tok, sched.decode_forwards - f1
+
+
 def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, extra=(), spec: bool = False,
                single_stream: bool = False) -> dict:
     """Phase 6b (bf16 cache) and 6c (``extra`` = the int8 cache and
@@ -1682,41 +1758,24 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
         out.update(hit_vs_cold_logit_diff=err, hit_vs_cold_tol=tol)
 
         # aggregate decode rate straight through the lanes (speculative in 6c)
-        def decode_rows(n_rows, n_tok=32):
-            lanes = sched._streams[:n_rows]
-            firsts = []
-            for r, lane in enumerate(lanes):
-                lane.reset()
-                firsts.append(lane.prefill_device([1, 300 + r, 17, 42], 0.0, 0.9, 1))
-            torch.cuda.synchronize()
-
-            def go(lane, first, r):
-                lane.stream_decode(first, lambda p, t: True, 0.0, 0.9, seed=1, limit=lane.pos + n_tok,
-                                   first_prev=42, spec_draft=sched.spec_draft, prompt_tokens=[1, 300 + r, 17, 42])
-
-            ts = [threading.Thread(target=go, args=(lane, first, r))
-                  for r, (lane, first) in enumerate(zip(lanes, firsts))]
-            f1 = sched.decode_forwards
-            t = time.perf_counter()
-            for th in ts:
-                th.start()
-            for th in ts:
-                th.join()
-            torch.cuda.synchronize()
-            return time.perf_counter() - t, n_rows * n_tok, sched.decode_forwards - f1
-
         for n_rows in (1, 4) if not spec else (4,):
-            decode_rows(n_rows, 8)  # warm
-            wall, n_tok, steps = decode_rows(n_rows)
+            decode_rows(sched, n_rows, 8)  # warm
+            wall, n_tok, steps = decode_rows(sched, n_rows)
             out[f"decode_tok_per_s_{n_rows}_rows"] = n_tok / wall
+            out[f"decode_ms_per_step_{n_rows}_rows"] = wall / steps * 1e3
             print(f"aggregate decode at {n_rows} row(s): {n_tok / wall:.2f} tok/s ({wall:.2f} s for {n_tok} tokens, "
                   f"{steps} batched steps, {wall / steps * 1e3:.2f} ms per step)")
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
+        t_prof = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_p, n_tok, steps = decode_rows(4)
-        busy_ms = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
+            wall_p, n_tok, steps = decode_rows(sched, 4)
+        t_read = time.perf_counter()
+        busy_ms = sum(device_ms_by_name(prof).values())
+        # what the profile costs the run: the smoke test's time limit is shared by every phase
+        out["profile_s"] = {"window_and_stop": t_read - t_prof, "read_events": time.perf_counter() - t_read}
+        print(f"profiler: the window and its stop {t_read - t_prof:.1f} s, reading its events "
+              f"{time.perf_counter() - t_read:.1f} s")
         wall_ms = n_tok / out["decode_tok_per_s_4_rows"] * 1e3
         if busy_ms == 0.0:
             print("profiler recorded no device time: device idle share not measured")
@@ -1800,6 +1859,246 @@ def wide_spec_run(server_api, q40, model: str, tok_path: str) -> dict:
         server.server_close()
     del state, sched
     return out
+
+
+def _scrape(url: str) -> dict:
+    from distributed_llama_tpu_torch.loadgen.report import parse_prometheus
+
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        return parse_prometheus(r.read().decode())
+
+
+def _get_json(url: str) -> tuple[int, dict]:
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def loadgen_phase(server_api, attn, q40, model: str, tok_path: str, smi: str,
+                  off_step_ms: float | None = None) -> dict:
+    """Phase 9: the port's server over the 7B-width model with --telemetry,
+    --parallel 4, the prefix cache on, driven by the port's load generator
+    through its --url path (see the module docstring); ``off_step_ms`` is
+    phase 6b's 4-row step time with telemetry off, to read beside this
+    server's."""
+    import contextlib
+    import io
+
+    from distributed_llama_tpu_torch import telemetry
+    from distributed_llama_tpu_torch.loadgen import __main__ as loadgen_cli
+    from distributed_llama_tpu_torch.loadgen import runner as lg_runner
+
+    args = server_api.build_parser().parse_args([
+        "generate", "--model", model, "--tokenizer", tok_path, "--dtype", "q40", "--max-seq-len",
+        str(SERVER_SEQ_LEN), "--parallel", "4", "--decode-chunk", "8", "--chat-template", "chatml",
+        "--host", "127.0.0.1", "--port", "0", "--temperature", "0", "--admission-queue", str(LOADGEN_REQUESTS),
+        "--telemetry"])
+    telemetry.reset()
+    telemetry.enable()  # serve()'s order: before the engine and server bind their instruments
+    t0 = time.perf_counter()
+    server, state = server_api.make_server(args)
+    sched = state.batch
+    check(sched is not None and sched._prefix is not None, "the server did not build a paged BatchScheduler")
+    check(state.traces is not None and sched.engine._tel.enabled, "telemetry is not bound on the server")
+    print(f"server up in {time.perf_counter() - t0:.1f} s with --telemetry, {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB on the card")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    report_path = ROOT / "build" / "chip_smoke_loadgen_report.json"
+    out: dict = {"card": smi}
+    try:
+        def argv(prefix_chars: int) -> list[str]:
+            return ["--url", url, "--requests", str(LOADGEN_REQUESTS), "--rate", str(LOADGEN_RATE), "--seed", "0",
+                    "--prefixes", "4", "--zipf-s", "1.1", "--prefix-chars", str(prefix_chars), "--suffixes", "6",
+                    "--tenants", f"default:max_tokens={LOADGEN_MAX_TOKENS}", "--temperature", "0.8", "--topp", "0.9",
+                    "--sampled-share", "0.5", "--warmup", "0", "--timeout-s", "300", "--assert",
+                    "--expect-zero", "dllama_host_sampler_fallback_total", "--out", str(report_path)]
+
+        def schedule_of(prefix_chars: int):
+            return loadgen_cli.build(loadgen_cli.build_parser().parse_args(argv(prefix_chars)))[1]
+
+        # size the shared prefixes to ~LOADGEN_PREFIX_TOKENS tokens each
+        chars = LOADGEN_PREFIX_TOKENS
+        for _ in range(3):
+            sysp = schedule_of(chars)[0].body["messages"][0]["content"]
+            chars = max(1, round(chars * LOADGEN_PREFIX_TOKENS / len(state.tokenizer.encode(sysp, add_bos=False))))
+        schedule = schedule_of(chars)
+        prefix_tokens = sorted({len(state.tokenizer.encode(r.body["messages"][0]["content"], add_bos=False))
+                                for r in schedule})
+        n_sampled = sum(r.body["temperature"] > 0 for r in schedule)
+        print(f"schedule: {len(schedule)} requests, Poisson {LOADGEN_RATE} rps, --prefix-chars {chars} "
+              f"({prefix_tokens} tokens per prefix), {len({r.prefix_id for r in schedule})} prefixes used, "
+              f"{n_sampled} sampled / {len(schedule) - n_sampled} greedy, max_tokens {LOADGEN_MAX_TOKENS}")
+        check(0 < n_sampled < len(schedule), "the schedule does not mix greedy and sampled requests")
+        warmed = lg_runner.warm_server(url, schedule, n=2, timeout_s=300.0)
+        check(warmed == 2, f"warmup: {warmed} of 2 requests completed")
+
+        # the measured window: counts from 0 just before, read just after
+        captured: list = []
+        _capture_streams(state, captured)
+        attn.reset_launches()
+        q40.reset_launches()
+        telemetry.TRACER.clear()
+        before = _scrape(url)
+        admissions0 = sched._prefix.hits + sched._prefix.misses
+        delivered0 = sched.tokens_delivered
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the report JSON and the request log
+            code = loadgen_cli.main(argv(chars))
+        wall = time.perf_counter() - t1
+        after = loadgen_cli.settled_scrape(url)
+        launches = {"q40_int8": q40.launches["q40_int8"], "k1_tiles": dict(q40.tile_launches),
+                    "paged_attention": attn.launches["paged_attention"]}
+        report = json.loads(report_path.read_text())
+        out.update(report=report, wall_s=wall, prefix_chars=chars, prefix_tokens=prefix_tokens, launches=launches)
+        agg = report["aggregate"]
+        print(f"loadgen exit {code} in {wall:.1f} s: {agg['counts']}; checks "
+              f"{ {k: v['ok'] for k, v in report['checks'].items()} }")
+        check(code == 0, f"loadgen --assert failed: {report['checks']}")
+        check(agg["counts"]["completed"] == LOADGEN_REQUESTS, f"not every request completed: {agg['counts']}")
+
+        def delta(series: str) -> float:
+            return after.get(series, 0.0) - before.get(series, 0.0)
+
+        chat200 = delta('dllama_http_requests_total{route="/v1/chat/completions",status="200"}')
+        ttft_n = delta('dllama_ttft_seconds_count{tenant="default"}')
+        hits, misses = delta("dllama_prefix_cache_hits_total"), delta("dllama_prefix_cache_misses_total")
+        admissions = sched._prefix.hits + sched._prefix.misses - admissions0
+        generated = delta("dllama_tokens_generated_total")
+        delivered = sched.tokens_delivered - delivered0
+        consumed = sum(len(ids) for *_, ids in captured)
+        print(f"deltas: chat 200s {chat200:g}, TTFT count {ttft_n:g}, prefix hits {hits:g} + misses {misses:g} "
+              f"(admissions counted by the scheduler {admissions}), tokens generated {generated:g} = delivered to "
+              f"rows {delivered} + {LOADGEN_REQUESTS} first tokens; the requests consumed {consumed} of them "
+              f"(the client streamed {agg['tokens_streamed']} deltas), host-sampler fallback "
+              f"{delta('dllama_host_sampler_fallback_total'):g}")
+        check(chat200 == LOADGEN_REQUESTS, f"chat 200s {chat200} != {LOADGEN_REQUESTS}")
+        check(ttft_n == LOADGEN_REQUESTS, f"TTFT observations {ttft_n} != {LOADGEN_REQUESTS}")
+        check(hits + misses == admissions == LOADGEN_REQUESTS, f"prefix hits + misses {hits + misses} != admissions "
+              f"{admissions} != {LOADGEN_REQUESTS}")
+        check(generated == delivered + LOADGEN_REQUESTS, f"tokens generated {generated} != delivered {delivered} "
+              f"+ {LOADGEN_REQUESTS} first tokens")
+        check(len(captured) == LOADGEN_REQUESTS and consumed <= generated,
+              f"{len(captured)} decodes consumed {consumed} tokens of {generated} generated")
+        check(delta("dllama_host_sampler_fallback_total") == 0, "the host sampler ran")
+        skew = report["client_vs_server_skew"]["default"]
+        print(f"client vs server: client E2E {skew['client_e2e_s']} s, server-attributed {skew['server_attributed_s']} "
+              f"s, skew {skew['skew_per_request_ms']} ms per request (bound {SKEW_BOUND_MS} ms)")
+        check(-1.0 <= skew["skew_per_request_ms"] <= SKEW_BOUND_MS, f"client/server skew {skew}")
+
+        paths = {}
+        for k, v in after.items():
+            if k.startswith("dllama_kernel_path_total{"):
+                labels = dict(p.split("=") for p in k[len("dllama_kernel_path_total{"):-1].split(","))
+                paths[f"{labels['kernel'].strip(chr(34))}/{labels['path'].strip(chr(34))}"] = v
+        print(f"kernel paths since the server started (warmup included): {paths}; launches in the window: {launches}")
+        out["kernel_paths"] = paths
+        check(paths and all(p in ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma", "paged_attention/k2") for p in paths),
+              f"a path other than K1's tiles and K2 served: {paths}")
+        check(launches["q40_int8"] > 0 and launches["paged_attention"] > 0, f"K1 or K2 was not launched: {launches}")
+
+        # one request's trace, through the debug endpoint
+        rid = state.traces._done[-1].request_id
+        status, tree = _get_json(f"{url}/debug/trace/{rid}")
+        status_c, chrome = _get_json(f"{url}/debug/trace/{rid}?format=chrome")
+        spans = sorted({sp["name"] for a in tree.get("attempts", []) for sp in a["spans"]})
+        print(f"/debug/trace/{rid}: {status}, stages {tree.get('stages')}, spans {spans}; chrome {status_c}, "
+              f"{len(chrome.get('traceEvents', []))} events")
+        check(status == 200 and status_c == 200 and {"queue", "prefill", "decode"} <= set(tree["stages"]),
+              f"trace of {rid}: {status} {tree}")
+        for probe in ("/healthz", "/readyz"):
+            code_p, body = _get_json(url + probe)
+            print(f"{probe}: {code_p} {body}")
+            check(code_p == 200, f"{probe} returned {code_p}")
+
+        # latency and where it went ({smi} beside every number)
+        for name in ("ttft_ms", "tpot_ms", "e2e_ms"):
+            q = agg[name]
+            print(f"client {name[:-3].upper()}: p50 {q['p50']} ms, p90 {q['p90']} ms, p99 {q['p99']} ms, "
+                  f"mean {q['mean']} ms over {q['n']} ({smi})")
+        stages = {}
+        for stage in ("queue", "placement", "prefill", "decode"):
+            key = f'{{stage="{stage}",tenant="default"}}'
+            n = delta(f"dllama_request_stage_seconds_count{key}")
+            tot = delta(f"dllama_request_stage_seconds_sum{key}")
+            stages[stage] = {"n": n, "sum_s": tot, "mean_ms": tot / n * 1e3 if n else None}
+        out["stages"] = stages
+        print("server stages per request (mean ms): " + ", ".join(
+            f"{k} {v['mean_ms']:.1f}" for k, v in stages.items() if v["mean_ms"] is not None) + f" ({smi})")
+        # the prefill stage of an admission that missed the prefix cache
+        # (the cold TTFT's work) against one that hit, from the kept traces
+        prefill_by: dict = {"miss": [], "hit": []}
+        for ctx in list(state.traces._done):
+            tree_ = ctx.tree()
+            match = [sp for a in tree_["attempts"] for sp in a["spans"] if sp["name"] == "prefix_match"]
+            if match and "prefill" in tree_["stages"]:
+                prefill_by["hit" if match[0]["args"]["matched_tokens"] else "miss"].append(
+                    tree_["stages"]["prefill"] * 1e3)
+        out["prefill_stage_ms"] = prefill_by
+        print("prefill stage per admission: " + ", ".join(
+            f"{k} {sum(v) / len(v):.1f} ms mean over {len(v)}" for k, v in prefill_by.items() if v) + f" ({smi})")
+        spans_by = {}
+        for ev in telemetry.TRACER.events():
+            spans_by.setdefault(ev.name, []).append(ev.dur_us / 1e3)
+        host = {k: {"n": len(v), "sum_ms": sum(v), "mean_ms": sum(v) / len(v)} for k, v in sorted(spans_by.items())}
+        out["spans"] = host
+        for a_, b_ in (("batch_decode_chunk", "batch_decode_fetch"), ("prefill_dispatch", "first_token_fetch")):
+            if a_ in host and b_ in host:
+                print(f"{a_} (host issue) {host[a_]['mean_ms']:.2f} ms x {host[a_]['n']} = {host[a_]['sum_ms']:.0f} ms "
+                      f"against {b_} (wait for the card) {host[b_]['mean_ms']:.2f} ms x {host[b_]['n']} = "
+                      f"{host[b_]['sum_ms']:.0f} ms ({smi})")
+        check("batch_decode_chunk" in host and "batch_decode_fetch" in host, f"no dispatch/fetch spans: {list(host)}")
+
+        # the 4-row step with telemetry on, beside phase 6b's (off): a reading
+        decode_rows(sched, 4, 8)  # warm
+        wall4, _, steps = decode_rows(sched, 4)
+        out["decode_ms_per_step_4_rows_telemetry_on"] = on_ms = wall4 / steps * 1e3
+        off = f"{off_step_ms:.2f} ms with telemetry off (phase 6b)" if off_step_ms else "off not measured in this run"
+        print(f"4-row decode step: {on_ms:.2f} ms with telemetry on, {off} ({smi}; host time spreads between calls)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        telemetry.disable()
+        telemetry.reset()
+    del state, sched
+    return out
+
+
+def loadgen_only(smi: str) -> None:
+    """``--loadgen``: phase 2, phase 5's 7B-width files and phase 9 alone."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.ops import attention as attn
+    from distributed_llama_tpu_torch.ops import cuda_build, q40
+    from distributed_llama_tpu_torch.server import api as server_api
+
+    phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t = time.perf_counter()
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, Path(tmp))
+        print(f"wrote the 7B-width files in {time.perf_counter() - t:.1f} s")
+        t = phase(f"9. the slice's path: the load generator against the API server with --telemetry, {N_LAYERS} layers")
+        summary = {"loadgen": loadgen_phase(server_api, attn, q40, model, tok, smi)}
+        print(f"phase 9: {time.perf_counter() - t:.1f} s")
+    (ROOT / "build" / "chip_smoke_loadgen.json").write_text(json.dumps(summary, indent=1))
+    print(f"card: {smi}")
+
+
+def write_7b_files(synthetic, write_tokenizer_file, workdir: Path) -> tuple[str, str]:
+    """Phase 5's files: a random-Q40 `.m` at Llama-2-7B width (32 layers,
+    blocks from seed 0) and a tokenizer padded to its vocab."""
+    spec = synthetic.llama2_7b_spec(n_layers=N_LAYERS, seq_len=4096)
+    model = str(workdir / "llama2_7b_width.m")
+    synthetic.write_random_q40_model(model, spec, seed=0)
+    tok = str(workdir / "tok.t")
+    with open(tok, "wb") as f:
+        write_tokenizer_file(f, synthetic.synthetic_tokenizer_data(vocab_size=spec.vocab_size))
+    return model, tok
 
 
 def moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, workdir: Path,
@@ -1985,6 +2284,8 @@ def main() -> None:
     parser.add_argument("--k3", action="store_true", help="phase 3's K3 part alone (K3 checked and timed)")
     parser.add_argument("--k5", action="store_true", help="phase 7b alone (K5 checked and timed)")
     parser.add_argument("--moe", action="store_true", help="phase 4's MoE part and phase 8 alone")
+    parser.add_argument("--loadgen", action="store_true",
+                        help="phase 9 alone (the load generator against the 7B-width server with --telemetry)")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
@@ -1992,9 +2293,10 @@ def main() -> None:
         print("FAIL: torch.cuda.is_available() is false: this smoke test needs a GPU", flush=True)
         sys.exit(2)
     alone = [f for f, on in ((k1_only, opts.k1), (k2_only, opts.k2), (k3_only, opts.k3), (k5_only, opts.k5),
-                             (lambda root, smi: moe_only(smi), opts.moe)) if on]
+                             (lambda root, smi: moe_only(smi), opts.moe),
+                             (lambda root, smi: loadgen_only(smi), opts.loadgen)) if on]
     if len(alone) > 1:
-        parser.error("at most one of --k1, --k2, --k3, --k5, --moe")
+        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2058,12 +2360,8 @@ def main() -> None:
         print(f"phase 4: {time.perf_counter() - t:.1f} s")
 
         t = phase(f"5. main path: CLI generate at Llama-2-7B width, {N_LAYERS} layers")
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, workdir)
         spec = synthetic.llama2_7b_spec(n_layers=N_LAYERS, seq_len=4096)
-        model = str(workdir / "llama2_7b_width.m")
-        synthetic.write_random_q40_model(model, spec, seed=0)
-        tok = str(workdir / "tok.t")
-        with open(tok, "wb") as f:
-            write_tokenizer_file(f, synthetic.synthetic_tokenizer_data(vocab_size=spec.vocab_size))
         print(f"wrote {os.path.getsize(model) / 1e9:.2f} GB .m in {time.perf_counter() - t:.1f} s")
 
         def args(*extra):
@@ -2207,6 +2505,16 @@ def main() -> None:
         k5_rows = k5_checks(q40, coll)
         summary["k5_rows"] = k5_rows
         print(f"phases 7a-7b: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = phase(f"9. the slice's path: the load generator against the API server with --telemetry, "
+                  f"{N_LAYERS} layers")
+        summary["loadgen"] = loadgen_phase(server_api, attn, q40, model, tok, smi,
+                                           off_step_ms=summary["server"]["decode_ms_per_step_4_rows"])
+        print(f"phase 9: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
 
         os.remove(model)  # room on the disk for phase 7c's and phase 8's files
         t = phase(f"7c. the slice's path: CLI generate --tp 2/4 --allreduce ring, Llama-2-7B width, "

@@ -12,7 +12,9 @@ kernels' plain PyTorch versions; the default is the card. ``--tp N`` runs
 N tensor-parallel ranks on that one device, their two all-reduces per layer
 summed by the ``--allreduce`` arm. Mixtral and Grok-1 files run at ``--tp
 1``; ``--moe-capacity F`` opts their Q40 prefill into capacity-bucketed
-experts.
+experts. ``--telemetry`` (or ``DLLAMA_TELEMETRY=1``) enables the metrics
+registry and span tracer before the engine is built, and writes the run's
+Chrome trace to ``--trace-out``.
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ import time
 
 import torch
 
-from distributed_llama_tpu_torch.engine.engine import InferenceEngine, Stopwatch
+from distributed_llama_tpu_torch import telemetry
+from distributed_llama_tpu_torch.engine.engine import InferenceEngine
 from distributed_llama_tpu_torch.engine.weights import QUANTIZED_DTYPE
 from distributed_llama_tpu_torch.formats.model_file import ArchType
 from distributed_llama_tpu_torch.ops.collectives import IMPLS
+from distributed_llama_tpu_torch.telemetry import Stopwatch
 from distributed_llama_tpu_torch.tokenizer import Sampler, Tokenizer, is_safe_piece
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "q40": QUANTIZED_DTYPE}
@@ -74,6 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="all-reduce of the tensor-parallel ranks: psum (the plain sum in rank order), ring_xla "
                    "(the plain ring schedule) or ring (the hand-written ring kernel, fused with the int8 "
                    "matmul for wo/down at T <= 8)")
+    p.add_argument("--telemetry", action="store_true", default=False,
+                   help="enable the telemetry subsystem: metrics registry (served at GET /metrics by the API "
+                   "server) + span tracer (Chrome trace JSON written to --trace-out after a generate/inference "
+                   "run). DLLAMA_TELEMETRY=1 in the environment enables it too; off by default — disabled "
+                   "instruments are no-ops on the decode hot path")
+    p.add_argument("--trace-out", default="dllama-trace.json", metavar="PATH",
+                   help="where a --telemetry generate/inference run writes its Chrome trace-event JSON (open in "
+                   "chrome://tracing or ui.perfetto.dev)")
     return p
 
 
@@ -200,7 +212,14 @@ def generate(args, benchmark: bool, built=None) -> dict:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    return generate(args, benchmark=args.mode == "inference")
+    # before the engine is built: instruments bind at construction
+    if args.telemetry:
+        telemetry.enable()
+    out = generate(args, benchmark=args.mode == "inference")
+    if telemetry.is_enabled():
+        path = telemetry.export_chrome_trace(args.trace_out)
+        _print(f"📊 telemetry: Chrome trace written to {path}\n")
+    return out
 
 
 if __name__ == "__main__":

@@ -39,11 +39,18 @@ The port's copy of the JAX package's ``engine/batch.py`` serving core.
   step is never dispatched while another is being fetched: its drafts
   depend on that step's tokens.
 * The slab and the pool take the engine's cache dtype, "i8" included.
+* Telemetry feeds the engine's instrument bundle once per dispatch or
+  fetch (``batch_decode_chunk`` / ``spec_verify_chunk`` spans time the
+  host's issue, ``batch_decode_fetch`` the wait for the card), and a row
+  whose request is traced (``BatchStream.trace``) gets its prefill pieces,
+  prefix match and a per-row child of every shared step in its tree.
+  Counters never update under a per-token loop, and nothing here
+  synchronizes the device.
 
 Left out (each in ROADMAP.md): the stall watchdog, fault sites, retries,
 silent-corruption checks beyond the per-row token checks, preemption, the
-host spill tier, the tensor-parallel backend, telemetry spans and the lock
-witness. A plain ``threading.Condition`` guards the scheduler.
+host spill tier, the tensor-parallel backend and the lock witness. A plain
+``threading.Condition`` guards the scheduler.
 
 Thread model: request threads call into their own :class:`BatchStream`;
 whichever thread needs tokens first dispatches the shared chunk for
@@ -58,18 +65,20 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 
 import numpy as np
 import torch
 
 from distributed_llama_tpu_torch import prng
 from distributed_llama_tpu_torch.engine import integrity
-from distributed_llama_tpu_torch.engine.engine import Stopwatch, StreamStats, _prefill_bucket, _stats, next_pow2
+from distributed_llama_tpu_torch.engine.engine import StreamStats, _prefill_bucket, _stats, next_pow2
 from distributed_llama_tpu_torch.engine.prefix_cache import PrefixCache
 from distributed_llama_tpu_torch.engine.speculative import PromptLookupDrafter
 from distributed_llama_tpu_torch.models import llama, sampling
 from distributed_llama_tpu_torch.ops import kv_cache as kvc
 from distributed_llama_tpu_torch.platform import HostFetch, to_device
+from distributed_llama_tpu_torch.telemetry import Stopwatch
 
 
 class RowQuarantined(RuntimeError):
@@ -117,6 +126,7 @@ class BatchStream(StreamStats):
         self._history: list[int] = []
         self._drafter: PromptLookupDrafter | None = None
         self._spec_on = False
+        scheduler.engine._tel.active_streams.inc()
 
     @property
     def cfg(self):
@@ -125,6 +135,9 @@ class BatchStream(StreamStats):
     @property
     def engine(self):
         return self.scheduler.engine
+
+    def _span_args(self) -> dict:
+        return {"batch_row": self.row}
 
     def reset(self) -> None:
         self.scheduler._leave(self)
@@ -149,10 +162,14 @@ class BatchStream(StreamStats):
     def prefill(self, tokens) -> np.ndarray:
         """Prefill into this slab row; returns the last token's logits."""
         tokens = np.asarray(tokens, dtype=np.int64)
+        n = tokens.shape[0]
         sw = Stopwatch()
-        logits, last = self.scheduler._prefill_row(self, tokens)
-        out = logits[last].cpu().numpy()
-        self.stats.append(_stats(sw.elapsed_ms(), tokens.shape[0]))
+        with self.engine._tel.span("prefill", tokens=n, pos=self.pos, batch_row=self.row):
+            logits, last = self.scheduler._prefill_row(self, tokens)
+            out = logits[last].cpu().numpy()
+        entry = _stats(sw.elapsed_ms(), n)
+        self.stats.append(entry)
+        self._note_prefill(entry)
         return out
 
     def prefill_device(self, tokens, temperature, topp, seed: int, topk: int = 0) -> torch.Tensor:
@@ -160,9 +177,11 @@ class BatchStream(StreamStats):
         device scalar whose copy to the host has started
         (:meth:`StreamStats._sample_first`)."""
         tokens = np.asarray(tokens, dtype=np.int64)
+        n = tokens.shape[0]
         sw = Stopwatch()
-        logits, last = self.scheduler._prefill_row(self, tokens)
-        return self._sample_first(logits[last], tokens.shape[0], sw, temperature, topp, seed, topk)
+        with self.engine._tel.span("prefill_dispatch", tokens=n, pos=self.pos, batch_row=self.row):
+            logits, last = self.scheduler._prefill_row(self, tokens)
+            return self._sample_first(logits[last], n, sw, temperature, topp, seed, topk)
 
     def stream_decode(self, first_token, on_token, temperature: float = 0.0, topp: float = 0.9, seed: int = 0,
                       chunk: int | None = None, limit: int | None = None, first_prev: int | None = None,
@@ -263,7 +282,8 @@ class BatchScheduler:
                     print(f"⚠️ --kv-pages {kv_pages} is smaller than one slab's worth ({slab_pages} pages for "
                           f"{n_rows} rows x seq_len {cfg.seq_len}): concurrent long prompts will contend for "
                           "pages (pinned-page soft failures)")
-                self._prefix = PrefixCache(kv_pages, page_size)
+                self._prefix = PrefixCache(kv_pages, page_size,
+                                           page_bytes=llama.page_pool_bytes(cfg, page_size, engine.cache_dtype))
                 self._pool = llama.init_page_pool(cfg, kv_pages, page_size, engine.cache_dtype, engine.device)
                 self._n_table = n_table
         self._slab = llama.init_batch_cache(cfg, n_rows, engine.cache_dtype, engine.device)
@@ -289,6 +309,10 @@ class BatchScheduler:
         # batched forward steps dispatched (one forward of every bucket row
         # each), for launch accounting
         self.decode_forwards = 0
+        # decoded tokens delivered into rows' queues, chunk tails past a
+        # row's stop included: what dllama_tokens_generated_total counts
+        # besides the fused first tokens
+        self.tokens_delivered = 0
 
     def new_stream(self) -> BatchStream:
         """Hand out the next slab row as an EngineStream-like serving lane."""
@@ -339,7 +363,9 @@ class BatchScheduler:
         n = tokens.shape[0]
         step = self.prefill_chunk if self.prefill_chunk > 0 else n
         logits, off, c = None, 0, n
+        tr = stream.trace
         while off < n:
+            t0 = time.perf_counter()
             if stream._fetch_error is not None:
                 err, stream._fetch_error = stream._fetch_error, None
                 raise err
@@ -361,6 +387,11 @@ class BatchScheduler:
                                                  row_cache, stream.pos, engine.q40_path, paged=paged, n_real=c)
                 stream.pos += c
             off += c
+            if tr is not None:
+                # one child span per dispatched prompt piece: the trace shows
+                # how a long prompt interleaved with other rows' decode
+                tr.add_span("prefill_chunk", t0, time.perf_counter() - t0, tokens=c, off=off - c, of=n,
+                            row=stream.row)
         return logits, c - 1
 
     # ------------------------------------------------------------------
@@ -372,9 +403,13 @@ class BatchScheduler:
         ids become the row's page table and its position moves past the
         matched tokens. No bytes move; the chain stays pinned."""
         prefix = self._prefix
+        t0 = time.perf_counter()
         with self._cond:
             self._release_pins_locked(stream)  # a stale alias left by a caller that skipped reset
             chain = prefix.match(tokens)
+            if stream.trace is not None:
+                stream.trace.add_span("prefix_match", t0, time.perf_counter() - t0,
+                                      matched_tokens=len(chain) * prefix.page, pages=len(chain))
             if chain:
                 stream._alias_chain = chain
                 stream._alias_ids = [nd.page_id for nd in chain]
@@ -393,9 +428,10 @@ class BatchScheduler:
             if not new_ids:
                 return
             try:
-                for leaf, (pk, pv) in zip(self._slab, self._pool):
-                    kvc.publish_row_pages(pk, leaf[0], stream.row, new_blocks, new_ids, prefix.page)
-                    kvc.publish_row_pages(pv, leaf[1], stream.row, new_blocks, new_ids, prefix.page)
+                with self.engine._tel.span("prefix_publish", pages=len(new_ids), batch_row=stream.row):
+                    for leaf, (pk, pv) in zip(self._slab, self._pool):
+                        kvc.publish_row_pages(pk, leaf[0], stream.row, new_blocks, new_ids, prefix.page)
+                        kvc.publish_row_pages(pv, leaf[1], stream.row, new_blocks, new_ids, prefix.page)
             except Exception as e:
                 prefix.unpublish(tokens, new_ids, new_blocks)
                 print(f"⚠️ prefix publish failed; pages unwound: {e}")
@@ -574,19 +610,24 @@ class BatchScheduler:
             may_partition=sampling.may_partition_rows(temps, topps, topks, engine.cfg.vocab_size),
         )
         sw = Stopwatch()
-        if self._pool is not None:
-            out, self._slab = sampling.decode_chunk_batched_paged(
-                engine.cfg, engine.params, first, self._slab, pos, live, self._pool, self.chunk,
-                tables=tables, matched=matched, **settings)
-        else:
-            out, self._slab = sampling.decode_chunk_batched(
-                engine.cfg, engine.params, first, self._slab, pos, live, self.chunk, **settings)
+        tel = engine._tel
+        with tel.span("batch_decode_chunk", bucket=bucket, active=len(joined), steps=self.chunk):
+            if self._pool is not None:
+                out, self._slab = sampling.decode_chunk_batched_paged(
+                    engine.cfg, engine.params, first, self._slab, pos, live, self._pool, self.chunk,
+                    tables=tables, matched=matched, **settings)
+            else:
+                out, self._slab = sampling.decode_chunk_batched(
+                    engine.cfg, engine.params, first, self._slab, pos, live, self.chunk, **settings)
+            fetch = HostFetch(out)
         self.decode_forwards += self.chunk
         for s in joined:
             # the next chunk starts from this chunk's last token, on the device
             s._first = out[self.chunk - 1, s.row]
             s.pos += self.chunk
-        self._pending = ("chunk", HostFetch(out), [(s, s._epoch) for s in joined], sw, None)
+        if tel.enabled:
+            tel.batch_occupancy.set(len(joined) / bucket)
+        self._pending = ("chunk", fetch, [(s, s._epoch) for s in joined], sw, None, bucket)
 
     def _dispatch_spec_locked(self) -> None:
         """Build and dispatch one speculative verify step (lock held): each
@@ -621,28 +662,39 @@ class BatchScheduler:
                 lens[s.row] = len(d)
         dev = engine.device
         sw = Stopwatch()
-        out, self._slab = sampling.spec_verify_chunk_batched(
-            engine.cfg, engine.params, to_device(feed, dev), self._slab, pos, live, to_device(lens, dev),
-            to_device(temps, dev, torch.float32), to_device(topps, dev, torch.float32),
-            to_device(topks, dev, torch.int64), to_device(seeds, dev, torch.int64),
-            paged=None if self._pool is None else (self._pool, tables, matched), path=engine.q40_path,
-            sampled=any(t > 0.0 for t, ok in zip(temps, live) if ok))
+        tel = engine._tel
+        with tel.span("spec_verify_chunk", bucket=bucket, active=len(joined), window=T):
+            out, self._slab = sampling.spec_verify_chunk_batched(
+                engine.cfg, engine.params, to_device(feed, dev), self._slab, pos, live, to_device(lens, dev),
+                to_device(temps, dev, torch.float32), to_device(topps, dev, torch.float32),
+                to_device(topks, dev, torch.int64), to_device(seeds, dev, torch.int64),
+                paged=None if self._pool is None else (self._pool, tables, matched), path=engine.q40_path,
+                sampled=any(t > 0.0 for t, ok in zip(temps, live) if ok))
+            fetch = HostFetch(out)
         self.decode_forwards += 1
         self.spec_rows_max = max(self.spec_rows_max, bucket * T)
-        self._pending = ("spec", HostFetch(out), [(s, s._epoch) for s in joined], sw, lens)
+        if tel.enabled:
+            tel.batch_occupancy.set(len(joined) / bucket)
+            tel.spec_draft_tokens.inc(int(lens.sum()))
+        self._pending = ("spec", fetch, [(s, s._epoch) for s in joined], sw, lens, bucket)
 
     def _fetch(self, pend) -> None:
         """Wait for a dispatched chunk's host copy (no lock held) and deliver
         each joined row's column to its queue. A row whose tokens are out of
         vocab or whose logits were non-finite is retired alone."""
-        mode, fetch, snapshot, sw, lens = pend
+        mode, fetch, snapshot, sw, lens, bucket = pend
+        tel = self.engine._tel
+        with tel.span("batch_decode_fetch", bucket=bucket):
+            host = fetch.wait()
         if mode == "spec":
-            self._deliver_spec(fetch.wait(), snapshot, sw, lens)
+            self._deliver_spec(host, snapshot, sw, lens, bucket)
             self._drain_if_idle()
             return
-        toks, _, finite = integrity.split_chunk_outputs(fetch.wait(), self.chunk)
-        entry = _stats(sw.elapsed_ms() / self.chunk)
-        vocab = self.engine.cfg.vocab_size
+        toks, _, finite = integrity.split_chunk_outputs(host, self.chunk)
+        per_token_ms = sw.elapsed_ms() / self.chunk
+        entry = _stats(per_token_ms)
+        cfg = self.engine.cfg
+        delivered = 0
         with self._cond:
             # deliver and release fetch ownership in one block, so the next
             # pending chunk is taken only after this one's tokens are queued
@@ -653,23 +705,39 @@ class BatchScheduler:
                 col = toks[:, s.row]
                 if not finite[s.row]:
                     s._fetch_error = NonFiniteLogits("batch row retired: decode produced non-finite logits")
-                elif not ((col >= 0) & (col < vocab)).all():
+                elif not ((col >= 0) & (col < cfg.vocab_size)).all():
                     s._fetch_error = RowQuarantined("batch row retired: chunk produced out-of-vocab tokens")
                 if s._fetch_error is not None:
                     self._release_pins_locked(s)
+                    tel.rows_quarantined.inc()
                     continue
                 s._queue.extend(int(t) for t in col)
                 s.stats.extend([entry] * self.chunk)
+                delivered += 1
+                if s.trace is not None:
+                    # a per-row child of the shared dispatch, spanning
+                    # dispatch to this delivery
+                    s.trace.add_span("batch_decode_chunk_row", sw._t0, sw.elapsed_s(), row=s.row,
+                                     chunk=self.chunk, bucket=bucket, co_batched=len(snapshot))
+                if tel.enabled:
+                    tel.kv_occupancy.set(min(s.pos / cfg.seq_len, 1.0))
+            self.tokens_delivered += self.chunk * delivered
             self._cond.notify_all()
+        if tel.enabled and delivered:
+            tel.tokens_generated.inc(self.chunk * delivered)
+            tel.device_sampled_tokens.inc(self.chunk * delivered)
+            tel.decode_latency.observe(per_token_ms / 1000.0)
         self._drain_if_idle()
 
-    def _deliver_spec(self, out: np.ndarray, snapshot, sw, lens) -> None:
+    def _deliver_spec(self, out: np.ndarray, snapshot, sw, lens, bucket: int) -> None:
         """Deliver one fetched verify step: row b's ``out[b]`` is [n_emit,
         tokens...]. Each row advances by its n_emit, extends its history and
         queues the emitted tokens; a row whose n_emit falls outside 1..(its
         own drafts + 1) or whose tokens are out of vocab is retired alone."""
-        vocab = self.engine.cfg.vocab_size
+        cfg = self.engine.cfg
+        tel = self.engine._tel
         step_ms = sw.elapsed_ms()
+        delivered_rows = delivered_tokens = 0
         with self._cond:
             self._fetching = False
             for s, epoch in snapshot:
@@ -679,9 +747,10 @@ class BatchScheduler:
                 col = out[s.row, 1 : 1 + n_emit]
                 # the row's own draft budget bounds n_emit: a value past it
                 # would advance the position beyond the dispatch's seq_len clamp
-                if not 1 <= n_emit <= int(lens[s.row]) + 1 or not ((col >= 0) & (col < vocab)).all():
+                if not 1 <= n_emit <= int(lens[s.row]) + 1 or not ((col >= 0) & (col < cfg.vocab_size)).all():
                     s._fetch_error = RowQuarantined("batch row retired: verify step produced corrupt tokens")
                     self._release_pins_locked(s)
+                    tel.rows_quarantined.inc()
                     continue
                 toks = [int(t) for t in col]
                 s.pos += n_emit
@@ -692,4 +761,20 @@ class BatchScheduler:
                 self.spec_row_steps += 1
                 self.spec_drafted += int(lens[s.row])
                 self.spec_emitted += n_emit
+                delivered_rows += 1
+                delivered_tokens += n_emit
+                if s.trace is not None:
+                    s.trace.add_span("spec_verify_row", sw._t0, sw.elapsed_s(), row=s.row,
+                                     drafted=int(lens[s.row]), emitted=n_emit, bucket=bucket)
+                if tel.enabled:
+                    tel.kv_occupancy.set(min(s.pos / cfg.seq_len, 1.0))
+                    tel.spec_accepted_tokens.inc(n_emit - 1)
+                    if int(lens[s.row]) > 0:
+                        tel.spec_acceptance.observe((n_emit - 1) / int(lens[s.row]))
+                    tel.spec_step_advance.observe(n_emit)
+            self.tokens_delivered += delivered_tokens
             self._cond.notify_all()
+        if tel.enabled and delivered_tokens:
+            tel.tokens_generated.inc(delivered_tokens)
+            tel.device_sampled_tokens.inc(delivered_tokens)
+            tel.decode_latency.observe(step_ms * delivered_rows / delivered_tokens / 1000.0)

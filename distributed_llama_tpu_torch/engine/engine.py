@@ -15,22 +15,30 @@ single device there is no transfer share (``transfer_ms`` is 0); under
 tensor parallelism (``tp`` > 1, :mod:`parallel.tensor_parallel`) it is the
 measured per-token time of the collective sequence, re-measured at a
 quiescent point every ``TRANSFER_REFRESH_TOKENS`` tokens.
+
+Telemetry: each engine binds one :class:`telemetry.EngineInstruments`
+bundle at construction (null instruments unless telemetry was enabled
+first). Counters and histograms update once per dispatch or fetch, never
+per token. The dispatch spans (``prefill_dispatch``, ``device_sample``,
+``decode_chunk_dispatch``) time the host's issue of eager launches; the
+fetch spans (``first_token_fetch``, ``decode_chunk_fetch``) time the wait
+for the card. No span synchronizes the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
-from distributed_llama_tpu_torch import prng
+from distributed_llama_tpu_torch import prng, telemetry
 from distributed_llama_tpu_torch.engine import weights as weights_lib
 from distributed_llama_tpu_torch.models import llama, sampling
 from distributed_llama_tpu_torch.models.config import LlamaConfig
 from distributed_llama_tpu_torch.ops.q40 import PATHS
 from distributed_llama_tpu_torch.platform import HostFetch, resolve_device, to_device
+from distributed_llama_tpu_torch.telemetry import Stopwatch
 
 
 def next_pow2(n: int) -> int:
@@ -44,14 +52,6 @@ def _prefill_bucket(n: int) -> int:
     """Prompt lengths pad to power-of-two buckets (floor 8), as in the JAX
     package, so both take the same attention branch for a prompt."""
     return max(8, next_pow2(n))
-
-
-class Stopwatch:
-    def __init__(self):
-        self._start = time.perf_counter()
-
-    def elapsed_ms(self) -> float:
-        return (time.perf_counter() - self._start) * 1000.0
 
 
 @dataclasses.dataclass
@@ -74,6 +74,10 @@ class StreamStats:
     besides its cache: per-step stats, and the device-sampled first token
     of its last ``prefill_device`` with the host copy started for it."""
 
+    # the occupying request's TraceContext (the server sets it per request;
+    # None = untraced): the batch scheduler adds the row's spans to it
+    trace = None
+
     def __init__(self):
         self.pos = 0
         self.stats: list[TokenStats] = []
@@ -93,9 +97,15 @@ class StreamStats:
         """Sample the first generated token on the device from the prompt's
         last logits (its coin keyed on the last prompt token's position,
         pos - 1), start its copy to the host, and record the prefill's
-        stats entry, which gains the drain time when the token is fetched."""
-        token = sampling.sample_token(last_logits, prng.fold_seed(seed), self.pos - 1, float(temperature),
-                                      float(topp), int(topk))
+        stats entry, which gains the drain time when the token is fetched.
+        The n prompt tokens count here; the prefill latency is observed at
+        the fetch, once the entry holds the drain time."""
+        tel = self.engine._tel
+        with tel.span("device_sample", pos=self.pos - 1, **self._span_args()):
+            token = sampling.sample_token(last_logits, prng.fold_seed(seed), self.pos - 1, float(temperature),
+                                          float(topp), int(topk))
+        if tel.enabled:
+            tel.prompt_tokens.inc(n)
         entry = self._entry(sw.elapsed_ms(), n)
         self.stats.append(entry)
         self._pending_prefill_entry = entry
@@ -111,21 +121,53 @@ class StreamStats:
         return self._fetch_fused_first(first_token)
 
     def _fetch_fused_first(self, first_token) -> int:
+        """Fetch the device-sampled first token. The fetch drains the
+        prefill, so its time joins the prefill's stats entry; the token
+        counts as generated here (it belongs to no decode chunk)."""
         sw = Stopwatch()
-        if self._first_fetch is not None and self._first_fetch[0] is first_token:
-            tok = int(self._first_fetch[1].wait())
-            self._first_fetch = None
-        elif isinstance(first_token, torch.Tensor):
-            tok = int(first_token.item())
-        else:
-            tok = int(first_token)
+        tel = self.engine._tel
+        with tel.span("first_token_fetch", **self._span_args()):
+            if self._first_fetch is not None and self._first_fetch[0] is first_token:
+                tok = int(self._first_fetch[1].wait())
+                self._first_fetch = None
+            elif isinstance(first_token, torch.Tensor):
+                tok = int(first_token.item())
+            else:
+                tok = int(first_token)
         entry = self._pending_prefill_entry
         if entry is not None:
             drained = sw.elapsed_ms()
             entry.generation_ms += drained
             entry.inference_ms += drained
             self._pending_prefill_entry = None
+            if tel.enabled:
+                tel.prefill_latency.observe(entry.generation_ms / 1000.0)
+                tel.tokens_generated.inc(1)
+                tel.device_sampled_tokens.inc(1)
+                tel.kv_occupancy.set(self.pos / self.engine.cfg.seq_len)
         return tok
+
+    def _span_args(self) -> dict:
+        """Extra span arguments naming this lane (a batch row's index)."""
+        return {}
+
+    def _note_prefill(self, entry: TokenStats) -> None:
+        tel = self.engine._tel
+        if tel.enabled:
+            tel.prompt_tokens.inc(entry.n_tokens)
+            tel.prefill_latency.observe(entry.generation_ms / 1000.0)
+            tel.kv_occupancy.set(self.pos / self.engine.cfg.seq_len)
+
+    def _note_decode(self, n_tokens: int, per_token_ms: float, device_sampled: bool = False) -> None:
+        tel = self.engine._tel
+        if tel.enabled:
+            tel.tokens_generated.inc(n_tokens)
+            tel.decode_latency.observe(per_token_ms / 1000.0)
+            tel.kv_occupancy.set(self.pos / self.engine.cfg.seq_len)
+            if device_sampled:
+                # the host Sampler counts its own fallback tokens: the two
+                # counters partition decode
+                tel.device_sampled_tokens.inc(n_tokens)
 
     def avg_stats(self) -> TokenStats:
         """Per-token averages, prefill entries weighted by their token count."""
@@ -153,6 +195,7 @@ class EngineStream(StreamStats):
         self.cache = cache
         # forward passes issued (a prefill is one, a decode chunk n_steps)
         self.forwards = 0
+        engine._tel.active_streams.inc()
 
     @property
     def cfg(self) -> LlamaConfig:
@@ -199,8 +242,14 @@ class EngineStream(StreamStats):
         tokens = np.asarray(tokens, dtype=np.int64)
         n = tokens.shape[0]
         sw = Stopwatch()
-        logits = self._forward_device(tokens)[:n].cpu().numpy()
-        self.stats.append(self._entry(sw.elapsed_ms(), n))
+        with self.engine._tel.span("forward", tokens=n, pos=self.pos):
+            logits = self._forward_device(tokens)[:n].cpu().numpy()
+        entry = self._entry(sw.elapsed_ms(), n)
+        self.stats.append(entry)
+        if n > 1:
+            self._note_prefill(entry)
+        else:
+            self._note_decode(1, entry.generation_ms)
         return logits
 
     def prefill(self, tokens) -> np.ndarray:
@@ -208,8 +257,11 @@ class EngineStream(StreamStats):
         tokens = np.asarray(tokens, dtype=np.int64)
         n = tokens.shape[0]
         sw = Stopwatch()
-        logits = self._forward_device(tokens)[n - 1].cpu().numpy()
-        self.stats.append(self._entry(sw.elapsed_ms(), n))
+        with self.engine._tel.span("prefill", tokens=n, pos=self.pos):
+            logits = self._forward_device(tokens)[n - 1].cpu().numpy()
+        entry = self._entry(sw.elapsed_ms(), n)
+        self.stats.append(entry)
+        self._note_prefill(entry)
         return logits
 
     def prefill_device(self, tokens, temperature, topp, seed: int, topk: int = 0) -> torch.Tensor:
@@ -219,8 +271,9 @@ class EngineStream(StreamStats):
         tokens = np.asarray(tokens, dtype=np.int64)
         n = tokens.shape[0]
         sw = Stopwatch()
-        logits = self._forward_device(tokens)
-        return self._sample_first(logits[n - 1], n, sw, temperature, topp, seed, topk)
+        with self.engine._tel.span("prefill_dispatch", tokens=n, pos=self.pos):
+            logits = self._forward_device(tokens)
+            return self._sample_first(logits[n - 1], n, sw, temperature, topp, seed, topk)
 
     def decode_step(self, token: int) -> np.ndarray:
         """One autoregressive step; returns f32 logits [vocab]."""
@@ -230,8 +283,9 @@ class EngineStream(StreamStats):
         """Issue one decode chunk without fetching; returns the device token
         tensor and advances pos by n_steps."""
         engine = self.engine
-        tokens, self.cache = engine.decode_chunk_fn(
-            first_token, self.cache, self.pos, n_steps, float(temperature), float(topp), int(topk), seed32)
+        with engine._tel.span("decode_chunk_dispatch", pos=self.pos, steps=n_steps):
+            tokens, self.cache = engine.decode_chunk_fn(
+                first_token, self.cache, self.pos, n_steps, float(temperature), float(topp), int(topk), seed32)
         self.pos += n_steps
         self.forwards += n_steps
         return tokens
@@ -244,6 +298,7 @@ class EngineStream(StreamStats):
         ).cpu().numpy()
         per_token_ms = sw.elapsed_ms() / n_steps
         self.stats.extend([self._entry(per_token_ms)] * n_steps)
+        self._note_decode(n_steps, per_token_ms, device_sampled=True)
         return tokens
 
     def generate_chunks(self, first_token, temperature: float = 0.0, topp: float = 0.9,
@@ -277,9 +332,11 @@ class EngineStream(StreamStats):
                 nxt_fetch = HostFetch(nxt)
             else:
                 nxt, k = None, 0
-            toks = fetch.wait()
+            with engine._tel.span("decode_chunk_fetch", tokens=pending_n):
+                toks = fetch.wait()
             per_token_ms = sw.elapsed_ms() / pending_n
             self.stats.extend([self._entry(per_token_ms)] * pending_n)
+            self._note_decode(pending_n, per_token_ms, device_sampled=True)
             for t in toks.tolist():
                 yield int(t)
             if nxt is None:
@@ -352,6 +409,7 @@ class EngineStream(StreamStats):
         from distributed_llama_tpu_torch.engine.speculative import PromptLookupDrafter
 
         engine = self.engine
+        tel = engine._tel
         seed32 = prng.fold_seed(seed)
         stop = engine.cfg.seq_len if limit is None else min(limit, engine.cfg.seq_len)
         drafter = PromptLookupDrafter(spec_draft, max_ngram=spec_ngram)
@@ -385,15 +443,27 @@ class EngineStream(StreamStats):
                 feed = np.full(T, prev, np.int64)  # padding positions write stale K/V
                 feed[1 : 1 + len(draft)] = draft
                 sw = Stopwatch()
-                out_dev, self.cache = sampling.spec_verify_step(
-                    engine.cfg, engine.params, to_device(feed, engine.device), self.cache, self.pos, len(draft),
-                    float(temperature), float(topp), int(topk), seed32, engine.q40_path)
-                out = HostFetch(out_dev).wait()  # [T+1]: n_emit, tokens...
+                with tel.span("spec_verify", pos=self.pos, window=T, drafted=len(draft)):
+                    out_dev, self.cache = sampling.spec_verify_step(
+                        engine.cfg, engine.params, to_device(feed, engine.device), self.cache, self.pos,
+                        len(draft), float(temperature), float(topp), int(topk), seed32, engine.q40_path)
+                    out = HostFetch(out_dev).wait()  # [T+1]: n_emit, tokens...
                 self.forwards += 1
                 n_emit = max(1, min(int(out[0]), T))
                 toks = [int(t) for t in out[1 : 1 + n_emit]]
                 self.pos += n_emit
-                self.stats.append(self._entry(sw.elapsed_ms(), n_emit))
+                step_ms = sw.elapsed_ms()
+                self.stats.append(self._entry(step_ms, n_emit))
+                if tel.enabled:
+                    tel.tokens_generated.inc(n_emit)
+                    tel.device_sampled_tokens.inc(n_emit)
+                    tel.decode_latency.observe(step_ms / n_emit / 1000.0)
+                    tel.kv_occupancy.set(self.pos / engine.cfg.seq_len)
+                    tel.spec_draft_tokens.inc(len(draft))
+                    tel.spec_accepted_tokens.inc(n_emit - 1)
+                    if draft:
+                        tel.spec_acceptance.observe((n_emit - 1) / len(draft))
+                    tel.spec_step_advance.observe(n_emit)
                 for t in toks:
                     consumed += 1
                     history.append(t)
@@ -435,6 +505,9 @@ class InferenceEngine:
         if q40_path not in PATHS:
             raise ValueError(f"unknown q40 path {q40_path!r}; expected one of {PATHS}")
         self.q40_path = q40_path
+        # the instrument bundle, bound once: null instruments unless
+        # telemetry was enabled before this engine was built
+        self._tel = telemetry.EngineInstruments()
         reader = ModelFileReader(model_path)
         self.spec = reader.spec.clamp_seq_len(max_seq_len)
         self.cfg = config_from_spec(self.spec, moe_capacity_factor=moe_capacity_factor)

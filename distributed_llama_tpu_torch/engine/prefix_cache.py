@@ -18,9 +18,18 @@ block's token tuple) and one page id of the device page pool
 
 Thread model: the owning ``BatchScheduler`` calls every method under its
 condition lock; the tree itself takes no lock.
+
+Telemetry: hits, misses, evictions, matched tokens and the copy bytes a
+hit saves count into :class:`telemetry.PrefixCacheInstruments`, bound once
+per cache (null instruments when telemetry is off); the pages, bytes and
+pinned-pages gauges follow every match, release, publish and eviction.
+The plain ``hits`` / ``misses`` / ``evictions`` attributes count the same
+events with telemetry off.
 """
 
 from __future__ import annotations
+
+from distributed_llama_tpu_torch import telemetry
 
 
 class PageNode:
@@ -40,7 +49,7 @@ class PageNode:
 class PrefixCache:
     """Host-side index of the device page pool (see the module docstring)."""
 
-    def __init__(self, n_pages: int, page: int):
+    def __init__(self, n_pages: int, page: int, page_bytes: int = 0):
         if n_pages < 1:
             raise ValueError(f"need at least one pool page, got {n_pages}")
         if page < 1:
@@ -54,9 +63,21 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # logical KV bytes per page across all layers and halves
+        # (llama.page_pool_bytes); 0 = unknown (host-only unit tests)
+        self.page_bytes = int(page_bytes)
+        self.tel = telemetry.PrefixCacheInstruments()
+        self.tel.pages.set(0)
+        self.tel.bytes.set(0)
+        self.tel.pinned_pages.set(0)
 
     def pages_in_use(self) -> int:
         return self.capacity - len(self.free)
+
+    def _set_pages_gauges(self) -> None:
+        used = self.pages_in_use()
+        self.tel.pages.set(used)
+        self.tel.bytes.set(used * self.page_bytes)
 
     def _ref(self, node: PageNode) -> None:
         node.refs += 1
@@ -130,13 +151,22 @@ class PrefixCache:
             nd.last_use = t
         if chain:
             self.hits += 1
+            self.tel.hits.inc()
+            self.tel.matched_tokens.observe(len(chain) * self.page)
+            # the copy design gathered every matched page into the slab row:
+            # count the copy traffic the zero-copy read avoids per hit
+            self.tel.copy_bytes_saved.inc(len(chain) * self.page_bytes)
         else:
             self.misses += 1
+            self.tel.misses.inc()
+        self.tel.pinned_pages.set(self._pinned)
         return chain
 
     def release(self, chain: list[PageNode]) -> None:
         for nd in chain:
             self._unref(nd)
+        if chain:
+            self.tel.pinned_pages.set(self._pinned)
 
     def publish(self, tokens, n_total: int, parent_chain: list[PageNode]) -> tuple[list[int], list[int]]:
         """Insert the full blocks of ``tokens[:n_total]`` beyond
@@ -172,6 +202,8 @@ class PrefixCache:
         finally:
             for nd in pinned:
                 self._unref(nd)
+        self._set_pages_gauges()
+        self.tel.pinned_pages.set(self._pinned)
         return new_ids, new_blocks
 
     def unpublish(self, tokens, new_ids: list[int], new_blocks: list[int]) -> None:
@@ -193,6 +225,8 @@ class PrefixCache:
                 self._pinned -= 1
             stack.extend(nd.children.values())
         self.free.extend(new_ids)
+        self._set_pages_gauges()
+        self.tel.pinned_pages.set(self._pinned)
 
     def _alloc(self) -> int | None:
         if self.free or self._evict_one():
@@ -214,4 +248,6 @@ class PrefixCache:
         del victim.parent.children[victim.key]
         self.free.append(victim.page_id)
         self.evictions += 1
+        self.tel.evictions.inc()
+        self._set_pages_gauges()
         return True

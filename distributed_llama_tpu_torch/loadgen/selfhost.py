@@ -1,0 +1,90 @@
+"""In-process self-hosted target: the port's serving stack (ApiState +
+ThreadingHTTPServer + BatchScheduler) on a tiny synthetic model.
+
+The port's copy of the JAX package's ``loadgen/selfhost.py``, for one
+replica: telemetry enabled before anything binds its instruments (the
+report scrapes ``/metrics``), batched decode with the paged prefix cache
+on, on the card unless ``device="cpu"`` is passed. The model, tokenizer
+and server settings are the JAX self-host's, so the same schedule streams
+the same greedy completions from both packages. Fault plans, replicas,
+pods, tenants, the integrity canary and rollouts are not ported
+(``loadgen/__main__.py`` refuses them by name).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+import tempfile
+import threading
+import types
+from http.server import ThreadingHTTPServer
+
+# the JAX self-host tokenizer's template: the tiniest one the chat-template
+# sniffer classifies as ChatML
+SYNTHETIC_CHAT_TEMPLATE = "{{bos_token}}{% for m in messages %}<|im_start|>...{% endfor %}"
+
+
+@dataclasses.dataclass
+class SelfHost:
+    url: str
+    state: object  # ApiState
+    server: ThreadingHTTPServer
+    workdir: str
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def start_selfhost(
+    parallel: int = 4,
+    seq_len: int = 256,
+    decode_chunk: int = 4,
+    kv_page_size: int = 16,
+    kv_pages: int | None = None,
+    admission_queue: int | None = None,
+    seed: int = 0,
+    topk: int = 0,
+    device: str = "cuda",
+) -> SelfHost:
+    """Build the tiny synthetic f32 model and tokenizer, construct the
+    port's ApiState (batched decode, prefix cache) and serve it on an
+    ephemeral port. Telemetry is enabled first, so every component binds
+    real instruments (the bind-once contract)."""
+    import torch
+
+    from distributed_llama_tpu_torch import telemetry
+    from distributed_llama_tpu_torch.engine import InferenceEngine
+    from distributed_llama_tpu_torch.formats.synthetic import (
+        synthetic_tokenizer_data,
+        tiny_spec,
+        write_synthetic_model,
+    )
+    from distributed_llama_tpu_torch.server.api import ApiState, make_handler
+    from distributed_llama_tpu_torch.tokenizer import Sampler, Tokenizer
+
+    telemetry.enable()
+    data = synthetic_tokenizer_data()
+    data.chat_template = SYNTHETIC_CHAT_TEMPLATE
+    tok = Tokenizer(data)
+    spec = tiny_spec(seq_len=seq_len, vocab_size=tok.vocab_size)
+    workdir = tempfile.mkdtemp(prefix="dllama-loadgen-")
+    path = write_synthetic_model(os.path.join(workdir, "m.m"), spec, seed=seed)
+    engine = InferenceEngine(path, dtype=torch.float32, device=device)
+    sampler = Sampler(vocab_size=spec.vocab_size, temperature=0.0, topp=0.9, topk=topk, seed=1)
+    args = types.SimpleNamespace(
+        temperature=0.0, topp=0.9, topk=topk, seed=1, chat_template=None,
+        parallel=parallel, batch_decode=True, decode="device",
+        decode_chunk=decode_chunk, prefill_chunk=64,
+        prefix_cache=True, kv_pages=kv_pages, kv_page_size=kv_page_size,
+        admission_queue=admission_queue,
+    )
+    state = ApiState(engine, tok, sampler, args)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, name="dllama-selfhost", daemon=True).start()
+    return SelfHost(url=f"http://127.0.0.1:{server.server_address[1]}", state=state, server=server,
+                    workdir=workdir)

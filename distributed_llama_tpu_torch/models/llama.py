@@ -24,6 +24,7 @@ from typing import Any
 
 import torch
 
+from distributed_llama_tpu_torch import telemetry
 from distributed_llama_tpu_torch.formats.model_file import ArchType, HiddenAct
 from distributed_llama_tpu_torch.models.config import LlamaConfig
 from distributed_llama_tpu_torch.models.rope import apply_rope
@@ -312,6 +313,7 @@ def attention_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: to
             att = batched_decode_attention(qg.to(torch.float32), keys_b.contiguous(), values_b.contiguous(),
                                            pos, ATT_CHUNK)
         return att.reshape(B, H * hd), cache_l
+    telemetry.note_kernel_path("paged_attention", "einsum")
     keys_r, values_r, pos_r = _einsum_rows(keys, values, pos, paged)
     return _attend_rows_einsum(qg, keys_r, values_r, pos_r, cdt).reshape(B, H * hd), cache_l
 
@@ -414,6 +416,7 @@ def attention_verify_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cach
     # window position t is scored and mixed as one decode step at pos + t
     # (the shape attention_batched uses), never as T*M-row einsums, so a
     # verify row computes what a decode step computes
+    telemetry.note_kernel_path("paged_attention", "einsum")
     keys_r, values_r, pos_r = _einsum_rows(keys, values, pos, paged)
     att = torch.stack([_attend_rows_einsum(qg[:, t], keys_r, values_r, pos_r + t, cdt) for t in range(T)], dim=1)
     return att.reshape(B, T, H * hd), cache_l

@@ -17,6 +17,11 @@ version, the segmented chunk scan (:func:`_segmented_batched_scan`).
 On the card every batched step takes the kernel, paged or not (a row with
 matched 0 reads only its slab row), so no step reads the device to bound
 its chunk loop. The plain version reads pos and matched on the host.
+With telemetry on, each call counts in
+``dllama_kernel_path_total{kernel="paged_attention"}``: ``k2`` / ``k2_i8``
+on the card, ``plain`` on the CPU; the batched steps' einsum branch
+(``models/llama.py``, caches of S <= 512 or S % 512 != 0) counts
+``einsum``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import math
 
 import torch
 
+from distributed_llama_tpu_torch import telemetry
 from distributed_llama_tpu_torch.ops import kv_cache as kvc
 
 _NEG_INF = float("-inf")
@@ -440,10 +446,13 @@ def _fused_paged_attention(qg, keys, values, pos, chunk: int, paged) -> torch.Te
     check_head_size(qg.shape[-1])
     if qg.device.type == "cpu":
         _fused_paged_eligible(keys, values, paged, chunk)
+        telemetry.note_kernel_path("paged_attention", "plain")
         return paged_attention_plain(qg, keys, values, pos, chunk, paged)
     ptrs, ints, out, _ws, _keep = _k2_operands(qg, keys, values, pos, chunk, paged)
     _k2_call(qg.device, "paged_attention", *ptrs, *ints)
-    launches["paged_attention_i8" if isinstance(keys, kvc.QuantizedKV) else "paged_attention"] += 1
+    i8 = isinstance(keys, kvc.QuantizedKV)
+    launches["paged_attention_i8" if i8 else "paged_attention"] += 1
+    telemetry.note_kernel_path("paged_attention", "k2_i8" if i8 else "k2")
     return out
 
 

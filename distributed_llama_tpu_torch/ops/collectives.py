@@ -24,7 +24,9 @@ runs its matmul and :func:`all_reduce` follows.
 
 Each kernel wrapper launches its kernel for CUDA tensors or raises, counts
 the launch in :data:`launches`, and computes the kernel's plain version for
-CPU tensors. There is no fallback between arms.
+CPU tensors. There is no fallback between arms. With telemetry on, each
+sum counts in ``dllama_kernel_path_total{kernel="all_reduce"}`` by the path
+that ran: ``k4_ring`` / ``k5_fused`` / ``psum`` / ``plain``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import ctypes
 
 import torch
 
+from distributed_llama_tpu_torch import telemetry
 from distributed_llama_tpu_torch.ops import q40
 
 IMPLS = ("psum", "ring_xla", "ring")
@@ -130,6 +133,7 @@ def ring_all_reduce(xs: list) -> list:
     xs = [x.contiguous() for x in xs]
     dev = _check_ranks("xs", xs, torch.float32, tuple(xs[0].shape))
     if dev.type == "cpu":
+        telemetry.note_kernel_path("all_reduce", "plain")
         return ring_all_reduce_plain(xs)
     if dev.type != "cuda":
         raise ValueError(f"ring_all_reduce: unsupported device {dev}")
@@ -141,6 +145,7 @@ def ring_all_reduce(xs: list) -> list:
     q40._check_launch(fn(_ptrs(xs), _ptrs(outs), n, xs[0].numel() // d, d,
                          torch.cuda.current_stream(dev).cuda_stream), "ring_all_reduce")
     launches["ring_all_reduce"] += 1
+    telemetry.note_kernel_path("all_reduce", "k4_ring")
     return outs
 
 
@@ -159,7 +164,9 @@ def all_reduce(xs: list, impl: str = "psum") -> list:
     if impl == "ring":
         return ring_all_reduce(xs)
     if impl == "ring_xla":
+        telemetry.note_kernel_path("all_reduce", "plain")
         return ring_xla(xs)
+    telemetry.note_kernel_path("all_reduce", "psum")
     return psum(xs)
 
 
@@ -197,6 +204,7 @@ def fused_matmul_ring(xqs: list, sxs: list, corrs: list, qss: list, scaless: lis
     if T > 8 or n_pad % 64 or d_pad % (2 * n * COL_TILE):
         raise ValueError(f"fused_matmul_ring: T {T} > 8, n_pad {n_pad} or d_pad {d_pad} not tiled for {n} ranks")
     if dev.type == "cpu":
+        telemetry.note_kernel_path("all_reduce", "plain")
         return fused_matmul_ring_plain(xqs, sxs, corrs, qss, scaless)
     if dev.type != "cuda":
         raise ValueError(f"fused_matmul_ring: unsupported device {dev}")
@@ -207,6 +215,7 @@ def fused_matmul_ring(xqs: list, sxs: list, corrs: list, qss: list, scaless: lis
     q40._check_launch(fn(_ptrs(xqs), _ptrs(sxs), _ptrs(qss), _ptrs(scaless), _ptrs(corrs), _ptrs(outs),
                          n, T, n_pad, d_pad, torch.cuda.current_stream(dev).cuda_stream), "fused_matmul_ring")
     launches["fused_matmul_ring"] += 1
+    telemetry.note_kernel_path("all_reduce", "k5_fused")
     return outs
 
 

@@ -34,7 +34,9 @@ models.
 Each kernel wrapper (:func:`q40_int8`, :func:`q40_dequant`) launches its CUDA
 kernel for CUDA tensors and counts the launch in :data:`launches`; for CPU
 tensors it computes the kernel's plain PyTorch version beside it. There is
-no other fallback.
+no other fallback. With telemetry on, every wrapper call (and the f32
+fallback) also counts in ``dllama_kernel_path_total{kernel="q40_matmul"}``
+by the path that ran: ``k1_dp4a`` / ``k1_mma`` / ``k3`` / ``plain``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from distributed_llama_tpu_torch import telemetry
 from distributed_llama_tpu_torch.quants import Q40_BLOCK_BYTES, QK, quantize_q40
 
 # kernel name -> launches since the last reset_launches(); a wrapper adds one
@@ -324,6 +327,7 @@ def q40_int8(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, scales: torch
     _check("qs", qs, torch.uint8, (n_pad // 2, d_pad), dev)
     _check("scales", scales, torch.float32, (n_pad // QK, d_pad), dev)
     if dev.type == "cpu":
+        telemetry.note_kernel_path("q40_matmul", "plain")
         return q40_int8_plain(xq, sx, qs, scales)
     if dev.type != "cuda":
         raise ValueError(f"q40_int8: unsupported device {dev}")
@@ -333,6 +337,7 @@ def q40_int8(xq: torch.Tensor, sx: torch.Tensor, qs: torch.Tensor, scales: torch
     out = _q40_int8_launch(xq, sx, qs, scales, tile)
     launches["q40_int8"] += 1
     tile_launches[tile] += 1
+    telemetry.note_kernel_path("q40_matmul", f"k1_{tile}")
     return out
 
 
@@ -433,6 +438,7 @@ def q40_dequant(xb: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> tor
     _check("scales", scales, torch.float32, (n_pad // QK, d_pad), dev)
     if dev.type == "cpu":
         _check("x", xb, xb.dtype, (T, n_pad), dev)
+        telemetry.note_kernel_path("q40_matmul", "plain")
         return q40_dequant_plain(xb, qs, scales)
     if dev.type != "cuda":
         raise ValueError(f"q40_dequant: unsupported device {dev}")
@@ -449,6 +455,7 @@ def q40_dequant(xb: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor) -> tor
         "q40_dequant",
     )
     launches["q40_dequant"] += 1
+    telemetry.note_kernel_path("q40_matmul", "k3")
     return out
 
 
@@ -479,6 +486,7 @@ def _q40_matmul_f32(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
 
 def _q40_matmul_fallback(x: torch.Tensor, qm: QuantizedMatrix) -> torch.Tensor:
     """f32 dequantize-then-matmul for matrices no kernel tiles (no Q80 step)."""
+    telemetry.note_kernel_path("q40_matmul", "plain")
     w = (_nibbles(qm).to(torch.float32) - 8.0) * _block_rows(qm.scales)
     out = _true_f32_matmul(_pad_to(x, qm.n_padded).to(torch.float32), w)
     return out[:, : qm.d] if qm.d_padded != qm.d else out

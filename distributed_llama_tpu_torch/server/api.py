@@ -1,7 +1,8 @@
-"""OpenAI-compatible API server: POST /v1/chat/completions, GET /v1/models.
+"""OpenAI-compatible API server: POST /v1/chat/completions, GET /v1/models,
+/healthz, /readyz, /metrics and /debug/trace/<request_id>.
 
     python -m distributed_llama_tpu_torch.server.api --model m.m --tokenizer t.t \\
-        --parallel 4 [--port 9990] [--device cpu]
+        --parallel 4 [--port 9990] [--device cpu] [--telemetry]
 
 The port's copy of the JAX package's ``server/api.py`` serving core, one
 replica over one engine: SSE streaming and plain JSON responses, per-request
@@ -24,8 +25,23 @@ takes the free lane whose chat-prefix cache matches best; when every lane
 is busy it waits in a bounded queue, and past ``--admission-queue`` waiters
 (default 2 x --parallel) it gets 429 with Retry-After.
 
-Replicas, fleet operations, tenants and fair admission, deadlines, tracing,
-the integrity canary and weight rollout are not ported yet (ROADMAP.md).
+Observability: ``/healthz`` is liveness; ``/readyz`` is 200, or 503 while
+the server drains after SIGTERM (new completions get 503 + Retry-After,
+in-flight ones finish). With ``--telemetry`` (or ``DLLAMA_TELEMETRY=1``)
+``/metrics`` serves the process registry (engine, scheduler, prefix cache,
+sampler, kernel paths, HTTP), every completion records a request trace
+(lane queue wait, lane choice, prefix match, prefill, the shared decode
+steps' per-row spans, SSE sends) kept by a seeded sampler
+(``--trace-sample-rate``, always kept past ``--trace-slow-ttft-s``) and
+served at ``/debug/trace/<id>`` (``?format=chrome`` for a Chrome trace),
+and the server-side TTFT (the instant the first SSE content delta is
+written, for a streamed request), TPOT and per-stage times land in
+``dllama_ttft_seconds`` / ``dllama_tpot_seconds`` /
+``dllama_request_stage_seconds`` under tenant ``default``.
+
+Replicas, fleet operations, tenants and fair admission, deadlines, the
+integrity canary, the flight recorder and weight rollout are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,12 +50,16 @@ import argparse
 import dataclasses
 import json
 import math
+import signal
 import sys
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from distributed_llama_tpu_torch import telemetry
+from distributed_llama_tpu_torch.telemetry import Stopwatch, trace
+from distributed_llama_tpu_torch.telemetry.trace import RequestTraceStore
 from distributed_llama_tpu_torch.tokenizer import (
     ChatItem,
     ChatTemplate,
@@ -54,6 +74,9 @@ from distributed_llama_tpu_torch.tokenizer import (
 
 MODEL_NAME = "Distributed Model"
 MAX_BODY_BYTES = 1 << 20  # request bodies beyond this get 413 unread
+# the tenant label of every request: the JAX server's default tenant, the
+# one it uses without --tenants (fair admission is not ported)
+DEFAULT_TENANT = "default"
 
 
 def new_request_id() -> str:
@@ -66,6 +89,10 @@ class BadRequest(ValueError):
 
 class AdmissionRejected(RuntimeError):
     """Every lane is busy and the wait queue is full (HTTP 429)."""
+
+
+class ServerDraining(RuntimeError):
+    """The server is draining after SIGTERM and admits nothing (HTTP 503)."""
 
 
 @dataclasses.dataclass
@@ -144,6 +171,20 @@ class ApiState:
         self.queue_limit = max(0, int(aq)) if aq is not None else 2 * n
         self._lanes = threading.Condition()
         self._waiting = 0
+        self.draining = False
+        self.tel = telemetry.ServerInstruments()
+        # the bounded store behind GET /debug/trace/<id>; None with telemetry
+        # off, so every per-request hook is one `ctx is None` check
+        self.traces: RequestTraceStore | None = None
+        if telemetry.is_enabled():
+            sample = getattr(args, "trace_sample_rate", None)
+            slow = getattr(args, "trace_slow_ttft_s", None)
+            retention = getattr(args, "trace_retention", None)
+            self.traces = RequestTraceStore(
+                capacity=256 if retention is None else int(retention),
+                sample_rate=1.0 if sample is None else float(sample),
+                slow_ttft_s=1.0 if slow is None else float(slow),
+            )
 
     def _make_scheduler(self, engine, n: int):
         """The lanes' BatchScheduler, or None for independent streams (one
@@ -160,29 +201,84 @@ class ApiState:
             spec_draft=getattr(args, "spec_draft", 0), spec_ngram=getattr(args, "spec_ngram", 3),
         )
 
-    def _acquire_slot(self, messages: list[dict]) -> StreamSlot:
+    def _acquire_slot(self, messages: list[dict], ctx=None) -> StreamSlot:
         """Take the free lane whose chat-prefix cache matches best (an
-        empty cache on ties); wait in the bounded queue when none is free."""
-        with self._lanes:
-            if not any(not s.busy for s in self.slots):
-                if self._waiting >= self.queue_limit:
-                    raise AdmissionRejected(
-                        f"all {len(self.slots)} lanes busy and {self._waiting} requests queued")
-                self._waiting += 1
-                try:
-                    while not any(not s.busy for s in self.slots):
-                        self._lanes.wait()
-                finally:
-                    self._waiting -= 1
-            slot = max((s for s in self.slots if not s.busy),
-                       key=lambda s: (s.cache.match_len(messages), 0 if s.cache.items else 1))
-            slot.busy = True
-            return slot
+        empty cache on ties); wait in the bounded queue when none is free.
+        A drain that begins while the request waits bounces it (503)."""
+        sw = Stopwatch()
+        try:
+            with trace.span(ctx, "queue_wait"), self._lanes:
+                if self.draining:
+                    raise ServerDraining("server is draining; not admitting")
+                if not any(not s.busy for s in self.slots):
+                    if self._waiting >= self.queue_limit:
+                        raise AdmissionRejected(
+                            f"all {len(self.slots)} lanes busy and {self._waiting} requests queued")
+                    self._waiting += 1
+                    try:
+                        while not any(not s.busy for s in self.slots):
+                            self._lanes.wait()
+                            if self.draining:
+                                raise ServerDraining("server is draining; not admitting")
+                    finally:
+                        self._waiting -= 1
+                t_pick = time.perf_counter()
+                slot = max((s for s in self.slots if not s.busy),
+                           key=lambda s: (s.cache.match_len(messages), 0 if s.cache.items else 1))
+                slot.busy = True
+        except AdmissionRejected:
+            self.tel.admission_rejected.inc()
+            raise
+        queue_s = sw.elapsed_s()
+        self.tel.queue_wait.observe(queue_s)
+        if ctx is not None:
+            # the lane choice ran inside the queue lock: its share of the
+            # wait is the placement stage
+            place_s = time.perf_counter() - t_pick
+            ctx.add_span("placement", t_pick, place_s)
+            ctx.add_stage("queue", queue_s - place_s)
+            ctx.add_stage("placement", place_s)
+        return slot
 
     def _release_slot(self, slot: StreamSlot) -> None:
         with self._lanes:
             slot.busy = False
-            self._lanes.notify()
+            self._lanes.notify_all()
+
+    def begin_drain(self) -> None:
+        """Stop admitting completions (SIGTERM): waiting and new requests get
+        503 + Retry-After, ``/readyz`` flips 503, in-flight requests finish.
+        Idempotent."""
+        with self._lanes:
+            self.draining = True
+            self._lanes.notify_all()
+        self.tel.draining.set(1)
+
+    def drain_wait(self, timeout_s: float) -> bool:
+        """Wait until no lane is busy, at most ``timeout_s``; True if idle."""
+        deadline = time.monotonic() + timeout_s
+        with self._lanes:
+            while any(s.busy for s in self.slots):
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._lanes.wait(left)
+        return True
+
+    def ready_payload(self) -> dict:
+        """The ``/readyz`` JSON body for one replica: drain status, queue
+        depth, free lanes, and the replica entry of the JAX server's schema
+        (docs/OBSERVABILITY.md "Readiness schema")."""
+        with self._lanes:
+            busy = sum(s.busy for s in self.slots)
+            waiting = self._waiting
+        return {
+            "status": "draining" if self.draining else "ready",
+            "draining": self.draining,
+            "queue_depth": waiting,
+            "free_slots": len(self.slots) - busy,
+            "replicas": [{"replica": 0, "state": "healthy", "active_rows": busy, "slots": len(self.slots)}],
+        }
 
     def complete(self, body: dict, send_chunk, params: dict | None = None,
                  request_id: str | None = None) -> dict | None:
@@ -195,17 +291,42 @@ class ApiState:
             request_id = new_request_id()
         if params.get("seed") is None:
             params["seed"] = int(time.time_ns() % (1 << 31))
-        slot = self._acquire_slot(params["messages"])
+        if self.draining:
+            raise ServerDraining("server is draining; not admitting")
+        traces = self.traces
+        ctx = traces.begin(request_id, DEFAULT_TENANT) if traces is not None else None
         try:
-            slot.stream.prefix_cache_enabled = params.get("cache", "on") != "off"
-            return self._complete_on(slot, params, send_chunk, request_id)
+            if ctx is not None:
+                ctx.begin_attempt()
+            slot = self._acquire_slot(params["messages"], ctx)
+            try:
+                slot.stream.prefix_cache_enabled = params.get("cache", "on") != "off"
+                # the batch scheduler records this row's spans into the trace
+                slot.stream.trace = ctx
+                return self._complete_on(slot, params, send_chunk, request_id, ctx)
+            finally:
+                slot.stream.trace = None
+                slot.stream.prefix_cache_enabled = True
+                self._release_slot(slot)
         finally:
-            slot.stream.prefix_cache_enabled = True
-            self._release_slot(slot)
+            if ctx is not None:
+                # TTFT/TPOT and the stage breakdown observe the timestamps
+                # the trace tree reports, so /metrics and /debug/trace agree;
+                # a failed request still attributes where its time went
+                if ctx.ttft_s is not None:
+                    self.tel.ttft.labels(tenant=DEFAULT_TENANT).observe(ctx.ttft_s)
+                if ctx.tpot_s is not None:
+                    self.tel.tpot.labels(tenant=DEFAULT_TENANT).observe(ctx.tpot_s)
+                for stage, seconds in dict(ctx.stages).items():
+                    self.tel.stage_seconds.labels(stage=stage, tenant=DEFAULT_TENANT).observe(seconds)
+                traces.finish(ctx)
 
-    def _complete_on(self, slot: StreamSlot, params: dict, send_chunk, request_id: str) -> dict | None:
+    def _complete_on(self, slot: StreamSlot, params: dict, send_chunk, request_id: str, ctx=None) -> dict | None:
         engine, tokenizer = slot.stream, self.tokenizer
         stream = params["stream"]
+        # stage clock: prefill = entry to the prefill's return (tokenize,
+        # cache resolve, dispatch), decode = the rest of the token loop
+        stage_sw = Stopwatch() if ctx is not None else None
         start_pos, delta_messages = slot.cache.resolve_delta_prompt(params["messages"])
         engine.rollback(min(start_pos, engine.pos))
         if engine.pos != start_pos:  # the cache would resume further than the stream's state
@@ -236,12 +357,16 @@ class ApiState:
         slot.sampler.set_seed(seed)
 
         device_decode = getattr(self.args, "decode", "device") == "device" and max_new > 0
-        if device_decode:
-            # the first token is sampled on the device; its host copy starts
-            # here and is fetched before decode chunk 1 is issued
-            first_dev = engine.prefill_device(prompt_tokens, params["temperature"], topp, seed, topk)
-        else:
-            logits = engine.prefill(prompt_tokens)
+        with trace.span(ctx, "prefill", tokens=len(prompt_tokens), start_pos=start_pos, fused=device_decode):
+            if device_decode:
+                # the first token is sampled on the device; its host copy
+                # starts here and is fetched before decode chunk 1 is issued
+                first_dev = engine.prefill_device(prompt_tokens, params["temperature"], topp, seed, topk)
+            else:
+                logits = engine.prefill(prompt_tokens)
+        if ctx is not None:
+            ctx.add_stage("prefill", stage_sw.elapsed_s())
+            stage_sw.restart()
 
         stops = self.stops + params["stop"]
         max_stop = max(len(s) for s in stops) if stops else 0
@@ -261,41 +386,56 @@ class ApiState:
                     text = delta.decode("utf-8", errors="replace")
                     buffer.append(text)
                     if stream:
-                        send_chunk(self._chunk_json(text, stop=False, request_id=request_id))
+                        with trace.span(ctx, "sse_send", chars=len(text)):
+                            send_chunk(self._chunk_json(text, stop=False, request_id=request_id))
                 detector.clear()
+            if ctx is not None:
+                # the TTFT/TPOT stamp, after this token's delta (if any) is
+                # written: the first stamp is the time to first token
+                ctx.mark_token()
             return res
 
-        if device_decode:
-            if max_new == 1:
-                # a one-token completion fetches the first token directly
-                if feed(prompt_tokens[-1], engine.fetch_first_token(first_dev)) == EosDetectorResult.EOS:
-                    finish_reason = "stop"
-            else:
-                def on_token(prev: int, t: int) -> bool:
-                    nonlocal finish_reason
-                    if feed(prev, t) == EosDetectorResult.EOS:
+        decode_t0 = time.perf_counter()
+        try:
+            if device_decode:
+                if max_new == 1:
+                    # a one-token completion fetches the first token directly
+                    if feed(prompt_tokens[-1], engine.fetch_first_token(first_dev)) == EosDetectorResult.EOS:
                         finish_reason = "stop"
-                        return False
-                    return emitted < max_new
+                else:
+                    def on_token(prev: int, t: int) -> bool:
+                        nonlocal finish_reason
+                        if feed(prev, t) == EosDetectorResult.EOS:
+                            finish_reason = "stop"
+                            return False
+                        return emitted < max_new
 
-                # --spec-draft k: prompt-lookup drafts over this request's
-                # prompt and output, verified k at a time in one weight read
-                engine.stream_decode(first_dev, on_token, params["temperature"], topp, seed=seed,
-                                     chunk=getattr(self.args, "decode_chunk", 32), limit=max_pos,
-                                     first_prev=prompt_tokens[-1], spec_draft=getattr(self.args, "spec_draft", 0),
-                                     spec_ngram=getattr(self.args, "spec_ngram", 3), prompt_tokens=prompt_tokens,
-                                     topk=topk)
-        elif max_new > 0:
-            # --decode host: each token samples on the host from fetched
-            # logits; the counter sampler replays the device stream
-            token = slot.sampler.sample(logits, pos=engine.pos - 1)
-            res = feed(prompt_tokens[-1], token)
-            while res != EosDetectorResult.EOS and emitted < max_new and engine.pos < seq_len:
-                prev = token
-                token = slot.sampler.sample(engine.decode_step(prev), pos=engine.pos - 1)
-                res = feed(prev, token)
-            if res == EosDetectorResult.EOS:
-                finish_reason = "stop"
+                    # --spec-draft k: prompt-lookup drafts over this request's
+                    # prompt and output, verified k at a time in one weight read
+                    engine.stream_decode(first_dev, on_token, params["temperature"], topp, seed=seed,
+                                         chunk=getattr(self.args, "decode_chunk", 32), limit=max_pos,
+                                         first_prev=prompt_tokens[-1],
+                                         spec_draft=getattr(self.args, "spec_draft", 0),
+                                         spec_ngram=getattr(self.args, "spec_ngram", 3),
+                                         prompt_tokens=prompt_tokens, topk=topk)
+            elif max_new > 0:
+                # --decode host: each token samples on the host from fetched
+                # logits; the counter sampler replays the device stream
+                token = slot.sampler.sample(logits, pos=engine.pos - 1)
+                res = feed(prompt_tokens[-1], token)
+                while res != EosDetectorResult.EOS and emitted < max_new and engine.pos < seq_len:
+                    prev = token
+                    token = slot.sampler.sample(engine.decode_step(prev), pos=engine.pos - 1)
+                    res = feed(prev, token)
+                if res == EosDetectorResult.EOS:
+                    finish_reason = "stop"
+        finally:
+            if ctx is not None:
+                # the whole token loop as one span; the scheduler fans per-row
+                # children of the shared steps into the same tree
+                ctx.add_span("decode_stream", decode_t0, time.perf_counter() - decode_t0, emitted=emitted,
+                             finish=finish_reason)
+                ctx.add_stage("decode", stage_sw.elapsed_s())
         if finish_reason == "length":
             # flush text held back as a possible stop-string prefix
             tail = detector.flush_delta()
@@ -390,6 +530,8 @@ class ApiState:
 
 
 def make_handler(state: ApiState):
+    tel = state.tel
+
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -414,38 +556,95 @@ def make_handler(state: ApiState):
             self._send_json(status, body, request_id=rid, extra_headers=extra_headers)
 
         def do_GET(self):
+            route, status = self._do_get_inner()
+            tel.requests.labels(route=route, status=str(status)).inc()
+
+        def _do_get_inner(self) -> tuple[str, int]:
+            """Serve one GET; returns (route, status) for the request counter."""
             if self.path == "/v1/models":
                 self._send_json(200, {"object": "list",
                                       "data": [{"id": "dl", "object": "model", "created": 0, "owned_by": "user"}]})
-            else:
-                self.send_error(404)
+                return "/v1/models", 200
+            if self.path == "/healthz":
+                # liveness: the HTTP loop and its handler threads are alive
+                self._send_json(200, {"status": "ok"})
+                return "/healthz", 200
+            if self.path == "/readyz":
+                # readiness: admitting new work; 503 while draining, so load
+                # balancers stop routing here while in-flight requests finish
+                code = 503 if state.draining else 200
+                self._send_json(code, state.ready_payload())
+                return "/readyz", code
+            if self.path == "/metrics":
+                # the process registry; valid (possibly empty) exposition
+                # with telemetry off, so scrapers never see a 404
+                payload = telemetry.prometheus_text().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+                return "/metrics", 200
+            if self.path.startswith("/debug/trace/"):
+                # one request's span tree: JSON, or ?format=chrome for
+                # chrome://tracing / ui.perfetto.dev; a 404 carries the
+                # store's stats (not sampled, never started, rotated out)
+                req_id, _, query = self.path[len("/debug/trace/"):].partition("?")
+                traces = state.traces
+                ctx = traces.get(req_id) if traces is not None else None
+                if ctx is None:
+                    self._send_json(404, {"error": "trace not found", "request_id": req_id,
+                                          "tracing_enabled": traces is not None,
+                                          "store": traces.stats() if traces else None})
+                    return "/debug/trace", 404
+                self._send_json(200, ctx.chrome_trace() if "format=chrome" in query else ctx.tree())
+                return "/debug/trace", 200
+            self.send_error(404)
+            return "other", 404
 
         def do_POST(self):
+            # monotonic request duration; every response carries a request id
             rid = new_request_id()
+            sw = Stopwatch()
+            status = 500
+            tel.inflight.inc()
+            try:
+                status = self._do_post_inner(rid)
+            finally:
+                route = "/v1/chat/completions" if self.path == "/v1/chat/completions" else "other"
+                tel.requests.labels(route=route, status=str(status)).inc()
+                tel.request_duration.observe(sw.elapsed_s())
+                # last: an in-flight gauge at 0 means every finished request
+                # is counted (the load generator waits for it to scrape)
+                tel.inflight.dec()
+
+        def _do_post_inner(self, rid: str) -> int:
+            """Handle one POST; returns the response status for the counter
+            (499: the client went away mid-stream)."""
             if self.path != "/v1/chat/completions":
                 self.send_error(404)
-                return
+                return 404
             try:
                 length = int(self.headers.get("Content-Length", 0))
             except (TypeError, ValueError):
                 self._error(400, "invalid Content-Length", "invalid_request_error", rid)
                 self.close_connection = True
-                return
+                return 400
             if length > MAX_BODY_BYTES:
                 # reject without reading; the unread body makes the connection unusable
                 self._error(413, f"request body {length} bytes exceeds the {MAX_BODY_BYTES}-byte limit",
                             "request_too_large", rid)
                 self.close_connection = True
-                return
+                return 413
             try:
                 body = json.loads(self.rfile.read(max(length, 0)) or b"{}")
                 params = state._parse(body)
             except json.JSONDecodeError as e:
                 self._error(400, f"malformed JSON: {e}", "invalid_request_error", rid)
-                return
+                return 400
             except BadRequest as e:
                 self._error(400, str(e), "invalid_request_error", rid)
-                return
+                return 400
             # SSE headers go out with the first event, so a request rejected
             # before any token still gets a clean HTTP status
             sse_started = False
@@ -470,10 +669,16 @@ def make_handler(state: ApiState):
                 else:
                     self._send_json(200, state.complete(body, lambda s: None, params=params, request_id=rid),
                                     request_id=rid)
+                return 200
             except BrokenPipeError:
                 self.close_connection = True  # the client went away mid-stream
+                return 499
             except AdmissionRejected as e:
                 self._error(429, str(e), "overloaded", rid, extra_headers={"Retry-After": "1"})
+                return 429
+            except ServerDraining as e:
+                self._error(503, str(e), "draining", rid, extra_headers={"Retry-After": "1"})
+                return 503
             except Exception as e:  # an engine failure: surface it, keep serving
                 print(f"🛑 request {rid} failed: {type(e).__name__}: {e}")
                 if sse_started:
@@ -482,6 +687,7 @@ def make_handler(state: ApiState):
                     self.close_connection = True
                 else:
                     self._error(500, str(e), "server_error", rid)
+                return 500
 
     return Handler
 
@@ -499,9 +705,41 @@ def make_server(args, state: ApiState | None = None) -> tuple[ThreadingHTTPServe
     return server, state
 
 
+def drain_then_shutdown(state: ApiState, server, timeout_s: float) -> None:
+    """Wait for every in-flight completion to finish, at most ``timeout_s``,
+    then stop the HTTP server. Runs on its own thread, so the SIGTERM
+    handler returns at once."""
+    state.drain_wait(timeout_s)
+    server.shutdown()
+
+
+def install_sigterm_drain(state: ApiState, server, timeout_s: float = 30.0):
+    """SIGTERM -> graceful drain: ``/readyz`` flips 503, new completions get
+    503, in-flight ones finish, then the server shuts down. Returns the
+    handler (tests invoke it directly). Installs nothing off the main thread
+    (signal.signal's constraint): an embedded server's caller drains."""
+
+    def handler(signum, frame):
+        state.begin_drain()
+        threading.Thread(target=drain_then_shutdown, args=(state, server, timeout_s), name="dllama-drain",
+                         daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, handler)
+    except ValueError:
+        pass  # not the main thread
+    return handler
+
+
 def serve(args) -> None:
-    server, _ = make_server(args)
+    # before the engine and ApiState bind their instruments (bind-once)
+    if getattr(args, "telemetry", False):
+        telemetry.enable()
+    server, state = make_server(args)
+    install_sigterm_drain(state, server, timeout_s=getattr(args, "drain_timeout_s", 30.0))
     print(f"Server URL: http://127.0.0.1:{server.server_address[1]}/v1/")
+    if telemetry.is_enabled():
+        print(f"Metrics:    http://127.0.0.1:{server.server_address[1]}/metrics")
     server.serve_forever()
 
 
@@ -526,6 +764,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tokens per prefill dispatch in batched serving (0 = the whole prompt at once)")
     p.add_argument("--admission-queue", type=int, default=None,
                    help="requests that may wait for a lane before 429 (default 2 x --parallel)")
+    p.add_argument("--drain-timeout-s", type=float, default=30.0,
+                   help="SIGTERM drain: max seconds to wait for in-flight completions before shutting the "
+                   "listener down")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0,
+                   help="fraction of finished request traces RETAINED for GET /debug/trace/<id> (every request "
+                   "records while telemetry is on; sampling decides retention). Slow requests are always kept "
+                   "— see --trace-slow-ttft-s. Requires --telemetry")
+    p.add_argument("--trace-slow-ttft-s", type=float, default=1.0,
+                   help="TTFT threshold (seconds) above which a finished trace is retained regardless of "
+                   "--trace-sample-rate; 0 disables the override")
+    p.add_argument("--trace-retention", type=int, default=256,
+                   help="max finished traces retained (bounded deque; oldest rotate out first)")
     return p
 
 

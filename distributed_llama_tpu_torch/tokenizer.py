@@ -17,7 +17,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from distributed_llama_tpu_torch import prng
+from distributed_llama_tpu_torch import prng, telemetry
 from distributed_llama_tpu_torch.formats.tokenizer_file import TokenizerData, read_tokenizer_file
 
 _RAW_BYTE_RE = re.compile(rb"^<0x([0-9A-Fa-f]{2})>$")
@@ -140,7 +140,9 @@ class Sampler:
     the counter PRNG: each coin is keyed on ``(seed, pos)`` and the pick
     runs the device sampler's f32 arithmetic (``models.sampling``), so it
     replays a device-sampled stream token for token from fetched logits.
-    ``pos`` is the absolute position of the consumed token."""
+    ``pos`` is the absolute position of the consumed token. Every call
+    counts toward ``dllama_host_sampler_fallback_total``: with the device
+    sampler in place, host sampling IS the fallback path."""
 
     vocab_size: int
     temperature: float = 0.8
@@ -150,6 +152,10 @@ class Sampler:
 
     def __post_init__(self):
         self.set_seed(self.seed)
+        # bound once per sampler: shared no-op singletons unless telemetry
+        # was enabled first, so the per-token host path never touches the
+        # registry
+        self._tel = telemetry.SamplerInstruments()
 
     def set_seed(self, seed: int) -> None:
         self.seed = seed
@@ -162,7 +168,9 @@ class Sampler:
                 f"host sampler got non-finite logits ({int((~np.isfinite(logits)).sum())} "
                 f"of {logits.size} entries)"
             )
+        self._tel.fallback.inc()
         if self.temperature == 0.0:
+            self._tel.sampled.labels(method="greedy").inc()
             return int(np.argmax(logits))
         return self._sample_counter(logits, prng.coin_f32(self._seed32, pos, prng.DRAW_SAMPLE))
 
@@ -178,9 +186,11 @@ class Sampler:
         topp_act = 0.0 < self.topp < 1.0
         topk_act = 0 < self.topk < n
         if not (topp_act or topk_act):
+            self._tel.sampled.labels(method="multinomial").inc()
             cdf = np.cumsum(probs, dtype=np.float32)
             r = coin * cdf[-1]
             return min(int(np.sum(cdf <= r)), n - 1)
+        self._tel.sampled.labels(method="topp" if topp_act else "topk").inc()
         order = np.argsort(-scaled, kind="stable")
         vals = probs[order]
         cum = np.cumsum(vals, dtype=np.float32)

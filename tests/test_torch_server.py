@@ -187,3 +187,196 @@ def test_http_handler_sse_models_and_429(files):
     finally:
         server.shutdown()
         server.server_close()
+
+
+# ----------------------------------------------------------------------
+# Telemetry: the same traffic moves the same counters in both servers
+# ----------------------------------------------------------------------
+
+DELTA_SERIES = (
+    "dllama_tokens_generated_total",
+    "dllama_prompt_tokens_total",
+    "dllama_prefix_cache_hits_total",
+    "dllama_prefix_cache_misses_total",
+    'dllama_http_requests_total{route="/v1/chat/completions",status="200"}',
+    "dllama_device_sampled_tokens_total",
+    "dllama_spec_draft_tokens_total",
+    "dllama_spec_accepted_tokens_total",
+    "dllama_host_sampler_fallback_total",
+    'dllama_ttft_seconds_count{tenant="default"}',
+)
+
+
+def _serve(state, make_handler):
+    from http.server import ThreadingHTTPServer
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _scrape(url):
+    from distributed_llama_tpu_torch.loadgen.report import parse_prometheus
+
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+        return parse_prometheus(r.read().decode())
+
+
+def _sequential_traffic(url):
+    """Greedy and sampled, JSON and SSE, a prefix hit, a cache opt-out and
+    a one-token completion, one request at a time."""
+    msgs = [{"role": "system", "content": SYSTEM}, {"role": "user", "content": "hello"}]
+    bodies = [
+        {"messages": msgs, "max_tokens": 8},
+        {"messages": msgs, "max_tokens": 8, "stream": True},
+        {"messages": msgs[:1] + [{"role": "user", "content": "world hello world"}], "max_tokens": 7,
+         "stream": True, "temperature": 0.8, "seed": 5},
+        {"messages": msgs, "max_tokens": 6, "cache": "off"},
+        {"messages": msgs, "max_tokens": 1, "stream": True},
+    ]
+    texts = []
+    for body in bodies:
+        with _post(url, body) as r:
+            texts.append(r.read().decode())
+    return texts
+
+
+@pytest.mark.parametrize("spec_draft", [0, 2])
+def test_metric_deltas_match_jax(monkeypatch, files, spec_draft):
+    """Telemetry on in both packages: the JAX ApiState and the port's take
+    the same sequential requests over HTTP; the listed counters move by the
+    same amounts (a difference is a fault of the port)."""
+    from distributed_llama_tpu import telemetry as jtel
+    from distributed_llama_tpu.server.api import make_handler as jax_handler
+
+    from distributed_llama_tpu_torch import telemetry as ttel
+
+    monkeypatch.setenv("DLT_FUSED_PAGED", "0")
+    model, tok = files
+    deltas = []
+    for tel in (jtel, ttel):
+        tel.reset()
+        tel.enable()
+        try:
+            if tel is jtel:
+                state = JaxApiState(JaxEngine(model, dtype=jnp.float32), JaxTokenizer.from_file(tok),
+                                    JaxSampler(vocab_size=SPEC["vocab_size"], temperature=0.0, topp=0.9, seed=1),
+                                    types.SimpleNamespace(**{**ARGS, "spec_draft": spec_draft}))
+                server, url = _serve(state, jax_handler)
+            else:
+                state = torch_state(files, spec_draft=spec_draft)
+                server, url = _serve(state, tapi.make_handler)
+            try:
+                before = _scrape(url)
+                _sequential_traffic(url)
+                key = 'dllama_http_requests_total{route="/v1/chat/completions",status="200"}'
+                for _ in range(500):  # the handler counts a request after its last byte
+                    after = _scrape(url)
+                    if after.get(key, 0.0) - before.get(key, 0.0) >= 5:
+                        break
+                    threading.Event().wait(0.01)
+            finally:
+                server.shutdown()
+                server.server_close()
+            deltas.append({k: after.get(k, 0.0) - before.get(k, 0.0) for k in DELTA_SERIES})
+        finally:
+            tel.disable()
+            tel.reset()
+    want, got = deltas
+    assert got == want
+    assert got['dllama_http_requests_total{route="/v1/chat/completions",status="200"}'] == 5
+    assert got["dllama_prefix_cache_hits_total"] > 0 and got["dllama_host_sampler_fallback_total"] == 0
+    assert got["dllama_tokens_generated_total"] >= 8 + 8 + 7 + 6 + 1
+    assert (got["dllama_spec_draft_tokens_total"] > 0) == (spec_draft > 0)
+
+
+def test_probes_metrics_trace_and_drain(files):
+    """/healthz, /readyz (503 once draining), /metrics, /debug/trace/<id>
+    (JSON with the queue/placement/prefill/decode stages, and Chrome), and
+    503 for a completion during the drain."""
+    from distributed_llama_tpu_torch import telemetry as ttel
+
+    ttel.reset()
+    ttel.enable()
+    try:
+        state = torch_state(files, parallel=2)
+        server, url = _serve(state, tapi.make_handler)
+        try:
+            for path in ("/healthz", "/readyz"):
+                with urllib.request.urlopen(url + path, timeout=10) as r:
+                    assert r.status == 200
+            with urllib.request.urlopen(url + "/readyz", timeout=10) as r:
+                ready = json.loads(r.read())
+            assert ready["status"] == "ready" and ready["free_slots"] == 2 and ready["replicas"][0]["slots"] == 2
+            body = {"messages": [{"role": "user", "content": "hello"}], "max_tokens": 4, "stream": True}
+            with _post(url, body) as r:
+                rid = r.headers["X-Request-Id"]
+                r.read()
+            with urllib.request.urlopen(url + f"/debug/trace/{rid}", timeout=10) as r:
+                tree = json.loads(r.read())
+            assert tree["request_id"] == rid and tree["emitted"] == 4 and tree["ttft_s"] > 0
+            assert {"queue", "placement", "prefill", "decode"} <= set(tree["stages"])
+            spans = {s["name"] for s in tree["attempts"][0]["spans"]}
+            assert {"queue_wait", "placement", "prefix_match", "prefill_chunk", "prefill", "batch_decode_chunk_row",
+                    "sse_send", "decode_stream"} <= spans
+            with urllib.request.urlopen(url + f"/debug/trace/{rid}?format=chrome", timeout=10) as r:
+                assert json.loads(r.read())["traceEvents"][0]["name"] == "attempt0"
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(url + "/debug/trace/nope", timeout=10)
+            assert e.value.code == 404 and json.loads(e.value.read())["tracing_enabled"]
+            with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+                text = r.read().decode()
+            assert 'dllama_ttft_seconds_count{tenant="default"} 1' in text
+            assert 'dllama_http_requests_total{route="/debug/trace",status="200"} 2' in text
+            assert 'dllama_kernel_path_total{kernel="paged_attention",path="plain"}' in text
+            state.begin_drain()
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(url + "/readyz", timeout=10)
+            assert e.value.code == 503 and json.loads(e.value.read())["draining"]
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post(url, body)
+            assert e.value.code == 503 and e.value.headers["Retry-After"]
+            with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+                assert r.status == 200  # draining is still alive
+            with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+                text = r.read().decode()
+            assert "dllama_server_draining 1" in text
+            assert 'dllama_http_requests_total{route="/v1/chat/completions",status="503"} 1' in text
+        finally:
+            server.shutdown()
+            server.server_close()
+    finally:
+        ttel.disable()
+        ttel.reset()
+
+
+def test_sigterm_drain_waits_for_in_flight(files):
+    """The SIGTERM handler flips readiness, lets the in-flight completion
+    finish, then shuts the server down; off the main thread nothing is
+    installed and the handler is returned for the caller to invoke."""
+    import signal
+
+    state = torch_state(files, parallel=1)
+    server, url = _serve(state, tapi.make_handler)
+    got = {}
+    threading.Thread(target=lambda: got.setdefault("h", tapi.install_sigterm_drain(state, server, 30.0))).start()
+    for _ in range(100):
+        if "h" in got:
+            break
+        threading.Event().wait(0.01)
+    assert signal.getsignal(signal.SIGTERM) is not got["h"]
+    slot = state._acquire_slot([{"role": "user", "content": "x"}])  # an in-flight request
+    got["h"](signal.SIGTERM, None)
+    assert state.draining and not state.drain_wait(0.05)
+    state._release_slot(slot)
+    assert state.drain_wait(5.0)
+    for _ in range(200):  # the drain thread shuts the listener down
+        try:
+            urllib.request.urlopen(url + "/healthz", timeout=0.2)
+        except OSError:
+            break
+        threading.Event().wait(0.02)
+    else:
+        pytest.fail("the server kept serving after the drain")
+    server.server_close()
