@@ -129,13 +129,49 @@ Phases (any failure exits non-zero):
    TTFT/TPOT/E2E percentiles, the server's mean stage times, the summed
    dispatch spans (the host's issue) against the fetch spans (the wait for
    the card), and the 4-row decode step with telemetry on beside phase 6b's
-   (off), a reading that does not fail the run.
+   (off), a reading that does not fail the run;
+10. fault containment and fair admission (after 9, over phase 5's 7B-width
+   file, all 32 layers): one engine with ``--telemetry``, one server per
+   fault plan (``--parallel 4 --max-seq-len 2048``, prefix cache on), each
+   plan armed after the server's warm-up request. (a) The fault-free
+   reference: 4 concurrent requests (2 greedy, 2 sampled with seeds) over a
+   ~600-token shared system prompt, 48 tokens each, their token ids
+   recorded; also the preemption round's 4 requests and a lone request's
+   TTFT, and a hit's first-token logits against a cold prefill's (a
+   reading). (b) ``batch.row:kind=nan,row=1,count=1``, then
+   ``engine.paged_attn:kind=raise,row=1,count=1``: the victim 500 with its
+   typed message, the other 3 streams equal (a)'s token for token, one
+   quarantine per round, the victim row's pins released and the pinned
+   pages back to their value before the round once the lanes reset, K2
+   (``dllama_kernel_path_total``, no ``plain``) serving the survivors. (c)
+   ``batch.fetch:kind=raise,count=1``: all 4 streams equal (a)'s, one
+   retry, no quarantine. (d) ``batch.fetch:kind=hang`` with
+   ``--stall-timeout-s 2``: every row ends StallTimeout within the timeout,
+   the watchdog's period and ``STALL_CHUNK_S`` of the hang, one stall, and
+   the next request returns 200 with its (a) stream. (e) ``--tenants
+   "batch:weight=1,priority=0;live:weight=1,priority=1"``: 4 greedy batch
+   streams of 96 tokens (distinct user turns, then ~3 pages of a shared
+   story) fill the rows; after their first chunk a live request arrives:
+   one preemption, one requeue, and every batch client's full stream equal
+   to the same request's on the (a) server token for token (the replay
+   contract; a failure prints the first divergent token and the positions
+   each run read from the pool); the live request's TTFT beside its TTFT
+   alone. (f) A deadline that expires mid-decode ends its SSE stream with a
+   ``deadline_exceeded`` event while its 3 co-batched rows equal (a); one
+   that expires in the queue gets 504; two deadlines counted. (g)
+   ``weights_checksum`` of the 7B engine, timed against its bound (leaf
+   bytes over 3.35 TB/s), changed after one ``engine.sdc:kind=corrupt``
+   fire. Prints phase 10's seconds. Phase 4 also holds the small model's
+   checksum on the card equal to the CPU engine's, and every fault-free
+   server of phases 6, 8 and 9 ends with no retry, quarantine, stall or
+   deadline counted.
 
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
 one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
-``--loadgen`` writes phase 5's files and runs phase 9 alone.
+``--loadgen`` writes phase 5's files and runs phase 9 alone, ``--faults``
+phase 10 alone.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -298,6 +334,24 @@ MOE_SHAPES = {
 # 3e-3 on both Q40 paths, so an expert flip between the card and the CPU is
 # a fault
 MOE_SMALL_SEEDS = {"mixtral": 2, "grok": 5}
+# phase 10: tokens per request of the fault rounds and of the preemption
+# round, the row the row faults target, the stall timeout and the hang
+# (long past it), and the allowance for one chunk's launches after the
+# watchdog's period in the stall bound
+FAULT_TOKENS = 48
+PREEMPT_TOKENS = 96
+VICTIM_ROW = 1
+STALL_TIMEOUT_S = 2.0
+HANG_MS = 20000
+STALL_CHUNK_S = 1.0
+# 10f: the mid-decode deadline, the sleep before its request's first SSE
+# event that makes it run out between the first and second token, and its
+# head start on its co-batched requests (the host launches a decode chunk
+# under the scheduler lock for ~0.7 s, and a prefill waits behind it)
+DEADLINE_MS = 6000
+DEADLINE_SEND_MS = 9000
+DEADLINE_LEAD_S = 0.5
+K2_PATH = 'dllama_kernel_path_total{kernel="paged_attention",path="k2"}'
 ROUTE_MARGIN = 1e-5
 
 
@@ -1228,6 +1282,9 @@ def small_reference_check(synthetic, InferenceEngine, FloatType, workdir: Path) 
                 tok = int(b.argmax())
                 a, b = gpu.decode_step(tok), cpu.decode_step(tok)
         print(f"small model ({q40_path}): card matches CPU within 5% of max |logit| over 2 prompts x 4 steps")
+        check(gpu.weights_checksum() == cpu.weights_checksum(),
+              f"weight checksums differ: card {gpu.weights_checksum()}, CPU {cpu.weights_checksum()}")
+        print(f"small model ({q40_path}): weights_checksum {gpu.weights_checksum()} on the card equals the CPU's")
         del gpu, cpu
 
 
@@ -1560,7 +1617,9 @@ def _reference_streams(server_api, state, args, captured: list) -> int:
     hits, so the same prefill pieces) and compare token ids. Returns the
     number of tokens compared; a mismatch fails with its first diverging
     position."""
-    ref_args = argparse.Namespace(**{**vars(args), "spec_draft": 0})
+    # no watchdog: its thread would hold the reference scheduler's slab and
+    # pool past this function
+    ref_args = argparse.Namespace(**{**vars(args), "spec_draft": 0, "stall_timeout_s": 0})
     ref = server_api.ApiState(state.engine, state.tokenizer, state.slots[0].sampler, ref_args).batch
     check(ref is not None and ref.spec_draft == 0 and ref._prefix is not None, "reference scheduler")
     lane = ref._streams[0]
@@ -1784,9 +1843,11 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
             out["device_idle_share_4_rows"] = 1 - busy_ms / wall_ms
             print(f"4-row decode: device busy {busy_ms / steps:.2f} ms per batched step, idle "
                   f"{100 * out['device_idle_share_4_rows']:.1f}% of the unprofiled {wall_ms / steps:.2f} ms")
+        out["fault_counts"] = no_fault_counts(state, "server run")
     finally:
         server.shutdown()
         server.server_close()
+        state.close()
     del state, sched
     return out
 
@@ -1853,10 +1914,12 @@ def wide_spec_run(server_api, q40, model: str, tok_path: str) -> dict:
               f"{n_cmp} tokens over {len(captured)} requests")
         check(n_cmp > 0, "no greedy stream was compared")
         out.update(rows=WIDE_ROWS, seq_len=WIDE_SEQ_LEN, wall_s=wall, verify_forwards=sched.decode_forwards - f0,
-                   widest_verify_rows=sched.spec_rows_max, k1_tile_launches=tiles, greedy_tokens_compared=n_cmp)
+                   widest_verify_rows=sched.spec_rows_max, k1_tile_launches=tiles, greedy_tokens_compared=n_cmp,
+                   fault_counts=no_fault_counts(state, "6c's 16-row server"))
     finally:
         server.shutdown()
         server.server_close()
+        state.close()
     del state, sched
     return out
 
@@ -2057,9 +2120,15 @@ def loadgen_phase(server_api, attn, q40, model: str, tok_path: str, smi: str,
         out["decode_ms_per_step_4_rows_telemetry_on"] = on_ms = wall4 / steps * 1e3
         off = f"{off_step_ms:.2f} ms with telemetry off (phase 6b)" if off_step_ms else "off not measured in this run"
         print(f"4-row decode step: {on_ms:.2f} ms with telemetry on, {off} ({smi}; host time spreads between calls)")
+        out["fault_counts"] = no_fault_counts(state, "phase 9")
+        series = {k: v for k, v in _scrape(url).items() if k.startswith((
+            "dllama_batch_retries_total", "dllama_rows_quarantined_total", "dllama_watchdog_stalls_total",
+            "dllama_deadline_exceeded_total"))}
+        check(not any(series.values()), f"phase 9: a fault series moved: {series}")
     finally:
         server.shutdown()
         server.server_close()
+        state.close()
         telemetry.disable()
         telemetry.reset()
     del state, sched
@@ -2086,6 +2155,530 @@ def loadgen_only(smi: str) -> None:
         summary = {"loadgen": loadgen_phase(server_api, attn, q40, model, tok, smi)}
         print(f"phase 9: {time.perf_counter() - t:.1f} s")
     (ROOT / "build" / "chip_smoke_loadgen.json").write_text(json.dumps(summary, indent=1))
+    print(f"card: {smi}")
+
+
+def no_fault_counts(state, label: str) -> dict:
+    """A fault-free phase moved no retry, quarantine, watchdog or deadline
+    count (the scheduler's and the server's plain counts, which the
+    registry's series mirror)."""
+    sched = state.batch
+    counts = {"retries": sched.retries_total, "quarantined": sched.quarantined_total,
+              "stalls": sched.stalls_total, "deadlines": state.deadline_exceeded_total}
+    check(not any(counts.values()), f"{label}: a fault-free phase moved a fault count: {counts}")
+    return counts
+
+
+def _post_any(url: str, body: dict, t_start: float | None = None) -> dict:
+    """POST a completion and return its status, its JSON body or SSE events,
+    and its seconds to the first event and to the end (from ``t_start``,
+    default the call)."""
+    req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter() if t_start is None else t_start
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, raw_first, events = r.status, None, []
+            if body.get("stream"):
+                for line in r:
+                    line = line.decode().strip()
+                    if line.startswith("data: "):
+                        if raw_first is None:
+                            raw_first = time.perf_counter() - t0
+                        if line[6:] != "[DONE]":
+                            events.append(json.loads(line[6:]))
+                payload = events
+            else:
+                payload = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, raw_first, payload = e.code, None, json.loads(e.read())
+    return {"status": status, "payload": payload, "first_s": raw_first, "end_s": time.perf_counter() - t0}
+
+
+def _concurrent(url: str, bodies: list) -> list:
+    """POST every body at once; their results in order."""
+    out: list = [None] * len(bodies)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, _post_any(url, bodies[i], t0)))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _record_matched(state) -> dict:
+    """seed -> the positions each of its decodes read from the pool (its
+    row's matched length when the decode starts), over every lane."""
+    seen: dict = {}
+    for slot in state.slots:
+        orig, stream = slot.stream.stream_decode, slot.stream
+
+        def wrapped(*a, _orig=orig, _s=stream, **kw):
+            seen.setdefault(kw["seed"], []).append(_s.matched_len)
+            return _orig(*a, **kw)
+
+        slot.stream.stream_decode = wrapped
+    return seen
+
+
+def _open_sse(url: str, body: dict):
+    """An SSE completion whose events are read as they come."""
+    import http.client
+    import urllib.parse
+
+    p = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(p.hostname, p.port, timeout=600)
+    conn.request("POST", "/v1/chat/completions", json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    check(resp.status == 200, f"SSE request: {resp.status}")
+    return conn, resp
+
+
+def _sse_events(resp):
+    for raw in resp:
+        line = raw.strip()
+        if line.startswith(b"data: "):
+            if line[6:] == b"[DONE]":
+                return
+            yield json.loads(line[6:])
+
+
+def _read_deltas(sse, n: int) -> str:
+    """Read an open SSE completion until ``n`` content deltas arrived."""
+    text, got = "", 0
+    for e in _sse_events(sse[1]):
+        check("error" not in e, f"SSE error: {e}")
+        piece = (e["choices"][0].get("delta") or {}).get("content", "")
+        text += piece
+        got += bool(piece)
+        if got >= n:
+            break
+    return text
+
+
+def _read_rest(sse) -> tuple[str, str | None]:
+    text, err = _sse_text(list(_sse_events(sse[1])))
+    sse[0].close()
+    return text, err
+
+
+def _sse_text(events) -> tuple[str, str | None]:
+    """(the content an SSE client saw, its terminal error type or None)."""
+    if not isinstance(events, list):
+        fail(f"not an SSE stream: {events}")
+    text, err = "", None
+    for e in events:
+        if "error" in e:
+            err = e["error"]["type"]
+        else:
+            text += (e["choices"][0].get("delta") or {}).get("content", "")
+    return text, err
+
+
+def faults_phase(server_api, attn, q40, model: str, tok_path: str, smi: str) -> dict:
+    """Phase 10 (see the module docstring): fault containment and fair
+    admission in the port's server over the 7B-width model at all 32
+    layers. The engine loads once; each fault plan gets its own server
+    (a plan binds at construction), armed after the server's warm-up
+    request so its rules count the round's hits."""
+    from distributed_llama_tpu_torch import telemetry
+    from distributed_llama_tpu_torch.apps.cli import make_engine
+    from distributed_llama_tpu_torch.engine import faults, integrity
+    from distributed_llama_tpu_torch.loadgen.report import parse_prometheus
+    from distributed_llama_tpu_torch.tokenizer import ChatItem, Sampler
+
+    t_phase = time.perf_counter()
+    base = ["generate", "--model", model, "--tokenizer", tok_path, "--dtype", "q40", "--max-seq-len",
+            str(SERVER_SEQ_LEN), "--parallel", "4", "--decode-chunk", "8", "--chat-template", "chatml",
+            "--host", "127.0.0.1", "--port", "0", "--temperature", "0", "--admission-queue", "16", "--telemetry"]
+    telemetry.reset()
+    telemetry.enable()  # before the engine binds its instruments
+    t0 = time.perf_counter()
+    engine, tokenizer, _ = make_engine(server_api.build_parser().parse_args(base))
+    torch.cuda.synchronize()
+    print(f"engine load: {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    out: dict = {"card": smi}
+
+    def counters() -> dict:
+        m = parse_prometheus(telemetry.prometheus_text())
+        return {k: v for k, v in m.items() if k.startswith(("dllama_batch_retries_total", "dllama_rows_quarantined",
+                                                            "dllama_watchdog_stalls", "dllama_deadline_exceeded",
+                                                            "dllama_preempt", "dllama_kernel_path_total"))}
+
+    def moved(before: dict, after: dict, prefix: str) -> float:
+        return sum(v - before.get(k, 0.0) for k, v in after.items() if k.startswith(prefix))
+
+    def start(extra=(), plan: str | None = None):
+        """A server over the shared engine; ``plan``'s rules start disarmed
+        (count 0) and :func:`arm` gives them their counts."""
+        args = server_api.build_parser().parse_args(base + list(extra))
+        fault_plan = counts = None
+        if plan:
+            fault_plan = faults.install(faults.parse(plan))
+            counts = [r.count for r in fault_plan.rules]
+            for r in fault_plan.rules:
+                r.count = 0
+        try:
+            state = server_api.ApiState(engine, tokenizer, Sampler(vocab_size=engine.cfg.vocab_size,
+                                                                   temperature=0.0, topp=0.9, seed=1), args)
+        finally:
+            faults.clear()
+        server, _ = server_api.make_server(args, state=state)
+        captured: list = []
+        _capture_streams(state, captured)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def arm():
+            if fault_plan is not None:
+                for r, c in zip(fault_plan.rules, counts):
+                    r.count = c
+                fault_plan.reset()
+
+        return server, state, url, captured, arm
+
+    def stop(server, state):
+        server.shutdown()
+        server.server_close()
+        state.close()  # frees its slab and pool
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    system = "You are a helpful assistant. "
+    while len(tokenizer.encode(system, add_bos=False)) < 590:
+        system += "hello world, "
+    # every user turn starts with its own letter, so the pages a request
+    # publishes past the shared system prompt match no other request and
+    # each request of a round matches the same shared pages (the warm-up's)
+    # on every server; the preemption round's turns go on with ~3 pages of
+    # a story, so a replay matches further through the pool than its first
+    # run did
+    story = " tell me a story about " + "the world and hello " * 20
+
+    def body(user, temperature=0.0, seed=1, max_tokens=FAULT_TOKENS, stream=False, **kw):
+        return {"messages": [{"role": "system", "content": system}, {"role": "user", "content": user}],
+                "max_tokens": max_tokens, "temperature": temperature, "seed": seed, "stream": stream, **kw}
+
+    # 10a's round: 2 greedy and 2 sampled requests over the shared prefix;
+    # each is keyed by its seed in the captured decodes
+    round_a = [body("A hello", 0.0, 11), body("B world", 0.0, 12), body("C hello world", 0.8, 13),
+               body("D world hello", 0.8, 14)]
+    round_e = [body(c + story, 0.0, 21 + i, max_tokens=PREEMPT_TOKENS, stream=True, tenant="batch")
+               for i, c in enumerate("EFGH")]
+    warm = body("W warm up", 0.0, 99, max_tokens=4)
+    live_body = body("L quick question", 0.0, 31, max_tokens=16, stream=True)
+
+    def prompt_tokens(b: dict) -> list[int]:
+        return tokenizer.encode(state.template.generate([ChatItem(m["role"], m["content"]) for m in b["messages"]],
+                                                        append_generation_prompt=True), add_bos=True)
+
+    def ids_by_seed(captured: list) -> dict:
+        got: dict = {}
+        for _, _, seed, ids in captured:
+            got.setdefault(seed, []).append(ids)
+        return got
+
+    def warm_up(url, state, arm):
+        r = _post_any(url, warm)
+        check(r["status"] == 200, f"warm-up request: {r['status']}")
+        for slot in state.slots:  # idle lanes drop their page pins
+            slot.stream.reset()
+        arm()
+
+    # ---- 10a: the fault-free reference ---------------------------------
+    server, state, url, captured, arm = start()
+    matched_a = _record_matched(state)
+    try:
+        warm_up(url, state, arm)
+        c0 = counters()
+        attn.reset_launches()  # this path's counts start here
+        q40.reset_launches()
+        res = _concurrent(url, round_a)
+        launches = {"q40_int8": q40.launches["q40_int8"], "k1_tiles": dict(q40.tile_launches),
+                    "paged_attention": attn.launches["paged_attention"]}
+        check(all(r["status"] == 200 for r in res), f"10a: {[r['status'] for r in res]}")
+        check(launches["q40_int8"] > 0 and launches["paged_attention"] > 0, f"10a: K1 or K2 not launched: {launches}")
+        print(f"10a: launches in the round {launches}")
+        out["launches"] = launches
+        ref = {s: v[-1] for s, v in ids_by_seed(captured).items()}
+        check(all(ref[b["seed"]] for b in round_a), "10a: a stream is empty")
+        print(f"10a: 4 concurrent requests ({len(prompt_tokens(round_a[0]))}-token prompts, {matched_a[11][-1]} "
+              f"positions from the pool, 2 greedy, 2 sampled), {[len(ref[b['seed']]) for b in round_a]} tokens, in "
+              f"{max(r['end_s'] for r in res):.2f} s")
+        res_e = _concurrent(url, round_e)
+        check(all(r["status"] == 200 for r in res_e), "10a: the preemption round's reference")
+        ref_e = {b["seed"]: _sse_text(r["payload"])[0] for b, r in zip(round_e, res_e)}
+        ids_now = ids_by_seed(captured)
+        ref_e_ids = {b["seed"]: ids_now[b["seed"]][-1] for b in round_e}
+        ref_e_matched = {b["seed"]: matched_a[b["seed"]][-1] for b in round_e}
+        live_alone = _post_any(url, live_body)
+        out["live_ttft_alone_ms"] = live_alone["first_s"] * 1e3
+        a_counts = no_fault_counts(state, "10a")
+        paths = {k: v - c0.get(k, 0.0) for k, v in counters().items() if k.startswith("dllama_kernel_path_total")}
+        check(not any("plain" in k for k in paths), f"10a: a plain path served: {paths}")
+        # the first-token logits of a hit (the shared pages) against a cold
+        # prefill of the same prompt, bit for bit (a reading; 6b holds 5%)
+        row = state.batch._streams[0]
+        toks = prompt_tokens(round_e[0])
+        row.reset()
+        row.prefix_cache_enabled = False
+        cold = row.prefill(toks)
+        row.reset()
+        row.prefix_cache_enabled = True
+        hit = row.prefill(toks)
+        matched = row.matched_len
+        row.reset()
+        out["hit_vs_cold"] = {"matched": matched, "max_abs_diff": float(np.abs(hit - cold).max()),
+                              "bit_equal": bool(np.array_equal(hit, cold))}
+        print(f"10a: a {len(toks)}-token prompt's first-token logits, hit ({matched} positions from the pool) vs "
+              f"cold: max diff {out['hit_vs_cold']['max_abs_diff']:.4g}, bit-equal {out['hit_vs_cold']['bit_equal']}")
+    finally:
+        stop(server, state)
+    out["10a"] = {"counts": a_counts}
+
+    # ---- 10b: row faults -------------------------------------------------
+    for label, plan in (("batch.row nan", f"batch.row:kind=nan,row={VICTIM_ROW},count=1"),
+                        ("engine.paged_attn raise", f"engine.paged_attn:kind=raise,row={VICTIM_ROW},count=1")):
+        server, state, url, captured, arm = start(plan=plan)
+        sched = state.batch
+        try:
+            warm_up(url, state, arm)
+            pinned0, c0 = sched._prefix._pinned, counters()
+            res = _concurrent(url, round_a)
+            statuses = [r["status"] for r in res]
+            check(sorted(statuses) == [200, 200, 200, 500], f"10b {label}: statuses {statuses}")
+            bad = next(r for r in res if r["status"] == 500)
+            check("retired" in bad["payload"]["error"]["message"], f"10b {label}: {bad['payload']}")
+            got = ids_by_seed(captured)
+            for b, r in zip(round_a, res):
+                if r["status"] == 200:
+                    check(got[b["seed"]][-1] == ref[b["seed"]], f"10b {label}: survivor seed {b['seed']} diverged "
+                          f"from 10a")
+            c1 = counters()
+            q = moved(c0, c1, "dllama_rows_quarantined_total")
+            check(q == 1 and sched.quarantined_total == 1, f"10b {label}: quarantined {q}")
+            check(not sched._streams[VICTIM_ROW]._alias_chain, f"10b {label}: the victim row kept its page pins")
+            paths = {k: v - c0.get(k, 0.0) for k, v in c1.items() if k.startswith("dllama_kernel_path_total")}
+            check(paths.get(K2_PATH, 0) > 0
+                  and not any("plain" in k and v for k, v in paths.items()), f"10b {label}: kernel paths {paths}")
+            for slot in state.slots:
+                slot.stream.reset()
+            sched.check_prefix()
+            check(sched._prefix._pinned == pinned0, f"10b {label}: pinned pages {sched._prefix._pinned} after the "
+                  f"round's lanes reset, {pinned0} before")
+            print(f"10b {label}: statuses {statuses}; the 3 survivors equal 10a token for token; rows quarantined "
+                  f"+{q:g}; pinned pages back to {pinned0} once the lanes reset; K2 calls in the round "
+                  f"{paths.get(K2_PATH, 0):g}")
+        finally:
+            stop(server, state)
+        out[f"10b {label}"] = {"statuses": statuses, "quarantined": q}
+
+    # ---- 10c: a transient fetch error -----------------------------------
+    server, state, url, captured, arm = start(plan="batch.fetch:kind=raise,count=1")
+    sched = state.batch
+    try:
+        warm_up(url, state, arm)
+        c0 = counters()
+        res = _concurrent(url, round_a)
+        check(all(r["status"] == 200 for r in res), f"10c: {[r['status'] for r in res]}")
+        got = ids_by_seed(captured)
+        check(all(got[b["seed"]][-1] == ref[b["seed"]] for b in round_a), "10c: a stream diverged from 10a")
+        c1 = counters()
+        retries = moved(c0, c1, "dllama_batch_retries_total")
+        check(retries == 1 and sched.retries_total == 1, f"10c: retries {retries}")
+        check(moved(c0, c1, "dllama_rows_quarantined_total") == 0, "10c: a row was quarantined")
+        print(f"10c: all 4 streams equal 10a; dllama_batch_retries_total +{retries:g}, no quarantine")
+    finally:
+        stop(server, state)
+    out["10c"] = {"retries": retries}
+
+    # ---- 10d: a hung fetch ------------------------------------------------
+    hang_at: list = []
+
+    def on_fire(site, rule, row):
+        if site == "batch.fetch" and rule.kind == "hang":
+            hang_at.append(time.perf_counter())
+
+    server, state, url, captured, arm = start(
+        extra=("--stall-timeout-s", str(STALL_TIMEOUT_S)),
+        plan=f"batch.fetch:kind=hang,delay_ms={HANG_MS},count=1")
+    sched = state.batch
+    faults.add_fire_observer(on_fire)
+    try:
+        warm_up(url, state, arm)
+        c0 = counters()
+        t_round = time.perf_counter()
+        res = _concurrent(url, round_a)
+        check(len(hang_at) == 1, f"10d: the hang fired {len(hang_at)} times")
+        ends = [t_round + r["end_s"] - hang_at[0] for r in res]
+        statuses = [r["status"] for r in res]
+        check(all(s == 500 and "stall" in r["payload"]["error"]["message"] for s, r in zip(statuses, res)),
+              f"10d: {statuses} {[r['payload'] for r in res]}")
+        interval = max(min(STALL_TIMEOUT_S / 4.0, 1.0), 0.005)
+        bound = STALL_TIMEOUT_S + interval + STALL_CHUNK_S
+        print(f"10d: every row ended StallTimeout (500) at {', '.join(f'{e:.2f}' for e in ends)} s after the fetch "
+              f"hung (stall timeout {STALL_TIMEOUT_S} s, watchdog period {interval} s; bound {bound} s)")
+        check(max(ends) <= bound, f"10d: a row ended {max(ends):.2f} s after the hang (bound {bound} s)")
+        c1 = counters()
+        stalls = moved(c0, c1, "dllama_watchdog_stalls_total")
+        check(stalls == 1 and sched.stalls_total == 1, f"10d: stalls {stalls}")
+        r = _post_any(url, round_a[0])
+        got = ids_by_seed(captured)
+        check(r["status"] == 200 and got[round_a[0]["seed"]][-1] == ref[round_a[0]["seed"]],
+              f"10d: the next request: {r['status']}")
+        print("10d: the next request returned 200 and equals its 10a stream")
+    finally:
+        faults.remove_fire_observer(on_fire)
+        stop(server, state)
+    out["10d"] = {"ends_after_hang_s": ends, "bound_s": bound, "stalls": stalls}
+
+    # ---- 10e: preemption --------------------------------------------------
+    server, state, url, captured, arm = start(extra=("--tenants", "batch:weight=1,priority=0;live:weight=1,priority=1"))
+    sched = state.batch
+    matched_by_seed = _record_matched(state)
+    try:
+        warm_up(url, state, arm)
+        c0 = counters()
+        conns = [_open_sse(url, b) for b in round_e]
+        firsts = [_read_deltas(c, 2) for c in conns]  # the fused first token and the first chunk's
+        live = _post_any(url, {**live_body, "tenant": "live"})
+        check(live["status"] == 200, f"10e: the live request: {live['status']}")
+        texts, errs = [], []
+        for c, first in zip(conns, firsts):
+            rest, err = _read_rest(c)
+            texts.append(first + rest)
+            errs.append(err)
+        c1 = counters()
+        pre, req = moved(c0, c1, "dllama_preemptions_total"), moved(c0, c1, "dllama_preempted_requeued_total")
+        check(not any(errs), f"10e: a batch stream ended with an error: {errs}")
+        check(pre == 1 and req == 1 and sched.preempted_total == 1, f"10e: preemptions {pre}, requeued {req}")
+        got = ids_by_seed(captured)
+        contract = True
+        for b, text in zip(round_e, texts):
+            seed = b["seed"]
+            runs = got[seed]
+            want = ref_e_ids[seed]
+            for k, ids in enumerate(runs):
+                n = len(ids) if k < len(runs) - 1 else len(want)
+                at = next((i for i, (x, y) in enumerate(zip(ids, want)) if x != y), None)
+                if at is not None or ids[:n] != want[:n]:
+                    contract = False
+                    print(f"10e: seed {seed} attempt {k} ({'replay' if k else 'first run'}, matched "
+                          f"{matched_by_seed.get(seed, [])[k:k + 1]} positions through the pool; 10a's run matched "
+                          f"{ref_e_matched.get(seed)}): first divergence from 10a at token {at} of {len(ids)}")
+            if text != ref_e[seed]:
+                contract = False
+                print(f"10e: seed {seed}: the client's stream differs from 10a's ({len(text)} vs {len(ref_e[seed])} "
+                      "chars)")
+        victims = [b["seed"] for b in round_e if len(got[b["seed"]]) > 1]
+        print(f"10e: the victim's runs matched {[matched_by_seed.get(v) for v in victims]} positions (10a's run "
+              f"{[ref_e_matched.get(v) for v in victims]})")
+        print(f"10e: preemptions +{pre:g}, requeued +{req:g}; victim seed {victims}; every batch client's stream "
+              f"equals 10a's token for token: {contract}; the live request's TTFT {live['first_s'] * 1e3:.1f} ms "
+              f"with 4 rows busy, {out['live_ttft_alone_ms']:.1f} ms alone ({smi})")
+        check(contract, "10e: the replay contract failed")
+        check(len(victims) == 1, f"10e: {len(victims)} victims")
+    finally:
+        stop(server, state)
+    out["10e"] = {"preemptions": pre, "requeued": req, "victims": victims, "replay_contract": contract,
+                  "live_ttft_ms": live["first_s"] * 1e3}
+
+    # ---- 10f: deadlines ---------------------------------------------------
+    # the SSE writer sleeps DEADLINE_SEND_MS before the deadline request's
+    # first event (the site fires for streamed requests only), so its
+    # DEADLINE_MS budget runs out between its first and second token; it
+    # is sent DEADLINE_LEAD_S ahead of its 3 co-batched requests, so its
+    # prefill does not wait behind their decode chunks' launches
+    server, state, url, captured, arm = start(plan=f"server.send:kind=delay,delay_ms={DEADLINE_SEND_MS},count=1")
+    sched = state.batch
+    try:
+        warm_up(url, state, arm)
+        c0 = counters()
+        late: list = []
+        t_dl = time.perf_counter()
+        lead = threading.Thread(target=lambda: late.append(_post_any(
+            url, body("X deadline", 0.0, 41, stream=True, deadline_ms=DEADLINE_MS), t_dl)))
+        lead.start()
+        time.sleep(DEADLINE_LEAD_S)
+        res = _concurrent(url, round_a[1:])
+        lead.join()
+        res += late
+        check(all(r["status"] == 200 for r in res), f"10f: {[(r['status'], r['payload']) for r in res]}")
+        text, err = _sse_text(res[-1]["payload"])
+        check(err == "deadline_exceeded" and text, f"10f: the deadline request's stream: error {err}, {len(text)} chars")
+        got = ids_by_seed(captured)
+        check(all(got[b["seed"]][-1] == ref[b["seed"]] for b in round_a[1:]), "10f: a co-batched row diverged")
+        for _ in range(4):
+            state.admission.acquire("hold")
+        try:
+            r = _post_any(url, body("Y late", 0.0, 42, deadline_ms=300))
+        finally:
+            for _ in range(4):
+                state.admission.release()
+        check(r["status"] == 504 and r["payload"]["error"]["type"] == "deadline_exceeded", f"10f: queued {r}")
+        d = moved(c0, counters(), "dllama_deadline_exceeded_total")
+        check(d == 2 and state.deadline_exceeded_total == 2, f"10f: deadlines {d}")
+        print(f"10f: a {DEADLINE_MS} ms deadline ended its stream with an SSE deadline_exceeded event after "
+              f"{len(text)} chars at {res[-1]['end_s']:.2f} s, its 3 co-batched rows equal 10a; a queued one got "
+              f"504; dllama_deadline_exceeded_total +{d:g}")
+    finally:
+        stop(server, state)
+    out["10f"] = {"deadline_ms": DEADLINE_MS, "deadlines": d}
+
+    # ---- 10g: the weight checksum -----------------------------------------
+    recorded = engine.weights_checksum()
+    leaf_bytes = sum(t.numel() * t.element_size() for _, t in integrity._leaves(engine.params))
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = integrity.params_checksum(engine.params)  # ends in a host fetch
+        times.append((time.perf_counter() - t0) * 1e3)
+    bound_ms = leaf_bytes / HBM_BYTES_PER_S * 1e3
+    check(again == recorded, "10g: the checksum is not stable")
+    server, state, url, captured, arm = start(plan="engine.sdc:kind=corrupt,count=1")
+    try:
+        warm_up(url, state, arm)
+        r = _post_any(url, round_a[0])
+        check(r["status"] == 200, f"10g: the corrupting request: {r['status']}")
+        corrupted = integrity.params_checksum(engine.params)
+    finally:
+        stop(server, state)
+    check(corrupted != recorded, "10g: the checksum did not change after engine.sdc corrupted a weight slice")
+    print(f"10g: weights_checksum {recorded} over {leaf_bytes / 1e9:.3f} GB of leaves: {min(times):.2f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in times)}), bound {bound_ms:.3f} ms at 3.35 TB/s ({smi}); after one "
+          f"engine.sdc corrupt fire: {corrupted}")
+    out["10g"] = {"checksum": recorded, "corrupted": corrupted, "ms": min(times), "runs_ms": times,
+                  "bound_ms": bound_ms, "leaf_bytes": leaf_bytes}
+    out["phase_s"] = time.perf_counter() - t_phase
+    telemetry.disable()
+    telemetry.reset()
+    del engine
+    return out
+
+
+def faults_only(smi: str) -> None:
+    """``--faults``: phase 2, phase 5's 7B-width files and phase 10 alone."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.ops import attention as attn
+    from distributed_llama_tpu_torch.ops import cuda_build, q40
+    from distributed_llama_tpu_torch.server import api as server_api
+
+    phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t = time.perf_counter()
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, Path(tmp))
+        print(f"wrote the 7B-width files in {time.perf_counter() - t:.1f} s")
+        t = phase(f"10. the slice's path: fault containment and fair admission in the API server, {N_LAYERS} layers")
+        summary = {"faults": faults_phase(server_api, attn, q40, model, tok, smi)}
+        print(f"phase 10: {time.perf_counter() - t:.1f} s")
+    (ROOT / "build" / "chip_smoke_faults.json").write_text(json.dumps(summary, indent=1))
     print(f"card: {smi}")
 
 
@@ -2286,6 +2879,8 @@ def main() -> None:
     parser.add_argument("--moe", action="store_true", help="phase 4's MoE part and phase 8 alone")
     parser.add_argument("--loadgen", action="store_true",
                         help="phase 9 alone (the load generator against the 7B-width server with --telemetry)")
+    parser.add_argument("--faults", action="store_true",
+                        help="phase 10 alone (fault containment and fair admission in the 7B-width server)")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
@@ -2294,9 +2889,10 @@ def main() -> None:
         sys.exit(2)
     alone = [f for f, on in ((k1_only, opts.k1), (k2_only, opts.k2), (k3_only, opts.k3), (k5_only, opts.k5),
                              (lambda root, smi: moe_only(smi), opts.moe),
-                             (lambda root, smi: loadgen_only(smi), opts.loadgen)) if on]
+                             (lambda root, smi: loadgen_only(smi), opts.loadgen),
+                             (lambda root, smi: faults_only(smi), opts.faults)) if on]
     if len(alone) > 1:
-        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen")
+        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2513,6 +3109,12 @@ def main() -> None:
         summary["loadgen"] = loadgen_phase(server_api, attn, q40, model, tok, smi,
                                            off_step_ms=summary["server"]["decode_ms_per_step_4_rows"])
         print(f"phase 9: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = phase(f"10. the slice's path: fault containment and fair admission in the API server, {N_LAYERS} layers")
+        summary["faults"] = faults_phase(server_api, attn, q40, model, tok, smi)
+        print(f"phase 10: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 

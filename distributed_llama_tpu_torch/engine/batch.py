@@ -47,10 +47,35 @@ The port's copy of the JAX package's ``engine/batch.py`` serving core.
   Counters never update under a per-token loop, and nothing here
   synchronizes the device.
 
-Left out (each in ROADMAP.md): the stall watchdog, fault sites, retries,
-silent-corruption checks beyond the per-row token checks, preemption, the
-host spill tier, the tensor-parallel backend and the lock witness. A plain
-``threading.Condition`` guards the scheduler.
+* Fault containment, as in the JAX package. The ``batch.dispatch`` site
+  fires before any launch and is retried with backoff
+  (:mod:`distributed_llama_tpu_torch.retry`); a launch that raises is not
+  retried: it retires every row of the dispatch with a typed
+  :class:`faults.RowQuarantined`. A fetch retries its wait on the same
+  :class:`platform.HostFetch` (the chunk is never dispatched again). A row
+  whose chunk comes back corrupt (non-finite logits, out-of-vocab tokens,
+  the ``batch.row`` site), or that the ``engine.paged_attn``,
+  ``engine.fused_step`` or ``engine.spec_verify`` site targets, is retired
+  alone with its page pins released; its co-batched rows are delivered
+  bit-identically.
+* The stall watchdog (``stall_timeout_s`` > 0): a thread that, when a
+  chunk fetch has been in flight past the timeout, retires that fetch
+  generation (its late completion delivers nothing), drops the pending
+  chunk and fails every joined row with :class:`faults.StallTimeout`.
+  With the watchdog on, a fetch waits on a helper thread while the
+  request thread waits on the scheduler lock, so a hung wait holds no
+  request: every joined row ends typed within the timeout.
+* Per-row deadlines (``BatchStream.deadline``, a ``time.monotonic``
+  instant) are checked between chunks and between prefill pieces.
+* Priority preemption: :meth:`BatchScheduler.preempt_below` evicts the
+  lowest-priority row with :class:`faults.RowPreempted` (the server
+  requeues and replays it); the ``engine.preempt`` site turns the eviction
+  into a quarantine. The ``engine.sdc`` site corrupts the weights (or the
+  next chunk's tokens) into finite wrong values.
+
+Left out (each in ROADMAP.md): the host spill tier, the tensor-parallel
+backend and the lock witness. A plain ``threading.Condition`` guards the
+scheduler.
 
 Thread model: request threads call into their own :class:`BatchStream`;
 whichever thread needs tokens first dispatches the shared chunk for
@@ -66,12 +91,13 @@ from __future__ import annotations
 import collections
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
-from distributed_llama_tpu_torch import prng
-from distributed_llama_tpu_torch.engine import integrity
+from distributed_llama_tpu_torch import prng, retry
+from distributed_llama_tpu_torch.engine import faults, integrity
 from distributed_llama_tpu_torch.engine.engine import StreamStats, _prefill_bucket, _stats, next_pow2
 from distributed_llama_tpu_torch.engine.prefix_cache import PrefixCache
 from distributed_llama_tpu_torch.engine.speculative import PromptLookupDrafter
@@ -81,13 +107,22 @@ from distributed_llama_tpu_torch.platform import HostFetch, to_device
 from distributed_llama_tpu_torch.telemetry import Stopwatch
 
 
-class RowQuarantined(RuntimeError):
-    """A batch row was retired because its chunk came back corrupt; the
-    other rows of the dispatch are unaffected."""
+# a fetch whose generation the watchdog retired while it waited
+_RETIRED = object()
 
 
-class NonFiniteLogits(RowQuarantined):
-    """A row's decode produced non-finite logits (the device-side flag)."""
+def _watchdog_loop(ref, cond: threading.Condition, interval: float) -> None:
+    """The stall watchdog thread of the scheduler ``ref`` points to: a tick
+    every ``interval`` seconds (a wait on its lock, so close() ends the
+    thread at once) until the scheduler closes or is freed."""
+    while True:
+        with cond:
+            cond.wait(timeout=interval)
+        sched = ref()
+        if sched is None or sched._shutdown:
+            return
+        sched._watchdog_check()
+        del sched
 
 
 def decode_bucket(n: int, b_max: int) -> int:
@@ -126,6 +161,9 @@ class BatchStream(StreamStats):
         self._history: list[int] = []
         self._drafter: PromptLookupDrafter | None = None
         self._spec_on = False
+        # per-chunk device logit fingerprints of this request, in delivery
+        # order (reset at join); the verify path does not feed it
+        self._chunk_fps: list[int] = []
         scheduler.engine._tel.active_streams.inc()
 
     @property
@@ -144,10 +182,27 @@ class BatchStream(StreamStats):
         self.scheduler._release_row_pins(self)
         self._clear_stats()
         self._fetch_error = None
+        self.deadline = None
+        self.tenant = None
+        self.priority = None
         self.prefix_cache_enabled = True
         self._history = []
         self._drafter = None
         self._spec_on = False
+
+    def run_fingerprint(self, n_tokens: int | None = None) -> int:
+        """FNV-1a fold of this request's chunk fingerprints. ``n_tokens``
+        folds only the chunks that produced the first ``n_tokens`` decoded
+        tokens (the fused first token carries none), so the value does not
+        depend on how many chunks ran ahead; ``None`` folds every delivered
+        chunk."""
+        fps = self._chunk_fps
+        if n_tokens is not None:
+            fps = fps[: -(-max(0, n_tokens) // self.scheduler.chunk)]
+        out = integrity.FP_BASIS
+        for fp in fps:
+            out = integrity.fold_run_fingerprint(out, fp)
+        return out
 
     def rollback(self, pos: int) -> None:
         """Rewind to ``pos``; slab slots beyond it are stale but unreachable.
@@ -249,9 +304,9 @@ class BatchScheduler:
     """Owns the [B_max] slab cache (and the page pool) and coalesces joined
     streams into one batched decode dispatch per chunk."""
 
-    def __init__(self, engine, n_rows: int, chunk: int = 32, prefix_cache: bool = False,
-                 kv_pages: int | None = None, page_size: int = 64, prefill_chunk: int = 0,
-                 spec_draft: int = 0, spec_ngram: int = 3):
+    def __init__(self, engine, n_rows: int, chunk: int = 32, retries: int = 2, retry_backoff_s: float = 0.05,
+                 stall_timeout_s: float | None = None, prefix_cache: bool = False, kv_pages: int | None = None,
+                 page_size: int = 64, prefill_chunk: int = 0, spec_draft: int = 0, spec_ngram: int = 3):
         if n_rows < 1:
             raise ValueError(f"need at least one batch row, got {n_rows}")
         if getattr(engine, "tp_backend", None) is not None:
@@ -313,6 +368,78 @@ class BatchScheduler:
         # row's stop included: what dllama_tokens_generated_total counts
         # besides the fused first tokens
         self.tokens_delivered = 0
+        # bounded retry with backoff for the dispatch site and the fetch
+        # wait (base * 2**attempt), and the bind-once fault plan
+        self.retries = max(0, int(retries))
+        self.retry_backoff_s = float(retry_backoff_s)
+        self._retry_policy = retry.BackoffPolicy(attempts=self.retries + 1, base_s=self.retry_backoff_s)
+        self._faults = faults.active_plan()
+        # engine.sdc message=logits: chunks whose tokens are still to shift
+        self._sdc_logits_pending = 0
+        # plain counts, readable with telemetry off (the registry's
+        # dllama_preemptions_total, dllama_batch_retries_total,
+        # dllama_rows_quarantined_total and dllama_watchdog_stalls_total
+        # mirror them): clean preemptions, retried dispatch/fetch attempts,
+        # retired rows and declared stalls
+        self.preempted_total = 0
+        self.retries_total = 0
+        self.quarantined_total = 0
+        self.stalls_total = 0
+        # fetch generation: bumped when a thread takes the pending chunk; the
+        # watchdog retires a stalled generation, and its late completion
+        # delivers nothing
+        self._fetch_gen = 0
+        self._fetch_started: float | None = None
+        self._shutdown = False
+        self.stall_timeout_s = stall_timeout_s
+        self._watchdog: threading.Thread | None = None
+        if stall_timeout_s is not None and stall_timeout_s > 0:
+            # the thread holds the scheduler weakly: a scheduler nobody
+            # closes is still freed with its slab and pool, and the thread
+            # then ends
+            self._watchdog = threading.Thread(
+                target=_watchdog_loop, args=(weakref.ref(self), self._cond, max(min(stall_timeout_s / 4.0, 1.0),
+                                                                               0.005)),
+                name="dllama-batch-watchdog", daemon=True)
+            self._watchdog.start()
+
+    def close(self) -> None:
+        """Stop the watchdog thread and free the slab and the pool: a closed
+        scheduler serves nothing more (a thread stuck in a hung fetch may
+        hold the scheduler itself for long after)."""
+        with self._cond:
+            self._shutdown = True
+            self._slab = self._pool = None
+            self._cond.notify_all()
+        if self._watchdog is not None and self._watchdog is not threading.current_thread():
+            self._watchdog.join(timeout=5.0)
+
+    def _watchdog_check(self) -> None:
+        """One watchdog tick: fail a hung chunk fetch cleanly. Joined rows
+        get a typed StallTimeout, the fetch generation is retired so a late
+        completion delivers nothing, the pending chunk is dropped, and the
+        scheduler serves new requests at once. Never waits on the fetch
+        itself."""
+        tel = self.engine._tel
+        with self._cond:
+            stalled = (self._fetching and self._fetch_started is not None
+                       and time.monotonic() - self._fetch_started > self.stall_timeout_s)
+            if not stalled:
+                return
+            self._fetching = False
+            self._fetch_started = None
+            # the chunk queued behind the hung one: every row that wanted
+            # it is being retired, and the last _leave's idle drain would
+            # otherwise fetch it on a request thread
+            self._pending = None
+            self.stalls_total += 1
+            tel.watchdog_stalls.inc()
+            for s in self._streams:
+                if s._joined and s._fetch_error is None:
+                    s._fetch_error = faults.StallTimeout(
+                        f"batched chunk fetch exceeded the {self.stall_timeout_s:.1f}s stall timeout")
+                    self._release_pins_locked(s)
+            self._cond.notify_all()
 
     def new_stream(self) -> BatchStream:
         """Hand out the next slab row as an EngineStream-like serving lane."""
@@ -367,8 +494,13 @@ class BatchScheduler:
         while off < n:
             t0 = time.perf_counter()
             if stream._fetch_error is not None:
+                # a preemption (or quarantine) that landed between pieces:
+                # the piece boundaries are the prefill's yield points
                 err, stream._fetch_error = stream._fetch_error, None
                 raise err
+            if stream.deadline is not None and time.monotonic() >= stream.deadline:
+                raise faults.DeadlineExceeded(
+                    f"deadline expired mid-prefill (row {stream.row}, {off}/{n} prompt tokens dispatched)")
             c = min(step, n - off)
             bucket = _prefill_bucket(c)
             if stream.pos + bucket > engine.cfg.seq_len:
@@ -515,6 +647,51 @@ class BatchScheduler:
                 self._prefix.check(row_pages=[list(s._alias_ids) for s in self._streams if s._alias_ids])
 
     # ------------------------------------------------------------------
+    # Row-targeted fault sites (fired while a batched chunk is built)
+    # ------------------------------------------------------------------
+
+    def _retire_locked(self, s: BatchStream, err: BaseException) -> None:
+        """Retire one row with a typed error and release its page pins."""
+        s._fetch_error = err
+        self._release_pins_locked(s)
+        self.quarantined_total += 1
+        self.engine._tel.rows_quarantined.inc()
+
+    def _fire_row_site_locked(self, site: str, joined: list, what: str) -> list:
+        """Fire ``site`` per joined row: a row-targeted raise retires only
+        that row (pins released), and the rows still serviceable return."""
+        for s in joined:
+            try:
+                self._faults.fire(site, row=s.row)
+            except Exception as e:
+                err = faults.RowQuarantined(f"batch row retired: {what} failed for this row")
+                err.__cause__ = e
+                self._retire_locked(s, err)
+        return [s for s in joined if s._fetch_error is None]
+
+    def _fire_sites_locked(self, joined: list) -> list:
+        """The ``engine.paged_attn`` site (a pool-enabled scheduler's chunks
+        only) and the ``engine.fused_step`` site, per joined row."""
+        if self._pool is not None:
+            joined = self._fire_row_site_locked("engine.paged_attn", joined, "paged-attention dispatch")
+        return self._fire_row_site_locked("engine.fused_step", joined, "fused superstep dispatch")
+
+    def _fire_sdc_locked(self) -> None:
+        """The ``engine.sdc`` site, per batched dispatch (``row=`` is the
+        replica id, 0 here): ``message=weights`` (the default) corrupts one
+        weight slice in place, ``message=logits`` shifts the next fetched
+        chunk's tokens in-vocab. Nothing raises and nothing quarantines."""
+        rule = self._faults.fires("engine.sdc", row=0)
+        if rule is None or rule.kind != "corrupt":
+            return
+        if (rule.message or "weights") == "logits":
+            self._sdc_logits_pending += 1
+            return
+        engine = self.engine
+        engine.params, desc = integrity.corrupt_params(engine.params, seed=getattr(self._faults, "seed", 0))
+        print(f"🧬 engine.sdc injected: corrupted {desc}")
+
+    # ------------------------------------------------------------------
     # Join/leave (between chunks)
     # ------------------------------------------------------------------
 
@@ -528,7 +705,11 @@ class BatchScheduler:
             stream._queue.clear()
             stream._epoch += 1
             stream._joined = True
-            stream._fetch_error = None
+            stream._chunk_fps = []
+            if not isinstance(stream._fetch_error, faults.RowPreempted):
+                # a preemption that landed between this request's prefill
+                # and its join survives it: the first next_token raises it
+                stream._fetch_error = None
             self._cond.notify_all()
 
     def _leave(self, stream: BatchStream) -> None:
@@ -543,14 +724,72 @@ class BatchScheduler:
         # unfetched: drain it when no joined stream remains
         self._drain_if_idle()
 
+    def _begin_fetch_locked(self) -> int:
+        """Mark a fetch in flight (lock held); returns its generation."""
+        self._fetching = True
+        self._fetch_gen += 1
+        self._fetch_started = time.monotonic()
+        return self._fetch_gen
+
     def _drain_if_idle(self) -> None:
-        pend = None
+        pend = gen = None
         with self._cond:
             if self._pending is not None and not self._fetching and not any(s._joined for s in self._streams):
                 pend, self._pending = self._pending, None
-                self._fetching = True
+                gen = self._begin_fetch_locked()
         if pend is not None:
-            self._fetch(pend)
+            self._fetch(pend, gen)
+
+    # ------------------------------------------------------------------
+    # Priority preemption
+    # ------------------------------------------------------------------
+
+    def preempt_below(self, priority: int) -> bool:
+        """Evict the lowest-priority row whose priority is strictly below
+        ``priority`` (ties: the least-progressed row). Returns True when a
+        row was cleanly evicted with :class:`faults.RowPreempted`; the
+        ``engine.preempt`` site turns the eviction into a quarantine.
+
+        Page pins are NOT released here: the victim may be mid-admission,
+        and dropping its page table while its last suffix piece is still
+        dispatching would make that piece attend over slab positions that
+        were never written, then publish that KV. The pins fall through
+        the victim's own unwind (the prefill's raise, or its lane's next
+        reset or rollback)."""
+        engine = self.engine
+        with self._cond:
+            victims = [s for s in self._streams
+                       if s.priority is not None and s.priority < priority and s._fetch_error is None]
+            if not victims:
+                return False
+            victim = min(victims, key=lambda s: (s.priority, s.pos))
+            injected: Exception | None = None
+            try:
+                self._faults.fire("engine.preempt", row=victim.row)
+            except Exception as e:
+                injected = e
+            if injected is None:
+                err: BaseException = faults.RowPreempted(
+                    f"row {victim.row} (tenant {victim.tenant!r}, priority {victim.priority}) preempted by a "
+                    f"priority-{priority} arrival; requeued through fair admission")
+                self.preempted_total += 1
+                engine._tel.preemptions.inc()
+            else:
+                err = faults.RowQuarantined("batch row retired: preemptive eviction failed for this row")
+                err.__cause__ = injected
+                self.quarantined_total += 1
+                engine._tel.rows_quarantined.inc()
+            victim._fetch_error = err
+            self._cond.notify_all()
+            return injected is None
+
+    def retract_preemption(self, stream: BatchStream) -> None:
+        """Drop an unconsumed preemption at request end (the victim finished
+        before its next_token could raise it), so it cannot requeue the
+        row's next request."""
+        with self._cond:
+            if isinstance(stream._fetch_error, faults.RowPreempted):
+                stream._fetch_error = None
 
     # ------------------------------------------------------------------
     # The pump: dispatch under the lock, fetch outside it
@@ -559,12 +798,18 @@ class BatchScheduler:
     def next_token(self, stream: BatchStream) -> int:
         """Next decoded token for ``stream``; whichever thread runs dry
         first dispatches and fetches the shared chunk for everyone. Raises
-        the row's RowQuarantined when its chunk came back corrupt."""
+        the row's typed failure (RowQuarantined, StallTimeout,
+        RowPreempted) once its row was retired, and DeadlineExceeded once
+        the request's deadline passed: the row then leaves the batch
+        between chunks without touching its co-batched rows."""
         while True:
             with self._cond:
                 if stream._fetch_error is not None:
                     err, stream._fetch_error = stream._fetch_error, None
                     raise err
+                if stream.deadline is not None and time.monotonic() >= stream.deadline:
+                    raise faults.DeadlineExceeded(
+                        f"request deadline expired mid-decode (row {stream.row}); the row leaves the batch")
                 if stream._queue:
                     return stream._queue.popleft()
                 if not stream._joined:
@@ -574,13 +819,47 @@ class BatchScheduler:
                     # chunk's compute then overlaps that fetch (at most one
                     # chunk runs ahead: the single pending slot bounds it)
                     self._dispatch_locked()
+                    if stream._fetch_error is not None:
+                        continue  # the dispatch retired this row
                 if self._pending is not None and not self._fetching:
                     pend, self._pending = self._pending, None
-                    self._fetching = True
+                    gen = self._begin_fetch_locked()
                 else:
                     self._cond.wait(timeout=0.1)  # another thread is mid-fetch
                     continue
-            self._fetch(pend)
+            self._fetch(pend, gen)
+
+    def _run_dispatch_locked(self, joined: list, dispatch_fn, fail_msg: str):
+        """The dispatch frame of the chunk and verify paths (lock held): the
+        ``engine.sdc`` site, then the ``batch.dispatch`` site under the
+        bounded retry-with-backoff loop, then the launch. The site fires
+        before any launch, so only it is retried; a raise from the site
+        past its retries, or from the launch itself (a kernel that failed
+        to launch, a CUDA error), retires every joined row with a typed
+        ``fail_msg`` quarantine and the scheduler serves on. Returns
+        ``dispatch_fn``'s result, or None after retiring the rows."""
+        tel = self.engine._tel
+
+        def on_retry(attempt, e):
+            self.retries_total += 1
+            tel.dispatch_retries.inc()
+
+        self._fire_sdc_locked()
+        try:
+            # the one sanctioned block under this lock: the bounded
+            # retries x backoff sleep
+            retry.retry_call(lambda: self._faults.fire("batch.dispatch"), self._retry_policy, on_retry=on_retry)
+            return dispatch_fn()
+        except Exception as error:
+            self.quarantined_total += len(joined)
+            tel.rows_quarantined.inc(len(joined))
+            for s in joined:
+                err = faults.RowQuarantined(fail_msg)
+                err.__cause__ = error
+                s._fetch_error = err
+                self._release_pins_locked(s)
+            self._cond.notify_all()
+            return None
 
     def _dispatch_locked(self) -> None:
         """Build and dispatch one batched chunk from the joined streams
@@ -591,8 +870,12 @@ class BatchScheduler:
             self._dispatch_spec_locked()
             return
         engine = self.engine
-        joined = [s for s in self._streams if s._joined and s._fetch_error is None]
+        joined = [s for s in self._streams if s._joined]
         if not joined:
+            return
+        joined = self._fire_sites_locked(joined)
+        if not joined:
+            self._cond.notify_all()
             return
         bucket = decode_bucket(max(s.row for s in joined) + 1, self.b_max)
         rows = self._streams[:bucket]
@@ -611,15 +894,24 @@ class BatchScheduler:
         )
         sw = Stopwatch()
         tel = engine._tel
-        with tel.span("batch_decode_chunk", bucket=bucket, active=len(joined), steps=self.chunk):
-            if self._pool is not None:
-                out, self._slab = sampling.decode_chunk_batched_paged(
-                    engine.cfg, engine.params, first, self._slab, pos, live, self._pool, self.chunk,
-                    tables=tables, matched=matched, **settings)
-            else:
-                out, self._slab = sampling.decode_chunk_batched(
-                    engine.cfg, engine.params, first, self._slab, pos, live, self.chunk, **settings)
-            fetch = HostFetch(out)
+
+        def dispatch():
+            with tel.span("batch_decode_chunk", bucket=bucket, active=len(joined), steps=self.chunk):
+                if self._pool is not None:
+                    out, self._slab = sampling.decode_chunk_batched_paged(
+                        engine.cfg, engine.params, first, self._slab, pos, live, self._pool, self.chunk,
+                        tables=tables, matched=matched, **settings)
+                else:
+                    out, self._slab = sampling.decode_chunk_batched(
+                        engine.cfg, engine.params, first, self._slab, pos, live, self.chunk, **settings)
+                return out, HostFetch(out)
+
+        res = self._run_dispatch_locked(
+            joined, dispatch, f"batched chunk dispatch failed after {self.retries + 1} attempts; this row's "
+            "request was retired")
+        if res is None:
+            return
+        out, fetch = res
         self.decode_forwards += self.chunk
         for s in joined:
             # the next chunk starts from this chunk's last token, on the device
@@ -639,8 +931,12 @@ class BatchScheduler:
         if self._fetching:
             return
         engine = self.engine
-        joined = [s for s in self._streams if s._joined and s._fetch_error is None]
+        joined = [s for s in self._streams if s._joined]
         if not joined:
+            return
+        joined = self._fire_sites_locked(joined)
+        if not joined:
+            self._cond.notify_all()
             return
         bucket = decode_bucket(max(s.row for s in joined) + 1, self.b_max)
         rows = self._streams[:bucket]
@@ -663,14 +959,22 @@ class BatchScheduler:
         dev = engine.device
         sw = Stopwatch()
         tel = engine._tel
-        with tel.span("spec_verify_chunk", bucket=bucket, active=len(joined), window=T):
-            out, self._slab = sampling.spec_verify_chunk_batched(
-                engine.cfg, engine.params, to_device(feed, dev), self._slab, pos, live, to_device(lens, dev),
-                to_device(temps, dev, torch.float32), to_device(topps, dev, torch.float32),
-                to_device(topks, dev, torch.int64), to_device(seeds, dev, torch.int64),
-                paged=None if self._pool is None else (self._pool, tables, matched), path=engine.q40_path,
-                sampled=any(t > 0.0 for t, ok in zip(temps, live) if ok))
-            fetch = HostFetch(out)
+
+        def dispatch():
+            with tel.span("spec_verify_chunk", bucket=bucket, active=len(joined), window=T):
+                out, self._slab = sampling.spec_verify_chunk_batched(
+                    engine.cfg, engine.params, to_device(feed, dev), self._slab, pos, live, to_device(lens, dev),
+                    to_device(temps, dev, torch.float32), to_device(topps, dev, torch.float32),
+                    to_device(topks, dev, torch.int64), to_device(seeds, dev, torch.int64),
+                    paged=None if self._pool is None else (self._pool, tables, matched), path=engine.q40_path,
+                    sampled=any(t > 0.0 for t, ok in zip(temps, live) if ok))
+                return HostFetch(out)
+
+        fetch = self._run_dispatch_locked(
+            joined, dispatch, f"batched verify dispatch failed after {self.retries + 1} attempts; this row's "
+            "request was retired")
+        if fetch is None:
+            return
         self.decode_forwards += 1
         self.spec_rows_max = max(self.spec_rows_max, bucket * T)
         if tel.enabled:
@@ -678,22 +982,114 @@ class BatchScheduler:
             tel.spec_draft_tokens.inc(int(lens.sum()))
         self._pending = ("spec", fetch, [(s, s._epoch) for s in joined], sw, lens, bucket)
 
-    def _fetch(self, pend) -> None:
+    def _wait_fetch(self, fn, gen: int):
+        """``fn()`` (the fetch's wait with its retries). Without the
+        watchdog it runs on this thread. With it, it runs on a helper
+        thread while this thread waits on the scheduler lock, so a hung
+        wait holds no request thread: once the watchdog retires ``gen``
+        this returns :data:`_RETIRED` at once (the helper's late result is
+        dropped)."""
+        if self._watchdog is None:
+            return fn()
+        box: list = []
+
+        def run():
+            try:
+                result = (True, fn())
+            except BaseException as e:
+                result = (False, e)
+            with self._cond:
+                box.append(result)
+                self._cond.notify_all()
+
+        threading.Thread(target=run, name="dllama-batch-fetch", daemon=True).start()
+        with self._cond:
+            while not box:
+                if not (self._fetching and self._fetch_gen == gen):
+                    return _RETIRED
+                self._cond.wait(timeout=0.1)
+        ok, value = box[0]
+        if ok:
+            return value
+        raise value
+
+    def _fetch(self, pend, gen: int) -> None:
         """Wait for a dispatched chunk's host copy (no lock held) and deliver
-        each joined row's column to its queue. A row whose tokens are out of
-        vocab or whose logits were non-finite is retired alone."""
+        each joined row's column to its queue. A failed wait is retried on
+        the same copy (``batch.fetch`` fires per attempt); when attempts run
+        out every row of the chunk is retired. A row whose logits were
+        non-finite or whose tokens are out of vocab (or that the
+        ``batch.row`` site corrupts) is retired alone. The epoch check keeps
+        a late fetch from feeding a row's next occupant; the generation
+        check keeps a fetch the watchdog retired from delivering at all."""
         mode, fetch, snapshot, sw, lens, bucket = pend
         tel = self.engine._tel
-        with tel.span("batch_decode_fetch", bucket=bucket):
-            host = fetch.wait()
+
+        def attempt_once():
+            self._faults.fire("batch.fetch")
+            with tel.span("batch_decode_fetch", bucket=bucket):
+                return fetch.wait()
+
+        def on_retry(attempt, e):
+            with self._cond:
+                self.retries_total += 1
+            tel.fetch_retries.inc()
+
+        host = error = None
+        try:
+            host = self._wait_fetch(lambda: retry.retry_call(attempt_once, self._retry_policy, on_retry=on_retry),
+                                    gen)
+        except Exception as e:
+            error = e
+        except BaseException:
+            # an interrupt mid-fetch: give up fetch ownership, then propagate
+            with self._cond:
+                if self._fetching and self._fetch_gen == gen:
+                    self._fetching = False
+                    self._fetch_started = None
+                self._cond.notify_all()
+            raise
+        with self._cond:
+            # claim the completion: the watchdog declares stalls under this
+            # lock, so exactly one side settles the rows. _fetching stays
+            # true until delivery, so the pending chunk behind this one is
+            # delivered strictly after it
+            owned = host is not _RETIRED and self._fetching and self._fetch_gen == gen
+            if owned:
+                self._fetch_started = None
+            else:
+                self._cond.notify_all()
+        if not owned:
+            return  # the watchdog retired this fetch: its rows hold StallTimeout
         if mode == "spec":
-            self._deliver_spec(host, snapshot, sw, lens, bucket)
+            self._deliver_spec(host, snapshot, sw, lens, bucket, error)
             self._drain_if_idle()
             return
-        toks, _, finite = integrity.split_chunk_outputs(host, self.chunk)
+        cfg = self.engine.cfg
+        bad: dict[int, BaseException] = {}
+        toks = fps = None
+        if host is not None:
+            toks, fps, finite = integrity.split_chunk_outputs(host, self.chunk)
+            with self._cond:
+                if self._sdc_logits_pending > 0:
+                    # engine.sdc message=logits: every column shifted in-vocab,
+                    # invisible to the checks below
+                    self._sdc_logits_pending -= 1
+                    toks = (toks + 1) % cfg.vocab_size
+            rule = self._faults.fires("batch.row", rows=[s.row for s, _ in snapshot])
+            if rule is not None and rule.row is not None and 0 <= rule.row < toks.shape[1]:
+                toks = toks.copy()
+                toks[:, rule.row] = -1  # rejected by the check below
+            for s, _ in snapshot:
+                if not finite[s.row]:
+                    bad[s.row] = faults.NonFiniteLogits(
+                        "batch row retired: decode produced non-finite logits for this row (caught by the "
+                        "device-side finiteness flag before a sampled token could launder it in-vocab)")
+                elif not ((toks[:, s.row] >= 0) & (toks[:, s.row] < cfg.vocab_size)).all():
+                    bad[s.row] = faults.RowQuarantined(
+                        "batch row retired: chunk produced corrupt tokens (NaN-logits class failure)")
         per_token_ms = sw.elapsed_ms() / self.chunk
         entry = _stats(per_token_ms)
-        cfg = self.engine.cfg
         delivered = 0
         with self._cond:
             # deliver and release fetch ownership in one block, so the next
@@ -702,16 +1098,14 @@ class BatchScheduler:
             for s, epoch in snapshot:
                 if not (s._joined and s._epoch == epoch):
                     continue
-                col = toks[:, s.row]
-                if not finite[s.row]:
-                    s._fetch_error = NonFiniteLogits("batch row retired: decode produced non-finite logits")
-                elif not ((col >= 0) & (col < cfg.vocab_size)).all():
-                    s._fetch_error = RowQuarantined("batch row retired: chunk produced out-of-vocab tokens")
-                if s._fetch_error is not None:
-                    self._release_pins_locked(s)
-                    tel.rows_quarantined.inc()
+                if toks is None or s.row in bad:
+                    err = bad.get(s.row) or faults.RowQuarantined(
+                        f"batch row retired: chunk fetch failed after {self.retries + 1} attempts")
+                    err.__cause__ = error
+                    self._retire_locked(s, err)
                     continue
-                s._queue.extend(int(t) for t in col)
+                s._queue.extend(int(t) for t in toks[:, s.row])
+                s._chunk_fps.append(int(fps[s.row]))
                 s.stats.extend([entry] * self.chunk)
                 delivered += 1
                 if s.trace is not None:
@@ -729,30 +1123,48 @@ class BatchScheduler:
             tel.decode_latency.observe(per_token_ms / 1000.0)
         self._drain_if_idle()
 
-    def _deliver_spec(self, out: np.ndarray, snapshot, sw, lens, bucket: int) -> None:
+    def _deliver_spec(self, out, snapshot, sw, lens, bucket: int, error) -> None:
         """Deliver one fetched verify step: row b's ``out[b]`` is [n_emit,
         tokens...]. Each row advances by its n_emit, extends its history and
-        queues the emitted tokens; a row whose n_emit falls outside 1..(its
-        own drafts + 1) or whose tokens are out of vocab is retired alone."""
+        queues the emitted tokens. A row the ``engine.spec_verify`` site
+        targets, or whose n_emit falls outside 1..(its own drafts + 1) or
+        whose tokens are out of vocab, is retired alone; a failed fetch
+        retires every row."""
         cfg = self.engine.cfg
         tel = self.engine._tel
         step_ms = sw.elapsed_ms()
-        delivered_rows = delivered_tokens = 0
-        with self._cond:
-            self._fetching = False
-            for s, epoch in snapshot:
-                if not (s._joined and s._epoch == epoch):
+        emits: dict[int, list[int]] = {}
+        causes: dict[int, BaseException | None] = {}
+        if out is not None:
+            for s, _ in snapshot:
+                try:
+                    self._faults.fire("engine.spec_verify", row=s.row)
+                except Exception as e:
+                    causes[s.row] = e
                     continue
                 n_emit = int(out[s.row, 0])
                 col = out[s.row, 1 : 1 + n_emit]
                 # the row's own draft budget bounds n_emit: a value past it
                 # would advance the position beyond the dispatch's seq_len clamp
                 if not 1 <= n_emit <= int(lens[s.row]) + 1 or not ((col >= 0) & (col < cfg.vocab_size)).all():
-                    s._fetch_error = RowQuarantined("batch row retired: verify step produced corrupt tokens")
-                    self._release_pins_locked(s)
-                    tel.rows_quarantined.inc()
+                    causes[s.row] = None
                     continue
-                toks = [int(t) for t in col]
+                emits[s.row] = [int(t) for t in col]
+        delivered_rows = delivered_tokens = 0
+        with self._cond:
+            self._fetching = False
+            for s, epoch in snapshot:
+                if not (s._joined and s._epoch == epoch):
+                    continue
+                if s.row not in emits:
+                    err = faults.RowQuarantined(
+                        "batch row retired: verify " + (f"fetch failed after {self.retries + 1} attempts"
+                                                        if out is None else "step failed or produced corrupt tokens"))
+                    err.__cause__ = error if out is None else causes.get(s.row)
+                    self._retire_locked(s, err)
+                    continue
+                toks = emits[s.row]
+                n_emit = len(toks)
                 s.pos += n_emit
                 s._first = toks[-1]  # host int: the next window's feed[0]
                 s._history.extend(toks)

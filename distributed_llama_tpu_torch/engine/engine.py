@@ -23,6 +23,12 @@ per token. The dispatch spans (``prefill_dispatch``, ``device_sample``,
 ``decode_chunk_dispatch``) time the host's issue of eager launches; the
 fetch spans (``first_token_fetch``, ``decode_chunk_fetch``) time the wait
 for the card. No span synchronizes the device.
+
+Faults: each engine binds the active :mod:`engine.faults` plan at
+construction; the single-stream surface fires ``engine.forward`` (every
+forward), ``engine.decode_dispatch`` (every decode chunk),
+``engine.fetch`` (every chunk fetch) and ``engine.spec_verify`` (every
+verify step), each before its launch or wait.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from distributed_llama_tpu_torch import prng, telemetry
+from distributed_llama_tpu_torch.engine import faults
 from distributed_llama_tpu_torch.engine import weights as weights_lib
 from distributed_llama_tpu_torch.models import llama, sampling
 from distributed_llama_tpu_torch.models.config import LlamaConfig
@@ -77,6 +84,13 @@ class StreamStats:
     # the occupying request's TraceContext (the server sets it per request;
     # None = untraced): the batch scheduler adds the row's spans to it
     trace = None
+    # the occupying request's deadline (a time.monotonic instant, or None),
+    # tenant and priority, set by the server per request: the server checks
+    # the deadline per token, the batch scheduler between chunks, and a
+    # batch row with a priority is a preemption candidate
+    deadline: float | None = None
+    tenant: str | None = None
+    priority: int | None = None
 
     def __init__(self):
         self.pos = 0
@@ -219,6 +233,7 @@ class EngineStream(StreamStats):
         """Issue one forward; returns device logits [T_padded, vocab] and
         advances pos by the real token count."""
         engine = self.engine
+        engine._faults.fire("engine.forward")
         n = tokens.shape[0]
         if n == 0:
             raise ValueError("empty token batch: at least one token required")
@@ -283,6 +298,7 @@ class EngineStream(StreamStats):
         """Issue one decode chunk without fetching; returns the device token
         tensor and advances pos by n_steps."""
         engine = self.engine
+        engine._faults.fire("engine.decode_dispatch")
         with engine._tel.span("decode_chunk_dispatch", pos=self.pos, steps=n_steps):
             tokens, self.cache = engine.decode_chunk_fn(
                 first_token, self.cache, self.pos, n_steps, float(temperature), float(topp), int(topk), seed32)
@@ -332,6 +348,7 @@ class EngineStream(StreamStats):
                 nxt_fetch = HostFetch(nxt)
             else:
                 nxt, k = None, 0
+            engine._faults.fire("engine.fetch")
             with engine._tel.span("decode_chunk_fetch", tokens=pending_n):
                 toks = fetch.wait()
             per_token_ms = sw.elapsed_ms() / pending_n
@@ -442,6 +459,7 @@ class EngineStream(StreamStats):
                 draft = drafter.draft(history, limit=T - 1)
                 feed = np.full(T, prev, np.int64)  # padding positions write stale K/V
                 feed[1 : 1 + len(draft)] = draft
+                engine._faults.fire("engine.spec_verify")
                 sw = Stopwatch()
                 with tel.span("spec_verify", pos=self.pos, window=T, drafted=len(draft)):
                     out_dev, self.cache = sampling.spec_verify_step(
@@ -505,9 +523,11 @@ class InferenceEngine:
         if q40_path not in PATHS:
             raise ValueError(f"unknown q40 path {q40_path!r}; expected one of {PATHS}")
         self.q40_path = q40_path
-        # the instrument bundle, bound once: null instruments unless
-        # telemetry was enabled before this engine was built
+        # the instrument bundle and the fault plan, bound once: null
+        # instruments unless telemetry was enabled before this engine was
+        # built, the no-op plan unless a fault plan was installed first
         self._tel = telemetry.EngineInstruments()
+        self._faults = faults.active_plan()
         reader = ModelFileReader(model_path)
         self.spec = reader.spec.clamp_seq_len(max_seq_len)
         self.cfg = config_from_spec(self.spec, moe_capacity_factor=moe_capacity_factor)
@@ -533,8 +553,22 @@ class InferenceEngine:
         self._transfer_ms = 0.0
         self._tokens = 0  # tokens covered by stats entries, the re-measurement cadence
         self._transfer_measured_at = 0
+        # the load-time weight checksum, computed at its first read
+        self._weights_checksum: str | None = None
         if self.tp_backend is not None:
             self._transfer_ms = self.tp_backend.measure_transfer_ms()
+
+    def weights_checksum(self) -> str:
+        """The loaded weights' integrity checksum, cached after the first
+        computation (:func:`integrity.params_checksum`: one pass over every
+        leaf). Call it right after construction to record the healthy
+        value; a later ``params_checksum(self.params)`` is the verify side.
+        Under tensor parallelism it covers every rank's params."""
+        if self._weights_checksum is None:
+            from distributed_llama_tpu_torch.engine import integrity
+
+            self._weights_checksum = integrity.params_checksum(self.params)
+        return self._weights_checksum
 
     def forward_fn(self, tokens: torch.Tensor, cache, pos: int, n_real: int | None = None):
         """One forward of ``tokens`` from ``pos`` over this engine's params:

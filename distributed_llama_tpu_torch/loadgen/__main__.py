@@ -12,13 +12,16 @@ The port's copy of the JAX package's loadgen CLI. Examples:
   python -m distributed_llama_tpu_torch.loadgen --url http://127.0.0.1:9990 \\
       --temperature 0.8 --sampled-share 0.5 --assert
 
-Options whose subsystem the port has not yet (fault plans, replicas, pods,
-tenant priorities and deadlines, preemption, the integrity canary and
-shadow votes, rollouts, the isolation proof, the flight recorder) raise
+  # chaos under load, and the two-phase isolation proof for tenant "gold"
+  ... --self-host --device cpu --faults "batch.row:kind=nan,row=1,after=2,count=1"
+  ... --self-host --device cpu --tenants "gold:share=0.3,priority=5;free:share=0.7" --isolation gold
+
+Options whose subsystem the port has not yet (replicas, pods, the
+integrity canary and shadow votes, rollouts, the flight recorder) raise
 ValueError naming their ROADMAP.md item.
 
 Exit codes: 0 = report produced (all asserted checks passed), 1 = an
-``--assert`` or requested gate failed, 2 = the run itself failed.
+``--assert``/``--isolation`` check failed, 2 = the run itself failed.
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ from distributed_llama_tpu_torch.loadgen import report as rep
 from distributed_llama_tpu_torch.loadgen import runner, workload
 
 # the ROADMAP.md item of each option whose subsystem is not ported
-_ADMISSION = "ROADMAP.md Queue 1 item 2.5 (tenants, fair admission, deadlines, preemption)"
 _REPLICAS = "ROADMAP.md Queue 1 item 2.7 (replicas, the SDC canary, fleet rollout, the flight recorder)"
 
 
@@ -61,8 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--suffixes", type=int, default=6)
     p.add_argument("--suffix-chars", type=int, default=12)
     p.add_argument("--tenants", type=str, default=None,
-                   help="tenant mix: 'name:share=S,slo_ttft_ms=T,slo_e2e_ms=E,max_tokens=M;...' (default: one "
-                   "'default' tenant); priority and deadline_ms raise (not ported)")
+                   help="tenant mix: 'name:share=S,priority=P,deadline_ms=D,slo_ttft_ms=T,slo_e2e_ms=E,"
+                   "max_tokens=M;...' (default: one 'default' tenant)")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="request-body temperature (0 = greedy; > 0 drives the device-sampled decode path with "
                    "pinned seeds)")
@@ -85,22 +87,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="self-host prefix-cache pool budget in pages (default: slab-sized)")
     p.add_argument("--admission-queue", type=int, default=None,
                    help="self-host admission queue bound (default 2x --parallel)")
+    p.add_argument("--server-tenants", type=str, default=None,
+                   help="self-host --tenants spec (weights/priorities/queues); defaults to the workload tenants "
+                   "at weight 1")
+    p.add_argument("--faults", type=str, default=None,
+                   help="self-host fault-plan spec (the server's --faults): chaos under load")
+    p.add_argument("--faults-seed", type=int, default=0)
+    p.add_argument("--no-preempt", action="store_true", help="self-host server without priority preemption")
     # not ported: each raises ValueError naming its ROADMAP.md item
     p.add_argument("--replicas", type=int, default=None, help="not ported: more than 1 raises")
     p.add_argument("--pod", type=str, default=None, help="not ported: raises")
-    p.add_argument("--server-tenants", type=str, default=None, help="not ported: raises")
-    p.add_argument("--faults", type=str, default=None, help="not ported: raises")
-    p.add_argument("--no-preempt", action="store_true", help="not ported: raises")
     p.add_argument("--canary-interval-s", type=float, default=0.0, help="not ported: above 0 raises")
     p.add_argument("--shadow-rate", type=float, default=0.0, help="not ported: above 0 raises")
     p.add_argument("--rollout-weights", type=str, default=None, help="not ported: raises")
-    p.add_argument("--isolation", type=str, default=None, metavar="TENANT", help="not ported: raises")
     p.add_argument("--expect-flight", action="append", default=[], metavar="KIND[@SITE][:MIN]",
                    help="not ported: raises")
     # report / checks
     p.add_argument("--out", type=str, default=None, help="report JSON path")
     p.add_argument("--assert", dest="assert_checks", action="store_true",
                    help="exit 1 unless fairness + consistency checks pass")
+    p.add_argument("--isolation", type=str, default=None, metavar="TENANT",
+                   help="two-phase isolation proof: run TENANT's arrivals alone, then the full mix; asserts "
+                   "contended p99 TTFT <= bound x uncontended + slack")
+    p.add_argument("--isolation-bound", type=float, default=10.0)
+    p.add_argument("--isolation-slack-ms", type=float, default=1000.0)
     p.add_argument("--goodput-floor", type=float, default=None, metavar="FRACTION",
                    help="assert aggregate goodput_under_slo >= FRACTION")
     p.add_argument("--expect-delta", action="append", default=[], metavar="NAME:MIN",
@@ -114,20 +124,13 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise ValueError for an option whose subsystem the port lacks."""
     refused = [
-        ("--faults", args.faults, "ROADMAP.md Queue 1 item 2.3 (retries, the stall watchdog, fault sites)"),
         ("--replicas > 1", args.replicas is not None and args.replicas > 1, _REPLICAS),
         ("--pod", args.pod, "ROADMAP.md Queue 1 item 4 (sequence parallel, expert parallel and pod)"),
-        ("--server-tenants", args.server_tenants, _ADMISSION),
-        ("--no-preempt", args.no_preempt, _ADMISSION),
-        ("--isolation", args.isolation, _ADMISSION),
         ("--canary-interval-s", args.canary_interval_s > 0, _REPLICAS),
         ("--shadow-rate", args.shadow_rate > 0, _REPLICAS),
         ("--rollout-weights", args.rollout_weights is not None, _REPLICAS),
         ("--expect-flight", args.expect_flight, _REPLICAS),
     ]
-    for t in workload.parse_tenant_loads(args.tenants):
-        if t.priority is not None or t.deadline_ms is not None:
-            refused.append((f"tenant {t.name!r} priority/deadline_ms", True, _ADMISSION))
     for name, on, item in refused:
         if on:
             raise ValueError(f"{name} is not ported yet: {item}")
@@ -209,7 +212,9 @@ def main(argv=None) -> int:
         from distributed_llama_tpu_torch.loadgen.selfhost import start_selfhost
 
         host = start_selfhost(parallel=args.parallel, seq_len=args.seq_len, kv_pages=args.kv_pages,
-                              admission_queue=args.admission_queue, topk=args.topk, device=args.device)
+                              admission_queue=args.admission_queue, topk=args.topk, device=args.device,
+                              tenants=args.server_tenants, preempt=not args.no_preempt, faults_spec=args.faults,
+                              faults_seed=args.faults_seed)
         url = host.url
         print(f"self-hosted server at {url}", file=sys.stderr)
     else:
@@ -218,12 +223,28 @@ def main(argv=None) -> int:
         if args.warmup > 0:
             warmed = runner.warm_server(url, schedule, n=args.warmup, timeout_s=max(args.timeout_s, 300.0))
             print(f"warmup: {warmed}/{args.warmup} completed", file=sys.stderr)
+        if host is not None:
+            # rule gates (after/count) count the measured window's hits
+            host.reset_faults()
+        solo_results = None
+        if args.isolation:
+            solo = [r for r in schedule if r.tenant == args.isolation]
+            if not solo:
+                print(f"isolation tenant {args.isolation!r} has no arrivals", file=sys.stderr)
+                return 2
+            # phase 1: the probe tenant alone, same instants (uncontended)
+            solo_results, _ = runner.run_schedule(url, [dataclasses.replace(r, index=i) for i, r in enumerate(solo)],
+                                                  max_inflight=args.max_inflight, timeout_s=args.timeout_s)
         before = rep.scrape_metrics(url)
         results, wall_s = runner.run_schedule(url, schedule, max_inflight=args.max_inflight,
                                               timeout_s=args.timeout_s)
         after = settled_scrape(url)
         report = rep.build_report(w, schedule, results, wall_s, fingerprint, replay_ok,
                                   metrics_before=before, metrics_after=after)
+        if solo_results is not None:
+            report["checks"]["isolation"] = rep.check_isolation(args.isolation, solo_results, results,
+                                                                bound=args.isolation_bound,
+                                                                slack_ms=args.isolation_slack_ms)
         if args.goodput_floor is not None:
             report["checks"]["goodput"] = rep.check_goodput(report, args.goodput_floor)
         if args.expect_delta:
@@ -240,13 +261,13 @@ def main(argv=None) -> int:
         requested = [report["checks"].get(k) for k in gate_names]
         bad = [f"[{k}] {v}" for k, chk in zip(gate_names, requested) if chk and not chk.get("ok", True)
                for v in chk.get("violations", [])]
-        if args.assert_checks:
+        if args.assert_checks or args.isolation:
             bad = rep.failed_checks(report)
         if bad:
             for v in bad:
                 print(f"CHECK FAILED: {v}", file=sys.stderr)
             return 1
-        if args.assert_checks or any(requested):
+        if args.assert_checks or args.isolation or any(requested):
             print("all checks passed", file=sys.stderr)
         return 0
     finally:

@@ -2,10 +2,10 @@
 and the machine-checked invariants (fairness / consistency).
 
 The port's copy of the JAX package's ``loadgen/report.py``: the same
-report, byte for byte, from the same inputs. The two-phase isolation
-check, the rollout gate and the flight-recorder gate are left out with
-the subsystems they judge (tenant fair admission, fleet rollout,
-``telemetry/flight.py``; ROADMAP.md Queue 1 item 2).
+report, byte for byte, from the same inputs, and the two-phase isolation
+check. The rollout gate and the flight-recorder gate are left out with the
+subsystems they judge (fleet rollout, ``telemetry/flight.py``; ROADMAP.md
+Queue 1 item 2.7).
 
 The report is ONE JSON document (docs/SERVING.md defines the shape) built
 from three inputs: the deterministic schedule, the measured per-request
@@ -34,7 +34,7 @@ import json
 import re
 import urllib.request
 
-from distributed_llama_tpu_torch.stats import summarize
+from distributed_llama_tpu_torch.stats import percentile, summarize
 from distributed_llama_tpu_torch.loadgen.runner import OUTCOMES, RequestResult
 from distributed_llama_tpu_torch.loadgen.workload import (
     ScheduledRequest,
@@ -350,6 +350,38 @@ def check_fairness(report: dict) -> dict:
                 "completed while other tenants were served"
             )
     return {"ok": not violations, "violations": violations}
+
+
+def check_isolation(tenant: str, uncontended: list[RequestResult], contended: list[RequestResult],
+                    bound: float = 10.0, slack_ms: float = 1000.0) -> dict:
+    """Two-phase tenant-isolation check: tenant ``tenant``'s p99 TTFT under
+    full contention must stay within ``bound x uncontended p99 +
+    slack_ms`` (the slack absorbs noise where the uncontended p99 is a few
+    milliseconds)."""
+    solo = [r.ttft_ms for r in uncontended
+            if r.tenant == tenant and r.outcome == "completed" and r.ttft_ms is not None]
+    mixed = [r.ttft_ms for r in contended
+             if r.tenant == tenant and r.outcome == "completed" and r.ttft_ms is not None]
+    if not solo or not mixed:
+        return {"ok": False,
+                "violations": [f"tenant {tenant!r}: no completed samples in {'solo' if not solo else 'mixed'} phase"]}
+    p99_solo = percentile(solo, 99)
+    p99_mixed = percentile(mixed, 99)
+    limit = bound * p99_solo + slack_ms
+    ok = p99_mixed <= limit
+    return {
+        "ok": ok,
+        "tenant": tenant,
+        "uncontended_p99_ttft_ms": round(p99_solo, 3),
+        "contended_p99_ttft_ms": round(p99_mixed, 3),
+        "bound": bound,
+        "slack_ms": slack_ms,
+        "limit_ms": round(limit, 3),
+        "violations": [] if ok else [
+            f"tenant {tenant!r}: contended p99 TTFT {p99_mixed:.1f} ms exceeds {limit:.1f} ms ({bound}x "
+            f"uncontended {p99_solo:.1f} ms + {slack_ms:.0f} ms slack)"
+        ],
+    }
 
 
 def check_goodput(report: dict, floor: float) -> dict:

@@ -6,8 +6,9 @@ replica: telemetry enabled before anything binds its instruments (the
 report scrapes ``/metrics``), batched decode with the paged prefix cache
 on, on the card unless ``device="cpu"`` is passed. The model, tokenizer
 and server settings are the JAX self-host's, so the same schedule streams
-the same greedy completions from both packages. Fault plans, replicas,
-pods, tenants, the integrity canary and rollouts are not ported
+the same greedy completions from both packages. A fault plan is installed
+before anything binds it; tenants and preemption are the server's flags.
+Replicas, pods, the integrity canary and rollouts are not ported
 (``loadgen/__main__.py`` refuses them by name).
 """
 
@@ -32,10 +33,23 @@ class SelfHost:
     state: object  # ApiState
     server: ThreadingHTTPServer
     workdir: str
+    plan: object | None = None  # the installed FaultPlan, if any
+
+    def reset_faults(self) -> None:
+        """Rewind the fault plan's hit/fired counters, so ``after=`` and
+        ``count=`` gates count the measured window's hits, not warmup's."""
+        if self.plan is not None:
+            self.plan.reset()
 
     def stop(self) -> None:
         self.server.shutdown()
         self.server.server_close()
+        if self.state.batch is not None:
+            self.state.batch.close()
+        if self.plan is not None:
+            from distributed_llama_tpu_torch.engine import faults
+
+            faults.clear()
         shutil.rmtree(self.workdir, ignore_errors=True)
 
 
@@ -49,6 +63,11 @@ def start_selfhost(
     seed: int = 0,
     topk: int = 0,
     device: str = "cuda",
+    tenants: str | None = None,
+    preempt: bool = True,
+    faults_spec: str | None = None,
+    faults_seed: int = 0,
+    deadline_ms: float | None = None,
 ) -> SelfHost:
     """Build the tiny synthetic f32 model and tokenizer, construct the
     port's ApiState (batched decode, prefix cache) and serve it on an
@@ -57,7 +76,7 @@ def start_selfhost(
     import torch
 
     from distributed_llama_tpu_torch import telemetry
-    from distributed_llama_tpu_torch.engine import InferenceEngine
+    from distributed_llama_tpu_torch.engine import InferenceEngine, faults
     from distributed_llama_tpu_torch.formats.synthetic import (
         synthetic_tokenizer_data,
         tiny_spec,
@@ -67,6 +86,9 @@ def start_selfhost(
     from distributed_llama_tpu_torch.tokenizer import Sampler, Tokenizer
 
     telemetry.enable()
+    plan = None
+    if faults_spec:
+        plan = faults.install(faults.parse(faults_spec, seed=faults_seed))
     data = synthetic_tokenizer_data()
     data.chat_template = SYNTHETIC_CHAT_TEMPLATE
     tok = Tokenizer(data)
@@ -80,11 +102,12 @@ def start_selfhost(
         parallel=parallel, batch_decode=True, decode="device",
         decode_chunk=decode_chunk, prefill_chunk=64,
         prefix_cache=True, kv_pages=kv_pages, kv_page_size=kv_page_size,
-        admission_queue=admission_queue,
+        admission_queue=admission_queue, tenants=tenants, preempt=preempt, deadline_ms=deadline_ms,
+        stall_timeout_s=60.0,
     )
     state = ApiState(engine, tok, sampler, args)
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     server.daemon_threads = True
     threading.Thread(target=server.serve_forever, name="dllama-selfhost", daemon=True).start()
     return SelfHost(url=f"http://127.0.0.1:{server.server_address[1]}", state=state, server=server,
-                    workdir=workdir)
+                    workdir=workdir, plan=plan)

@@ -2,7 +2,9 @@
 /healthz, /readyz, /metrics and /debug/trace/<request_id>.
 
     python -m distributed_llama_tpu_torch.server.api --model m.m --tokenizer t.t \\
-        --parallel 4 [--port 9990] [--device cpu] [--telemetry]
+        --parallel 4 [--port 9990] [--device cpu] [--telemetry] \\
+        [--tenants "gold:weight=4,priority=10;free:weight=1"] [--deadline-ms 30000] \\
+        [--faults "batch.row:kind=nan,row=1,count=1"]
 
 The port's copy of the JAX package's ``server/api.py`` serving core, one
 replica over one engine: SSE streaming and plain JSON responses, per-request
@@ -20,10 +22,31 @@ concurrent completions coalesce into one batched decode dispatch per chunk,
 reading each weight matrix once per step for all of them, and with
 ``--prefix-cache`` (the default) repeated prompt prefixes are served from
 the shared page pool. Otherwise each lane is its own
-:class:`~distributed_llama_tpu_torch.engine.engine.EngineStream`. A request
-takes the free lane whose chat-prefix cache matches best; when every lane
-is busy it waits in a bounded queue, and past ``--admission-queue`` waiters
-(default 2 x --parallel) it gets 429 with Retry-After.
+:class:`~distributed_llama_tpu_torch.engine.engine.EngineStream`.
+
+Admission is weighted-fair (:mod:`server.admission`): a request queues
+under its ``tenant`` (body field, default ``default``; ``--tenants`` sets
+weights, priorities and per-tenant queue bounds), slots are granted
+priority class first, then by deficit round-robin across tenants, and past
+``--admission-queue`` waiters (default 2 x --parallel) or its tenant's bound
+a request gets 429 with a jittered Retry-After (1 s plus up to
+``--retry-after-jitter-s``). A granted request takes the free lane whose
+chat-prefix cache matches best. With one replica there is no replica pool:
+the preempt hook is the batch scheduler's own ``preempt_below``, so a
+queued higher-priority arrival evicts the lowest-priority decode row
+(``--no-preempt`` queues strictly); the victim is requeued through fair
+admission and re-run from its prompt at its pinned seed, the SSE deltas it
+already sent suppressed (at most ``MAX_PREEMPT_REQUEUES`` times, then 503).
+
+Deadlines: ``deadline_ms`` in the body (or ``--deadline-ms``) becomes one
+monotonic instant for queueing, prefill and decode: 504 when it expires in
+the queue or before any token, a terminal SSE error event when it expires
+mid-stream; a non-finite or non-positive value is 400. Faults: a row the
+batch scheduler quarantines, a stall its watchdog
+(``--stall-timeout-s``) declares, or an exhausted requeue ends its request
+typed (500, or an SSE error event once streaming); co-batched requests are
+unaffected. ``--faults`` installs a fault plan (:mod:`engine.faults`)
+before anything binds it; ``--max-body-bytes`` caps request bodies (413).
 
 Observability: ``/healthz`` is liveness; ``/readyz`` is 200, or 503 while
 the server drains after SIGTERM (new completions get 503 + Retry-After,
@@ -37,11 +60,11 @@ served at ``/debug/trace/<id>`` (``?format=chrome`` for a Chrome trace),
 and the server-side TTFT (the instant the first SSE content delta is
 written, for a streamed request), TPOT and per-stage times land in
 ``dllama_ttft_seconds`` / ``dllama_tpot_seconds`` /
-``dllama_request_stage_seconds`` under tenant ``default``.
+``dllama_request_stage_seconds`` under the request's tenant.
 
-Replicas, fleet operations, tenants and fair admission, deadlines, the
-integrity canary, the flight recorder and weight rollout are not ported
-yet (ROADMAP.md).
+Replicas, fleet operations, the integrity canary and shadow votes, the
+flight recorder and weight rollout are not ported yet (ROADMAP.md Queue 1
+item 2.7).
 """
 
 from __future__ import annotations
@@ -50,6 +73,7 @@ import argparse
 import dataclasses
 import json
 import math
+import random
 import signal
 import sys
 import threading
@@ -57,7 +81,16 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from distributed_llama_tpu_torch import telemetry
+from distributed_llama_tpu_torch import retry, telemetry
+from distributed_llama_tpu_torch.engine import faults
+from distributed_llama_tpu_torch.engine.faults import DeadlineExceeded
+from distributed_llama_tpu_torch.server.admission import (
+    DEFAULT_TENANT,
+    AdmissionRejected,
+    FairAdmission,
+    ServerDraining,
+    parse_tenants,
+)
 from distributed_llama_tpu_torch.telemetry import Stopwatch, trace
 from distributed_llama_tpu_torch.telemetry.trace import RequestTraceStore
 from distributed_llama_tpu_torch.tokenizer import (
@@ -73,10 +106,16 @@ from distributed_llama_tpu_torch.tokenizer import (
 )
 
 MODEL_NAME = "Distributed Model"
-MAX_BODY_BYTES = 1 << 20  # request bodies beyond this get 413 unread
-# the tenant label of every request: the JAX server's default tenant, the
-# one it uses without --tenants (fair admission is not ported)
-DEFAULT_TENANT = "default"
+MAX_BODY_BYTES = 1 << 20  # the default --max-body-bytes: larger bodies get 413 unread
+
+# a preempted request requeues through fair admission at most this many
+# times before the server answers 503 + Retry-After: a deadline-less
+# victim under sustained higher-priority pressure must not requeue forever
+MAX_PREEMPT_REQUEUES = 3
+
+# the requeue loop in the retry vocabulary: N+1 attempts, no sleep between
+# them (the fair admission queue is the backpressure)
+REQUEUE_POLICY = retry.BackoffPolicy(attempts=MAX_PREEMPT_REQUEUES + 1)
 
 
 def new_request_id() -> str:
@@ -85,14 +124,6 @@ def new_request_id() -> str:
 
 class BadRequest(ValueError):
     """Client error in a request body (HTTP 400)."""
-
-
-class AdmissionRejected(RuntimeError):
-    """Every lane is busy and the wait queue is full (HTTP 429)."""
-
-
-class ServerDraining(RuntimeError):
-    """The server is draining after SIGTERM and admits nothing (HTTP 503)."""
 
 
 @dataclasses.dataclass
@@ -142,6 +173,7 @@ class StreamSlot:
     cache: NaiveCache
     sampler: Sampler
     busy: bool = False
+    tenant: str | None = None  # the occupying request's tenant (metrics)
 
 
 class ApiState:
@@ -169,8 +201,31 @@ class ApiState:
         ]
         aq = getattr(args, "admission_queue", None)
         self.queue_limit = max(0, int(aq)) if aq is not None else 2 * n
-        self._lanes = threading.Condition()
-        self._waiting = 0
+        mb = getattr(args, "max_body_bytes", None)  # 0 is a valid cap
+        self.max_body_bytes = int(mb) if mb is not None else MAX_BODY_BYTES
+        self.default_deadline_ms = getattr(args, "deadline_ms", None)
+        # weighted-fair admission: one permit per lane, per-tenant bounded
+        # queues, priority classes first (server/admission.py)
+        self.tenants = parse_tenants(getattr(args, "tenants", None))
+        self.admission = FairAdmission(n, tenants=self.tenants, queue_limit=self.queue_limit)
+        if self.batch is not None and getattr(args, "preempt", True):
+            # one replica, no replica pool: the hook is the scheduler's own
+            # (called outside the admission lock)
+            self.admission.preempt_hook = self.batch.preempt_below
+        # the lane choice after a grant (a permit guarantees a free lane)
+        self._lanes = threading.Lock()
+        # jittered Retry-After: 1 s plus up to --retry-after-jitter-s,
+        # drawn per response from an entropy-seeded RNG, so rejected
+        # clients do not retry in lockstep
+        self.retry_after_base_s = 1
+        self.retry_after_jitter_s = max(0, int(getattr(args, "retry_after_jitter_s", 2) or 0))
+        self._retry_rng = random.Random()
+        # the SSE writer fires the server.send site through it
+        self.faults = faults.active_plan()
+        # requests ended by their deadline: a plain count beside
+        # dllama_deadline_exceeded_total, readable with telemetry off
+        self._count_lock = threading.Lock()
+        self.deadline_exceeded_total = 0
         self.draining = False
         self.tel = telemetry.ServerInstruments()
         # the bounded store behind GET /debug/trace/<id>; None with telemetry
@@ -196,87 +251,100 @@ class ApiState:
 
         return BatchScheduler(
             engine, n_rows=n, chunk=getattr(args, "decode_chunk", 32),
+            stall_timeout_s=getattr(args, "stall_timeout_s", None),
             prefix_cache=getattr(args, "prefix_cache", True), kv_pages=getattr(args, "kv_pages", None),
             page_size=getattr(args, "kv_page_size", 64), prefill_chunk=getattr(args, "prefill_chunk", 256),
             spec_draft=getattr(args, "spec_draft", 0), spec_ngram=getattr(args, "spec_ngram", 3),
         )
 
-    def _acquire_slot(self, messages: list[dict], ctx=None) -> StreamSlot:
-        """Take the free lane whose chat-prefix cache matches best (an
-        empty cache on ties); wait in the bounded queue when none is free.
-        A drain that begins while the request waits bounces it (503)."""
+    def _acquire_slot(self, messages: list[dict], deadline: float | None = None, tenant: str = DEFAULT_TENANT,
+                      priority: int = 0, ctx=None) -> StreamSlot:
+        """Take a lane through weighted-fair admission: when all are busy
+        the request queues boundedly under its tenant (AdmissionRejected:
+        429), grants go priority class first then deficit round-robin, a
+        higher-priority arrival may preempt a lower-priority decode row
+        (the admission hook), and a request whose deadline expires in line
+        leaves with DeadlineExceeded (504). The granted request takes the
+        free lane whose chat-prefix cache matches best (an empty cache on
+        ties)."""
         sw = Stopwatch()
+        tel = self.tel
         try:
-            with trace.span(ctx, "queue_wait"), self._lanes:
-                if self.draining:
-                    raise ServerDraining("server is draining; not admitting")
-                if not any(not s.busy for s in self.slots):
-                    if self._waiting >= self.queue_limit:
-                        raise AdmissionRejected(
-                            f"all {len(self.slots)} lanes busy and {self._waiting} requests queued")
-                    self._waiting += 1
-                    try:
-                        while not any(not s.busy for s in self.slots):
-                            self._lanes.wait()
-                            if self.draining:
-                                raise ServerDraining("server is draining; not admitting")
-                    finally:
-                        self._waiting -= 1
-                t_pick = time.perf_counter()
-                slot = max((s for s in self.slots if not s.busy),
-                           key=lambda s: (s.cache.match_len(messages), 0 if s.cache.items else 1))
-                slot.busy = True
+            with trace.span(ctx, "queue_wait"):
+                self.admission.acquire(tenant, priority, deadline, trace=ctx)
         except AdmissionRejected:
-            self.tel.admission_rejected.inc()
+            tel.admission_rejected.inc()
+            tel.tenant_rejected.labels(tenant=tenant).inc()
             raise
+        finally:
+            tel.tenant_queue_depth.labels(tenant=tenant).set(self.admission.queue_depth(tenant))
+        if self.draining:
+            # a SIGTERM that landed while this request queued
+            self.admission.release()
+            raise ServerDraining("server is draining; not admitting")
         queue_s = sw.elapsed_s()
-        self.tel.queue_wait.observe(queue_s)
+        tel.queue_wait.observe(queue_s)
+        tel.tenant_admitted.labels(tenant=tenant).inc()
+        tel.tenant_active.labels(tenant=tenant).inc()
         if ctx is not None:
-            # the lane choice ran inside the queue lock: its share of the
-            # wait is the placement stage
-            place_s = time.perf_counter() - t_pick
-            ctx.add_span("placement", t_pick, place_s)
-            ctx.add_stage("queue", queue_s - place_s)
-            ctx.add_stage("placement", place_s)
+            ctx.add_stage("queue", queue_s)
+        sw.restart()
+        with trace.span(ctx, "placement"), self._lanes:
+            slot = max((s for s in self.slots if not s.busy),
+                       key=lambda s: (s.cache.match_len(messages), 0 if s.cache.items else 1))
+            slot.busy = True
+            slot.tenant = tenant
+        if ctx is not None:
+            ctx.add_stage("placement", sw.elapsed_s())
         return slot
 
     def _release_slot(self, slot: StreamSlot) -> None:
+        tenant = slot.tenant or DEFAULT_TENANT
         with self._lanes:
             slot.busy = False
-            self._lanes.notify_all()
+            slot.tenant = None
+        self.admission.release()
+        self.tel.tenant_active.labels(tenant=tenant).dec()
 
     def begin_drain(self) -> None:
         """Stop admitting completions (SIGTERM): waiting and new requests get
         503 + Retry-After, ``/readyz`` flips 503, in-flight requests finish.
         Idempotent."""
-        with self._lanes:
-            self.draining = True
-            self._lanes.notify_all()
+        self.draining = True
+        self.admission.begin_drain()
         self.tel.draining.set(1)
 
     def drain_wait(self, timeout_s: float) -> bool:
-        """Wait until no lane is busy, at most ``timeout_s``; True if idle."""
-        deadline = time.monotonic() + timeout_s
-        with self._lanes:
-            while any(s.busy for s in self.slots):
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    return False
-                self._lanes.wait(left)
-        return True
+        """Wait until every permit is back (no completion in flight), at
+        most ``timeout_s``; True if idle."""
+        return self.admission.drain_wait(timeout_s)
+
+    def close(self) -> None:
+        """Close the batch scheduler (its watchdog thread, its slab and pool):
+        the server is shut down."""
+        if self.batch is not None:
+            self.batch.close()
+
+    def note_deadline_exceeded(self) -> None:
+        with self._count_lock:
+            self.deadline_exceeded_total += 1
+        self.tel.deadline_exceeded.inc()
+
+    def retry_after(self) -> int:
+        """Seconds for a 429/503 ``Retry-After``: base plus uniform jitter,
+        drawn per response."""
+        return self.retry_after_base_s + self._retry_rng.randint(0, self.retry_after_jitter_s)
 
     def ready_payload(self) -> dict:
         """The ``/readyz`` JSON body for one replica: drain status, queue
         depth, free lanes, and the replica entry of the JAX server's schema
         (docs/OBSERVABILITY.md "Readiness schema")."""
-        with self._lanes:
-            busy = sum(s.busy for s in self.slots)
-            waiting = self._waiting
+        busy = sum(s.busy for s in self.slots)
         return {
             "status": "draining" if self.draining else "ready",
             "draining": self.draining,
-            "queue_depth": waiting,
-            "free_slots": len(self.slots) - busy,
+            "queue_depth": self.admission.waiting(),
+            "free_slots": max(0, self.admission.free_slots()),
             "replicas": [{"replica": 0, "state": "healthy", "active_rows": busy, "slots": len(self.slots)}],
         }
 
@@ -284,49 +352,99 @@ class ApiState:
                  request_id: str | None = None) -> dict | None:
         """Run one completion. ``send_chunk(str)`` streams SSE data lines when
         the request has stream=true (then returns None); otherwise returns
-        the response JSON."""
+        the response JSON.
+
+        A preempted request re-enters fair admission and re-runs from its
+        prompt at the same pinned seed; the re-run streams what the first
+        run streamed, so its first ``sent`` SSE deltas are suppressed and
+        the client sees one continuous stream (the replay's trace attempt
+        is a sibling in the same tree)."""
         if params is None:
             params = self._parse(body)
         if request_id is None:
             request_id = new_request_id()
-        if params.get("seed") is None:
-            params["seed"] = int(time.time_ns() % (1 << 31))
+        # one monotonic instant for queueing, prefill and decode, across
+        # requeues too
+        deadline_ms = params.get("deadline_ms") or self.default_deadline_ms
+        deadline = time.monotonic() + float(deadline_ms) / 1000.0 if deadline_ms else None
+        # canonical once: past the registry cap, unknown names fold into the
+        # default bucket before any per-tenant label is minted
+        tenant = self.admission.resolve(params.get("tenant") or DEFAULT_TENANT)
+        priority = params.get("priority")
+        if priority is None:
+            priority = self.admission.config(tenant).priority
         if self.draining:
             raise ServerDraining("server is draining; not admitting")
+        # the seed is pinned once per request, not per attempt: a replay
+        # must draw the coins the first run drew
+        if params.get("seed") is None:
+            params["seed"] = int(time.time_ns() % (1 << 31))
         traces = self.traces
-        ctx = traces.begin(request_id, DEFAULT_TENANT) if traces is not None else None
-        try:
+        ctx = traces.begin(request_id, tenant) if traces is not None else None
+        attempts = sent = skip = 0
+
+        def guarded_send(data: str):
+            nonlocal sent, skip
+            if skip > 0:
+                skip -= 1  # a delta the client already has
+                return
+            send_chunk(data)
+            sent += 1
+
+        def attempt_once():
+            nonlocal attempts, skip
+            skip = sent
             if ctx is not None:
-                ctx.begin_attempt()
-            slot = self._acquire_slot(params["messages"], ctx)
+                ctx.begin_attempt(replayed=attempts > 0)
+            attempts += 1
+            slot = self._acquire_slot(params["messages"], deadline, tenant, priority, ctx=ctx)
+            sched = getattr(slot.stream, "scheduler", None)
             try:
+                slot.stream.deadline = deadline
                 slot.stream.prefix_cache_enabled = params.get("cache", "on") != "off"
+                # the row's labels for preempt_below's victim choice
+                slot.stream.tenant = tenant
+                slot.stream.priority = priority
                 # the batch scheduler records this row's spans into the trace
                 slot.stream.trace = ctx
-                return self._complete_on(slot, params, send_chunk, request_id, ctx)
+                return self._complete_on(slot, params, guarded_send, request_id, deadline, ctx)
             finally:
-                slot.stream.trace = None
+                slot.stream.deadline = None
                 slot.stream.prefix_cache_enabled = True
+                slot.stream.tenant = None
+                slot.stream.priority = None
+                slot.stream.trace = None
+                if sched is not None:
+                    # an eviction the request beat to the finish line must
+                    # not requeue the row's next request
+                    sched.retract_preemption(slot.stream)
                 self._release_slot(slot)
+
+        try:
+            return retry.retry_call(attempt_once, REQUEUE_POLICY, retry_on=faults.RowPreempted,
+                                    on_retry=lambda a, e: self.tel.preempt_requeues.inc())
         finally:
             if ctx is not None:
                 # TTFT/TPOT and the stage breakdown observe the timestamps
                 # the trace tree reports, so /metrics and /debug/trace agree;
                 # a failed request still attributes where its time went
                 if ctx.ttft_s is not None:
-                    self.tel.ttft.labels(tenant=DEFAULT_TENANT).observe(ctx.ttft_s)
+                    self.tel.ttft.labels(tenant=tenant).observe(ctx.ttft_s)
                 if ctx.tpot_s is not None:
-                    self.tel.tpot.labels(tenant=DEFAULT_TENANT).observe(ctx.tpot_s)
+                    self.tel.tpot.labels(tenant=tenant).observe(ctx.tpot_s)
                 for stage, seconds in dict(ctx.stages).items():
-                    self.tel.stage_seconds.labels(stage=stage, tenant=DEFAULT_TENANT).observe(seconds)
+                    self.tel.stage_seconds.labels(stage=stage, tenant=tenant).observe(seconds)
                 traces.finish(ctx)
 
-    def _complete_on(self, slot: StreamSlot, params: dict, send_chunk, request_id: str, ctx=None) -> dict | None:
+    def _complete_on(self, slot: StreamSlot, params: dict, send_chunk, request_id: str,
+                     deadline: float | None = None, ctx=None) -> dict | None:
         engine, tokenizer = slot.stream, self.tokenizer
         stream = params["stream"]
         # stage clock: prefill = entry to the prefill's return (tokenize,
         # cache resolve, dispatch), decode = the rest of the token loop
         stage_sw = Stopwatch() if ctx is not None else None
+        if deadline is not None and time.monotonic() >= deadline:
+            raise DeadlineExceeded("deadline expired before prefill")
         start_pos, delta_messages = slot.cache.resolve_delta_prompt(params["messages"])
         engine.rollback(min(start_pos, engine.pos))
         if engine.pos != start_pos:  # the cache would resume further than the stream's state
@@ -377,6 +495,10 @@ class ApiState:
 
         def feed(prev: int, token: int) -> int:
             nonlocal emitted
+            if deadline is not None and time.monotonic() >= deadline:
+                # per-token deadline (both decode paths; the batch scheduler
+                # also retires the row between chunks)
+                raise DeadlineExceeded(f"deadline expired after {emitted} tokens")
             emitted += 1
             piece = tokenizer.decode_piece(prev, token)
             res = detector.append(token, piece if is_safe_piece(piece) else b"")
@@ -507,8 +629,23 @@ class ApiState:
             seed = body.get("seed")
             if seed is not None:
                 seed = int(seed)
+            deadline_ms = body.get("deadline_ms")
+            if deadline_ms is not None:
+                deadline_ms = float(deadline_ms)
+            priority = body.get("priority")
+            if priority is not None:
+                priority = int(priority)
         except (TypeError, ValueError) as e:
             raise BadRequest(f"invalid numeric field: {e}") from None
+        # tenant names feed the fair admission queues; a leading underscore
+        # is reserved for internal tenants
+        tenant = body.get("tenant", DEFAULT_TENANT)
+        if not isinstance(tenant, str) or not tenant or len(tenant) > 64 or tenant.startswith("_"):
+            raise BadRequest("'tenant' must be a non-empty string of at most 64 chars not starting with '_' "
+                             "(reserved)")
+        if deadline_ms is not None and not (math.isfinite(deadline_ms) and deadline_ms > 0):
+            # NaN would poison every monotonic comparison
+            raise BadRequest("'deadline_ms' must be a positive finite number of ms")
         cache = body.get("cache", "on")
         if cache not in ("on", "off"):
             raise BadRequest("'cache' must be \"on\" or \"off\"")
@@ -526,6 +663,9 @@ class ApiState:
             "seed": seed,
             "max_tokens": max_tokens,
             "stop": [s for s in stop if s],
+            "deadline_ms": deadline_ms,
+            "tenant": tenant,
+            "priority": priority,
         }
 
 
@@ -630,9 +770,9 @@ def make_handler(state: ApiState):
                 self._error(400, "invalid Content-Length", "invalid_request_error", rid)
                 self.close_connection = True
                 return 400
-            if length > MAX_BODY_BYTES:
+            if length > state.max_body_bytes:
                 # reject without reading; the unread body makes the connection unusable
-                self._error(413, f"request body {length} bytes exceeds the {MAX_BODY_BYTES}-byte limit",
+                self._error(413, f"request body {length} bytes exceeds the {state.max_body_bytes}-byte limit",
                             "request_too_large", rid)
                 self.close_connection = True
                 return 413
@@ -651,6 +791,7 @@ def make_handler(state: ApiState):
 
             def send_chunk(data: str):
                 nonlocal sse_started
+                state.faults.fire("server.send")
                 if not sse_started:
                     self.send_response(200)
                     self.send_header("Content-Type", "text/event-stream")
@@ -661,6 +802,25 @@ def make_handler(state: ApiState):
                     sse_started = True
                 self.wfile.write(f"data: {data}\r\n\r\n".encode())
                 self.wfile.flush()
+
+            def sse_error(message: str, err_type: str) -> None:
+                # a failure after the stream started: a terminal error event,
+                # so the client sees it instead of a silent truncation
+                try:
+                    err = json.dumps({"error": {"message": message, "type": err_type, "request_id": rid}})
+                    self.wfile.write(f"data: {err}\r\n\r\ndata: [DONE]\r\n\r\n".encode())
+                    self.wfile.flush()
+                except OSError:
+                    pass
+                self.close_connection = True
+
+            def fail(status: int, e: BaseException, err_type: str, retry_after: bool = False) -> int:
+                if sse_started:
+                    sse_error(str(e), err_type)
+                else:
+                    headers = {"Retry-After": str(state.retry_after())} if retry_after else None
+                    self._error(status, str(e), err_type, rid, extra_headers=headers)
+                return status
 
             try:
                 if params["stream"]:
@@ -673,21 +833,22 @@ def make_handler(state: ApiState):
             except BrokenPipeError:
                 self.close_connection = True  # the client went away mid-stream
                 return 499
+            # a preemption requeue re-enters admission mid-stream, so a full
+            # queue or a drain can also surface after deltas went out
             except AdmissionRejected as e:
-                self._error(429, str(e), "overloaded", rid, extra_headers={"Retry-After": "1"})
-                return 429
+                return fail(429, e, "overloaded", retry_after=True)
             except ServerDraining as e:
-                self._error(503, str(e), "draining", rid, extra_headers={"Retry-After": "1"})
-                return 503
-            except Exception as e:  # an engine failure: surface it, keep serving
+                return fail(503, e, "draining", retry_after=True)
+            except faults.RowPreempted as e:
+                # preempted MAX_PREEMPT_REQUEUES times in a row: shed it like
+                # overload rather than spin a handler thread forever
+                return fail(503, e, "preempted", retry_after=True)
+            except DeadlineExceeded as e:
+                state.note_deadline_exceeded()
+                return fail(504, e, "deadline_exceeded")
+            except Exception as e:  # an engine failure (quarantine, stall): surface it, keep serving
                 print(f"🛑 request {rid} failed: {type(e).__name__}: {e}")
-                if sse_started:
-                    err = json.dumps({"error": {"message": str(e), "type": "server_error", "request_id": rid}})
-                    self.wfile.write(f"data: {err}\r\n\r\ndata: [DONE]\r\n\r\n".encode())
-                    self.close_connection = True
-                else:
-                    self._error(500, str(e), "server_error", rid)
-                return 500
+                return fail(500, e, "server_error")
 
     return Handler
 
@@ -711,6 +872,7 @@ def drain_then_shutdown(state: ApiState, server, timeout_s: float) -> None:
     handler returns at once."""
     state.drain_wait(timeout_s)
     server.shutdown()
+    state.close()
 
 
 def install_sigterm_drain(state: ApiState, server, timeout_s: float = 30.0):
@@ -732,9 +894,14 @@ def install_sigterm_drain(state: ApiState, server, timeout_s: float = 30.0):
 
 
 def serve(args) -> None:
-    # before the engine and ApiState bind their instruments (bind-once)
+    # before the engine and ApiState bind their instruments and fault plan
+    # (bind-once)
     if getattr(args, "telemetry", False):
         telemetry.enable()
+    spec = getattr(args, "faults", None)
+    if spec:
+        faults.install(faults.parse(spec, seed=getattr(args, "faults_seed", 0)))
+        print(f"⚠️ fault plan active: {spec}")
     server, state = make_server(args)
     install_sigterm_drain(state, server, timeout_s=getattr(args, "drain_timeout_s", 30.0))
     print(f"Server URL: http://127.0.0.1:{server.server_address[1]}/v1/")
@@ -764,6 +931,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tokens per prefill dispatch in batched serving (0 = the whole prompt at once)")
     p.add_argument("--admission-queue", type=int, default=None,
                    help="requests that may wait for a lane before 429 (default 2 x --parallel)")
+    p.add_argument("--max-body-bytes", type=int, default=MAX_BODY_BYTES,
+                   help="request-body size cap; a larger Content-Length gets 413 without reading the body "
+                   "(default 1 MiB)")
+    p.add_argument("--tenants", type=str, default=None,
+                   help="tenant admission contracts: ';'-separated 'name:weight=W,priority=P,queue=Q' entries, "
+                   "e.g. 'gold:weight=4,priority=10;free:weight=1'. Weights set DRR admission shares under "
+                   "saturation; priority sets the default class of the tenant's requests (bodies may override "
+                   "with a 'priority' field). Unknown tenants auto-register at weight 1, priority 0")
+    p.add_argument("--preempt", action=argparse.BooleanOptionalAction, default=True,
+                   help="allow a queued higher-priority request to evict the lowest-priority batched decode row "
+                   "to a clean requeue (the victim re-runs through the prefix cache; batched serving only). "
+                   "--no-preempt queues strictly")
+    p.add_argument("--retry-after-jitter-s", type=int, default=2,
+                   help="max uniform jitter added to the 1 s Retry-After base on 429/503 responses, drawn per "
+                   "response (0 restores the fixed value)")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="default per-request deadline in ms (requests may set their own 'deadline_ms'); an "
+                   "expired request ends 504 / an SSE error event and its batch row leaves the shared dispatch")
+    p.add_argument("--stall-timeout-s", type=float, default=120.0,
+                   help="batched-decode watchdog: a chunk fetch in flight longer than this fails its rows "
+                   "cleanly instead of hanging every lane (0 disables)")
+    p.add_argument("--faults", type=str, default=None,
+                   help="fault-plan spec (or the DLLAMA_FAULTS env), e.g. 'batch.fetch:kind=raise,after=2,count=1': "
+                   "';'-separated 'site:kind=K,after=N,count=C,p=P,row=R,delay_ms=D' rules (engine/faults.py)")
+    p.add_argument("--faults-seed", type=int, default=0, help="seed for probabilistic fault rules (p<1)")
     p.add_argument("--drain-timeout-s", type=float, default=30.0,
                    help="SIGTERM drain: max seconds to wait for in-flight completions before shutting the "
                    "listener down")

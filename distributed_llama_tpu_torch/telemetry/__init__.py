@@ -213,9 +213,9 @@ class Stopwatch:
 # ----------------------------------------------------------------------
 # Instrument bundles: each subsystem binds its instruments in one place so
 # hot code holds plain attributes (and can skip whole blocks on .enabled).
-# Only the instruments the port feeds are bound; the JAX package's
-# retry, watchdog, preemption, spill, tenant, replica, integrity and fleet
-# series wait for those subsystems (ROADMAP.md Queue 1 item 2).
+# Only the instruments the port feeds are bound; the JAX package's spill,
+# replica, integrity-canary and fleet series wait for those subsystems
+# (ROADMAP.md Queue 1 items 2.6 and 2.7).
 # ----------------------------------------------------------------------
 
 
@@ -268,10 +268,29 @@ class EngineInstruments:
             "decode chunk (0..1; 1.0 = every slab row in the bucket is a "
             "live request sharing the step's weight reads)",
         )
+        # fault containment: quarantines, retries, stalls, preemptions
         self.rows_quarantined = counter(
             "dllama_rows_quarantined_total",
             "Batch rows retired after a failed or corrupted chunk "
             "(bounded retries exhausted); co-batched rows kept streaming",
+        )
+        batch_retries = counter(
+            "dllama_batch_retries_total",
+            "Batched dispatch/fetch attempts retried after a transient "
+            "failure (bounded, with backoff)",
+            labelnames=("stage",),
+        )
+        self.dispatch_retries = batch_retries.labels(stage="dispatch")
+        self.fetch_retries = batch_retries.labels(stage="fetch")
+        self.watchdog_stalls = counter(
+            "dllama_watchdog_stalls_total",
+            "Hung batched chunks the stall watchdog failed cleanly",
+        )
+        self.preemptions = counter(
+            "dllama_preemptions_total",
+            "Decode rows evicted by a higher-priority arrival and requeued "
+            "(clean RowPreempted evictions; a chaos-failed eviction counts "
+            "as a quarantine instead)",
         )
         # speculative decoding (--spec-draft): draft volume, acceptance and
         # per-step advance — the health read is accepted/draft (the
@@ -392,8 +411,8 @@ def note_kernel_path(kernel: str, path: str) -> None:
 
 class ServerInstruments:
     """The API server's metric surface (bound once per ApiState). The JAX
-    package's deadline, tenant, preemption, replica, shared-prefix,
-    integrity and fleet series wait for those subsystems."""
+    package's replica, shared-prefix, integrity and fleet series wait for
+    those subsystems."""
 
     def __init__(self):
         self.enabled = _enabled
@@ -419,10 +438,45 @@ class ServerInstruments:
             "Completion requests rejected 429 because the bounded admission "
             "queue was full (clients should honor Retry-After)",
         )
+        self.deadline_exceeded = counter(
+            "dllama_deadline_exceeded_total",
+            "Completion requests ended 504 because their deadline_ms expired "
+            "(queued or mid-stream)",
+        )
         self.draining = gauge(
             "dllama_server_draining",
             "1 while the server is draining (SIGTERM received: no new "
             "admissions, in-flight completions finishing)",
+        )
+        # multi-tenant fairness: per-tenant admission accounting behind the
+        # weighted-fair queues (server/admission.py)
+        self.tenant_admitted = counter(
+            "dllama_tenant_admitted_total",
+            "Completion requests admitted to a serving slot, by tenant "
+            "(weighted-fair DRR dequeue; docs/SERVING.md)",
+            labelnames=("tenant",),
+        )
+        self.tenant_rejected = counter(
+            "dllama_tenant_rejected_total",
+            "Completion requests rejected 429 at a full tenant (or global) "
+            "admission queue, by tenant",
+            labelnames=("tenant",),
+        )
+        self.tenant_queue_depth = gauge(
+            "dllama_tenant_queue_depth",
+            "Requests currently queued for admission, by tenant",
+            labelnames=("tenant",),
+        )
+        self.tenant_active = gauge(
+            "dllama_tenant_active",
+            "Completion requests currently holding a serving slot, by tenant",
+            labelnames=("tenant",),
+        )
+        self.preempt_requeues = counter(
+            "dllama_preempted_requeued_total",
+            "Preempted requests requeued through weighted-fair admission "
+            "(each resumes from the prefix cache's published pages; pairs "
+            "with dllama_preemptions_total on the eviction side)",
         )
         # request-scoped SLO attribution (telemetry/trace.py): server-side
         # TTFT/TPOT so client p99s decompose without trusting the client

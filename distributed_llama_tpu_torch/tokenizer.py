@@ -129,11 +129,6 @@ def is_safe_piece(piece: bytes) -> bool:
     return True
 
 
-class NonFiniteLogits(ValueError):
-    """The host sampler refuses NaN/Inf logits instead of laundering them
-    into a plausible in-vocab token."""
-
-
 @dataclasses.dataclass
 class Sampler:
     """Greedy / temperature / top-k / top-p sampling on host logits with
@@ -164,7 +159,11 @@ class Sampler:
     def sample(self, logits: np.ndarray, pos: int) -> int:
         logits = np.asarray(logits, dtype=np.float32).reshape(-1)[: self.vocab_size]
         if not np.isfinite(logits).all():
-            raise NonFiniteLogits(
+            # the one class the batch scheduler raises for a device-side
+            # non-finite flag: the serving layer retires the request alike
+            from distributed_llama_tpu_torch.engine import faults
+
+            raise faults.NonFiniteLogits(
                 f"host sampler got non-finite logits ({int((~np.isfinite(logits)).sum())} "
                 f"of {logits.size} entries)"
             )

@@ -2,11 +2,12 @@
 
 Schedules and their fingerprints are equal for the same (spec, seed) over
 arrival kinds and seeds; the summary statistics, the Prometheus parser,
-the metric deltas, the client/server skew and the whole report are equal
-on the same inputs; the CLI's options whose subsystem the port lacks raise
-ValueError; ``python -m distributed_llama_tpu_torch.loadgen --self-host
---device cpu --assert`` exits 0, and the port's self-host streams the JAX
-self-host's completions for the same schedule.
+the metric deltas, the client/server skew, the whole report and the
+isolation check are equal on the same inputs; the CLI's options whose
+subsystem the port lacks raise ValueError; ``python -m distributed_llama_tpu_torch.loadgen --self-host
+--device cpu --assert`` exits 0 (also with a fault plan and with
+``--isolation``), and the port's self-host streams the JAX self-host's
+completions for the same schedule.
 """
 
 import dataclasses
@@ -150,6 +151,12 @@ def test_expected_zero_without_metrics_fails():
     assert not trep.check_expected_zero(r, ["x"])["ok"]
 
 
+# the options whose subsystem the port now has (fault plans, tenants with
+# priority and deadline, preemption, the isolation proof): accepted
+PORTED = (["--faults", "batch.fetch:kind=raise"], ["--server-tenants", "gold:weight=2"], ["--no-preempt"],
+          ["--isolation", "gold"], ["--tenants", "gold:priority=5"], ["--tenants", "gold:deadline_ms=500"])
+
+
 @pytest.mark.parametrize("argv", [
     ["--faults", "batch.fetch:kind=raise"], ["--replicas", "2"], ["--pod", "2x1"],
     ["--server-tenants", "gold:weight=2"], ["--no-preempt"], ["--isolation", "gold"],
@@ -157,6 +164,13 @@ def test_expected_zero_without_metrics_fails():
     ["--expect-flight", "failover:1"], ["--tenants", "gold:priority=5"], ["--tenants", "gold:deadline_ms=500"],
 ])
 def test_unported_options_raise(argv):
+    """Options whose subsystem is not ported raise ValueError naming their
+    ROADMAP.md item; the ones now ported pass the check and parse."""
+    if argv in PORTED:
+        args = tmain.build_parser().parse_args(["--url", "http://127.0.0.1:9", *argv])
+        tmain.check_ported(args)
+        assert twl.build_schedule(tmain.make_workload(args))
+        return
     with pytest.raises(ValueError, match="not ported yet: ROADMAP.md"):
         tmain.main(["--url", "http://127.0.0.1:9", *argv])
 
@@ -229,3 +243,42 @@ def test_selfhost_completions_equal_jax():
         texts.append([r.content for r in results])
     assert texts[1] == texts[0]
     assert {r.body["temperature"] for r in sched} == {0.0, 0.8}
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_check_isolation_equal(seed):
+    """The two-phase isolation check on the same seeded results: equal
+    verdicts, limits and p99s, including a tenant with no samples."""
+    for tenant, bound, slack in (("gold", 10.0, 1000.0), ("default", 1.5, 0.0), ("absent", 10.0, 1000.0)):
+        want = jrep.check_isolation(tenant, _results(jrun, seed), _results(jrun, seed + 7), bound=bound,
+                                    slack_ms=slack)
+        assert trep.check_isolation(tenant, _results(trun, seed), _results(trun, seed + 7), bound=bound,
+                                    slack_ms=slack) == want
+
+
+@pytest.mark.parametrize("extra,gate", [
+    (["--faults", "batch.row:kind=nan,row=1,count=1", "--expect-delta", "dllama_rows_quarantined_total:1"],
+     "expected_deltas"),
+    (["--tenants", "gold:share=0.5,priority=5;free:share=0.5", "--isolation", "gold", "--isolation-slack-ms",
+      "60000"], "isolation"),
+], ids=["faults", "isolation"])
+def test_cli_selfhost_faults_tenants_isolation(tmp_path, extra, gate):
+    """``--self-host --device cpu`` with a row fault (armed after warmup: it
+    fires once in the measured window), then with two tenants, one of
+    priority 5, and ``--isolation gold``: the gate passes and every
+    arrival is accounted."""
+    import json
+
+    from distributed_llama_tpu_torch import telemetry
+
+    out = tmp_path / "report.json"
+    try:
+        code = tmain.main(["--self-host", "--device", "cpu", "--requests", "8", "--rate", "40", "--warmup", "1",
+                           "--parallel", "2", "--admission-queue", "16", *extra, "--out", str(out)])
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    assert code == 0
+    report = json.loads(out.read_text())
+    assert report["checks"][gate]["ok"]
+    assert sum(report["aggregate"]["counts"].values()) == 8

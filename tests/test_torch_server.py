@@ -7,7 +7,9 @@ same prompt again as SSE on the other lane (a prefix-cache hit), and a
 follow-up turn that resumes the first lane's chat-prefix cache. Texts,
 finish reasons and usage must be identical, with the default cache and with
 ``--cache-dtype i8 --spec-draft 3``. The port's HTTP handler then
-serves /v1/models, an SSE stream, and a 429 past the admission queue.
+serves /v1/models, an SSE stream, and a 429 past the admission queue. With
+telemetry on, the same traffic moves the same counters in both servers,
+also under tenants, a row fault, a preemption and a queued deadline.
 """
 
 import json
@@ -242,49 +244,131 @@ def _sequential_traffic(url):
     return texts
 
 
-@pytest.mark.parametrize("spec_draft", [0, 2])
-def test_metric_deltas_match_jax(monkeypatch, files, spec_draft):
+# the chaos case: tenants, a row fault, a preemption and a queued deadline
+CHAOS_ARGS = dict(tenants="batch:weight=1,priority=0;live:weight=1,priority=1", admission_queue=8)
+# every fetch sleeps 60 ms (the victims are still decoding when the live
+# request arrives); row 1's first chunk comes back NaN
+CHAOS_PLAN = "batch.row:kind=nan,row=1,count=1;batch.fetch:kind=delay,delay_ms=60,count=-1"
+CHAOS_SERIES = tuple(
+    [f'dllama_http_requests_total{{route="/v1/chat/completions",status="{c}"}}' for c in (200, 500, 504)]
+    + ["dllama_rows_quarantined_total", "dllama_preemptions_total", "dllama_preempted_requeued_total",
+       "dllama_deadline_exceeded_total", 'dllama_batch_retries_total{stage="fetch"}',
+       'dllama_batch_retries_total{stage="dispatch"}', "dllama_watchdog_stalls_total"]
+    + [f'dllama_{m}{{tenant="{t}"}}' for m in ("tenant_admitted_total", "ttft_seconds_count")
+       for t in ("batch", "live")])
+
+
+def _chaos_traffic(state, url):
+    """Two concurrent batch requests (row 1's ends 500), two batch streams
+    that a live arrival preempts one of (requeued, replayed), then a
+    request whose deadline expires in the queue (504)."""
+    import http.client
+    import urllib.parse
+
+    batch = [{"messages": [{"role": "system", "content": SYSTEM}, {"role": "user", "content": f"q {i}"}],
+              "max_tokens": 8, "tenant": "batch"} for i in range(2)]
+    statuses = []
+
+    def post(body):
+        try:
+            with _post(url, body) as r:
+                r.read()
+                statuses.append(r.status)
+        except urllib.error.HTTPError as e:
+            statuses.append(e.code)
+
+    threads = [threading.Thread(target=post, args=(b,)) for b in batch]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert sorted(statuses) == [200, 500]
+    conns = []
+    for i in range(2):
+        p = urllib.parse.urlsplit(url)
+        conn = http.client.HTTPConnection(p.hostname, p.port, timeout=120)
+        conn.request("POST", "/v1/chat/completions", json.dumps(
+            {"messages": [{"role": "user", "content": f"story {i}"}], "max_tokens": 40, "stream": True,
+             "tenant": "batch"}), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        for line in resp:  # the first content delta: the victim is mid-decode
+            if line.startswith(b"data: ") and b'"content": "' in line and b'"content": ""' not in line:
+                break
+        conns.append((conn, resp))
+    post({"messages": [{"role": "user", "content": "quick"}], "max_tokens": 2, "tenant": "live"})
+    for conn, resp in conns:
+        assert b"error" not in resp.read()
+        conn.close()
+    state.admission.acquire("hold")
+    state.admission.acquire("hold")
+    try:
+        post({"messages": [{"role": "user", "content": "late"}], "deadline_ms": 100, "tenant": "batch"})
+    finally:
+        state.admission.release()
+        state.admission.release()
+    assert statuses[2:] == [200, 504]
+
+
+@pytest.mark.parametrize("spec_draft,chaos", [(0, False), (2, False), (0, True)], ids=["0", "2", "chaos"])
+def test_metric_deltas_match_jax(monkeypatch, files, spec_draft, chaos):
     """Telemetry on in both packages: the JAX ApiState and the port's take
     the same sequential requests over HTTP; the listed counters move by the
-    same amounts (a difference is a fault of the port)."""
+    same amounts (a difference is a fault of the port). The chaos case runs
+    both with the same tenants and fault plan under ``_chaos_traffic``."""
     from distributed_llama_tpu import telemetry as jtel
+    from distributed_llama_tpu.engine import faults as jfaults
     from distributed_llama_tpu.server.api import make_handler as jax_handler
 
     from distributed_llama_tpu_torch import telemetry as ttel
+    from distributed_llama_tpu_torch.engine import faults as tfaults
 
     monkeypatch.setenv("DLT_FUSED_PAGED", "0")
     model, tok = files
+    extra = CHAOS_ARGS if chaos else {}
+    series = CHAOS_SERIES if chaos else DELTA_SERIES
     deltas = []
-    for tel in (jtel, ttel):
+    for tel, faults in ((jtel, jfaults), (ttel, tfaults)):
         tel.reset()
         tel.enable()
+        if chaos:
+            faults.install(faults.parse(CHAOS_PLAN))
         try:
             if tel is jtel:
                 state = JaxApiState(JaxEngine(model, dtype=jnp.float32), JaxTokenizer.from_file(tok),
                                     JaxSampler(vocab_size=SPEC["vocab_size"], temperature=0.0, topp=0.9, seed=1),
-                                    types.SimpleNamespace(**{**ARGS, "spec_draft": spec_draft}))
+                                    types.SimpleNamespace(**{**ARGS, "spec_draft": spec_draft, **extra}))
                 server, url = _serve(state, jax_handler)
             else:
-                state = torch_state(files, spec_draft=spec_draft)
+                state = torch_state(files, spec_draft=spec_draft, **extra)
                 server, url = _serve(state, tapi.make_handler)
+            faults.clear()
             try:
                 before = _scrape(url)
-                _sequential_traffic(url)
+                if chaos:
+                    _chaos_traffic(state, url)
+                else:
+                    _sequential_traffic(url)
                 key = 'dllama_http_requests_total{route="/v1/chat/completions",status="200"}'
                 for _ in range(500):  # the handler counts a request after its last byte
                     after = _scrape(url)
-                    if after.get(key, 0.0) - before.get(key, 0.0) >= 5:
+                    if after.get(key, 0.0) - before.get(key, 0.0) >= (3 if chaos else 5) and after.get(
+                            "dllama_http_requests_in_flight", 0.0) == 0.0:
                         break
                     threading.Event().wait(0.01)
             finally:
                 server.shutdown()
                 server.server_close()
-            deltas.append({k: after.get(k, 0.0) - before.get(k, 0.0) for k in DELTA_SERIES})
+            deltas.append({k: after.get(k, 0.0) - before.get(k, 0.0) for k in series})
         finally:
+            faults.clear()
             tel.disable()
             tel.reset()
     want, got = deltas
     assert got == want
+    if chaos:
+        assert got["dllama_rows_quarantined_total"] == 1 and got["dllama_preempted_requeued_total"] == 1
+        assert got["dllama_preemptions_total"] == 1 and got["dllama_deadline_exceeded_total"] == 1
+        return
     assert got['dllama_http_requests_total{route="/v1/chat/completions",status="200"}'] == 5
     assert got["dllama_prefix_cache_hits_total"] > 0 and got["dllama_host_sampler_fallback_total"] == 0
     assert got["dllama_tokens_generated_total"] >= 8 + 8 + 7 + 6 + 1
