@@ -97,7 +97,7 @@ Phases (any failure exits non-zero):
    expert shapes (gate_up 4096->28672, down 14336->4096) and Grok-1's
    (gate_up 6144->65536, down 32768->6144, wcls 6144->131072), T = 1, 4,
    64, timed as in phase 3; (b) a random-Q40 `.m` at Mixtral-8x7B's widths
-   cut to 8 layers through the CLI: greedy and sampled twice each (equal
+   cut to 4 layers through the CLI: greedy and sampled twice each (equal
    streams), the f32 path, ``--moe-capacity 2.0`` on a prompt of >= 32
    tokens (the bucketed prefill), ``--spec-draft 4`` (its MoE warning, the
    plain greedy stream); (2 + 2E)·L + 1 Q40 launches per prefill and
@@ -107,8 +107,9 @@ Phases (any failure exits non-zero):
    greedy completion's first 8 tokens against the single-stream decode
    (reported, not failed: a 4-row step sums the experts in another
    order); (d) Grok-1's widths cut to 2 layers through the CLI;
-9. telemetry, request tracing and the load generator (run after 7b, over
-   phase 5's 7B-width file): the port's API server in process with
+9. telemetry, request tracing and the load generator (run after 7b, over a
+   7B-width file cut to 8 layers, phase 7c's; ``--loadgen`` alone runs
+   phase 5's file, all 32 layers): the port's API server in process with
    ``--telemetry --parallel 4 --max-seq-len 2048`` (prefix cache on,
    ``--admission-queue 24``), driven through the port's load generator's
    ``--url`` path (``python -m distributed_llama_tpu_torch.loadgen``): 24
@@ -128,10 +129,11 @@ Phases (any failure exits non-zero):
    decode stages; ``/healthz`` and ``/readyz`` 200. Prints the client's
    TTFT/TPOT/E2E percentiles, the server's mean stage times, the summed
    dispatch spans (the host's issue) against the fetch spans (the wait for
-   the card), and the 4-row decode step with telemetry on beside phase 6b's
-   (off), a reading that does not fail the run;
-10. fault containment and fair admission (after 9, over phase 5's 7B-width
-   file, all 32 layers): one engine with ``--telemetry``, one server per
+   the card), and the 4-row decode step with telemetry on, a reading that
+   does not fail the run;
+10. fault containment and fair admission (after 9, over phase 9's 8-layer
+   file; ``--faults`` alone runs phase 5's file, all 32 layers): one engine
+   with ``--telemetry``, one server per
    fault plan (``--parallel 4 --max-seq-len 2048``, prefix cache on), each
    plan armed after the server's warm-up request. (a) The fault-free
    reference: 4 concurrent requests (2 greedy, 2 sampled with seeds) over a
@@ -166,12 +168,48 @@ Phases (any failure exits non-zero):
    server of phases 6, 8 and 9 ends with no retry, quarantine, stall or
    deadline counted.
 
+11. the host spill tier and the supervised replica pool (after 10, over
+   phase 5's 7B-width file, all 32 layers, ``--telemetry``): (a) a server
+   with ``--parallel 4 --kv-pages 24 --host-spill-mb 2048``, bf16 then
+   ``--cache-dtype i8``: a ~600-token system prompt P1 cold, again (a lone
+   hit), three other distinct ~600-token prompts (P1 evicted and spilled),
+   P1 again (reloaded from the arena): the streams equal token for token,
+   spills, reloads and evictions counted, every eviction spilled (no
+   "page spill failed");
+   then every evictable page spilled and P1's reloaded under a fence (ms
+   per page both ways), the reloaded pages' first-token logits equal a cold
+   prefill's bit for bit, and with int8 the reloaded pages' data and scales
+   byte-equal to the spilled ones; prints the cold, lone-hit and reloaded
+   TTFT and the scheduler-lock hold per spill. (b) A 40 MiB host arena over
+   a 1 GiB ``--spill-disk-dir`` tier: pages demote to disk and reload with
+   the cold stream; then an ``engine.spill:kind=corrupt`` fire: the CRC
+   drops the entry and the cold prefill streams the same tokens. (c)
+   ``--replicas 2 --parallel 2 --host-spill-mb 2048``: card memory after
+   boot, an unfaulted round of 4 streams, then the same 4 with a ``replica.crash`` on replica
+   0 armed once every stream is past its first delta: every client's text
+   and every replayed stream equal the unfaulted run, the failover and
+   replay counts, replica 0 walks dead -> healthy (its rebuild checked
+   against the load-time weight checksum), card memory back within 5% of
+   the post-boot level, ``/readyz`` lists both replicas healthy, the flight
+   recorder holds the fault fire and the failover; aggregate decode tok/s
+   of 4 streams over 2 replicas beside 2 streams on one replica (11a); and
+   a chain replica 1 spilled reloads into replica 0 by copy with first-token
+   logits equal to replica 0's cold prefill; each victim's decode before
+   the crash is a strict prefix of its unfaulted stream, and the replica
+   it replayed on is printed. (d) With ``--spill`` only: two rows decode
+   200 tokens while 6 distinct ~600-token prompts churn a 24-page pool,
+   at ``--host-spill-mb`` 64 (the default) and 0, in the order 64, 0, 0,
+   64: the rows' aggregate tok/s and TPOT inside the churn window, the
+   churn prompts' TTFT, the spills and the lock held for them (a reading).
+   Every sub-phase's ``dllama_kernel_path_total`` names only K1's tiles
+   and K2.
+
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
 one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
 ``--loadgen`` writes phase 5's files and runs phase 9 alone, ``--faults``
-phase 10 alone.
+phase 10 alone and ``--spill`` phase 11 alone.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -184,12 +222,14 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -315,9 +355,9 @@ LOADGEN_MAX_TOKENS = 32
 # the scheduler's eager launches
 SKEW_BOUND_MS = 250.0
 # phase 8: Mixtral-8x7B and Grok-1 at their published widths, depth cut to
-# fit the run (a Mixtral file of 8 of 32 layers is ~7.1 GB, a Grok-1 file
+# fit the run (a Mixtral file of 4 of 32 layers is ~3.6 GB, a Grok-1 file
 # of 2 of 64 layers ~9.2 GB)
-MIXTRAL_LAYERS = 8
+MIXTRAL_LAYERS = 4
 GROK_LAYERS = 2
 MOE_TS = (1, 4, 64)
 # the expert matmuls and Grok-1's logits head: name -> (n, d, launches per
@@ -352,6 +392,23 @@ DEADLINE_MS = 6000
 DEADLINE_SEND_MS = 9000
 DEADLINE_LEAD_S = 0.5
 K2_PATH = 'dllama_kernel_path_total{kernel="paged_attention",path="k2"}'
+# phase 11: a 24-page pool (~2.5 of the ~600-token prompts) over a 2 GiB
+# host arena makes eviction certain; 11b's host arena of 40 MiB holds one
+# 32 MiB bf16 page, the rest demotes to a 1 GiB disk tier; 11c's replicas
+SPILL_KV_PAGES = 24
+SPILL_HOST_MB = 2048
+SPILL_DISK_HOST_MB = 40
+SPILL_DISK_MB = 1024
+SPILL_TOKENS = 16
+REPLICA_TOKENS = 32
+RATE_TOKENS = 32
+MEMORY_TOL_REL = 0.05
+# 11d (``--spill`` only): 2 decoding rows of 200 tokens through 6 churn
+# prompts, at the default arena and none, in the order 64, 0, 0, 64
+SPILL_COST_CHURN = 6
+SPILL_COST_DECODE_TOKENS = 200
+SPILL_COST_ARMS = (64, 0, 0, 64)
+K1_K2_PATHS = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma", "paged_attention/k2", "paged_attention/k2_i8")
 ROUTE_MARGIN = 1e-5
 
 
@@ -1586,10 +1643,11 @@ def _post(url: str, body: dict):
         return r.status, first, time.perf_counter() - t0, events
 
 
-def _capture_streams(state, captured: list) -> None:
+def _capture_streams(state, captured: list, tag=None) -> None:
     """Record each completion's decoded token ids: every lane's
     ``stream_decode`` is wrapped so that (prompt tokens, temperature, seed,
-    ids) is appended to ``captured`` when the request's decode ends."""
+    ids) is appended to ``captured`` when the request's decode ends, with
+    ``tag`` as a fifth element when one is given (11c: the replica)."""
     lock = threading.Lock()
     for slot in state.slots:
         orig = slot.stream.stream_decode
@@ -1604,8 +1662,9 @@ def _capture_streams(state, captured: list) -> None:
             try:
                 return _orig(first, rec, temperature, *a, **kw)
             finally:
+                run = (list(kw["prompt_tokens"]), float(temperature), kw["seed"], ids)
                 with lock:
-                    captured.append((list(kw["prompt_tokens"]), float(temperature), kw["seed"], ids))
+                    captured.append(run if tag is None else run + (tag,))
 
         slot.stream.stream_decode = wrapped
 
@@ -1939,13 +1998,10 @@ def _get_json(url: str) -> tuple[int, dict]:
         return e.code, json.loads(e.read())
 
 
-def loadgen_phase(server_api, attn, q40, model: str, tok_path: str, smi: str,
-                  off_step_ms: float | None = None) -> dict:
+def loadgen_phase(server_api, attn, q40, model: str, tok_path: str, smi: str) -> dict:
     """Phase 9: the port's server over the 7B-width model with --telemetry,
     --parallel 4, the prefix cache on, driven by the port's load generator
-    through its --url path (see the module docstring); ``off_step_ms`` is
-    phase 6b's 4-row step time with telemetry off, to read beside this
-    server's."""
+    through its --url path (see the module docstring)."""
     import contextlib
     import io
 
@@ -2114,12 +2170,13 @@ def loadgen_phase(server_api, attn, q40, model: str, tok_path: str, smi: str,
                       f"{host[b_]['sum_ms']:.0f} ms ({smi})")
         check("batch_decode_chunk" in host and "batch_decode_fetch" in host, f"no dispatch/fetch spans: {list(host)}")
 
-        # the 4-row step with telemetry on, beside phase 6b's (off): a reading
+        # the 4-row step with telemetry on: a reading (phase 6b's is off, at
+        # 32 layers)
         decode_rows(sched, 4, 8)  # warm
         wall4, _, steps = decode_rows(sched, 4)
         out["decode_ms_per_step_4_rows_telemetry_on"] = on_ms = wall4 / steps * 1e3
-        off = f"{off_step_ms:.2f} ms with telemetry off (phase 6b)" if off_step_ms else "off not measured in this run"
-        print(f"4-row decode step: {on_ms:.2f} ms with telemetry on, {off} ({smi}; host time spreads between calls)")
+        print(f"4-row decode step: {on_ms:.2f} ms with telemetry on at {sched.engine.cfg.n_layers} layers ({smi}; "
+              "host time spreads between calls)")
         out["fault_counts"] = no_fault_counts(state, "phase 9")
         series = {k: v for k, v in _scrape(url).items() if k.startswith((
             "dllama_batch_retries_total", "dllama_rows_quarantined_total", "dllama_watchdog_stalls_total",
@@ -2279,10 +2336,10 @@ def _sse_text(events) -> tuple[str, str | None]:
 
 def faults_phase(server_api, attn, q40, model: str, tok_path: str, smi: str) -> dict:
     """Phase 10 (see the module docstring): fault containment and fair
-    admission in the port's server over the 7B-width model at all 32
-    layers. The engine loads once; each fault plan gets its own server
-    (a plan binds at construction), armed after the server's warm-up
-    request so its rules count the round's hits."""
+    admission in the port's server over a 7B-width model (8 layers in the
+    full run, 32 with ``--faults``). The engine loads once; each fault plan
+    gets its own server (a plan binds at construction), armed after the
+    server's warm-up request so its rules count the round's hits."""
     from distributed_llama_tpu_torch import telemetry
     from distributed_llama_tpu_torch.apps.cli import make_engine
     from distributed_llama_tpu_torch.engine import faults, integrity
@@ -2682,6 +2739,582 @@ def faults_only(smi: str) -> None:
     print(f"card: {smi}")
 
 
+def spill_phase(server_api, model: str, tok_path: str, smi: str, workdir: Path, cost: bool = False) -> dict:
+    """Phase 11 (see the module docstring): the host spill tier and the
+    supervised replica pool in the port's server over the 7B-width model at
+    all 32 layers; ``cost`` adds 11d (``--spill`` only)."""
+    from distributed_llama_tpu_torch import telemetry
+    from distributed_llama_tpu_torch.apps.cli import make_engine
+    from distributed_llama_tpu_torch.engine import faults
+    from distributed_llama_tpu_torch.loadgen.report import parse_prometheus
+    from distributed_llama_tpu_torch.telemetry import flight
+    from distributed_llama_tpu_torch.tokenizer import ChatItem, Sampler
+
+    t_phase = time.perf_counter()
+    base = ["generate", "--model", model, "--tokenizer", tok_path, "--dtype", "q40", "--max-seq-len",
+            str(SERVER_SEQ_LEN), "--decode-chunk", "8", "--chat-template", "chatml", "--host", "127.0.0.1",
+            "--port", "0", "--temperature", "0", "--admission-queue", "16", "--telemetry"]
+    out: dict = {"card": smi}
+
+    def paths() -> dict:
+        m = parse_prometheus(telemetry.prometheus_text())
+        return {k.split("{")[1].rstrip("}").replace('kernel="', "").replace('",path="', "/").rstrip('"'): v
+                for k, v in m.items() if k.startswith("dllama_kernel_path_total{")}
+
+    def check_paths(before: dict, label: str, want=("q40_matmul/k1_dp4a",)) -> dict:
+        """The sub-phase's kernel-path counts: K1 and K2 served, no plain
+        path (nor einsum) ran."""
+        moved = {k: v - before.get(k, 0.0) for k, v in paths().items() if v - before.get(k, 0.0) > 0}
+        check(all(k in K1_K2_PATHS for k in moved), f"{label}: a path other than K1/K2 served: {moved}")
+        check(all(moved.get(k, 0) > 0 for k in want), f"{label}: {want} not all launched: {moved}")
+        check(any(k.startswith("paged_attention/k2") for k in moved), f"{label}: K2 not launched: {moved}")
+        return moved
+
+    def system_prompt(tokenizer, word: str) -> str:
+        text = f"{word} You are a helpful assistant. "
+        while len(tokenizer.encode(text, add_bos=False)) < 590:
+            text += f"{word} hello world, "
+        return text
+
+    def body(system, user="hi", max_tokens=SPILL_TOKENS, seed=1, stream=True):
+        return {"messages": [{"role": "system", "content": system}, {"role": "user", "content": user}],
+                "max_tokens": max_tokens, "temperature": 0.0, "seed": seed, "stream": stream}
+
+    def rate_body(i):
+        # a short prompt: the window measures decode, not prefill
+        return {"messages": [{"role": "system", "content": "You are a helpful assistant."},
+                             {"role": "user", "content": f"rate {i} tell me a story"}],
+                "max_tokens": RATE_TOKENS, "temperature": 0.0, "seed": 60 + i, "stream": True}
+
+    def serve(state, args):
+        server, _ = server_api.make_server(args, state=state)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+    def stop(server, state):
+        server.shutdown()
+        server.server_close()
+        state.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def idle_lanes(state):
+        for slot in state.slots:  # idle lanes drop their page pins
+            slot.stream.reset()
+
+    def one(url, state, b, captured, label):
+        r = _post_any(url, b)
+        check(r["status"] == 200, f"{label}: {r['status']} {r['payload']}")
+        _, err = _sse_text(r["payload"])
+        check(err is None, f"{label}: SSE error {err}")
+        idle_lanes(state)
+        return r["first_s"] * 1e3, captured[-1][3]
+
+    def prompt_tokens(state, b) -> list[int]:
+        return state.tokenizer.encode(state.template.generate([ChatItem(m["role"], m["content"]) for m in
+                                                               b["messages"]], append_generation_prompt=True),
+                                      add_bos=True)
+
+    def evict_all(sched) -> tuple[int, float]:
+        """Spill every evictable pool page (the LRU leaves first), device
+        work fenced: (pages spilled, seconds)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sched._cond:
+            n0 = sched._prefix.spills
+            while sched._prefix._evict_one():
+                pass
+            n = sched._prefix.spills - n0
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t0
+
+    def reload_timed(sched, toks) -> tuple[int, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sched._cond:
+            n = sched._reload_spilled_locked(np.asarray(toks))
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t0
+
+    def check_spilled(sched, label: str) -> None:
+        """Every eviction spilled: a failed download prints "page spill
+        failed" and evicts without a spill (the reference keeps serving so);
+        this phase fails on it."""
+        pre = sched._prefix
+        check(pre.spills == pre.evictions, f"{label}: {pre.evictions} evictions but {pre.spills} spills")
+
+    # ---- 11a: spill and reload, int8 then bf16 -------------------------
+    # (the bf16 engine then serves 11b and is replica 0 of 11c)
+    for cache in ("i8", "bf16"):
+        label = f"11a {cache}"
+        extra = ["--parallel", "4", "--kv-pages", str(SPILL_KV_PAGES), "--host-spill-mb", str(SPILL_HOST_MB)]
+        if cache == "i8":
+            extra += ["--cache-dtype", "i8"]
+        args = server_api.build_parser().parse_args(base + extra)
+        telemetry.reset()
+        telemetry.enable()  # before the engine binds its instruments
+        t0 = time.perf_counter()
+        engine, tokenizer, _ = make_engine(args)
+        state = server_api.ApiState(engine, tokenizer, Sampler(vocab_size=engine.cfg.vocab_size, temperature=0.0,
+                                                               topp=0.9, seed=1), args)
+        sched = state.batch
+        check(sched._prefix is not None and sched._prefix.spill is not None and sched._copy_stream is not None,
+              f"{label}: no spill tier on the card")
+        captured: list = []
+        _capture_streams(state, captured)
+        server, url = serve(state, args)
+        print(f"{label}: server up in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} "
+              f"GB on the card, pool {SPILL_KV_PAGES} pages of {sched._prefix.page_bytes / 2**20:.1f} MiB")
+        try:
+            systems = [system_prompt(tokenizer, w) for w in ("Alpha", "Bravo", "Charlie", "Delta")]
+            p1 = body(systems[0])
+            toks1 = prompt_tokens(state, p1)
+            one(url, state, body(systems[3], "warm", max_tokens=2), captured, f"{label} warm-up")
+            with sched._cond:  # the warm-up's pages out of the way: the round starts empty of them
+                while sched._prefix._evict_one():
+                    pass
+            sched._prefix.spill.drop_owner(0)
+            c0, rel0, sp0, ev0 = paths(), sched._prefix.spill.reloaded_total, sched._prefix.spills, \
+                sched._prefix.evictions
+            cold_ms, cold_ids = one(url, state, p1, captured, f"{label} cold")
+            hit_ms, hit_ids = one(url, state, p1, captured, f"{label} lone hit")
+            check(hit_ids == cold_ids, f"{label}: the lone hit's stream differs from the cold one")
+            for sysp in systems[1:]:
+                one(url, state, body(sysp), captured, f"{label} churn")
+            resident = len(sched._prefix.walk(toks1))
+            check(resident < len(toks1) // sched._prefix.page, f"{label}: the churn left P1 resident ({resident})")
+            spilled_chains = sum(sched._prefix.spill.has(0, tuple(toks1[: (i + 1) * sched._prefix.page]))
+                                 for i in range((len(toks1) - 1) // sched._prefix.page))
+            check(spilled_chains > 0, f"{label}: none of P1's pages is in the arena")
+            up0 = sched.spill_uploads
+            reload_ms, reload_ids = one(url, state, p1, captured, f"{label} reloaded")
+            check(reload_ids == cold_ids, f"{label}: the reloaded stream differs from the cold one: "
+                  f"{reload_ids} vs {cold_ids}")
+            reloaded = sched.spill_uploads - up0
+            check(reloaded > 0 and sched._prefix.spill.reloaded_total > rel0, f"{label}: no page reloaded")
+            check(sched._prefix.evictions > ev0 and sched._prefix.spills > sp0, f"{label}: no eviction or spill")
+            moved = check_paths(c0, label, ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma"))
+            # the reloaded pages' first-token logits against a cold
+            # prefill, and (int8) their bytes against the spilled ones
+            row = sched._streams[0]
+            row.reset()
+            row.prefix_cache_enabled = False
+            cold_logits = row.prefill(toks1)
+            row.reset()
+            row.prefix_cache_enabled = True
+            nodes = sched._prefix.walk(toks1)
+            before = [[a.copy() for a in sched._download_page(nd.page_id)] for nd in nodes]
+            n_spilled, spill_s = evict_all(sched)
+            check(sched._prefix.walk(toks1) == [], f"{label}: P1 still resident after the eviction")
+            n_reloaded, reload_s = reload_timed(sched, toks1)
+            check(n_reloaded == len(nodes), f"{label}: reloaded {n_reloaded} of {len(nodes)} pages")
+            hit_logits = row.prefill(toks1)
+            matched = row.matched_len
+            row.reset()
+            diff = float(np.abs(hit_logits - cold_logits).max())
+            check(matched == len(nodes) * sched._prefix.page and np.array_equal(hit_logits, cold_logits),
+                  f"{label}: reloaded first-token logits differ from a cold prefill's: max diff {diff} "
+                  f"({matched} positions from the pool)")
+            if cache == "i8":
+                for want, nd in zip(before, sched._prefix.walk(toks1)):
+                    got = sched._download_page(nd.page_id)
+                    check(len(got) == len(want) and all(
+                        a.dtype == b.dtype and a.view(np.uint8).tobytes() == b.view(np.uint8).tobytes()
+                        for a, b in zip(got, want)), f"{label}: a reloaded page's data or scales changed")
+            check_spilled(sched, label)
+            pre = sched._prefix
+            res = {"cold_ttft_ms": cold_ms, "hit_ttft_ms": hit_ms, "reload_ttft_ms": reload_ms,
+                   "reloaded_pages_in_request": reloaded, "evictions": pre.evictions - ev0,
+                   "spills": pre.spills - sp0,
+                   "lock_hold_ms_per_spill": pre.spill_s / max(pre.spills, 1) * 1e3,
+                   "download_ms_per_page": sched.spill_download_s / max(sched.spill_downloads, 1) * 1e3,
+                   "spill_ms_per_page_fenced": spill_s / max(n_spilled, 1) * 1e3, "spilled_fenced": n_spilled,
+                   "reload_ms_per_page_fenced": reload_s / max(n_reloaded, 1) * 1e3,
+                   "reloaded_fenced": n_reloaded, "page_mib": pre.page_bytes / 2**20,
+                   "logits_max_abs_diff": diff, "paths": moved, "stream_tokens": len(cold_ids)}
+            if cache == "bf16":
+                # decode rate of one replica at 2 rows (the 11c comparison)
+                res["rate_1x2"] = _decode_rate(url, [rate_body(i) for i in range(2)])
+                idle_lanes(state)
+            out[label] = res
+            print(f"{label}: TTFT cold {cold_ms:.1f} ms, lone hit {hit_ms:.1f} ms, reloaded ({reloaded} pages "
+                  f"from the arena) {reload_ms:.1f} ms; streams equal ({len(cold_ids)} tokens); evictions "
+                  f"{res['evictions']}, spills {res['spills']}; per spilled page: lock hold "
+                  f"{res['lock_hold_ms_per_spill']:.2f} ms, download {res['download_ms_per_page']:.2f} ms; "
+                  f"fenced: {n_spilled} pages spilled at {res['spill_ms_per_page_fenced']:.2f} ms/page, "
+                  f"{n_reloaded} reloaded at {res['reload_ms_per_page_fenced']:.2f} ms/page "
+                  f"({res['page_mib']:.1f} MiB pages); reloaded first-token logits equal a cold prefill's "
+                  f"bit for bit ({matched} positions from the pool)"
+                  f"{'; int8 data and scales byte-equal' if cache == 'i8' else ''}; kernel paths {moved}")
+        finally:
+            stop(server, state)
+            row = state = sched = pre = None  # nothing here may keep a replica's engine alive
+            if cache == "i8":
+                del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # ---- 11b: the disk tier, then a corrupt entry (11a's bf16 engine) ----
+    label = "11b"
+    disk_dir = workdir / "spill_disk"
+    plan = faults.install(faults.parse("engine.spill:kind=corrupt,count=1"))
+    plan.rules[0].count = 0  # armed below
+    args = server_api.build_parser().parse_args(base + [
+        "--parallel", "4", "--kv-pages", str(SPILL_KV_PAGES), "--host-spill-mb", str(SPILL_DISK_HOST_MB),
+        "--spill-disk-dir", str(disk_dir), "--spill-disk-mb", str(SPILL_DISK_MB)])
+    try:
+        state = server_api.ApiState(engine, tokenizer, Sampler(vocab_size=engine.cfg.vocab_size, temperature=0.0,
+                                                               topp=0.9, seed=1), args)
+    finally:
+        faults.clear()
+    sched = state.batch
+    arena = sched._prefix.spill
+    check(arena.disk is not None, f"{label}: no disk tier")
+    captured = []
+    _capture_streams(state, captured)
+    server, url = serve(state, args)
+    try:
+        systems = [system_prompt(tokenizer, w) for w in ("Echo", "Foxtrot", "Golf", "Hotel")]
+        p1 = body(systems[0])
+        c0 = paths()
+        _, cold_ids = one(url, state, p1, captured, f"{label} cold")
+        for sysp in systems[1:]:
+            one(url, state, body(sysp), captured, f"{label} churn")
+        check(len(arena.disk) > 0, f"{label}: nothing demoted to the disk tier")
+        up0, rel0 = sched.spill_uploads, arena.reloaded_total
+        demoted = len(arena.disk)
+        _, disk_ids = one(url, state, p1, captured, f"{label} reload")
+        check(disk_ids == cold_ids, f"{label}: the disk-tier reload's stream differs from the cold one")
+        check(sched.spill_uploads > up0 and arena.reloaded_total > rel0, f"{label}: nothing reloaded")
+        moved = check_paths(c0, label)
+        check_spilled(sched, label)
+        # churn P1 out again, then corrupt its arena entry at the reload
+        for sysp in systems[1:]:
+            one(url, state, body(sysp), captured, f"{label} churn again")
+        toks1 = prompt_tokens(state, p1)
+        with sched._cond:
+            while sched._prefix._evict_one():
+                pass
+        check(arena.has(0, tuple(toks1[:sched._prefix.page])), f"{label}: P1's first page is not spilled")
+        corrupt0, up0 = arena.corrupt_total, sched.spill_uploads
+        plan.rules[0].count = 1
+        plan.reset()
+        _, corrupt_ids = one(url, state, p1, captured, f"{label} corrupt")
+        check(corrupt_ids == cold_ids, f"{label}: the stream after a corrupt entry differs from the cold one")
+        check(arena.corrupt_total > corrupt0, f"{label}: the CRC gate never fired")
+        check(sched.spill_uploads == up0, f"{label}: a corrupt entry's bytes were uploaded")
+        out[label] = {"disk_entries": demoted, "disk_reloaded": arena.reloaded_total - rel0,
+                      "corrupt_dropped": arena.corrupt_total - corrupt0, "paths": moved}
+        print(f"{label}: {demoted} pages on the disk tier ({SPILL_DISK_HOST_MB} MiB host arena); the reload's "
+              f"stream equals the cold one; after an engine.spill corrupt fire the CRC dropped "
+              f"{arena.corrupt_total - corrupt0} entries and the cold prefill streamed the same tokens; kernel "
+              f"paths {moved}")
+    finally:
+        stop(server, state)
+        del state, sched, arena
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(disk_dir, ignore_errors=True)
+
+    if cost:
+        out["11d"] = spill_cost(server_api, engine, tokenizer, base, serve, stop, idle_lanes, system_prompt, body,
+                                paths, check_paths)
+
+    # ---- 11c: two replicas, a crash, replay, restart ---------------------
+    label = "11c"
+    plan = faults.install(faults.parse("replica.crash:kind=raise,row=0,count=1"))
+    plan.rules[0].count = 0  # armed mid-decode below
+    args = server_api.build_parser().parse_args(base + [
+        "--replicas", "2", "--parallel", "2", "--replica-restart-backoff-s", "0.1", "--host-spill-mb",
+        str(SPILL_HOST_MB), "--flight-dump-dir", str(workdir)])
+    flight.RECORDER.clear()
+    t0 = time.perf_counter()
+    try:
+        # replica 0 is the bf16 engine; replica 1 and every rebuild come
+        # from the factory
+        state = server_api.ApiState(engine, tokenizer, Sampler(vocab_size=engine.cfg.vocab_size, temperature=0.0,
+                                                               topp=0.9, seed=1), args,
+                                    engine_factory=lambda: make_engine(args)[0])
+    finally:
+        faults.clear()
+    del engine  # the pool's reference only: its restart frees it
+    server, url = serve(state, args)
+    pool = state.pool
+    torch.cuda.synchronize()
+    gc.collect()
+    mem_boot = torch.cuda.memory_allocated()
+    print(f"{label}: 2 replicas x 2 lanes up in {time.perf_counter() - t0:.1f} s, card memory "
+          f"{mem_boot / 1e9:.2f} GB allocated after boot")
+    captured = []  # (prompt, temperature, seed, ids, replica lanes)
+    for rep in pool.replicas:
+        _capture_streams(types.SimpleNamespace(slots=rep.slots), captured, tag=f"r{rep.idx}")
+    build = pool.build_replica
+
+    def build_and_capture(idx):
+        # a rebuilt replica's lanes are recorded too: a victim may replay
+        # there, and the last decode recorded for it must be the replay
+        built = build(idx)
+        _capture_streams(types.SimpleNamespace(slots=built[2]), captured, tag=f"r{idx} rebuilt")
+        return built
+
+    pool.build_replica = build_and_capture
+    try:
+        status, ready = _get_json(url + "/readyz")
+        check(status == 200 and [r["replica"] for r in ready["replicas"]] == [0, 1], f"{label}: /readyz {ready}")
+        system = system_prompt(state.tokenizer, "India")
+        bodies = [body(system, f"{c} tell me a story", max_tokens=REPLICA_TOKENS, seed=40 + i)
+                  for i, c in enumerate("WXYZ")]
+        _post_any(url, body(system, "warm", max_tokens=2))
+        idle_lanes(state)
+        c0 = paths()
+        ref = _concurrent(url, bodies)
+        check(all(r["status"] == 200 for r in ref), f"{label}: the reference round: {[r['status'] for r in ref]}")
+        ref_text = [_sse_text(r["payload"])[0] for r in ref]
+        ref_ids = {seed: ids for _, _, seed, ids, _ in captured}
+        n_ref = len(captured)
+        idle_lanes(state)
+        # the faulted round: 4 streams opened at once, each past its first
+        # delta (every lane decoding), then replica 0's next dispatch
+        # crashes. Opened one after another, the first streams could end
+        # before the last one's first delta: a lane still busy with a
+        # finished stream counts as a victim but has nothing to replay.
+        sses: list = [None] * len(bodies)
+        openers = [threading.Thread(target=lambda i=i: sses.__setitem__(i, _open_sse(url, bodies[i])))
+                   for i in range(len(bodies))]
+        for t in openers:
+            t.start()
+        for t in openers:
+            t.join()
+        check(all(sses), f"{label}: a faulted-round stream did not open")
+        firsts = [_read_deltas(sse, 1) for sse in sses]
+        plan.rules[0].count = 1
+        plan.reset()
+        rests = [_read_rest(sse) for sse in sses]
+        texts = [f + r[0] for f, r in zip(firsts, rests)]
+        check(all(r[1] is None for r in rests), f"{label}: SSE errors {[r[1] for r in rests]}")
+        check(texts == ref_text, f"{label}: a client's stream differs from the unfaulted run's")
+        runs: dict = {}  # seed -> its decodes in the faulted round: (replica lanes, ids)
+        for _, _, seed, ids, where in captured[n_ref:]:
+            runs.setdefault(seed, []).append((where, ids))
+        # a victim's first decode ended at the crash, a strict prefix of the
+        # unfaulted stream; its last is the replay, on the lanes named
+        victims = {seed: r for seed, r in runs.items() if len(r) > 1}
+        victim_runs = [f"seed {seed}: {len(r[0][1])} tokens on {r[0][0]}, then {len(r[-1][1])} on {r[-1][0]}"
+                       for seed, r in sorted(victims.items())]
+        check(len(victims) == pool.last_failover_victims
+              and all(len(r) == 2 and r[0][0] == "r0" and len(r[0][1]) < len(ref_ids[seed])
+                      and r[0][1] == ref_ids[seed][:len(r[0][1])] for seed, r in victims.items()),
+              f"{label}: {pool.last_failover_victims} victims, {pool.replayed_total} replays; every decode of "
+              f"the faulted round: {[(seed, [(w, len(ids)) for w, ids in r]) for seed, r in sorted(runs.items())]}")
+        check(all(runs[b["seed"]][-1][1] == ref_ids[b["seed"]] for b in bodies),
+              f"{label}: a replayed stream differs from the unfaulted run token for token: {victim_runs}")
+        check(pool.failovers_total == 1 and pool.replayed_total == pool.last_failover_victims > 0,
+              f"{label}: failovers {pool.failovers_total}, replays {pool.replayed_total}, victims "
+              f"{pool.last_failover_victims}")
+        check(pool.wait_state(0, "healthy", timeout_s=300), f"{label}: replica 0 did not come back")
+        states = [e for e in flight.RECORDER.snapshot()["replicas"].get("0", []) if e["kind"] == "state"]
+        walk = [(e["frm"], e["to"]) for e in states]
+        check(("healthy", "dead") in walk and ("dead", "healthy") in walk, f"{label}: replica 0's walk {walk}")
+        # dead -> healthy, from the recorder's clock: the release, the
+        # rebuild (one engine load) and its checksum
+        restart_s = (next(e["t_s"] for e in states if e["to"] == "healthy")
+                     - next(e["t_s"] for e in states if e["to"] == "dead"))
+        check(pool.sdc_checks_total == 1 and pool.sdc_mismatches_total == 0, f"{label}: rebuild checksum")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        check(abs(mem_after - mem_boot) <= MEMORY_TOL_REL * mem_boot,
+              f"{label}: card memory {mem_after / 1e9:.2f} GB after the restart, {mem_boot / 1e9:.2f} GB after boot")
+        status, ready = _get_json(url + "/readyz")
+        check(status == 200 and [(r["replica"], r["state"]) for r in ready["replicas"]] == [(0, "healthy"),
+                                                                                          (1, "healthy")],
+              f"{label}: /readyz after the restart {ready}")
+        status, snap = _get_json(url + "/debug/flight")
+        events = [e for ring in snap["replicas"].values() for e in ring]
+        check(status == 200 and any(e["kind"] == "failover" for e in events)
+              and any(e["kind"] == "fault_fire" and e["site"] == "replica.crash" for e in events),
+              f"{label}: the flight recorder lacks the failover or the fault fire")
+        moved = check_paths(c0, label)
+        # aggregate decode rate, 2 replicas x 2 rows
+        idle_lanes(state)
+        rate = _decode_rate(url, [rate_body(i) for i in range(4)])
+        idle_lanes(state)
+        # a chain replica 1 spilled reloads into replica 0 by copy
+        s0, s1 = pool.replicas[0].scheduler, pool.replicas[1].scheduler
+        q = prompt_tokens(state, body(system_prompt(state.tokenizer, "November")))
+        lane1 = s1._streams[0]
+        lane1.reset()
+        lane1.prefill(q)  # publishes Q's pages on replica 1
+        lane1.reset()
+        evict_all(s1)
+        check_spilled(s0, label)
+        check_spilled(s1, label)
+        arena = s1._prefix.spill
+        check(arena.has(1, tuple(q[:s1._prefix.page])), f"{label}: replica 1 did not spill Q")
+        depth1, rel0 = arena.depth(1), arena.reloaded_total
+        lane0 = s0._streams[0]
+        lane0.reset()
+        lane0.prefix_cache_enabled = False
+        cold0 = lane0.prefill(q)
+        lane0.reset()
+        lane0.prefix_cache_enabled = True
+        peer = lane0.prefill(q)
+        matched0 = lane0.matched_len
+        lane0.reset()
+        check(matched0 > 0 and arena.reloaded_total > rel0 and arena.depth(1) == depth1,
+              f"{label}: replica 0 did not reload replica 1's chain by copy ({matched0} positions)")
+        check(np.array_equal(peer, cold0), f"{label}: replica 0's logits over replica 1's spilled chain differ "
+              f"from its cold prefill's: max diff {float(np.abs(peer - cold0).max())}")
+        out[label] = {"boot_gb": mem_boot / 1e9, "after_restart_gb": mem_after / 1e9, "restart_s": restart_s,
+                      "victims": pool.last_failover_victims, "replays": pool.replayed_total, "walk": walk,
+                      "paths": moved, "rate_2x2": rate, "peer_reload_positions": matched0,
+                      "victim_runs": victim_runs}
+        r1 = out["11a bf16"]["rate_1x2"]["tok_s"] if "11a bf16" in out else None
+        print(f"{label}: card memory {mem_boot / 1e9:.2f} GB after boot, {mem_after / 1e9:.2f} GB after the restart; "
+              f"replica.crash on replica 0 mid-decode: {pool.last_failover_victims} victims replayed "
+              f"({'; '.join(victim_runs)}), all 4 streams equal the unfaulted run token for token; replica 0 dead -> healthy in "
+              f"{restart_s:.1f} s (rebuild checksum ok); /readyz and /debug/flight agree; aggregate decode "
+              f"{rate['tok_s']:.1f} tok/s at 2 replicas x 2 rows vs {r1 if r1 is None else round(r1, 1)} at "
+              f"1 replica x 2 rows; replica 0 reloaded replica 1's spilled chain ({matched0} positions) with "
+              f"first-token logits equal to its cold prefill's; kernel paths {moved}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.close()
+        del state, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+    telemetry.disable()
+    telemetry.reset()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def spill_cost(server_api, engine, tokenizer, base, serve, stop, idle_lanes, system_prompt, body, paths,
+               check_paths) -> dict:
+    """11d: what the default spill arena costs decoding rows while prompts
+    churn the pool. Two greedy rows decode (short prompts) while
+    ``SPILL_COST_CHURN`` distinct ~600-token prompts arrive one after
+    another on a 24-page pool, each evicting about 10 pages; arms at
+    ``--host-spill-mb`` 64 (the default: every eviction downloads and CRCs
+    its page under the scheduler lock) and 0 (an evicted page vanishes),
+    run 64, 0, 0, 64 on one engine. Per arm: the rows' tokens delivered
+    inside the churn window, their aggregate tok/s and mean TPOT there,
+    the churn prompts' mean TTFT, evictions, spills and the lock held for
+    them. A reading: nothing here fails on speed."""
+    from distributed_llama_tpu_torch.tokenizer import Sampler
+
+    systems = [system_prompt(tokenizer, f"Churn{i}") for i in range(SPILL_COST_CHURN)]
+    arms = []
+    for mb in SPILL_COST_ARMS:
+        label = f"11d --host-spill-mb {mb}"
+        args = server_api.build_parser().parse_args(base + [
+            "--parallel", "4", "--kv-pages", str(SPILL_KV_PAGES), "--host-spill-mb", str(mb)])
+        state = server_api.ApiState(engine, tokenizer, Sampler(vocab_size=engine.cfg.vocab_size, temperature=0.0,
+                                                               topp=0.9, seed=1), args)
+        sched = state.batch
+        check((sched._prefix.spill is not None) == (mb > 0), f"{label}: arena {sched._prefix.spill}")
+        server, url = serve(state, args)
+        try:
+            _post_any(url, body(system_prompt(tokenizer, "Warm"), "warm", max_tokens=2))
+            idle_lanes(state)
+            with sched._cond:
+                while sched._prefix._evict_one():
+                    pass
+            c0, ev0, sp0, hold0 = paths(), sched._prefix.evictions, sched._prefix.spills, sched._prefix.spill_s
+            stamps: list = [[], []]
+
+            def decode(i):
+                sse = _open_sse(url, {"messages": [{"role": "user", "content": f"cost {i} tell me a story"}],
+                                      "max_tokens": SPILL_COST_DECODE_TOKENS, "temperature": 0.0, "seed": 70 + i,
+                                      "stream": True})
+                for e in _sse_events(sse[1]):
+                    check("error" not in e, f"{label}: SSE error {e}")
+                    if (e["choices"][0].get("delta") or {}).get("content"):
+                        stamps[i].append(time.perf_counter())
+                sse[0].close()
+
+            threads = [threading.Thread(target=decode, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            while not all(stamps) and all(t.is_alive() for t in threads):
+                time.sleep(0.01)
+            t_c0 = time.perf_counter()
+            ttft = []
+            for sysp in systems:
+                r = _post_any(url, body(sysp, max_tokens=2))
+                check(r["status"] == 200, f"{label}: churn {r['status']}")
+                ttft.append(r["first_s"] * 1e3)
+            t_c1 = time.perf_counter()
+            for t in threads:
+                t.join()
+            idle_lanes(state)
+            inside = [sum(t_c0 <= x <= t_c1 for x in st) for st in stamps]
+            check(all(st and st[-1] > t_c1 for st in stamps), f"{label}: a row stopped decoding inside the churn")
+            window = t_c1 - t_c0
+            pre = sched._prefix
+            res = {"host_spill_mb": mb, "churn_window_s": window, "row_tokens_in_window": inside,
+                   "tok_s": sum(inside) / window, "tpot_ms": float(np.mean([window / n * 1e3 for n in inside])),
+                   "churn_ttft_ms": float(np.mean(ttft)), "evictions": pre.evictions - ev0,
+                   "spills": pre.spills - sp0, "lock_hold_s": pre.spill_s - hold0,
+                   "paths": check_paths(c0, label, ("q40_matmul/k1_mma",))}  # 2+ rows: the tensor-core tile
+            check(res["evictions"] > 0 and res["spills"] == (res["evictions"] if mb > 0 else 0),
+                  f"{label}: evictions {res['evictions']}, spills {res['spills']}")
+            arms.append(res)
+            print(f"{label}: 2 rows decoding through {SPILL_COST_CHURN} churn prompts ({window:.2f} s): "
+                  f"{res['tok_s']:.2f} tok/s, TPOT {res['tpot_ms']:.1f} ms, churn TTFT {res['churn_ttft_ms']:.1f} ms; "
+                  f"evictions {res['evictions']}, spills {res['spills']}, lock held {res['lock_hold_s'] * 1e3:.1f} "
+                  f"ms for them")
+        finally:
+            stop(server, state)
+            del state, sched
+    by = {mb: [a for a in arms if a["host_spill_mb"] == mb] for mb in set(SPILL_COST_ARMS)}
+    mean = {mb: {k: float(np.mean([a[k] for a in v])) for k in ("tok_s", "tpot_ms", "churn_ttft_ms")}
+            for mb, v in by.items()}
+    print(f"11d: mean of the arms, --host-spill-mb 64 vs 0: {mean[64]['tok_s']:.2f} vs {mean[0]['tok_s']:.2f} tok/s, "
+          f"TPOT {mean[64]['tpot_ms']:.1f} vs {mean[0]['tpot_ms']:.1f} ms, churn TTFT {mean[64]['churn_ttft_ms']:.1f} "
+          f"vs {mean[0]['churn_ttft_ms']:.1f} ms")
+    return {"arms": arms, "mean": mean}
+
+
+def _decode_rate(url: str, bodies: list) -> dict:
+    """Aggregate decode tokens/s of concurrent streamed requests that run to
+    their max_tokens: the tokens after each one's first over the window from
+    the first first-token to the last end (host clock)."""
+    res = _concurrent(url, bodies)
+    check(all(r["status"] == 200 for r in res), f"decode rate: {[r['status'] for r in res]}")
+    n = 0
+    for b, r in zip(bodies, res):  # a stop before max_tokens counts its content deltas
+        if r["payload"][-1]["choices"][0]["finish_reason"] == "length":
+            n += b["max_tokens"] - 1
+        else:
+            n += max(sum(bool((e["choices"][0].get("delta") or {}).get("content")) for e in r["payload"]) - 1, 0)
+    window = max(r["end_s"] for r in res) - min(r["first_s"] for r in res)
+    return {"streams": len(bodies), "tokens": n, "window_s": window, "tok_s": n / window}
+
+
+def spill_only(smi: str) -> None:
+    """``--spill``: phase 2, phase 5's 7B-width files and phase 11 alone."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.ops import cuda_build
+    from distributed_llama_tpu_torch.server import api as server_api
+
+    phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t = time.perf_counter()
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, Path(tmp))
+        print(f"wrote the 7B-width files in {time.perf_counter() - t:.1f} s")
+        t = phase(f"11. the slice's path: the host spill tier and the replica pool in the API server, {N_LAYERS} layers")
+        summary = {"spill": spill_phase(server_api, model, tok, smi, Path(tmp), cost=True)}
+        print(f"phase 11: {time.perf_counter() - t:.1f} s")
+    (ROOT / "build" / "chip_smoke_spill.json").write_text(json.dumps(summary, indent=1, default=str))
+    print(f"card: {smi}")
+
+
 def write_7b_files(synthetic, write_tokenizer_file, workdir: Path) -> tuple[str, str]:
     """Phase 5's files: a random-Q40 `.m` at Llama-2-7B width (32 layers,
     blocks from seed 0) and a tokenizer padded to its vocab."""
@@ -2881,6 +3514,8 @@ def main() -> None:
                         help="phase 9 alone (the load generator against the 7B-width server with --telemetry)")
     parser.add_argument("--faults", action="store_true",
                         help="phase 10 alone (fault containment and fair admission in the 7B-width server)")
+    parser.add_argument("--spill", action="store_true",
+                        help="phase 11 alone (the host spill tier and the replica pool in the 7B-width server)")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
@@ -2890,9 +3525,10 @@ def main() -> None:
     alone = [f for f, on in ((k1_only, opts.k1), (k2_only, opts.k2), (k3_only, opts.k3), (k5_only, opts.k5),
                              (lambda root, smi: moe_only(smi), opts.moe),
                              (lambda root, smi: loadgen_only(smi), opts.loadgen),
-                             (lambda root, smi: faults_only(smi), opts.faults)) if on]
+                             (lambda root, smi: faults_only(smi), opts.faults),
+                             (lambda root, smi: spill_only(smi), opts.spill)) if on]
     if len(alone) > 1:
-        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults")
+        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3104,29 +3740,40 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
+        # phase 7c's 8-layer file, written now: phases 9 and 10 run over it
+        # in the full run (their depth cut to keep the run inside its time
+        # limit; --loadgen and --faults alone keep all 32 layers)
+        model_tp = str(workdir / "llama2_7b_width_tp.m")
+        synthetic.write_random_q40_model(model_tp, synthetic.llama2_7b_spec(n_layers=TP_LAYERS, seq_len=4096),
+                                         seed=0)
         t = phase(f"9. the slice's path: the load generator against the API server with --telemetry, "
-                  f"{N_LAYERS} layers")
-        summary["loadgen"] = loadgen_phase(server_api, attn, q40, model, tok, smi,
-                                           off_step_ms=summary["server"]["decode_ms_per_step_4_rows"])
+                  f"{TP_LAYERS} layers")
+        summary["loadgen"] = loadgen_phase(server_api, attn, q40, model_tp, tok, smi)
         print(f"phase 9: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 
-        t = phase(f"10. the slice's path: fault containment and fair admission in the API server, {N_LAYERS} layers")
-        summary["faults"] = faults_phase(server_api, attn, q40, model, tok, smi)
+        t = phase(f"10. the slice's path: fault containment and fair admission in the API server, {TP_LAYERS} "
+                  "layers")
+        summary["faults"] = faults_phase(server_api, attn, q40, model_tp, tok, smi)
         print(f"phase 10: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = phase(f"11. the slice's path: the host spill tier and the replica pool in the API server, "
+                  f"{N_LAYERS} layers")
+        summary["spill"] = spill_phase(server_api, model, tok, smi, workdir)
+        print(f"phase 11: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 
         os.remove(model)  # room on the disk for phase 7c's and phase 8's files
         t = phase(f"7c. the slice's path: CLI generate --tp 2/4 --allreduce ring, Llama-2-7B width, "
                   f"{TP_LAYERS} layers")
-        model = str(workdir / "llama2_7b_width_tp.m")
-        synthetic.write_random_q40_model(model, synthetic.llama2_7b_spec(n_layers=TP_LAYERS, seq_len=4096), seed=0)
-        summary["tp"] = tp_runs(cli, llama, coll, q40, model, tok)
+        summary["tp"] = tp_runs(cli, llama, coll, q40, model_tp, tok)
         for name in ("ring_all_reduce", "fused_matmul_ring"):
             main_launches[name] = summary["tp"]["tp2"]["launches"][name]
-        os.remove(model)
+        os.remove(model_tp)
         print(f"phase 7c: {time.perf_counter() - t:.1f} s")
 
         moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, workdir, summary)
@@ -3164,7 +3811,7 @@ def main() -> None:
     kernels.extend(k2_entries)
     # phase 8's path (8b's CLI runs over the Mixtral-width model): K1's dp4a
     # tile and K3 over one decoded token's expert launches (k = 2 experts'
-    # gate_up and down in each of 8 layers, T=1); K1's tensor-core tile over
+    # gate_up and down in each layer, T=1); K1's tensor-core tile over
     # one 64-row prefill forward's expert launches (all 8 experts' gate_up
     # and down in each layer)
     moe_rows = [r for r in summary["moe_kernel_rows"] if r["shape"].startswith("mixtral")]

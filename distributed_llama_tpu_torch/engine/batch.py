@@ -73,9 +73,29 @@ The port's copy of the JAX package's ``engine/batch.py`` serving core.
   into a quarantine. The ``engine.sdc`` site corrupts the weights (or the
   next chunk's tokens) into finite wrong values.
 
-Left out (each in ROADMAP.md): the host spill tier, the tensor-parallel
-backend and the lock witness. A plain ``threading.Condition`` guards the
-scheduler.
+* The host spill tier (engine/spill.py): with a ``spill_arena`` (the
+  server builds one and shares it across its replicas) an evicted pool
+  page's bytes are downloaded and spilled instead of vanishing, and an admission match first reloads spilled
+  pages of its prefix (its own or a peer replica's), so the match binds
+  them like pages that were never evicted. On the card the download runs
+  on a side stream that waits only for the event recorded when the page
+  was written, gathers the page's every layer into one buffer and copies
+  it into pinned host memory, so a spill never waits for decode chunks
+  queued on the main stream; the reload's upload goes through pinned
+  staging. The ``engine.spill`` site aborts or corrupts a reload, which
+  then prefills cold.
+* Replica loss: in a replica pool (server/replicas.py) this scheduler is
+  one replica. ``replica_id`` scopes the ``replica.*`` sites (a rule's
+  ``row=`` selects the replica), ``health_hook(event, value)`` feeds the
+  pool's health walk ("roundtrip" per chunk fetch, "stall" and "lost"),
+  and ``lost_on_stall`` turns a watchdog stall into a whole-replica loss.
+  :meth:`BatchScheduler.mark_lost` (a ``replica.crash`` fire at a chunk or
+  prefill-piece dispatch, a stall under ``lost_on_stall``, or the pool)
+  retires every in-flight request with a typed :class:`faults.ReplicaLost`
+  that the server replays on a surviving replica.
+
+Left out (in ROADMAP.md): the tensor-parallel backend. The scheduler's
+condition is a ``lockcheck`` construction site (``DLT_LOCK_CHECK``).
 
 Thread model: request threads call into their own :class:`BatchStream`;
 whichever thread needs tokens first dispatches the shared chunk for
@@ -96,7 +116,7 @@ import weakref
 import numpy as np
 import torch
 
-from distributed_llama_tpu_torch import prng, retry
+from distributed_llama_tpu_torch import lockcheck, prng, retry
 from distributed_llama_tpu_torch.engine import faults, integrity
 from distributed_llama_tpu_torch.engine.engine import StreamStats, _prefill_bucket, _stats, next_pow2
 from distributed_llama_tpu_torch.engine.prefix_cache import PrefixCache
@@ -104,7 +124,7 @@ from distributed_llama_tpu_torch.engine.speculative import PromptLookupDrafter
 from distributed_llama_tpu_torch.models import llama, sampling
 from distributed_llama_tpu_torch.ops import kv_cache as kvc
 from distributed_llama_tpu_torch.platform import HostFetch, to_device
-from distributed_llama_tpu_torch.telemetry import Stopwatch
+from distributed_llama_tpu_torch.telemetry import Stopwatch, flight
 
 
 # a fetch whose generation the watchdog retired while it waited
@@ -306,7 +326,8 @@ class BatchScheduler:
 
     def __init__(self, engine, n_rows: int, chunk: int = 32, retries: int = 2, retry_backoff_s: float = 0.05,
                  stall_timeout_s: float | None = None, prefix_cache: bool = False, kv_pages: int | None = None,
-                 page_size: int = 64, prefill_chunk: int = 0, spec_draft: int = 0, spec_ngram: int = 3):
+                 page_size: int = 64, prefill_chunk: int = 0, spec_draft: int = 0, spec_ngram: int = 3,
+                 replica_id: int = 0, spill_arena=None, shared_index=None):
         if n_rows < 1:
             raise ValueError(f"need at least one batch row, got {n_rows}")
         if getattr(engine, "tp_backend", None) is not None:
@@ -316,7 +337,26 @@ class BatchScheduler:
         self.b_max = n_rows
         self.chunk = int(chunk)
         self.prefill_chunk = max(0, int(prefill_chunk or 0))
+        # replica-loss fault domain (server/replicas.py): the replica id
+        # scopes the replica.* sites; health_hook(event, value) feeds the
+        # pool's health walk and takes only locks ranked above this one;
+        # lost_on_stall turns a watchdog stall into a whole-replica loss
+        self.replica_id = int(replica_id)
+        self.health_hook = None
+        self.lost_on_stall = False
+        self._lost = False
+        self.lost_cause: str | None = None
         cfg = engine.cfg
+        # the spill tier's device side: the event recorded when each pool
+        # page was last written, and the side stream its download runs on
+        self._page_events: dict = {}
+        self._copy_stream = None
+        # spilled-page downloads and reloaded-page uploads, with their wall
+        # time (host clock, ending in the copy's wait for a download)
+        self.spill_downloads = 0
+        self.spill_download_s = 0.0
+        self.spill_uploads = 0
+        self.spill_upload_s = 0.0
         self._prefix: PrefixCache | None = None
         self._pool = None
         if prefix_cache:
@@ -337,10 +377,17 @@ class BatchScheduler:
                     print(f"⚠️ --kv-pages {kv_pages} is smaller than one slab's worth ({slab_pages} pages for "
                           f"{n_rows} rows x seq_len {cfg.seq_len}): concurrent long prompts will contend for "
                           "pages (pinned-page soft failures)")
+                # the host spill tier: the arena the server shares across
+                # its replicas (None: an evicted page vanishes)
+                arena = spill_arena
                 self._prefix = PrefixCache(kv_pages, page_size,
-                                           page_bytes=llama.page_pool_bytes(cfg, page_size, engine.cache_dtype))
+                                           page_bytes=llama.page_pool_bytes(cfg, page_size, engine.cache_dtype),
+                                           spill=arena, page_fetch=self._download_page if arena is not None else None,
+                                           owner_id=replica_id, shared_index=shared_index)
                 self._pool = llama.init_page_pool(cfg, kv_pages, page_size, engine.cache_dtype, engine.device)
                 self._n_table = n_table
+                if arena is not None and engine.device.type == "cuda":
+                    self._copy_stream = torch.cuda.Stream(engine.device)
         self._slab = llama.init_batch_cache(cfg, n_rows, engine.cache_dtype, engine.device)
         # speculative decode: spec_draft > 0 turns every dispatch into a
         # verify step; misconfiguration disables it with its reason
@@ -357,7 +404,7 @@ class BatchScheduler:
         self.spec_emitted = 0
         self.spec_rows_max = 0  # the most rows (bucket x window) one verify forward ran
         self._streams: list[BatchStream] = []
-        self._cond = threading.Condition()
+        self._cond = lockcheck.make_condition("BatchScheduler._cond")
         # one dispatched-but-unfetched chunk at a time
         self._pending = None
         self._fetching = False
@@ -414,6 +461,45 @@ class BatchScheduler:
         if self._watchdog is not None and self._watchdog is not threading.current_thread():
             self._watchdog.join(timeout=5.0)
 
+    # ------------------------------------------------------------------
+    # Replica loss: the whole-scheduler failure domain
+    # ------------------------------------------------------------------
+
+    def mark_lost(self, cause: str) -> None:
+        """Declare this replica dead (the pool's and the tests' entry
+        point). Idempotent."""
+        with self._cond:
+            self._mark_lost_locked(cause)
+
+    def _mark_lost_locked(self, cause: str) -> None:
+        """The one death path (lock held): every stream gets ReplicaLost (a
+        request mid-prefill raises it at its next piece, a decoding one at
+        its next ``next_token``), page pins release, the pending chunk is
+        dropped, a fetch in flight is retired (it delivers nothing), the
+        watchdog stands down and the health hook reports the loss (it takes
+        only locks ranked above this one)."""
+        if self._lost:
+            return
+        self._lost = True
+        self.lost_cause = cause
+        victims = sum(1 for s in self._streams if s._joined)
+        flight.record(self.replica_id, "replica_lost", cause=cause, victims=victims,
+                      victim_trace_ids=[s.trace.request_id for s in self._streams if s.trace is not None])
+        for s in self._streams:
+            s._fetch_error = faults.ReplicaLost(f"replica {self.replica_id} lost: {cause}")
+            self._release_pins_locked(s)
+        self._pending = None
+        self._fetching = False
+        self._fetch_started = None
+        self._shutdown = True  # a dead replica's watchdog has no duties
+        self._cond.notify_all()
+        hook = self.health_hook
+        if hook is not None:
+            hook("lost", float(victims))
+
+    def _lost_error(self) -> faults.ReplicaLost:
+        return faults.ReplicaLost(f"replica {self.replica_id} lost: {self.lost_cause}")
+
     def _watchdog_check(self) -> None:
         """One watchdog tick: fail a hung chunk fetch cleanly. Joined rows
         get a typed StallTimeout, the fetch generation is retired so a late
@@ -434,6 +520,20 @@ class BatchScheduler:
             self._pending = None
             self.stalls_total += 1
             tel.watchdog_stalls.inc()
+            flight.record(self.replica_id, "watchdog_stall", timeout_s=self.stall_timeout_s,
+                          lost_on_stall=self.lost_on_stall)
+            if self.lost_on_stall:
+                # a supervised replica: the stall is a replica loss, its
+                # victims replay on a surviving replica; the "stall" event
+                # walks the pool's health through suspect before "lost"
+                hook = self.health_hook
+                if hook is not None:
+                    hook("stall", self.stall_timeout_s)
+                self._mark_lost_locked(f"chunk fetch exceeded the {self.stall_timeout_s:.1f}s stall timeout")
+                return
+            # unsupervised: rows die with StallTimeout and no replica-death
+            # dump follows, so snapshot the evidence here
+            flight.RECORDER.dump(self.replica_id, "watchdog_stall", timeout_s=self.stall_timeout_s)
             for s in self._streams:
                 if s._joined and s._fetch_error is None:
                     s._fetch_error = faults.StallTimeout(
@@ -461,6 +561,10 @@ class BatchScheduler:
         unmatched suffix, then publishes the completed full pages. Returns
         (device logits of the final dispatch, index of the last real row)."""
         n = tokens.shape[0]
+        if self._lost:
+            # placed on this replica just before it died: fail typed before
+            # touching the slab (the server requeues it onto a survivor)
+            raise self._lost_error()
         if n == 0:
             raise ValueError("empty token batch: at least one token required")
         if stream.pos + n > self.engine.cfg.seq_len:
@@ -508,6 +612,17 @@ class BatchScheduler:
             padded = np.zeros(bucket, dtype=np.int64)
             padded[:c] = tokens[off : off + c]
             with self._cond:
+                try:
+                    # whole-replica crash site: a prefill piece is a round
+                    # trip too, so a crash mid-prompt fails over like one
+                    # mid-decode
+                    self._faults.fire("replica.crash", row=self.replica_id)
+                except Exception as e:
+                    self._mark_lost_locked(f"injected crash at prefill: {e}")
+                if self._lost:
+                    err = stream._fetch_error or self._lost_error()
+                    stream._fetch_error = None
+                    raise err
                 paged = None
                 if self._pool is not None:
                     # an unaliased row reads matched 0: the same bytes as the
@@ -530,18 +645,133 @@ class BatchScheduler:
     # Prefix cache: admission match/alias bind + publish
     # ------------------------------------------------------------------
 
+    def _download_page(self, pid: int) -> list[np.ndarray]:
+        """Host arrays of pool page ``pid`` across every layer and half, in
+        the spill entry's flat layout (per layer: k's then v's arrays of
+        :func:`kvc.slice_pool_page`): the PrefixCache eviction hook.
+
+        On the card the page's slices are gathered into one buffer on a side
+        stream that waits only for the event recorded when the page was
+        written, then copied with one non-blocking copy into pinned host
+        memory, and this thread waits for that copy alone: a spill never
+        waits for decode chunks queued on the main stream. The wait ends
+        before the page id is freed, so a later write of the id (issued
+        after this returns) cannot overtake the read."""
+        t0 = time.perf_counter()
+        views = [t for pk, pv in self._pool for half in (pk, pv) for t in kvc.slice_pool_page(half, pid)]
+        if self._copy_stream is None:
+            arrays = [kvc.to_host_array(t.cpu().clone()) for t in views]
+        else:
+            stream = self._copy_stream
+            with torch.cuda.stream(stream):
+                ready = self._page_events.get(pid)
+                if ready is not None:
+                    stream.wait_event(ready)
+                flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in views])
+                host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+                host.copy_(flat, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            done.synchronize()
+            # the arrays are views of the pinned buffer (the arena keeps it)
+            raw, arrays, off = host.numpy(), [], 0
+            for t in views:
+                n = t.numel() * t.element_size()
+                arrays.append(raw[off : off + n].view(kvc.host_dtype(t.dtype)).reshape(tuple(t.shape)))
+                off += n
+        self.spill_downloads += 1
+        self.spill_download_s += time.perf_counter() - t0
+        return arrays
+
+    def _mark_page_written_locked(self, page_ids) -> None:
+        """Record the event a later download of these pages waits for (on
+        the card, with the spill tier on)."""
+        if self._copy_stream is not None:
+            ev = torch.cuda.Event()
+            ev.record()
+            for pid in page_ids:
+                self._page_events[int(pid)] = ev
+
+    def _upload_page(self, pid: int, arrays: list) -> None:
+        """Write a spilled page's host arrays into pool page ``pid`` across
+        every layer, in place (the reload: the publish in reverse), the
+        entry regrouped per layer and half. An entry whose layout, dtypes or
+        shapes do not fit the pool raises ValueError (an entry from another
+        configuration: the reload aborts, the page goes back to the free
+        list unread, and the prompt prefills cold). On the card the bytes go
+        through one pinned staging buffer and one non-blocking copy."""
+        halves = [half for pk, pv in self._pool for half in (pk, pv)]
+        counts = [kvc.pool_page_arrays_per_half(h) for h in halves]
+        if len(arrays) != sum(counts):
+            raise ValueError(f"spill entry layout mismatch: {len(arrays)} arrays, expected {sum(counts)}")
+        if self.engine.device.type == "cuda":
+            flat = [np.ascontiguousarray(a).reshape(-1).view(np.uint8) for a in arrays]
+            staging = torch.empty(sum(f.size for f in flat), dtype=torch.uint8, pin_memory=True)
+            raw, off = staging.numpy(), 0
+            for f in flat:
+                raw[off : off + f.size] = f
+                off += f.size
+            dev_buf = staging.to(self.engine.device, non_blocking=True)
+            tensors, off = [], 0
+            for a, f in zip(arrays, flat):
+                tensors.append(dev_buf[off : off + f.size].view(kvc.torch_dtype(a.dtype)).reshape(a.shape))
+                off += f.size
+        else:
+            tensors = [kvc.from_host_array(a) for a in arrays]
+        i = 0
+        for h, c in zip(halves, counts):
+            kvc.upload_pool_page(h, pid, tensors[i : i + c])
+            i += c
+        self._mark_page_written_locked([pid])
+
+    def _reload_spilled_locked(self, tokens: np.ndarray) -> int:
+        """Pull spilled pages of this prompt's prefix back into the pool
+        before the radix match (lock held), so the match binds them like
+        pages that were never evicted. The ``engine.spill`` site fires per
+        candidate block (``row=`` selects the replica): a raise aborts the
+        reload (uploaded blocks stay, deeper blocks prefill cold), and
+        ``kind=corrupt`` flips the arena's bytes in place so the CRC must
+        catch them."""
+        prefix = self._prefix
+
+        def pre(chain_key):
+            rule = self._faults.fires("engine.spill", row=self.replica_id)
+            if rule is None:
+                return
+            if rule.kind == "corrupt":
+                prefix.spill_corrupt(chain_key)
+            else:
+                raise faults.InjectedFault(rule.message or "injected fault at engine.spill")
+
+        def upload(pid, arrays):
+            t0 = time.perf_counter()
+            with self.engine._tel.span("prefix_spill_reload", page=int(pid)):
+                self._upload_page(pid, arrays)
+            self.spill_uploads += 1
+            self.spill_upload_s += time.perf_counter() - t0
+
+        return prefix.reload(tokens, upload, pre=pre)
+
     def _match_alias(self, stream: BatchStream, tokens: np.ndarray) -> list:
         """Bind the prompt's longest published prefix to the row: its page
         ids become the row's page table and its position moves past the
-        matched tokens. No bytes move; the chain stays pinned."""
+        matched tokens. No bytes move; the chain stays pinned. With a spill
+        arena, pages of this prefix that were evicted to host RAM (by this
+        replica or a peer) are re-uploaded first."""
         prefix = self._prefix
         t0 = time.perf_counter()
+        reloaded = 0
         with self._cond:
             self._release_pins_locked(stream)  # a stale alias left by a caller that skipped reset
+            if prefix.spill is not None and not self._lost:
+                # a dead replica must not re-announce chains to the shared
+                # index after the pool dropped its ownership
+                reloaded = self._reload_spilled_locked(tokens)
             chain = prefix.match(tokens)
             if stream.trace is not None:
                 stream.trace.add_span("prefix_match", t0, time.perf_counter() - t0,
-                                      matched_tokens=len(chain) * prefix.page, pages=len(chain))
+                                      matched_tokens=len(chain) * prefix.page, pages=len(chain),
+                                      reloaded_pages=reloaded)
             if chain:
                 stream._alias_chain = chain
                 stream._alias_ids = [nd.page_id for nd in chain]
@@ -556,6 +786,10 @@ class BatchScheduler:
         fine, publishing is an optimization."""
         prefix = self._prefix
         with self._cond:
+            if self._lost:
+                # the replica died after the last suffix piece: a publish now
+                # would re-announce chains after the pool dropped them
+                return
             new_ids, new_blocks = prefix.publish(tokens, tokens.shape[0], chain)
             if not new_ids:
                 return
@@ -564,6 +798,7 @@ class BatchScheduler:
                     for leaf, (pk, pv) in zip(self._slab, self._pool):
                         kvc.publish_row_pages(pk, leaf[0], stream.row, new_blocks, new_ids, prefix.page)
                         kvc.publish_row_pages(pv, leaf[1], stream.row, new_blocks, new_ids, prefix.page)
+                    self._mark_page_written_locked(new_ids)
             except Exception as e:
                 prefix.unpublish(tokens, new_ids, new_blocks)
                 print(f"⚠️ prefix publish failed; pages unwound: {e}")
@@ -656,6 +891,7 @@ class BatchScheduler:
         self._release_pins_locked(s)
         self.quarantined_total += 1
         self.engine._tel.rows_quarantined.inc()
+        flight.record(self.replica_id, "rows_quarantined", rows=[s.row], error=type(err).__name__)
 
     def _fire_row_site_locked(self, site: str, joined: list, what: str) -> list:
         """Fire ``site`` per joined row: a row-targeted raise retires only
@@ -678,10 +914,10 @@ class BatchScheduler:
 
     def _fire_sdc_locked(self) -> None:
         """The ``engine.sdc`` site, per batched dispatch (``row=`` is the
-        replica id, 0 here): ``message=weights`` (the default) corrupts one
+        replica id): ``message=weights`` (the default) corrupts one
         weight slice in place, ``message=logits`` shifts the next fetched
         chunk's tokens in-vocab. Nothing raises and nothing quarantines."""
-        rule = self._faults.fires("engine.sdc", row=0)
+        rule = self._faults.fires("engine.sdc", row=self.replica_id)
         if rule is None or rule.kind != "corrupt":
             return
         if (rule.message or "weights") == "logits":
@@ -689,7 +925,7 @@ class BatchScheduler:
             return
         engine = self.engine
         engine.params, desc = integrity.corrupt_params(engine.params, seed=getattr(self._faults, "seed", 0))
-        print(f"🧬 engine.sdc injected: corrupted {desc}")
+        print(f"🧬 engine.sdc injected on replica {self.replica_id}: corrupted {desc}")
 
     # ------------------------------------------------------------------
     # Join/leave (between chunks)
@@ -706,9 +942,10 @@ class BatchScheduler:
             stream._epoch += 1
             stream._joined = True
             stream._chunk_fps = []
-            if not isinstance(stream._fetch_error, faults.RowPreempted):
-                # a preemption that landed between this request's prefill
-                # and its join survives it: the first next_token raises it
+            if not isinstance(stream._fetch_error, (faults.RowPreempted, faults.ReplicaLost)):
+                # a preemption or replica loss that landed between this
+                # request's prefill and its join survives it: the first
+                # next_token raises it
                 stream._fetch_error = None
             self._cond.notify_all()
 
@@ -743,6 +980,14 @@ class BatchScheduler:
     # ------------------------------------------------------------------
     # Priority preemption
     # ------------------------------------------------------------------
+
+    def min_preemptible_priority(self) -> int | None:
+        """Lowest priority among this scheduler's evictable rows (None when
+        nothing is evictable): the replica pool ranks replicas by it, so a
+        preemption evicts the globally lowest-priority row."""
+        with self._cond:
+            prios = [s.priority for s in self._streams if s.priority is not None and s._fetch_error is None]
+            return min(prios) if prios else None
 
     def preempt_below(self, priority: int) -> bool:
         """Evict the lowest-priority row whose priority is strictly below
@@ -844,6 +1089,13 @@ class BatchScheduler:
             self.retries_total += 1
             tel.dispatch_retries.inc()
 
+        try:
+            # whole-replica crash site: not transient, so no retry and no
+            # per-row quarantine; every in-flight request fails over
+            self._faults.fire("replica.crash", row=self.replica_id)
+        except Exception as e:
+            self._mark_lost_locked(f"injected crash at dispatch: {e}")
+            return None
         self._fire_sdc_locked()
         try:
             # the one sanctioned block under this lock: the bounded
@@ -866,6 +1118,8 @@ class BatchScheduler:
         (lock held). Bucket rows that are not joined ride along inactive:
         they write nothing and their outputs are discarded. In speculative
         mode the chunk is one verify step (:meth:`_dispatch_spec_locked`)."""
+        if self._lost:
+            return  # every stream already carries its ReplicaLost
         if self.spec_draft > 0:
             self._dispatch_spec_locked()
             return
@@ -1027,6 +1281,11 @@ class BatchScheduler:
 
         def attempt_once():
             self._faults.fire("batch.fetch")
+            # replica chaos: `slow` (kind=delay) stretches this round trip
+            # past the pool's suspect threshold, `hang` sleeps into the
+            # stall watchdog
+            self._faults.fire("replica.slow", row=self.replica_id)
+            self._faults.fire("replica.hang", row=self.replica_id)
             with tel.span("batch_decode_fetch", bucket=bucket):
                 return fetch.wait()
 
@@ -1060,7 +1319,12 @@ class BatchScheduler:
             else:
                 self._cond.notify_all()
         if not owned:
-            return  # the watchdog retired this fetch: its rows hold StallTimeout
+            return  # the watchdog (or a replica loss) retired this fetch: its rows hold typed errors
+        hook = self.health_hook
+        if hook is not None and error is None:
+            # the dispatch-to-fetch round trip: the pool's health walk turns
+            # the replica suspect past its threshold and back on a fast one
+            hook("roundtrip", sw.elapsed_s())
         if mode == "spec":
             self._deliver_spec(host, snapshot, sw, lens, bucket, error)
             self._drain_if_idle()
@@ -1095,6 +1359,9 @@ class BatchScheduler:
             # deliver and release fetch ownership in one block, so the next
             # pending chunk is taken only after this one's tokens are queued
             self._fetching = False
+            if self._lost:  # the replica died after the claim: its rows hold ReplicaLost
+                self._cond.notify_all()
+                return
             for s, epoch in snapshot:
                 if not (s._joined and s._epoch == epoch):
                     continue
@@ -1153,6 +1420,9 @@ class BatchScheduler:
         delivered_rows = delivered_tokens = 0
         with self._cond:
             self._fetching = False
+            if self._lost:  # the replica died after the claim: its rows hold ReplicaLost
+                self._cond.notify_all()
+                return
             for s, epoch in snapshot:
                 if not (s._joined and s._epoch == epoch):
                     continue

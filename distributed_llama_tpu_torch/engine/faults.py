@@ -36,17 +36,40 @@ accepts every site name of the JAX package; the port fires these:
                             ``message=weights`` (the default) perturbs one
                             weight slice in place, ``message=logits`` shifts
                             the next fetched chunk's tokens in-vocab.
-                            ``row=`` selects the replica id (0: the port
-                            serves one replica)
+                            ``row=`` selects the replica id
+``engine.spill``            fired per candidate block while an admission
+                            match pulls spilled prefix pages back from the
+                            host-RAM arena (engine/spill.py): a raise aborts
+                            the reload (blocks already uploaded stay, deeper
+                            blocks prefill cold); ``kind=corrupt`` flips the
+                            arena entry's bytes in place, which the entry's
+                            CRC must catch (the block prefills cold).
+                            ``row=`` selects the replica id
 ``engine.preempt``          raise during a priority preemption's eviction:
                             the victim is quarantined instead of requeued
+``replica.crash``           whole-replica loss, fired per batched-chunk and
+                            per prefill-chunk dispatch: a raise marks the
+                            whole scheduler lost (every in-flight request on
+                            it gets a typed ``ReplicaLost``; the server
+                            requeues them onto a surviving replica and the
+                            supervisor restarts the dead one). ``row=``
+                            selects the replica id
+``replica.hang``            ``kind=hang`` sleep inside the batched chunk
+                            fetch: the stall watchdog trips and, on a
+                            supervised replica, escalates the stall to a
+                            whole-replica loss. ``row=`` selects the replica
+``replica.slow``            ``kind=delay`` inside the batched chunk fetch:
+                            the round trip passes the pool's suspect
+                            threshold and the replica turns SUSPECT until a
+                            fast round trip clears it. ``row=`` selects the
+                            replica id
 ``server.send``             raise ``BrokenPipeError`` from the SSE chunk
                             writer (``kind=disconnect``)
 ==========================  =================================================
 
-``engine.spill``, the ``replica.*`` sites, ``tp.transfer`` and
-``server.rollout`` parse but never fire: their subsystems are not ported
-(ROADMAP.md Queue 1 items 2.6, 2.7 and 3/4).
+``tp.transfer`` and ``server.rollout`` parse but never fire: their
+subsystems are not ported (ROADMAP.md Queue 1: the batched TP scheduler,
+and the replica pool's canary, shadow votes and rollout).
 
 Zero overhead when disabled: components bind ``self._faults =
 faults.active_plan()`` at construction and get the shared
@@ -76,8 +99,9 @@ import dataclasses
 import json
 import os
 import random
-import threading
 import time
+
+from distributed_llama_tpu_torch import lockcheck
 
 
 class InjectedFault(RuntimeError):
@@ -114,14 +138,17 @@ class NonFiniteLogits(RowQuarantined):
 
 
 class ReplicaLost(RuntimeError):
-    """This request's whole replica died. Kept for the JAX package's error
-    vocabulary: the port serves one replica and never raises it (ROADMAP.md
-    Queue 1 item 2.7)."""
+    """This request's whole replica died (a crash at a dispatch, or a stall
+    the watchdog escalated). The serving layer requeues the request through
+    fair admission onto a surviving replica and replays it at its pinned
+    seed, suppressing the SSE deltas already sent."""
 
 
 class ReplicaCorrupt(ReplicaLost):
     """A replica declared dead for silent data corruption (the JAX
-    package's canary/shadow verdict); never raised by the port."""
+    package's canary/shadow verdict). The port has no canary or shadow vote
+    yet (ROADMAP.md Queue 1: the replica pool's canary, shadow votes and
+    rollout), so nothing raises it."""
 
 
 KINDS = ("raise", "nan", "delay", "hang", "disconnect", "corrupt")
@@ -197,7 +224,7 @@ class FaultPlan:
     def __init__(self, rules, seed: int = 0):
         self.rules: list[FaultRule] = list(rules)
         self.seed = int(seed)
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("FaultPlan._lock")
         self._hits: dict[str, int] = {}
         self._fired: dict[int, int] = {}
         self._rng = random.Random(self.seed)

@@ -16,9 +16,13 @@ The port's copy of the JAX package's loadgen CLI. Examples:
   ... --self-host --device cpu --faults "batch.row:kind=nan,row=1,after=2,count=1"
   ... --self-host --device cpu --tenants "gold:share=0.3,priority=5;free:share=0.7" --isolation gold
 
-Options whose subsystem the port has not yet (replicas, pods, the
-integrity canary and shadow votes, rollouts, the flight recorder) raise
-ValueError naming their ROADMAP.md item.
+  # a replica kill under load: two self-hosted replicas, replica 0 crashes
+  # mid-window, the victims replay on replica 1, the flight recorder shows it
+  ... --self-host --device cpu --replicas 2 --faults "replica.crash:kind=raise,row=0,after=8,count=1" \\
+      --expect-flight fault_fire@replica.crash:1 --expect-flight failover:1
+
+Options whose subsystem the port has not yet (pods, the integrity canary
+and shadow votes, rollouts) raise ValueError naming their ROADMAP.md item.
 
 Exit codes: 0 = report produced (all asserted checks passed), 1 = an
 ``--assert``/``--isolation`` check failed, 2 = the run itself failed.
@@ -38,7 +42,7 @@ from distributed_llama_tpu_torch.loadgen import report as rep
 from distributed_llama_tpu_torch.loadgen import runner, workload
 
 # the ROADMAP.md item of each option whose subsystem is not ported
-_REPLICAS = "ROADMAP.md Queue 1 item 2.7 (replicas, the SDC canary, fleet rollout, the flight recorder)"
+_FLEET = "ROADMAP.md Queue 1: the replica pool's canary, shadow votes and rollout"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,10 +85,17 @@ def build_parser() -> argparse.ArgumentParser:
                    "the measured window)")
     # self-host server knobs
     p.add_argument("--device", default="cuda", help="self-host device: cuda (default) or cpu")
-    p.add_argument("--parallel", type=int, default=4, help="self-host serving slots (batch rows)")
+    p.add_argument("--parallel", type=int, default=4, help="self-host serving slots (batch rows) per replica")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="self-host supervised replicas (default 1): a replica-kill run composes this with --faults "
+                   "'replica.crash:...' and gates on --expect-delta/--expect-flight")
     p.add_argument("--seq-len", type=int, default=256)
     p.add_argument("--kv-pages", type=int, default=None,
-                   help="self-host prefix-cache pool budget in pages (default: slab-sized)")
+                   help="self-host prefix-cache pool budget in pages (default: slab-sized); a tiny value forces "
+                   "eviction, spill and reload")
+    p.add_argument("--host-spill-mb", type=float, default=16.0,
+                   help="self-host host-RAM spill arena budget in MiB (--host-spill-mb on the server; 0 disables "
+                   "the tier)")
     p.add_argument("--admission-queue", type=int, default=None,
                    help="self-host admission queue bound (default 2x --parallel)")
     p.add_argument("--server-tenants", type=str, default=None,
@@ -95,13 +106,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--faults-seed", type=int, default=0)
     p.add_argument("--no-preempt", action="store_true", help="self-host server without priority preemption")
     # not ported: each raises ValueError naming its ROADMAP.md item
-    p.add_argument("--replicas", type=int, default=None, help="not ported: more than 1 raises")
     p.add_argument("--pod", type=str, default=None, help="not ported: raises")
     p.add_argument("--canary-interval-s", type=float, default=0.0, help="not ported: above 0 raises")
     p.add_argument("--shadow-rate", type=float, default=0.0, help="not ported: above 0 raises")
     p.add_argument("--rollout-weights", type=str, default=None, help="not ported: raises")
     p.add_argument("--expect-flight", action="append", default=[], metavar="KIND[@SITE][:MIN]",
-                   help="not ported: raises")
+                   help="assert the server's /debug/flight rings hold at least MIN (default 1) lifecycle events of "
+                   "KIND, optionally with a given fault site, e.g. 'fault_fire@replica.crash:1' (the injection "
+                   "landed in the black box) or 'failover:1' (the recovery it caused); repeatable")
     # report / checks
     p.add_argument("--out", type=str, default=None, help="report JSON path")
     p.add_argument("--assert", dest="assert_checks", action="store_true",
@@ -124,12 +136,10 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise ValueError for an option whose subsystem the port lacks."""
     refused = [
-        ("--replicas > 1", args.replicas is not None and args.replicas > 1, _REPLICAS),
         ("--pod", args.pod, "ROADMAP.md Queue 1 item 4 (sequence parallel, expert parallel and pod)"),
-        ("--canary-interval-s", args.canary_interval_s > 0, _REPLICAS),
-        ("--shadow-rate", args.shadow_rate > 0, _REPLICAS),
-        ("--rollout-weights", args.rollout_weights is not None, _REPLICAS),
-        ("--expect-flight", args.expect_flight, _REPLICAS),
+        ("--canary-interval-s", args.canary_interval_s > 0, _FLEET),
+        ("--shadow-rate", args.shadow_rate > 0, _FLEET),
+        ("--rollout-weights", args.rollout_weights is not None, _FLEET),
     ]
     for name, on, item in refused:
         if on:
@@ -214,7 +224,8 @@ def main(argv=None) -> int:
         host = start_selfhost(parallel=args.parallel, seq_len=args.seq_len, kv_pages=args.kv_pages,
                               admission_queue=args.admission_queue, topk=args.topk, device=args.device,
                               tenants=args.server_tenants, preempt=not args.no_preempt, faults_spec=args.faults,
-                              faults_seed=args.faults_seed)
+                              faults_seed=args.faults_seed, replicas=args.replicas,
+                              host_spill_mb=args.host_spill_mb)
         url = host.url
         print(f"self-hosted server at {url}", file=sys.stderr)
     else:
@@ -251,13 +262,16 @@ def main(argv=None) -> int:
             report["checks"]["expected_deltas"] = rep.check_expected_deltas(report, args.expect_delta)
         if args.expect_zero:
             report["checks"]["expected_zero"] = rep.check_expected_zero(report, args.expect_zero)
+        if args.expect_flight:
+            report["checks"]["expected_flight"] = rep.check_expected_flight(rep.fetch_flight(url),
+                                                                            args.expect_flight)
         print(rep.dump_report(report, args.out))
         if not replay_ok:
             print("FATAL: schedule replay fingerprint mismatch", file=sys.stderr)
             return 2
         # explicitly requested gates are ALWAYS enforced; --assert adds the
         # built-in consistency and fairness checks
-        gate_names = ("goodput", "expected_deltas", "expected_zero")
+        gate_names = ("goodput", "expected_deltas", "expected_zero", "expected_flight")
         requested = [report["checks"].get(k) for k in gate_names]
         bad = [f"[{k}] {v}" for k, chk in zip(gate_names, requested) if chk and not chk.get("ok", True)
                for v in chk.get("violations", [])]

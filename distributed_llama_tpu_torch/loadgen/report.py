@@ -2,10 +2,10 @@
 and the machine-checked invariants (fairness / consistency).
 
 The port's copy of the JAX package's ``loadgen/report.py``: the same
-report, byte for byte, from the same inputs, and the two-phase isolation
-check. The rollout gate and the flight-recorder gate are left out with the
-subsystems they judge (fleet rollout, ``telemetry/flight.py``; ROADMAP.md
-Queue 1 item 2.7).
+report, byte for byte, from the same inputs, the two-phase isolation check
+and the flight-recorder gate. The rollout gate is left out with the fleet
+rollout it judges (ROADMAP.md Queue 1: the replica pool's canary, shadow
+votes and rollout).
 
 The report is ONE JSON document (docs/SERVING.md defines the shape) built
 from three inputs: the deterministic schedule, the measured per-request
@@ -462,6 +462,64 @@ def check_expected_zero(report: dict, names: list[str]) -> dict:
                 f"counter {name!r} moved {got:g}, expected exactly 0"
             )
     return {"ok": not violations, "expected_zero": checked,
+            "violations": violations}
+
+
+def fetch_flight(url: str, timeout_s: float = 10.0) -> dict | None:
+    """GET ``url``/debug/flight -> the flight-recorder snapshot; None on
+    failure (the gate then reports a violation, not a traceback)."""
+    try:
+        with urllib.request.urlopen(
+            url + "/debug/flight", timeout=timeout_s
+        ) as r:
+            return json.loads(r.read().decode())
+    except (OSError, ValueError):
+        return None
+
+
+def check_expected_flight(snapshot: dict | None, specs: list[str]) -> dict:
+    """Gate on flight-recorder lifecycle events: each spec is
+    ``kind[@site][:min]`` — at least ``min`` (default 1) events of
+    ``kind`` (optionally with that ``site`` field, for `fault_fire`) must
+    appear across the replica rings. A replica-kill run gates
+    ``fault_fire@replica.crash:1`` and ``failover:1``: the black box must
+    show the injection AND the recovery it caused."""
+    violations: list[str] = []
+    expected: list[dict] = []
+    if snapshot is None:
+        return {"ok": False, "expected": specs,
+                "violations": ["/debug/flight snapshot unavailable"]}
+    events = [
+        ev for ring in (snapshot.get("replicas") or {}).values()
+        for ev in ring
+    ]
+    for spec in specs:
+        head, colon, floor_s = spec.rpartition(":")
+        if not colon:
+            head, floor_s = spec, ""
+        try:
+            floor = float(floor_s) if floor_s.strip() else 1.0
+        except ValueError:
+            violations.append(
+                f"malformed --expect-flight spec {spec!r} "
+                "(want KIND[@SITE][:MIN])"
+            )
+            continue
+        kind, _, site = head.partition("@")
+        kind, site = kind.strip(), site.strip()
+        got = sum(
+            1 for ev in events
+            if ev.get("kind") == kind
+            and (not site or ev.get("site") == site)
+        )
+        expected.append({"kind": kind, "site": site or None, "min": floor})
+        if got < floor:
+            violations.append(
+                f"flight events kind={kind!r}"
+                + (f" site={site!r}" if site else "")
+                + f": saw {got}, expected >= {floor:g}"
+            )
+    return {"ok": not violations, "expected": expected,
             "violations": violations}
 
 

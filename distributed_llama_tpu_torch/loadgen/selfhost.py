@@ -1,15 +1,16 @@
 """In-process self-hosted target: the port's serving stack (ApiState +
 ThreadingHTTPServer + BatchScheduler) on a tiny synthetic model.
 
-The port's copy of the JAX package's ``loadgen/selfhost.py``, for one
-replica: telemetry enabled before anything binds its instruments (the
-report scrapes ``/metrics``), batched decode with the paged prefix cache
-on, on the card unless ``device="cpu"`` is passed. The model, tokenizer
-and server settings are the JAX self-host's, so the same schedule streams
-the same greedy completions from both packages. A fault plan is installed
-before anything binds it; tenants and preemption are the server's flags.
-Replicas, pods, the integrity canary and rollouts are not ported
-(``loadgen/__main__.py`` refuses them by name).
+The port's copy of the JAX package's ``loadgen/selfhost.py``: telemetry
+enabled before anything binds its instruments (the report scrapes
+``/metrics``), batched decode with the paged prefix cache and the host
+spill tier on, on the card unless ``device="cpu"`` is passed. The model,
+tokenizer and server settings are the JAX self-host's, so the same
+schedule streams the same greedy completions from both packages. A fault
+plan is installed before anything binds it; tenants, preemption and
+``replicas`` (every replica, and every restart, loads the same weights)
+are the server's flags. Pods, the integrity canary and rollouts are not
+ported (``loadgen/__main__.py`` refuses them by name).
 """
 
 from __future__ import annotations
@@ -44,8 +45,7 @@ class SelfHost:
     def stop(self) -> None:
         self.server.shutdown()
         self.server.server_close()
-        if self.state.batch is not None:
-            self.state.batch.close()
+        self.state.close()
         if self.plan is not None:
             from distributed_llama_tpu_torch.engine import faults
 
@@ -68,6 +68,8 @@ def start_selfhost(
     faults_spec: str | None = None,
     faults_seed: int = 0,
     deadline_ms: float | None = None,
+    replicas: int | None = None,
+    host_spill_mb: float = 16.0,
 ) -> SelfHost:
     """Build the tiny synthetic f32 model and tokenizer, construct the
     port's ApiState (batched decode, prefix cache) and serve it on an
@@ -103,9 +105,11 @@ def start_selfhost(
         decode_chunk=decode_chunk, prefill_chunk=64,
         prefix_cache=True, kv_pages=kv_pages, kv_page_size=kv_page_size,
         admission_queue=admission_queue, tenants=tenants, preempt=preempt, deadline_ms=deadline_ms,
-        stall_timeout_s=60.0,
+        stall_timeout_s=60.0, replicas=replicas, host_spill_mb=host_spill_mb, spill_disk_dir=None, spill_disk_mb=0,
+        replica_restart_backoff_s=0.1,
     )
-    state = ApiState(engine, tok, sampler, args)
+    state = ApiState(engine, tok, sampler, args,
+                     engine_factory=lambda: InferenceEngine(path, dtype=torch.float32, device=device))
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     server.daemon_threads = True
     threading.Thread(target=server.serve_forever, name="dllama-selfhost", daemon=True).start()

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from distributed_llama_tpu_torch.platform import to_device
@@ -305,6 +306,85 @@ def publish_row_pages(pool_half, slab_half, row: int, src_page, page_ids, page: 
     vals = slab_half[row, slots]
     pool_half[ids] = vals.reshape((len(keep), page) + vals.shape[1:])
     return pool_half
+
+
+# ---------------------------------------------------------------------------
+# A pool page's bytes on the host: the spill tier's entries (engine/spill.py)
+# ---------------------------------------------------------------------------
+
+# numpy has no bfloat16: a bf16 page is kept as its raw 16-bit words in a
+# one-field structured dtype, so the tag travels with the array (the arena's
+# CRC runs over the raw bytes and the disk tier's template tells a bf16 page
+# from any other) and the tensor is restored bit for bit
+BF16_WORDS = np.dtype([("bf16", "<u2")])
+
+
+_HOST_DTYPES = {torch.bfloat16: BF16_WORDS, torch.float32: np.dtype(np.float32), torch.int8: np.dtype(np.int8)}
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a pool array of ``dtype`` is kept in on the host."""
+    return _HOST_DTYPES[dtype]
+
+
+def torch_dtype(dtype: np.dtype) -> torch.dtype:
+    """The inverse of :func:`host_dtype`; ValueError for any other dtype."""
+    for t, n in _HOST_DTYPES.items():
+        if n == dtype:
+            return t
+    raise ValueError(f"no pool dtype is kept on the host as {dtype}")
+
+
+def to_host_array(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's values as a numpy array (sharing its memory); bf16 as
+    :data:`BF16_WORDS`."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_WORDS)
+    return t.numpy()
+
+
+def from_host_array(a: np.ndarray) -> torch.Tensor:
+    """The inverse of :func:`to_host_array`: a CPU tensor over ``a``'s bytes."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == BF16_WORDS:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def slice_pool_page(pool_half, pid: int) -> list:
+    """Pool page ``pid`` as a flat tensor list (views): the spill entry's
+    layout, ``[data]`` for a plain half and ``[data, scales]`` for int8."""
+    if isinstance(pool_half, QuantizedKV):
+        return [pool_half.data[pid], pool_half.scales[pid]]
+    return [pool_half[pid]]
+
+
+def pool_page_arrays_per_half(pool_half) -> int:
+    """How many arrays :func:`slice_pool_page` yields for this half (2 for
+    int8 data and scales, 1 otherwise): the spill entry's layout contract."""
+    return 2 if isinstance(pool_half, QuantizedKV) else 1
+
+
+def download_pool_page(pool_half, pid: int) -> list[np.ndarray]:
+    """Host copies of pool page ``pid``'s arrays, verbatim bytes. Blocking
+    (tests and tools); the scheduler downloads every layer's slices of a
+    page in one copy instead (``BatchScheduler._download_page``)."""
+    return [to_host_array(t.cpu().clone()) for t in slice_pool_page(pool_half, pid)]
+
+
+def upload_pool_page(pool_half, pid: int, tensors: list) -> None:
+    """Write one downloaded page back into pool page ``pid`` in place (the
+    spill reload: publish in reverse). ``tensors`` are the flat layout of
+    :func:`slice_pool_page`, on the pool's device, dtypes and shapes equal
+    to the page's; anything else raises ValueError."""
+    dst = slice_pool_page(pool_half, pid)
+    if len(tensors) != len(dst):
+        raise ValueError(f"spill entry has {len(tensors)} arrays for a half of {len(dst)}")
+    for d, t in zip(dst, tensors):
+        if t.dtype != d.dtype or t.shape != d.shape:
+            raise ValueError(f"spill entry array {tuple(t.shape)} {t.dtype} does not fit the pool page "
+                             f"{tuple(d.shape)} {d.dtype}")
+        d.copy_(t)
 
 
 def half_bytes(half) -> int:

@@ -31,9 +31,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import threading
 import time
 
+from distributed_llama_tpu_torch import lockcheck
 from distributed_llama_tpu_torch.engine.faults import DeadlineExceeded
 
 DEFAULT_TENANT = "default"
@@ -131,7 +131,7 @@ class FairAdmission:
         # Names past the cap fold into the shared DEFAULT_TENANT bucket
         # (still served, weight 1) instead of registering.
         self.max_tenants = max(1, int(max_tenants))
-        self._cond = threading.Condition()
+        self._cond = lockcheck.make_condition("FairAdmission._cond")
         self._free = n_slots
         self._tenants: dict[str, TenantConfig] = dict(tenants or {})
         # registration order = the deterministic DRR tie-break order
@@ -279,7 +279,7 @@ class FairAdmission:
 
     def resize(self, delta: int) -> None:
         """Grow or shrink serving capacity by ``delta`` permits — the
-        replica pool's lever in the JAX package: a replica declared DEAD removes
+        replica pool's lever: a replica declared DEAD removes
         its slots (``_free`` may go transiently negative while the dead
         replica's in-flight requests still hold permits; their unwinding
         releases rebalance it), a restarted replica adds them back and

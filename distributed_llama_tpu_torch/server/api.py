@@ -3,13 +3,14 @@
 
     python -m distributed_llama_tpu_torch.server.api --model m.m --tokenizer t.t \\
         --parallel 4 [--port 9990] [--device cpu] [--telemetry] \\
+        [--replicas 2] [--host-spill-mb 64] [--spill-disk-dir DIR] \\
         [--tenants "gold:weight=4,priority=10;free:weight=1"] [--deadline-ms 30000] \\
         [--faults "batch.row:kind=nan,row=1,count=1"]
 
-The port's copy of the JAX package's ``server/api.py`` serving core, one
-replica over one engine: SSE streaming and plain JSON responses, per-request
-temperature / top-p / top-k / seed / max_tokens / stop overrides, and the
-``NaiveCache`` longest-message-prefix reuse of each lane's KV cache.
+The port's copy of the JAX package's ``server/api.py`` serving core: SSE
+streaming and plain JSON responses, per-request temperature / top-p / top-k
+/ seed / max_tokens / stop overrides, and the ``NaiveCache``
+longest-message-prefix reuse of each lane's KV cache.
 
 ``--cache-dtype i8`` keeps the KV cache (slab and page pool) in int8 with
 per-(slot, head) scales; ``--spec-draft k`` decodes speculatively with
@@ -31,12 +32,31 @@ priority class first, then by deficit round-robin across tenants, and past
 ``--admission-queue`` waiters (default 2 x --parallel) or its tenant's bound
 a request gets 429 with a jittered Retry-After (1 s plus up to
 ``--retry-after-jitter-s``). A granted request takes the free lane whose
-chat-prefix cache matches best. With one replica there is no replica pool:
-the preempt hook is the batch scheduler's own ``preempt_below``, so a
-queued higher-priority arrival evicts the lowest-priority decode row
-(``--no-preempt`` queues strictly); the victim is requeued through fair
-admission and re-run from its prompt at its pinned seed, the SSE deltas it
-already sent suppressed (at most ``MAX_PREEMPT_REQUEUES`` times, then 503).
+chat-prefix cache matches best, through the replica pool
+(:mod:`server.replicas`). A queued higher-priority arrival evicts the
+globally lowest-priority decode row (``--no-preempt`` queues strictly); the
+victim is requeued through fair admission and re-run from its prompt at
+its pinned seed, the SSE deltas it already sent suppressed (at most
+``MAX_PREEMPT_REQUEUES`` times, then 503).
+
+Replicas: ``--replicas R`` serves R supervised replicas (each its own
+engine, weights, batch scheduler, slab and page pool; ``--parallel`` lanes
+each) behind one admission front end. Placement prefers chat affinity, then
+the replica owning the longest published chain of the prompt in the shared
+prefix index (load-discounted), then the least loaded; a replica walks
+healthy -> suspect -> dead on slow dispatch round trips
+(``--replica-suspect-s``), escalated stalls and crashes. A dead replica's
+in-flight requests replay on a survivor at their pinned seeds with the
+deltas already sent suppressed, so each client sees one continuous stream,
+and a supervisor frees its card memory and rebuilds it with jittered
+backoff (``--replica-restart-backoff-s``) behind a weight-checksum check.
+The host spill tier (``--host-spill-mb``, default 64; 0 disables it, and
+``--spill-disk-dir``/``--spill-disk-mb`` add an mmap'd disk tier) is one
+arena shared by every replica: an evicted page's bytes spill there and
+reload on a later match, into the same replica or a peer. The flight
+recorder is always on: ``GET /debug/flight`` serves every replica's ring of
+lifecycle events, and ``--flight-dump-dir`` writes a JSON dump on each
+replica death.
 
 Deadlines: ``deadline_ms`` in the body (or ``--deadline-ms``) becomes one
 monotonic instant for queueing, prefill and decode: 504 when it expires in
@@ -62,9 +82,9 @@ written, for a streamed request), TPOT and per-stage times land in
 ``dllama_ttft_seconds`` / ``dllama_tpot_seconds`` /
 ``dllama_request_stage_seconds`` under the request's tenant.
 
-Replicas, fleet operations, the integrity canary and shadow votes, the
-flight recorder and weight rollout are not ported yet (ROADMAP.md Queue 1
-item 2.7).
+The integrity canary and shadow votes, weight versions and rollout, and
+fleet operations are not ported yet (ROADMAP.md Queue 1: the replica
+pool's canary, shadow votes and rollout).
 """
 
 from __future__ import annotations
@@ -73,6 +93,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import random
 import signal
 import sys
@@ -91,7 +112,8 @@ from distributed_llama_tpu_torch.server.admission import (
     ServerDraining,
     parse_tenants,
 )
-from distributed_llama_tpu_torch.telemetry import Stopwatch, trace
+from distributed_llama_tpu_torch.server.replicas import NoPlaceableReplica, Replica, ReplicaPool
+from distributed_llama_tpu_torch.telemetry import Stopwatch, flight, trace
 from distributed_llama_tpu_torch.telemetry.trace import RequestTraceStore
 from distributed_llama_tpu_torch.tokenizer import (
     ChatItem,
@@ -177,56 +199,65 @@ class StreamSlot:
 
 
 class ApiState:
-    def __init__(self, engine, tokenizer: Tokenizer, sampler: Sampler, args):
+    def __init__(self, engine, tokenizer: Tokenizer, sampler: Sampler, args, engine_factory=None):
         if getattr(engine, "tp_backend", None) is not None:
             raise NotImplementedError("serving tensor-parallel ranks is not ported yet "
                                       "(ROADMAP.md Queue 1: the batched TP scheduler)")
-        self.engine = engine
         self.tokenizer = tokenizer
+        self.sampler = sampler  # lane 0's sampler; the others derive their seeds from it
         self.args = args
         self.stops = chat_stops(tokenizer)
         template_type = getattr(args, "chat_template", None) or ChatTemplateType.UNKNOWN
         self.template = ChatTemplate(template_type, tokenizer.chat_template, self.stops[0])
+        # N lanes per replica over R replicas; each replica is one failure
+        # domain (its own engine, scheduler slab and page pool) behind one
+        # admission front door
         n = max(1, int(getattr(args, "parallel", 2) or 1))
-        self.batch = self._make_scheduler(engine, n)
-        if self.batch is not None:
-            streams = [self.batch.new_stream() for _ in range(n)]
-        else:
-            streams = [engine.default_stream] + [engine.new_stream() for _ in range(n - 1)]
-        self.slots = [
-            StreamSlot(s, NaiveCache(), sampler if i == 0 else Sampler(
-                vocab_size=sampler.vocab_size, temperature=sampler.temperature, topp=sampler.topp,
-                topk=sampler.topk, seed=sampler.seed + i))
-            for i, s in enumerate(streams)
-        ]
+        n_replicas = max(1, int(getattr(args, "replicas", 1) or 1))
+        self._lanes = n
+        self._engine_factory = engine_factory
+        if n_replicas > 1 and engine_factory is None:
+            print("⚠️ replicas reduced to 1: no engine factory to build (or restart) more replicas")
+            n_replicas = 1
+        # replicas require the scheduler: it is the failure domain the pool
+        # supervises; one lane on one replica keeps the single stream
+        self._batch_wanted = (getattr(args, "batch_decode", True) and getattr(args, "decode", "device") == "device"
+                              and (n > 1 or n_replicas > 1))
+        # the shared cache tier, built before any replica so replica 0 wires
+        # into it: one prefix index over every replica's tree (placement
+        # routes to the owner of the longest published chain) and one
+        # host-RAM spill arena (an mmap'd disk tier optional below it)
+        self._shared_index = None
+        self._spill_arena = None
+        if self._batch_wanted and getattr(args, "prefix_cache", True):
+            page_sz = getattr(args, "kv_page_size", 64)
+            if n_replicas > 1 and page_sz and page_sz >= 1:
+                from distributed_llama_tpu_torch.engine.prefix_cache import SharedPrefixIndex
+
+                self._shared_index = SharedPrefixIndex(page_sz)
+            spill_mb = getattr(args, "host_spill_mb", None)
+            spill_mb = 64.0 if spill_mb is None else float(spill_mb)
+            if spill_mb > 0:
+                from distributed_llama_tpu_torch.engine.spill import HostArena
+
+                disk_dir = getattr(args, "spill_disk_dir", None)
+                disk_mb = float(getattr(args, "spill_disk_mb", 0) or 0)
+                self._spill_arena = HostArena(
+                    int(spill_mb * (1 << 20)),
+                    disk_path=os.path.join(disk_dir, "dllama-kv-spill.bin") if disk_dir and disk_mb > 0 else None,
+                    disk_budget_bytes=int(disk_mb * (1 << 20)))
+        replicas = [Replica(i, *self._build_replica(i, engine=engine if i == 0 else None))
+                    for i in range(n_replicas)]
         aq = getattr(args, "admission_queue", None)
-        self.queue_limit = max(0, int(aq)) if aq is not None else 2 * n
+        self.queue_limit = max(0, int(aq)) if aq is not None else 2 * n * n_replicas
         mb = getattr(args, "max_body_bytes", None)  # 0 is a valid cap
         self.max_body_bytes = int(mb) if mb is not None else MAX_BODY_BYTES
         self.default_deadline_ms = getattr(args, "deadline_ms", None)
         # weighted-fair admission: one permit per lane, per-tenant bounded
         # queues, priority classes first (server/admission.py)
         self.tenants = parse_tenants(getattr(args, "tenants", None))
-        self.admission = FairAdmission(n, tenants=self.tenants, queue_limit=self.queue_limit)
-        if self.batch is not None and getattr(args, "preempt", True):
-            # one replica, no replica pool: the hook is the scheduler's own
-            # (called outside the admission lock)
-            self.admission.preempt_hook = self.batch.preempt_below
-        # the lane choice after a grant (a permit guarantees a free lane)
-        self._lanes = threading.Lock()
-        # jittered Retry-After: 1 s plus up to --retry-after-jitter-s,
-        # drawn per response from an entropy-seeded RNG, so rejected
-        # clients do not retry in lockstep
-        self.retry_after_base_s = 1
-        self.retry_after_jitter_s = max(0, int(getattr(args, "retry_after_jitter_s", 2) or 0))
-        self._retry_rng = random.Random()
-        # the SSE writer fires the server.send site through it
-        self.faults = faults.active_plan()
-        # requests ended by their deadline: a plain count beside
-        # dllama_deadline_exceeded_total, readable with telemetry off
-        self._count_lock = threading.Lock()
-        self.deadline_exceeded_total = 0
-        self.draining = False
+        self.admission = FairAdmission(n * n_replicas, tenants=self.tenants, queue_limit=self.queue_limit)
+        # bound before the pool, so its replica-state gauges land in it
         self.tel = telemetry.ServerInstruments()
         # the bounded store behind GET /debug/trace/<id>; None with telemetry
         # off, so every per-request hook is one `ctx is None` check
@@ -240,33 +271,119 @@ class ApiState:
                 sample_rate=1.0 if sample is None else float(sample),
                 slow_ttft_s=1.0 if slow is None else float(slow),
             )
+        # the flight recorder is always on: arm the fault-fire observer and
+        # the optional on-death dump directory
+        flight.install_fault_observer()
+        dump_dir = getattr(args, "flight_dump_dir", None)
+        if dump_dir:
+            flight.RECORDER.dump_dir = str(dump_dir)
+        # the supervised replica pool; supervision needs the factory (a
+        # restart rebuilds the engine) and the scheduler (the failure
+        # domain). No falsy-or on the replica flags: 0 is a valid setting
+        suspect_s = getattr(args, "replica_suspect_s", None)
+        restart_base = getattr(args, "replica_restart_backoff_s", None)
+        self.pool = ReplicaPool(
+            self._build_replica, replicas, admission=self.admission, tel=self.tel,
+            supervise=engine_factory is not None and replicas[0].scheduler is not None,
+            suspect_roundtrip_s=30.0 if suspect_s is None else float(suspect_s),
+            restart_policy=retry.BackoffPolicy(attempts=retry.UNBOUNDED,
+                                               base_s=0.5 if restart_base is None else float(restart_base),
+                                               multiplier=2.0, max_s=30.0, jitter_s=0.5),
+            shared_index=self._shared_index, spill_arena=self._spill_arena)
+        if replicas[0].scheduler is not None and getattr(args, "preempt", True):
+            # a queued higher-priority arrival may evict the lowest-priority
+            # decode row on any live replica (called outside the admission lock)
+            self.admission.preempt_hook = self.pool.preempt_below
+        # jittered Retry-After: 1 s plus up to --retry-after-jitter-s,
+        # drawn per response from an entropy-seeded RNG, so rejected
+        # clients do not retry in lockstep
+        self.retry_after_base_s = 1
+        self.retry_after_jitter_s = max(0, int(getattr(args, "retry_after_jitter_s", 2) or 0))
+        self._retry_rng = random.Random()
+        # the SSE writer fires the server.send site through it
+        self.faults = faults.active_plan()
+        # requests ended by their deadline: a plain count beside
+        # dllama_deadline_exceeded_total, readable with telemetry off
+        self._count_lock = threading.Lock()
+        self.deadline_exceeded_total = 0
+        self.draining = False
 
-    def _make_scheduler(self, engine, n: int):
-        """The lanes' BatchScheduler, or None for independent streams (one
-        lane, --no-batch-decode or --decode host)."""
-        args = self.args
-        if not (getattr(args, "batch_decode", True) and getattr(args, "decode", "device") == "device" and n > 1):
+    # replica 0's engine, scheduler and every lane: properties, so a
+    # restarted replica's old engine is referenced from nowhere here
+    @property
+    def engine(self):
+        return self.pool.replicas[0].engine
+
+    @property
+    def batch(self):
+        """Replica 0's BatchScheduler (None without batched lanes)."""
+        return self.pool.replicas[0].scheduler
+
+    @property
+    def slots(self) -> list[StreamSlot]:
+        """Every replica's lanes, flattened."""
+        return self.pool.all_slots()
+
+    def _make_scheduler(self, engine, replica_id: int):
+        """One replica's BatchScheduler from the serving flags, or None for
+        independent streams (one lane on one replica, --no-batch-decode or
+        --decode host)."""
+        if not self._batch_wanted:
             return None
         from distributed_llama_tpu_torch.engine.batch import BatchScheduler
 
+        args = self.args
         return BatchScheduler(
-            engine, n_rows=n, chunk=getattr(args, "decode_chunk", 32),
+            engine, n_rows=self._lanes, chunk=getattr(args, "decode_chunk", 32),
             stall_timeout_s=getattr(args, "stall_timeout_s", None),
             prefix_cache=getattr(args, "prefix_cache", True), kv_pages=getattr(args, "kv_pages", None),
             page_size=getattr(args, "kv_page_size", 64), prefill_chunk=getattr(args, "prefill_chunk", 256),
             spec_draft=getattr(args, "spec_draft", 0), spec_ngram=getattr(args, "spec_ngram", 3),
+            replica_id=replica_id, spill_arena=self._spill_arena, shared_index=self._shared_index,
         )
 
+    def _build_replica(self, idx: int, engine=None):
+        """Build (or rebuild: the pool's supervisor calls this under the
+        restart backoff) replica ``idx``: an engine (the factory's, unless
+        given), its scheduler and its lanes. Returns ``(engine,
+        scheduler_or_None, slots)``. Lane sampler seeds stay distinct
+        across replicas."""
+        if engine is None:
+            if self._engine_factory is None:
+                raise RuntimeError(f"replica {idx} cannot be built: no engine factory")
+            engine = self._engine_factory()
+        sched = self._make_scheduler(engine, idx)
+        if sched is not None:
+            streams = [sched.new_stream() for _ in range(self._lanes)]
+        else:
+            streams = [engine.default_stream] + [engine.new_stream() for _ in range(self._lanes - 1)]
+        base = self.sampler
+        slots = [
+            StreamSlot(s, NaiveCache(), base if idx == 0 and i == 0 else Sampler(
+                vocab_size=base.vocab_size, temperature=base.temperature, topp=base.topp, topk=base.topk,
+                seed=base.seed + idx * self._lanes + i))
+            for i, s in enumerate(streams)
+        ]
+        return engine, sched, slots
+
+    def _route_tokens(self, params: dict):
+        """The full prompt's token ids for shared-index placement, or None
+        when the index is off, empty, or the request opted out of the
+        prefix cache (the re-encode is skipped until it can matter)."""
+        if self._shared_index is None or len(self._shared_index) == 0 or params.get("cache", "on") == "off":
+            return None
+        items = [ChatItem(m["role"], m["content"]) for m in params["messages"]]
+        return self.tokenizer.encode(self.template.generate(items, append_generation_prompt=True), add_bos=True)
+
     def _acquire_slot(self, messages: list[dict], deadline: float | None = None, tenant: str = DEFAULT_TENANT,
-                      priority: int = 0, ctx=None) -> StreamSlot:
+                      priority: int = 0, route_tokens=None, ctx=None) -> StreamSlot:
         """Take a lane through weighted-fair admission: when all are busy
         the request queues boundedly under its tenant (AdmissionRejected:
         429), grants go priority class first then deficit round-robin, a
         higher-priority arrival may preempt a lower-priority decode row
         (the admission hook), and a request whose deadline expires in line
-        leaves with DeadlineExceeded (504). The granted request takes the
-        free lane whose chat-prefix cache matches best (an empty cache on
-        ties)."""
+        leaves with DeadlineExceeded (504). The replica pool then places the
+        granted request (:meth:`ReplicaPool.place`)."""
         sw = Stopwatch()
         tel = self.tel
         try:
@@ -289,20 +406,23 @@ class ApiState:
         if ctx is not None:
             ctx.add_stage("queue", queue_s)
         sw.restart()
-        with trace.span(ctx, "placement"), self._lanes:
-            slot = max((s for s in self.slots if not s.busy),
-                       key=lambda s: (s.cache.match_len(messages), 0 if s.cache.items else 1))
-            slot.busy = True
-            slot.tenant = tenant
+        try:
+            with trace.span(ctx, "placement"):
+                slot = self.pool.place(messages, deadline, route_tokens=route_tokens)
+        except BaseException:
+            # placement raced a replica death (or the deadline): the permit
+            # goes back, and a ReplicaLost re-enters the requeue loop
+            self.admission.release()
+            tel.tenant_active.labels(tenant=tenant).dec()
+            raise
+        slot.tenant = tenant
         if ctx is not None:
             ctx.add_stage("placement", sw.elapsed_s())
         return slot
 
     def _release_slot(self, slot: StreamSlot) -> None:
         tenant = slot.tenant or DEFAULT_TENANT
-        with self._lanes:
-            slot.busy = False
-            slot.tenant = None
+        self.pool.release(slot)
         self.admission.release()
         self.tel.tenant_active.labels(tenant=tenant).dec()
 
@@ -320,10 +440,9 @@ class ApiState:
         return self.admission.drain_wait(timeout_s)
 
     def close(self) -> None:
-        """Close the batch scheduler (its watchdog thread, its slab and pool):
-        the server is shut down."""
-        if self.batch is not None:
-            self.batch.close()
+        """Stop the pool's supervision and close every replica's scheduler
+        (its watchdog thread, its slab and pool): the server is shut down."""
+        self.pool.close()
 
     def note_deadline_exceeded(self) -> None:
         with self._count_lock:
@@ -336,16 +455,16 @@ class ApiState:
         return self.retry_after_base_s + self._retry_rng.randint(0, self.retry_after_jitter_s)
 
     def ready_payload(self) -> dict:
-        """The ``/readyz`` JSON body for one replica: drain status, queue
-        depth, free lanes, and the replica entry of the JAX server's schema
-        (docs/OBSERVABILITY.md "Readiness schema")."""
-        busy = sum(s.busy for s in self.slots)
+        """The ``/readyz`` JSON body: drain status, queue depth, free lanes
+        (clamped: mid-failover the permit count is transiently negative) and
+        every replica's snapshot (state, active rows, lanes, restarts,
+        prefix-cache occupancy)."""
         return {
             "status": "draining" if self.draining else "ready",
             "draining": self.draining,
             "queue_depth": self.admission.waiting(),
             "free_slots": max(0, self.admission.free_slots()),
-            "replicas": [{"replica": 0, "state": "healthy", "active_rows": busy, "slots": len(self.slots)}],
+            "replicas": self.pool.snapshot(),
         }
 
     def complete(self, body: dict, send_chunk, params: dict | None = None,
@@ -354,11 +473,12 @@ class ApiState:
         the request has stream=true (then returns None); otherwise returns
         the response JSON.
 
-        A preempted request re-enters fair admission and re-runs from its
-        prompt at the same pinned seed; the re-run streams what the first
-        run streamed, so its first ``sent`` SSE deltas are suppressed and
-        the client sees one continuous stream (the replay's trace attempt
-        is a sibling in the same tree)."""
+        A preempted request, or one whose replica died, re-enters fair
+        admission and re-runs from its prompt at the same pinned seed on
+        whatever live replica placement picks; the re-run streams what the
+        first run streamed, so its first ``sent`` SSE deltas are suppressed
+        and the client sees one continuous stream (the replay's trace
+        attempt is a sibling in the same tree)."""
         if params is None:
             params = self._parse(body)
         if request_id is None:
@@ -391,14 +511,20 @@ class ApiState:
             send_chunk(data)
             sent += 1
 
+        route_tokens = self._route_tokens(params)
+
         def attempt_once():
             nonlocal attempts, skip
             skip = sent
             if ctx is not None:
                 ctx.begin_attempt(replayed=attempts > 0)
             attempts += 1
-            slot = self._acquire_slot(params["messages"], deadline, tenant, priority, ctx=ctx)
+            slot = self._acquire_slot(params["messages"], deadline, tenant, priority, route_tokens, ctx=ctx)
+            # the lane's own scheduler (its replica's): request-end
+            # bookkeeping lands where the row was served
             sched = getattr(slot.stream, "scheduler", None)
+            if ctx is not None:
+                ctx.set_replica(sched.replica_id if sched is not None else 0)
             try:
                 slot.stream.deadline = deadline
                 slot.stream.prefix_cache_enabled = params.get("cache", "on") != "off"
@@ -420,9 +546,20 @@ class ApiState:
                     sched.retract_preemption(slot.stream)
                 self._release_slot(slot)
 
+        def on_requeue(attempt: int, e: Exception) -> None:
+            if isinstance(e, NoPlaceableReplica):
+                return  # a placement bounce: nothing ran, so nothing replays
+            if isinstance(e, faults.ReplicaLost):
+                # a failover replay onto a surviving replica, counted under
+                # the pool's lock (a failover's victims requeue at once)
+                self.pool.count_replay()
+                self.tel.replayed_requests.inc()
+            else:
+                self.tel.preempt_requeues.inc()
+
         try:
-            return retry.retry_call(attempt_once, REQUEUE_POLICY, retry_on=faults.RowPreempted,
-                                    on_retry=lambda a, e: self.tel.preempt_requeues.inc())
+            return retry.retry_call(attempt_once, REQUEUE_POLICY, retry_on=(faults.RowPreempted, faults.ReplicaLost),
+                                    on_retry=on_requeue)
         finally:
             if ctx is not None:
                 # TTFT/TPOT and the stage breakdown observe the timestamps
@@ -715,6 +852,11 @@ def make_handler(state: ApiState):
                 code = 503 if state.draining else 200
                 self._send_json(code, state.ready_payload())
                 return "/readyz", code
+            if self.path.rstrip("/") == "/debug/flight":
+                # the flight recorder: every replica's lifecycle ring and
+                # the retained dumps
+                self._send_json(200, flight.RECORDER.snapshot())
+                return "/debug/flight", 200
             if self.path == "/metrics":
                 # the process registry; valid (possibly empty) exposition
                 # with telemetry off, so scrapers never see a 404
@@ -839,10 +981,12 @@ def make_handler(state: ApiState):
                 return fail(429, e, "overloaded", retry_after=True)
             except ServerDraining as e:
                 return fail(503, e, "draining", retry_after=True)
-            except faults.RowPreempted as e:
-                # preempted MAX_PREEMPT_REQUEUES times in a row: shed it like
-                # overload rather than spin a handler thread forever
-                return fail(503, e, "preempted", retry_after=True)
+            except (faults.RowPreempted, faults.ReplicaLost) as e:
+                # preempted (or orphaned by dying replicas)
+                # MAX_PREEMPT_REQUEUES times in a row: shed it like overload
+                # rather than spin a handler thread forever
+                kind = "replica_lost" if isinstance(e, faults.ReplicaLost) else "preempted"
+                return fail(503, e, kind, retry_after=True)
             except DeadlineExceeded as e:
                 state.note_deadline_exceeded()
                 return fail(504, e, "deadline_exceeded")
@@ -860,7 +1004,13 @@ def make_server(args, state: ApiState | None = None) -> tuple[ThreadingHTTPServe
         from distributed_llama_tpu_torch.apps.cli import make_engine
 
         engine, tokenizer, sampler = make_engine(args)
-        state = ApiState(engine, tokenizer, sampler, args)
+
+        def engine_factory():
+            # replica (re)builds: a fresh engine from the same flags, off
+            # the serving path
+            return make_engine(args)[0]
+
+        state = ApiState(engine, tokenizer, sampler, args, engine_factory=engine_factory)
     server = ThreadingHTTPServer((getattr(args, "host", "0.0.0.0"), args.port), make_handler(state))
     server.daemon_threads = True
     return server, state
@@ -916,7 +1066,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = cli_parser()
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=9990)
-    p.add_argument("--parallel", type=int, default=2, help="concurrent in-flight completions")
+    p.add_argument("--parallel", type=int, default=2, help="concurrent in-flight completions per replica")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="supervised data-parallel replicas behind one admission front door, each its own engine "
+                   "and batch scheduler (total lanes = replicas x --parallel; default 1). A dead replica's "
+                   "in-flight requests replay bit-identically on survivors while the supervisor restarts it with "
+                   "jittered backoff; /readyz reports each replica's state")
+    p.add_argument("--replica-suspect-s", type=float, default=30.0,
+                   help="dispatch round-trip duration past which a replica turns SUSPECT (skipped for new "
+                   "placements until a fast round trip clears it)")
+    p.add_argument("--replica-restart-backoff-s", type=float, default=0.5,
+                   help="base restart backoff for a dead replica (exponential to 30 s, entropy-jittered)")
     p.add_argument("--batch-decode", action=argparse.BooleanOptionalAction, default=True,
                    help="coalesce concurrent completions into one batched decode dispatch per chunk "
                    "(--decode device, --parallel > 1)")
@@ -927,6 +1087,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="page-pool budget in pages (default --parallel x ceil(seq_len/page) plus 25%%; "
                    "0 disables the prefix cache)")
     p.add_argument("--kv-page-size", type=int, default=64, help="positions per KV page")
+    p.add_argument("--host-spill-mb", type=float, default=64.0,
+                   help="host-RAM budget (MiB) of the prefix-page spill arena: evicted KV pages spill here (bytes "
+                   "verbatim, CRC-guarded) and re-upload on a later match instead of re-prefilling; shared across "
+                   "replicas. 0 disables the tier. Each page move pays a host CRC under the scheduler lock: at 7B "
+                   "bf16 (32 MiB pages) a reloaded prefix answers slower than a cold prefill (PERF.md; ROADMAP "
+                   "Queue 1 item 2)")
+    p.add_argument("--spill-disk-dir", type=str, default=None,
+                   help="directory of the optional mmap'd disk tier below the host-RAM arena: its LRU overflow "
+                   "demotes to a fixed-slot spill file instead of being dropped. Off by default")
+    p.add_argument("--spill-disk-mb", type=float, default=256.0, help="disk-tier budget (MiB) for --spill-disk-dir")
     p.add_argument("--prefill-chunk", type=int, default=256,
                    help="tokens per prefill dispatch in batched serving (0 = the whole prompt at once)")
     p.add_argument("--admission-queue", type=int, default=None,
@@ -968,6 +1138,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "--trace-sample-rate; 0 disables the override")
     p.add_argument("--trace-retention", type=int, default=256,
                    help="max finished traces retained (bounded deque; oldest rotate out first)")
+    p.add_argument("--flight-dump-dir", type=str, default=None,
+                   help="directory for flight-recorder JSON dumps written on each replica death (the ring behind "
+                   "GET /debug/flight is always on)")
     return p
 
 

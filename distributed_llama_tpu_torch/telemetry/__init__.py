@@ -213,9 +213,9 @@ class Stopwatch:
 # ----------------------------------------------------------------------
 # Instrument bundles: each subsystem binds its instruments in one place so
 # hot code holds plain attributes (and can skip whole blocks on .enabled).
-# Only the instruments the port feeds are bound; the JAX package's spill,
-# replica, integrity-canary and fleet series wait for those subsystems
-# (ROADMAP.md Queue 1 items 2.6 and 2.7).
+# Only the instruments the port feeds are bound; the JAX package's
+# integrity-canary, shadow-vote and fleet series wait for those subsystems
+# (ROADMAP.md Queue 1: the replica pool's canary, shadow votes and rollout).
 # ----------------------------------------------------------------------
 
 
@@ -320,8 +320,8 @@ class EngineInstruments:
 
 
 class PrefixCacheInstruments:
-    """The radix prefix cache's metric surface (bound once per PrefixCache).
-    The JAX package's spill-tier series wait for the spill tier."""
+    """The radix prefix cache's metric surface (bound once per PrefixCache),
+    with the host spill tier's series."""
 
     # matched-prefix length is a token count, not a latency: power-of-two
     # buckets up to a 16k context
@@ -376,6 +376,36 @@ class PrefixCacheInstruments:
             "(page-granular)",
             buckets=self.MATCHED_TOKEN_BUCKETS,
         )
+        # the host-RAM / disk spill tier (engine/spill.py): the capacity
+        # ladder below the device pool
+        self.spill_pages = counter(
+            "dllama_prefix_spill_pages_total",
+            "Evicted prefix pages whose bytes spilled to the host-RAM "
+            "arena instead of vanishing (data+scales verbatim for i8)",
+        )
+        self.spill_reloads = counter(
+            "dllama_prefix_spill_reloads_total",
+            "Spilled prefix pages re-uploaded into a device pool on a "
+            "later admission match (re-upload ≪ re-prefill; CRC-verified)",
+        )
+        self.spill_dropped = counter(
+            "dllama_prefix_spill_dropped_total",
+            "Spilled prefix pages LOST from the capacity ladder: LRU "
+            "overflow past the host/disk budgets, or a CRC mismatch "
+            "detected at reload (the entry is dropped, the block "
+            "prefills cold)",
+        )
+        self.spill_resident_pages = gauge(
+            "dllama_prefix_spill_resident_pages",
+            "Spilled pages currently resident in the arena (host RAM + "
+            "disk tier), across all replicas",
+        )
+        self.spill_bytes = gauge(
+            "dllama_prefix_spill_bytes",
+            "Bytes currently resident in the host-RAM spill arena "
+            "(the --host-spill-mb budget bounds this; disk-tier bytes "
+            "are not included)",
+        )
 
 
 # (kernel, path) -> its labelled counter, bound at the first call after
@@ -410,9 +440,9 @@ def note_kernel_path(kernel: str, path: str) -> None:
 
 
 class ServerInstruments:
-    """The API server's metric surface (bound once per ApiState). The JAX
-    package's replica, shared-prefix, integrity and fleet series wait for
-    those subsystems."""
+    """The API server's metric surface (bound once per ApiState), with the
+    replica pool's series. The JAX package's canary, shadow-vote and fleet
+    series wait for those subsystems."""
 
     def __init__(self):
         self.enabled = _enabled
@@ -477,6 +507,59 @@ class ServerInstruments:
             "Preempted requests requeued through weighted-fair admission "
             "(each resumes from the prefix cache's published pages; pairs "
             "with dllama_preemptions_total on the eviction side)",
+        )
+        # replica-loss fault tolerance (server/replicas.py): per-replica
+        # health plus the failover/restart/replay ledger
+        self.replica_state = gauge(
+            "dllama_replica_state",
+            "Health of each data-parallel replica in the supervised pool: "
+            "0 = healthy, 1 = suspect (skipped for new placements), "
+            "2 = dead (failing over; the supervisor is restarting it)",
+            labelnames=("replica",),
+        )
+        self.replica_failovers = counter(
+            "dllama_replica_failovers_total",
+            "Replicas declared dead by the pool (crash, or a stall the "
+            "watchdog escalated); each failover requeues every in-flight "
+            "request on the dead replica through fair admission",
+        )
+        self.replica_restarts = counter(
+            "dllama_replica_restarts_total",
+            "Dead replicas successfully rebuilt and returned to the pool "
+            "by the jittered-backoff restart supervisor",
+        )
+        self.replayed_requests = counter(
+            "dllama_replayed_requests_total",
+            "Requests replayed on a surviving replica after their replica "
+            "died mid-flight (pinned seed, sent SSE deltas suppressed — "
+            "the stream is bit-identical to an unfaulted run)",
+        )
+        # placement routed by the shared radix index
+        # (engine/prefix_cache.py SharedPrefixIndex)
+        self.shared_prefix_hits = counter(
+            "dllama_prefix_shared_hits_total",
+            "Requests placed onto a replica because the shared radix "
+            "index says it owns (part of) the prompt's published prefix "
+            "chain — the cross-replica routing that keeps the Zipf head "
+            "from being re-prefilled once per replica",
+        )
+        # integrity checks: the port runs the restart's weight-checksum
+        # verification (the canary and shadow votes are not ported)
+        self.sdc_checks = counter(
+            "dllama_sdc_checks_total",
+            "Conclusive integrity checks performed: canary golden "
+            "comparisons, cross-replica shadow votes, and rebuild "
+            "weight-checksum verifications (a clean fleet moves this "
+            "without ever moving the mismatch counter)",
+        )
+        self.sdc_mismatches = counter(
+            "dllama_sdc_mismatches_total",
+            "Integrity checks that detected silent data corruption, by "
+            "which check caught it (canary = pinned-greedy golden "
+            "mismatch, shadow = cross-replica divergence, checksum = a "
+            "rebuilt replica's weights disagree with the load-time "
+            "reference)",
+            labelnames=("check",),
         )
         # request-scoped SLO attribution (telemetry/trace.py): server-side
         # TTFT/TPOT so client p99s decompose without trusting the client

@@ -1,14 +1,13 @@
 """One-shot telemetry snapshots: ``python -m distributed_llama_tpu_torch.telemetry.dump``.
 
-The port's copy of the JAX package's ``telemetry/dump.py``, without its
-flight-recorder mode (``telemetry/flight.py`` is not ported yet,
-ROADMAP.md). Two modes:
+The port's copy of the JAX package's ``telemetry/dump.py``. Two modes:
 
 * ``--url http://host:port`` — scrape a running server. By default the
   ``/metrics`` exposition text; ``--trace <request_id>`` fetches that
   request's assembled span tree from ``/debug/trace/<id>`` instead
   (``--format json`` prints the tree, the default prom format prints the
-  Chrome trace-event export ready for ui.perfetto.dev).
+  Chrome trace-event export ready for ui.perfetto.dev), and ``--flight``
+  fetches the live flight-recorder snapshot from ``/debug/flight``.
 * no ``--url`` — print THIS process's registry (useful from a REPL or a
   script that imported the engine; a fresh CLI invocation has an empty
   registry unless ``DLLAMA_TELEMETRY=1`` and something ran). ``--trace``
@@ -41,6 +40,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--format json for the raw tree). Without --url: a PATH to write "
         "this process's span buffer as Chrome trace JSON",
     )
+    p.add_argument(
+        "--flight", action="store_true",
+        help="fetch the flight-recorder snapshot (per-replica lifecycle "
+        "rings + retained dumps): from /debug/flight with --url, else this "
+        "process's recorder",
+    )
     return p
 
 
@@ -67,6 +72,10 @@ def main(argv=None) -> int:
     from distributed_llama_tpu_torch import telemetry
 
     if args.url:
+        if args.flight:
+            json.dump(fetch_json(args.url, "/debug/flight"), sys.stdout, indent=2)
+            sys.stdout.write("\n")
+            return 0
         if args.trace:
             suffix = "" if args.format == "json" else "?format=chrome"
             try:
@@ -80,6 +89,14 @@ def main(argv=None) -> int:
         if args.format == "json":
             sys.stderr.write("--format json is local-only; scraping returns exposition text\n")
         sys.stdout.write(scrape(args.url))
+        return 0
+    if args.flight:
+        # this process's recorder (populated only if serving components ran
+        # in process)
+        from distributed_llama_tpu_torch.telemetry import flight
+
+        json.dump(flight.RECORDER.snapshot(), sys.stdout, indent=2)
+        sys.stdout.write("\n")
         return 0
     if args.format == "json":
         json.dump(telemetry.REGISTRY.snapshot(), sys.stdout, indent=2)

@@ -5,10 +5,9 @@ literal passed as a span name — ``tel.span("...")`` / ``trace_span("...")``
 on the ring tracer, or ``trace.span(ctx, "...")`` / ``ctx.add_span("...")``
 on a request trace — is one of these, so a trace of either package reads
 with the same names (docs/OBSERVABILITY.md's span-name table). The tuple
-equals the JAX package's; the port does not emit ``transfer_probe`` or
-``prefix_spill_reload`` yet: their subsystems (the transfer probe under
-tensor parallelism, the host spill tier) wait in ROADMAP.md. With one
-replica, ``placement`` is the choice of a lane.
+equals the JAX package's; the port does not emit ``transfer_probe`` yet:
+the transfer probe under tensor parallelism waits in ROADMAP.md.
+``placement`` is the replica pool's choice of a replica and a lane.
 """
 
 from __future__ import annotations

@@ -5,13 +5,14 @@ tracer answers "what is the engine doing" in aggregate; this module
 answers "why was THIS request slow". A :class:`TraceContext` is created
 per completion request at the HTTP front door and threaded through every
 layer the request touches — the lane queue wait, the prefix-cache match,
-the prefill, the shared batched decode dispatches (each fanning out to a
-per-row child span), speculative verify, SSE sends — so the server can
+the replica placement, the prefill, the shared batched decode dispatches
+(each fanning out to a per-row child span), speculative verify, failover
+and preemption replays, SSE sends — so the server can
 assemble a complete per-request tree and serve it at
 ``GET /debug/trace/<request_id>`` (JSON, or Chrome trace-event format).
-Attempts, replica stamps and the ``replay`` stage are kept for the
-replicas and preemption the port has not yet (ROADMAP.md): with one
-replica every request has one attempt.
+A preempted or failed-over request's re-run is a sibling attempt of the
+same tree, tagged ``replayed``, its stage time folded into the ``replay``
+stage, and each attempt carries the replica that served it.
 
 Design constraints inherited from the telemetry contract:
 

@@ -50,7 +50,8 @@ def test_port_sources_exist():
                 "parallel/tensor_parallel", "stats", "telemetry/__init__", "telemetry/registry",
                 "telemetry/tracer", "telemetry/spans", "telemetry/trace", "telemetry/dump", "loadgen/__init__",
                 "loadgen/__main__", "loadgen/workload", "loadgen/runner", "loadgen/report", "loadgen/selfhost",
-                "retry", "engine/faults", "server/admission"):
+                "retry", "engine/faults", "server/admission", "engine/spill", "server/replicas",
+                "telemetry/flight", "lockcheck"):
         assert f"distributed_llama_tpu_torch/{mod}.py" in names
     for src in ("q40_int8.cu", "q40_int8_tile.cuh", "q40_dequant.cu", "paged_attention.cu", "ring_all_reduce.cu",
                 "fused_matmul_ring.cu"):

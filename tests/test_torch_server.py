@@ -15,6 +15,7 @@ also under tenants, a row fault, a preemption and a queued deadline.
 import json
 import sys
 import threading
+import time
 import types
 import urllib.error
 import urllib.request
@@ -375,6 +376,23 @@ def test_metric_deltas_match_jax(monkeypatch, files, spec_draft, chaos):
     assert (got["dllama_spec_draft_tokens_total"] > 0) == (spec_draft > 0)
 
 
+def _settled_metrics(url, *expected, timeout_s=10.0):
+    """The /metrics text once it has settled: a handler counts its request
+    (and a GET its route) after the response's last byte reaches the
+    client, so a scrape at once can miss the last requests. Re-scrapes
+    until the in-flight gauge reads 0 (as ``loadgen.__main__.settled_scrape``
+    waits) and every ``expected`` line is present, or the timeout passes;
+    returns the last scrape, which the caller asserts on."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+            text = r.read().decode()
+        settled = "dllama_http_requests_in_flight 0" in text.splitlines() and all(e in text for e in expected)
+        if settled or time.monotonic() >= deadline:
+            return text
+        time.sleep(0.01)
+
+
 def test_probes_metrics_trace_and_drain(files):
     """/healthz, /readyz (503 once draining), /metrics, /debug/trace/<id>
     (JSON with the queue/placement/prefill/decode stages, and Chrome), and
@@ -409,8 +427,8 @@ def test_probes_metrics_trace_and_drain(files):
             with pytest.raises(urllib.error.HTTPError) as e:
                 urllib.request.urlopen(url + "/debug/trace/nope", timeout=10)
             assert e.value.code == 404 and json.loads(e.value.read())["tracing_enabled"]
-            with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
-                text = r.read().decode()
+            text = _settled_metrics(url, 'dllama_ttft_seconds_count{tenant="default"} 1',
+                                    'dllama_http_requests_total{route="/debug/trace",status="200"} 2')
             assert 'dllama_ttft_seconds_count{tenant="default"} 1' in text
             assert 'dllama_http_requests_total{route="/debug/trace",status="200"} 2' in text
             assert 'dllama_kernel_path_total{kernel="paged_attention",path="plain"}' in text
@@ -423,8 +441,8 @@ def test_probes_metrics_trace_and_drain(files):
             assert e.value.code == 503 and e.value.headers["Retry-After"]
             with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
                 assert r.status == 200  # draining is still alive
-            with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
-                text = r.read().decode()
+            text = _settled_metrics(url, "dllama_server_draining 1",
+                                    'dllama_http_requests_total{route="/v1/chat/completions",status="503"} 1')
             assert "dllama_server_draining 1" in text
             assert 'dllama_http_requests_total{route="/v1/chat/completions",status="503"} 1' in text
         finally:
