@@ -72,8 +72,9 @@ Phases (any failure exits non-zero):
    every greedy completion's token ids equal to what a spec_draft=0
    BatchScheduler on the same engine and cache decodes for the same
    prompt; then a second server at --parallel 16 --max-seq-len 1000 (the
-   einsum attention) with 16 concurrent greedy requests, whose verify
-   forwards reach 80 rows, held to the same equality;
+   einsum attention; over phase 7c's 8-layer file) with 16 concurrent
+   greedy requests, whose verify forwards reach 80 rows, held to the same
+   equality;
 7. (a) hold K4, the ring all-reduce kernel, against its plain version bit
    for bit on every rank, for 2 and 4 ranks at [1, 4096] and [16, 4096],
    timed against the bound (n inputs read and n outputs written over
@@ -169,7 +170,8 @@ Phases (any failure exits non-zero):
    deadline counted.
 
 11. the host spill tier and the supervised replica pool (after 10, over
-   phase 5's 7B-width file, all 32 layers, ``--telemetry``): (a) a server
+   phase 9's 8-layer file; ``--spill`` alone runs phase 5's file, all 32
+   layers; ``--telemetry``): (a) a server
    with ``--parallel 4 --kv-pages 24 --host-spill-mb 2048``, bf16 then
    ``--cache-dtype i8``: a ~600-token system prompt P1 cold, again (a lone
    hit), three other distinct ~600-token prompts (P1 evicted and spilled),
@@ -204,12 +206,44 @@ Phases (any failure exits non-zero):
    Every sub-phase's ``dllama_kernel_path_total`` names only K1's tiles
    and K2.
 
+12. the SDC canary, shadow votes, weight versions with blue-green rollout
+   and the fleet controller (after 11, over phase 9's 8-layer file;
+   ``--fleet`` alone runs phase 5's file, all 32 layers): one server,
+   ``--replicas 2 --parallel 2 --telemetry --sdc-shadow-rate 1.0
+   --rollout-drain-s 120 --fleet-min-replicas 2 --fleet-max-replicas 3``,
+   bf16 cache. (a) Canary ticks by hand: the golden is set, then three ticks
+   match on both replicas while a 600-token request decodes on replica 1
+   (the probe shares its steps); ``engine.sdc kind=corrupt row=1 count=-1``
+   corrupts replica 1's weights again at each of its batched dispatches
+   (that request's chunks, the probes') until the canary walks it to dead
+   as corrupt (the fires before the first mismatch are printed), then is
+   disarmed; the streaming victim ends
+   ``replica_corrupt`` with no replay, the supervisor's rebuild passes the
+   checksum and the next tick matches; a JSON request (no delta sent) on
+   replica 1 hit by the same corrupt loss replays equal to its reference.
+   (b) Two greedy requests' shadow votes agree; with ``engine.sdc`` firing
+   on replica 1 again a later vote diverges, both replicas turn suspect,
+   and the canary clears replica 0 and kills replica 1. (c) ``POST
+   /admin/rollout`` to v1 (a hard link of the boot file) while 4 streams
+   run: 200, zero failed requests, every stream equal token for token to
+   its run before the rollout, both replicas on v1 and certified,
+   ``dllama_weights_version`` v1=1 and v0=0; then a rollout to v2 with
+   ``server.rollout kind=corrupt row=1``: 500 ``rollout_aborted``, both
+   replicas back on v1. (d) Aggregate decode at 2 replicas x 2 rows; a
+   burst of 12 queues, two ticks grow a third replica (permits 4 -> 6),
+   the rate at 3 x 2, then idle ticks retire it (6 -> 4; its engine freed)
+   and the controller stops at the minimum. After every replica move card
+   memory is within 1% of its level after boot; every sub-phase's kernel
+   paths are K1's two tiles and K2 only. Prints each move's drain, rebuild
+   and certify seconds, the peak card memory during the moves, the canary
+   probes' p50 wall time (``dllama_canary_latency_seconds``) and the rates.
+
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
 one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
 ``--loadgen`` writes phase 5's files and runs phase 9 alone, ``--faults``
-phase 10 alone and ``--spill`` phase 11 alone.
+phase 10 alone, ``--spill`` phase 11 alone and ``--fleet`` phase 12 alone.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -394,7 +428,8 @@ DEADLINE_LEAD_S = 0.5
 K2_PATH = 'dllama_kernel_path_total{kernel="paged_attention",path="k2"}'
 # phase 11: a 24-page pool (~2.5 of the ~600-token prompts) over a 2 GiB
 # host arena makes eviction certain; 11b's host arena of 40 MiB holds one
-# 32 MiB bf16 page, the rest demotes to a 1 GiB disk tier; 11c's replicas
+# 32 MiB bf16 page at 32 layers (five 8 MiB pages at 8), the rest demotes to
+# a 1 GiB disk tier; 11c's replicas
 SPILL_KV_PAGES = 24
 SPILL_HOST_MB = 2048
 SPILL_DISK_HOST_MB = 40
@@ -408,6 +443,15 @@ MEMORY_TOL_REL = 0.05
 SPILL_COST_CHURN = 6
 SPILL_COST_DECODE_TOKENS = 200
 SPILL_COST_ARMS = (64, 0, 0, 64)
+# phase 12: 12a's long request on replica 1 (its row shares the canary's
+# steps, then the corruption lands in it), 12c's four rollout streams (a
+# 120 s drain cap: two busy replicas decode a 7B row at ~2.5 tok/s, PR 11),
+# 12d's queued burst (12 requests on 4 lanes); card memory after each
+# replica move within 1% of the post-boot level
+FLEET_LONG_TOKENS = 600
+FLEET_TOKENS = 32
+FLEET_BURST = 12
+FLEET_MEM_TOL_REL = 0.01
 K1_K2_PATHS = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma", "paged_attention/k2", "paged_attention/k2_i8")
 ROUTE_MARGIN = 1e-5
 
@@ -1647,12 +1691,15 @@ def _capture_streams(state, captured: list, tag=None) -> None:
     """Record each completion's decoded token ids: every lane's
     ``stream_decode`` is wrapped so that (prompt tokens, temperature, seed,
     ids) is appended to ``captured`` when the request's decode ends, with
-    ``tag`` as a fifth element when one is given (11c: the replica)."""
+    ``tag`` as a fifth element when one is given (11c, 12: the replica).
+    Integrity probes (no ``prompt_tokens``) pass through unrecorded."""
     lock = threading.Lock()
     for slot in state.slots:
         orig = slot.stream.stream_decode
 
         def wrapped(first, on_token, temperature=0.0, *a, _orig=orig, **kw):
+            if "prompt_tokens" not in kw:  # an integrity probe, not a request
+                return _orig(first, on_token, temperature, *a, **kw)
             ids = []
 
             def rec(prev, t):
@@ -2739,14 +2786,34 @@ def faults_only(smi: str) -> None:
     print(f"card: {smi}")
 
 
+def kernel_paths() -> dict:
+    """The registry's ``dllama_kernel_path_total`` as {"kernel/path": count}."""
+    from distributed_llama_tpu_torch import telemetry
+    from distributed_llama_tpu_torch.loadgen.report import parse_prometheus
+
+    m = parse_prometheus(telemetry.prometheus_text())
+    return {k.split("{")[1].rstrip("}").replace('kernel="', "").replace('",path="', "/").rstrip('"'): v
+            for k, v in m.items() if k.startswith("dllama_kernel_path_total{")}
+
+
+def check_kernel_paths(before: dict, label: str, want=("q40_matmul/k1_dp4a",)) -> dict:
+    """A sub-phase's kernel-path counts since ``before``: K1 (the tiles in
+    ``want``) and K2 served, and no plain path (nor einsum) ran."""
+    moved = {k: v - before.get(k, 0.0) for k, v in kernel_paths().items() if v - before.get(k, 0.0) > 0}
+    check(all(k in K1_K2_PATHS for k in moved), f"{label}: a path other than K1/K2 served: {moved}")
+    check(all(moved.get(k, 0) > 0 for k in want), f"{label}: {want} not all launched: {moved}")
+    check(any(k.startswith("paged_attention/k2") for k in moved), f"{label}: K2 not launched: {moved}")
+    return moved
+
+
 def spill_phase(server_api, model: str, tok_path: str, smi: str, workdir: Path, cost: bool = False) -> dict:
     """Phase 11 (see the module docstring): the host spill tier and the
-    supervised replica pool in the port's server over the 7B-width model at
-    all 32 layers; ``cost`` adds 11d (``--spill`` only)."""
+    supervised replica pool in the port's server over the 7B-width model
+    (8 layers in the full run, 32 with ``--spill``); ``cost`` adds 11d
+    (``--spill`` only)."""
     from distributed_llama_tpu_torch import telemetry
     from distributed_llama_tpu_torch.apps.cli import make_engine
     from distributed_llama_tpu_torch.engine import faults
-    from distributed_llama_tpu_torch.loadgen.report import parse_prometheus
     from distributed_llama_tpu_torch.telemetry import flight
     from distributed_llama_tpu_torch.tokenizer import ChatItem, Sampler
 
@@ -2755,20 +2822,7 @@ def spill_phase(server_api, model: str, tok_path: str, smi: str, workdir: Path, 
             str(SERVER_SEQ_LEN), "--decode-chunk", "8", "--chat-template", "chatml", "--host", "127.0.0.1",
             "--port", "0", "--temperature", "0", "--admission-queue", "16", "--telemetry"]
     out: dict = {"card": smi}
-
-    def paths() -> dict:
-        m = parse_prometheus(telemetry.prometheus_text())
-        return {k.split("{")[1].rstrip("}").replace('kernel="', "").replace('",path="', "/").rstrip('"'): v
-                for k, v in m.items() if k.startswith("dllama_kernel_path_total{")}
-
-    def check_paths(before: dict, label: str, want=("q40_matmul/k1_dp4a",)) -> dict:
-        """The sub-phase's kernel-path counts: K1 and K2 served, no plain
-        path (nor einsum) ran."""
-        moved = {k: v - before.get(k, 0.0) for k, v in paths().items() if v - before.get(k, 0.0) > 0}
-        check(all(k in K1_K2_PATHS for k in moved), f"{label}: a path other than K1/K2 served: {moved}")
-        check(all(moved.get(k, 0) > 0 for k in want), f"{label}: {want} not all launched: {moved}")
-        check(any(k.startswith("paged_attention/k2") for k in moved), f"{label}: K2 not launched: {moved}")
-        return moved
+    paths, check_paths = kernel_paths, check_kernel_paths
 
     def system_prompt(tokenizer, word: str) -> str:
         text = f"{word} You are a helpful assistant. "
@@ -3315,6 +3369,463 @@ def spill_only(smi: str) -> None:
     print(f"card: {smi}")
 
 
+def fleet_phase(server_api, model: str, tok_path: str, smi: str, workdir: Path) -> dict:
+    """Phase 12 (see the module docstring): the SDC canary, shadow votes,
+    weight versions with blue-green rollout and the fleet controller in the
+    port's server, ``--replicas 2 --parallel 2``, over the 7B-width model
+    (8 layers in the full run, 32 with ``--fleet``)."""
+    import copy
+    import weakref
+
+    from distributed_llama_tpu_torch import telemetry
+    from distributed_llama_tpu_torch.apps.cli import make_engine
+    from distributed_llama_tpu_torch.engine import faults
+    from distributed_llama_tpu_torch.telemetry import flight
+    from distributed_llama_tpu_torch.tokenizer import Sampler
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    args = server_api.build_parser().parse_args([
+        "generate", "--model", model, "--tokenizer", tok_path, "--dtype", "q40", "--max-seq-len",
+        str(SERVER_SEQ_LEN), "--decode-chunk", "8", "--chat-template", "chatml", "--host", "127.0.0.1", "--port",
+        "0", "--temperature", "0", "--admission-queue", "16", "--telemetry", "--replicas", "2", "--parallel", "2",
+        "--replica-restart-backoff-s", "0.1", "--sdc-shadow-rate", "1.0", "--rollout-drain-s", "120",
+        "--fleet-min-replicas", "2",
+        "--fleet-max-replicas", "3", "--fleet-queue-high", "2"])
+    telemetry.reset()
+    telemetry.enable()  # before the engines bind their instruments
+    flight.RECORDER.clear()
+    # the schedulers and the orchestrator bind the plan once: installed
+    # first, every rule at count 0 (never) until armed below
+    plan = faults.install(faults.parse("engine.sdc:kind=corrupt,row=1,count=0;"
+                                       "server.rollout:kind=corrupt,row=1,count=0"))
+    sdc_rule, rollout_rule = plan.rules
+    t0 = time.perf_counter()
+    engine, tokenizer, _ = make_engine(args)
+    state = server_api.ApiState(engine, tokenizer, Sampler(vocab_size=engine.cfg.vocab_size, temperature=0.0,
+                                                           topp=0.9, seed=1), args,
+                                engine_factory=lambda: make_engine(args)[0])
+    del engine  # the pool's reference only
+
+    def factory_for_path(path):  # POST /admin/rollout's "weights", as make_server installs it
+        a = copy.copy(args)
+        a.model = path
+        return lambda: make_engine(a)[0]
+
+    state.make_engine_for_path = factory_for_path
+    shadow_rate, state.shadow_rate = state.shadow_rate, 0.0  # --sdc-shadow-rate 1.0: on in 12b only
+    server, _ = server_api.make_server(args, state=state)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    pool, adm = state.pool, state.admission
+    cublas_ws: list[int] = []  # bytes of cuBLAS workspaces freed at each memory reading
+
+    def replica_memory() -> int:
+        """Card memory the replicas hold: collected, and without the cuBLAS
+        workspaces, which each new thread that runs a matmul adds and which
+        belong to no replica (the level after boot otherwise rises with the
+        most threads ever at work: +0.25 GB by 12d, PR 12 call 3)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        m = torch.cuda.memory_allocated()
+        cublas_ws.append(before - m)
+        return m
+
+    mem_boot = replica_memory()
+    print(f"12: 2 replicas x 2 lanes up in {time.perf_counter() - t0:.1f} s, card memory {mem_boot / 1e9:.2f} GB "
+          "allocated after boot")
+    captured: list = []  # (prompt, temperature, seed, ids, replica) per request decode
+    for rep in pool.replicas:
+        _capture_streams(types.SimpleNamespace(slots=rep.slots), captured, tag=f"r{rep.idx}")
+    build = pool.build_replica
+
+    def build_and_capture(idx):
+        built = build(idx)
+        _capture_streams(types.SimpleNamespace(slots=built[2]), captured, tag=f"r{idx}")
+        return built
+
+    pool.build_replica = build_and_capture
+    probe = pool.canary_probe
+    canary_s: list[float] = []  # each conclusive canary probe's wall time
+
+    def timed_probe(rep, messages=None, tenant=None):
+        t = time.perf_counter()
+        res = probe(rep, messages, tenant)
+        if res is not None:
+            canary_s.append(time.perf_counter() - t)
+        return res
+
+    pool.canary_probe = timed_probe
+
+    def mem_back(label: str) -> float:
+        m = replica_memory()
+        check(abs(m - mem_boot) <= FLEET_MEM_TOL_REL * mem_boot,
+              f"{label}: card memory {m / 1e9:.3f} GB, {mem_boot / 1e9:.3f} GB after boot")
+        return m / 1e9
+
+    def wait_idle(label: str, timeout_s: float = 300.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        while any(s.busy for s in state.slots) or adm.free_slots() != adm.n_slots:
+            check(time.monotonic() < deadline, f"{label}: lanes still busy {[s.busy for s in state.slots]}")
+            time.sleep(0.02)
+
+    def pin(idx: int, busy: bool) -> None:
+        """Hold (or free) replica ``idx``'s lanes, so traffic places on the other."""
+        with pool._cond:
+            for s in pool.replicas[idx].slots:
+                s.busy = busy
+            pool._cond.notify_all()
+
+    def events(idx: int, kind: str) -> list:
+        return [e for e in flight.RECORDER.snapshot()["replicas"].get(str(idx), []) if e["kind"] == kind]
+
+    def walk(idx: int) -> list:
+        return [(e["frm"], e["to"]) for e in events(idx, "state")]
+
+    def restart_s(idx: int) -> float:
+        ev = events(idx, "state")
+        dead = [e["t_s"] for e in ev if e["to"] == "dead"][-1]
+        return next(e["t_s"] for e in ev if e["to"] == "healthy" and e["t_s"] > dead) - dead
+
+    def greedy(user: str, max_tokens: int, seed: int, stream: bool = True) -> dict:
+        return {"messages": [{"role": "system", "content": "You are a helpful assistant."},
+                             {"role": "user", "content": user}], "max_tokens": max_tokens, "temperature": 0.0,
+                "seed": seed, "stream": stream}
+
+    two_tiles = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma")
+    c_phase = kernel_paths()
+    try:
+        # ---- 12a: the canary --------------------------------------------
+        label = "12a"
+        c0 = kernel_paths()
+        check(pool.canary_tick() == 2 and pool.sdc_mismatches_total == 0
+              and [r.integrity for r in pool.replicas] == ["ok", "ok"],
+              f"{label}: the first tick on a clean pool: {pool.snapshot()}")
+        # a long request on replica 1: its row shares every step of the
+        # canary's probes there
+        pin(0, True)
+        long_sse = _open_sse(url, greedy("tell me a very long story about the sea", FLEET_LONG_TOKENS, 7))
+        _read_deltas(long_sse, 1)
+        pin(0, False)
+        check(pool.replicas[1].active() == 1 and pool.replicas[0].active() == 0,
+              f"{label}: the long request is not on replica 1: {pool.snapshot()}")
+        clean = [pool.canary_tick() for _ in range(3)]
+        check(clean == [2, 2, 2] and pool.sdc_mismatches_total == 0,
+              f"{label}: ticks beside the long row: conclusive {clean}, {pool.sdc_mismatches_total} mismatches")
+        check(pool.replicas[1].active() == 1, f"{label}: the long request ended before the corruption")
+        # engine.sdc: every batched dispatch on replica 1 (the long row's
+        # chunks, the probes') corrupts its weights in place again, until the
+        # canary sees it. One fire (256 of one layer's 4096 norm weights,
+        # x -1.73 + 0.125) went unseen by 6 ticks at 32 layers (PR 12 call 1)
+        sdc_rule.count = -1
+        ticks = 0
+        for ticks in range(1, 13):
+            pool.canary_tick()
+            if pool.failovers_total:
+                break
+        sdc_rule.count = 0  # disarmed before the rebuilt replica's first dispatch
+        ring1 = flight.RECORDER.snapshot()["replicas"].get("1", [])
+        first_mismatch = next((e["seq"] for e in ring1 if e["kind"] == "canary" and e["verdict"] == "mismatch"), None)
+        fires = sum(1 for e in ring1 if e["kind"] == "fault_fire" and e["site"] == "engine.sdc"
+                    and (first_mismatch is None or e["seq"] < first_mismatch))
+        long_text, long_err = _read_rest(long_sse)
+        lost = events(1, "replica_lost")
+        check(pool.failovers_total == 1 and lost and lost[-1].get("corrupt") is True,
+              f"{label}: {pool.failovers_total} failovers after {ticks} ticks ({fires} engine.sdc fires before the "
+              f"first mismatch), loss events {lost}")
+        check(("healthy", "suspect") in walk(1) and any(to == "dead" for _, to in walk(1)),
+              f"{label}: replica 1's walk {walk(1)}")
+        check(long_err == "replica_corrupt" and pool.replayed_total == 0,
+              f"{label}: the long request ended {long_err!r} after {len(long_text)} chars, replays "
+              f"{pool.replayed_total}: a victim with deltas sent must end typed, never spliced")
+        check(pool.wait_state(1, "healthy", timeout_s=300), f"{label}: replica 1 did not come back")
+        first_restart_s = restart_s(1)
+        checksums = events(1, "checksum")
+        check(checksums and checksums[-1]["verdict"] == "ok", f"{label}: the rebuild's checksum {checksums}")
+        check(pool.replicas[1].integrity == "unverified", f"{label}: a rebuilt replica starts unverified")
+        mism = pool.sdc_mismatches_total
+        check(pool.canary_tick() == 2 and pool.sdc_mismatches_total == mism
+              and [r.integrity for r in pool.replicas] == ["ok", "ok"],
+              f"{label}: the tick after the rebuild: {pool.snapshot()}")
+        # a victim that had streamed nothing (a JSON request) replays: the
+        # same corrupt loss, marked as the canary marks it
+        body_b = greedy("list the planets of the solar system", FLEET_TOKENS, 8, stream=False)
+        ref_b = _post_any(url, body_b)
+        check(ref_b["status"] == 200, f"{label}: {ref_b}")
+        wait_idle(label)
+        pin(0, True)
+        res_b: dict = {}
+        t_b = threading.Thread(target=lambda: res_b.update(_post_any(url, body_b)))
+        t_b.start()
+        deadline = time.monotonic() + 120
+        while not any(s.busy and s.stream.pos > 40 for s in pool.replicas[1].slots):
+            check(time.monotonic() < deadline and t_b.is_alive(), f"{label}: the JSON victim never decoded")
+            time.sleep(0.005)
+        replays0 = pool.replayed_total
+        pool.replicas[1].scheduler.mark_lost("a corrupt loss marked as the canary marks it", corrupt=True)
+        pin(0, False)
+        t_b.join(timeout=300)
+        check(res_b.get("status") == 200 and res_b["payload"]["choices"][0]["message"]["content"]
+              == ref_b["payload"]["choices"][0]["message"]["content"] and pool.replayed_total == replays0 + 1,
+              f"{label}: the victim without deltas: {res_b.get('status')}, replays {pool.replayed_total}")
+        check(pool.wait_state(1, "healthy", timeout_s=300), f"{label}: replica 1 did not come back")
+        wait_idle(label)
+        check(pool.canary_tick() == 2 and pool.sdc_mismatches_total == mism,
+              f"{label}: the tick after the second rebuild: {pool.snapshot()}")
+        mem_a = mem_back(label)
+        moved_a = check_kernel_paths(c0, label, two_tiles)
+        out[label] = {"ticks_to_dead": ticks, "fires_before_mismatch": fires, "walk": walk(1),
+                      "restart_s": first_restart_s,
+                      "second_restart_s": restart_s(1), "long_ended_chars": len(long_text), "mem_gb": mem_a,
+                      "paths": moved_a}
+        print(f"{label}: golden set; 3 ticks beside the {FLEET_LONG_TOKENS}-token row on replica 1 matched "
+              f"(0 mismatches); engine.sdc on replica 1 ({fires} fires before the first mismatch): dead as corrupt "
+              f"after {ticks} ticks, walk {walk(1)}; the "
+              f"streaming victim ended replica_corrupt (0 replays), the JSON victim replayed equal to its "
+              f"reference; rebuilds {first_restart_s:.1f} / {restart_s(1):.1f} s behind the checksum, the next "
+              f"ticks matched; card memory {mem_a:.3f} GB; kernel paths {moved_a}")
+
+        # ---- 12b: shadow votes ------------------------------------------
+        label = "12b"
+        state.shadow_rate = shadow_rate
+
+        def vote_after(body) -> None:
+            r = _post_any(url, body)
+            check(r["status"] == 200, f"{label}: {r['status']}")
+            deadline = time.monotonic() + 120
+            while not state._shadow_gate.acquire(blocking=False):  # the vote in flight
+                check(time.monotonic() < deadline, f"{label}: the shadow vote never ended")
+                time.sleep(0.01)
+            state._shadow_gate.release()
+
+        checks0, mism = pool.sdc_checks_total, pool.sdc_mismatches_total
+        for i in range(2):
+            vote_after(greedy(f"shadow {i}: name three colours", 16, 20 + i, stream=False))
+        check(pool.sdc_checks_total == checks0 + 2 and pool.sdc_mismatches_total == mism
+              and pool.states() == ["healthy", "healthy"],
+              f"{label}: votes on a clean pool: checks +{pool.sdc_checks_total - checks0}, mismatches "
+              f"+{pool.sdc_mismatches_total - mism}, {pool.states()}")
+        # engine.sdc again on every dispatch of replica 1, until a vote
+        # diverges (~2 fires a vote; 12a's canary needed 10-14) and on until
+        # the canary has seen it too: a vote's prompt may change where the
+        # canary's does not yet (PR 12 call 5), and a matching probe clears
+        # the suspect replica
+        sdc_rule.count = -1
+        votes = 0
+        for votes in range(1, 17):
+            vote_after(greedy(f"shadow {votes + 1}: name three colours", 16, 21 + votes, stream=False))
+            if pool.sdc_mismatches_total > mism:
+                break
+        state.shadow_rate = 0.0
+        shadows = events(0, "shadow") + events(1, "shadow")
+        check(pool.sdc_mismatches_total == mism + 1 and pool.states() == ["suspect", "suspect"] and len(shadows) == 2,
+              f"{label}: {votes} votes after engine.sdc: mismatches +{pool.sdc_mismatches_total - mism}, "
+              f"{pool.states()}, shadow events {shadows}")
+        fo = pool.failovers_total
+        for ticks in range(1, 13):
+            pool.canary_tick()
+            if pool.failovers_total > fo:
+                break
+        sdc_rule.count = 0
+        check(pool.failovers_total == fo + 1 and pool.replicas[0].state == "healthy"
+              and pool.replicas[0].integrity == "ok", f"{label}: the canary did not resolve the vote: {pool.snapshot()}")
+        check(pool.wait_state(1, "healthy", timeout_s=300), f"{label}: replica 1 did not come back")
+        mism = pool.sdc_mismatches_total
+        check(pool.canary_tick() == 2 and pool.sdc_mismatches_total == mism, f"{label}: the tick after the rebuild")
+        mem_b = mem_back(label)
+        out[label] = {"votes_to_diverge": votes, "resolve_ticks": ticks, "restart_s": restart_s(1), "mem_gb": mem_b}
+        print(f"{label}: 2 greedy requests, 2 shadow votes agreed; with engine.sdc on replica 1 vote {votes} "
+              f"diverged and both turned suspect; the canary cleared replica 0 and killed replica 1 in {ticks} ticks; "
+              f"rebuilt in {restart_s(1):.1f} s; card memory {mem_b:.3f} GB")
+
+        # ---- 12c: rollout, then a corrupt rollout -----------------------
+        label = "12c"
+        c0 = kernel_paths()
+        v1, v2 = workdir / "fleet_v1.m", workdir / "fleet_v2.m"
+        os.link(model, v1)  # the same bytes under a new version, no 3.9 GB write
+        os.link(model, v2)
+        bodies = [greedy(f"{c} rollout: tell me a story", FLEET_TOKENS, 70 + i) for i, c in enumerate("ABCD")]
+        n0 = len(captured)
+        ref = _concurrent(url, bodies)
+        check(all(r["status"] == 200 and _sse_text(r["payload"])[1] is None for r in ref),
+              f"{label}: the reference round {[r['status'] for r in ref]}")
+        ref_ids = {c[2]: c[3] for c in captured[n0:]}
+        wait_idle(label)
+        n1 = len(captured)
+        sses: list = [None] * len(bodies)
+        openers = [threading.Thread(target=lambda i=i: sses.__setitem__(i, _open_sse(url, bodies[i])))
+                   for i in range(len(bodies))]
+        for t in openers:
+            t.start()
+        for t in openers:
+            t.join()
+        check(all(sses), f"{label}: a stream did not open")
+        firsts = [_read_deltas(sse, 1) for sse in sses]
+        torch.cuda.reset_peak_memory_stats()
+        res_r: dict = {}
+        t_r = threading.Thread(target=lambda: res_r.update(r=_post_admin(url, {"version": "v1", "weights": str(v1)})))
+        t_r.start()
+        rests = [_read_rest(sse) for sse in sses]
+        t_r.join(timeout=900)
+        peak = torch.cuda.max_memory_allocated()
+        status, resp = res_r["r"]
+        check(status == 200 and resp.get("moved") == 2, f"{label}: POST /admin/rollout {status} {resp}")
+        check(all(r[1] is None for r in rests) and [f + r[0] for f, r in zip(firsts, rests)]
+              == [_sse_text(r["payload"])[0] for r in ref], f"{label}: a stream failed or changed across the rollout")
+        runs: dict = {}
+        for c in captured[n1:]:
+            runs.setdefault(c[2], []).append(c[3])
+        check(all(runs.get(b["seed"], [None])[-1] == ref_ids[b["seed"]] for b in bodies),
+              f"{label}: a stream's tokens differ from its pre-rollout run")
+        moves = [dict(m) for m in state.rollout.last_moves]
+        metrics = _scrape(url)
+        gauge = {k: v for k, v in metrics.items() if k.startswith("dllama_weights_version")}
+        check(gauge.get('dllama_weights_version{version="v1"}') == 1.0
+              and gauge.get('dllama_weights_version{version="v0"}') == 0.0
+              and [r.weights_version for r in pool.replicas] == ["v1", "v1"]
+              and [r.integrity for r in pool.replicas] == ["ok", "ok"] and pool.rollout_moves_total == 2,
+              f"{label}: after the rollout: {pool.snapshot()}, gauge {gauge}")
+        mem_r = mem_back(label + " rollout")
+        wait_idle(label)
+        # the corrupt rollout: replica 0 moves, replica 1's new engine is
+        # perturbed before the checksum gate, everything rolls back to v1
+        rollout_rule.count = 1
+        torch.cuda.reset_peak_memory_stats()
+        status, resp = _post_admin(url, {"version": "v2", "weights": str(v2)})
+        peak_abort = torch.cuda.max_memory_allocated()
+        check(status == 500 and resp["error"]["type"] == "rollout_aborted" and resp.get("rollout") == {"active": False},
+              f"{label}: the corrupt rollout answered {status} {resp}")
+        check(pool.weights_version == "v1" and [r.weights_version for r in pool.replicas] == ["v1", "v1"]
+              and pool.rollout_aborts_total == 1 and "v2" not in pool.weights_reference
+              and "v2" not in pool._canary_goldens, f"{label}: after the abort: {pool.snapshot()}")
+        abort_moves = [dict(m) for m in state.rollout.last_moves]
+        mem_abort = mem_back(label + " rollback")
+        mism = pool.sdc_mismatches_total
+        check(pool.canary_tick() == 2 and pool.sdc_mismatches_total == mism, f"{label}: the tick after the rollback")
+        moved_c = check_kernel_paths(c0, label, two_tiles)
+        out[label] = {"moves": moves, "peak_gb": peak / 1e9, "mem_gb": mem_r, "abort_moves": abort_moves,
+                      "abort_peak_gb": peak_abort / 1e9, "abort_mem_gb": mem_abort, "paths": moved_c}
+        per_move = "; ".join(f"replica {m['replica']}: drain {m.get('drain_s', 0):.2f} s, rebuild "
+                             f"{m.get('rebuild_s', 0):.2f} s, certify {m.get('certify_s', 0):.2f} s" for m in moves)
+        print(f"{label}: rollout to v1 (a hard link of the boot file) under 4 streams: 200, both replicas moved "
+              f"({per_move}), 0 failed requests, every stream equal to its pre-rollout run token for token; "
+              f"dllama_weights_version v1=1 v0=0; peak card memory {peak / 1e9:.2f} GB during the moves, "
+              f"{mem_r:.3f} GB after (boot {mem_boot / 1e9:.3f}); the server.rollout corrupt rollout to v2: 500 "
+              f"rollout_aborted, moves {abort_moves}, both replicas back on v1, peak {peak_abort / 1e9:.2f} GB, "
+              f"{mem_abort:.3f} GB after; kernel paths {moved_c}")
+
+        # ---- 12d: the fleet controller ----------------------------------
+        label = "12d"
+        c0 = kernel_paths()
+        ctl = state.fleet
+        check(ctl.min_replicas == 2 and ctl.max_replicas == 3 and adm.n_slots == 4, f"{label}: controller {vars(ctl)}")
+
+        def rate_body(i):
+            return greedy(f"rate {i} tell me a story", RATE_TOKENS, 60 + i)
+
+        rate2 = _decode_rate(url, [rate_body(i) for i in range(4)])
+        wait_idle(label)
+        burst = [greedy(f"burst {i}: tell me a story", FLEET_TOKENS, 90 + i) for i in range(FLEET_BURST)]
+        res_burst: list = []
+        t_burst = threading.Thread(target=lambda: res_burst.extend(_concurrent(url, burst)))
+        t_burst.start()
+        deadline = time.monotonic() + 120
+        while adm.waiting() < ctl.queue_high:
+            check(time.monotonic() < deadline, f"{label}: the burst never queued")
+            time.sleep(0.005)
+        tick1 = ctl.tick()
+        t_grow = time.perf_counter()
+        tick2 = ctl.tick()
+        grow_s = time.perf_counter() - t_grow
+        check(tick1 is None and tick2 == "up" and len(pool.replicas) == 3 and adm.n_slots == 6,
+              f"{label}: ticks {tick1}, {tick2}: {len(pool.replicas)} replicas, {adm.n_slots} permits")
+        t_burst.join(timeout=900)
+        check(len(res_burst) == FLEET_BURST and all(r["status"] == 200 for r in res_burst),
+              f"{label}: the burst {[r['status'] for r in res_burst]}")
+        on_grown = sum(1 for c in captured if c[4] == "r2")
+        wait_idle(label)
+        rate3 = _decode_rate(url, [rate_body(i) for i in range(6)])
+        wait_idle(label)
+        grown = weakref.ref(pool.replicas[2].engine)
+        ticks = [ctl.tick() for _ in range(ctl.down_ticks)]
+        check(ticks == [None] * (ctl.down_ticks - 1) + ["down"] and len(pool.replicas) == 2 and adm.n_slots == 4
+              and adm.free_slots() == 4, f"{label}: idle ticks {ticks}: {len(pool.replicas)} replicas, "
+              f"{adm.n_slots} permits, {adm.free_slots()} free")
+        check(all(ctl.tick() is None for _ in range(ctl.down_ticks + 1)) and len(pool.replicas) == 2,
+              f"{label}: shrank below --fleet-min-replicas")
+        gc.collect()
+        check(grown() is None, f"{label}: the retired replica's engine is still referenced")
+        mem_d = mem_back(label)
+        moved_d = check_kernel_paths(c0, label, two_tiles)
+        out[label] = {"grow_s": grow_s, "rate_2x2": rate2, "rate_3x2": rate3, "burst_on_grown": on_grown,
+                      "scale_events": dict(ctl.scale_events), "mem_gb": mem_d, "paths": moved_d}
+        print(f"{label}: a burst of {FLEET_BURST} queued; the second pressure tick grew replica 2 in {grow_s:.1f} s "
+              f"(permits 4 -> 6; {on_grown} burst requests decoded on it); {ctl.down_ticks} idle ticks retired it "
+              f"(permits 6 -> 4, its engine freed); aggregate decode {rate2['tok_s']:.1f} tok/s at 2 replicas x 2 "
+              f"rows, {rate3['tok_s']:.1f} at 3 x 2; card memory {mem_d:.3f} GB; kernel paths {moved_d}")
+
+        moved = check_kernel_paths(c_phase, "12", two_tiles)
+        lat_p50 = statistics.median(canary_s)
+        hist = _scrape(url)
+        out.update(boot_gb=mem_boot / 1e9, cublas_workspace_gb=[b / 1e9 for b in cublas_ws],
+                   canary_p50_s=lat_p50, canary_probes=len(canary_s),
+                   canary_hist_count=hist.get("dllama_canary_latency_seconds_count"), paths=moved)
+        print(f"12: {len(canary_s)} conclusive canary probes, dllama_canary_latency_seconds p50 {lat_p50 * 1e3:.1f} "
+              f"ms (histogram count {hist.get('dllama_canary_latency_seconds_count')}); cuBLAS workspaces freed at "
+              f"each memory reading {[round(b / 2**20) for b in cublas_ws]} MiB; kernel paths over the phase {moved}")
+    finally:
+        faults.clear()
+        server.shutdown()
+        server.server_close()
+        state.close()
+        del state, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+        telemetry.disable()
+        telemetry.reset()
+        for f in (workdir / "fleet_v1.m", workdir / "fleet_v2.m"):
+            if f.exists():
+                f.unlink()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _post_admin(url: str, body: dict) -> tuple[int, dict]:
+    """POST /admin/rollout: (status, the JSON body)."""
+    req = urllib.request.Request(url + "/admin/rollout", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def fleet_only(smi: str) -> None:
+    """``--fleet``: phase 2, phase 5's 7B-width files and phase 12 alone."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.ops import cuda_build
+    from distributed_llama_tpu_torch.server import api as server_api
+
+    phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t = time.perf_counter()
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, Path(tmp))
+        print(f"wrote the 7B-width files in {time.perf_counter() - t:.1f} s")
+        t = phase(f"12. the slice's path: the SDC canary, shadow votes, rollout and the fleet controller in the API "
+                  f"server, {N_LAYERS} layers")
+        summary = {"fleet": fleet_phase(server_api, model, tok, smi, Path(tmp))}
+        print(f"phase 12: {time.perf_counter() - t:.1f} s")
+    (ROOT / "build" / "chip_smoke_fleet.json").write_text(json.dumps(summary, indent=1, default=str))
+    print(f"card: {smi}")
+
+
 def write_7b_files(synthetic, write_tokenizer_file, workdir: Path) -> tuple[str, str]:
     """Phase 5's files: a random-Q40 `.m` at Llama-2-7B width (32 layers,
     blocks from seed 0) and a tokenizer padded to its vocab."""
@@ -3516,6 +4027,9 @@ def main() -> None:
                         help="phase 10 alone (fault containment and fair admission in the 7B-width server)")
     parser.add_argument("--spill", action="store_true",
                         help="phase 11 alone (the host spill tier and the replica pool in the 7B-width server)")
+    parser.add_argument("--fleet", action="store_true",
+                        help="phase 12 alone (the SDC canary, shadow votes, rollout and the fleet controller in the "
+                        "7B-width server)")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
@@ -3526,9 +4040,10 @@ def main() -> None:
                              (lambda root, smi: moe_only(smi), opts.moe),
                              (lambda root, smi: loadgen_only(smi), opts.loadgen),
                              (lambda root, smi: faults_only(smi), opts.faults),
-                             (lambda root, smi: spill_only(smi), opts.spill)) if on]
+                             (lambda root, smi: spill_only(smi), opts.spill),
+                             (lambda root, smi: fleet_only(smi), opts.fleet)) if on]
     if len(alone) > 1:
-        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill")
+        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill, --fleet")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3704,6 +4219,14 @@ def main() -> None:
         summary["k2_rows"] = k2_rows
         print(f"phase 6a: {time.perf_counter() - t:.1f} s")
 
+        # phase 7c's 8-layer file, written now: 6c's 16-row server and
+        # phases 9 to 12 run over it in the full run (their depth cut to keep
+        # the run inside its time limit; --loadgen, --faults, --spill and
+        # --fleet alone keep all 32 layers)
+        model_tp = str(workdir / "llama2_7b_width_tp.m")
+        synthetic.write_random_q40_model(model_tp, synthetic.llama2_7b_spec(n_layers=TP_LAYERS, seq_len=4096),
+                                         seed=0)
+
         t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {N_LAYERS} layers")
         summary["server"] = server_run(server_api, attn, kvc, llama, model, tok, q40)
         main_launches["paged_attention"] = summary["server"]["main_path_launches"]
@@ -3718,7 +4241,7 @@ def main() -> None:
         main_launches["q40_int8_mma"] = summary["server_i8_spec"]["k1_tile_launches"]["mma"]
         gc.collect()
         torch.cuda.empty_cache()
-        summary["server_wide"] = wide_spec_run(server_api, q40, model, tok)
+        summary["server_wide"] = wide_spec_run(server_api, q40, model_tp, tok)
         print(f"phase 6c: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
@@ -3740,12 +4263,6 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # phase 7c's 8-layer file, written now: phases 9 and 10 run over it
-        # in the full run (their depth cut to keep the run inside its time
-        # limit; --loadgen and --faults alone keep all 32 layers)
-        model_tp = str(workdir / "llama2_7b_width_tp.m")
-        synthetic.write_random_q40_model(model_tp, synthetic.llama2_7b_spec(n_layers=TP_LAYERS, seq_len=4096),
-                                         seed=0)
         t = phase(f"9. the slice's path: the load generator against the API server with --telemetry, "
                   f"{TP_LAYERS} layers")
         summary["loadgen"] = loadgen_phase(server_api, attn, q40, model_tp, tok, smi)
@@ -3761,9 +4278,16 @@ def main() -> None:
         torch.cuda.empty_cache()
 
         t = phase(f"11. the slice's path: the host spill tier and the replica pool in the API server, "
-                  f"{N_LAYERS} layers")
-        summary["spill"] = spill_phase(server_api, model, tok, smi, workdir)
+                  f"{TP_LAYERS} layers")
+        summary["spill"] = spill_phase(server_api, model_tp, tok, smi, workdir)
         print(f"phase 11: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = phase(f"12. the slice's path: the SDC canary, shadow votes, rollout and the fleet controller in the API "
+                  f"server, {TP_LAYERS} layers")
+        summary["fleet"] = fleet_phase(server_api, model_tp, tok, smi, workdir)
+        print(f"phase 12: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 

@@ -92,7 +92,8 @@ The port's copy of the JAX package's ``engine/batch.py`` serving core.
   :meth:`BatchScheduler.mark_lost` (a ``replica.crash`` fire at a chunk or
   prefill-piece dispatch, a stall under ``lost_on_stall``, or the pool)
   retires every in-flight request with a typed :class:`faults.ReplicaLost`
-  that the server replays on a surviving replica.
+  that the server replays on a surviving replica (a
+  :class:`faults.ReplicaCorrupt` when an integrity check found the loss).
 
 Left out (in ROADMAP.md): the tensor-parallel backend. The scheduler's
 condition is a ``lockcheck`` construction site (``DLT_LOCK_CHECK``).
@@ -465,28 +466,34 @@ class BatchScheduler:
     # Replica loss: the whole-scheduler failure domain
     # ------------------------------------------------------------------
 
-    def mark_lost(self, cause: str) -> None:
+    def mark_lost(self, cause: str, corrupt: bool = False) -> None:
         """Declare this replica dead (the pool's and the tests' entry
-        point). Idempotent."""
+        point). Idempotent. ``corrupt=True`` marks a loss an integrity check
+        found (a canary or shadow mismatch): its victims get
+        :class:`faults.ReplicaCorrupt`, which the server replays only while
+        nothing has streamed (deltas a silently corrupt replica sent may be
+        wrong themselves)."""
         with self._cond:
-            self._mark_lost_locked(cause)
+            self._mark_lost_locked(cause, corrupt=corrupt)
 
-    def _mark_lost_locked(self, cause: str) -> None:
-        """The one death path (lock held): every stream gets ReplicaLost (a
-        request mid-prefill raises it at its next piece, a decoding one at
-        its next ``next_token``), page pins release, the pending chunk is
-        dropped, a fetch in flight is retired (it delivers nothing), the
-        watchdog stands down and the health hook reports the loss (it takes
-        only locks ranked above this one)."""
+    def _mark_lost_locked(self, cause: str, corrupt: bool = False) -> None:
+        """The one death path (lock held): every stream gets ReplicaLost
+        (ReplicaCorrupt when ``corrupt``; a request mid-prefill raises it at
+        its next piece, a decoding one at its next ``next_token``), page
+        pins release, the pending chunk is dropped, a fetch in flight is
+        retired (it delivers nothing), the watchdog stands down and the
+        health hook reports the loss (it takes only locks ranked above this
+        one)."""
         if self._lost:
             return
         self._lost = True
         self.lost_cause = cause
         victims = sum(1 for s in self._streams if s._joined)
-        flight.record(self.replica_id, "replica_lost", cause=cause, victims=victims,
+        flight.record(self.replica_id, "replica_lost", cause=cause, corrupt=bool(corrupt), victims=victims,
                       victim_trace_ids=[s.trace.request_id for s in self._streams if s.trace is not None])
+        err_cls = faults.ReplicaCorrupt if corrupt else faults.ReplicaLost
         for s in self._streams:
-            s._fetch_error = faults.ReplicaLost(f"replica {self.replica_id} lost: {cause}")
+            s._fetch_error = err_cls(f"replica {self.replica_id} lost: {cause}")
             self._release_pins_locked(s)
         self._pending = None
         self._fetching = False

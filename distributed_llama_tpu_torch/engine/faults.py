@@ -65,11 +65,16 @@ accepts every site name of the JAX package; the port fires these:
                             replica id
 ``server.send``             raise ``BrokenPipeError`` from the SSE chunk
                             writer (``kind=disconnect``)
+``server.rollout``          fired once per blue-green rollout move
+                            (server/fleet.py; ``row=`` is the replica id):
+                            ``kind=corrupt`` perturbs the new engine's
+                            weights before the checksum gate, ``raise``
+                            fails certification, ``delay``/``hang`` hold
+                            the cutover window open
 ==========================  =================================================
 
-``tp.transfer`` and ``server.rollout`` parse but never fire: their
-subsystems are not ported (ROADMAP.md Queue 1: the batched TP scheduler,
-and the replica pool's canary, shadow votes and rollout).
+``tp.transfer`` parses but never fires: its subsystem is not ported
+(ROADMAP.md Queue 1: the batched TP scheduler).
 
 Zero overhead when disabled: components bind ``self._faults =
 faults.active_plan()`` at construction and get the shared
@@ -145,10 +150,12 @@ class ReplicaLost(RuntimeError):
 
 
 class ReplicaCorrupt(ReplicaLost):
-    """A replica declared dead for silent data corruption (the JAX
-    package's canary/shadow verdict). The port has no canary or shadow vote
-    yet (ROADMAP.md Queue 1: the replica pool's canary, shadow votes and
-    rollout), so nothing raises it."""
+    """This request's replica was declared dead for silent data corruption
+    (a canary or shadow-vote mismatch): wrong but finite outputs, not a
+    crash. Deltas it already sent may be wrong themselves, so a suppressed
+    replay would splice a wrong prefix onto a right continuation: the
+    server replays such a victim only while nothing has streamed, and
+    otherwise ends the stream with a typed ``replica_corrupt`` error."""
 
 
 KINDS = ("raise", "nan", "delay", "hang", "disconnect", "corrupt")

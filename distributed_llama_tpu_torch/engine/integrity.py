@@ -20,6 +20,10 @@ The port's copy of the JAX package's ``engine/integrity.py``.
   ever allocated.
 * **Deterministic corruption** (:func:`corrupt_params`): the ``engine.sdc``
   fault's payload, a seeded weight slice scaled into finite-but-wrong values.
+* **Reserved tenants**: the SDC canary bills its probes to
+  :data:`CANARY_TENANT` and rollout certification to :data:`ROLLOUT_TENANT`;
+  clients may not name either (the server refuses tenant names starting
+  with ``_``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,16 @@ import torch
 FP_BASIS = 2166136261
 FP_PRIME = 16777619
 _M32 = 0xFFFFFFFF
+
+# the reserved internal tenant canary and shadow probes bill to: a direct
+# lane claim, no admission permit, never a client identity
+CANARY_TENANT = "_integrity"
+
+# the reserved internal tenant rollout certification probes bill to (the
+# same contract as the canary's)
+ROLLOUT_TENANT = "_rollout"
+
+RESERVED_TENANTS = (CANARY_TENANT, ROLLOUT_TENANT)
 
 
 def fingerprint_init(b: int, device) -> tuple[torch.Tensor, torch.Tensor]:

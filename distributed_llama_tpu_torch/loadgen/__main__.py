@@ -21,8 +21,17 @@ The port's copy of the JAX package's loadgen CLI. Examples:
   ... --self-host --device cpu --replicas 2 --faults "replica.crash:kind=raise,row=0,after=8,count=1" \\
       --expect-flight fault_fire@replica.crash:1 --expect-flight failover:1
 
-Options whose subsystem the port has not yet (pods, the integrity canary
-and shadow votes, rollouts) raise ValueError naming their ROADMAP.md item.
+  # a live blue-green rollout mid-window: the self-host writes a second
+  # model with identical bytes under version v1; zero failed requests and
+  # the greedy streams equal across the upgrade
+  ... --self-host --device cpu --replicas 2 --rollout-weights same --assert
+
+  # the SDC canary and shadow votes under load, gated to no false positive
+  ... --self-host --device cpu --replicas 2 --canary-interval-s 0.5 --shadow-rate 0.5 \\
+      --expect-zero dllama_sdc_mismatches_total
+
+``--pod`` (one-process pods) is not ported and raises ValueError naming its
+ROADMAP.md item.
 
 Exit codes: 0 = report produced (all asserted checks passed), 1 = an
 ``--assert``/``--isolation`` check failed, 2 = the run itself failed.
@@ -36,13 +45,13 @@ import hashlib
 import json
 import random
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 from distributed_llama_tpu_torch.loadgen import report as rep
 from distributed_llama_tpu_torch.loadgen import runner, workload
-
-# the ROADMAP.md item of each option whose subsystem is not ported
-_FLEET = "ROADMAP.md Queue 1: the replica pool's canary, shadow votes and rollout"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,11 +114,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="self-host fault-plan spec (the server's --faults): chaos under load")
     p.add_argument("--faults-seed", type=int, default=0)
     p.add_argument("--no-preempt", action="store_true", help="self-host server without priority preemption")
-    # not ported: each raises ValueError naming its ROADMAP.md item
+    # not ported: raises ValueError naming its ROADMAP.md item
     p.add_argument("--pod", type=str, default=None, help="not ported: raises")
-    p.add_argument("--canary-interval-s", type=float, default=0.0, help="not ported: above 0 raises")
-    p.add_argument("--shadow-rate", type=float, default=0.0, help="not ported: above 0 raises")
-    p.add_argument("--rollout-weights", type=str, default=None, help="not ported: raises")
+    p.add_argument("--canary-interval-s", type=float, default=0.0,
+                   help="self-host SDC canary period (--sdc-canary-interval-s on the server): pinned greedy probes "
+                   "per replica compared against their version's golden; 0 disables")
+    p.add_argument("--shadow-rate", type=float, default=0.0,
+                   help="self-host shadow-vote sampling fraction (--sdc-shadow-rate on the server)")
+    p.add_argument("--rollout-weights", type=str, default=None, metavar="SPEC",
+                   help="fire POST /admin/rollout mid-window. Self-host: 'same' writes a second synthetic model "
+                   "with identical bytes under a new version id (the consistency check holds across the upgrade); "
+                   "an integer writes different weights from that seed. URL mode: a weights path on the server, "
+                   "passed in the rollout body")
+    p.add_argument("--rollout-at", type=float, default=0.5, metavar="FRACTION",
+                   help="when to fire the rollout, as a fraction of the last scheduled arrival's offset "
+                   "(default 0.5 = mid-window)")
+    p.add_argument("--rollout-version", type=str, default="v1", help="version id the rollout upgrades to")
     p.add_argument("--expect-flight", action="append", default=[], metavar="KIND[@SITE][:MIN]",
                    help="assert the server's /debug/flight rings hold at least MIN (default 1) lifecycle events of "
                    "KIND, optionally with a given fault site, e.g. 'fault_fire@replica.crash:1' (the injection "
@@ -135,15 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise ValueError for an option whose subsystem the port lacks."""
-    refused = [
-        ("--pod", args.pod, "ROADMAP.md Queue 1 item 4 (sequence parallel, expert parallel and pod)"),
-        ("--canary-interval-s", args.canary_interval_s > 0, _FLEET),
-        ("--shadow-rate", args.shadow_rate > 0, _FLEET),
-        ("--rollout-weights", args.rollout_weights is not None, _FLEET),
-    ]
-    for name, on, item in refused:
-        if on:
-            raise ValueError(f"{name} is not ported yet: {item}")
+    if args.pod:
+        raise ValueError("--pod is not ported yet: ROADMAP.md Queue 1 item 4 (sequence parallel, expert parallel "
+                         "and pod)")
     if not 0.0 <= args.sampled_share <= 1.0:
         raise ValueError(f"--sampled-share must be in [0, 1], got {args.sampled_share}")
 
@@ -225,7 +239,9 @@ def main(argv=None) -> int:
                               admission_queue=args.admission_queue, topk=args.topk, device=args.device,
                               tenants=args.server_tenants, preempt=not args.no_preempt, faults_spec=args.faults,
                               faults_seed=args.faults_seed, replicas=args.replicas,
-                              host_spill_mb=args.host_spill_mb)
+                              host_spill_mb=args.host_spill_mb, canary_interval_s=args.canary_interval_s,
+                              shadow_rate=args.shadow_rate, rollout_weights=args.rollout_weights,
+                              rollout_version=args.rollout_version)
         url = host.url
         print(f"self-hosted server at {url}", file=sys.stderr)
     else:
@@ -246,9 +262,27 @@ def main(argv=None) -> int:
             # phase 1: the probe tenant alone, same instants (uncontended)
             solo_results, _ = runner.run_schedule(url, [dataclasses.replace(r, index=i) for i, r in enumerate(solo)],
                                                   max_inflight=args.max_inflight, timeout_s=args.timeout_s)
+        rollout_thread = None
+        rollout_result: dict = {}
+        if args.rollout_weights is not None:
+            body = {"version": args.rollout_version}
+            if not args.self_host:
+                body["weights"] = args.rollout_weights  # the server resolves the path
+            # mid-window, scaled to the schedule's span, so in-flight streams
+            # straddle the upgrade
+            delay_s = max(0.0, args.rollout_at * schedule[-1].at_s)
+            rollout_thread = threading.Thread(target=_rollout_trigger,
+                                              args=(url, body, delay_s, args.timeout_s, rollout_result),
+                                              name="loadgen-rollout", daemon=True)
         before = rep.scrape_metrics(url)
+        if rollout_thread is not None:
+            rollout_thread.start()
         results, wall_s = runner.run_schedule(url, schedule, max_inflight=args.max_inflight,
                                               timeout_s=args.timeout_s)
+        if rollout_thread is not None:
+            # the POST is synchronous on the server: joined, every move (or
+            # the rollback) is in the deltas scraped next
+            rollout_thread.join(timeout=args.timeout_s)
         after = settled_scrape(url)
         report = rep.build_report(w, schedule, results, wall_s, fingerprint, replay_ok,
                                   metrics_before=before, metrics_after=after)
@@ -265,13 +299,15 @@ def main(argv=None) -> int:
         if args.expect_flight:
             report["checks"]["expected_flight"] = rep.check_expected_flight(rep.fetch_flight(url),
                                                                             args.expect_flight)
+        if rollout_thread is not None:
+            report["checks"]["rollout"] = rep.check_rollout(rollout_result, results)
         print(rep.dump_report(report, args.out))
         if not replay_ok:
             print("FATAL: schedule replay fingerprint mismatch", file=sys.stderr)
             return 2
         # explicitly requested gates are ALWAYS enforced; --assert adds the
         # built-in consistency and fairness checks
-        gate_names = ("goodput", "expected_deltas", "expected_zero", "expected_flight")
+        gate_names = ("goodput", "expected_deltas", "expected_zero", "expected_flight", "rollout")
         requested = [report["checks"].get(k) for k in gate_names]
         bad = [f"[{k}] {v}" for k, chk in zip(gate_names, requested) if chk and not chk.get("ok", True)
                for v in chk.get("violations", [])]
@@ -287,6 +323,29 @@ def main(argv=None) -> int:
     finally:
         if host is not None:
             host.stop()
+
+
+def _rollout_trigger(url: str, body: dict, delay_s: float, timeout_s: float, out: dict) -> None:
+    """Sleep to the rollout instant, then POST /admin/rollout and record
+    (status, response JSON) into ``out``, on its own thread while the open
+    loop keeps firing arrivals."""
+    time.sleep(delay_s)
+    req = urllib.request.Request(url + "/admin/rollout", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout_s) as r:
+            out["status"] = r.status
+            out["response"] = json.loads(r.read().decode() or "{}")
+    except urllib.error.HTTPError as e:
+        # a 4xx/5xx carries the server's JSON (the rollback summary)
+        out["status"] = e.code
+        try:
+            out["response"] = json.loads(e.read().decode() or "{}")
+        except Exception:
+            out["response"] = None
+    except Exception as e:  # a connection-level failure
+        out["status"] = None
+        out["error"] = f"{type(e).__name__}: {e}"
 
 
 if __name__ == "__main__":

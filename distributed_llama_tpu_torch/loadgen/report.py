@@ -2,10 +2,8 @@
 and the machine-checked invariants (fairness / consistency).
 
 The port's copy of the JAX package's ``loadgen/report.py``: the same
-report, byte for byte, from the same inputs, the two-phase isolation check
-and the flight-recorder gate. The rollout gate is left out with the fleet
-rollout it judges (ROADMAP.md Queue 1: the replica pool's canary, shadow
-votes and rollout).
+report, byte for byte, from the same inputs, the two-phase isolation check,
+the flight-recorder gate and the rollout gate.
 
 The report is ONE JSON document (docs/SERVING.md defines the shape) built
 from three inputs: the deterministic schedule, the measured per-request
@@ -463,6 +461,26 @@ def check_expected_zero(report: dict, names: list[str]) -> dict:
             )
     return {"ok": not violations, "expected_zero": checked,
             "violations": violations}
+
+
+def check_rollout(rollout: dict, results) -> dict:
+    """The zero-downtime gate: the mid-window ``POST /admin/rollout``
+    returned 200 (every replica moved, checksum- and canary-certified) and
+    no request of the window failed (a request that straddled a drain
+    finished on the old version or replayed on a survivor). 429s are
+    admission shedding and stay out of it (the goodput floor judges them)."""
+    violations: list[str] = []
+    status = rollout.get("status")
+    if status != 200:
+        detail = rollout.get("error") or rollout.get("response")
+        violations.append(f"POST /admin/rollout returned {status!r} ({detail!r}), expected 200")
+    failed = [{"index": r.index, "tenant": r.tenant, "outcome": r.outcome, "status": r.status,
+               "error_type": r.error_type}
+              for r in results if r.outcome not in ("completed", "rejected_429")]
+    violations.extend(f"request {f['index']} ({f['tenant']}) failed during the rollout window: {f['outcome']}"
+                      for f in failed)
+    return {"ok": not violations, "status": status, "response": rollout.get("response"),
+            "failed_requests": failed, "violations": violations}
 
 
 def fetch_flight(url: str, timeout_s: float = 10.0) -> dict | None:

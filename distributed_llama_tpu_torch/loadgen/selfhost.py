@@ -7,10 +7,13 @@ enabled before anything binds its instruments (the report scrapes
 spill tier on, on the card unless ``device="cpu"`` is passed. The model,
 tokenizer and server settings are the JAX self-host's, so the same
 schedule streams the same greedy completions from both packages. A fault
-plan is installed before anything binds it; tenants, preemption and
-``replicas`` (every replica, and every restart, loads the same weights)
-are the server's flags. Pods, the integrity canary and rollouts are not
-ported (``loadgen/__main__.py`` refuses them by name).
+plan is installed before anything binds it; tenants, preemption,
+``replicas`` (every replica, and every restart, loads the same weights),
+the SDC canary and shadow votes are the server's flags. A rollout target
+(``rollout_weights``) is a second synthetic model registered under
+``rollout_version``: ``"same"`` writes identical bytes (the greedy streams
+stay equal across the upgrade), an integer writes weights from that seed.
+Pods are not ported (``loadgen/__main__.py`` refuses them by name).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class SelfHost:
     server: ThreadingHTTPServer
     workdir: str
     plan: object | None = None  # the installed FaultPlan, if any
+    rollout_version: str | None = None  # the registered rollout target, if any
 
     def reset_faults(self) -> None:
         """Rewind the fault plan's hit/fired counters, so ``after=`` and
@@ -70,6 +74,10 @@ def start_selfhost(
     deadline_ms: float | None = None,
     replicas: int | None = None,
     host_spill_mb: float = 16.0,
+    canary_interval_s: float = 0.0,
+    shadow_rate: float = 0.0,
+    rollout_weights: str | None = None,
+    rollout_version: str = "v1",
 ) -> SelfHost:
     """Build the tiny synthetic f32 model and tokenizer, construct the
     port's ApiState (batched decode, prefix cache) and serve it on an
@@ -107,11 +115,25 @@ def start_selfhost(
         admission_queue=admission_queue, tenants=tenants, preempt=preempt, deadline_ms=deadline_ms,
         stall_timeout_s=60.0, replicas=replicas, host_spill_mb=host_spill_mb, spill_disk_dir=None, spill_disk_mb=0,
         replica_restart_backoff_s=0.1,
+        # a fast canary cadence keeps detection inside a short run; short
+        # probes keep them cheap beside real traffic
+        sdc_canary_interval_s=canary_interval_s, sdc_canary_tokens=8, sdc_shadow_rate=shadow_rate,
     )
     state = ApiState(engine, tok, sampler, args,
                      engine_factory=lambda: InferenceEngine(path, dtype=torch.float32, device=device))
+    registered = None
+    if rollout_weights is not None:
+        # the rollout target: a second model file under a new version id;
+        # "same" writes identical bytes, so the whole rollout (drain,
+        # rebuild, checksum gate, per-version golden) runs while the
+        # streams stay comparable across the upgrade
+        path2 = os.path.join(workdir, "m2.m")
+        write_synthetic_model(path2, spec, seed=seed if rollout_weights == "same" else int(rollout_weights))
+        state.register_weights_version(rollout_version,
+                                       lambda: InferenceEngine(path2, dtype=torch.float32, device=device))
+        registered = rollout_version
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     server.daemon_threads = True
     threading.Thread(target=server.serve_forever, name="dllama-selfhost", daemon=True).start()
     return SelfHost(url=f"http://127.0.0.1:{server.server_address[1]}", state=state, server=server,
-                    workdir=workdir, plan=plan)
+                    workdir=workdir, plan=plan, rollout_version=registered)

@@ -5,7 +5,8 @@
         --parallel 4 [--port 9990] [--device cpu] [--telemetry] \\
         [--replicas 2] [--host-spill-mb 64] [--spill-disk-dir DIR] \\
         [--tenants "gold:weight=4,priority=10;free:weight=1"] [--deadline-ms 30000] \\
-        [--faults "batch.row:kind=nan,row=1,count=1"]
+        [--faults "batch.row:kind=nan,row=1,count=1"] [--sdc-canary-interval-s 30] \\
+        [--sdc-shadow-rate 0.05] [--fleet-max-replicas 3 --fleet-interval-s 5]
 
 The port's copy of the JAX package's ``server/api.py`` serving core: SSE
 streaming and plain JSON responses, per-request temperature / top-p / top-k
@@ -82,14 +83,36 @@ written, for a streamed request), TPOT and per-stage times land in
 ``dllama_ttft_seconds`` / ``dllama_tpot_seconds`` /
 ``dllama_request_stage_seconds`` under the request's tenant.
 
-The integrity canary and shadow votes, weight versions and rollout, and
-fleet operations are not ported yet (ROADMAP.md Queue 1: the replica
-pool's canary, shadow votes and rollout).
+Integrity: the SDC canary (``--sdc-canary-interval-s``; 0, the default,
+ticks only by hand) runs a pinned greedy prompt (``--sdc-canary-tokens``
+tokens) through each replica's real batched path on a directly claimed lane
+(billed to the reserved ``_integrity`` tenant, no admission permit, priority
+below every class) and compares tokens and logit fingerprint with its
+weight version's golden: ``--sdc-canary-threshold`` mismatches in a row
+declare the replica dead as corrupt. A victim of such a loss that had sent
+no delta replays; one that had gets a typed ``replica_corrupt`` error, never
+a splice. ``--sdc-shadow-rate`` re-runs that share of completed greedy
+requests on two replicas off the request path (one vote at a time); a
+divergence turns both suspect until the canary resolves them. Client
+tenant names may not start with ``_``.
+
+Fleet operations (:mod:`server.fleet`): ``POST /admin/rollout`` with
+``{"version": "v1"[, "weights": "/path/new.m"][, "checksum": "..."]}`` moves
+the replicas to a new weight version one at a time (pin, cordon and drain
+at most ``--rollout-drain-s``, rebuild behind the version's checksum,
+certify under the ``_rollout`` tenant, uncordon) and answers 200, 409 (a
+conflict, nothing started) or 500 (aborted and rolled back). The fleet
+controller grows the pool under queue pressure up to
+``--fleet-max-replicas`` and retires idle replicas down to
+``--fleet-min-replicas``, ticking every ``--fleet-interval-s`` (0 ticks only
+by hand). ``/readyz`` reports the pool's weights version, the rollout's
+state and each replica's version, cordon and canary verdict.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -102,8 +125,8 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from distributed_llama_tpu_torch import retry, telemetry
-from distributed_llama_tpu_torch.engine import faults
+from distributed_llama_tpu_torch import lockcheck, retry, telemetry
+from distributed_llama_tpu_torch.engine import faults, integrity
 from distributed_llama_tpu_torch.engine.faults import DeadlineExceeded
 from distributed_llama_tpu_torch.server.admission import (
     DEFAULT_TENANT,
@@ -112,6 +135,7 @@ from distributed_llama_tpu_torch.server.admission import (
     ServerDraining,
     parse_tenants,
 )
+from distributed_llama_tpu_torch.server import fleet
 from distributed_llama_tpu_torch.server.replicas import NoPlaceableReplica, Replica, ReplicaPool
 from distributed_llama_tpu_torch.telemetry import Stopwatch, flight, trace
 from distributed_llama_tpu_torch.telemetry.trace import RequestTraceStore
@@ -138,6 +162,15 @@ MAX_PREEMPT_REQUEUES = 3
 # the requeue loop in the retry vocabulary: N+1 attempts, no sleep between
 # them (the fair admission queue is the backpressure)
 REQUEUE_POLICY = retry.BackoffPolicy(attempts=MAX_PREEMPT_REQUEUES + 1)
+
+# the canary's pinned prompt: what matters is that the same prompt decodes
+# greedily through the real batched path on every replica, so (tokens,
+# fingerprint) has one healthy value per weights version
+CANARY_PROMPT = "integrity canary: count one two three four five"
+
+# the canary row's priority, below every real class: a queued request
+# preempts the probe (which then reports inconclusive) instead of waiting
+CANARY_PRIORITY = -(1 << 30)
 
 
 def new_request_id() -> str:
@@ -216,6 +249,16 @@ class ApiState:
         n_replicas = max(1, int(getattr(args, "replicas", 1) or 1))
         self._lanes = n
         self._engine_factory = engine_factory
+        # versioned engine factories: the boot factory under the boot
+        # version; a rollout target registers through
+        # register_weights_version or register_weights_path
+        self._boot_version = str(getattr(args, "weights_version", None) or "v0")
+        self._weights_versions: dict = {}
+        if engine_factory is not None:
+            self._weights_versions[self._boot_version] = engine_factory
+        # weight-file path -> zero-argument engine factory (make_server
+        # installs one), for POST /admin/rollout's "weights"
+        self.make_engine_for_path = None
         if n_replicas > 1 and engine_factory is None:
             print("⚠️ replicas reduced to 1: no engine factory to build (or restart) more replicas")
             n_replicas = 1
@@ -289,7 +332,7 @@ class ApiState:
             restart_policy=retry.BackoffPolicy(attempts=retry.UNBOUNDED,
                                                base_s=0.5 if restart_base is None else float(restart_base),
                                                multiplier=2.0, max_s=30.0, jitter_s=0.5),
-            shared_index=self._shared_index, spill_arena=self._spill_arena)
+            shared_index=self._shared_index, spill_arena=self._spill_arena, weights_version=self._boot_version)
         if replicas[0].scheduler is not None and getattr(args, "preempt", True):
             # a queued higher-priority arrival may evict the lowest-priority
             # decode row on any live replica (called outside the admission lock)
@@ -307,6 +350,62 @@ class ApiState:
         self._count_lock = threading.Lock()
         self.deadline_exceeded_total = 0
         self.draining = False
+        # the SDC canary: the pool's canary runs _canary_probe; 0 s arms the
+        # probe for manual ticks and shadow votes only
+        self.canary_prompt = getattr(args, "sdc_canary_prompt", None) or CANARY_PROMPT
+        self.canary_tokens = int(getattr(args, "sdc_canary_tokens", 12) or 12)
+        self.shadow_rate = float(getattr(args, "sdc_shadow_rate", 0.0) or 0.0)
+        # entropy-seeded: it picks which greedy requests get a shadow vote
+        self._shadow_rng = random.Random()
+        # one shadow vote in flight at most; extra samples are dropped
+        self._shadow_gate = threading.Semaphore(1)
+        interval = getattr(args, "sdc_canary_interval_s", None)
+        self.pool.start_canary(self._canary_probe, 0.0 if interval is None else float(interval),
+                               fail_threshold=int(getattr(args, "sdc_canary_threshold", 2) or 2))
+        # fleet operations share one non-blocking ops lock, so a rollout and
+        # a scaling never change the fleet at once; elasticity is off unless
+        # --fleet-max-replicas is above the boot count
+        self._fleet_lock = lockcheck.make_lock("ApiState._fleet_lock")
+        drain_s = getattr(args, "rollout_drain_s", None)
+        self.rollout = fleet.RolloutOrchestrator(self, drain_timeout_s=15.0 if drain_s is None else float(drain_s),
+                                                 ops_lock=self._fleet_lock)
+        fleet_max = getattr(args, "fleet_max_replicas", None)
+        self.fleet = fleet.FleetController(
+            self, min_replicas=int(getattr(args, "fleet_min_replicas", None) or 1),
+            max_replicas=int(fleet_max) if fleet_max is not None else len(self.pool.replicas),
+            interval_s=float(getattr(args, "fleet_interval_s", None) or 0.0),
+            queue_high=getattr(args, "fleet_queue_high", None), ops_lock=self._fleet_lock)
+        # exactly one version label reads 1 (on_rollout_complete flips it)
+        self.tel.weights_version_info.labels(version=self._boot_version).set(1)
+
+    # ------------------------------------------------------------------
+    # Versioned weights
+    # ------------------------------------------------------------------
+
+    def register_weights_version(self, version: str, factory, checksum: str | None = None) -> None:
+        """Register a zero-argument engine factory for ``version`` (a
+        rollout target). ``checksum`` pre-seeds its reference; otherwise its
+        first build's load-time checksum records it."""
+        self._weights_versions[str(version)] = factory
+        if checksum is not None:
+            self.pool.register_version(str(version), checksum)
+
+    def has_weights_version(self, version: str) -> bool:
+        return str(version) in self._weights_versions
+
+    def register_weights_path(self, version: str, path: str) -> None:
+        """Register ``version`` from a weight file (``POST /admin/rollout``'s
+        ``"weights"``) through ``make_engine_for_path``."""
+        if self.make_engine_for_path is None:
+            raise RuntimeError("this server cannot load weight files at runtime (no path loader installed)")
+        self.register_weights_version(version, self.make_engine_for_path(str(path)))
+
+    def on_rollout_complete(self, old_version: str, new_version: str) -> None:
+        """A rollout's end: drop the old version's factory and flip the
+        version gauge."""
+        self._weights_versions.pop(old_version, None)
+        self.tel.weights_version_info.labels(version=old_version).set(0)
+        self.tel.weights_version_info.labels(version=new_version).set(1)
 
     # replica 0's engine, scheduler and every lane: properties, so a
     # restarted replica's old engine is referenced from nowhere here
@@ -344,14 +443,26 @@ class ApiState:
 
     def _build_replica(self, idx: int, engine=None):
         """Build (or rebuild: the pool's supervisor calls this under the
-        restart backoff) replica ``idx``: an engine (the factory's, unless
-        given), its scheduler and its lanes. Returns ``(engine,
-        scheduler_or_None, slots)``. Lane sampler seeds stay distinct
-        across replicas."""
+        restart backoff, a rollout and a scale-up directly) replica ``idx``:
+        an engine (the factory of the version the pool's target_version
+        names, unless given), its scheduler and its lanes. Returns
+        ``(engine, scheduler_or_None, slots)``. A version's first build
+        records its load-time checksum as the version's reference, before
+        any corruption can land. Lane sampler seeds stay distinct across
+        replicas."""
+        pool = getattr(self, "pool", None)
+        version = pool.target_version(idx) if pool is not None else self._boot_version
         if engine is None:
-            if self._engine_factory is None:
-                raise RuntimeError(f"replica {idx} cannot be built: no engine factory")
-            engine = self._engine_factory()
+            factory = self._weights_versions.get(version)
+            if factory is None:
+                raise RuntimeError(f"replica {idx} cannot be built: no engine factory for weights_version "
+                                   f"{version!r}")
+            engine = factory()
+        if pool is not None and version not in pool.weights_reference:
+            try:
+                pool.register_version(version, engine.weights_checksum())
+            except Exception as e:
+                print(f"⚠️ weight checksum unavailable: {e}")
         sched = self._make_scheduler(engine, idx)
         if sched is not None:
             streams = [sched.new_stream() for _ in range(self._lanes)]
@@ -464,8 +575,88 @@ class ApiState:
             "draining": self.draining,
             "queue_depth": self.admission.waiting(),
             "free_slots": max(0, self.admission.free_slots()),
+            "weights_version": self.pool.weights_version,
+            "rollout": self.pool.rollout_status(),
             "replicas": self.pool.snapshot(),
         }
+
+    def _canary_probe(self, rep, messages=None, tenant=None):
+        """One integrity probe on replica ``rep``: the pinned greedy prompt
+        (or ``messages``, a shadow vote) through its real batched decode on a
+        directly claimed lane, prefix cache off (the probe must read this
+        replica's weights, not shared pages), priority below every class.
+        Returns ``(tokens, fingerprint)``, or None when inconclusive: every
+        lane busy, the probe preempted, past a deadline or quarantined, or
+        the replica lost. ``tenant`` is the reserved billing identity
+        (default the canary's; rollout certification uses ``_rollout``)."""
+        tenant = tenant or integrity.CANARY_TENANT
+        slot = self.pool.claim_slot(rep.idx, tenant=tenant)
+        if slot is None:
+            return None
+        stream = slot.stream
+        try:
+            stream.reset()
+            slot.cache.clear()
+            stream.prefix_cache_enabled = False
+            stream.tenant = tenant
+            stream.priority = CANARY_PRIORITY
+            msgs = messages or [{"role": "user", "content": self.canary_prompt}]
+            toks = self.tokenizer.encode(
+                self.template.generate([ChatItem(m["role"], m["content"]) for m in msgs],
+                                       append_generation_prompt=True), add_bos=True)
+            budget = stream.cfg.seq_len - len(toks) - 1
+            if budget < 1:
+                return None  # the probe prompt does not fit this context
+            n = max(1, min(self.canary_tokens, budget))
+            first_dev = stream.prefill_device(toks, 0.0, self.args.topp, 0)
+            out: list[int] = []
+
+            def on_token(prev: int, t: int) -> bool:
+                out.append(int(t))
+                return len(out) < n
+
+            stream.stream_decode(first_dev, on_token, 0.0, self.args.topp, seed=0, first_prev=toks[-1],
+                                 limit=len(toks) + n)
+            if not out:
+                return None
+            # the fold of exactly the chunks behind the decoded tokens (the
+            # fused first token precedes them); an independent EngineStream
+            # has no fingerprints and compares tokens only
+            fp = stream.run_fingerprint(len(out) - 1) if hasattr(stream, "run_fingerprint") else None
+            return tuple(out), fp
+        except (faults.RowPreempted, faults.ReplicaLost, DeadlineExceeded, faults.RowQuarantined):
+            # yielded to real work, died, or failed loudly (the quarantine
+            # owns that): inconclusive this time
+            return None
+        finally:
+            try:
+                stream.reset()
+            except Exception:
+                pass
+            slot.cache.clear()
+            stream.prefix_cache_enabled = True
+            stream.tenant = None
+            stream.priority = None
+            self.pool.release(slot)
+
+    def _maybe_shadow(self, params: dict) -> None:
+        """Shadow voting (``--sdc-shadow-rate``): a sampled share of
+        completed greedy requests re-runs on two live replicas on a daemon
+        thread (the client never waits for the vote); a divergence turns
+        both suspect and the canary resolves which is corrupt."""
+        if (self.shadow_rate <= 0.0 or params["temperature"] != 0.0 or len(self.pool.replicas) < 2
+                or self._shadow_rng.random() >= self.shadow_rate):
+            return
+        if not self._shadow_gate.acquire(blocking=False):
+            return  # a vote is in flight: this sample is dropped
+
+        def vote():
+            try:
+                self.pool.shadow_vote(self._canary_probe, params["messages"])
+            finally:
+                self._shadow_gate.release()
+
+        threading.Thread(target=vote, name="dllama-sdc-shadow", daemon=True).start()
 
     def complete(self, body: dict, send_chunk, params: dict | None = None,
                  request_id: str | None = None) -> dict | None:
@@ -547,6 +738,12 @@ class ApiState:
                 self._release_slot(slot)
 
         def on_requeue(attempt: int, e: Exception) -> None:
+            if isinstance(e, faults.ReplicaCorrupt) and sent > 0:
+                # the replica died of silent corruption after this stream
+                # sent deltas, which may be wrong themselves: a suppressed
+                # replay would splice them onto a right continuation, so the
+                # request ends typed (raising here ends the requeue loop)
+                raise e
             if isinstance(e, NoPlaceableReplica):
                 return  # a placement bounce: nothing ran, so nothing replays
             if isinstance(e, faults.ReplicaLost):
@@ -558,8 +755,8 @@ class ApiState:
                 self.tel.preempt_requeues.inc()
 
         try:
-            return retry.retry_call(attempt_once, REQUEUE_POLICY, retry_on=(faults.RowPreempted, faults.ReplicaLost),
-                                    on_retry=on_requeue)
+            result = retry.retry_call(attempt_once, REQUEUE_POLICY,
+                                      retry_on=(faults.RowPreempted, faults.ReplicaLost), on_retry=on_requeue)
         finally:
             if ctx is not None:
                 # TTFT/TPOT and the stage breakdown observe the timestamps
@@ -572,6 +769,9 @@ class ApiState:
                 for stage, seconds in dict(ctx.stages).items():
                     self.tel.stage_seconds.labels(stage=stage, tenant=tenant).observe(seconds)
                 traces.finish(ctx)
+        # shadow votes sample completed greedy requests, off the request path
+        self._maybe_shadow(params)
+        return result
 
     def _complete_on(self, slot: StreamSlot, params: dict, send_chunk, request_id: str,
                      deadline: float | None = None, ctx=None) -> dict | None:
@@ -775,7 +975,9 @@ class ApiState:
         except (TypeError, ValueError) as e:
             raise BadRequest(f"invalid numeric field: {e}") from None
         # tenant names feed the fair admission queues; a leading underscore
-        # is reserved for internal tenants
+        # is reserved for internal tenants (integrity.RESERVED_TENANTS: the
+        # canary's and rollout certification's), which a client must not
+        # impersonate
         tenant = body.get("tenant", DEFAULT_TENANT)
         if not isinstance(tenant, str) or not tenant or len(tenant) > 64 or tenant.startswith("_"):
             raise BadRequest("'tenant' must be a non-empty string of at most 64 chars not starting with '_' "
@@ -900,9 +1102,52 @@ def make_handler(state: ApiState):
                 # is counted (the load generator waits for it to scrape)
                 tel.inflight.dec()
 
+        def _admin_rollout(self, rid: str) -> int:
+            """``POST /admin/rollout``: a blue-green weight rollout, run
+            synchronously on this handler thread while sibling threads keep
+            serving. Body ``{"version": "v1"[, "weights": path][,
+            "checksum": ref]}``: ``weights`` registers the version from a
+            file first. 200 with the summary, 409 on a conflict (nothing
+            started), 500 aborted and rolled back (with the rollout's
+            state)."""
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+            except (TypeError, ValueError):
+                length = 0
+            try:
+                body = json.loads(self.rfile.read(max(length, 0)) or b"{}")
+            except json.JSONDecodeError as e:
+                self._error(400, f"malformed JSON: {e}", "invalid_request_error", rid)
+                return 400
+            if not isinstance(body, dict):
+                body = {}
+            version = body.get("version")
+            if not isinstance(version, str) or not version:
+                self._error(400, "'version' must be a non-empty string", "invalid_request_error", rid)
+                return 400
+            try:
+                if body.get("weights"):
+                    state.register_weights_path(version, body["weights"])
+                result = state.rollout.run(version, checksum=body.get("checksum"))
+            except fleet.RolloutConflict as e:
+                self._error(409, str(e), "rollout_conflict", rid)
+                return 409
+            except fleet.RolloutAborted as e:
+                payload = {"error": {"message": str(e), "type": "rollout_aborted", "request_id": rid},
+                           "rollout": state.pool.rollout_status()}
+                self._send_json(500, payload, request_id=rid)
+                return 500
+            except Exception as e:
+                self._error(500, f"{type(e).__name__}: {e}", "server_error", rid)
+                return 500
+            self._send_json(200, result, request_id=rid)
+            return 200
+
         def _do_post_inner(self, rid: str) -> int:
             """Handle one POST; returns the response status for the counter
             (499: the client went away mid-stream)."""
+            if self.path == "/admin/rollout":
+                return self._admin_rollout(rid)
             if self.path != "/v1/chat/completions":
                 self.send_error(404)
                 return 404
@@ -984,8 +1229,15 @@ def make_handler(state: ApiState):
             except (faults.RowPreempted, faults.ReplicaLost) as e:
                 # preempted (or orphaned by dying replicas)
                 # MAX_PREEMPT_REQUEUES times in a row: shed it like overload
-                # rather than spin a handler thread forever
-                kind = "replica_lost" if isinstance(e, faults.ReplicaLost) else "preempted"
+                # rather than spin a handler thread forever; a corrupt loss
+                # after deltas went out was not replayed (the client starts
+                # afresh)
+                if isinstance(e, faults.ReplicaCorrupt):
+                    kind = "replica_corrupt"
+                elif isinstance(e, faults.ReplicaLost):
+                    kind = "replica_lost"
+                else:
+                    kind = "preempted"
                 return fail(503, e, kind, retry_after=True)
             except DeadlineExceeded as e:
                 state.note_deadline_exceeded()
@@ -1011,6 +1263,14 @@ def make_server(args, state: ApiState | None = None) -> tuple[ThreadingHTTPServe
             return make_engine(args)[0]
 
         state = ApiState(engine, tokenizer, sampler, args, engine_factory=engine_factory)
+
+        def factory_for_path(path):
+            # POST /admin/rollout's "weights": the same flags over another file
+            a = copy.copy(args)
+            a.model = path
+            return lambda: make_engine(a)[0]
+
+        state.make_engine_for_path = factory_for_path
     server = ThreadingHTTPServer((getattr(args, "host", "0.0.0.0"), args.port), make_handler(state))
     server.daemon_threads = True
     return server, state
@@ -1077,6 +1337,38 @@ def build_parser() -> argparse.ArgumentParser:
                    "placements until a fast round trip clears it)")
     p.add_argument("--replica-restart-backoff-s", type=float, default=0.5,
                    help="base restart backoff for a dead replica (exponential to 30 s, entropy-jittered)")
+    p.add_argument("--sdc-canary-interval-s", type=float, default=0.0,
+                   help="period of the per-replica SDC canary: a pinned greedy prompt through each replica's real "
+                   "batched path on a reserved lane, compared (tokens + logit fingerprint) against its weight "
+                   "version's golden; consecutive mismatches walk the replica healthy -> suspect -> dead as "
+                   "corrupt and its rebuild must pass the weight checksum. 0 disables the background canary")
+    p.add_argument("--sdc-canary-tokens", type=int, default=12,
+                   help="greedy tokens per canary probe (longer = more sensitive to deep-layer corruption, costlier)")
+    p.add_argument("--sdc-canary-threshold", type=int, default=2,
+                   help="consecutive canary mismatches before the replica is declared corrupt-dead (1 = the first "
+                   "mismatch kills; the default 2 walks suspect first)")
+    p.add_argument("--sdc-shadow-rate", type=float, default=0.0,
+                   help="fraction of completed greedy requests re-executed on two live replicas off the request "
+                   "path and compared: a divergence marks both suspect and the canary resolves which is corrupt. "
+                   "0 disables")
+    p.add_argument("--weights-version", type=str, default=None,
+                   help="version id of the boot weights (default v0): the key of the pool's checksum reference and "
+                   "canary golden, and what /readyz reports; POST /admin/rollout moves the pool to another one")
+    p.add_argument("--rollout-drain-s", type=float, default=15.0,
+                   help="per-replica drain cap during a rollout move; past it the lingering requests fail over "
+                   "(replayed on a survivor) and the supervisor rebuilds the replica on the new version")
+    p.add_argument("--fleet-min-replicas", type=int, default=1,
+                   help="elasticity floor: the fleet controller never shrinks the pool below this many replicas")
+    p.add_argument("--fleet-max-replicas", type=int, default=None,
+                   help="elasticity ceiling: sustained admission-queue pressure grows the pool up to this many "
+                   "replicas (each a full engine build behind the checksum gate). Default: the boot replica "
+                   "count, i.e. no growth")
+    p.add_argument("--fleet-interval-s", type=float, default=0.0,
+                   help="fleet controller tick period; each tick reads the admission queue depth and new 429s and, "
+                   "after consecutive-tick hysteresis, grows or drains and retires one replica. 0 disables the "
+                   "background loop")
+    p.add_argument("--fleet-queue-high", type=int, default=None,
+                   help="queued demand that counts as scale-up pressure (default: one replica's lanes)")
     p.add_argument("--batch-decode", action=argparse.BooleanOptionalAction, default=True,
                    help="coalesce concurrent completions into one batched decode dispatch per chunk "
                    "(--decode device, --parallel > 1)")

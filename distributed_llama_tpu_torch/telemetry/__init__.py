@@ -213,9 +213,6 @@ class Stopwatch:
 # ----------------------------------------------------------------------
 # Instrument bundles: each subsystem binds its instruments in one place so
 # hot code holds plain attributes (and can skip whole blocks on .enabled).
-# Only the instruments the port feeds are bound; the JAX package's
-# integrity-canary, shadow-vote and fleet series wait for those subsystems
-# (ROADMAP.md Queue 1: the replica pool's canary, shadow votes and rollout).
 # ----------------------------------------------------------------------
 
 
@@ -441,8 +438,8 @@ def note_kernel_path(kernel: str, path: str) -> None:
 
 class ServerInstruments:
     """The API server's metric surface (bound once per ApiState), with the
-    replica pool's series. The JAX package's canary, shadow-vote and fleet
-    series wait for those subsystems."""
+    replica pool's series: health, failover, integrity (canary, shadow
+    votes, rebuild checksums) and fleet operations (rollouts, scaling)."""
 
     def __init__(self):
         self.enabled = _enabled
@@ -543,8 +540,9 @@ class ServerInstruments:
             "chain — the cross-replica routing that keeps the Zipf head "
             "from being re-prefilled once per replica",
         )
-        # integrity checks: the port runs the restart's weight-checksum
-        # verification (the canary and shadow votes are not ported)
+        # integrity checks: canary probes, shadow votes and rebuild
+        # weight-checksum verifications; mismatches by the check that caught
+        # them
         self.sdc_checks = counter(
             "dllama_sdc_checks_total",
             "Conclusive integrity checks performed: canary golden "
@@ -560,6 +558,11 @@ class ServerInstruments:
             "rebuilt replica's weights disagree with the load-time "
             "reference)",
             labelnames=("check",),
+        )
+        self.canary_latency = histogram(
+            "dllama_canary_latency_seconds",
+            "Wall time of one SDC canary probe (pinned greedy prompt "
+            "through the replica's real batched path on a reserved lane)",
         )
         # request-scoped SLO attribution (telemetry/trace.py): server-side
         # TTFT/TPOT so client p99s decompose without trusting the client
@@ -586,6 +589,38 @@ class ServerInstruments:
             "requeued re-attempts after a failover/preemption) and "
             "tenant; sums approximate dllama_http_request_duration_seconds",
             labelnames=("stage", "tenant"),
+        )
+        # fleet operations (server/fleet.py): the blue-green rollout and
+        # elasticity ledger
+        self.rollout_moved = counter(
+            "dllama_rollout_replicas_moved_total",
+            "Replicas moved to a new weight version by a blue-green "
+            "rollout (drained, rebuilt on the new weights, checksum-"
+            "verified and canary-certified against the new version's "
+            "golden); rollback rebuilds do NOT count as moves",
+        )
+        self.rollout_aborts = counter(
+            "dllama_rollout_aborts_total",
+            "Rollouts aborted (checksum gate or canary certification "
+            "failed on the new version, or the server began draining "
+            "mid-rollout); each abort rolls every moved replica back to "
+            "the old version and raises a typed RolloutAborted",
+        )
+        self.fleet_scale = counter(
+            "dllama_fleet_scale_events_total",
+            "Elastic replica-count changes applied by the FleetController "
+            "(up = grew one replica under sustained queue pressure, "
+            "down = drained and retired one idle replica); hysteresis "
+            "keeps this counter quiet on a stable fleet",
+            labelnames=("direction",),
+        )
+        self.weights_version_info = gauge(
+            "dllama_weights_version",
+            "Info gauge: 1 on the label of the pool's CURRENT weight "
+            "version (the old version's label drops to 0 when a rollout "
+            "completes, so a scrape always names exactly one live pool "
+            "version; mid-rollout per-replica versions are in /readyz)",
+            labelnames=("version",),
         )
 
 

@@ -350,7 +350,7 @@ class TestPoolHealth:
         pool = ReplicaPool(lambda idx: (builds.pop(0), None, [fake_slot()]), [Replica(0, None, None, [fake_slot()])],
                            supervise=True, restart_policy=retry.BackoffPolicy(attempts=3, base_s=0.0),
                            restart_seed=0)
-        pool.weights_reference = integrity.params_checksum(good.params)
+        pool.register_version(pool.weights_version, integrity.params_checksum(good.params))
         pool._on_event(0, 0, "lost", 0.0)
         assert pool.wait_state(0, HEALTHY, timeout_s=10)
         assert pool.sdc_checks_total == 2 and pool.sdc_mismatches_total == 1
