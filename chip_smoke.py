@@ -26,7 +26,8 @@ Phases (any failure exits non-zero):
    in bf16 as the card does): expert ids of every layer equal on every
    forward first, then logits;
 5. write a Q40 `.m` file at full Llama-2-7B width (random blocks from a
-   seed) and a tokenizer padded to vocab 32000, and drive the port's CLI
+   seed; MAIN_LAYERS of its 32 layers) and a tokenizer padded to vocab
+   32000, and drive the port's CLI
    ``generate``/``inference`` entry with ``--dtype q40 --decode device``:
    greedy twice, sampled twice, once on the f32 (dequant) kernel path and
    greedy with ``--spec-draft 4`` on each path; assert identical streams
@@ -98,7 +99,7 @@ Phases (any failure exits non-zero):
    expert shapes (gate_up 4096->28672, down 14336->4096) and Grok-1's
    (gate_up 6144->65536, down 32768->6144, wcls 6144->131072), T = 1, 4,
    64, timed as in phase 3; (b) a random-Q40 `.m` at Mixtral-8x7B's widths
-   cut to 4 layers through the CLI: greedy and sampled twice each (equal
+   cut to 2 layers through the CLI: greedy and sampled twice each (equal
    streams), the f32 path, ``--moe-capacity 2.0`` on a prompt of >= 32
    tokens (the bucketed prefill), ``--spec-draft 4`` (its MoE warning, the
    plain greedy stream); (2 + 2E)·L + 1 Q40 launches per prefill and
@@ -107,10 +108,10 @@ Phases (any failure exits non-zero):
    server over that model as in 6b, then with ``--cache-dtype i8``, each
    greedy completion's first 8 tokens against the single-stream decode
    (reported, not failed: a 4-row step sums the experts in another
-   order); (d) Grok-1's widths cut to 2 layers through the CLI;
+   order); (d) Grok-1's widths cut to 1 layer through the CLI;
 9. telemetry, request tracing and the load generator (run after 7b, over a
    7B-width file cut to 8 layers, phase 7c's; ``--loadgen`` alone runs
-   phase 5's file, all 32 layers): the port's API server in process with
+   the 7B-width file at all 32 layers): the port's API server in process with
    ``--telemetry --parallel 4 --max-seq-len 2048`` (prefix cache on,
    ``--admission-queue 24``), driven through the port's load generator's
    ``--url`` path (``python -m distributed_llama_tpu_torch.loadgen``): 24
@@ -133,7 +134,7 @@ Phases (any failure exits non-zero):
    the card), and the 4-row decode step with telemetry on, a reading that
    does not fail the run;
 10. fault containment and fair admission (after 9, over phase 9's 8-layer
-   file; ``--faults`` alone runs phase 5's file, all 32 layers): one engine
+   file; ``--faults`` alone runs the 7B-width file at all 32 layers): one engine
    with ``--telemetry``, one server per
    fault plan (``--parallel 4 --max-seq-len 2048``, prefix cache on), each
    plan armed after the server's warm-up request. (a) The fault-free
@@ -208,7 +209,7 @@ Phases (any failure exits non-zero):
 
 12. the SDC canary, shadow votes, weight versions with blue-green rollout
    and the fleet controller (after 11, over phase 9's 8-layer file;
-   ``--fleet`` alone runs phase 5's file, all 32 layers): one server,
+   ``--fleet`` alone runs the 7B-width file at all 32 layers): one server,
    ``--replicas 2 --parallel 2 --telemetry --sdc-shadow-rate 1.0
    --rollout-drain-s 120 --fleet-min-replicas 2 --fleet-max-replicas 3``,
    bf16 cache. (a) Canary ticks by hand: the golden is set, then three ticks
@@ -238,12 +239,39 @@ Phases (any failure exits non-zero):
    and certify seconds, the peak card memory during the moves, the canary
    probes' p50 wall time (``dllama_canary_latency_seconds``) and the rates.
 
+13. from a Hugging Face checkpoint to a chat, and MoE under ``--tp`` (13c
+   after 8c over phase 8's Mixtral-width file, 13a-b after 8d): (a) a
+   synthetic F16 checkpoint with meta-llama/Llama-2-7b-hf's published
+   config.json fields (cut to 2 layers), in two safetensors files with an
+   index, and a 32000-token ``tokenizer.json``, converted by ``python -m
+   distributed_llama_tpu_torch.converter.hf`` (Q40) and ``.tokenizers``;
+   the `.m` equals, byte for byte, ``ModelFileWriter``'s direct write of the
+   same tensors; prints the conversion's seconds and GB/s; (b) ``chat`` on
+   the converted model, greedy, reading a system prompt and two user turns
+   from stdin, under ``--decode device`` (also ``--spec-draft 4``) and
+   ``--decode host``, the EOS a token of a greedy probe's first reply (random
+   weights emit none): the same turns in every mode, turn 2's reply equal to
+   one prefill of its token history followed by ``stream_decode``,
+   ``generate_on_device`` equal to ``generate_chunks`` for one first token
+   and seed, K1 in both tiles and no ``plain`` path; (c) K1 at the Mixtral
+   expert shard shapes (tp = 2 and 4, T=1) as in phase 3, then the Mixtral
+   CLI at ``--tp 1``, ``--tp 2`` and ``--tp 4`` (the ranks on the card, each
+   under ``--allreduce psum`` and ``ring``, ``--moe-capacity 2.0``): the
+   expert ids of every router call, then 32 greedy tokens, equal to tp = 1's
+   (a divergence prints tp = 1's top-2 logit gap there), one expert-id host
+   read per layer per decoded token, K1's dp4a tile, K4 and K5 launched
+   under ring and no plain path, rank residuals byte-identical, the
+   bucketed prefill of a long prompt on every rank of every layer, and
+   ms/token with device busy ms/token per tp.
+
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
 one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
 ``--loadgen`` writes phase 5's files and runs phase 9 alone, ``--faults``
-phase 10 alone, ``--spill`` phase 11 alone and ``--fleet`` phase 12 alone.
+phase 10 alone, ``--spill`` phase 11 alone, ``--fleet`` phase 12 alone and
+``--chat`` phase 13 alone (with 7a's K4 rows at [1, 4096] and a Mixtral-width
+file of its own).
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -252,6 +280,7 @@ The last two lines of standard output are one JSON object per kernel
 from __future__ import annotations
 
 import argparse
+import filecmp
 import gc
 import json
 import math
@@ -278,7 +307,12 @@ INT8_OPS_PER_S = 1979e12
 # one per lane and cycle, half the 67 TFLOP/s that counts an FMA as two
 F32_OPS_PER_S = 33.5e12
 BF16_OPS_PER_S = 989e12
-N_LAYERS = 32  # Llama-2-7B's depth; phases 5 and 6 run all of it
+N_LAYERS = 32  # Llama-2-7B's depth: the kernel line's per-token numbers count all of it
+# phases 5, 6b and 6c's depth in the full run: at 32 layers they took
+# 126.5 + 64.2 + 107.4 s of a 980.8 s run on an H100 host, which leaves no
+# room for a host ~33% slower (see MIXTRAL_LAYERS); ``--loadgen``,
+# ``--faults``, ``--spill`` and ``--fleet`` alone keep all 32
+MAIN_LAYERS = 16
 # phase 7c's depth: its three engines at 8 of Llama-2-7B's 32 layers, which
 # keeps the whole run, phase 8 included, well inside its time limit
 TP_LAYERS = 8
@@ -389,10 +423,13 @@ LOADGEN_MAX_TOKENS = 32
 # the scheduler's eager launches
 SKEW_BOUND_MS = 250.0
 # phase 8: Mixtral-8x7B and Grok-1 at their published widths, depth cut to
-# fit the run (a Mixtral file of 4 of 32 layers is ~3.6 GB, a Grok-1 file
-# of 2 of 64 layers ~9.2 GB)
-MIXTRAL_LAYERS = 4
-GROK_LAYERS = 2
+# fit the run (a Mixtral file of 2 of 32 layers is ~2.2 GB, a Grok-1 file
+# of 1 of 64 layers ~6.4 GB). On an H100 80GB HBM3 at 700 W, from 4 and 2
+# layers to 2 and 1 took phases 8b, 8c, 13c and 8d from 219.4 s to 166.0 s,
+# while the whole run went from 944.0 s to 980.8 s (host time varies more
+# than that between machines: one ran every phase ~33% slower, 1260.7 s)
+MIXTRAL_LAYERS = 2
+GROK_LAYERS = 1
 MOE_TS = (1, 4, 64)
 # the expert matmuls and Grok-1's logits head: name -> (n, d, launches per
 # decoded token: k = 2 experts' gate_up and down in every layer)
@@ -454,6 +491,27 @@ FLEET_BURST = 12
 FLEET_MEM_TOL_REL = 0.01
 K1_K2_PATHS = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma", "paged_attention/k2", "paged_attention/k2_i8")
 ROUTE_MARGIN = 1e-5
+# phase 13: the converted model's depth and context; meta-llama/Llama-2-7b-hf
+# config.json's published fields, typed in (its rope theta, 10000, is the
+# transformers default it leaves out), cut to CHAT_LAYERS layers in 13a
+CHAT_LAYERS = 2
+CHAT_SEQ_LEN = 512
+LLAMA2_7B_HF_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02, "intermediate_size": 11008, "max_position_embeddings": 4096,
+    "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 32, "num_key_value_heads": 32,
+    "pretraining_tp": 1, "rms_norm_eps": 1e-05, "rope_scaling": None, "rope_theta": 10000.0,
+    "tie_word_embeddings": False, "torch_dtype": "float16", "use_cache": True, "vocab_size": 32000,
+}
+# 13b's stdin: a system prompt, a user turn, an empty line (asked again), a
+# second user turn
+CHAT_LINES = ("You are a helpful assistant.", "hello world, tell me about the world", "", "hello again, world")
+CHAT_STOP_AT = 6  # from this token of the first turn's greedy reply on, one becomes the EOS
+MOE_TP_TOKENS = 32
+# K1 at 13c's Mixtral expert shards: name -> (n, d, launches per decoded
+# token: 2 active experts x MIXTRAL_LAYERS layers x tp ranks)
+MOE_TP_SHAPES = {f"mixtral_tp{tp}_{m}": (n, d, 2 * MIXTRAL_LAYERS * tp) for tp in (2, 4)
+                 for m, n, d in (("gate_up", 4096, 2 * 14336 // tp), ("down", 14336 // tp, 4096))}
 
 
 def fail(msg: str) -> None:
@@ -475,9 +533,22 @@ def gate(strict: bool, ok: bool, msg: str) -> None:
         print(f"OUT OF CONTRACT: {msg}")
 
 
+# (phase id, start time) of every phase in this run, for the closing breakdown
+PHASE_STARTS: list = []
+
+
 def phase(name: str) -> float:
     print(f"\n=== {name}", flush=True)
-    return time.perf_counter()
+    t = time.perf_counter()
+    PHASE_STARTS.append((name.split(".")[0], t))
+    return t
+
+
+def phase_seconds(end: float) -> dict:
+    """Seconds from each phase's start to the next one's (the last: to
+    ``end``), by phase id."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [end]
+    return {name: round(e - t, 1) for (name, t), e in zip(PHASE_STARTS, ends)}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1578,13 +1649,13 @@ def moe_cli(cli, moe, q40, model: str, tok: str, runs: list, capacity_prompt: st
         n_prompt = len(cap_built[1].encode(capacity_prompt, add_bos=True))
         check(n_prompt >= moe.MOE_BUCKETED_MIN_T, f"the capacity prompt has {n_prompt} tokens")
         bucketed = []
-        orig = moe._moe_dense_bucketed
-        moe._moe_dense_bucketed = lambda *a, **kw: bucketed.append(a[1].shape[0]) or orig(*a, **kw)
+        orig = moe._route_buckets
+        moe._route_buckets = lambda *a, **kw: bucketed.append(a[1].shape[0]) or orig(*a, **kw)
         try:
             cap = drive("greedy --moe-capacity 2.0", "int8", ["--prompt", capacity_prompt, "--temperature", "0",
                                                                "--seed", "1", "--steps", "160"], cap_built)
         finally:
-            moe._moe_dense_bucketed = orig
+            moe._route_buckets = orig
         check(len(bucketed) == L, f"the bucketed prefill ran {len(bucketed)} times, expected {L}")
         exact = drive("greedy exact, same prompt", "int8", ["--prompt", capacity_prompt, "--temperature", "0",
                                                              "--seed", "1", "--steps", "160"], built)
@@ -2218,7 +2289,7 @@ def loadgen_phase(server_api, attn, q40, model: str, tok_path: str, smi: str) ->
         check("batch_decode_chunk" in host and "batch_decode_fetch" in host, f"no dispatch/fetch spans: {list(host)}")
 
         # the 4-row step with telemetry on: a reading (phase 6b's is off, at
-        # 32 layers)
+        # MAIN_LAYERS layers)
         decode_rows(sched, 4, 8)  # warm
         wall4, _, steps = decode_rows(sched, 4)
         out["decode_ms_per_step_4_rows_telemetry_on"] = on_ms = wall4 / steps * 1e3
@@ -3118,9 +3189,12 @@ def spill_phase(server_api, model: str, tok_path: str, smi: str, workdir: Path, 
         system = system_prompt(state.tokenizer, "India")
         bodies = [body(system, f"{c} tell me a story", max_tokens=REPLICA_TOKENS, seed=40 + i)
                   for i, c in enumerate("WXYZ")]
+        # the warm request decodes alone (K1's dp4a tile); the rounds below
+        # keep both lanes of a replica busy (its tensor-core tile) unless
+        # their timing leaves one row alone
+        c0 = paths()
         _post_any(url, body(system, "warm", max_tokens=2))
         idle_lanes(state)
-        c0 = paths()
         ref = _concurrent(url, bodies)
         check(all(r["status"] == 200 for r in ref), f"{label}: the reference round: {[r['status'] for r in ref]}")
         ref_text = [_sse_text(r["payload"])[0] for r in ref]
@@ -3826,10 +3900,10 @@ def fleet_only(smi: str) -> None:
     print(f"card: {smi}")
 
 
-def write_7b_files(synthetic, write_tokenizer_file, workdir: Path) -> tuple[str, str]:
-    """Phase 5's files: a random-Q40 `.m` at Llama-2-7B width (32 layers,
-    blocks from seed 0) and a tokenizer padded to its vocab."""
-    spec = synthetic.llama2_7b_spec(n_layers=N_LAYERS, seq_len=4096)
+def write_7b_files(synthetic, write_tokenizer_file, workdir: Path, n_layers: int = N_LAYERS) -> tuple[str, str]:
+    """A random-Q40 `.m` at Llama-2-7B width (``n_layers`` layers, blocks
+    from seed 0) and a tokenizer padded to its vocab."""
+    spec = synthetic.llama2_7b_spec(n_layers=n_layers, seq_len=4096)
     model = str(workdir / "llama2_7b_width.m")
     synthetic.write_random_q40_model(model, spec, seed=0)
     tok = str(workdir / "tok.t")
@@ -3839,10 +3913,11 @@ def write_7b_files(synthetic, write_tokenizer_file, workdir: Path) -> tuple[str,
 
 
 def moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, workdir: Path,
-               summary: dict) -> None:
+               summary: dict, after_8c=None) -> None:
     """Phase 8: K1 and K3 at the expert shapes, then the CLI and the
     batched server over Mixtral-8x7B widths and the CLI over Grok-1 widths,
-    each `.m` written under ``workdir`` and deleted at the end of its phase.
+    each `.m` written under ``workdir`` and deleted at the end of its phase
+    (``after_8c(model, tok)`` runs over the Mixtral-width files first).
     Results go into ``summary``."""
     t = phase("8a. K1 and K3 vs their plain versions at the Mixtral-8x7B and Grok-1 expert shapes")
     k1_rows = k1_checks(q40, shapes=MOE_SHAPES, ts=MOE_TS)
@@ -3873,8 +3948,10 @@ def moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tok
         summary[key] = server_run(server_api, attn, kvc, llama, model, tok, q40, extra=extra, single_stream=True)
         gc.collect()
         torch.cuda.empty_cache()
-    os.remove(model)
     print(f"phase 8c: {time.perf_counter() - t:.1f} s")
+    if after_8c is not None:
+        after_8c(model, tok)
+    os.remove(model)
 
     t = phase(f"8d. the slice's path: CLI generate at Grok-1 width, {GROK_LAYERS} layers")
     spec = synthetic.grok1_spec(n_layers=GROK_LAYERS, seq_len=4096)
@@ -3916,6 +3993,492 @@ def moe_only(smi: str) -> None:
         moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, Path(tmp), summary)
     out = ROOT / "build" / "chip_smoke_moe.json"
     out.write_text(json.dumps(summary, indent=1))
+    print(f"card: {smi}")
+
+
+# ----------------------------------------------------------------------
+# Phase 13: a Hugging Face checkpoint converted on the card machine, chat
+# on it, and Mixtral-8x7B width under --tp
+# ----------------------------------------------------------------------
+
+
+def convert_phase(synthetic, workdir: Path) -> dict:
+    """Phase 13a: a synthetic F16 Hugging Face checkpoint at Llama-2-7B width
+    (LLAMA2_7B_HF_CONFIG cut to CHAT_LAYERS layers, two safetensors files
+    with an index) and a 32000-token ``tokenizer.json``, converted by the
+    port's converter programs (``python -m ...converter.hf`` to Q40, and
+    ``...converter.tokenizers hf``); the `.m` must equal, byte for byte,
+    the file ``ModelFileWriter`` writes directly from the `.m`-layout
+    tensors the checkpoint was made from (written meanwhile, in this
+    process)."""
+    from distributed_llama_tpu_torch.converter import hf as conv_hf
+    from distributed_llama_tpu_torch.formats.model_file import ModelFileWriter
+    from distributed_llama_tpu_torch.quants import FloatType
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    config = {**LLAMA2_7B_HF_CONFIG, "num_hidden_layers": CHAT_LAYERS}
+    spec = conv_hf.spec_from_hf_config(config, FloatType.Q40)
+    tensors = synthetic.random_f16_tensors(spec, seed=0)
+    ckpt = workdir / "hf_llama2_7b_width"
+    files = synthetic.write_hf_checkpoint(str(ckpt), spec, tensors, config, n_files=2)
+    synthetic.write_hf_tokenizer(str(ckpt), spec.vocab_size)
+    ckpt_bytes = sum(os.path.getsize(f) for f in files)
+    write_s = time.perf_counter() - t0
+    print(f"wrote a {ckpt_bytes / 1e9:.3f} GB F16 checkpoint ({len(files)} safetensors files + index, "
+          f"{CHAT_LAYERS} layers at Llama-2-7B width) and a {spec.vocab_size}-token tokenizer.json in {write_s:.1f} s")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    name = "llama2_7b_width"
+    ended: dict = {}  # converter -> (seconds, output)
+
+    def run(kind: str, argv: list) -> threading.Thread:
+        """The converter program ``kind`` started; its thread ends with it."""
+        started = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", f"distributed_llama_tpu_torch.converter.{kind}", *argv],
+                                cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def wait():
+            output = proc.communicate(timeout=900)[0]
+            ended[kind] = (time.perf_counter() - started, output, proc.returncode)
+
+        waiter = threading.Thread(target=wait, daemon=True)
+        waiter.start()
+        return waiter
+
+    waiters = {"hf": run("hf", [str(ckpt), "q40", name]), "tokenizers": run("tokenizers", ["hf", str(ckpt), name])}
+    # meanwhile the same tensors written directly
+    direct = workdir / "direct.m"
+    t_direct = time.perf_counter()
+    with open(direct, "wb") as f:
+        writer = ModelFileWriter(f, spec)
+        for e in list(writer.remaining()):
+            writer.write_tensor(tensors[e.name].astype(np.float32), e.name)
+        writer.finish()
+    direct_s = time.perf_counter() - t_direct
+    del tensors
+    for kind, waiter in waiters.items():
+        waiter.join()
+        check(ended[kind][2] == 0, f"the {kind} converter failed:\n{ended[kind][1][-2000:]}")
+    seconds = {kind: e[0] for kind, e in ended.items()}
+    model, tok = workdir / f"dllama_model_{name}_q40.m", workdir / f"dllama_tokenizer_{name}.t"
+    model_bytes = os.path.getsize(model)
+    same = filecmp.cmp(model, direct, shallow=False)
+    check(same, "13a: the converted .m differs from ModelFileWriter's direct write of the same tensors")
+    tokenizer = Tokenizer.from_file(str(tok), spec.vocab_size)
+    print(f"converter.hf: {seconds['hf']:.1f} s for {ckpt_bytes / 1e9:.3f} GB of F16 in "
+          f"({ckpt_bytes / 1e9 / seconds['hf']:.3f} GB/s) and {model_bytes / 1e9:.3f} GB of .m out "
+          f"({model_bytes / 1e9 / seconds['hf']:.3f} GB/s); the direct write {direct_s:.1f} s; "
+          f"converter.tokenizers: {seconds['tokenizers']:.1f} s ({tokenizer.vocab_size} tokens, chat eos "
+          f"{tokenizer.chat_eos_id}); the .m equals the direct write byte for byte")
+    os.remove(direct)
+    for f in files:
+        os.remove(f)  # the tokenizer files stay: 13b converts them again
+    return dict(checkpoint_bytes=ckpt_bytes, model_bytes=model_bytes, write_s=write_s, convert_s=seconds["hf"],
+                convert_in_gb_per_s=ckpt_bytes / 1e9 / seconds["hf"],
+                convert_out_gb_per_s=model_bytes / 1e9 / seconds["hf"], direct_write_s=direct_s,
+                tokenizer_s=seconds["tokenizers"], byte_equal=same, model=str(model), tok=str(tok),
+                tokenizer_dir=str(ckpt))
+
+
+def kv_divergence_explained(chat_cache: list, ref_cache: list, n: int, fed: range) -> bool:
+    """Whether a chat's KV cache and one written by a single prefill of the
+    same n tokens part only as the decode/prefill attention order predicts
+    (ROADMAP Queue 3): one query row and a bucket of rows sum the full-S
+    attention's einsums in another order, and an ulp there can move one Q80
+    rounding of the next layer's input at a row the chat's decode steps
+    wrote (``fed``). So: layer 0's rows are all equal (its input is the
+    embedding); no layer differs before the first differing layer's first
+    row; that layer is layer 1 or later and differs only at ``fed`` rows;
+    and there every 32-element block of the row differs from the
+    reference's by at most one Q80 step of that block (its max |value| /
+    127). A wrong KV row fails one of these."""
+    first, first_bad = None, None
+    for l, (a, b) in enumerate(zip(chat_cache, ref_cache)):
+        d = (a[:, :n].float() - b[:, :n].float()).abs().amax(dim=(0, 2, 3))
+        bad = torch.nonzero(d).flatten().tolist()
+        print(f"  layer {l}: KV rows differ at {len(bad)} of {n} positions, the first {bad[:1]} "
+              f"(the chat's decode steps wrote {fed.start}-{fed.stop - 1}), max abs diff {float(d.max()):.3e}")
+        if bad and first is None:
+            first, first_bad = l, bad
+    if first is None:
+        return False
+    lowest = min(first_bad)
+    earlier = [l for l, b in enumerate(ref_cache)
+               if not torch.equal(chat_cache[l][:, :lowest], b[:, :lowest])]
+    a, b = chat_cache[first][:, first_bad].float(), ref_cache[first][:, first_bad].float()
+    hd = b.shape[-1]
+    blocks = (-1, 32) if hd % 32 == 0 else (-1, hd)
+    diff = (a - b).abs().reshape(*b.shape[:-1], *blocks)
+    step = b.abs().reshape(*b.shape[:-1], *blocks).amax(dim=-1, keepdim=True) / 127
+    ratio = float((diff / step.clamp(min=torch.finfo(torch.float32).tiny)).max())
+    ok = first >= 1 and not earlier and all(p_ in fed for p_ in first_bad) and ratio <= 1.0
+    print(f"  first differing layer {first} at rows {first_bad}; layers differing before row {lowest}: "
+          f"{earlier}; largest diff there {ratio:.3e} of its block's Q80 step: "
+          f"{'the decode/prefill order' if ok else 'NOT the decode/prefill order'}")
+    return ok
+
+
+def chat_phase(cli, q40, telemetry, conv: dict, workdir: Path) -> dict:
+    """Phase 13b: ``chat`` on the converted model. A greedy probe of the
+    first turn picks the EOS token (a token of the reply from CHAT_STOP_AT
+    on: random weights emit no EOS of their own) and the tokenizer is
+    converted again with it; then the CLI's ``chat`` reads CHAT_LINES from stdin,
+    greedy, under ``--decode device``, ``--decode device --spec-draft 4`` and
+    ``--decode host``. Gates: every mode gives the same turns; turn 2's
+    reply equals one prefill of its whole token history followed by the
+    plain chunked decode; ``generate_on_device`` equals ``generate_chunks``
+    for the same first token and seed; K1 launched in both tiles and no
+    ``plain`` path."""
+    import contextlib
+    import io
+
+    from distributed_llama_tpu_torch.converter.tokenizers import convert_hf_tokenizer
+    from distributed_llama_tpu_torch.tokenizer import ChatItem, ChatTemplate, Sampler, Tokenizer, chat_stops
+
+    def args(*extra):
+        return cli.build_parser().parse_args([
+            "chat", "--model", conv["model"], "--tokenizer", conv["tok"], "--dtype", "q40",
+            "--max-seq-len", str(CHAT_SEQ_LEN), "--temperature", "0", "--seed", "1", "--decode-chunk", "16",
+            *extra])
+
+    t_load = time.perf_counter()
+    engine, tok, _ = cli.make_engine(args())
+    torch.cuda.synchronize()
+    out: dict = {"load_s": time.perf_counter() - t_load}
+    template = ChatTemplate("unknown", tok.chat_template, chat_stops(tok)[0])
+    prompt = tok.encode(template.generate([ChatItem("system", CHAT_LINES[0]), ChatItem("user", CHAT_LINES[1])]),
+                        add_bos=True)
+    engine.reset()
+    first = int(engine.prefill(prompt).argmax())
+    greedy = [first] + engine.generate_on_device(first, 4 * CHAT_STOP_AT).tolist()
+    # generate_on_device (one dispatch) against generate_chunks, sampled
+    got = {}
+    for run in ("on_device", "chunks"):
+        s = engine.new_stream()
+        s.prefill(prompt)
+        if run == "on_device":
+            got[run] = s.generate_on_device(first, 16, 0.8, seed=5).tolist()
+        else:
+            gen = s.generate_chunks(first, 0.8, 0.9, seed=5, chunk=4, limit=s.pos + 16)
+            got[run] = [next(gen) for _ in range(16)]
+            gen.close()
+        del s
+    check(got["on_device"] == got["chunks"],
+          f"13b: generate_on_device {got['on_device']} != generate_chunks {got['chunks']}")
+    print(f"generate_on_device == generate_chunks for 16 sampled tokens (temperature 0.8, seed 5): {got['on_device']}")
+    # random weights emit no EOS: the checkpoint's EOS becomes the first
+    # token id of the first turn's greedy reply, from CHAT_STOP_AT on, that
+    # the reply has not emitted before (else the one at CHAT_STOP_AT), so
+    # that turn ends there; the tokenizer is converted again with it
+    i = next((j for j in range(CHAT_STOP_AT, len(greedy)) if greedy[j] not in greedy[:j]), CHAT_STOP_AT)
+    eos = tok.vocab[greedy[i]].decode("utf-8")
+    cfg_path = Path(conv["tokenizer_dir"]) / "tokenizer_config.json"
+    cfg = json.loads(cfg_path.read_text())
+    cfg_path.write_text(json.dumps({**cfg, "eos_token": eos}))
+    chat_tok = str(workdir / "chat.t")
+    data = convert_hf_tokenizer(conv["tokenizer_dir"], chat_tok)
+    check(data.chat_eos_id == greedy[i], f"13b: the converted chat eos {data.chat_eos_id} != {greedy[i]}")
+    print(f"first turn's greedy reply {greedy}; the tokenizer converted again with eos_token {eos!r} "
+          f"(id {greedy[i]}, reply token {i})")
+
+    telemetry.reset()
+    telemetry.enable()
+    q40.reset_launches()
+    sessions = {}
+    try:
+        for label, extra in (("device", []), ("device --spec-draft 4", ["--spec-draft", "4"]),
+                             ("host", ["--decode", "host"])):
+            engine.reset()
+            built = (engine, Tokenizer.from_file(chat_tok, engine.cfg.vocab_size),
+                     Sampler(vocab_size=engine.cfg.vocab_size, temperature=0.0, topp=0.9, seed=1))
+            stdin, sys.stdin = sys.stdin, io.StringIO("\n".join(CHAT_LINES) + "\n")
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(printed):
+                    session = cli.chat(args(*extra), built=built)
+            finally:
+                sys.stdin = stdin
+            wall_s = time.perf_counter() - t0
+            turns = session["turns"]
+            sessions[label] = session
+            check(len(turns) >= 2 and turns[0]["end"] == "eos",
+                  f"13b {label}: {len(turns)} turns, the first ended {turns[0]['end'] if turns else None}")
+            print(f"chat {label}: {len(turns)} turns in {wall_s:.2f} s; " + "; ".join(
+                f"turn {j + 1}: {len(t['prompt_tokens'])} prompt tokens, {len(t['tokens'])} reply tokens, "
+                f"{t['ms']:.0f} ms ({t['end']})" for j, t in enumerate(turns))
+                + f"; printed {printed.getvalue().count(chr(10))} lines")
+        paths = kernel_paths()
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    key = [[(t["prompt_tokens"], t["tokens"], t["end"]) for t in s["turns"]] for s in sessions.values()]
+    check(all(k == key[0] for k in key), "13b: the decode modes gave different turns")
+    tiles = dict(q40.tile_launches)
+    print(f"K1 launches over the three chats by tile {tiles}; kernel paths {paths}")
+    check(tiles["dp4a"] > 0 and tiles["mma"] > 0, f"13b: a K1 tile was not launched: {tiles}")
+    check(not any(k.endswith("/plain") for k in paths), f"13b: a plain path ran: {paths}")
+    # turn 2 against one prefill of its whole token history
+    t1, t2 = sessions["device"]["turns"][:2]
+    history = t1["prompt_tokens"] + t1["tokens"][:-1] + t2["prompt_tokens"]
+    s = engine.new_stream()
+    first_dev = s.prefill_device(history, 0.0, 0.9, seed=1)
+    want = []
+    s.stream_decode(first_dev, lambda p, t: want.append(t) or len(want) < len(t2["tokens"]), 0.0, 0.9, seed=1,
+                    chunk=16, limit=CHAT_SEQ_LEN, first_prev=history[-1])
+    same = next((j for j, (a, b) in enumerate(zip(want, t2["tokens"])) if a != b), min(len(want), len(t2["tokens"])))
+    print(f"turn 2 ({len(history)} tokens of history, {len(t2['tokens'])} reply tokens): {same} equal to one "
+          f"prefill of the history + stream_decode before the first difference")
+    explained = None
+    if want != t2["tokens"]:
+        explained = kv_divergence_explained(engine.default_stream.cache, s.cache, len(history), range(
+            len(t1["prompt_tokens"]), len(t1["prompt_tokens"]) + len(t1["tokens"]) - 1))
+        lg = engine.new_stream().forward(history + want[:same])[-1]
+        top2 = np.sort(lg)[-2:]
+        gap = float((top2[1] - top2[0]) / np.abs(lg).max())
+        print(f"  the reference's top-2 logit gap at token {same}: {gap:.3e} of max |logit| "
+              f"({'a near-tie' if gap < TP_LOGIT_TOL else 'NOT a near-tie'}: the bound is {TP_LOGIT_TOL})")
+        explained = explained and gap < TP_LOGIT_TOL
+        print(f"  {'explained' if explained else 'NOT explained'}")
+    check(want == t2["tokens"] or explained,
+          f"13b: turn 2's reply {t2['tokens']} != one prefill + stream_decode {want}")
+    out.update(turn2_equal_tokens=same, turn2_divergence_explained=explained, eos_id=greedy[i],
+               greedy_probe=greedy, generate_on_device=got["on_device"], k1_tiles=tiles,
+               kernel_paths=paths, turns={lab: [{k: v for k, v in t.items() if k != "prompt_tokens"}
+                                                for t in s_["turns"]] for lab, s_ in sessions.items()})
+    del engine, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_tp_phase(cli, moe, q40, coll, llama, telemetry, model: str, tok: str) -> dict:
+    """Phase 13c: the Mixtral-8x7B-width `.m` (MIXTRAL_LAYERS layers) through
+    the CLI at ``--tp 1``, then ``--tp 2`` and ``--tp 4`` with the ranks on
+    the card, each under ``--allreduce psum`` and ``ring``, ``--moe-capacity
+    2.0``. Gates, per run against tp = 1: the expert ids of every layer and
+    step (compared first), then MOE_TP_TOKENS greedy tokens; one expert-id
+    host read per layer per decoded token; K1's dp4a tile launched, under
+    ring K4 (the expert sum) and K5 (wo), and no plain path; every rank's
+    residual stream byte-identical after the prompt; the bucketed prefill of
+    a long prompt on every rank of every layer, its logits within
+    TP_LOGIT_TOL of max |logit| of tp = 1's. Then
+    ms/token and device busy ms/token per tp."""
+    prompt = "hello world, hello"
+    long_prompt = "the quick brown fox jumps over the lazy dog, " * 2
+
+    def args(tp, impl):
+        return cli.build_parser().parse_args([
+            "generate", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--decode", "device",
+            "--max-seq-len", str(SEQ_LEN), "--steps", str(MOE_TP_TOKENS + 16), "--decode-chunk", "8",
+            "--temperature", "0", "--seed", "1", "--prompt", prompt, "--tp", str(tp), "--allreduce", impl,
+            "--moe-capacity", "2.0"])
+
+    out: dict = {}
+    ref = ref_long = None
+    orig_route, orig_mix = moe._route_topk, moe._mix_buckets
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        for tp in (1, *TP_SIZES):
+            t_load = time.perf_counter()
+            built = cli.make_engine(args(tp, "psum"))
+            engine = built[0]
+            torch.cuda.synchronize()
+            L = engine.cfg.n_layers
+            row = dict(tp=tp, load_s=time.perf_counter() - t_load, card_gb=torch.cuda.memory_allocated() / 1e9)
+            prompt_tokens = built[1].encode(prompt, add_bos=True)
+            for impl in ("psum",) if tp == 1 else ("psum", "ring"):
+                if engine.tp_backend is not None:
+                    engine.tp_backend.allreduce = impl
+                label = f"tp={tp} {impl}"
+                engine.reset()
+                coll.reset_launches()
+                q40.reset_launches()
+                moe.reset_host_reads()
+                paths0 = kernel_paths()
+                ids: list = []
+                margins: list = []
+
+                def spy(cfg, xn, router):
+                    vals, got = orig_route(cfg, xn, router)
+                    ids.append(got)
+                    p = torch.sort(moe.router_probs(cfg, xn, router)[0], descending=True).values
+                    k = cfg.n_active_experts
+                    margins.append(float(p[k - 1] - p[k]))
+                    return vals, got
+
+                moe._route_topk = spy
+                stream = engine.default_stream
+                f0 = stream.forwards
+                try:
+                    res = cli.generate(args(tp, impl), benchmark=False, built=built)
+                finally:
+                    moe._route_topk = orig_route
+                torch.cuda.synchronize()
+                forwards = stream.forwards - f0
+                tokens = res["tokens"][:MOE_TP_TOKENS]
+                launches = {**coll.launches, **q40.tile_launches}
+                moved = {k: v - paths0.get(k, 0.0) for k, v in kernel_paths().items() if v - paths0.get(k, 0.0) > 0}
+                reads = moe.host_reads["expert_ids"]
+                print(f"{label}: {len(res['tokens'])} tokens in {forwards} forwards; launches {launches}; "
+                      f"expert-id host reads {reads} ({L} per decode step); paths {moved}")
+                check(len(tokens) == MOE_TP_TOKENS, f"13c {label}: {len(tokens)} tokens")
+                check(reads == L * (forwards - 1), f"13c {label}: {reads} expert-id reads, want {L * (forwards - 1)}")
+                check(launches["dp4a"] > 0, f"13c {label}: K1's dp4a tile was not launched")
+                check(not any(k.endswith("/plain") for k in moved), f"13c {label}: a plain path ran: {moved}")
+                if impl == "ring":
+                    check(launches["ring_all_reduce"] > 0 and launches["fused_matmul_ring"] > 0,
+                          f"13c {label}: K4/K5 not launched: {launches}")
+                if ref is None:
+                    # each greedy token's top-2 logit gap, teacher-forced, for
+                    # a divergence's report
+                    engine.reset()
+                    lg = engine.forward(prompt_tokens + tokens[:-1])[len(prompt_tokens) - 1:]
+                    top2 = -np.sort(-lg, axis=-1)[:, :2]
+                    gaps = (top2[:, 0] - top2[:, 1]) / np.abs(lg).max(axis=-1)
+                    ref = (ids, tokens, margins, gaps)
+                    print(f"{label}: {len(ids)} router calls, smallest top-k margin {min(margins):.3e} "
+                          f"(k-th minus (k+1)-th probability); smallest top-2 logit gap of the {len(tokens)} greedy "
+                          f"tokens {gaps.min():.3e} of max |logit|")
+                else:
+                    diverged = next((j for j, (a, b) in enumerate(zip(tokens, ref[1])) if a != b), None)
+                    if diverged is not None:
+                        print(f"{label}: greedy token {diverged} differs from tp=1's ({tokens[diverged]} vs "
+                              f"{ref[1][diverged]}); tp=1's top-2 logit gap there {ref[3][diverged]:.3e} of max "
+                              f"|logit|")
+                    first_id = next((j for j, (a, b) in enumerate(zip(ids, ref[0])) if a != b), None)
+                    if first_id is not None:
+                        print(f"{label}: expert ids differ from tp=1's first at router call {first_id} (layer "
+                              f"{first_id % L}, decode step {first_id // L}): {ids[first_id]} vs {ref[0][first_id]}; "
+                              f"top-k margin there {margins[first_id]:.3e} (tp=1: {ref[2][first_id]:.3e})")
+                    check(len(ids) == len(ref[0]) and first_id is None,
+                          f"13c {label}: expert ids differ from tp=1's at router call {first_id}")
+                    check(tokens == ref[1], f"13c {label}: greedy tokens {tokens} != tp=1's {ref[1]}")
+                    print(f"{label}: the expert ids of all {len(ids)} router calls and the {MOE_TP_TOKENS} greedy "
+                          f"tokens equal tp=1's")
+                row[impl] = dict(tokens=tokens, forwards=forwards, launches=launches, host_reads=reads,
+                                 kernel_paths=moved, router_calls=len(ids))
+            if tp > 1:
+                caches = engine.tp_backend.init_cache(engine.cache_dtype)
+                toks = torch.tensor(prompt_tokens, dtype=torch.int64, device=engine.device)
+                xs, _ = llama.forward_hidden_tp(engine.cfg, engine.params, toks, caches, 0, "int8", "ring")
+                check(all(torch.equal(x, xs[0]) for x in xs), f"13c tp={tp}: rank residual streams differ")
+                print(f"tp={tp}: every rank's residual stream byte-identical after the prompt (ring)")
+                del caches, xs
+            # the capacity-bucketed prefill on every rank of every layer,
+            # held against tp=1's under each all-reduce
+            long_tokens = built[1].encode(long_prompt, add_bos=True)
+            check(len(long_tokens) >= moe.MOE_BUCKETED_MIN_T, f"13c: the long prompt has {len(long_tokens)} tokens")
+            for impl in ("psum",) if tp == 1 else ("psum", "ring"):
+                if engine.tp_backend is not None:
+                    engine.tp_backend.allreduce = impl
+                mixed = []
+                moe._mix_buckets = lambda *a, **kw: mixed.append(1) or orig_mix(*a, **kw)
+                try:
+                    engine.reset()
+                    logits = engine.prefill(long_tokens)
+                finally:
+                    moe._mix_buckets = orig_mix
+                check(bool(np.isfinite(logits).all()) and len(mixed) == tp * L,
+                      f"13c tp={tp} {impl}: bucketed prefill ran {len(mixed)} rank-layers, want {tp * L}")
+                if tp == 1:
+                    ref_long = logits
+                    print(f"tp=1: --moe-capacity 2.0 prefill of {len(long_tokens)} tokens bucketed on {len(mixed)} "
+                          f"rank-layers, logits finite")
+                    continue
+                scale = float(np.abs(ref_long).max())
+                err = float(np.abs(logits - ref_long).max())
+                check(err <= TP_LOGIT_TOL * scale, f"13c tp={tp} {impl}: bucketed prefill logits {err:.4g} from "
+                      f"tp=1's (tolerance {TP_LOGIT_TOL * scale:.4g})")
+                print(f"tp={tp} {impl}: --moe-capacity 2.0 prefill of {len(long_tokens)} tokens bucketed on "
+                      f"{len(mixed)} rank-layers; last-row logits {err:.3e} from tp=1's ({err / scale:.3e} of max "
+                      f"|logit|, tolerance {TP_LOGIT_TOL}); argmax {int(logits.argmax())} (tp=1: "
+                      f"{int(ref_long.argmax())})")
+                row[impl]["bucketed_prefill_err_rel"] = err / scale
+            # decode timing of the same engine, fenced by synchronize
+            engine.reset()
+            first = int(engine.prefill(prompt_tokens).argmax())
+            engine.decode_chunk(first, 4, 0.0, 0.9)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.decode_chunk(first, 8, 0.0, 0.9)
+            row["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / 8
+            print(f"tp={tp} ({engine.tp_backend.allreduce if engine.tp_backend else 'one rank'}): decode "
+                  f"{row['decode_ms_per_token']:.2f} ms/token over 8 greedy tokens; engine load {row['load_s']:.1f} s, "
+                  f"{row['card_gb']:.2f} GB on the card")
+            row.update(device_profile(engine, first, row["decode_ms_per_token"], steps=4))
+            out[f"tp{tp}"] = row
+            del engine, built
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        moe._route_topk, moe._mix_buckets = orig_route, orig_mix
+        telemetry.disable()
+        telemetry.reset()
+    return out
+
+
+def chat_phases(cli, q40, synthetic, workdir: Path, summary: dict) -> None:
+    """Phases 13a and 13b; results go into ``summary``."""
+    from distributed_llama_tpu_torch import telemetry
+
+    t = phase(f"13a. the slice's path: convert a Hugging Face checkpoint at Llama-2-7B width, {CHAT_LAYERS} layers")
+    conv = convert_phase(synthetic, workdir)
+    summary["convert"] = conv
+    print(f"phase 13a: {time.perf_counter() - t:.1f} s")
+    t = phase("13b. the slice's path: chat on the converted model")
+    summary["chat"] = chat_phase(cli, q40, telemetry, conv, workdir)
+    os.remove(conv["model"])
+    print(f"phase 13b: {time.perf_counter() - t:.1f} s")
+
+
+def moe_tp_phases(cli, moe, q40, coll, llama, synthetic, write_tokenizer_file, workdir: Path, summary: dict,
+                  mixtral: tuple | None = None) -> None:
+    """K1 at the Mixtral expert shard shapes, then phase 13c over
+    ``mixtral`` = (model, tok), phase 8's Mixtral-width files, or over
+    files written here; results go into ``summary``."""
+    from distributed_llama_tpu_torch import telemetry
+
+    t = phase(f"13c. the slice's path: Mixtral-8x7B width under --tp 2 and 4, {MIXTRAL_LAYERS} layers")
+    summary["moe_tp_kernel_rows"] = k1_checks(q40, shapes=MOE_TP_SHAPES, ts=(1,))
+    written = mixtral is None
+    if written:
+        spec = synthetic.mixtral_8x7b_spec(n_layers=MIXTRAL_LAYERS, seq_len=4096)
+        mixtral = (str(workdir / "mixtral_8x7b_width.m"), str(workdir / "tok_mixtral.t"))
+        synthetic.write_random_q40_model(mixtral[0], spec, seed=0)
+        with open(mixtral[1], "wb") as f:
+            write_tokenizer_file(f, synthetic.synthetic_tokenizer_data(vocab_size=spec.vocab_size))
+    summary["moe_tp"] = moe_tp_phase(cli, moe, q40, coll, llama, telemetry, *mixtral)
+    if written:
+        os.remove(mixtral[0])
+    print(f"phase 13c: {time.perf_counter() - t:.1f} s")
+
+
+def chat_only(smi: str) -> None:
+    """``--chat``: phase 2, 7a's K4 rows at the MoE sum's payload, and phase
+    13 alone (its own Mixtral-width file)."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.apps import cli
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.models import llama, moe
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.ops import cuda_build, q40
+
+    t = phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    summary: dict = {"card": smi}
+    t = phase("7a. K4 at the MoE expert sum's payload")
+    summary["k4_rows"] = k4_checks(coll, (1,))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        chat_phases(cli, q40, synthetic, Path(tmp), summary)
+        moe_tp_phases(cli, moe, q40, coll, llama, synthetic, write_tokenizer_file, Path(tmp), summary)
+    summary["total_s"] = time.perf_counter() - t
+    out = ROOT / "build" / "chip_smoke_chat.json"
+    out.write_text(json.dumps(summary, indent=1))
+    print(f"phase 13 with its set-up: {summary['total_s']:.1f} s; details in {out}")
     print(f"card: {smi}")
 
 
@@ -4030,6 +4593,9 @@ def main() -> None:
     parser.add_argument("--fleet", action="store_true",
                         help="phase 12 alone (the SDC canary, shadow votes, rollout and the fleet controller in the "
                         "7B-width server)")
+    parser.add_argument("--chat", action="store_true",
+                        help="phase 13 alone (convert a Hugging Face checkpoint, chat on it, and Mixtral-8x7B width "
+                        "under --tp 2 and 4)")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
@@ -4041,9 +4607,10 @@ def main() -> None:
                              (lambda root, smi: loadgen_only(smi), opts.loadgen),
                              (lambda root, smi: faults_only(smi), opts.faults),
                              (lambda root, smi: spill_only(smi), opts.spill),
-                             (lambda root, smi: fleet_only(smi), opts.fleet)) if on]
+                             (lambda root, smi: fleet_only(smi), opts.fleet),
+                             (lambda root, smi: chat_only(smi), opts.chat)) if on]
     if len(alone) > 1:
-        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill, --fleet")
+        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill, --fleet, --chat")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4106,9 +4673,9 @@ def main() -> None:
         summary["small_moe"] = small_moe_check(synthetic, InferenceEngine, moe, q40, workdir)
         print(f"phase 4: {time.perf_counter() - t:.1f} s")
 
-        t = phase(f"5. main path: CLI generate at Llama-2-7B width, {N_LAYERS} layers")
-        model, tok = write_7b_files(synthetic, write_tokenizer_file, workdir)
-        spec = synthetic.llama2_7b_spec(n_layers=N_LAYERS, seq_len=4096)
+        t = phase(f"5. main path: CLI generate at Llama-2-7B width, {MAIN_LAYERS} layers")
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, workdir, MAIN_LAYERS)
+        spec = synthetic.llama2_7b_spec(n_layers=MAIN_LAYERS, seq_len=4096)
         print(f"wrote {os.path.getsize(model) / 1e9:.2f} GB .m in {time.perf_counter() - t:.1f} s")
 
         def args(*extra):
@@ -4227,14 +4794,14 @@ def main() -> None:
         synthetic.write_random_q40_model(model_tp, synthetic.llama2_7b_spec(n_layers=TP_LAYERS, seq_len=4096),
                                          seed=0)
 
-        t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {N_LAYERS} layers")
+        t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {MAIN_LAYERS} layers")
         summary["server"] = server_run(server_api, attn, kvc, llama, model, tok, q40)
         main_launches["paged_attention"] = summary["server"]["main_path_launches"]
         print(f"phase 6b: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 
-        t = phase(f"6c. the slice's path: the API server, --cache-dtype i8 --spec-draft 4, {N_LAYERS} layers")
+        t = phase(f"6c. the slice's path: the API server, --cache-dtype i8 --spec-draft 4, {MAIN_LAYERS} layers")
         summary["server_i8_spec"] = server_run(server_api, attn, kvc, llama, model, tok, q40,
                                                extra=("--cache-dtype", "i8", "--spec-draft", "4"), spec=True)
         main_launches["paged_attention_i8"] = summary["server_i8_spec"]["main_path_launches"]
@@ -4300,7 +4867,10 @@ def main() -> None:
         os.remove(model_tp)
         print(f"phase 7c: {time.perf_counter() - t:.1f} s")
 
-        moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, workdir, summary)
+        moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, workdir, summary,
+                   after_8c=lambda m, t_: moe_tp_phases(cli, moe, q40, coll, llama, synthetic, write_tokenizer_file,
+                                                        workdir, summary, (m, t_)))
+        chat_phases(cli, q40, synthetic, workdir, summary)
 
     kernels = []
     # K2 on the servers' steps: 4 rows, 32 kv heads, one launch per layer
@@ -4366,24 +4936,46 @@ def main() -> None:
             **{k: sum(r[k] for r in rows_) * scale_ for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows_) else "operations",
         ))
+    # phase 13c's path (--tp 2 --allreduce ring over the Mixtral-width
+    # model): K1's dp4a tile over one decoded token's expert shard launches
+    # (2 experts x gate_up and down x MIXTRAL_LAYERS layers x 2 ranks, T=1); K4 over one
+    # expert sum, [1, 4096] f32 over 2 ranks
+    ring2 = summary["moe_tp"]["tp2"]["ring"]["launches"]
+    tp_rows = [r for r in summary["moe_tp_kernel_rows"] if r["shape"].startswith("mixtral_tp2_")]
+    src, replaces = KERNEL_INFO["q40_int8"]
+    kernels.append(dict(
+        name="q40_int8_moe_tp", route="cuda", source=src, replaces=replaces, launches=ring2["dp4a"],
+        max_abs_err=max(r["max_abs_err"] for r in summary["moe_tp_kernel_rows"]),
+        **{k: sum(r[k] * r["per_token"] for r in tp_rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in tp_rows) else "operations"))
+    src, replaces = KERNEL_INFO["ring_all_reduce"]
+    kernels.append(dict(name="ring_all_reduce_moe_tp", route="cuda", source=src, replaces=replaces,
+                        launches=ring2["ring_all_reduce"], max_abs_err=k4["max_abs_err"],
+                        **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")}))
     summary["kernels"] = kernels
-    summary["total_s"] = time.perf_counter() - t_all
+    end = time.perf_counter()
+    summary["total_s"] = end - t_all
+    summary["phase_s"] = phase_seconds(end)
     OUT_FILE.parent.mkdir(exist_ok=True)
     OUT_FILE.write_text(json.dumps(summary, indent=1))
-    print(f"\ntotal {summary['total_s']:.1f} s; details in {OUT_FILE}")
+    print(f"\nseconds by phase (from its start to the next phase's): {summary['phase_s']}")
+    print(f"total {summary['total_s']:.1f} s; details in {OUT_FILE}")
     print("kernel numbers: ms/plain_ms/bound_ms/library_ms are one decoded token's worth of "
           "launches at 32 layers (T=1, each shape times its launches per token; q40_int8_mma: one verify "
           "forward at T=20 likewise, its launches phase 6c's; paged_attention: "
           "one batched decode step of 4 rows at the phase-6a positions, 32 launches; paged_attention_i8: "
           "one batched verify step, T=5, of 4 rows there); launches are the main path's, each counted in a run "
-          f"of the depth named: phase 5 ({N_LAYERS} layers) for the Q40 kernels, phase 6b ({N_LAYERS}) for "
-          f"paged_attention, phase 6c ({N_LAYERS}) for paged_attention_i8, phase 7c's --tp 2 run ({TP_LAYERS} "
+          f"of the depth named: phase 5 ({MAIN_LAYERS} layers) for the Q40 kernels, phase 6b ({MAIN_LAYERS}) for "
+          f"paged_attention, phase 6c ({MAIN_LAYERS}) for paged_attention_i8, phase 7c's --tp 2 run ({TP_LAYERS} "
           "layers) for ring_all_reduce and fused_matmul_ring; ring_all_reduce: one call at [1, 4096] over 2 "
           f"ranks; fused_matmul_ring: one decoded token's wo and down launches at --tp 2 (T=1) at {N_LAYERS} "
           "layers, not at the depth of its launch count; the _moe entries: phase 8b's Mixtral-width path "
           f"({MIXTRAL_LAYERS} layers; q40_int8_moe and q40_dequant_moe: one decoded token's expert launches, 2 "
           "experts x gate_up and down per layer at T=1; q40_int8_mma_moe: one 64-row prefill forward's, 8 "
-          "experts x gate_up and down per layer), launches are phase 8b's")
+          "experts x gate_up and down per layer), launches are phase 8b's; q40_int8_moe_tp: one decoded token's "
+          f"expert shard launches at --tp 2 ({MIXTRAL_LAYERS} layers, 2 experts x gate_up 4096->14336 and down "
+          "7168->4096 x 2 ranks, T=1), ring_all_reduce_moe_tp: one expert sum [1, 4096] over 2 ranks, their launches "
+          "phase 13c's --tp 2 --allreduce ring run")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
-"""The port's CLI: ``inference`` and ``generate`` modes on one GPU.
+"""The port's CLI: ``inference``, ``generate`` and ``chat`` modes on one GPU.
 
   python -m distributed_llama_tpu_torch.apps.cli generate --model m.m \\
       --tokenizer t.t --prompt "hello" --steps 64 --dtype q40 [--tp 2 --allreduce ring]
+  python -m distributed_llama_tpu_torch.apps.cli chat --model m.m --tokenizer t.t
 
 The prompt is prefilled in one batched forward; with ``--decode device``
 (the default) the first token is sampled on the device and the decode runs
@@ -10,11 +11,20 @@ on the host from fetched logits (the counter-mode sampler replays the
 device stream token for token). ``--device cpu`` runs on the CPU with the
 kernels' plain PyTorch versions; the default is the card. ``--tp N`` runs
 N tensor-parallel ranks on that one device, their two all-reduces per layer
-summed by the ``--allreduce`` arm. Mixtral and Grok-1 files run at ``--tp
-1``; ``--moe-capacity F`` opts their Q40 prefill into capacity-bucketed
-experts. ``--telemetry`` (or ``DLLAMA_TELEMETRY=1``) enables the metrics
-registry and span tracer before the engine is built, and writes the run's
-Chrome trace to ``--trace-out``.
+summed by the ``--allreduce`` arm; Mixtral and Grok-1 files run under it
+too, each rank holding a hidden slice of every expert. ``--moe-capacity F``
+opts a MoE model's Q40 prefill into capacity-bucketed experts.
+``--telemetry`` (or ``DLLAMA_TELEMETRY=1``) enables the metrics registry
+and span tracer before the engine is built, and writes the run's Chrome
+trace to ``--trace-out``.
+
+``chat`` is the multi-turn REPL: a system prompt, then user turns read with
+``input()``, each rendered by the tokenizer's chat template and fed against
+the live KV cache (only the new turn's tokens; BOS only at position 0),
+the sampler re-keyed per turn, the reply streamed until the chat EOS token
+or a stop string, and ``(end of context)`` when the cache is full. The end
+of its input ends the session. ``worker`` mode (several hosts) is not
+ported.
 """
 
 from __future__ import annotations
@@ -31,15 +41,34 @@ from distributed_llama_tpu_torch.engine.weights import QUANTIZED_DTYPE
 from distributed_llama_tpu_torch.formats.model_file import ArchType
 from distributed_llama_tpu_torch.ops.collectives import IMPLS
 from distributed_llama_tpu_torch.telemetry import Stopwatch
-from distributed_llama_tpu_torch.tokenizer import Sampler, Tokenizer, is_safe_piece
+from distributed_llama_tpu_torch.tokenizer import (
+    ChatItem,
+    ChatTemplate,
+    ChatTemplateType,
+    EosDetector,
+    EosDetectorResult,
+    Sampler,
+    Tokenizer,
+    chat_stops,
+    is_safe_piece,
+)
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "q40": QUANTIZED_DTYPE}
 _CACHE_DTYPES = {"auto": None, "bf16": torch.bfloat16, "f32": torch.float32, "i8": "i8"}
+MODES = ("inference", "generate", "chat")
+WORKER_NOT_PORTED = ("worker mode (several hosts) is not ported yet "
+                     "(ROADMAP.md Queue 1: ranks on several cards)")
+
+
+def _mode(value: str) -> str:
+    if value == "worker":
+        raise argparse.ArgumentTypeError(WORKER_NOT_PORTED)
+    return value
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dllama-torch")
-    p.add_argument("mode", choices=["inference", "generate"])
+    p.add_argument("mode", type=_mode, choices=MODES)
     p.add_argument("--model", required=True)
     p.add_argument("--tokenizer", required=True)
     p.add_argument("--prompt", default=None)
@@ -55,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Q40 kernel: int8 (Q80 activations, int8 block dots) or f32 "
                    "(bf16 dequantize-in-registers)")
     p.add_argument("--chat-template", default=None, choices=[None, "llama2", "llama3", "zephyr", "chatml"],
-                   help="chat template of the API server (default: sniffed from the tokenizer)")
+                   help="chat template of chat mode and the API server (default: sniffed from the tokenizer)")
     p.add_argument("--decode", choices=["device", "host"], default="device")
     p.add_argument("--decode-chunk", type=int, default=32, help="tokens per device decode chunk")
     p.add_argument("--spec-draft", type=int, default=0,
@@ -210,11 +239,101 @@ def generate(args, benchmark: bool, built=None) -> dict:
     }
 
 
+def chat(args, built=None) -> dict:
+    """The multi-turn REPL on ``input()``. ``built`` is a
+    ``make_engine(args)`` triple to reuse (its engine continues from its
+    current position). Returns the session: each turn's fed prompt tokens,
+    its reply tokens (after an EOS or a stop string the last one is never
+    fed), its wall time from the user's line to the reply's end and how it
+    ended (``"eos"`` or ``"context"``)."""
+    engine, tokenizer, sampler = built if built is not None else make_engine(args)
+    engine.q40_path = args.q40_path
+    stops = chat_stops(tokenizer)
+    template = ChatTemplate(args.chat_template or ChatTemplateType.UNKNOWN, tokenizer.chat_template, stops[0])
+    max_stop = max(len(s) for s in stops)
+    turns: list[dict] = []
+    try:
+        items: list[ChatItem] = []
+        sys_prompt = input("💻 System prompt (optional): ")
+        if sys_prompt:
+            items.append(ChatItem("system", sys_prompt))
+
+        seq_len = engine.cfg.seq_len
+        while engine.pos < seq_len:
+            user = ""
+            while not user:
+                user = input("\n👱 User\n> ")
+            turn_sw = Stopwatch()
+            items.append(ChatItem("user", user))
+            prompt = template.generate(items, append_generation_prompt=True)
+            items = []  # only the new turn is fed, against the live KV cache
+            tokens = tokenizer.encode(prompt, add_bos=engine.pos == 0)
+            tokens = tokens[: seq_len - engine.pos]
+            turn_seed = sampler.seed + engine.pos  # another stream each turn
+            sampler.set_seed(turn_seed)  # the counter coins re-key with it
+            if args.decode == "device":
+                first_dev = engine.prefill_device(tokens, args.temperature, args.topp, seed=turn_seed,
+                                                  topk=args.topk)
+            else:
+                logits = engine.prefill(tokens)
+            _print("\n🤖 Assistant\n")
+            reply: list[int] = []
+            detector = EosDetector({tokenizer.chat_eos_id}, stops, padding_left=max_stop, padding_right=max_stop)
+
+            def feed(prev: int, token: int) -> int:
+                reply.append(token)
+                piece = tokenizer.decode_piece(prev, token)
+                res = detector.append(token, piece if is_safe_piece(piece) else b"")
+                if res in (EosDetectorResult.NOT_EOS, EosDetectorResult.EOS):
+                    delta = detector.get_delta()
+                    if delta:
+                        _print(delta.decode("utf-8", errors="replace"))
+                    detector.clear()
+                return res
+
+            res = EosDetectorResult.NOT_EOS
+            if args.decode == "device":
+                def on_token(prev: int, t: int) -> bool:
+                    nonlocal res
+                    res = feed(prev, t)
+                    return res != EosDetectorResult.EOS
+
+                engine.stream_decode(
+                    first_dev, on_token, args.temperature, args.topp, seed=turn_seed,
+                    chunk=args.decode_chunk, limit=seq_len, first_prev=tokens[-1],
+                    spec_draft=getattr(args, "spec_draft", 0), spec_ngram=getattr(args, "spec_ngram", 3),
+                    prompt_tokens=tokens, topk=args.topk,
+                )
+            else:
+                prev = tokens[-1]
+                token = sampler.sample(logits, pos=engine.pos - 1)
+                res = feed(prev, token)
+                while res != EosDetectorResult.EOS and engine.pos < seq_len:
+                    logits = engine.decode_step(token)
+                    prev = token
+                    token = sampler.sample(logits, pos=engine.pos - 1)
+                    res = feed(prev, token)
+            if res != EosDetectorResult.EOS:
+                # the context-limit exit: flush the text held back as a
+                # possible stop-string prefix
+                tail = detector.flush_delta()
+                if tail:
+                    _print(tail.decode("utf-8", errors="replace"))
+            turns.append({"prompt_tokens": tokens, "tokens": reply, "ms": turn_sw.elapsed_ms(),
+                          "end": "eos" if res == EosDetectorResult.EOS else "context"})
+        _print("\n(end of context)\n")
+    except EOFError:
+        pass  # the input ended: the session ends with it
+    return {"turns": turns, "pos": engine.pos}
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     # before the engine is built: instruments bind at construction
     if args.telemetry:
         telemetry.enable()
+    if args.mode == "chat":
+        return chat(args)
     out = generate(args, benchmark=args.mode == "inference")
     if telemetry.is_enabled():
         path = telemetry.export_chrome_trace(args.trace_out)

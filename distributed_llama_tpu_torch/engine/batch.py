@@ -958,15 +958,18 @@ class BatchScheduler:
 
     def _leave(self, stream: BatchStream) -> None:
         with self._cond:
-            if not stream._joined and not stream._queue:
-                return
-            stream._joined = False
-            stream._queue.clear()
-            stream._epoch += 1
-            self._cond.notify_all()
+            self._leave_locked(stream)
         # a chunk issued ahead of the last consumed token may be left
         # unfetched: drain it when no joined stream remains
         self._drain_if_idle()
+
+    def _leave_locked(self, stream: BatchStream) -> None:
+        if not stream._joined and not stream._queue:
+            return
+        stream._joined = False
+        stream._queue.clear()
+        stream._epoch += 1
+        self._cond.notify_all()
 
     def _begin_fetch_locked(self) -> int:
         """Mark a fetch in flight (lock held); returns its generation."""
@@ -1056,10 +1059,15 @@ class BatchScheduler:
         between chunks without touching its co-batched rows."""
         while True:
             with self._cond:
+                # a retired row leaves the batch as its error is raised,
+                # under this lock: no dispatch between the raise and the
+                # caller's leave may serve it again
                 if stream._fetch_error is not None:
                     err, stream._fetch_error = stream._fetch_error, None
+                    self._leave_locked(stream)
                     raise err
                 if stream.deadline is not None and time.monotonic() >= stream.deadline:
+                    self._leave_locked(stream)
                     raise faults.DeadlineExceeded(
                         f"request deadline expired mid-decode (row {stream.row}); the row leaves the batch")
                 if stream._queue:
@@ -1120,6 +1128,12 @@ class BatchScheduler:
             self._cond.notify_all()
             return None
 
+    def _dispatchable_locked(self) -> list:
+        """The joined rows a dispatch serves: a row already retired (its
+        typed error set, not yet raised in its thread) is not dispatched
+        again, so a second failed dispatch cannot quarantine it twice."""
+        return [s for s in self._streams if s._joined and s._fetch_error is None]
+
     def _dispatch_locked(self) -> None:
         """Build and dispatch one batched chunk from the joined streams
         (lock held). Bucket rows that are not joined ride along inactive:
@@ -1131,7 +1145,7 @@ class BatchScheduler:
             self._dispatch_spec_locked()
             return
         engine = self.engine
-        joined = [s for s in self._streams if s._joined]
+        joined = self._dispatchable_locked()
         if not joined:
             return
         joined = self._fire_sites_locked(joined)
@@ -1192,7 +1206,7 @@ class BatchScheduler:
         if self._fetching:
             return
         engine = self.engine
-        joined = [s for s in self._streams if s._joined]
+        joined = self._dispatchable_locked()
         if not joined:
             return
         joined = self._fire_sites_locked(joined)

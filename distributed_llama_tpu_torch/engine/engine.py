@@ -294,6 +294,32 @@ class EngineStream(StreamStats):
         """One autoregressive step; returns f32 logits [vocab]."""
         return self.forward([token])[0]
 
+    def generate_on_device(self, first_token, n_steps: int, temperature: float = 0.0, topp: float = 0.9,
+                           seed: int = 0, topk: int = 0) -> np.ndarray:
+        """Generate ``n_steps`` tokens in one dispatch with no host round
+        trip between them (under tensor parallelism through the backend's
+        ``decode_loop``); ``tokens[i]`` is sampled after consuming position
+        ``pos + i``. Returns int64 [n_steps] on the host."""
+        engine = self.engine
+        if self.pos + n_steps > engine.cfg.seq_len:
+            raise ValueError(f"context overflow: pos {self.pos} + {n_steps}")
+        sw = Stopwatch()
+        if engine.tp_backend is not None:
+            tokens, self.cache = engine.tp_backend.decode_loop(
+                engine.params, first_token, self.cache, self.pos, n_steps, float(temperature), float(topp),
+                seed=seed, topk=topk, path=engine.q40_path)
+        else:
+            tokens, self.cache = sampling.decode_scan(
+                engine.cfg, engine.params, first_token, self.cache, self.pos, prng.fold_seed(seed), n_steps,
+                float(temperature), float(topp), topk, engine.q40_path)
+        tokens = tokens.cpu().numpy()
+        per_token_ms = sw.elapsed_ms() / n_steps
+        self.stats.extend([self._entry(per_token_ms)] * n_steps)
+        self.pos += n_steps
+        self.forwards += n_steps
+        self._note_decode(n_steps, per_token_ms, device_sampled=True)
+        return tokens
+
     def _dispatch_chunk(self, first_token, n_steps: int, temperature, topp, topk, seed32: int):
         """Issue one decode chunk without fetching; returns the device token
         tensor and advances pos by n_steps."""
@@ -508,8 +534,9 @@ class InferenceEngine:
     run the kernels' plain versions. ``tp`` > 1 runs that many
     tensor-parallel ranks, all on ``device``, summed by the ``allreduce``
     arm ("psum", "ring_xla" or "ring": K4 and K5); a list of several
-    devices raises NotImplementedError, and so does a MoE model at ``tp``
-    > 1. ``moe_capacity_factor`` > 0 opts a MoE model's Q40 prefill into
+    devices raises NotImplementedError. A MoE model runs at any ``tp``,
+    each rank holding a hidden slice of every expert.
+    ``moe_capacity_factor`` > 0 opts a MoE model's Q40 prefill into
     capacity-bucketed experts (lossy: overflow rows drop)."""
 
     TRANSFER_REFRESH_TOKENS = 512
@@ -573,10 +600,10 @@ class InferenceEngine:
     def forward_fn(self, tokens: torch.Tensor, cache, pos: int, n_real: int | None = None):
         """One forward of ``tokens`` from ``pos`` over this engine's params:
         (logits f32 [T, vocab], cache). ``n_real``: the real rows of a
-        bucket-padded prompt (the capacity-bucketed MoE prefill's pad mask;
-        the tensor-parallel backend runs no MoE and ignores it)."""
+        bucket-padded prompt (the capacity-bucketed MoE prefill's pad
+        mask)."""
         if self.tp_backend is not None:
-            return self.tp_backend.forward(self.params, tokens, cache, pos, self.q40_path)
+            return self.tp_backend.forward(self.params, tokens, cache, pos, self.q40_path, n_real=n_real)
         return llama.forward_tokens(self.cfg, self.params, tokens, cache, pos, self.q40_path, n_real=n_real)
 
     def decode_chunk_fn(self, first_token, cache, pos: int, n_steps: int, temperature: float, topp: float,
@@ -647,6 +674,9 @@ class InferenceEngine:
 
     def fetch_first_token(self, first_token) -> int:
         return self.default_stream.fetch_first_token(first_token)
+
+    def generate_on_device(self, *args, **kwargs) -> np.ndarray:
+        return self.default_stream.generate_on_device(*args, **kwargs)
 
     def decode_chunk(self, *args, **kwargs):
         return self.default_stream.decode_chunk(*args, **kwargs)

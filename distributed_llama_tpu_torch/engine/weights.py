@@ -12,7 +12,9 @@ MoE layers (Mixtral, Grok-1) hold a ``router`` [dim, E] and, for q40, an
 stacked ``moe_up``/``moe_gate``/``moe_down`` banks [E, d_in, d_out] of the
 weight dtype. The router is read in f32 and stored in the weight dtype
 (bf16 under q40), as the JAX package stores it; it is multiplied in f32.
-Grok-1 layers add the ``rms_moe`` and ``rms_ffn2`` norms.
+Grok-1 layers add the ``rms_moe`` and ``rms_ffn2`` norms. Under tensor
+parallelism the router is replicated and every rank holds a hidden slice
+of every expert (:mod:`parallel.sharding`'s MoE table).
 """
 
 from __future__ import annotations
@@ -52,19 +54,22 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
     cfg = cfg or config_from_spec(reader.spec)
     quantized = dtype == QUANTIZED_DTYPE
     validate_tp(cfg, tp, quantized=quantized)
-    table = sharding.param_rules("q40" if quantized else "layered", shard_vocab=cfg.vocab_size % tp == 0)
+    table = sharding.param_rules("q40" if quantized else "layered", shard_vocab=cfg.vocab_size % tp == 0,
+                                 moe=cfg.is_moe)
 
     def f32(name: str) -> torch.Tensor:
         return torch.from_numpy(reader.tensor(name)).to(device)
 
-    def matmul_leaf(path: str | None, names: list[str], s: int):
+    def matmul_leaf(path: str, names: list[str], s: int, bank: bool = False):
         """Rank s's leaf ``path`` of the file matrices ``names`` (several
         share an input dim and pack as ONE matmul, their output dims
         concatenated), in x@W orientation: a QuantizedMatrix for q40, else
-        a [d_in, d_out] tensor of ``dtype``. ``path`` None: the whole
-        matrix, uncut (the MoE leaves, loaded at tp = 1 only)."""
+        a [d_in, d_out] tensor of ``dtype``. ``bank``: one expert's matrix
+        of the stacked bank ``path``, cut as the bank's matmul dims are."""
         entries = [reader.entries[n] for n in names]
-        cut = None if path is None else table.cut(path)
+        cut = table.cut(path)
+        if bank and cut is not None:
+            cut -= sharding.BANK_OUT - sharding.OUT  # the bank's leading expert axis
         if cut == sharding.IN:
             (name,), (e,) = names, entries
             d_out, d_in = e.shape
@@ -93,25 +98,33 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
     if not quantized:
         fused = {n: (n,) for n in ("q", "k", "v", "wo") + (() if cfg.is_moe else ("gate", "down", "up"))}
 
-    def moe_leaves(l: int) -> Params:
-        """Layer l's router and expert weights (tp = 1)."""
-        p = f"layers.{l}."
-        leaves = {"router": torch.from_numpy(np.ascontiguousarray(reader.tensor(p + "moe_router").T)).to(
-            device=device, dtype=torch.bfloat16 if quantized else dtype)}
-        experts = [f"{p}experts.{e}." for e in range(cfg.n_experts)]
+    def router(l: int) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(reader.tensor(f"layers.{l}.moe_router").T)).to(
+            device=device, dtype=torch.bfloat16 if quantized else dtype)
+
+    # the replicated routers: one tensor per layer that every rank reads
+    routers = [router(l) for l in range(cfg.n_layers)] if cfg.is_moe else []
+
+    def moe_leaves(l: int, s: int) -> Params:
+        """Layer l's router and rank s's slice of every expert."""
+        experts = [f"layers.{l}.experts.{e}." for e in range(cfg.n_experts)]
+        leaves = {"router": routers[l]}
         if quantized:
-            leaves["experts"] = [{"gate_up": matmul_leaf(None, [ep + "gate", ep + "up"], 0),
-                                  "down": matmul_leaf(None, [ep + "down"], 0)} for ep in experts]
+            leaves["experts"] = [
+                {"gate_up": matmul_leaf(f"layers/{l}/experts/{e}/gate_up", [ep + "gate", ep + "up"], s),
+                 "down": matmul_leaf(f"layers/{l}/experts/{e}/down", [ep + "down"], s)}
+                for e, ep in enumerate(experts)]
         else:
             for leaf in ("up", "gate", "down"):
-                leaves[f"moe_{leaf}"] = torch.stack([matmul_leaf(None, [ep + leaf], 0) for ep in experts])
+                leaves[f"moe_{leaf}"] = torch.stack(
+                    [matmul_leaf(f"layers/{l}/moe_{leaf}", [ep + leaf], s, bank=True) for ep in experts])
         return leaves
 
     wcls_full = matmul_leaf("wcls", ["wcls"], 0) if table.cut("wcls") is None else None
     ranks = []
     for s in range(tp):
         layers = [{**{leaf: matmul_leaf(f"layers/{l}/{leaf}", [f"layers.{l}.{n}" for n in srcs], s)
-                      for leaf, srcs in fused.items()}, **norms[l], **(moe_leaves(l) if cfg.is_moe else {})}
+                      for leaf, srcs in fused.items()}, **norms[l], **(moe_leaves(l, s) if cfg.is_moe else {})}
                   for l in range(cfg.n_layers)]
         wcls = wcls_full if wcls_full is not None else matmul_leaf("wcls", ["wcls"], s)
         ranks.append({**shared, "layers": layers, "wcls": wcls})

@@ -8,9 +8,18 @@ Two writers:
 * :func:`write_random_q40_model` writes random Q40 blocks directly (random
   nibbles, f16 scales of a realistic magnitude) with no float quantize pass,
   so a file at full Llama-2-7B width is written in seconds.
+
+And the converters' inputs: :func:`write_hf_checkpoint` lays `.m`-named
+tensors out as a Hugging Face safetensors checkpoint (Q/K back in the neox
+layout, split over several files with an index) and :func:`write_hf_tokenizer`
+writes a ``tokenizer.json`` BPE vocabulary with its ``tokenizer_config.json``.
 """
 
 from __future__ import annotations
+
+import itertools
+import json
+import os
 
 import numpy as np
 
@@ -168,3 +177,119 @@ def synthetic_tokenizer_data(vocab_size: int | None = None) -> TokenizerData:
             vocab.append(f" tok{i}".encode())
             scores.append(-100.0 - i)
     return TokenizerData(vocab=vocab, scores=scores, bos_id=1, eos_id=2, chat_eos_id=2)
+
+
+def random_f16_tensors(spec: ModelSpec, seed: int = 0) -> dict[str, np.ndarray]:
+    """Random float16 weights keyed by the `.m` layout names, shaped
+    [d_out, d_in], drawn fast enough for full widths: matrix entries are
+    f16 bit patterns of random sign and mantissa with a magnitude in
+    [2^-7, 2^-5) (std ~0.012), norms 1 + 0.1 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    out: dict[str, np.ndarray] = {}
+    for e in tensor_layout(spec):
+        if _is_norm(e.name):
+            out[e.name] = (1.0 + 0.1 * rng.standard_normal(e.shape, np.float32)).astype(np.float16)
+        else:
+            bits = rng.integers(0, 1 << 16, size=e.shape, dtype=np.uint16)
+            out[e.name] = ((bits & 0x87FF) | 0x2000).view(np.float16)
+    return out
+
+
+def hf_config(spec: ModelSpec, model_type: str, **extra) -> dict:
+    """A Hugging Face ``config.json`` describing ``spec`` (``extra`` adds or
+    overrides fields)."""
+    config = {
+        "model_type": model_type,
+        "hidden_size": spec.dim,
+        "intermediate_size": spec.hidden_dim,
+        "num_hidden_layers": spec.n_layers,
+        "num_attention_heads": spec.n_heads,
+        "num_key_value_heads": spec.n_kv_heads,
+        "vocab_size": spec.vocab_size,
+        "max_position_embeddings": spec.seq_len,
+        "rms_norm_eps": 1e-5,
+        "rope_theta": spec.rope_theta,
+        "hidden_act": "gelu" if spec.hidden_act == HiddenAct.GELU else "silu",
+        "tie_word_embeddings": False,
+    }
+    if spec.n_experts:
+        experts = "num_experts" if model_type == "grok-1" else "num_local_experts"
+        config.update({experts: spec.n_experts, "num_experts_per_tok": spec.n_active_experts})
+    config.update(extra)
+    return config
+
+
+def write_hf_checkpoint(out_dir: str, spec: ModelSpec, tensors: dict[str, np.ndarray], config: dict,
+                        n_files: int = 1, dtype=None) -> list[str]:
+    """``tensors`` (keyed by `.m` names, Q/K in the interleaved rope layout)
+    as a Hugging Face checkpoint in ``out_dir``: ``config.json``, the HF
+    names in plan order split over ``n_files`` safetensors files (each
+    tensor cast to ``dtype`` when given) and, for several files,
+    ``model.safetensors.index.json``. Q/K go back to the neox layout that
+    the converter permutes from (Grok-1 keeps its layout); a tied
+    checkpoint holds no ``lm_head``. Returns the safetensors paths."""
+    from distributed_llama_tpu_torch.converter.hf import hf_tensor_plan, unpermute_qk, write_safetensors
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    plan = [(m, h, p) for m, h, p in hf_tensor_plan(spec)
+            if not (m == "wcls" and config.get("tie_word_embeddings"))]
+    per_file = -(-len(plan) // n_files)
+    paths, weight_map, total = [], {}, 0
+    for i in range(n_files):
+        name = "model.safetensors" if n_files == 1 else f"model-{i + 1:05d}-of-{n_files:05d}.safetensors"
+        part = {}
+        for m_name, hf_name, permute in plan[i * per_file : (i + 1) * per_file]:
+            t = tensors[m_name]
+            if permute:
+                t = unpermute_qk(t, spec.n_heads if m_name.endswith(".q") else spec.n_kv_heads)
+            part[hf_name] = t if dtype is None else np.asarray(t).astype(dtype)
+            weight_map[hf_name] = name
+            total += part[hf_name].nbytes
+        paths.append(os.path.join(out_dir, name))
+        write_safetensors(paths[-1], part, {"format": "pt"})
+    if n_files > 1:
+        with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+    return paths
+
+
+CHATML_TEMPLATE = ("{% for message in messages %}{{'<|im_start|>' + message['role'] + '\\n' + message['content'] "
+                   "+ '<|im_end|>' + '\\n'}}{% endfor %}{% if add_generation_prompt %}"
+                   "{{ '<|im_start|>assistant\\n' }}{% endif %}")
+
+
+def hf_bpe_vocab(vocab_size: int) -> list[str]:
+    """A byte-level BPE vocabulary of ``vocab_size`` pieces in the
+    sentencepiece order the `.t` tokenizer's byte fallback expects:
+    ``<unk>``, ``<s>``, ``</s>``, the 256 ``<0xNN>`` byte pieces, the
+    printable ASCII characters, then merges (pairs, then triples, then
+    quadruples of lowercase letters and space) up to the size."""
+    alphabet = " abcdefghijklmnopqrstuvwxyz"
+    pieces = itertools.chain(
+        ["<unk>", "<s>", "</s>"], (f"<0x{b:02X}>" for b in range(256)), (chr(c) for c in range(0x20, 0x7F)), ["\n"],
+        *(("".join(g) for g in itertools.product(alphabet, repeat=n)) for n in (2, 3, 4)))
+    vocab = list(itertools.islice(pieces, vocab_size))
+    if len(vocab) != vocab_size or vocab_size < 259:
+        raise ValueError(f"vocab_size {vocab_size} is outside this generator's 259..{len(vocab)} pieces")
+    return vocab
+
+
+def write_hf_tokenizer(out_dir: str, vocab_size: int, chat_template: str | None = CHATML_TEMPLATE,
+                       added: tuple[str, ...] = ("<|im_start|>", "<|im_end|>"), eos_token: str = "<|im_end|>",
+                       bos_token: str = "<s>") -> None:
+    """``tokenizer.json`` (a BPE model over :func:`hf_bpe_vocab`, the
+    ``added`` tokens last) and ``tokenizer_config.json`` (fast tokenizer,
+    the BOS/EOS names and the chat template) in ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    base = hf_bpe_vocab(vocab_size - len(added))
+    tok = {"version": "1.0", "model": {"type": "BPE", "vocab": {t: i for i, t in enumerate(base)}, "merges": []},
+           "added_tokens": [{"id": len(base) + i, "content": t, "special": True} for i, t in enumerate(added)]}
+    with open(os.path.join(out_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tok, f, ensure_ascii=False)
+    cfg = {"tokenizer_class": "PreTrainedTokenizerFast", "bos_token": bos_token, "eos_token": eos_token}
+    if chat_template is not None:
+        cfg["chat_template"] = chat_template
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(cfg, f, ensure_ascii=False)

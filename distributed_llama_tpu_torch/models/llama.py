@@ -7,11 +7,12 @@ JAX package: rmsnorm eps 1e-5 added to the mean square, scores scaled by
 accumulation. Q40 weights route to the hand-written kernels through
 :func:`ops.q40.q40_matmul` / :func:`ops.q40.rmsnorm_q40_matmul`: four
 launches per layer (qkv, wo, gate_up, down) and one for ``wcls``. A MoE
-layer's FFN is :func:`models.moe.moe_block`: 2 + 2k launches per layer for
+layer's FFN is :func:`models.moe.moe_block_tp`: 2 + 2k launches per layer for
 one row (the k selected experts), 2 + 2E for several. Grok-1 scales the
 embedding and the logits and norms the attention output. Under
 tensor parallelism (:func:`forward_tokens_tp`) the same functions run per
-rank, with wo and down summed over the ranks by ``ops.collectives``.
+rank, with wo and down (a MoE layer: its partial expert sums) summed over
+the ranks by ``ops.collectives``.
 
 Positions are host ints throughout, so no step reads back from the device
 to decide a shape or a chunk bound.
@@ -166,27 +167,13 @@ def ffn_hidden(cfg: LlamaConfig, x: torch.Tensor, lp: Params, path: str = "int8"
     return _activation(_matmul(xn, lp["gate"], path), cfg.hidden_act) * _matmul(xn, lp["up"], path)
 
 
-def ffn(cfg: LlamaConfig, x: torch.Tensor, lp: Params, path: str = "int8") -> torch.Tensor:
-    """SwiGLU FFN."""
-    return _matmul(ffn_hidden(cfg, x, lp, path).to(lp["down"].dtype), lp["down"], path)
-
-
 def block_tail(cfg: LlamaConfig, x: torch.Tensor, att: torch.Tensor, lp: Params, path: str = "int8",
                n_real: int | None = None) -> torch.Tensor:
-    """wo projection, residual (Grok-1 norms the projection with
-    ``rms_ffn`` first), then the FFN or MoE half with its residual.
-    ``n_real``: the real rows of a bucket-padded prefill, which only the
-    capacity-bucketed MoE path reads."""
-    out = _matmul(att.to(lp["wo"].dtype), lp["wo"], path)
-    if cfg.arch == ArchType.GROK1:
-        x = x + rmsnorm(out.to(x.dtype), lp["rms_ffn"])
-    else:
-        x = x + out.to(x.dtype)
-    if cfg.is_moe:
-        from distributed_llama_tpu_torch.models import moe
-
-        return moe.moe_block(cfg, x, lp, n_real=n_real, path=path)
-    return x + ffn(cfg, x, lp, path).to(x.dtype)
+    """wo projection, residual, then the FFN or MoE half with its residual:
+    :func:`block_tail_tp` on one rank. ``n_real``: the real rows of a
+    bucket-padded prefill, which only the capacity-bucketed MoE path
+    reads."""
+    return block_tail_tp(cfg, [x], [att], [lp], path, n_real=n_real)[0]
 
 
 def block_forward(cfg, x, lp, cache_l, pos: int, rope_rows, path: str = "int8", paged=None,
@@ -239,25 +226,36 @@ def forward_tokens(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache
 
 
 def block_tail_tp(cfg: LlamaConfig, xs: list, atts: list, lps: list, path: str = "int8",
-                  impl: str = "psum") -> list:
-    """:func:`block_tail` over the ranks, split at its two all-reduce points:
-    wo + all-reduce, the residual per rank, the FFN up to h per rank, down +
-    all-reduce, the residual per rank."""
+                  impl: str = "psum", n_real: int | None = None) -> list:
+    """wo + all-reduce, the residual per rank (Grok-1 norms the sum with
+    ``rms_ffn`` first), then the FFN up to h per rank, down + all-reduce,
+    the residual per rank; or a MoE layer's experts
+    (:func:`models.moe.moe_block_tp`), whose partial sums are all-reduced.
+    One rank (lists of one) is :func:`block_tail`: its all-reduces are the
+    identity."""
     from distributed_llama_tpu_torch.ops import collectives
 
     outs = collectives.matmul_all_reduce([a.to(lp["wo"].dtype) for a, lp in zip(atts, lps)],
                                          [lp["wo"] for lp in lps], impl, path)
-    xs = [x + o.to(x.dtype) for x, o in zip(xs, outs)]
+    if cfg.arch == ArchType.GROK1:
+        xs = [x + rmsnorm(o.to(x.dtype), lp["rms_ffn"]) for x, o, lp in zip(xs, outs, lps)]
+    else:
+        xs = [x + o.to(x.dtype) for x, o in zip(xs, outs)]
+    if cfg.is_moe:
+        from distributed_llama_tpu_torch.models import moe
+
+        return moe.moe_block_tp(cfg, xs, lps, n_real=n_real, path=path, impl=impl)
     hs = [ffn_hidden(cfg, x, lp, path).to(lp["down"].dtype) for x, lp in zip(xs, lps)]
     outs = collectives.matmul_all_reduce(hs, [lp["down"] for lp in lps], impl, path)
     return [x + o.to(x.dtype) for x, o in zip(xs, outs)]
 
 
 def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
-                      path: str = "int8", impl: str = "psum") -> tuple[list, list]:
+                      path: str = "int8", impl: str = "psum", n_real: int | None = None) -> tuple[list, list]:
     """The layer loop under tensor parallelism: T tokens from ``pos``
     through every layer, attention per rank on its own heads and cache.
-    Returns (each rank's final residual stream [T, dim], caches)."""
+    ``n_real`` as in :func:`forward_tokens`. Returns (each rank's final
+    residual stream [T, dim], caches)."""
     T = tokens.shape[0]
     xs = [embed(cfg, p, tokens.to(p["embedding"].device)) for p in params]
     ropes = [p["rope_table"][pos : pos + T] for p in params]
@@ -267,17 +265,17 @@ def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, cach
         for r, lp in enumerate(lps):
             att, caches[r][l] = attention(cfg, xs[r], lp, caches[r][l], pos, ropes[r], path)
             atts.append(att)
-        xs = block_tail_tp(cfg, xs, atts, lps, path, impl)
+        xs = block_tail_tp(cfg, xs, atts, lps, path, impl, n_real=n_real)
     return xs, caches
 
 
 def forward_tokens_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
-                      path: str = "int8", impl: str = "psum"):
+                      path: str = "int8", impl: str = "psum", n_real: int | None = None):
     """:func:`forward_tokens` over per-rank params and caches. Final logits
     per rank; a vocab-sharded wcls gives each rank a slice, and the
     all-gather is a ``torch.cat`` in rank order onto rank 0's device.
     Returns (logits f32 [T, vocab], caches)."""
-    xs, caches = forward_hidden_tp(cfg, params, tokens, caches, pos, path, impl)
+    xs, caches = forward_hidden_tp(cfg, params, tokens, caches, pos, path, impl, n_real=n_real)
     logits = [final_logits(cfg, p, x, path) for p, x in zip(params, xs)]
     if logits[0].shape[-1] == cfg.vocab_size:  # wcls replicated: every rank holds the full logits
         return logits[0], caches

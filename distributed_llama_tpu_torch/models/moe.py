@@ -1,4 +1,5 @@
-"""Mixture-of-experts FFN (Mixtral, Grok-1) on one device.
+"""Mixture-of-experts FFN (Mixtral, Grok-1) on one device or over the
+tensor-parallel ranks.
 
 The port of the JAX package's ``models/moe.py`` without its expert-parallel
 branch: router matmul -> softmax -> top-k -> renormalized weights ->
@@ -25,6 +26,16 @@ per-expert SwiGLU -> weighted sum of the expert outputs.
 The top-k path sums experts in top-k order and the all-experts path in
 bank order, so a prefill row and the same row decoded alone agree to
 tolerance, not bit for bit (as in the JAX package).
+
+One function serves one device and the tensor-parallel ranks:
+:func:`moe_block_tp` takes per-rank lists, and one rank is lists of one
+(its all-reduce is the identity). Under tensor parallelism every rank
+holds a hidden slice of every expert and runs the same three paths on it;
+the partial expert sums are all-reduced once per layer through
+``ops.collectives``. Every rank's router input is the same all-reduced
+residual, byte for byte, so the routing is computed once per layer, from
+rank 0's, and serves every rank: the top-k path still reads its k ids to
+the host once per layer.
 """
 
 from __future__ import annotations
@@ -95,11 +106,18 @@ def _expert_ffn(cfg: LlamaConfig, xn: torch.Tensor, ew, path: str = "int8") -> t
     return _matmul(h.to(ew["down"].dtype), ew["down"], path)
 
 
-def _moe_topk(cfg: LlamaConfig, xn: torch.Tensor, lp, path: str = "int8") -> torch.Tensor:
-    """One row: exactly the k selected experts, in top-k order."""
-    top_vals, top_idx = router_topk(cfg, xn, lp["router"])  # [1, k]
+def _route_topk(cfg: LlamaConfig, xn: torch.Tensor, router: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+    """One row's routing: ([1, k] renormalized weights on the device, the k
+    expert ids read to the host)."""
+    top_vals, top_idx = router_topk(cfg, xn, router)  # [1, k]
     ids = top_idx[0].tolist()
     host_reads["expert_ids"] += 1
+    return top_vals, ids
+
+
+def _mix_topk(cfg: LlamaConfig, xn: torch.Tensor, lp, top_vals: torch.Tensor, ids: list[int],
+              path: str = "int8") -> torch.Tensor:
+    """The k chosen experts on one row, summed in top-k order."""
     out = torch.zeros(xn.shape, dtype=torch.float32, device=xn.device)
     for i, e in enumerate(ids):
         out = out + top_vals[0, i] * _expert_ffn(cfg, xn, _expert_weights(lp, e), path)
@@ -157,57 +175,81 @@ def bucket_combine(outs: torch.Tensor, top_idx: torch.Tensor, rank: torch.Tensor
     return ((top_vals * valid)[:, :, None] * gathered).sum(dim=1)
 
 
-def _moe_dense(cfg: LlamaConfig, xn: torch.Tensor, lp, n_real: int | None = None,
-               path: str = "int8") -> torch.Tensor:
-    """Several rows: every expert computed on every row and added in bank
-    order, each weighted by its column of the [T, E] routing weights (an
-    unselected expert adds exact zeros); or, for Q40 experts with a
-    capacity factor and at least MOE_BUCKETED_MIN_T rows, the bucketed
-    path. ``n_real`` reaches only the bucketed path."""
-    if "experts" in lp and cfg.moe_capacity_factor > 0 and xn.shape[0] >= MOE_BUCKETED_MIN_T:
-        return _moe_dense_bucketed(cfg, xn, lp, n_real=n_real, path=path)
-    weights = router_weights(cfg, xn, lp["router"])  # [T, E] f32
+def _bucketed(cfg: LlamaConfig, xn: torch.Tensor, lp) -> bool:
+    """Whether several rows take the capacity-bucketed path: Q40 experts, a
+    capacity factor, and at least MOE_BUCKETED_MIN_T rows."""
+    return "experts" in lp and cfg.moe_capacity_factor > 0 and xn.shape[0] >= MOE_BUCKETED_MIN_T
+
+
+def _mix_dense(cfg: LlamaConfig, xn: torch.Tensor, lp, weights: torch.Tensor, path: str = "int8") -> torch.Tensor:
+    """Every expert on every row, added in bank order, each weighted by its
+    column of the [T, E] routing weights (an unselected expert adds exact
+    zeros)."""
     out = torch.zeros(xn.shape, dtype=torch.float32, device=xn.device)
     for e in range(cfg.n_experts):
         out = out + weights[:, e : e + 1] * _expert_ffn(cfg, xn, _expert_weights(lp, e), path)
     return out
 
 
-def _moe_dense_bucketed(cfg: LlamaConfig, xn: torch.Tensor, lp, n_real: int | None = None,
-                        path: str = "int8") -> torch.Tensor:
-    """Capacity-bucketed prefill: rank every (token, choice) within its
-    expert, gather each expert's rows into a [C, D] bucket, run one FFN per
-    expert over its bucket, and combine with the renormalized weights.
-    Rows from ``n_real`` on are bucket padding: they route to the sink E,
-    so capacity is spent on real tokens only."""
+def _route_buckets(cfg: LlamaConfig, xn: torch.Tensor, router: torch.Tensor, n_real: int | None = None):
+    """The bucketed path's routing: rank every (token, choice) within its
+    expert and gather each expert's rows into a [C, D] bucket. Rows from
+    ``n_real`` on are bucket padding: they route to the sink E, so capacity
+    is spent on real tokens only. Returns (top_vals, top_idx, rank, C,
+    buckets [E, C, D])."""
     T = xn.shape[0]
     E, k = cfg.n_experts, cfg.n_active_experts
-    top_vals, top_idx = router_topk(cfg, xn, lp["router"])  # [T, k]
+    top_vals, top_idx = router_topk(cfg, xn, router)  # [T, k]
     if n_real is not None:
         valid = torch.arange(T, device=xn.device) < n_real
         top_idx = torch.where(valid[:, None], top_idx, torch.full_like(top_idx, E))
     C = bucket_capacity(cfg.moe_capacity_factor, T, k, E)
     flat_e, rank, t_ids = bucket_rank(top_idx, E)
-    buckets = bucket_scatter(xn, flat_e, rank, t_ids, E, C)
-    outs = torch.stack([_expert_ffn(cfg, buckets[e], _expert_weights(lp, e), path) for e in range(E)])
+    return top_vals, top_idx, rank, C, bucket_scatter(xn, flat_e, rank, t_ids, E, C)
+
+
+def _mix_buckets(cfg: LlamaConfig, lp, route, path: str = "int8") -> torch.Tensor:
+    """One FFN per expert over its bucket, combined back in token order with
+    the renormalized weights."""
+    top_vals, top_idx, rank, C, buckets = route
+    outs = torch.stack([_expert_ffn(cfg, buckets[e], _expert_weights(lp, e), path)
+                        for e in range(cfg.n_experts)])
     return bucket_combine(outs, top_idx, rank, top_vals, C)
 
 
-def moe_ffn(cfg: LlamaConfig, xn: torch.Tensor, lp, n_real: int | None = None, path: str = "int8") -> torch.Tensor:
-    """Expert-mixed SwiGLU of normed rows xn [T, dim] -> [T, dim] f32: one
-    row takes the top-k path, more rows the all-experts one."""
+def moe_ffn_tp(cfg: LlamaConfig, xns: list, lps: list, n_real: int | None = None, path: str = "int8",
+               impl: str = "psum") -> list:
+    """Expert-mixed SwiGLU of each rank's normed rows xns[r] [T, dim]: the
+    routing once, from rank 0's rows (every rank's are the same bytes); one
+    row takes the top-k path, more rows the all-experts one (or the
+    bucketed one, see :func:`_bucketed`), each rank's experts on its hidden
+    slice; then one all-reduce of the partial expert sums. Returns each
+    rank's [T, dim] f32 sum."""
+    from distributed_llama_tpu_torch.ops import collectives
+
+    xn, router = xns[0], lps[0]["router"]
     if xn.shape[0] == 1:
-        return _moe_topk(cfg, xn, lp, path)
-    return _moe_dense(cfg, xn, lp, n_real=n_real, path=path)
+        top_vals, ids = _route_topk(cfg, xn, router)
+        outs = [_mix_topk(cfg, x, lp, top_vals, ids, path) for x, lp in zip(xns, lps)]
+    elif _bucketed(cfg, xn, lps[0]):
+        route = _route_buckets(cfg, xn, router, n_real)
+        outs = [_mix_buckets(cfg, lp, route, path) for lp in lps]
+    else:
+        weights = router_weights(cfg, xn, router)
+        outs = [_mix_dense(cfg, x, lp, weights, path) for x, lp in zip(xns, lps)]
+    return collectives.all_reduce(outs, impl)
 
 
-def moe_block(cfg: LlamaConfig, x: torch.Tensor, lp, n_real: int | None = None, path: str = "int8") -> torch.Tensor:
-    """The FFN half of a MoE block, after the attention residual: Mixtral
-    norms with ``rms_ffn`` before the experts; Grok-1 with ``rms_moe``, and
-    norms the experts' output with ``rms_ffn2`` before the residual add."""
+def moe_block_tp(cfg: LlamaConfig, xs: list, lps: list, n_real: int | None = None, path: str = "int8",
+                 impl: str = "psum") -> list:
+    """The FFN half of a MoE block on each rank, after the attention
+    residual: Mixtral norms with ``rms_ffn`` before the experts; Grok-1
+    with ``rms_moe``, and norms the all-reduced expert sum with
+    ``rms_ffn2`` (outside the reduction) before the residual add."""
     if cfg.arch == ArchType.GROK1:
-        xn = rmsnorm(x, lp["rms_moe"])
-        out = moe_ffn(cfg, xn, lp, n_real=n_real, path=path)
-        return x + rmsnorm(out.to(x.dtype), lp["rms_ffn2"])
-    xn = rmsnorm(x, lp["rms_ffn"])
-    return x + moe_ffn(cfg, xn, lp, n_real=n_real, path=path).to(x.dtype)
+        xns = [rmsnorm(x, lp["rms_moe"]) for x, lp in zip(xs, lps)]
+        outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl)
+        return [x + rmsnorm(o.to(x.dtype), lp["rms_ffn2"]) for x, o, lp in zip(xs, outs, lps)]
+    xns = [rmsnorm(x, lp["rms_ffn"]) for x, lp in zip(xs, lps)]
+    outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl)
+    return [x + o.to(x.dtype) for x, o in zip(xs, outs)]

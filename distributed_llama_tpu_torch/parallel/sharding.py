@@ -16,6 +16,12 @@ gate/up, and wcls over the vocab) and a cut on the first an input shard
 gate_up, one QuantizedMatrix leaf each, whose nibbles and scales cut
 alike) and ``layered`` (the f32/bf16 per-matrix leaves). The KV cache
 cuts its kv-head axis (:data:`CACHE_KV_HEAD_AXIS`).
+
+A MoE table (Mixtral, Grok-1) replicates the router and gives every rank
+a hidden slice of every expert: under q40 each expert's fused gate|up pack
+is output-sharded and its down input-sharded; the f32/bf16 expert banks
+[E, d_in, d_out] cut their out dimension (:data:`BANK_OUT`: moe_up,
+moe_gate) or their in dimension (:data:`BANK_IN`: moe_down).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import re
 # the logical [n, d] matrix
 OUT = 1  # output (last) dimension of a [d_in, d_out] matmul leaf
 IN = 0  # input dimension
+BANK_OUT = 2  # output dimension of a stacked [E, d_in, d_out] expert bank
+BANK_IN = 1  # its input dimension
 
 
 class ShardingRuleError(TypeError):
@@ -73,22 +81,34 @@ _L = r"layers/\d+"
 LAYOUTS = ("q40", "layered")
 
 
-def param_rules(layout: str, shard_vocab: bool) -> RuleTable:
+_E = r"experts/\d+"
+
+
+def param_rules(layout: str, shard_vocab: bool, moe: bool = False) -> RuleTable:
     """The rule table of one params layout; ``shard_vocab`` cuts wcls over
-    the vocab (when the vocab divides by tp)."""
+    the vocab (when the vocab divides by tp); ``moe`` names the MoE layers'
+    router, expert leaves and Grok-1's two extra norms in place of the
+    dense FFN."""
     if layout == "q40":
-        layer = (Rule(rf"{_L}/(qkv|gate_up)", OUT), Rule(rf"{_L}/(wo|down)", IN))
+        attn = (Rule(rf"{_L}/qkv", OUT), Rule(rf"{_L}/wo", IN))
+        ffn = (Rule(rf"{_L}/{_E}/gate_up", OUT), Rule(rf"{_L}/{_E}/down", IN)) if moe else (
+            Rule(rf"{_L}/gate_up", OUT), Rule(rf"{_L}/down", IN))
     elif layout == "layered":
-        layer = (Rule(rf"{_L}/(q|k|v|gate|up)", OUT), Rule(rf"{_L}/(wo|down)", IN))
+        attn = (Rule(rf"{_L}/(q|k|v)", OUT), Rule(rf"{_L}/wo", IN))
+        ffn = (Rule(rf"{_L}/(moe_up|moe_gate)", BANK_OUT), Rule(rf"{_L}/moe_down", BANK_IN)) if moe else (
+            Rule(rf"{_L}/(gate|up)", OUT), Rule(rf"{_L}/down", IN))
     else:
         raise ValueError(f"unknown params layout {layout!r} (one of {LAYOUTS})")
-    return RuleTable(f"{layout}/llama", (
+    norms = "rms_att|rms_ffn|rms_moe|rms_ffn2" if moe else "rms_att|rms_ffn"
+    return RuleTable(f"{layout}/{'moe' if moe else 'llama'}", (
         Rule(r"embedding", None),
         Rule(r"rms_final", None),
         Rule(r"rope_table", None),
         Rule(r"wcls", OUT if shard_vocab else None),
-        Rule(rf"{_L}/(rms_att|rms_ffn)", None),
-        *layer,
+        Rule(rf"{_L}/({norms})", None),
+        *((Rule(rf"{_L}/router", None),) if moe else ()),
+        *attn,
+        *ffn,
     ))
 
 

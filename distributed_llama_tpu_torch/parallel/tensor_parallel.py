@@ -5,7 +5,12 @@ gate/up are output-sharded, wo and down input-sharded, each rank runs
 ``n_heads/tp`` attention heads over its ``n_kv_heads/tp`` cache heads, and
 wcls is vocab-sharded when the vocab divides. The two all-reduces per layer
 (after wo and after down) go through :mod:`ops.collectives`, whose ``ring``
-arm is the hand-written K4 (and K5, the int8 matmul fused into it).
+arm is the hand-written K4 (and K5, the int8 matmul fused into it). A MoE
+layer (Mixtral, Grok-1) replicates its router and gives every rank a hidden
+slice of every expert; the routing is computed once per layer from the
+byte-identical residual, each rank runs the chosen experts on its slice,
+and the partial expert sums are all-reduced once (K4 under ``ring``: no
+expert matmul is fused into the ring).
 
 Where the JAX package maps one shard to one chip of a mesh, the port keeps
 each rank as its own set of allocations (weight shards, KV cache,
@@ -31,21 +36,11 @@ from distributed_llama_tpu_torch.platform import resolve_device
 from distributed_llama_tpu_torch.quants import QK
 
 
-def check_moe_tp(cfg: LlamaConfig, tp: int) -> None:
-    """MoE layers run at tp = 1 only: their expert leaves are not sharded
-    yet, so a MoE model with tp > 1 raises before any weight is read."""
-    if cfg.is_moe and tp > 1:
-        raise NotImplementedError(
-            f"{cfg.arch.name} with {cfg.n_experts} experts at tp={tp}: MoE under tensor parallelism is not "
-            "ported yet (ROADMAP.md Queue 1: MoE under --tp); run it at --tp 1")
-
-
 def validate_tp(cfg: LlamaConfig, tp: int, quantized: bool = False) -> None:
     """The sharding-divisibility constraint: tp a power of two dividing the
-    heads, kv heads and hidden dim; for q40 the input-dim shards must land
-    on quant-block boundaries (dim and hidden_dim divisible by tp*32).
-    MoE models raise NotImplementedError at tp > 1 (:func:`check_moe_tp`)."""
-    check_moe_tp(cfg, tp)
+    heads, kv heads and hidden dim (a MoE model's expert hidden dim too);
+    for q40 the input-dim shards must land on quant-block boundaries (dim
+    and hidden_dim divisible by tp*32)."""
     if tp < 1 or tp & (tp - 1):
         raise ValueError(f"tp must be a power of two, got {tp}")
     for name, value in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads), ("hidden_dim", cfg.hidden_dim)):
@@ -89,10 +84,13 @@ class TensorParallelForward:
         self.devices = rank_devices(tp, device, devices)
         self.shard_vocab = cfg.vocab_size % tp == 0
 
-    def forward(self, params: list, tokens: torch.Tensor, caches: list, pos: int, path: str = "int8"):
+    def forward(self, params: list, tokens: torch.Tensor, caches: list, pos: int, path: str = "int8",
+                n_real: int | None = None):
         """Logits f32 [T, vocab] (the all-gathered logits every rank holds)
-        of T tokens from ``pos``; the per-rank caches are written in place."""
-        return llama.forward_tokens_tp(self.cfg, params, tokens, caches, pos, path, self.allreduce)
+        of T tokens from ``pos``; the per-rank caches are written in place.
+        ``n_real``: the real rows of a bucket-padded prompt (the
+        capacity-bucketed MoE prefill's pad mask)."""
+        return llama.forward_tokens_tp(self.cfg, params, tokens, caches, pos, path, self.allreduce, n_real=n_real)
 
     def decode_chunk(self, params: list, first_token, caches: list, pos: int, n_steps: int, temperature: float,
                      topp: float, topk: int, seed32: int, path: str = "int8"):

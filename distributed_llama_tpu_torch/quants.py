@@ -31,6 +31,21 @@ class FloatType(enum.IntEnum):
     Q40 = 2
     Q80 = 3
 
+    @property
+    def short_name(self) -> str:
+        return self.name.lower()
+
+
+FLOAT_TYPE_BY_NAME = {t.short_name: t for t in FloatType}
+
+
+def parse_float_type(name: str) -> FloatType:
+    """"f32" | "f16" | "q40" | "q80" (any case) -> FloatType."""
+    try:
+        return FLOAT_TYPE_BY_NAME[name.lower()]
+    except KeyError:
+        raise ValueError(f"unsupported float type: {name!r}") from None
+
 
 def tensor_bytes(float_type: FloatType, n_values: int) -> int:
     """Serialized size of a flat tensor."""

@@ -36,7 +36,7 @@ from distributed_llama_tpu_torch.engine import faults as tfaults
 from distributed_llama_tpu_torch.server import admission as tadm
 from distributed_llama_tpu_torch.server import api as tapi
 
-from tests.test_torch_server import files, torch_state  # noqa: F401 (the fixture)
+from tests.test_torch_server import _settled_metrics, files, torch_state  # noqa: F401 (the fixture)
 
 
 @pytest.fixture(autouse=True)
@@ -407,7 +407,10 @@ def test_preempted_victim_resumes_bit_identical(files, chaos):
             assert status == 200
             texts = [first + s.read_rest() for s, first in zip(streams, firsts)]
             outcomes = [(s.error_type, t) for s, t in zip(streams, texts)]
-            text = ttel.prometheus_text()
+            # a handler releases its tenant slot after the client has the
+            # response's last byte: scrape once the server has settled
+            text = _settled_metrics(url, *(["dllama_preempted_requeued_total 0"] if chaos else [
+                "dllama_preempted_requeued_total 1", 'dllama_tenant_active{tenant="default"} 0']))
         finally:
             server.shutdown()
             server.server_close()

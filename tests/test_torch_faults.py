@@ -328,6 +328,33 @@ def test_launch_error_is_not_retried(engines, monkeypatch):
     assert 1 <= len(calls) <= 4
 
 
+def test_a_retired_row_is_not_dispatched_again(engines):
+    """A row retired by a failed dispatch keeps its seat until its thread
+    raises the error; meanwhile another row's dispatch must not serve it
+    again (a second failed launch would count its quarantine twice: 5 or 6
+    of 4 rows under load). Only rows without an error are dispatched, and a
+    failed dispatch quarantines exactly those."""
+    _, teng, _, _ = engines
+    sched = BatchScheduler(teng, **SCHED)
+    try:
+        a, b = sched.new_stream(), sched.new_stream()
+        a._joined = b._joined = True
+        a._fetch_error = tfaults.RowQuarantined("retired by the first dispatch")
+        with sched._cond:
+            assert sched._dispatchable_locked() == [b]
+            before = sched.quarantined_total
+
+            def broken():
+                raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+            assert sched._run_dispatch_locked(sched._dispatchable_locked(), broken, "retired") is None
+        assert sched.quarantined_total - before == 1
+        assert "retired by the first dispatch" in str(a._fetch_error) and "retired" in str(b._fetch_error)
+        a._joined = b._joined = False
+    finally:
+        sched.close()
+
+
 def _barrier_at_first_token():
     """A ``mid`` hook that holds every row at its first token until all
     four rows have joined the batch."""

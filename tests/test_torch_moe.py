@@ -286,10 +286,14 @@ def _layer(kind, dim, hidden, E, seed):
     return jlp, tlp
 
 
+# each path of the JAX package and the port's route and mix steps for it
 PATHS = {
-    "topk": (lambda m, cfg, xn, lp: m._moe_topk(cfg, xn, lp)),
-    "dense": (lambda m, cfg, xn, lp: m._moe_dense(cfg, xn, lp)),
-    "bucketed": (lambda m, cfg, xn, lp: m._moe_dense_bucketed(cfg, xn, lp, n_real=37)),
+    "topk": (lambda cfg, xn, lp: jmoe._moe_topk(cfg, xn, lp),
+             lambda cfg, xn, lp: tmoe._mix_topk(cfg, xn, lp, *tmoe._route_topk(cfg, xn, lp["router"]))),
+    "dense": (lambda cfg, xn, lp: jmoe._moe_dense(cfg, xn, lp),
+              lambda cfg, xn, lp: tmoe._mix_dense(cfg, xn, lp, tmoe.router_weights(cfg, xn, lp["router"]))),
+    "bucketed": (lambda cfg, xn, lp: jmoe._moe_dense_bucketed(cfg, xn, lp, n_real=37),
+                 lambda cfg, xn, lp: tmoe._mix_buckets(cfg, lp, tmoe._route_buckets(cfg, xn, lp["router"], 37))),
 }
 
 
@@ -314,8 +318,8 @@ def test_expert_paths_match_jax(kind, path):
     jlp, tlp = _layer(kind, dim, hidden, E, seed=len(path) + dim)
     xn = np.random.RandomState(T).randn(T, dim).astype(np.float32)
     with jax.disable_jit():
-        want = np.asarray(PATHS[path](jmoe, jcfg, jnp.asarray(xn), jlp))
-    got = PATHS[path](tmoe, tcfg, torch.from_numpy(xn), tlp).numpy()
+        want = np.asarray(PATHS[path][0](jcfg, jnp.asarray(xn), jlp))
+    got = PATHS[path][1](tcfg, torch.from_numpy(xn), tlp).numpy()
     assert got.shape == want.shape == (T, dim)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
@@ -326,11 +330,11 @@ def test_moe_ffn_dispatches_on_rows(monkeypatch):
     _, tcfg = _cfgs(dim=64, hidden_dim=96)
     _, tlp = _layer("f32", 64, 96, 4, seed=1)
     seen = []
-    monkeypatch.setattr(tmoe, "_moe_dense", lambda *a, **kw: seen.append("dense") or torch.zeros(3, 64))
+    monkeypatch.setattr(tmoe, "_mix_dense", lambda *a, **kw: seen.append("dense") or torch.zeros(3, 64))
     tmoe.reset_host_reads()
-    tmoe.moe_ffn(tcfg, torch.randn(1, 64), tlp)
+    tmoe.moe_ffn_tp(tcfg, [torch.randn(1, 64)], [tlp])
     assert tmoe.host_reads["expert_ids"] == 1 and not seen
-    tmoe.moe_ffn(tcfg, torch.randn(3, 64), tlp)
+    tmoe.moe_ffn_tp(tcfg, [torch.randn(3, 64)], [tlp])
     assert seen == ["dense"] and tmoe.host_reads["expert_ids"] == 1
 
 
@@ -441,7 +445,7 @@ def test_bucketed_prefill_matches_jax(files, factor):
 
 
 # ---------------------------------------------------------------------------
-# batch scheduler, CLI, speculative gate, tensor parallelism
+# batch scheduler, CLI, speculative gate
 # ---------------------------------------------------------------------------
 
 
@@ -503,8 +507,8 @@ def test_cli_moe_capacity_and_spec_warning(files, tmp_path, capsys, monkeypatch)
     base = ["generate", "--model", model, "--tokenizer", tok, "--device", "cpu", "--temperature", "0",
             "--seed", "1", "--decode-chunk", "4"]
     calls = []
-    orig = tmoe._moe_dense_bucketed
-    monkeypatch.setattr(tmoe, "_moe_dense_bucketed", lambda *a, **kw: calls.append(a[1].shape[0]) or orig(*a, **kw))
+    orig = tmoe._route_buckets
+    monkeypatch.setattr(tmoe, "_route_buckets", lambda *a, **kw: calls.append(a[1].shape[0]) or orig(*a, **kw))
     long = tcli.main([*base, "--prompt", "the quick brown fox jumps over a lazy dog", "--steps", "60", "--moe-capacity", "2.0"])
     assert len(long["prompt_tokens"]) >= 32 and calls and calls[0] >= 32
     assert all(0 <= t < 300 for t in long["tokens"]) and long["tokens"]
@@ -525,19 +529,6 @@ def test_grok_prompt_has_no_bos(files, tmp_path):
     res = tcli.main(["generate", "--model", model, "--tokenizer", tok, "--device", "cpu", "--prompt", "hello",
                      "--steps", "12", "--temperature", "0", "--dtype", "f32"])
     assert res["prompt_tokens"][0] != 1
-
-
-def test_moe_under_tp_raises_before_loading(files, monkeypatch):
-    loaded = []
-    monkeypatch.setattr(TorchReader, "tensor", lambda *a, **kw: loaded.append(a) or None)
-    for wt in ("q40", "f32"):
-        with pytest.raises(NotImplementedError, match="MoE under --tp"):
-            TorchEngine(files["mixtral"][wt], dtype="q40" if wt == "q40" else torch.float32, device="cpu", tp=2)
-    args = tcli.build_parser().parse_args(["generate", "--model", files["grok"]["q40"], "--tokenizer", "unused",
-                                           "--device", "cpu", "--tp", "2"])
-    with pytest.raises(NotImplementedError, match="MoE under --tp"):
-        tcli.make_engine(args)
-    assert not loaded
 
 
 @pytest.mark.parametrize("dtype", ["q40", "bf16", "f32"])

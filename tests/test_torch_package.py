@@ -22,11 +22,16 @@ from distributed_llama_tpu_torch.server import api as server_api
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(Path(distributed_llama_tpu_torch.__file__).parent.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "distributed_llama_tpu")
+# imported nowhere in the port (the card machine has neither safetensors
+# nor transformers; the converters read the safetensors format themselves)
+FORBIDDEN = ("jax", "jaxlib", "distributed_llama_tpu", "safetensors", "transformers")
+# imported only inside the function that needs it, as in the JAX package
+LAZY_ONLY = ("sentencepiece",)
 
 
-def _imported_modules(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+def _imported_modules(path: Path, top_level_only: bool = False):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body if top_level_only else ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
@@ -38,6 +43,8 @@ def test_no_jax_or_jax_package_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+    for mod in _imported_modules(path, top_level_only=True):
+        assert mod.split(".")[0] not in LAZY_ONLY, f"{path.name} imports {mod} when it is imported"
 
 
 def test_port_sources_exist():
@@ -51,7 +58,8 @@ def test_port_sources_exist():
                 "telemetry/tracer", "telemetry/spans", "telemetry/trace", "telemetry/dump", "loadgen/__init__",
                 "loadgen/__main__", "loadgen/workload", "loadgen/runner", "loadgen/report", "loadgen/selfhost",
                 "retry", "engine/faults", "server/admission", "engine/spill", "server/replicas",
-                "telemetry/flight", "lockcheck"):
+                "telemetry/flight", "lockcheck", "converter/__init__", "converter/hf", "converter/tokenizers",
+                "converter/pth", "converter/launch"):
         assert f"distributed_llama_tpu_torch/{mod}.py" in names
     for src in ("q40_int8.cu", "q40_int8_tile.cuh", "q40_dequant.cu", "paged_attention.cu", "ring_all_reduce.cu",
                 "fused_matmul_ring.cu"):
