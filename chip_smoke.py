@@ -264,6 +264,41 @@ Phases (any failure exits non-zero):
    bucketed prefill of a long prompt on every rank of every layer, and
    ms/token with device busy ms/token per tp.
 
+14. serving over tensor-parallel ranks (after 7c over its 8-layer file;
+   14b after 13c over phase 8's Mixtral-width file; ``--tp-serve`` alone
+   writes its own files): K1 at every rank's Llama-2-7B shards (tp = 2 and
+   4: qkv 4096->6144/3072, gate_up 4096->11008/5504, wo 2048/1024->4096,
+   down 5504/2752->4096; T=1, both tiles bit for bit as in phase 3) and K2
+   at 16 and 8 kv heads per rank (bf16 and int8, T=1), timed likewise.
+   (a) The API server with ``--parallel 4 --max-seq-len 2048
+   --prefill-chunk 64`` and the prefix cache (page 64), phase 6b's traffic,
+   at --tp 1, --tp 2 (psum, ``--allreduce ring``, ``--cache-dtype i8``)
+   and --tp 4 (psum), one engine per tp: every greedy completion equal to
+   its replay alone on a fresh scheduler token for token (psum, tp 1 and 2) and
+   held against the engine's single-stream decode (the first divergence
+   reported); a
+   hit's first-token logits equal to a cold prefill's bit for bit; K2
+   launched n_layers x batched forwards x ranks times; the kernel paths K1
+   (both tiles), K2 (``k2_i8`` on the int8 cache), K4 and K5 under ring, no
+   plain one; under ring every rank's residual stream byte-identical.
+   Prints TTFT cold and hit, the 4-row step, aggregate decode tok/s and the
+   device's idle share per arm. (b) The server under --tp 2 (bf16) over the
+   Mixtral-width file with phase 8c's traffic (each greedy completion
+   against the single-stream decode, reported), then expert ids before
+   logits: a 4-row batched chunk's router ids of every (row, step, layer)
+   equal to each row's single-stream decode's where both routing margins
+   exceed ROUTE_MARGIN, then the tokens before the first divergence. (c)
+   ``--pod 2x2 --parallel 2 --telemetry`` (two slices of two ranks over one
+   params tree): 4 greedy streams of 32 tokens; the same 4 with a
+   ``replica.crash`` on slice 0 armed once every stream is past its first
+   delta: every client's text equal to the unfaulted round's, the victims
+   replayed, slice 0 rebuilt over the same params object, card memory back
+   within 5% of its post-boot level; the pod's ``dllama_resident_weight_bytes``
+   and ``dllama_mesh_devices``; then ``--tp 2 --replicas 2 --parallel 2``:
+   the same 4 streams equal the pod's token for token, and its card memory
+   after boot exceeds the pod's by one weight tree (within 10%); the
+   aggregate decode rate of both.
+
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
@@ -271,7 +306,7 @@ one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
 ``--loadgen`` writes phase 5's files and runs phase 9 alone, ``--faults``
 phase 10 alone, ``--spill`` phase 11 alone, ``--fleet`` phase 12 alone and
 ``--chat`` phase 13 alone (with 7a's K4 rows at [1, 4096] and a Mixtral-width
-file of its own).
+file of its own) and ``--tp-serve`` phase 14 alone.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -309,10 +344,13 @@ F32_OPS_PER_S = 33.5e12
 BF16_OPS_PER_S = 989e12
 N_LAYERS = 32  # Llama-2-7B's depth: the kernel line's per-token numbers count all of it
 # phases 5, 6b and 6c's depth in the full run: at 32 layers they took
-# 126.5 + 64.2 + 107.4 s of a 980.8 s run on an H100 host, which leaves no
-# room for a host ~33% slower (see MIXTRAL_LAYERS); ``--loadgen``,
-# ``--faults``, ``--spill`` and ``--fleet`` alone keep all 32
-MAIN_LAYERS = 16
+# 126.5 + 64.2 + 107.4 s of a 980.8 s run on an H100 host, which left no
+# room for a host ~33% slower (see MIXTRAL_LAYERS); at 16, with phase 14
+# added, the run took 933.3 s on one H100 host and 1211.3 s on one ~30%
+# slower in every phase. At TP_LAYERS they run over phase 7c's file (one
+# write fewer); ``--loadgen``, ``--faults``, ``--spill`` and ``--fleet``
+# alone keep all 32
+MAIN_LAYERS = 8
 # phase 7c's depth: its three engines at 8 of Llama-2-7B's 32 layers, which
 # keeps the whole run, phase 8 included, well inside its time limit
 TP_LAYERS = 8
@@ -490,6 +528,22 @@ FLEET_TOKENS = 32
 FLEET_BURST = 12
 FLEET_MEM_TOL_REL = 0.01
 K1_K2_PATHS = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma", "paged_attention/k2", "paged_attention/k2_i8")
+# phase 14: serving over tensor-parallel ranks at Llama-2-7B width, over
+# phase 7c's TP_LAYERS-layer file. 14a: the server at each tp (--tp 2 under
+# psum, ring and the int8 cache); the per-rank paths add the ranks' sums
+# (psum: the plain sum in rank order, which the JAX package leaves to XLA;
+# ring: K4 and K5)
+TP_SERVE_ARMS = ((1, "psum", None), (2, "psum", None), (2, "ring", None), (2, "psum", "i8"), (4, "psum", None))
+TP_PATHS = K1_K2_PATHS + ("all_reduce/psum", "all_reduce/k4_ring", "all_reduce/k5_fused")
+# K1 at every rank's matmul shards of Llama-2-7B: name -> (n, d, launches
+# per decoded token over all ranks); K2 at 16 and 8 kv heads per rank
+TP_SHARD_SHAPES = {f"tp{tp}_{name}": (n, d, N_LAYERS * tp) for tp in TP_SIZES for name, (n, d) in (
+    ("qkv", (DIM, 3 * DIM // tp)), ("gate_up", (DIM, 2 * HIDDEN // tp)), ("wo", (DIM // tp, DIM)),
+    ("down", (HIDDEN // tp, DIM)))}
+K2_TP_CASES = [(f"B4 K{32 // tp} M1", 32 // tp, 1, 128, [1900, 800, 1300, 2000], [0, 576, 1024, 576], 2048,
+                (torch.bfloat16, "i8"), (1,), False) for tp in TP_SIZES]
+POD_TOKENS = 32  # 14c's streams
+POD_MEM_TOL_REL = 0.10  # 14c: the card memory a pod saves, against one weight tree's bytes
 ROUTE_MARGIN = 1e-5
 # phase 13: the converted model's depth and context; meta-llama/Llama-2-7b-hf
 # config.json's published fields, typed in (its rope theta, 10000, is the
@@ -958,8 +1012,9 @@ def k2_flips(ex: dict, got: torch.Tensor, want: torch.Tensor, tol_abs: float, la
     return found
 
 
-def k2_checks(attn, kvc, contracts: bool = True, strict: bool = True) -> list:
-    """Phase 6a: K2 against its plain version at the K2_CASES, timed, for
+def k2_checks(attn, kvc, contracts: bool = True, strict: bool = True, cases=None) -> list:
+    """Phase 6a: K2 against its plain version at the K2_CASES (phase 14:
+    ``cases``, the per-rank heads under TP), timed, for
     bf16 and f32 caches (T = 1 and 3) and the int8 cache (T = 1 and 5, the
     verify window of --spec-draft 4), whose halves are ``quantize_rows`` of
     the same kind of random inputs; at the contract cases also its
@@ -969,7 +1024,7 @@ def k2_checks(attn, kvc, contracts: bool = True, strict: bool = True) -> list:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for label, K, M, hd, pos_l, matched_l, S, dtypes, Ts, with_contracts in K2_CASES:
+    for label, K, M, hd, pos_l, matched_l, S, dtypes, Ts, with_contracts in cases or K2_CASES:
         if not strict and label in K2_NEW_CASES:
             continue
         B = len(pos_l)
@@ -1708,6 +1763,28 @@ def moe_cli(cli, moe, q40, model: str, tok: str, runs: list, capacity_prompt: st
     return out
 
 
+# server_run's ~600-token system prompt per tokenizer file
+_SERVER_SYSTEM: dict = {}
+
+
+def grow_to_tokens(base: str, unit: str, n_tokens: int, count) -> str:
+    """``base`` plus the fewest repeats of ``unit`` for which ``count(text)``
+    (a token count, growing with the repeats) reaches ``n_tokens``: what
+    ``while count(text) < n_tokens: text += unit`` returns, found by doubling
+    then bisection, so the tokenizer runs ~2 log2(repeats) times instead of
+    once per repeat (a 600-token prompt took ~25 s of host time the loop's
+    way)."""
+    if count(base) >= n_tokens:
+        return base
+    lo, hi = 0, 1
+    while count(base + unit * hi) < n_tokens:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if count(base + unit * mid) < n_tokens else (lo, mid)
+    return base + unit * hi
+
+
 def single_stream_divergence(state, captured: list, n: int = 8) -> list:
     """Phase 8c: every greedy completion's first ``n`` tokens against the
     engine's single-stream decode (what the CLI runs) of the same prompt.
@@ -1724,7 +1801,8 @@ def single_stream_divergence(state, captured: list, n: int = 8) -> list:
         stream.reset()
         first = stream.prefill_device(prompt, 0.0, 0.9, seed)
         got = []
-        stream.stream_decode(first, lambda p, t: got.append(t) or len(got) < n, 0.0, 0.9, seed=seed,
+        # one chunk of n steps (the default 32-step chunks would decode 64)
+        stream.stream_decode(first, lambda p, t: got.append(t) or len(got) < n, 0.0, 0.9, seed=seed, chunk=n,
                              limit=stream.pos + n, first_prev=prompt[-1])
         want = ids[:n]
         same = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
@@ -1788,12 +1866,12 @@ def _capture_streams(state, captured: list, tag=None) -> None:
 
 
 def _reference_streams(server_api, state, args, captured: list) -> int:
-    """Phase 6c's correctness check: replay every greedy completion, in the
-    order the server finished them, through a second BatchScheduler on the
-    same engine and cache dtype with spec_draft 0 (the same prefix-cache
-    hits, so the same prefill pieces) and compare token ids. Returns the
-    number of tokens compared; a mismatch fails with its first diverging
-    position."""
+    """Phase 6c's correctness check (and phase 14's): replay every greedy
+    completion, in the order the server finished them, alone through a
+    second BatchScheduler on the same engine and cache dtype with
+    spec_draft 0 (the same prefix-cache hits, so the same prefill pieces)
+    and compare token ids. Returns the number of tokens compared; a
+    mismatch fails with its first diverging position."""
     # no watchdog: its thread would hold the reference scheduler's slab and
     # pool past this function
     ref_args = argparse.Namespace(**{**vars(args), "spec_draft": 0, "stall_timeout_s": 0})
@@ -1815,7 +1893,7 @@ def _reference_streams(server_api, state, args, captured: list) -> int:
         lane.stream_decode(first, on_token, 0.0, 0.9, seed=seed, limit=lane.pos + len(ids), first_prev=prompt[-1])
         if got != ids:
             at = next((i for i, (x, y) in enumerate(zip(got, ids)) if x != y), min(len(got), len(ids)))
-            fail(f"speculative stream differs from the spec_draft=0 stream at position {at} of "
+            fail(f"a served stream differs from its spec_draft=0 replay alone at position {at} of "
                  f"{len(ids)}: {ids[max(0, at - 2):at + 3]} vs {got[max(0, at - 2):at + 3]} "
                  f"({len(prompt)}-token prompt, prefix hit {lane.matched_len} positions)")
         n += len(ids)
@@ -1849,13 +1927,50 @@ def decode_rows(sched, n_rows: int, n_tok: int = 32) -> tuple[float, int, int]:
     return time.perf_counter() - t, n_rows * n_tok, sched.decode_forwards - f1
 
 
+def profile_4_rows(sched, tok_per_s: float, n_tok: int = 32) -> dict:
+    """Device busy time per batched step of a profiled 4-row decode of
+    ``n_tok`` tokens per row (:func:`decode_rows`), and the idle share of
+    the unprofiled step at ``tok_per_s``; with the profile's own cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out: dict = {}
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_p, n_tok, steps = decode_rows(sched, 4, n_tok)
+    t_read = time.perf_counter()
+    busy_ms = sum(device_ms_by_name(prof).values())
+    # what the profile costs the run: the smoke test's time limit is shared by every phase
+    out["profile_s"] = {"window_and_stop": t_read - t_prof, "read_events": time.perf_counter() - t_read}
+    print(f"profiler: the window and its stop {t_read - t_prof:.1f} s, reading its events "
+          f"{time.perf_counter() - t_read:.1f} s")
+    wall_ms = n_tok / tok_per_s * 1e3
+    if busy_ms == 0.0:
+        print("profiler recorded no device time: device idle share not measured")
+    else:
+        out["device_busy_ms_per_step_4_rows"] = busy_ms / steps
+        out["device_idle_share_4_rows"] = 1 - busy_ms / wall_ms
+        print(f"4-row decode: device busy {busy_ms / steps:.2f} ms per batched step, idle "
+              f"{100 * out['device_idle_share_4_rows']:.1f}% of the unprofiled {wall_ms / steps:.2f} ms")
+    return out
+
+
 def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, extra=(), spec: bool = False,
-               single_stream: bool = False) -> dict:
+               single_stream: bool = False, built=None, replay: bool = False, hit_exact: bool = False,
+               probe=None, rate_rows=(1, 4), profile_tokens: int = 32) -> dict:
     """Phase 6b (bf16 cache) and 6c (``extra`` = the int8 cache and
     speculative decoding, ``spec`` True): the port's API server over the
     7B-width model, batched (--parallel 4) with the prefix cache on; phase
     8c over the Mixtral-width model, with ``single_stream`` (each greedy
-    completion against the single-stream decode of its prompt)."""
+    completion against the single-stream decode of its prompt); phase 14
+    with ``--tp`` in ``extra`` (the ranks' K2 launches, and the slab and
+    pool of every rank), ``built`` a ``make_engine`` triple to serve instead
+    of a fresh load, ``replay`` (every greedy completion replayed alone on a
+    fresh scheduler, token for token), ``hit_exact`` (a hit's first-token
+    logits equal to a cold prefill's bit for bit), ``probe(state)``, run
+    on the idle server last (its result under "probe"), and ``rate_rows``,
+    the row counts whose aggregate decode rate is measured (the 4-row one
+    also profiled over ``profile_tokens`` tokens per row; empty: a
+    gate-only run). The seconds each stage took land under "stage_s"."""
     from distributed_llama_tpu_torch.tokenizer import ChatItem
 
     args = server_api.build_parser().parse_args([
@@ -1863,21 +1978,29 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
         str(SERVER_SEQ_LEN), "--parallel", "4", "--decode-chunk", "8", "--chat-template", "chatml",
         "--host", "127.0.0.1", "--port", "0", "--temperature", "0", *extra])
     t0 = time.perf_counter()
-    server, state = server_api.make_server(args)
+    if built is None:
+        server, state = server_api.make_server(args)
+    else:
+        state = server_api.ApiState(*built, args)
+        server, _ = server_api.make_server(args, state=state)
     sched = state.batch
     check(sched is not None and sched._prefix is not None, "the server did not build a paged BatchScheduler")
     engine = state.engine
     cfg = engine.cfg
     n_layers = cfg.n_layers
+    tp = engine.tp
     i8 = kvc.is_quantized_cache_dtype(engine.cache_dtype)
     kernel = "paged_attention_i8" if i8 else "paged_attention"
     print(f"server up in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
           f"the card, {sched._prefix.capacity} pool pages of {sched._prefix.page}, cache {engine.cache_dtype}, "
-          f"spec draft {sched.spec_draft}")
-    out: dict = {"cache_dtype": str(engine.cache_dtype), "spec_draft": sched.spec_draft}
-    # the KV memory of the slab and pool, beside what bf16 halves would take
-    slab_bytes = sum(kvc.half_bytes(leaf) for leaf in sched._slab)
-    pool_bytes = sum(kvc.half_bytes(h) for pair in sched._pool for h in pair)
+          f"spec draft {sched.spec_draft}, {tp} rank(s)")
+    out: dict = {"cache_dtype": str(engine.cache_dtype), "spec_draft": sched.spec_draft, "tp": tp}
+    # the KV memory of the slab and pool (every rank's), beside what bf16
+    # halves would take
+    slab, pool = (sched._slab, sched._pool) if tp == 1 else (
+        [leaf for rank in sched._slab for leaf in rank], [pair for rank in sched._pool for pair in rank])
+    slab_bytes = sum(kvc.half_bytes(leaf) for leaf in slab)
+    pool_bytes = sum(kvc.half_bytes(h) for pair in pool for h in pair)
     bf16_slab = 2 * n_layers * sched.b_max * cfg.seq_len * cfg.n_kv_heads * cfg.head_size * 2
     bf16_pool = sched._prefix.capacity * llama.page_pool_bytes(cfg, sched._prefix.page, torch.bfloat16)
     check(pool_bytes == sched._prefix.capacity * llama.page_pool_bytes(cfg, sched._prefix.page, engine.cache_dtype),
@@ -1891,14 +2014,24 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
+    stage_s: dict = {}
+    out["stage_s"] = stage_s
+    t_stage = [time.perf_counter()]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage[0]
+        t_stage[0] = now
+
     try:
         def prompt_tokens(system: str, user: str) -> list[int]:
             text = state.template.generate([ChatItem("system", system), ChatItem("user", user)])
             return state.tokenizer.encode(text, add_bos=True)
 
-        system = "You are a helpful assistant. "
-        while len(prompt_tokens(system, "hello")) < 600:
-            system += "hello world, "
+        if tok_path not in _SERVER_SYSTEM:  # the same prompt for every run over one tokenizer file
+            _SERVER_SYSTEM[tok_path] = grow_to_tokens("You are a helpful assistant. ", "hello world, ", 600,
+                                                      lambda text: len(prompt_tokens(text, "hello")))
+        system = _SERVER_SYSTEM[tok_path]
         n_prompt = len(prompt_tokens(system, "hello"))
 
         def body(user, stream, temperature=0.0, seed=1):
@@ -1938,6 +2071,7 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
         n_out_4 = sum(len(ids) for _, _, _, ids in captured[1:])
         status, ttft_hit, total_hit, events = _post(url, body("hello", True, seed=2))
         check(status == 200 and events, "lone hit request failed")
+        stage("traffic")
         launches = attn.launches[kernel]
         others = {k: v for k, v in attn.launches.items() if k != kernel and v}
         forwards = sched.decode_forwards - f0
@@ -1946,10 +2080,11 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
         print(f"K1 launches by tile {tiles}")
         if spec:  # every verify forward (5 rows or more) runs K1's tensor-core tile
             check(tiles["mma"] >= (4 * n_layers + 1) * forwards, f"K1's tensor-core tile on the verify path: {tiles}")
-        print(f"K2 ({kernel}) launches {launches} = {n_layers} layers x {forwards} batched forwards; other K2 "
-              f"launches {others or 0}; prefix hits {sched._prefix.hits}, misses {sched._prefix.misses}; lone hit "
-              f"TTFT {ttft_hit * 1e3:.1f} ms vs cold {ttft_cold * 1e3:.1f} ms")
-        check(launches == n_layers * forwards and forwards > 0, "K2 launches != n_layers x batched forwards")
+        print(f"K2 ({kernel}) launches {launches} = {n_layers} layers x {forwards} batched forwards x {tp} rank(s); "
+              f"other K2 launches {others or 0}; prefix hits {sched._prefix.hits}, misses {sched._prefix.misses}; "
+              f"lone hit TTFT {ttft_hit * 1e3:.1f} ms vs cold {ttft_cold * 1e3:.1f} ms")
+        check(launches == n_layers * forwards * tp and forwards > 0,
+              "K2 launches != n_layers x batched forwards x ranks")
         check(not others, f"the server launched another form of K2: {others}")
         check(sched._prefix.hits >= 5, f"expected prefix hits, got {sched._prefix.hits}")
         sched.check_prefix()
@@ -1960,6 +2095,13 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
                    prefix_hits=sched._prefix.hits, prefix_misses=sched._prefix.misses)
         print(f"4 concurrent requests: {n_out_4} tokens in {wall4:.2f} s = {n_out_4 / wall4:.2f} tok/s "
               f"(prefill included)")
+        if replay:
+            n_cmp = _reference_streams(server_api, state, args, captured)
+            print(f"every greedy completion equals its replay alone on a fresh scheduler: {n_cmp} tokens over "
+                  f"{sum(1 for c in captured if c[1] == 0.0)} requests")
+            check(n_cmp > 0, "no greedy stream was replayed")
+            out["greedy_tokens_replayed"] = n_cmp
+            stage("replay")
         if spec:
             steps, drafted, emitted = (x - y for x, y in zip(
                 (sched.spec_row_steps, sched.spec_drafted, sched.spec_emitted), s0))
@@ -1976,6 +2118,7 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
 
         if single_stream:
             out["single_stream_divergence"] = single_stream_divergence(state, captured)
+            stage("single_stream")
 
         # a hit's first-token logits against a cold prefill of the same prompt
         row = sched._streams[0]
@@ -1986,41 +2129,29 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
         row.reset()
         hit = row.prefill(toks)
         check(row.matched_len > 0, "the logit check's second prefill did not hit")
-        err, tol = float(np.abs(hit - cold).max()), 0.05 * float(np.abs(cold).max())
-        print(f"hit vs cold first-token logits: max diff {err:.4g} (tolerance {tol:.4g}, 5% of max |logit|), "
-              f"{row.matched_len} positions from the pool")
+        err, tol = float(np.abs(hit - cold).max()), 0.0 if hit_exact else 0.05 * float(np.abs(cold).max())
+        print(f"hit vs cold first-token logits: max diff {err:.4g} (tolerance {tol:.4g}, "
+              f"{'bit for bit' if hit_exact else '5% of max |logit|'}), {row.matched_len} positions from the pool")
         check(np.isfinite(hit).all() and err <= tol, "hit and cold logits disagree")
         row.reset()
         out.update(hit_vs_cold_logit_diff=err, hit_vs_cold_tol=tol)
+        stage("hit_vs_cold")
 
         # aggregate decode rate straight through the lanes (speculative in 6c)
-        for n_rows in (1, 4) if not spec else (4,):
+        for n_rows in rate_rows if not spec else (4,):
             decode_rows(sched, n_rows, 8)  # warm
             wall, n_tok, steps = decode_rows(sched, n_rows)
             out[f"decode_tok_per_s_{n_rows}_rows"] = n_tok / wall
             out[f"decode_ms_per_step_{n_rows}_rows"] = wall / steps * 1e3
             print(f"aggregate decode at {n_rows} row(s): {n_tok / wall:.2f} tok/s ({wall:.2f} s for {n_tok} tokens, "
                   f"{steps} batched steps, {wall / steps * 1e3:.2f} ms per step)")
-        from torch.profiler import ProfilerActivity, profile
-
-        t_prof = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_p, n_tok, steps = decode_rows(sched, 4)
-        t_read = time.perf_counter()
-        busy_ms = sum(device_ms_by_name(prof).values())
-        # what the profile costs the run: the smoke test's time limit is shared by every phase
-        out["profile_s"] = {"window_and_stop": t_read - t_prof, "read_events": time.perf_counter() - t_read}
-        print(f"profiler: the window and its stop {t_read - t_prof:.1f} s, reading its events "
-              f"{time.perf_counter() - t_read:.1f} s")
-        wall_ms = n_tok / out["decode_tok_per_s_4_rows"] * 1e3
-        if busy_ms == 0.0:
-            print("profiler recorded no device time: device idle share not measured")
-        else:
-            out["device_busy_ms_per_step_4_rows"] = busy_ms / steps
-            out["device_idle_share_4_rows"] = 1 - busy_ms / wall_ms
-            print(f"4-row decode: device busy {busy_ms / steps:.2f} ms per batched step, idle "
-                  f"{100 * out['device_idle_share_4_rows']:.1f}% of the unprofiled {wall_ms / steps:.2f} ms")
+        stage("rates")
+        if 4 in rate_rows:
+            out.update(profile_4_rows(sched, out["decode_tok_per_s_4_rows"], profile_tokens))
+            stage("profile")
         out["fault_counts"] = no_fault_counts(state, "server run")
+        if probe is not None:
+            out["probe"] = probe(state)
     finally:
         server.shutdown()
         server.server_close()
@@ -2053,10 +2184,9 @@ def wide_spec_run(server_api, q40, model: str, tok_path: str) -> dict:
     url = f"http://127.0.0.1:{server.server_address[1]}"
     out: dict = {}
     try:
-        system = "You are a helpful assistant. "
-        while len(state.tokenizer.encode(state.template.generate(
-                [ChatItem("system", system), ChatItem("user", "hello")]), add_bos=True)) < 600:
-            system += "hello world, "
+        system = grow_to_tokens("You are a helpful assistant. ", "hello world, ", 600, lambda text: len(
+            state.tokenizer.encode(state.template.generate([ChatItem("system", text), ChatItem("user", "hello")]),
+                                   add_bos=True)))
 
         def body(user):
             return {"messages": [{"role": "system", "content": system}, {"role": "user", "content": user}],
@@ -2521,9 +2651,8 @@ def faults_phase(server_api, attn, q40, model: str, tok_path: str, smi: str) -> 
         gc.collect()
         torch.cuda.empty_cache()
 
-    system = "You are a helpful assistant. "
-    while len(tokenizer.encode(system, add_bos=False)) < 590:
-        system += "hello world, "
+    system = grow_to_tokens("You are a helpful assistant. ", "hello world, ", 590,
+                            lambda text: len(tokenizer.encode(text, add_bos=False)))
     # every user turn starts with its own letter, so the pages a request
     # publishes past the shared system prompt match no other request and
     # each request of a round matches the same shared pages (the warm-up's)
@@ -2867,11 +2996,12 @@ def kernel_paths() -> dict:
             for k, v in m.items() if k.startswith("dllama_kernel_path_total{")}
 
 
-def check_kernel_paths(before: dict, label: str, want=("q40_matmul/k1_dp4a",)) -> dict:
+def check_kernel_paths(before: dict, label: str, want=("q40_matmul/k1_dp4a",), allowed=K1_K2_PATHS) -> dict:
     """A sub-phase's kernel-path counts since ``before``: K1 (the tiles in
-    ``want``) and K2 served, and no plain path (nor einsum) ran."""
+    ``want``, and any other path ``want`` names) and K2 served, and no path
+    outside ``allowed`` (no plain path, nor einsum) ran."""
     moved = {k: v - before.get(k, 0.0) for k, v in kernel_paths().items() if v - before.get(k, 0.0) > 0}
-    check(all(k in K1_K2_PATHS for k in moved), f"{label}: a path other than K1/K2 served: {moved}")
+    check(all(k in allowed for k in moved), f"{label}: a path other than {allowed} served: {moved}")
     check(all(moved.get(k, 0) > 0 for k in want), f"{label}: {want} not all launched: {moved}")
     check(any(k.startswith("paged_attention/k2") for k in moved), f"{label}: K2 not launched: {moved}")
     return moved
@@ -2896,10 +3026,8 @@ def spill_phase(server_api, model: str, tok_path: str, smi: str, workdir: Path, 
     paths, check_paths = kernel_paths, check_kernel_paths
 
     def system_prompt(tokenizer, word: str) -> str:
-        text = f"{word} You are a helpful assistant. "
-        while len(tokenizer.encode(text, add_bos=False)) < 590:
-            text += f"{word} hello world, "
-        return text
+        return grow_to_tokens(f"{word} You are a helpful assistant. ", f"{word} hello world, ", 590,
+                              lambda text: len(tokenizer.encode(text, add_bos=False)))
 
     def body(system, user="hi", max_tokens=SPILL_TOKENS, seed=1, stream=True):
         return {"messages": [{"role": "system", "content": system}, {"role": "user", "content": user}],
@@ -4482,6 +4610,368 @@ def chat_only(smi: str) -> None:
     print(f"card: {smi}")
 
 
+# ----------------------------------------------------------------------
+# Phase 14: serving over tensor-parallel ranks, Mixtral under --tp in the
+# server, and the one-process pod
+# ----------------------------------------------------------------------
+
+
+def tp_server_phase(cli, server_api, attn, kvc, llama, q40, coll, model: str, tok: str) -> dict:
+    """14a: the API server at 7B width (``model``'s TP_LAYERS layers) with
+    --parallel 4, the prefix cache (page 64) and --prefill-chunk 64, at each
+    of TP_SERVE_ARMS, over one engine load per tp. Every greedy completion
+    equals its replay alone on a fresh scheduler token for token (under
+    psum at tp 1 and 2: each replay costs 6-13 s of the run) and is held
+    against the engine's single-stream decode (the first divergence
+    reported); a hit's first-token logits equal a cold prefill's bit for
+    bit (the page-aligned pieces make the suffix dispatch the same shape in
+    both); K2 launched n_layers x forwards x ranks times; the kernel paths
+    K1, K2 (``k2_i8`` on the int8 cache), under ring K4 and K5, never a
+    plain one; under ring every rank's residual stream byte-identical. Records TTFT cold and hit
+    per arm, and at each tp under psum the 4-row step, the aggregate decode
+    rate and the device's busy and idle share (an 8-token profile); the
+    ring and int8 arms are gate runs."""
+    from distributed_llama_tpu_torch import telemetry
+
+    out: dict = {}
+    for tp in sorted({a[0] for a in TP_SERVE_ARMS}):
+        argv = ["generate", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--max-seq-len",
+                str(SERVER_SEQ_LEN), "--temperature", "0", "--tp", str(tp)]
+        t_load = time.perf_counter()
+        built = cli.make_engine(server_api.build_parser().parse_args(argv))
+        engine = built[0]
+        torch.cuda.synchronize()
+        print(f"tp={tp}: engine load {time.perf_counter() - t_load:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} "
+              f"GB on the card, transfer probe {engine._transfer_ms:.3f} ms/token")
+        for _, impl, cache in (a for a in TP_SERVE_ARMS if a[0] == tp):
+            label = f"14a tp={tp} {impl}{' i8' if cache else ''}"
+            print(f"--- {label}")
+            if engine.tp_backend is not None:
+                engine.tp_backend.allreduce = impl
+            engine.cache_dtype = cache or torch.bfloat16
+            engine._default = None  # the single-stream decode's cache takes the arm's dtype
+            extra = ["--prefill-chunk", str(K2_PAGE), "--tp", str(tp), "--allreduce", impl,
+                     *(["--cache-dtype", cache] if cache else [])]
+            want = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma")
+            if impl == "ring":
+                want += ("all_reduce/k4_ring", "all_reduce/k5_fused")
+            telemetry.reset()
+            telemetry.enable()
+            coll.reset_launches()
+            try:
+                # the rates and the profile at each tp under psum (the
+                # ring and int8 arms are gate runs)
+                run = server_run(server_api, attn, kvc, llama, model, tok, q40, extra=extra, built=built,
+                                 single_stream=True, replay=tp < 4 and impl == "psum" and not cache, hit_exact=True,
+                                 rate_rows=(4,) if impl == "psum" and not cache else (), profile_tokens=8)
+                run["kernel_paths"] = check_kernel_paths({}, label, want=want, allowed=TP_PATHS)
+            finally:
+                telemetry.disable()
+                telemetry.reset()
+            check(("paged_attention/k2_i8" if cache else "paged_attention/k2") in run["kernel_paths"],
+                  f"{label}: K2's {'int8' if cache else 'bf16'} form did not serve: {run['kernel_paths']}")
+            run["ring_launches"] = dict(coll.launches)
+            print(f"{label}: kernel paths {run['kernel_paths']}; K4/K5 launches {run['ring_launches']}; seconds by "
+                  f"stage {({k: round(v, 1) for k, v in run['stage_s'].items()})}")
+            if impl == "ring":
+                toks = torch.tensor(built[1].encode(TP_PROMPT, add_bos=True), dtype=torch.int64, device=engine.device)
+                xs, _ = llama.forward_hidden_tp(engine.cfg, engine.params, toks,
+                                                engine.tp_backend.init_cache(engine.cache_dtype), 0, "int8", "ring")
+                check(all(torch.equal(x, xs[0]) for x in xs), f"{label}: the ranks' residual streams differ")
+                print(f"{label}: every rank's residual stream byte-identical after a {len(toks)}-token prompt")
+                del xs
+            out[label.removeprefix("14a ")] = run
+            gc.collect()
+            torch.cuda.empty_cache()
+        del engine, built
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("14a summary (4-row step ms, aggregate tok/s at 4 rows, device idle share, TTFT cold / hit ms): " + "; ".join(
+        f"{k}: {r.get('decode_ms_per_step_4_rows', float('nan')):.2f}, {r.get('decode_tok_per_s_4_rows', float('nan')):.1f}, "
+        f"{r.get('device_idle_share_4_rows', float('nan')):.3f}, {r['ttft_cold_ms']:.1f} / {r['ttft_hit_alone_ms']:.1f}"
+        for k, r in out.items()))
+    return out
+
+
+def moe_tp_server_phase(server_api, attn, kvc, llama, q40, moe, model: str, tok: str) -> dict:
+    """14b: the API server over phase 8b's Mixtral-width file under --tp 2
+    (bf16 cache) with phase 8c's traffic, each greedy completion against
+    the single-stream decode (reported, as 8c does: a 4-row step sums the
+    experts in another order). Ids before logits: 4 lanes prefill 4 prompts
+    and one batched chunk of 4 steps records every router call's ids; each
+    prompt's single-stream decode of 4 steps records its own; the ids of
+    every (row, step, layer) whose routing margin exceeds ROUTE_MARGIN in
+    both must be equal, then the greedy tokens are compared (reported from
+    the first id that differs)."""
+    out = server_run(server_api, attn, kvc, llama, model, tok, q40, extra=("--tp", "2"), single_stream=True,
+                     probe=lambda state: moe_batched_ids(state.engine, state.batch, moe), rate_rows=())
+    print(f"14b: seconds by stage {({k: round(v, 1) for k, v in out['stage_s'].items()})}")
+    return out
+
+
+def moe_batched_ids(engine, sched, moe, n_steps: int = 4) -> dict:
+    """14b's ids check over an idle server's scheduler (see
+    :func:`moe_tp_server_phase`): its 4 lanes prefill 4 short prompts into
+    their slab rows (no page to match or publish), then one batched chunk
+    of ``n_steps`` greedy steps through the backend over those rows."""
+    from distributed_llama_tpu_torch.engine.integrity import split_chunk_outputs
+
+    prompts = [[1, 300 + r, 17, 42, 7 * r + 3] for r in range(4)]
+    lanes = sched._streams[:4]
+    firsts = []
+    for lane, p in zip(lanes, prompts):
+        lane.reset()
+        firsts.append(int(lane.prefill(p).argmax()))
+    L = engine.cfg.n_layers
+    dev = engine.device
+    settings = dict(temperature=torch.zeros(4, device=dev), topp=torch.full((4,), 0.9, device=dev),
+                    topk=torch.zeros(4, dtype=torch.int64, device=dev), seeds=torch.zeros(4, dtype=torch.int64,
+                                                                                       device=dev))
+    with sched._cond, RouteRecorder(moe) as batched:
+        packed, sched._slab = engine.tp_backend.batched_decode_chunk(
+            engine.params, torch.tensor(firsts, device=dev), sched._slab, [lane.pos for lane in lanes], [True] * 4,
+            n_steps, path=engine.q40_path, **settings)
+        got = split_chunk_outputs(packed.cpu().numpy(), n_steps)[0].T.tolist()
+    for lane in lanes:
+        lane.reset()
+    single_ids, single_tokens = [], []
+    stream = engine.default_stream
+    for p, first in zip(prompts, firsts):
+        stream.reset()
+        stream.prefill(p)
+        with RouteRecorder(moe) as rec:
+            single_tokens.append([int(t) for t in stream.decode_chunk(first, n_steps, 0.0, 0.9)])
+        single_ids.append(rec)
+    engine.reset()
+    # the batched chunk's calls: n_steps x L router calls of [4, k] (all four
+    # rows joined one dispatch only if their threads met; any call whose
+    # row count is not 4 makes the comparison by row impossible)
+    check(all(i.shape[0] == 4 for i in batched.ids) and len(batched.ids) == n_steps * L
+          and all(len(r.ids) == n_steps * L for r in single_ids),
+          f"14b: router calls {[tuple(i.shape) for i in batched.ids]}, single {[len(r.ids) for r in single_ids]}")
+    compared = skipped = 0
+    first_diff = None
+    for c, (ids, margins) in enumerate(zip(batched.ids, batched.margins)):
+        for r in range(4):
+            s_ids, s_margin = single_ids[r].ids[c][0], single_ids[r].margins[c][0]
+            if min(float(margins[r]), float(s_margin)) <= ROUTE_MARGIN:
+                skipped += 1
+                continue
+            compared += 1
+            if not torch.equal(ids[r], s_ids) and first_diff is None:
+                first_diff = (r, c // L, c % L, ids[r].tolist(), s_ids.tolist())
+    check(first_diff is None, f"14b: a batched row's expert ids differ from its single-stream decode's (row, step, "
+          f"layer, batched, single): {first_diff}")
+    same = [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+            for g, w in zip(got, single_tokens)]
+    print(f"14b: the expert ids of {compared} (row, step, layer) routings of a 4-row batched chunk equal each row's "
+          f"single-stream decode's ({skipped} with a margin <= {ROUTE_MARGIN} skipped); then greedy tokens equal "
+          f"before the first divergence: {same} of {n_steps}")
+    return {"ids_compared": compared, "ids_skipped": skipped, "tokens_equal_before_divergence": same}
+
+
+def pod_phase(server_api, model: str, tok: str, smi: str) -> dict:
+    """14c: the pod at 7B width (``model``'s TP_LAYERS layers): --pod 2x2
+    --parallel 2 --telemetry (four ranks on the card, two slices of two),
+    4 greedy streams of POD_TOKENS tokens at once; then the same 4 with a
+    ``replica.crash`` on slice 0 mid-decode: every client's text equals the
+    unfaulted round's, the victims replay on slice 1, slice 0 is rebuilt
+    over the same params object and card memory returns to its post-boot
+    level. Then --tp 2 --replicas 2 --parallel 2 (two engines, two trees):
+    the same 4 streams equal the pod's token for token, and its card
+    memory after boot exceeds the pod's by one weight tree (within
+    POD_MEM_TOL_REL). Records card memory after boot of both, the pod's
+    ``dllama_resident_weight_bytes`` and the aggregate decode rate of
+    both."""
+    from distributed_llama_tpu_torch import telemetry
+    from distributed_llama_tpu_torch.engine import faults
+    from distributed_llama_tpu_torch.parallel.pod import tree_weight_bytes
+
+    base = ["generate", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--max-seq-len",
+            str(SERVER_SEQ_LEN), "--decode-chunk", "8", "--chat-template", "chatml", "--host", "127.0.0.1",
+            "--port", "0", "--temperature", "0", "--parallel", "2", "--replica-restart-backoff-s", "0.1",
+            "--telemetry"]
+    bodies = [{"messages": [{"role": "system", "content": "You are a helpful assistant."},
+                            {"role": "user", "content": f"{c} tell me a story about the world"}],
+               "max_tokens": POD_TOKENS, "temperature": 0.0, "seed": 40 + i, "stream": True}
+              for i, c in enumerate("WXYZ")]
+    out: dict = {"card": smi}
+    streams: dict = {}
+    for label, extra in (("pod 2x2", ["--pod", "2x2"]), ("tp 2 replicas 2", ["--tp", "2", "--replicas", "2"])):
+        pod = label.startswith("pod")
+        args = server_api.build_parser().parse_args(base + extra)
+        plan = None
+        if pod:
+            # armed mid-decode below; installed before the server binds it
+            plan = faults.install(faults.parse("replica.crash:kind=raise,row=0,count=1"))
+            plan.rules[0].count = 0
+        telemetry.reset()
+        telemetry.enable()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        server, state = server_api.make_server(args)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            pool = state.pool
+            torch.cuda.synchronize()
+            gc.collect()
+            mem_boot = torch.cuda.memory_allocated()
+            check(len(pool.replicas) == 2, f"14c {label}: {len(pool.replicas)} replicas")
+            row = {"boot_s": time.perf_counter() - t0, "boot_gb": mem_boot / 1e9,
+                   "boot_delta_gb": (mem_boot - mem0) / 1e9}
+            captured: list = []
+            for rep in pool.replicas:
+                _capture_streams(types.SimpleNamespace(slots=rep.slots), captured, tag=f"r{rep.idx}")
+            _post_any(url, dict(bodies[0], max_tokens=2, seed=39))  # warm
+            res = _concurrent(url, bodies)
+            check(all(r["status"] == 200 for r in res), f"14c {label}: {[r['status'] for r in res]}")
+            texts = [_sse_text(r["payload"])[0] for r in res]
+            ids = {seed: i for _, _, seed, i, _ in captured if seed >= 40}
+            n = sum(len(i) - 1 for i in ids.values())
+            window = max(r["end_s"] for r in res) - min(r["first_s"] for r in res)
+            row.update(tok_s=n / window, tokens=n, window_s=window)
+            streams[label] = ids
+            print(f"14c {label}: up in {row['boot_s']:.1f} s, card memory {mem_boot / 1e9:.2f} GB after boot "
+                  f"(+{row['boot_delta_gb']:.2f} GB); 4 streams of {POD_TOKENS} tokens, aggregate "
+                  f"{row['tok_s']:.1f} tok/s over {window:.2f} s")
+            if pod:
+                group = state._weights_versions[state._boot_version]
+                m = _scrape(url)
+                row.update(weight_bytes=group.weight_bytes, tree_bytes=tree_weight_bytes(group.params),
+                           resident_per_replica=m.get('dllama_resident_weight_bytes{group="per_replica"}'),
+                           resident_pod=m.get('dllama_resident_weight_bytes{group="pod"}'),
+                           mesh=[m.get(f'dllama_mesh_devices{{axis="{a}"}}') for a in ("data", "model")])
+                check(row["resident_pod"] == group.weight_bytes and row["mesh"] == [2.0, 2.0]
+                      and row["resident_per_replica"] == group.weight_bytes // 2,
+                      f"14c: the pod's /metrics gauges {row}")
+                check(all(r.engine.params is group.params for r in pool.replicas),
+                      "14c: the slices do not share the pod's params object")
+                # the faulted round: every stream past its first delta, then
+                # slice 0's next dispatch crashes
+                n_ref = len(captured)
+                for slot in state.slots:
+                    slot.stream.reset()
+                sses: list = [None] * len(bodies)
+                openers = [threading.Thread(target=lambda i=i: sses.__setitem__(i, _open_sse(url, bodies[i])))
+                           for i in range(len(bodies))]
+                for th in openers:
+                    th.start()
+                for th in openers:
+                    th.join()
+                check(all(sses), "14c: a faulted-round stream did not open")
+                firsts = [_read_deltas(sse, 1) for sse in sses]
+                plan.rules[0].count = 1
+                plan.reset()
+                rests = [_read_rest(sse) for sse in sses]
+                check(all(r[1] is None for r in rests), f"14c: SSE errors {[r[1] for r in rests]}")
+                got = [f + r[0] for f, r in zip(firsts, rests)]
+                check(got == texts, f"14c: a client's stream differs from the unfaulted round's: "
+                      f"{[(g, w) for g, w in zip(got, texts) if g != w]}")
+                check(pool.failovers_total == 1 and pool.replayed_total == pool.last_failover_victims > 0,
+                      f"14c: failovers {pool.failovers_total}, replays {pool.replayed_total}, victims "
+                      f"{pool.last_failover_victims}")
+                replays = [i for _, _, seed, i, where in captured[n_ref:] if where == "r1"]
+                check(pool.wait_state(0, "healthy", timeout_s=300), "14c: slice 0 did not come back")
+                check(pool.replicas[0].engine.params is group.params,
+                      "14c: the rebuilt slice does not read the pod's params object")
+                gc.collect()
+                torch.cuda.synchronize()
+                mem_after = torch.cuda.memory_allocated()
+                check(abs(mem_after - mem_boot) <= MEMORY_TOL_REL * mem_boot,
+                      f"14c: card memory {mem_after / 1e9:.2f} GB after the rebuild, {mem_boot / 1e9:.2f} GB after "
+                      "boot")
+                row.update(victims=pool.last_failover_victims, replays=pool.replayed_total,
+                           after_rebuild_gb=mem_after / 1e9, restarts=pool.restarts_total)
+                print(f"14c pod: replica.crash on slice 0 mid-decode: {pool.last_failover_victims} victims replayed "
+                      f"on slice 1 ({len(replays)} decodes there), every client's text equal to the unfaulted "
+                      f"round's; slice 0 rebuilt over the same params object; card memory {mem_after / 1e9:.2f} GB "
+                      f"after the rebuild vs {mem_boot / 1e9:.2f} GB after boot; resident weight bytes: pod "
+                      f"{row['resident_pod']:.0f}, per replica {row['resident_per_replica']:.0f}")
+            out[label] = row
+        finally:
+            faults.clear()
+            server.shutdown()
+            server.server_close()
+            state.close()
+            telemetry.disable()
+            telemetry.reset()
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(streams["pod 2x2"] == streams["tp 2 replicas 2"], "14c: the pod's streams differ from the --tp 2 server's")
+    pod, reps = out["pod 2x2"], out["tp 2 replicas 2"]
+    saved = (reps["boot_delta_gb"] - pod["boot_delta_gb"]) * 1e9
+    out["memory_saved_bytes"] = saved
+    check(abs(saved - pod["weight_bytes"]) <= POD_MEM_TOL_REL * pod["weight_bytes"],
+          f"14c: the pod saves {saved / 1e9:.3f} GB of card memory, one weight tree is {pod['weight_bytes'] / 1e9:.3f} GB")
+    print(f"14c: the pod's 4 streams equal the --tp 2 --replicas 2 server's token for token; card memory after boot "
+          f"{pod['boot_delta_gb']:.2f} GB (pod) vs {reps['boot_delta_gb']:.2f} GB (2 replicas): {saved / 1e9:.3f} GB "
+          f"saved, one weight tree {pod['weight_bytes'] / 1e9:.3f} GB; aggregate {pod['tok_s']:.1f} vs "
+          f"{reps['tok_s']:.1f} tok/s")
+    return out
+
+
+def tp_serve_phases(cli, server_api, attn, kvc, llama, q40, coll, model: str, tok: str, smi: str,
+                    summary: dict) -> None:
+    """Phase 14's kernel checks at the per-rank shapes, 14a and 14c over the
+    7B-width ``model``; results go into ``summary`` (14b runs with phase 8's
+    Mixtral files: :func:`moe_tp_server_phase`)."""
+    t = phase("14. K1 at the 7B per-rank shards (tp 2, 4), K2 at 16 and 8 kv heads per rank")
+    summary["tp_kernel_rows"] = k1_checks(q40, shapes=TP_SHARD_SHAPES, ts=(1,)) + k2_checks(
+        attn, kvc, contracts=False, cases=K2_TP_CASES)
+    t = phase(f"14a. the slice's path: the API server under --tp, Llama-2-7B width, {TP_LAYERS} layers")
+    summary["tp_server"] = tp_server_phase(cli, server_api, attn, kvc, llama, q40, coll, model, tok)
+    print(f"phase 14a: {time.perf_counter() - t:.1f} s")
+    t = phase(f"14c. the slice's path: the one-process pod (--pod 2x2), Llama-2-7B width, {TP_LAYERS} layers")
+    summary["pod"] = pod_phase(server_api, model, tok, smi)
+    print(f"phase 14c: {time.perf_counter() - t:.1f} s")
+
+
+def tp_serve_only(smi: str) -> None:
+    """``--tp-serve``: phase 2, then phase 14 alone: the kernel checks, 14a
+    and 14c over a 7B-width file at TP_LAYERS layers, 14b over a
+    Mixtral-width file at MIXTRAL_LAYERS (results in
+    build/chip_smoke_tp_serve.json)."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.apps import cli
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.models import llama, moe
+    from distributed_llama_tpu_torch.ops import attention as attn
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.ops import cuda_build, q40
+    from distributed_llama_tpu_torch.ops import kv_cache as kvc
+    from distributed_llama_tpu_torch.server import api as server_api
+
+    t_all = phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    summary: dict = {"card": smi}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, Path(tmp), TP_LAYERS)
+        tp_serve_phases(cli, server_api, attn, kvc, llama, q40, coll, model, tok, smi, summary)
+        os.remove(model)
+        t = phase(f"14b. the slice's path: the API server under --tp 2 at Mixtral-8x7B width, {MIXTRAL_LAYERS} layers")
+        spec = synthetic.mixtral_8x7b_spec(n_layers=MIXTRAL_LAYERS, seq_len=4096)
+        model = str(Path(tmp) / "mixtral_8x7b_width.m")
+        synthetic.write_random_q40_model(model, spec, seed=0)
+        tok = str(Path(tmp) / "tok_mixtral.t")
+        with open(tok, "wb") as f:
+            write_tokenizer_file(f, synthetic.synthetic_tokenizer_data(vocab_size=spec.vocab_size))
+        summary["moe_tp_server"] = moe_tp_server_phase(server_api, attn, kvc, llama, q40, moe, model, tok)
+        print(f"phase 14b: {time.perf_counter() - t:.1f} s")
+    summary["total_s"] = time.perf_counter() - t_all
+    summary["phase_s"] = phase_seconds(time.perf_counter())
+    out = ROOT / "build" / "chip_smoke_tp_serve.json"
+    out.write_text(json.dumps(summary, indent=1, default=str))
+    print(f"seconds by phase: {summary['phase_s']}")
+    print(f"phase 14 with its set-up: {summary['total_s']:.1f} s; details in {out}")
+    print(f"card: {smi}")
+
+
 def _import_port(root: Path, name: str):
     """The port's ``ops`` module ``name`` from the tree under ``root``."""
     sys.path.insert(0, str(root))
@@ -4596,6 +5086,9 @@ def main() -> None:
     parser.add_argument("--chat", action="store_true",
                         help="phase 13 alone (convert a Hugging Face checkpoint, chat on it, and Mixtral-8x7B width "
                         "under --tp 2 and 4)")
+    parser.add_argument("--tp-serve", action="store_true",
+                        help="phase 14 alone (serving over tensor-parallel ranks: the per-rank kernel shapes, the "
+                        "7B-width server under --tp, Mixtral-8x7B width under --tp 2 in the server, and --pod 2x2)")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
@@ -4608,9 +5101,11 @@ def main() -> None:
                              (lambda root, smi: faults_only(smi), opts.faults),
                              (lambda root, smi: spill_only(smi), opts.spill),
                              (lambda root, smi: fleet_only(smi), opts.fleet),
-                             (lambda root, smi: chat_only(smi), opts.chat)) if on]
+                             (lambda root, smi: chat_only(smi), opts.chat),
+                             (lambda root, smi: tp_serve_only(smi), opts.tp_serve)) if on]
     if len(alone) > 1:
-        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill, --fleet, --chat")
+        parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill, --fleet, --chat, "
+                     "--tp-serve")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4786,13 +5281,16 @@ def main() -> None:
         summary["k2_rows"] = k2_rows
         print(f"phase 6a: {time.perf_counter() - t:.1f} s")
 
-        # phase 7c's 8-layer file, written now: 6c's 16-row server and
-        # phases 9 to 12 run over it in the full run (their depth cut to keep
-        # the run inside its time limit; --loadgen, --faults, --spill and
-        # --fleet alone keep all 32 layers)
-        model_tp = str(workdir / "llama2_7b_width_tp.m")
-        synthetic.write_random_q40_model(model_tp, synthetic.llama2_7b_spec(n_layers=TP_LAYERS, seq_len=4096),
-                                         seed=0)
+        # phase 7c's 8-layer file: 6c's 16-row server and phases 9 to 12
+        # and 14 run over it in the full run (their depth cut to keep the
+        # run inside its time limit; --loadgen, --faults, --spill and
+        # --fleet alone keep all 32 layers); phase 5's file when it has as
+        # many layers (the same seed, the same bytes)
+        model_tp = model
+        if MAIN_LAYERS != TP_LAYERS:
+            model_tp = str(workdir / "llama2_7b_width_tp.m")
+            synthetic.write_random_q40_model(model_tp, synthetic.llama2_7b_spec(n_layers=TP_LAYERS, seq_len=4096),
+                                             seed=0)
 
         t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {MAIN_LAYERS} layers")
         summary["server"] = server_run(server_api, attn, kvc, llama, model, tok, q40)
@@ -4858,18 +5356,26 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-        os.remove(model)  # room on the disk for phase 7c's and phase 8's files
+        if model_tp != model:
+            os.remove(model)  # room on the disk for phase 7c's and phase 8's files
         t = phase(f"7c. the slice's path: CLI generate --tp 2/4 --allreduce ring, Llama-2-7B width, "
                   f"{TP_LAYERS} layers")
         summary["tp"] = tp_runs(cli, llama, coll, q40, model_tp, tok)
         for name in ("ring_all_reduce", "fused_matmul_ring"):
             main_launches[name] = summary["tp"]["tp2"]["launches"][name]
-        os.remove(model_tp)
         print(f"phase 7c: {time.perf_counter() - t:.1f} s")
+        tp_serve_phases(cli, server_api, attn, kvc, llama, q40, coll, model_tp, tok, smi, summary)
+        os.remove(model_tp)
+
+        def after_8c(m, t_):
+            moe_tp_phases(cli, moe, q40, coll, llama, synthetic, write_tokenizer_file, workdir, summary, (m, t_))
+            t14 = phase(f"14b. the slice's path: the API server under --tp 2 at Mixtral-8x7B width, "
+                        f"{MIXTRAL_LAYERS} layers")
+            summary["moe_tp_server"] = moe_tp_server_phase(server_api, attn, kvc, llama, q40, moe, m, t_)
+            print(f"phase 14b: {time.perf_counter() - t14:.1f} s")
 
         moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, workdir, summary,
-                   after_8c=lambda m, t_: moe_tp_phases(cli, moe, q40, coll, llama, synthetic, write_tokenizer_file,
-                                                        workdir, summary, (m, t_)))
+                   after_8c=after_8c)
         chat_phases(cli, q40, synthetic, workdir, summary)
 
     kernels = []
@@ -4952,6 +5458,25 @@ def main() -> None:
     kernels.append(dict(name="ring_all_reduce_moe_tp", route="cuda", source=src, replaces=replaces,
                         launches=ring2["ring_all_reduce"], max_abs_err=k4["max_abs_err"],
                         **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")}))
+    # phase 14a's path (the server under --tp 2, psum): K1's dp4a tile over
+    # one decoded token's shard launches on both ranks (qkv, wo, gate_up and
+    # down of 32 layers, T=1); K2 at 16 kv heads per rank over one 4-row
+    # batched decode step on both ranks (32 layers)
+    tp2 = summary["tp_server"]["tp=2 psum"]
+    k1_tp = [r for r in summary["tp_kernel_rows"] if r["kernel"] == "q40_int8" and r["shape"].startswith("tp2_")]
+    src, replaces = KERNEL_INFO["q40_int8"]
+    kernels.append(dict(
+        name="q40_int8_tp_serve", route="cuda", source=src, replaces=replaces, launches=tp2["k1_tile_launches"]["dp4a"],
+        max_abs_err=max(r["max_abs_err"] for r in k1_tp),
+        **{k: sum(r[k] * r["per_token"] for r in k1_tp) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in k1_tp) else "operations"))
+    k2_tp = next(r for r in summary["tp_kernel_rows"] if r.get("case") == "B4 K16 M1" and r["dtype"] == "torch.bfloat16")
+    src, replaces = KERNEL_INFO["paged_attention"]
+    kernels.append(dict(
+        name="paged_attention_tp_serve", route="cuda", source=src, replaces=replaces,
+        launches=tp2["main_path_launches"], max_abs_err=k2_tp["max_abs_err"],
+        **{k: k2_tp[k] * N_LAYERS * 2 for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by=k2_tp["bound_by"]))
     summary["kernels"] = kernels
     end = time.perf_counter()
     summary["total_s"] = end - t_all
@@ -4975,7 +5500,10 @@ def main() -> None:
           "experts x gate_up and down per layer), launches are phase 8b's; q40_int8_moe_tp: one decoded token's "
           f"expert shard launches at --tp 2 ({MIXTRAL_LAYERS} layers, 2 experts x gate_up 4096->14336 and down "
           "7168->4096 x 2 ranks, T=1), ring_all_reduce_moe_tp: one expert sum [1, 4096] over 2 ranks, their launches "
-          "phase 13c's --tp 2 --allreduce ring run")
+          "phase 13c's --tp 2 --allreduce ring run; q40_int8_tp_serve: one decoded token's shard launches at --tp 2 "
+          f"(qkv 4096->6144, wo 2048->4096, gate_up 4096->11008, down 5504->4096, x {N_LAYERS} layers x 2 ranks, "
+          "T=1), paged_attention_tp_serve: one 4-row batched decode step at 16 kv heads per rank x 2 ranks x "
+          f"{N_LAYERS} layers, their launches phase 14a's --tp 2 psum server ({TP_LAYERS} layers)")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,7 +12,11 @@ device stream token for token). ``--device cpu`` runs on the CPU with the
 kernels' plain PyTorch versions; the default is the card. ``--tp N`` runs
 N tensor-parallel ranks on that one device, their two all-reduces per layer
 summed by the ``--allreduce`` arm; Mixtral and Grok-1 files run under it
-too, each rank holding a hidden slice of every expert. ``--moe-capacity F``
+too, each rank holding a hidden slice of every expert. ``--pod DATAxMODEL``
+builds a one-process pod (:mod:`parallel.pod`) and runs one slice of it:
+``MODEL`` ranks over the one params tree the pod's slices share (the API
+server serves every slice); it does not compose with ``--tp``.
+``--moe-capacity F``
 opts a MoE model's Q40 prefill into capacity-bucketed experts.
 ``--telemetry`` (or ``DLLAMA_TELEMETRY=1``) enables the metrics registry
 and span tracer before the engine is built, and writes the run's Chrome
@@ -58,6 +62,8 @@ _CACHE_DTYPES = {"auto": None, "bf16": torch.bfloat16, "f32": torch.float32, "i8
 MODES = ("inference", "generate", "chat")
 WORKER_NOT_PORTED = ("worker mode (several hosts) is not ported yet "
                      "(ROADMAP.md Queue 1: ranks on several cards)")
+SP_EP_NOT_PORTED = ("--sp and --ep are not ported yet "
+                    "(ROADMAP.md Queue 1: sequence parallel and expert parallel)")
 
 
 def _mode(value: str) -> str:
@@ -103,6 +109,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks (a power of two), all on --device")
+    p.add_argument("--sp", type=int, default=1, help="sequence-parallel ranks: not ported (raises above 1)")
+    p.add_argument("--ep", type=int, default=1, help="expert-parallel ranks: not ported (raises above 1)")
+    p.add_argument("--pod", type=str, default=None, metavar="DATAxMODEL",
+                   help="one-process pod serving (e.g. 2x2): DATA replica slices, each MODEL tensor-parallel ranks, "
+                   "all over ONE shared weights tree on --device (no per-replica weight copies). The API server runs "
+                   "one supervised replica per slice (a slice failure is a replica loss with failover replay, and "
+                   "its rebuild never reloads weights); the CLI modes run one slice. Does not compose with --tp")
     p.add_argument("--allreduce", choices=list(IMPLS), default="psum",
                    help="all-reduce of the tensor-parallel ranks: psum (the plain sum in rank order), ring_xla "
                    "(the plain ring schedule) or ring (the hand-written ring kernel, fused with the int8 "
@@ -118,7 +131,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _make_sampler(args, vocab_size: int) -> Sampler:
+    # wall-clock as entropy for a default sampling seed, never a duration
+    seed = args.seed if args.seed is not None else int(time.time())
+    return Sampler(vocab_size=vocab_size, temperature=args.temperature, topp=args.topp, topk=args.topk, seed=seed)
+
+
+def make_pod_group(args):
+    """Build the one-process pod from the flags: ONE model load for every
+    slice, plus the tokenizer and sampler ``make_engine`` returns. The
+    group is the serving layer's engine factory (slice engines share its
+    params; a replica rebuild never reloads the file)."""
+    from distributed_llama_tpu_torch.parallel.pod import PodGroup, parse_pod
+
+    if getattr(args, "tp", 1) > 1 or getattr(args, "sp", 1) > 1 or getattr(args, "ep", 1) > 1:
+        raise SystemExit("--pod owns the whole rank layout; it does not compose with --tp/--sp/--ep (the pod's MODEL "
+                         "extent IS the tensor-parallel degree)")
+    data, model = parse_pod(args.pod)
+    group = PodGroup.build(
+        args.model, data, model, dtype=_DTYPES[args.dtype], max_seq_len=args.max_seq_len,
+        cache_dtype=_CACHE_DTYPES[getattr(args, "cache_dtype", "auto")], device=args.device,
+        q40_path=args.q40_path, allreduce=getattr(args, "allreduce", "psum"),
+        moe_capacity_factor=getattr(args, "moe_capacity", 0.0) or 0.0,
+    )
+    tokenizer = Tokenizer.from_file(args.tokenizer, group.cfg.vocab_size)
+    return group, tokenizer, _make_sampler(args, group.cfg.vocab_size)
+
+
 def make_engine(args):
+    if getattr(args, "sp", 1) > 1 or getattr(args, "ep", 1) > 1:
+        raise NotImplementedError(SP_EP_NOT_PORTED)
+    if getattr(args, "pod", None):
+        # one slice of a freshly built pod (generate/inference/chat); the
+        # server keeps the group itself, for replica rebuilds
+        group, tokenizer, sampler = make_pod_group(args)
+        return group.slice_engine(), tokenizer, sampler
     engine = InferenceEngine(
         args.model, dtype=_DTYPES[args.dtype], max_seq_len=args.max_seq_len,
         device=args.device, q40_path=args.q40_path,
@@ -127,13 +174,7 @@ def make_engine(args):
         moe_capacity_factor=getattr(args, "moe_capacity", 0.0) or 0.0,
     )
     tokenizer = Tokenizer.from_file(args.tokenizer, engine.cfg.vocab_size)
-    # wall-clock as entropy for a default sampling seed, never a duration
-    seed = args.seed if args.seed is not None else int(time.time())
-    sampler = Sampler(
-        vocab_size=engine.cfg.vocab_size, temperature=args.temperature, topp=args.topp,
-        topk=args.topk, seed=seed,
-    )
-    return engine, tokenizer, sampler
+    return engine, tokenizer, _make_sampler(args, engine.cfg.vocab_size)
 
 
 def _print(s: str) -> None:

@@ -95,8 +95,17 @@ The port's copy of the JAX package's ``engine/batch.py`` serving core.
   that the server replays on a surviving replica (a
   :class:`faults.ReplicaCorrupt` when an integrity check found the loss).
 
-Left out (in ROADMAP.md): the tensor-parallel backend. The scheduler's
-condition is a ``lockcheck`` construction site (``DLT_LOCK_CHECK``).
+* Tensor parallelism: over an engine with a ``tp_backend``
+  (parallel/tensor_parallel.py) the slab and the pool are per-rank lists
+  of the same leaves cut to ``K/tp`` kv heads, and the prefill, the
+  publish and the batched chunks go through the backend, every rank on its
+  own heads; tables, positions and sampler settings are shared. Two modes
+  stay single-device, as in the JAX package: speculative decode and the
+  host spill tier are disabled with a warning. A backend may raise the
+  row bucket floor (``decode_bucket_floor``).
+
+The scheduler's condition is a ``lockcheck`` construction site
+(``DLT_LOCK_CHECK``).
 
 Thread model: request threads call into their own :class:`BatchStream`;
 whichever thread needs tokens first dispatches the shared chunk for
@@ -329,11 +338,12 @@ class BatchScheduler:
                  stall_timeout_s: float | None = None, prefix_cache: bool = False, kv_pages: int | None = None,
                  page_size: int = 64, prefill_chunk: int = 0, spec_draft: int = 0, spec_ngram: int = 3,
                  replica_id: int = 0, spill_arena=None, shared_index=None):
+        tp = getattr(engine, "tp_backend", None)
+        if tp is not None and not hasattr(tp, "batched_decode_chunk"):
+            raise ValueError("batched decode is supported on the single-chip and tp backends only (sp/ep keep "
+                             "single-stream dispatches)")
         if n_rows < 1:
             raise ValueError(f"need at least one batch row, got {n_rows}")
-        if getattr(engine, "tp_backend", None) is not None:
-            raise NotImplementedError("the batched scheduler over tensor-parallel ranks is not ported yet "
-                                      "(ROADMAP.md Queue 1: the batched TP scheduler)")
         self.engine = engine
         self.b_max = n_rows
         self.chunk = int(chunk)
@@ -381,21 +391,36 @@ class BatchScheduler:
                 # the host spill tier: the arena the server shares across
                 # its replicas (None: an evicted page vanishes)
                 arena = spill_arena
+                if arena is not None and tp is not None:
+                    print("⚠️ host-RAM spill disabled: the sharded tp page pool has no download/upload programs "
+                          "yet (single-chip backend only)")
+                    arena = None
                 self._prefix = PrefixCache(kv_pages, page_size,
                                            page_bytes=llama.page_pool_bytes(cfg, page_size, engine.cache_dtype),
                                            spill=arena, page_fetch=self._download_page if arena is not None else None,
                                            owner_id=replica_id, shared_index=shared_index)
-                self._pool = llama.init_page_pool(cfg, kv_pages, page_size, engine.cache_dtype, engine.device)
+                if tp is None:
+                    self._pool = llama.init_page_pool(cfg, kv_pages, page_size, engine.cache_dtype, engine.device)
+                else:  # per-rank [P, page, K/tp, hd] halves
+                    self._pool = tp.init_page_pool(kv_pages, page_size, engine.cache_dtype)
                 self._n_table = n_table
                 if arena is not None and engine.device.type == "cuda":
                     self._copy_stream = torch.cuda.Stream(engine.device)
-        self._slab = llama.init_batch_cache(cfg, n_rows, engine.cache_dtype, engine.device)
+        if tp is None:
+            self._slab = llama.init_batch_cache(cfg, n_rows, engine.cache_dtype, engine.device)
+        else:  # per-rank [B, S, K/tp, hd] slabs
+            self._slab = tp.init_batch_cache(n_rows, engine.cache_dtype)
+        # the fewest rows a chunk covers, as the backend asks (1: the buckets)
+        self._bucket_floor = min(n_rows, max(1, int(getattr(tp, "decode_bucket_floor", 1)))) if tp else 1
         # speculative decode: spec_draft > 0 turns every dispatch into a
         # verify step; misconfiguration disables it with its reason
         self.spec_draft = 0
         self.spec_ngram = max(1, int(spec_ngram))
         if spec_draft and int(spec_draft) > 0:
-            if cfg.is_moe:
+            if tp is not None:
+                print("⚠️ speculative decode disabled: the batched verify forward is single-chip only for now "
+                      "(the tp verify needs the sharded multi-token program)")
+            elif cfg.is_moe:
                 print("⚠️ speculative decode disabled: MoE verify windows have no decode parity contract")
             else:
                 self.spec_draft = int(spec_draft)
@@ -636,9 +661,14 @@ class BatchScheduler:
                     # plain prefill, so one path serves hits and misses
                     table, matched = self._alias_row_arrays_locked(stream)
                     paged = (self._pool, table, matched)
-                row_cache = [kvc.slab_row(leaf, stream.row) for leaf in self._slab]
-                logits, _ = llama.forward_tokens(engine.cfg, engine.params, to_device(padded, engine.device),
-                                                 row_cache, stream.pos, engine.q40_path, paged=paged, n_real=c)
+                toks = to_device(padded, engine.device)
+                if engine.tp_backend is not None:
+                    logits, self._slab = engine.tp_backend.slab_forward(
+                        engine.params, toks, self._slab, stream.row, stream.pos, c, engine.q40_path, paged=paged)
+                else:
+                    row_cache = [kvc.slab_row(leaf, stream.row) for leaf in self._slab]
+                    logits, _ = llama.forward_tokens(engine.cfg, engine.params, toks, row_cache, stream.pos,
+                                                     engine.q40_path, paged=paged, n_real=c)
                 stream.pos += c
             off += c
             if tr is not None:
@@ -802,9 +832,13 @@ class BatchScheduler:
                 return
             try:
                 with self.engine._tel.span("prefix_publish", pages=len(new_ids), batch_row=stream.row):
-                    for leaf, (pk, pv) in zip(self._slab, self._pool):
-                        kvc.publish_row_pages(pk, leaf[0], stream.row, new_blocks, new_ids, prefix.page)
-                        kvc.publish_row_pages(pv, leaf[1], stream.row, new_blocks, new_ids, prefix.page)
+                    tp = self.engine.tp_backend
+                    if tp is not None:  # each rank moves its own kv-head slice
+                        self._pool = tp.publish_pages(self._slab, self._pool, new_ids, new_blocks, stream.row)
+                    else:
+                        for leaf, (pk, pv) in zip(self._slab, self._pool):
+                            kvc.publish_row_pages(pk, leaf[0], stream.row, new_blocks, new_ids, prefix.page)
+                            kvc.publish_row_pages(pv, leaf[1], stream.row, new_blocks, new_ids, prefix.page)
                     self._mark_page_written_locked(new_ids)
             except Exception as e:
                 prefix.unpublish(tokens, new_ids, new_blocks)
@@ -931,7 +965,8 @@ class BatchScheduler:
             self._sdc_logits_pending += 1
             return
         engine = self.engine
-        engine.params, desc = integrity.corrupt_params(engine.params, seed=getattr(self._faults, "seed", 0))
+        engine.params, desc = integrity.corrupt_params(engine.params, seed=getattr(self._faults, "seed", 0),
+                                                       copy=getattr(engine, "shares_params", False))
         print(f"🧬 engine.sdc injected on replica {self.replica_id}: corrupted {desc}")
 
     # ------------------------------------------------------------------
@@ -1152,7 +1187,7 @@ class BatchScheduler:
         if not joined:
             self._cond.notify_all()
             return
-        bucket = decode_bucket(max(s.row for s in joined) + 1, self.b_max)
+        bucket = decode_bucket(max(max(s.row for s in joined) + 1, self._bucket_floor), self.b_max)
         rows = self._streams[:bucket]
         live, pos, temps, topps, topks, seeds, tables, matched = self._row_dispatch_arrays_locked(rows)
         dev = engine.device
@@ -1172,7 +1207,18 @@ class BatchScheduler:
 
         def dispatch():
             with tel.span("batch_decode_chunk", bucket=bucket, active=len(joined), steps=self.chunk):
-                if self._pool is not None:
+                tp = engine.tp_backend
+                if tp is not None and self._pool is not None:
+                    out, self._slab = tp.batched_decode_chunk_paged(
+                        engine.params, first, self._slab, self._pool, pos, live, self.chunk, settings["temperature"],
+                        settings["topp"], settings["topk"], settings["seeds"], tables, matched, engine.q40_path,
+                        settings["may_partition"])
+                elif tp is not None:
+                    out, self._slab = tp.batched_decode_chunk(
+                        engine.params, first, self._slab, pos, live, self.chunk, settings["temperature"],
+                        settings["topp"], settings["topk"], settings["seeds"], engine.q40_path,
+                        settings["may_partition"])
+                elif self._pool is not None:
                     out, self._slab = sampling.decode_chunk_batched_paged(
                         engine.cfg, engine.params, first, self._slab, pos, live, self._pool, self.chunk,
                         tables=tables, matched=matched, **settings)

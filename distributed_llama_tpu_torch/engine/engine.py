@@ -540,6 +540,9 @@ class InferenceEngine:
     capacity-bucketed experts (lossy: overflow rows drop)."""
 
     TRANSFER_REFRESH_TOKENS = 512
+    # True for a pod slice's engine, whose params object other engines read
+    # too: an injected weight corruption then corrupts a copy of its own
+    shares_params = False
 
     def __init__(self, model_path: str, dtype="q40", max_seq_len: int | None = None,
                  device="cuda", q40_path: str = "int8", cache_dtype=None, tp: int = 1,
@@ -575,6 +578,36 @@ class InferenceEngine:
         self.cache_dtype = cache_dtype
         self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device, tp=tp)
         reader.close()
+        self._init_runtime()
+
+    @classmethod
+    def from_backend(cls, cfg: LlamaConfig, backend, params, cache_dtype=torch.bfloat16, spec=None,
+                     q40_path: str = "int8") -> "InferenceEngine":
+        """An engine over a pre-built tensor-parallel backend and its
+        already-placed per-rank params: the one-process pod's slice engines
+        (:mod:`parallel.pod`) share the backend and the params object, while
+        each keeps its own caches, streams and stats. A slice rebuild goes
+        through here too, so weights are never reloaded."""
+        self = cls.__new__(cls)
+        if q40_path not in PATHS:
+            raise ValueError(f"unknown q40 path {q40_path!r}; expected one of {PATHS}")
+        self.q40_path = q40_path
+        self._tel = telemetry.EngineInstruments()
+        self._faults = faults.active_plan()
+        self.spec = spec
+        self.cfg = cfg
+        self.device = backend.devices[0]
+        self.tp = backend.tp
+        self.tp_backend = backend
+        self.cache_dtype = cache_dtype
+        self.params = params
+        self.shares_params = True
+        self._init_runtime()
+        return self
+
+    def _init_runtime(self) -> None:
+        """Per-engine mutable state, shared by the loading constructor and
+        :meth:`from_backend`."""
         self._default: EngineStream | None = None
         self._spec_fallback_warned = False
         self._transfer_ms = 0.0
@@ -583,7 +616,22 @@ class InferenceEngine:
         # the load-time weight checksum, computed at its first read
         self._weights_checksum: str | None = None
         if self.tp_backend is not None:
+            self._measure_transfer()
+            # the serving shape on /metrics: ranks along each named axis
+            tel = telemetry.MeshInstruments()
+            if tel.enabled:
+                for axis, size in self.tp_backend.mesh_shape.items():
+                    tel.mesh_devices.labels(axis=axis).set(size)
+
+    def _measure_transfer(self) -> None:
+        """Run the backend's transfer probe. A failed probe (a flaky
+        interconnect, an injected ``tp.transfer`` fault) keeps the last
+        estimate (0 before the first) instead of failing the request that
+        triggered it; the next cadence retries."""
+        try:
             self._transfer_ms = self.tp_backend.measure_transfer_ms()
+        except Exception:
+            pass
 
     def weights_checksum(self) -> str:
         """The loaded weights' integrity checksum, cached after the first
@@ -629,7 +677,7 @@ class InferenceEngine:
         quiescent point: nothing of theirs is queued on the device)."""
         if self.tp_backend is None or self._tokens - self._transfer_measured_at < self.TRANSFER_REFRESH_TOKENS:
             return
-        self._transfer_ms = self.tp_backend.measure_transfer_ms()
+        self._measure_transfer()
         self._transfer_measured_at = self._tokens
 
     def _new_cache(self):

@@ -63,6 +63,10 @@ accepts every site name of the JAX package; the port fires these:
                             threshold and the replica turns SUSPECT until a
                             fast round trip clears it. ``row=`` selects the
                             replica id
+``tp.transfer``             raise/delay inside the tensor-parallel transfer
+                            probe (parallel/tensor_parallel.py): the engine
+                            keeps its last estimate (0 before the first)
+                            instead of failing the request that triggered it
 ``server.send``             raise ``BrokenPipeError`` from the SSE chunk
                             writer (``kind=disconnect``)
 ``server.rollout``          fired once per blue-green rollout move
@@ -72,9 +76,6 @@ accepts every site name of the JAX package; the port fires these:
                             fails certification, ``delay``/``hang`` hold
                             the cutover window open
 ==========================  =================================================
-
-``tp.transfer`` parses but never fires: its subsystem is not ported
-(ROADMAP.md Queue 1: the batched TP scheduler).
 
 Zero overhead when disabled: components bind ``self._faults =
 faults.active_plan()`` at construction and get the shared

@@ -28,6 +28,7 @@ The port's copy of the JAX package's ``engine/integrity.py``.
 
 from __future__ import annotations
 
+import dataclasses
 import random
 import zlib
 
@@ -161,14 +162,33 @@ class ChecksumMismatch(RuntimeError):
 # ----------------------------------------------------------------------
 
 
-def corrupt_params(params, seed: int = 0, scale: float = -1.7319):
+def _with_leaf(tree, old: torch.Tensor, new: torch.Tensor):
+    """``tree`` with the leaf that is ``old`` replaced by ``new``: the
+    containers on the way are copied, every other leaf is shared."""
+    from distributed_llama_tpu_torch.ops.q40 import QuantizedMatrix
+
+    if tree is old:
+        return new
+    if isinstance(tree, QuantizedMatrix):
+        return dataclasses.replace(tree, qs=_with_leaf(tree.qs, old, new), scales=_with_leaf(tree.scales, old, new))
+    if isinstance(tree, dict):
+        return {k: _with_leaf(v, old, new) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_with_leaf(v, old, new) for v in tree)
+    return tree
+
+
+def corrupt_params(params, seed: int = 0, scale: float = -1.7319, copy: bool = False):
     """Perturb one weight slice into finite-but-wrong values, in place, and
     return ``(params, description)``. The target is drawn from the seeded
     RNG over floating-point leaves, preferring normalization weights (they
     scale every token's residual stream, so the damage reaches any prompt),
     then non-embedding leaves, then anything float: the JAX package's
     choice over the same tree. The first ``min(256, size)`` elements become
-    ``x * scale + 0.125`` computed in f32."""
+    ``x * scale + 0.125`` computed in f32. ``copy`` corrupts a copy of the
+    target leaf in a new tree instead (as the JAX package's functional
+    update does): what an engine that shares its params with others (a
+    pod's slices) must do, so the damage stays its own."""
     cand = [(path, leaf) for path, leaf in _leaves(params) if leaf.is_floating_point() and leaf.numel() > 0]
     if not cand:
         raise ValueError("no floating-point weight leaf to corrupt")
@@ -176,6 +196,9 @@ def corrupt_params(params, seed: int = 0, scale: float = -1.7319):
     non_embed = [c for c in cand if "embed" not in c[0].lower()]
     pool = norms or non_embed or cand
     path, leaf = pool[random.Random(seed).randrange(len(pool))]
+    if copy:
+        fresh = leaf.clone()
+        params, leaf = _with_leaf(params, leaf, fresh), fresh
     vec = leaf.view(-1)
     n = max(1, min(256, vec.shape[0]))
     with torch.no_grad():

@@ -30,8 +30,9 @@ The port's copy of the JAX package's loadgen CLI. Examples:
   ... --self-host --device cpu --replicas 2 --canary-interval-s 0.5 --shadow-rate 0.5 \\
       --expect-zero dllama_sdc_mismatches_total
 
-``--pod`` (one-process pods) is not ported and raises ValueError naming its
-ROADMAP.md item.
+  # a one-process pod: two slices of two tensor-parallel ranks over one
+  # shared weights tree, slice 0 killed mid-window
+  ... --self-host --device cpu --pod 2x2 --faults "replica.crash:kind=raise,row=0,after=8,count=1" --assert
 
 Exit codes: 0 = report produced (all asserted checks passed), 1 = an
 ``--assert``/``--isolation`` check failed, 2 = the run itself failed.
@@ -114,8 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="self-host fault-plan spec (the server's --faults): chaos under load")
     p.add_argument("--faults-seed", type=int, default=0)
     p.add_argument("--no-preempt", action="store_true", help="self-host server without priority preemption")
-    # not ported: raises ValueError naming its ROADMAP.md item
-    p.add_argument("--pod", type=str, default=None, help="not ported: raises")
+    p.add_argument("--pod", type=str, default=None, metavar="DATAxMODEL",
+                   help="self-host a one-process pod (e.g. 2x2): the replicas are the pod's DATA slices of MODEL "
+                   "tensor-parallel ranks over one shared weights tree (--replicas 1 picks the consolidated pod)")
     p.add_argument("--canary-interval-s", type=float, default=0.0,
                    help="self-host SDC canary period (--sdc-canary-interval-s on the server): pinned greedy probes "
                    "per replica compared against their version's golden; 0 disables")
@@ -154,10 +156,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise ValueError for an option whose subsystem the port lacks."""
-    if args.pod:
-        raise ValueError("--pod is not ported yet: ROADMAP.md Queue 1 item 4 (sequence parallel, expert parallel "
-                         "and pod)")
+    """Raise ValueError for an option the port cannot run (every
+    subsystem the options name is ported; the bounds are checked here)."""
     if not 0.0 <= args.sampled_share <= 1.0:
         raise ValueError(f"--sampled-share must be in [0, 1], got {args.sampled_share}")
 
@@ -241,7 +241,7 @@ def main(argv=None) -> int:
                               faults_seed=args.faults_seed, replicas=args.replicas,
                               host_spill_mb=args.host_spill_mb, canary_interval_s=args.canary_interval_s,
                               shadow_rate=args.shadow_rate, rollout_weights=args.rollout_weights,
-                              rollout_version=args.rollout_version)
+                              rollout_version=args.rollout_version, pod=args.pod)
         url = host.url
         print(f"self-hosted server at {url}", file=sys.stderr)
     else:

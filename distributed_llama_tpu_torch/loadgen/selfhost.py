@@ -13,7 +13,10 @@ the SDC canary and shadow votes are the server's flags. A rollout target
 (``rollout_weights``) is a second synthetic model registered under
 ``rollout_version``: ``"same"`` writes identical bytes (the greedy streams
 stay equal across the upgrade), an integer writes weights from that seed.
-Pods are not ported (``loadgen/__main__.py`` refuses them by name).
+``pod="DATAxMODEL"`` self-hosts a one-process pod (parallel/pod.py): the
+replicas are the pod's slices over one shared params tree, the group is the
+engine factory, and a rollout target is a sibling group over the same
+backend.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ def start_selfhost(
     shadow_rate: float = 0.0,
     rollout_weights: str | None = None,
     rollout_version: str = "v1",
+    pod: str | None = None,
 ) -> SelfHost:
     """Build the tiny synthetic f32 model and tokenizer, construct the
     port's ApiState (batched decode, prefix cache) and serve it on an
@@ -105,7 +109,21 @@ def start_selfhost(
     spec = tiny_spec(seq_len=seq_len, vocab_size=tok.vocab_size)
     workdir = tempfile.mkdtemp(prefix="dllama-loadgen-")
     path = write_synthetic_model(os.path.join(workdir, "m.m"), spec, seed=seed)
-    engine = InferenceEngine(path, dtype=torch.float32, device=device)
+    group = None
+    if pod:
+        from distributed_llama_tpu_torch.parallel.pod import PodGroup, parse_pod
+
+        data, model = parse_pod(pod)
+        group = PodGroup.build(path, data, model, dtype=torch.float32, device=device)
+        engine = group.slice_engine()
+        # an explicit replicas=1 keeps the consolidated one-domain pod; the
+        # default is one replica per data slice (the server's rule)
+        if replicas not in (None, 1, data):
+            print(f"⚠️ --replicas {replicas} ignored under --pod: one replica per data slice ({data}), or 1 for "
+                  "the consolidated single-domain pod")
+        replicas = 1 if replicas == 1 else data
+    else:
+        engine = InferenceEngine(path, dtype=torch.float32, device=device)
     sampler = Sampler(vocab_size=spec.vocab_size, temperature=0.0, topp=0.9, topk=topk, seed=1)
     args = types.SimpleNamespace(
         temperature=0.0, topp=0.9, topk=topk, seed=1, chat_template=None,
@@ -120,7 +138,8 @@ def start_selfhost(
         sdc_canary_interval_s=canary_interval_s, sdc_canary_tokens=8, sdc_shadow_rate=shadow_rate,
     )
     state = ApiState(engine, tok, sampler, args,
-                     engine_factory=lambda: InferenceEngine(path, dtype=torch.float32, device=device))
+                     engine_factory=group if group is not None
+                     else lambda: InferenceEngine(path, dtype=torch.float32, device=device))
     registered = None
     if rollout_weights is not None:
         # the rollout target: a second model file under a new version id;
@@ -129,8 +148,8 @@ def start_selfhost(
         # streams stay comparable across the upgrade
         path2 = os.path.join(workdir, "m2.m")
         write_synthetic_model(path2, spec, seed=seed if rollout_weights == "same" else int(rollout_weights))
-        state.register_weights_version(rollout_version,
-                                       lambda: InferenceEngine(path2, dtype=torch.float32, device=device))
+        state.register_weights_version(rollout_version, group.sibling(path2) if group is not None
+                                       else lambda: InferenceEngine(path2, dtype=torch.float32, device=device))
         registered = rollout_version
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     server.daemon_threads = True

@@ -250,12 +250,24 @@ def block_tail_tp(cfg: LlamaConfig, xs: list, atts: list, lps: list, path: str =
     return [x + o.to(x.dtype) for x, o in zip(xs, outs)]
 
 
+def _rank_paged(paged, r: int, l: int):
+    """Rank ``r``'s layer-``l`` read of ``paged`` = (per-rank pools, tables,
+    matched): (pool_k, pool_v, tables, matched), or None."""
+    if paged is None:
+        return None
+    pools, tables, matched = paged
+    return (pools[r][l][0], pools[r][l][1], tables, matched)
+
+
 def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
-                      path: str = "int8", impl: str = "psum", n_real: int | None = None) -> tuple[list, list]:
+                      path: str = "int8", impl: str = "psum", n_real: int | None = None,
+                      paged=None) -> tuple[list, list]:
     """The layer loop under tensor parallelism: T tokens from ``pos``
     through every layer, attention per rank on its own heads and cache.
-    ``n_real`` as in :func:`forward_tokens`. Returns (each rank's final
-    residual stream [T, dim], caches)."""
+    ``n_real`` as in :func:`forward_tokens`; ``paged`` = (pools, table,
+    matched) with one per-layer pool per rank, each rank reading its own
+    kv heads of the matched prefix through the shared table. Returns (each
+    rank's final residual stream [T, dim], caches)."""
     T = tokens.shape[0]
     xs = [embed(cfg, p, tokens.to(p["embedding"].device)) for p in params]
     ropes = [p["rope_table"][pos : pos + T] for p in params]
@@ -263,24 +275,30 @@ def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, cach
         lps = [p["layers"][l] for p in params]
         atts = []
         for r, lp in enumerate(lps):
-            att, caches[r][l] = attention(cfg, xs[r], lp, caches[r][l], pos, ropes[r], path)
+            att, caches[r][l] = attention(cfg, xs[r], lp, caches[r][l], pos, ropes[r], path,
+                                          paged=_rank_paged(paged, r, l))
             atts.append(att)
         xs = block_tail_tp(cfg, xs, atts, lps, path, impl, n_real=n_real)
     return xs, caches
 
 
-def forward_tokens_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
-                      path: str = "int8", impl: str = "psum", n_real: int | None = None):
-    """:func:`forward_tokens` over per-rank params and caches. Final logits
-    per rank; a vocab-sharded wcls gives each rank a slice, and the
-    all-gather is a ``torch.cat`` in rank order onto rank 0's device.
-    Returns (logits f32 [T, vocab], caches)."""
-    xs, caches = forward_hidden_tp(cfg, params, tokens, caches, pos, path, impl, n_real=n_real)
+def gather_logits_tp(cfg: LlamaConfig, params: list, xs: list, path: str = "int8") -> torch.Tensor:
+    """Final logits per rank; a vocab-sharded wcls gives each rank a slice,
+    and the all-gather is a ``torch.cat`` in rank order onto rank 0's
+    device. Returns f32 [T, vocab]."""
     logits = [final_logits(cfg, p, x, path) for p, x in zip(params, xs)]
     if logits[0].shape[-1] == cfg.vocab_size:  # wcls replicated: every rank holds the full logits
-        return logits[0], caches
+        return logits[0]
     dev = logits[0].device
-    return torch.cat([lg.to(dev) for lg in logits], dim=-1), caches
+    return torch.cat([lg.to(dev) for lg in logits], dim=-1)
+
+
+def forward_tokens_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
+                      path: str = "int8", impl: str = "psum", n_real: int | None = None, paged=None):
+    """:func:`forward_tokens` over per-rank params and caches (``paged`` as
+    in :func:`forward_hidden_tp`). Returns (logits f32 [T, vocab], caches)."""
+    xs, caches = forward_hidden_tp(cfg, params, tokens, caches, pos, path, impl, n_real=n_real, paged=paged)
+    return gather_logits_tp(cfg, params, xs, path), caches
 
 
 def attention_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tensor,
@@ -363,23 +381,39 @@ def forward_step_batched(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     weight matrix read once for all rows. ``active`` (host bools) masks
     rows that write no K/V and read from position 0. ``paged`` = (pool,
     tables, matched) with device tables/matched. Returns (logits f32
-    [B, vocab], cache)."""
+    [B, vocab], cache): :func:`forward_step_batched_tp` on one rank."""
+    if paged is not None:
+        paged = ([paged[0]], paged[1], paged[2])
+    logits, caches = forward_step_batched_tp(cfg, [params], tokens, [cache], pos, active, path, paged=paged)
+    return logits, caches[0]
+
+
+def forward_step_batched_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos, active,
+                            path: str = "int8", impl: str = "psum", paged=None):
+    """The batched decode step over per-rank params and slabs: each rank's
+    :func:`attention_batched` runs its ``n_heads/tp`` query heads over its
+    ``K/tp`` slab heads (K2 on the card), and the layer tail goes through
+    :func:`block_tail_tp` (wo and down summed by ``impl``; a MoE layer
+    through ``moe_block_tp``). ``paged`` = (per-rank pools, tables,
+    matched). Returns (the all-gathered logits f32 [B, vocab], caches)."""
     S = cfg.seq_len
     dev = tokens.device
     pos, active = [int(p) for p in pos], [bool(a) for a in active]
     idx = to_device([[p if a else 0 for p, a in zip(pos, active)], [min(max(p, 0), S - 1) for p in pos]],
                     dev, torch.int64)
-    read_pos, rope_rows = idx[0], params["rope_table"][idx[1]]
+    read_pos = idx[0]
     write = kvc.write_index([p if a else S for p, a in zip(pos, active)], S, dev)
-    x = embed(cfg, params, tokens)
-    for l, lp in enumerate(params["layers"]):
-        paged_l = None
-        if paged is not None:
-            pool, tables, matched = paged
-            paged_l = (pool[l][0], pool[l][1], tables, matched)
-        att, cache[l] = attention_batched(cfg, x, lp, cache[l], read_pos, rope_rows, write, path, paged=paged_l)
-        x = block_tail(cfg, x, att, lp, path)
-    return final_logits(cfg, params, x, path), cache
+    xs = [embed(cfg, p, tokens) for p in params]
+    ropes = [p["rope_table"][idx[1]] for p in params]
+    for l in range(cfg.n_layers):
+        lps = [p["layers"][l] for p in params]
+        atts = []
+        for r, lp in enumerate(lps):
+            att, caches[r][l] = attention_batched(cfg, xs[r], lp, caches[r][l], read_pos, ropes[r], write, path,
+                                                  paged=_rank_paged(paged, r, l))
+            atts.append(att)
+        xs = block_tail_tp(cfg, xs, atts, lps, path, impl)
+    return gather_logits_tp(cfg, params, xs, path), caches
 
 
 def attention_verify_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l, pos: torch.Tensor,

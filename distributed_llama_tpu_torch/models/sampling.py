@@ -233,15 +233,23 @@ def may_partition_rows(temperature, topp, topk, vocab_size: int) -> bool:
 
 
 def batched_decode_scan(cfg: LlamaConfig, params, first_tokens, cache, pos, active, seeds, n_steps: int,
-                        temperature, topp, topk, paged=None, path: str = "int8", may_partition: bool = True):
+                        temperature, topp, topk, paged=None, path: str = "int8", may_partition: bool = True,
+                        forward=None):
     """B rows step together, each weight matrix read once per step: per row
     the same forward -> sample -> feed-back chain as :func:`decode_scan`
     with the same position-keyed coins, so a row's stream equals the
     single-stream decode for its seed. ``pos``/``active`` are host
     sequences (positions of ``first_tokens``; inactive rows neither write
     nor advance); ``seeds``/``temperature``/``topp``/``topk`` are [B]
-    device tensors. Returns (tokens [n_steps, B], cache, fingerprints,
-    finite flags) (engine/integrity.py)."""
+    device tensors. ``forward(tokens, cache, pos) -> (logits, cache)``
+    stands in for the single-device batched step: the tensor-parallel
+    backend passes its own, whose all-gathered full-vocab logits every rank
+    holds, so the fingerprint and the sample below are what each rank would
+    compute from its copy. Returns (tokens [n_steps, B], cache,
+    fingerprints, finite flags) (engine/integrity.py)."""
+    if forward is None:
+        def forward(tokens, c, p):
+            return llama.forward_step_batched(cfg, params, tokens, c, p, active, path, paged)
     dev = first_tokens.device
     B = first_tokens.shape[0]
     steps = [[p + i if a else p for p, a in zip(pos, active)] for i in range(n_steps)]
@@ -249,7 +257,7 @@ def batched_decode_scan(cfg: LlamaConfig, params, first_tokens, cache, pos, acti
     h, ok = integrity.fingerprint_init(B, dev)
     tokens, out = first_tokens.to(torch.int64), []
     for i in range(n_steps):
-        logits, cache = llama.forward_step_batched(cfg, params, tokens, cache, steps[i], active, path, paged)
+        logits, cache = forward(tokens, cache, steps[i])
         tokens = fused_sample_batched(logits, seeds, coin_pos[i], temperature, topp, topk,
                                       may_partition=may_partition)
         h, ok = integrity.fingerprint_fold(h, ok, logits, tokens)

@@ -18,6 +18,16 @@ activations) on the one card that ``device`` names; the replicated leaves
 (embedding, norms, rope table) are one tensor that every rank reads. Ranks
 on several cards need peer access or events between devices, which no
 machine this port runs on yet offers to test, so asking for them raises.
+
+The batched half serves :class:`engine.batch.BatchScheduler`: per-rank
+slab halves [B, S, K/tp, hd] (:meth:`TensorParallelForward.init_batch_cache`)
+and page-pool halves [P, page, K/tp, hd] (:meth:`~TensorParallelForward.init_page_pool`),
+a row's prefill written back in place (``slab_forward[_paged]``), the
+publish of a row's pages (each rank moves its own kv-head slice), and the
+batched decode chunks, whose fingerprint folds the all-gathered logits.
+Page tables and matched lengths are one tensor every rank reads. Every
+issue goes through the backend's dispatch lock, so the slices of a pod
+(:mod:`parallel.pod`), which share one backend, issue one at a time.
 """
 
 from __future__ import annotations
@@ -26,7 +36,8 @@ import time
 
 import torch
 
-from distributed_llama_tpu_torch import prng
+from distributed_llama_tpu_torch import lockcheck, prng
+from distributed_llama_tpu_torch.engine import faults, integrity
 from distributed_llama_tpu_torch.models import llama, sampling
 from distributed_llama_tpu_torch.models.config import LlamaConfig
 from distributed_llama_tpu_torch.ops import collectives
@@ -68,9 +79,14 @@ def rank_devices(tp: int, device="cuda", devices=None) -> list[torch.device]:
 
 class TensorParallelForward:
     """The tensor-parallel backend of :class:`engine.InferenceEngine`:
-    forward, decode chunks, per-rank caches and the transfer probe. Params
-    and caches are per-rank lists (``engine.weights.load_params(tp=...)``,
-    :meth:`init_cache`)."""
+    forward, decode chunks, per-rank caches, the batched half and the
+    transfer probe. Params and caches are per-rank lists
+    (``engine.weights.load_params(tp=...)``, :meth:`init_cache`)."""
+
+    # the fewest rows a batched dispatch covers: 1, since no slab axis is
+    # cut across devices here (the JAX pod raises it to its slab's rows
+    # when it shards their batch axis over its data axis)
+    decode_bucket_floor = 1
 
     def __init__(self, cfg: LlamaConfig, tp: int, device="cuda", quantized: bool = False,
                  allreduce: str = "psum", devices=None):
@@ -83,14 +99,28 @@ class TensorParallelForward:
         self.allreduce = allreduce
         self.devices = rank_devices(tp, device, devices)
         self.shard_vocab = cfg.vocab_size % tp == 0
+        # serializes the issue of every call over this backend: the
+        # schedulers of a pod's slices share it (their launches and the
+        # kernels' launch counts never interleave)
+        self._dispatch_lock = lockcheck.make_lock("TransferProbeMixin._dispatch_lock")
+        # bound once: the tp.transfer site fires inside the transfer probe
+        self._faults = faults.active_plan()
+
+    @property
+    def mesh_shape(self) -> dict:
+        """Ranks along each named axis (``dllama_mesh_devices``)."""
+        return {"tp": self.tp}
 
     def forward(self, params: list, tokens: torch.Tensor, caches: list, pos: int, path: str = "int8",
-                n_real: int | None = None):
+                n_real: int | None = None, paged=None):
         """Logits f32 [T, vocab] (the all-gathered logits every rank holds)
         of T tokens from ``pos``; the per-rank caches are written in place.
         ``n_real``: the real rows of a bucket-padded prompt (the
-        capacity-bucketed MoE prefill's pad mask)."""
-        return llama.forward_tokens_tp(self.cfg, params, tokens, caches, pos, path, self.allreduce, n_real=n_real)
+        capacity-bucketed MoE prefill's pad mask); ``paged`` = (per-rank
+        pools, table, matched)."""
+        with self._dispatch_lock:
+            return llama.forward_tokens_tp(self.cfg, params, tokens, caches, pos, path, self.allreduce,
+                                           n_real=n_real, paged=paged)
 
     def decode_chunk(self, params: list, first_token, caches: list, pos: int, n_steps: int, temperature: float,
                      topp: float, topk: int, seed32: int, path: str = "int8"):
@@ -113,6 +143,80 @@ class TensorParallelForward:
         leaf = [2, cfg.seq_len, cfg.n_kv_heads, cfg.head_size]
         leaf[sharding.CACHE_KV_HEAD_AXIS] //= self.tp
         return [[kvc.init_fused(tuple(leaf[1:]), dtype, dev) for _ in range(cfg.n_layers)] for dev in self.devices]
+
+    # ------------------------------------------------------------------
+    # The batched half (engine.batch.BatchScheduler over the ranks)
+    # ------------------------------------------------------------------
+
+    def init_batch_cache(self, b_max: int, dtype=torch.bfloat16) -> list:
+        """Per-rank slabs: per-layer fused [2, b_max, S, K/tp, hd] leaves
+        (int8 with [2, b_max, S, K/tp, 1] scales for "i8")."""
+        cfg = self.cfg
+        shape = (b_max, cfg.seq_len, cfg.n_kv_heads // self.tp, cfg.head_size)
+        return [[kvc.init_fused(shape, dtype, dev) for _ in range(cfg.n_layers)] for dev in self.devices]
+
+    def init_page_pool(self, n_pages: int, page: int, dtype=torch.bfloat16) -> list:
+        """Per-rank page pools: per-layer ``(keys, values)`` halves of
+        [n_pages, page, K/tp, hd] (int8 with scales for "i8")."""
+        cfg = self.cfg
+        kl = cfg.n_kv_heads // self.tp
+        return [[tuple(kvc.init_page_pool_half(n_pages, page, kl, cfg.head_size, dtype, dev) for _ in range(2))
+                 for _ in range(cfg.n_layers)] for dev in self.devices]
+
+    def slab_forward(self, params: list, tokens: torch.Tensor, slab: list, row: int, pos: int, n_real: int,
+                     path: str = "int8", paged=None):
+        """Prefill ``tokens`` into slab row ``row`` of every rank (each
+        rank's row of its slab is a view, written in place). ``paged`` =
+        (per-rank pools, table, matched). Returns (logits f32 [T, vocab],
+        slab)."""
+        rows = [[kvc.slab_row(leaf, row) for leaf in rank] for rank in slab]
+        logits, _ = self.forward(params, tokens, rows, pos, path, n_real=n_real, paged=paged)
+        return logits, slab
+
+    def slab_forward_paged(self, params: list, tokens: torch.Tensor, slab: list, pool: list, row: int, pos: int,
+                           n_real: int, table, matched: int, path: str = "int8"):
+        """:meth:`slab_forward` with the row's positions below ``matched``
+        read from every rank's pool half through the shared ``table``."""
+        return self.slab_forward(params, tokens, slab, row, pos, n_real, path, paged=(pool, table, matched))
+
+    def publish_pages(self, slab: list, pool: list, page_ids, src_page, row: int) -> list:
+        """Copy slab row ``row``'s page slots ``src_page`` into pool pages
+        ``page_ids`` on every rank, in place (each rank moves its own
+        kv-head slice). Returns the pool."""
+        with self._dispatch_lock:
+            for rank_slab, rank_pool in zip(slab, pool):
+                for leaf, (pk, pv) in zip(rank_slab, rank_pool):
+                    page = kvc.pool_page_size(pk)
+                    kvc.publish_row_pages(pk, leaf[0], row, src_page, page_ids, page)
+                    kvc.publish_row_pages(pv, leaf[1], row, src_page, page_ids, page)
+        return pool
+
+    def batched_decode_chunk(self, params: list, first_tokens, slab: list, pos, active, n_steps: int, temperature,
+                             topp, topk, seeds, path: str = "int8", may_partition: bool = True, paged=None):
+        """One chunk of the batched decode over the ranks: B rows step
+        together with per-row positions, seeds and sampler settings
+        (:func:`sampling.batched_decode_scan` over
+        :func:`llama.forward_step_batched_tp`). Returns (the packed
+        [n_steps + 2, B] tokens + fingerprint + finite rows, slab)."""
+
+        def forward(tokens, caches, p):
+            return llama.forward_step_batched_tp(self.cfg, params, tokens, caches, p, active, path, self.allreduce,
+                                                 paged=paged)
+
+        with self._dispatch_lock:
+            tokens, slab, h, ok = sampling.batched_decode_scan(
+                self.cfg, params, first_tokens, slab, pos, active, seeds, n_steps, temperature, topp, topk,
+                may_partition=may_partition, forward=forward)
+            return integrity.pack_chunk_outputs(tokens, h, ok), slab
+
+    def batched_decode_chunk_paged(self, params: list, first_tokens, slab: list, pool: list, pos, active,
+                                   n_steps: int, temperature, topp, topk, seeds, tables, matched,
+                                   path: str = "int8", may_partition: bool = True):
+        """:meth:`batched_decode_chunk` with row b's positions below
+        ``matched[b]`` read from every rank's pool half through its page
+        table (``tables`` [B, n_table] and ``matched`` [B] on the device)."""
+        return self.batched_decode_chunk(params, first_tokens, slab, pos, active, n_steps, temperature, topp, topk,
+                                         seeds, path, may_partition, paged=(pool, tables, matched))
 
     def _sync(self) -> None:
         if self.devices[0].type == "cuda":
@@ -141,14 +245,17 @@ class TensorParallelForward:
     def measure_transfer_ms(self, n_tokens: int = 32) -> float:
         """Per-token collective time, replayed back to back between two
         synchronizes after one warm-up replay (an upper bound of what the
-        forward spends in them). A failing probe raises."""
+        forward spends in them). A failing probe raises; the ``tp.transfer``
+        site fires first (a flaky interconnect)."""
+        self._faults.fire("tp.transfer")
         fn, args = self.transfer_probe(n_tokens)
-        fn(*args)
-        self._sync()
-        start = time.perf_counter()
-        fn(*args)
-        self._sync()
-        return (time.perf_counter() - start) * 1e3 / n_tokens
+        with self._dispatch_lock:
+            fn(*args)
+            self._sync()
+            start = time.perf_counter()
+            fn(*args)
+            self._sync()
+            return (time.perf_counter() - start) * 1e3 / n_tokens
 
     def transfer_bytes_per_token(self) -> int:
         """Payload bytes of the probed sequence per token: two [1, dim] f32

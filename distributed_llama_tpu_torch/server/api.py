@@ -3,6 +3,7 @@
 
     python -m distributed_llama_tpu_torch.server.api --model m.m --tokenizer t.t \\
         --parallel 4 [--port 9990] [--device cpu] [--telemetry] \\
+        [--tp 2 [--allreduce ring] | --pod 2x2] \\
         [--replicas 2] [--host-spill-mb 64] [--spill-disk-dir DIR] \\
         [--tenants "gold:weight=4,priority=10;free:weight=1"] [--deadline-ms 30000] \\
         [--faults "batch.row:kind=nan,row=1,count=1"] [--sdc-canary-interval-s 30] \\
@@ -25,6 +26,18 @@ reading each weight matrix once per step for all of them, and with
 ``--prefix-cache`` (the default) repeated prompt prefixes are served from
 the shared page pool. Otherwise each lane is its own
 :class:`~distributed_llama_tpu_torch.engine.engine.EngineStream`.
+
+Tensor parallelism: ``--tp N`` serves engines of N ranks on the one card
+(the scheduler's slab and pool hold each rank's kv heads; the ranks' sums
+take the ``--allreduce`` arm). Under ``--tp`` speculative decode and the
+host spill tier are disabled with a warning, as in the JAX package.
+``--pod DATAxMODEL`` serves a one-process pod (:mod:`parallel.pod`): the
+pod group is the engine factory, one supervised replica per data slice,
+every slice over ONE params tree of MODEL ranks, so a slice's rebuild never
+reloads weights; an explicit ``--replicas 1`` serves the consolidated
+one-domain pod (one replica), and a rollout's ``"weights"`` file is placed
+as a second tree over the same backend (``PodGroup.sibling``), the old tree
+freed when the rollout completes.
 
 Admission is weighted-fair (:mod:`server.admission`): a request queues
 under its ``tenant`` (body field, default ``default``; ``--tenants`` sets
@@ -233,9 +246,6 @@ class StreamSlot:
 
 class ApiState:
     def __init__(self, engine, tokenizer: Tokenizer, sampler: Sampler, args, engine_factory=None):
-        if getattr(engine, "tp_backend", None) is not None:
-            raise NotImplementedError("serving tensor-parallel ranks is not ported yet "
-                                      "(ROADMAP.md Queue 1: the batched TP scheduler)")
         self.tokenizer = tokenizer
         self.sampler = sampler  # lane 0's sampler; the others derive their seeds from it
         self.args = args
@@ -248,10 +258,10 @@ class ApiState:
         n = max(1, int(getattr(args, "parallel", 2) or 1))
         n_replicas = max(1, int(getattr(args, "replicas", 1) or 1))
         self._lanes = n
-        self._engine_factory = engine_factory
         # versioned engine factories: the boot factory under the boot
         # version; a rollout target registers through
-        # register_weights_version or register_weights_path
+        # register_weights_version or register_weights_path (on a pod, a
+        # PodGroup: dropping it at the rollout's end frees its params tree)
         self._boot_version = str(getattr(args, "weights_version", None) or "v0")
         self._weights_versions: dict = {}
         if engine_factory is not None:
@@ -401,8 +411,9 @@ class ApiState:
         self.register_weights_version(version, self.make_engine_for_path(str(path)))
 
     def on_rollout_complete(self, old_version: str, new_version: str) -> None:
-        """A rollout's end: drop the old version's factory and flip the
-        version gauge."""
+        """A rollout's end: drop the old version's factory (on a pod, the
+        old PodGroup: its params tree goes with the last reference) and flip
+        the version gauge."""
         self._weights_versions.pop(old_version, None)
         self.tel.weights_version_info.labels(version=old_version).set(0)
         self.tel.weights_version_info.labels(version=new_version).set(1)
@@ -1252,7 +1263,27 @@ def make_handler(state: ApiState):
 def make_server(args, state: ApiState | None = None) -> tuple[ThreadingHTTPServer, ApiState]:
     """Build the engine (unless ``state`` is given) and a threaded HTTP
     server on ``args.host:args.port`` (port 0 picks a free one)."""
-    if state is None:
+    if state is None and getattr(args, "pod", None):
+        from distributed_llama_tpu_torch.apps.cli import make_pod_group
+
+        # one-process pod: the group is the engine factory (a replica build
+        # or rebuild is a fresh slice over the shared params) and the
+        # replica count is the pod's data extent
+        group, tokenizer, sampler = make_pod_group(args)
+        wanted = getattr(args, "replicas", None)
+        if wanted == 1:
+            # the consolidated pod: one replica, every lane in one scheduler
+            args.replicas = 1
+        else:
+            if wanted not in (None, group.data):
+                print(f"⚠️ --replicas {wanted} ignored under --pod: one replica per data slice ({group.data}), "
+                      "or 1 for the consolidated single-domain pod")
+            args.replicas = group.data
+        state = ApiState(group.slice_engine(), tokenizer, sampler, args, engine_factory=group)
+        # POST /admin/rollout's "weights": a second tree over the same
+        # backend (the loader holds no params, so a retired tree is freed)
+        state.make_engine_for_path = group.loader()
+    elif state is None:
         from distributed_llama_tpu_torch.apps.cli import make_engine
 
         engine, tokenizer, sampler = make_engine(args)
@@ -1329,7 +1360,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parallel", type=int, default=2, help="concurrent in-flight completions per replica")
     p.add_argument("--replicas", type=int, default=None,
                    help="supervised data-parallel replicas behind one admission front door, each its own engine "
-                   "and batch scheduler (total lanes = replicas x --parallel; default 1). A dead replica's "
+                   "and batch scheduler (total lanes = replicas x --parallel; default 1, or one per data slice "
+                   "under --pod, where an explicit 1 picks the consolidated single-domain pod). A dead replica's "
                    "in-flight requests replay bit-identically on survivors while the supervisor restarts it with "
                    "jittered backoff; /readyz reports each replica's state")
     p.add_argument("--replica-suspect-s", type=float, default=30.0,

@@ -32,6 +32,12 @@ retires the last replica after ``down_ticks`` consecutive idle ticks, within
 ``FairAdmission.resize`` both ways. It shares the ops lock with the
 orchestrator and never acts while a rollout holds it.
 
+On a pod (parallel/pod.py) each version's factory is a ``PodGroup``: a
+rollout's target is a sibling group, a second params tree over the same
+backend; grow and retire add and drop slices over the current version's
+tree; and dropping the old version's factory at completion
+(``on_rollout_complete``) frees the old tree with the old group.
+
 The ``server.rollout`` fault site fires once per move with ``row=`` the
 replica id: ``kind=corrupt`` perturbs the new engine before the checksum
 gate, ``raise`` fails certification, ``delay``/``hang`` hold the cutover
@@ -260,7 +266,7 @@ def _corrupt_engine(engine) -> None:
     """The ``server.rollout`` ``kind=corrupt`` payload: perturb the freshly
     built engine's weights in place (``integrity.corrupt_params`` on its own
     params tree, on its device) before the checksum gate sees them."""
-    engine.params, _ = integrity.corrupt_params(engine.params)
+    engine.params, _ = integrity.corrupt_params(engine.params, copy=getattr(engine, "shares_params", False))
 
 
 class FleetController:

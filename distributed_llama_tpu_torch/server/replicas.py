@@ -41,6 +41,13 @@ replicas behind one admission front end (server/admission.py
   retire and certification are the mechanisms the rollout orchestrator and
   the fleet controller (server/fleet.py) sequence.
 
+A replica's engine may be a tensor-parallel one (``--tp``: its scheduler's
+slab and pool are per-rank) or one slice of a one-process pod
+(parallel/pod.py, ``--pod``): there the factory is the pod group, so a
+rebuild, a grow or a rollout move hands out a fresh slice engine over the
+group's shared params (never a weight reload), and the release of a dead
+slice frees its scheduler and lanes while the shared tree stays.
+
 Replicas share one card and its default stream: nothing here synchronizes
 the device (a ``torch.cuda.synchronize`` would stall every replica). A
 synchronous rebuild builds the new engine before the old one is released,

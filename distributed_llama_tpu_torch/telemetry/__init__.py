@@ -436,6 +436,29 @@ def note_kernel_path(kernel: str, path: str) -> None:
     child.inc()
 
 
+class MeshInstruments:
+    """The named-mesh topology surface (bound at engine or pod build): how
+    many ranks lie along each axis and how many weight bytes are
+    resident."""
+
+    def __init__(self):
+        self.enabled = _enabled
+        self.mesh_devices = gauge(
+            "dllama_mesh_devices",
+            "Devices along each named mesh axis of the serving backend "
+            "(pod axes 'data'/'model'; classic 1-D backends 'tp'/'sp'/'ep')",
+            labelnames=("axis",),
+        )
+        self.resident_weight_bytes = gauge(
+            "dllama_resident_weight_bytes",
+            "Logical weight bytes resident per group: 'pod' = the ONE "
+            "params tree every mesh slice shares, 'per_replica' = that "
+            "tree attributed across the pod's data slices (the N-engine "
+            "pool's equivalent figure is one full tree PER replica)",
+            labelnames=("group",),
+        )
+
+
 class ServerInstruments:
     """The API server's metric surface (bound once per ApiState), with the
     replica pool's series: health, failover, integrity (canary, shadow

@@ -153,11 +153,11 @@ def test_expected_zero_without_metrics_fails():
 
 # the options whose subsystem the port now has (fault plans, tenants with
 # priority and deadline, preemption, the isolation proof, replicas, the
-# flight-recorder gate, the canary, shadow votes and rollouts): accepted
+# flight-recorder gate, the canary, shadow votes, rollouts and pods): accepted
 PORTED = (["--faults", "batch.fetch:kind=raise"], ["--server-tenants", "gold:weight=2"], ["--no-preempt"],
           ["--isolation", "gold"], ["--tenants", "gold:priority=5"], ["--tenants", "gold:deadline_ms=500"],
           ["--replicas", "2"], ["--expect-flight", "failover:1"], ["--canary-interval-s", "1"],
-          ["--shadow-rate", "0.5"], ["--rollout-weights", "same"])
+          ["--shadow-rate", "0.5"], ["--rollout-weights", "same"], ["--pod", "2x1"])
 
 
 @pytest.mark.parametrize("argv", [

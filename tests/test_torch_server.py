@@ -55,10 +55,10 @@ def files(tmp_path_factory):
     return str(d / "m.m"), str(d / "t.t")
 
 
-def torch_state(files, cache_dtype=None, **overrides):
+def torch_state(files, cache_dtype=None, tp=1, **overrides):
     model, tok = files
     args = types.SimpleNamespace(**{**ARGS, **overrides})
-    engine = TorchEngine(model, dtype=torch.float32, device="cpu", cache_dtype=cache_dtype)
+    engine = TorchEngine(model, dtype=torch.float32, device="cpu", cache_dtype=cache_dtype, tp=tp, allreduce="ring")
     sampler = TorchSampler(vocab_size=SPEC["vocab_size"], temperature=0.0, topp=0.9, seed=1)
     return tapi.ApiState(engine, TorchTokenizer.from_file(tok), sampler, args)
 
@@ -310,12 +310,16 @@ def _chaos_traffic(state, url):
     assert statuses[2:] == [200, 504]
 
 
-@pytest.mark.parametrize("spec_draft,chaos", [(0, False), (2, False), (0, True)], ids=["0", "2", "chaos"])
-def test_metric_deltas_match_jax(monkeypatch, files, spec_draft, chaos):
+@pytest.mark.parametrize("spec_draft,chaos,tp", [(0, False, 1), (2, False, 1), (0, True, 1), (0, False, 2)],
+                         ids=["0", "2", "chaos", "tp2"])
+def test_metric_deltas_match_jax(monkeypatch, files, spec_draft, chaos, tp):
     """Telemetry on in both packages: the JAX ApiState and the port's take
     the same sequential requests over HTTP; the listed counters move by the
     same amounts (a difference is a fault of the port). The chaos case runs
-    both with the same tenants and fault plan under ``_chaos_traffic``."""
+    both with the same tenants and fault plan under ``_chaos_traffic``. The
+    tp2 case serves tensor-parallel engines (2 ranks; the port's summed by
+    K4/K5's arm), and the greedy conversation before the traffic gives both
+    servers' clients the same texts, finish reasons and usage."""
     from distributed_llama_tpu import telemetry as jtel
     from distributed_llama_tpu.engine import faults as jfaults
     from distributed_llama_tpu.server.api import make_handler as jax_handler
@@ -327,7 +331,7 @@ def test_metric_deltas_match_jax(monkeypatch, files, spec_draft, chaos):
     model, tok = files
     extra = CHAOS_ARGS if chaos else {}
     series = CHAOS_SERIES if chaos else DELTA_SERIES
-    deltas = []
+    deltas, convs = [], []
     for tel, faults in ((jtel, jfaults), (ttel, tfaults)):
         tel.reset()
         tel.enable()
@@ -335,13 +339,15 @@ def test_metric_deltas_match_jax(monkeypatch, files, spec_draft, chaos):
             faults.install(faults.parse(CHAOS_PLAN))
         try:
             if tel is jtel:
-                state = JaxApiState(JaxEngine(model, dtype=jnp.float32), JaxTokenizer.from_file(tok),
+                state = JaxApiState(JaxEngine(model, dtype=jnp.float32, tp=tp), JaxTokenizer.from_file(tok),
                                     JaxSampler(vocab_size=SPEC["vocab_size"], temperature=0.0, topp=0.9, seed=1),
                                     types.SimpleNamespace(**{**ARGS, "spec_draft": spec_draft, **extra}))
                 server, url = _serve(state, jax_handler)
             else:
-                state = torch_state(files, spec_draft=spec_draft, **extra)
+                state = torch_state(files, tp=tp, spec_draft=spec_draft, **extra)
                 server, url = _serve(state, tapi.make_handler)
+            if tp > 1:
+                convs.append(conversation(state))
             faults.clear()
             try:
                 before = _scrape(url)
@@ -366,6 +372,8 @@ def test_metric_deltas_match_jax(monkeypatch, files, spec_draft, chaos):
             tel.reset()
     want, got = deltas
     assert got == want
+    if tp > 1:
+        assert convs[1] == convs[0] and convs[0][0][2]["completion_tokens"] == 8
     if chaos:
         assert got["dllama_rows_quarantined_total"] == 1 and got["dllama_preempted_requeued_total"] == 1
         assert got["dllama_preemptions_total"] == 1 and got["dllama_deadline_exceeded_total"] == 1

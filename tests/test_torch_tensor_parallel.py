@@ -2,7 +2,8 @@
 sharded load (per-rank packs byte for byte, also carried from a JAX TP
 engine's placed params), the rule table, the TP engine's logits and greedy
 streams against ``InferenceEngine(tp=...)`` on the 8-device CPU mesh, the
-CLI, and what this slice refuses.
+CLI, and what the port still refuses (ranks on several cards, ``--sp`` and
+``--ep``).
 
 One synthetic model (dim 512, hidden 1024, 2 layers, 8 heads, 4 kv heads,
 vocab 512, seq_len 64) is written once, Q40, and loaded by both packages
@@ -26,7 +27,6 @@ from distributed_llama_tpu.parallel import sharding as jsharding
 from distributed_llama_tpu_torch.apps import cli as tcli
 from distributed_llama_tpu_torch.engine import InferenceEngine as TorchEngine
 from distributed_llama_tpu_torch.engine import weights as tweights
-from distributed_llama_tpu_torch.engine.batch import BatchScheduler
 from distributed_llama_tpu_torch.formats import synthetic as tsyn
 from distributed_llama_tpu_torch.formats.model_file import ModelFileReader as TorchReader
 from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
@@ -280,11 +280,11 @@ def test_what_this_slice_refuses(engines, model_path):
         tensor_parallel.validate_tp(cfg, 3)
     with pytest.raises(ValueError, match="divisible by 64"):
         tensor_parallel.validate_tp(dataclasses.replace(cfg, hidden_dim=1040), 2, quantized=True)
-    _, te = engines("q40", 2)
-    with pytest.raises(NotImplementedError, match="batched TP scheduler"):
-        BatchScheduler(te, n_rows=2)
-    args = server_api.build_parser().parse_args(["generate", "--model", model_path, "--tokenizer", "t"])
-    with pytest.raises(NotImplementedError, match="batched TP scheduler"):
-        server_api.ApiState(te, None, None, args)
+    # what is still refused: --sp and --ep, through the CLI and the server
+    for flag in ("--sp", "--ep"):
+        args = server_api.build_parser().parse_args(["generate", "--model", model_path, "--tokenizer", "t",
+                                                     flag, "2", "--device", "cpu"])
+        with pytest.raises(NotImplementedError, match="sequence parallel and expert parallel"):
+            tcli.make_engine(args)
     single = tensor_parallel.rank_devices(2, devices=["cpu", "cpu"])
     assert single == [torch.device("cpu")] * 2
