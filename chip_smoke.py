@@ -73,7 +73,7 @@ Phases (any failure exits non-zero):
    every greedy completion's token ids equal to what a spec_draft=0
    BatchScheduler on the same engine and cache decodes for the same
    prompt; then a second server at --parallel 16 --max-seq-len 1000 (the
-   einsum attention; over phase 7c's 8-layer file) with 16 concurrent
+   einsum attention; over phase 9's 8-layer file) with 16 concurrent
    greedy requests, whose verify forwards reach 80 rows, held to the same
    equality;
 7. (a) hold K4, the ring all-reduce kernel, against its plain version bit
@@ -87,7 +87,7 @@ Phases (any failure exits non-zero):
    for tp = 2 and 4 (T = 1 and 8), repeat launches bit-equal, the cluster
    shape it launches with printed, timed likewise (library: per-rank
    dequantize + bf16 matmul, then the stacked sum);
-   (c) the slice's path: the CLI ``generate`` at 7B width, 8 layers, with
+   (c) the slice's path: the CLI ``generate`` at 7B width (phase 5's file), with
    ``--tp 1``, then ``--tp 2 --allreduce ring`` and ``--tp 4 --allreduce
    ring`` (the ranks share the card): K4 and K5 launched, every rank's
    residual stream byte-identical, first-step logits within 2.5e-2 of max
@@ -110,7 +110,7 @@ Phases (any failure exits non-zero):
    (reported, not failed: a 4-row step sums the experts in another
    order); (d) Grok-1's widths cut to 1 layer through the CLI;
 9. telemetry, request tracing and the load generator (run after 7b, over a
-   7B-width file cut to 8 layers, phase 7c's; ``--loadgen`` alone runs
+   7B-width file cut to 8 layers, TP_LAYERS; ``--loadgen`` alone runs
    the 7B-width file at all 32 layers): the port's API server in process with
    ``--telemetry --parallel 4 --max-seq-len 2048`` (prefix cache on,
    ``--admission-queue 24``), driven through the port's load generator's
@@ -264,9 +264,10 @@ Phases (any failure exits non-zero):
    bucketed prefill of a long prompt on every rank of every layer, and
    ms/token with device busy ms/token per tp.
 
-14. serving over tensor-parallel ranks (after 7c over its 8-layer file;
-   14b after 13c over phase 8's Mixtral-width file; ``--tp-serve`` alone
-   writes its own files): K1 at every rank's Llama-2-7B shards (tp = 2 and
+14. serving over tensor-parallel ranks (after 7c over its file, at
+   MAIN_LAYERS in the full run and TP_LAYERS with ``--tp-serve`` alone,
+   which writes its own files; 14b after 13c over phase 8's Mixtral-width
+   file): K1 at every rank's Llama-2-7B shards (tp = 2 and
    4: qkv 4096->6144/3072, gate_up 4096->11008/5504, wo 2048/1024->4096,
    down 5504/2752->4096; T=1, both tiles bit for bit as in phase 3) and K2
    at 16 and 8 kv heads per rank (bf16 and int8, T=1), timed likewise.
@@ -299,6 +300,31 @@ Phases (any failure exits non-zero):
    after boot exceeds the pod's by one weight tree (within 10%); the
    aggregate decode rate of both.
 
+15. sequence and expert parallelism, the ranks on the card (15a after 14c
+   over phase 9's 8-layer file at ``--max-seq-len 4096``; 15b after 14b over
+   phase 8b's Mixtral-width file; ``--sp-ep`` alone writes its own files):
+   K1 at the ring pass's 1024 rows per rank (``--sp 4``) at the five 7B
+   shapes, as in phase 3. (a) ``--sp 2`` (bf16, then ``--cache-dtype i8``),
+   ``--sp 4`` and ``--tp 2 --sp 2`` (psum, then ring) against the ``--tp 1``
+   engine on the card (its int8 cache for the int8 arm): a 1100-token prompt
+   from token ids in one ring pass, a 300-token delta in 10 chunk forwards,
+   32 greedy tokens; logits within 2.5e-2 of max |logit|, the tokens equal
+   but where ``--tp 1``'s top-2 logit gap is under that; every rank's slice
+   [S/sp, K/tp, hd]; a fresh stream's chunked prefill leaves every slot past
+   its last chunk untouched; K1's two tiles, K4 and K5 under ring, no plain
+   path; then ``--q40-path f32`` (K3) and the CLI's ``generate --sp 2`` on a
+   short text prompt. (b) ``--ep 2``, ``--ep 4`` and ``--tp 2 --ep 2`` (psum,
+   then ring) against the ``--tp 1`` engine: a 64-token prompt (the dispatch
+   path), the expert ids of every router call and then the logits, 32
+   greedy tokens (dense-local decode, the ep combine through the arm's
+   all-reduce); the 63-token prompt at its exact length through the backend
+   (dense-local); ``--moe-capacity 2.0`` at ep 2 (finite, the dropped
+   choices counted). (c) the API server at ``--sp 2`` and at ``--ep 2`` with
+   ``--parallel 2``: the batch-decode warning, independent lanes, 4 greedy
+   requests at once, each completion equal to the single-stream decode of
+   its prompt. Records the ring pass's ms beside the dense prefill's,
+   decode ms/token, device busy per token and card memory.
+
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
@@ -306,7 +332,7 @@ one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
 ``--loadgen`` writes phase 5's files and runs phase 9 alone, ``--faults``
 phase 10 alone, ``--spill`` phase 11 alone, ``--fleet`` phase 12 alone and
 ``--chat`` phase 13 alone (with 7a's K4 rows at [1, 4096] and a Mixtral-width
-file of its own) and ``--tp-serve`` phase 14 alone.
+file of its own), ``--tp-serve`` phase 14 alone and ``--sp-ep`` phase 15 alone.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -315,8 +341,11 @@ The last two lines of standard output are one JSON object per kernel
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import filecmp
 import gc
+import io
 import json
 import math
 import os
@@ -343,16 +372,17 @@ INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 33.5e12
 BF16_OPS_PER_S = 989e12
 N_LAYERS = 32  # Llama-2-7B's depth: the kernel line's per-token numbers count all of it
-# phases 5, 6b and 6c's depth in the full run: at 32 layers they took
-# 126.5 + 64.2 + 107.4 s of a 980.8 s run on an H100 host, which left no
-# room for a host ~33% slower (see MIXTRAL_LAYERS); at 16, with phase 14
-# added, the run took 933.3 s on one H100 host and 1211.3 s on one ~30%
-# slower in every phase. At TP_LAYERS they run over phase 7c's file (one
-# write fewer); ``--loadgen``, ``--faults``, ``--spill`` and ``--fleet``
-# alone keep all 32
-MAIN_LAYERS = 8
-# phase 7c's depth: its three engines at 8 of Llama-2-7B's 32 layers, which
-# keeps the whole run, phase 8 included, well inside its time limit
+# phases 5, 6b, 6c (its 4-row servers), 7c, 14a and 14c's depth in the full
+# run: at 32 layers 5, 6b and 6c took 126.5 + 64.2 + 107.4 s of a 980.8 s
+# run on an H100 host, which left no room for a host ~33% slower (see
+# MIXTRAL_LAYERS); at 16, with phase 14 added, the run took 933.3 s on one
+# H100 host and 1211.3 s on one ~30% slower in every phase; at 8 with phase
+# 15 added (14a and 14c at 4) 1139.2 s on a host ~13% slower than the
+# 933.3 s one. ``--loadgen``, ``--faults``, ``--spill`` and ``--fleet``
+# alone keep all 32, ``--tp-serve`` TP_LAYERS
+MAIN_LAYERS = 4
+# the depth of phase 6c's 16-row server, phases 9-12 and 15a in the full
+# run (a second file): 8 of Llama-2-7B's 32 layers
 TP_LAYERS = 8
 SEQ_LEN = 1024  # --max-seq-len of the driven runs
 # the 7B main path's matmuls: name -> (n, d, launches per decoded token)
@@ -529,7 +559,7 @@ FLEET_BURST = 12
 FLEET_MEM_TOL_REL = 0.01
 K1_K2_PATHS = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma", "paged_attention/k2", "paged_attention/k2_i8")
 # phase 14: serving over tensor-parallel ranks at Llama-2-7B width, over
-# phase 7c's TP_LAYERS-layer file. 14a: the server at each tp (--tp 2 under
+# phase 7c's file (MAIN_LAYERS). 14a: the server at each tp (--tp 2 under
 # psum, ring and the int8 cache); the per-rank paths add the ranks' sums
 # (psum: the plain sum in rank order, which the JAX package leaves to XLA;
 # ring: K4 and K5)
@@ -545,6 +575,23 @@ K2_TP_CASES = [(f"B4 K{32 // tp} M1", 32 // tp, 1, 128, [1900, 800, 1300, 2000],
 POD_TOKENS = 32  # 14c's streams
 POD_MEM_TOL_REL = 0.10  # 14c: the card memory a pod saves, against one weight tree's bytes
 ROUTE_MARGIN = 1e-5
+# phase 15: --sp at Llama-2-7B width over phase 9's TP_LAYERS-layer file at
+# Llama-2's published context: a 1100-token prompt (1100 * 4 >= 4096: one
+# ring pass, rank i running 4096/sp of its padded rows), a 300-token delta
+# after it (ceil(300/32) = 10 chunk forwards), 32 greedy tokens; the arms
+# (sp, tp, all-reduce, cache). --ep at Mixtral-8x7B width over phase 8b's
+# file: (ep, tp, all-reduce). 15c: 4 greedy requests of SERVE_TOKENS each
+SP_SEQ_LEN = 4096
+SP_PROMPT_TOKENS = 1100
+SP_DELTA_TOKENS = 300
+SP_TOKENS = 32
+SP_ARMS = ((2, 1, "psum", None), (2, 1, "psum", "i8"), (4, 1, "psum", None), (2, 2, "psum", None),
+           (2, 2, "ring", None))
+EP_ARMS = ((2, 1, "psum"), (4, 1, "psum"), (2, 2, "psum"), (2, 2, "ring"))
+SP_EP_PATHS = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma", "q40_matmul/k3", "all_reduce/psum", "all_reduce/k4_ring",
+               "all_reduce/k5_fused")
+SERVE_TOKENS = 16
+SP_RING_ROWS = SP_SEQ_LEN // 4  # K1's rows per rank in the ring pass at --sp 4
 # phase 13: the converted model's depth and context; meta-llama/Llama-2-7b-hf
 # config.json's published fields, typed in (its rope theta, 10000, is the
 # transformers default it leaves out), cut to CHAT_LAYERS layers in 13a
@@ -4617,7 +4664,7 @@ def chat_only(smi: str) -> None:
 
 
 def tp_server_phase(cli, server_api, attn, kvc, llama, q40, coll, model: str, tok: str) -> dict:
-    """14a: the API server at 7B width (``model``'s TP_LAYERS layers) with
+    """14a: the API server at 7B width (``model``'s layers) with
     --parallel 4, the prefix cache (page 64) and --prefill-chunk 64, at each
     of TP_SERVE_ARMS, over one engine load per tp. Every greedy completion
     equals its replay alone on a fresh scheduler token for token (under
@@ -4771,7 +4818,7 @@ def moe_batched_ids(engine, sched, moe, n_steps: int = 4) -> dict:
 
 
 def pod_phase(server_api, model: str, tok: str, smi: str) -> dict:
-    """14c: the pod at 7B width (``model``'s TP_LAYERS layers): --pod 2x2
+    """14c: the pod at 7B width (``model``'s layers): --pod 2x2
     --parallel 2 --telemetry (four ranks on the card, two slices of two),
     4 greedy streams of POD_TOKENS tokens at once; then the same 4 with a
     ``replica.crash`` on slice 0 mid-decode: every client's text equals the
@@ -4915,17 +4962,17 @@ def pod_phase(server_api, model: str, tok: str, smi: str) -> dict:
 
 
 def tp_serve_phases(cli, server_api, attn, kvc, llama, q40, coll, model: str, tok: str, smi: str,
-                    summary: dict) -> None:
+                    summary: dict, n_layers: int = TP_LAYERS) -> None:
     """Phase 14's kernel checks at the per-rank shapes, 14a and 14c over the
     7B-width ``model``; results go into ``summary`` (14b runs with phase 8's
     Mixtral files: :func:`moe_tp_server_phase`)."""
     t = phase("14. K1 at the 7B per-rank shards (tp 2, 4), K2 at 16 and 8 kv heads per rank")
     summary["tp_kernel_rows"] = k1_checks(q40, shapes=TP_SHARD_SHAPES, ts=(1,)) + k2_checks(
         attn, kvc, contracts=False, cases=K2_TP_CASES)
-    t = phase(f"14a. the slice's path: the API server under --tp, Llama-2-7B width, {TP_LAYERS} layers")
+    t = phase(f"14a. the slice's path: the API server under --tp, Llama-2-7B width, {n_layers} layers")
     summary["tp_server"] = tp_server_phase(cli, server_api, attn, kvc, llama, q40, coll, model, tok)
     print(f"phase 14a: {time.perf_counter() - t:.1f} s")
-    t = phase(f"14c. the slice's path: the one-process pod (--pod 2x2), Llama-2-7B width, {TP_LAYERS} layers")
+    t = phase(f"14c. the slice's path: the one-process pod (--pod 2x2), Llama-2-7B width, {n_layers} layers")
     summary["pod"] = pod_phase(server_api, model, tok, smi)
     print(f"phase 14c: {time.perf_counter() - t:.1f} s")
 
@@ -4969,6 +5016,529 @@ def tp_serve_only(smi: str) -> None:
     out.write_text(json.dumps(summary, indent=1, default=str))
     print(f"seconds by phase: {summary['phase_s']}")
     print(f"phase 14 with its set-up: {summary['total_s']:.1f} s; details in {out}")
+    print(f"card: {smi}")
+
+
+# ----------------------------------------------------------------------
+# Phase 15: sequence parallelism (--sp) at Llama-2-7B width and expert
+# parallelism (--ep) at Mixtral-8x7B width, the ranks on the card
+# ----------------------------------------------------------------------
+
+
+def _token_prompt(n: int, seed: int, vocab: int = 32000) -> list:
+    """A prompt of ``n`` token ids from a seed, BOS first (no tokenizer: an
+    encode of a long text costs the card machine's host seconds)."""
+    return [1] + [int(t) for t in np.random.RandomState(seed).randint(3, vocab, n - 1)]
+
+
+def top2_gaps(logits: np.ndarray) -> np.ndarray:
+    """Each row's top-1 minus top-2 logit, as a share of its max |logit|."""
+    top2 = -np.sort(-logits, axis=-1)[:, :2]
+    return (top2[:, 0] - top2[:, 1]) / np.abs(logits).max(axis=-1)
+
+
+def greedy_against(label: str, got: list, want: list, gaps: np.ndarray) -> dict:
+    """``got`` greedy tokens against the reference's ``want``: equal, or
+    parting first where the reference's top-2 logit gap (``gaps``, of max
+    |logit|) lies under TP_LOGIT_TOL, as phase 13c reads a divergence;
+    the tokens after it are not compared."""
+    n = min(len(got), len(want))
+    at = next((j for j in range(n) if got[j] != want[j]), None)
+    if at is None:
+        check(len(got) == len(want), f"{label}: {len(got)} tokens, want {len(want)}")
+        print(f"{label}: {n} greedy tokens equal the reference's")
+        return {"tokens_equal": n, "compared": n}
+    print(f"{label}: greedy token {at} differs ({got[at]} vs {want[at]}); the reference's top-2 gap there "
+          f"{gaps[at]:.3e} of max |logit| (tolerance {TP_LOGIT_TOL})")
+    check(gaps[at] < TP_LOGIT_TOL, f"{label}: greedy token {at} differs where the reference's top-2 gap "
+          f"{gaps[at]:.3e} is not under {TP_LOGIT_TOL}")
+    return {"tokens_equal": at, "compared": n, "divergence_gap": float(gaps[at])}
+
+
+def logit_gate(label: str, got: np.ndarray, want: np.ndarray) -> float:
+    """``got`` within TP_LOGIT_TOL of max |logit| of ``want``; returns the
+    gap as that share."""
+    check(bool(np.isfinite(got).all()) and got.shape == want.shape, f"{label}: logits {got.shape} vs {want.shape}")
+    err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    check(err <= TP_LOGIT_TOL, f"{label}: logits {err:.3e} of max |logit| from the reference's (tolerance "
+          f"{TP_LOGIT_TOL})")
+    return err
+
+
+def reference_stream(engine, first: int, n: int) -> tuple[list, np.ndarray]:
+    """``n`` greedy tokens from ``first`` at the engine's position, then the
+    engine's logits along them teacher-forced (one forward from the same
+    position, as the divergence rule reads them): (tokens, top-2 gaps)."""
+    pos = engine.pos
+    toks = [int(t) for t in engine.generate_on_device(first, n, 0.0)]
+    engine.rollback(pos)
+    gaps = top2_gaps(engine.forward([first] + toks[:-1]))
+    return toks, gaps
+
+
+def timed(fn):
+    """(fn's result, host ms around it, fenced by synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def moved_paths(before: dict, label: str, want: tuple) -> dict:
+    """Kernel-path counts since ``before``: every path in ``want`` moved,
+    none outside SP_EP_PATHS (no plain path)."""
+    moved = {k: v - before.get(k, 0.0) for k, v in kernel_paths().items() if v - before.get(k, 0.0) > 0}
+    check(all(k in SP_EP_PATHS for k in moved), f"{label}: a path other than {SP_EP_PATHS} served: {moved}")
+    check(all(moved.get(k, 0) > 0 for k in want), f"{label}: {want} not all launched: {moved}")
+    return moved
+
+
+def decode_timing(engine, first: int, label: str) -> dict:
+    """ms per decoded token over 8 greedy steps after 4 warm ones, then the
+    device busy time per token from a 4-step profile."""
+    engine.decode_chunk(first, 4, 0.0, 0.9)
+    _, ms = timed(lambda: engine.decode_chunk(first, 8, 0.0, 0.9))
+    row = {"decode_ms_per_token": ms / 8}
+    print(f"{label}: decode {ms / 8:.2f} ms/token over 8 greedy tokens")
+    row.update(device_profile(engine, first, ms / 8, steps=4))
+    return row
+
+
+def sp_phase(cli, q40, coll, telemetry, model: str, tok: str) -> dict:
+    """15a: ``--sp`` at Llama-2-7B width over ``model`` (TP_LAYERS layers) at
+    ``--max-seq-len`` SP_SEQ_LEN, against the ``--tp 1`` engine on the card:
+    per arm of SP_ARMS a SP_PROMPT_TOKENS-token prompt from token ids (one
+    ring pass), a SP_DELTA_TOKENS-token delta after it (10 chunk forwards),
+    then SP_TOKENS greedy tokens; the logits of both within TP_LOGIT_TOL of
+    max |logit| of the dense engine's, the tokens equal but where the dense
+    engine's top-2 gap is under it (``greedy_against``); every rank's cache
+    slice [S/sp, K/tp, hd]; K1's two tiles on every arm, K4 and K5 under
+    ring, no plain path. The int8 arm is held against the dense engine's
+    int8 cache; a fresh stream's chunked prefill leaves every slot past its
+    last chunk untouched. Then a ``--q40-path f32`` arm (K3) and the CLI's
+    ``generate --sp 2`` on a short text prompt. Records per arm the ring
+    pass's ms beside the dense prefill's, decode ms/token, device busy per
+    token and card memory."""
+    text = "hello world, hello"
+
+    def args(sp=1, tp=1, *extra):
+        return cli.build_parser().parse_args([
+            "generate", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--decode", "device",
+            "--max-seq-len", str(SP_SEQ_LEN), "--steps", "24", "--decode-chunk", "8", "--temperature", "0",
+            "--seed", "1", "--prompt", text, "--sp", str(sp), "--tp", str(tp), *extra])
+
+    out: dict = {}
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        t_load = time.perf_counter()
+        dense_built = cli.make_engine(args())
+        dense = dense_built[0]
+        print(f"--tp 1 engine: load {time.perf_counter() - t_load:.1f} s at --max-seq-len {SP_SEQ_LEN}")
+        prompt = _token_prompt(SP_PROMPT_TOKENS, 15, dense.cfg.vocab_size)
+        delta = _token_prompt(SP_DELTA_TOKENS + 1, 16, dense.cfg.vocab_size)[1:]
+        refs = {}
+        for cache in (None, "i8"):
+            dense.cache_dtype = cache or torch.bfloat16
+            dense._default = None
+            dense.reset()
+            logits_p, ms = timed(lambda: dense.prefill(prompt))
+            logits_d = dense.forward(delta)
+            first = int(np.argmax(logits_d[-1]))
+            toks, gaps = reference_stream(dense, first, SP_TOKENS)
+            refs[cache] = dict(prefill=logits_p, delta=logits_d, first=first, tokens=toks,
+                               gaps=np.concatenate([top2_gaps(logits_d[-1:]), gaps]))
+            print(f"--tp 1 ({cache or 'bf16'} cache): prefill of {len(prompt)} tokens {ms:.1f} ms; smallest top-2 gap "
+                  f"of the {SP_TOKENS} greedy tokens {gaps.min():.3e} of max |logit|")
+            refs[cache]["prefill_ms"] = ms
+        dense.cache_dtype = torch.bfloat16
+        dense._default = None
+        dense.reset()
+        first = int(np.argmax(dense.prefill(prompt[:64])))
+        out["tp1"] = dict(prefill_ms=refs[None]["prefill_ms"], **decode_timing(dense, first, "--tp 1"))
+        for sp, tp in sorted({(a[0], a[1]) for a in SP_ARMS}):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t_load = time.perf_counter()
+            built = cli.make_engine(args(sp, tp))
+            engine = built[0]
+            backend = engine.tp_backend
+            print(f"--sp {sp} --tp {tp}: load {time.perf_counter() - t_load:.1f} s, "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, transfer probe "
+                  f"{engine._transfer_ms:.3f} ms/token")
+            for _, _, impl, cache in (a for a in SP_ARMS if a[:2] == (sp, tp)):
+                label = f"15a sp={sp} tp={tp} {impl}{' i8' if cache else ''}"
+                backend.allreduce = impl
+                engine.cache_dtype = cache or torch.bfloat16
+                engine._default = None
+                engine.reset()
+                ref = refs[cache]
+                paths0 = kernel_paths()
+                coll.reset_launches()
+                q40.reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                logits_p, ring_ms = timed(lambda: engine.prefill(prompt))
+                check(backend.last_forward_dispatches == 1, f"{label}: the prompt took "
+                      f"{backend.last_forward_dispatches} dispatches, not one ring pass")
+                row = dict(sp=sp, tp=tp, allreduce=impl, cache=cache or "bf16", ring_prefill_ms=ring_ms,
+                           dense_prefill_ms=ref["prefill_ms"],
+                           prefill_err_rel=logit_gate(f"{label} ring pass", logits_p, ref["prefill"]))
+                logits_d = engine.forward(delta)
+                check(backend.last_forward_dispatches == -(-len(delta) // backend.mid_prefill_chunk),
+                      f"{label}: the delta took {backend.last_forward_dispatches} dispatches")
+                # the delta's last row is what a chat turn samples from; every
+                # row's gap is recorded beside it
+                row["delta_err_rel"] = logit_gate(f"{label} chunked delta", logits_d[-1:], ref["delta"][-1:])
+                row["delta_rows_err_rel_max"] = float((np.abs(logits_d - ref["delta"]).max(axis=-1)
+                                                       / np.abs(ref["delta"]).max(axis=-1)).max())
+                sp_first = int(np.argmax(logits_d[-1]))
+                toks = [int(t) for t in engine.generate_on_device(sp_first, SP_TOKENS - 1, 0.0)]
+                row.update(greedy_against(label, [sp_first] + toks, [ref["first"]] + ref["tokens"][:-1], ref["gaps"]))
+                caches = engine.default_stream.cache
+                want_shape = (2, SP_SEQ_LEN // sp, engine.cfg.n_kv_heads // tp, engine.cfg.head_size)
+                check(len(caches) == tp and all(len(c) == sp for c in caches) and all(
+                    tuple(leaf.shape) == want_shape for c in caches for rank in c for leaf in rank),
+                      f"{label}: cache slices are not {want_shape}")
+                row["card_gb_peak"] = torch.cuda.max_memory_allocated() / 1e9
+                row["launches"] = {**coll.launches, **q40.tile_launches}
+                want = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma")
+                if impl == "ring":
+                    want += ("all_reduce/k4_ring", "all_reduce/k5_fused")
+                row["kernel_paths"] = moved_paths(paths0, label, want)
+                print(f"{label}: ring pass of {len(prompt)} tokens {ring_ms:.1f} ms (the --tp 1 prefill "
+                      f"{ref['prefill_ms']:.1f} ms); logits {row['prefill_err_rel']:.3e} / {row['delta_err_rel']:.3e} "
+                      f"(every delta row: {row['delta_rows_err_rel_max']:.3e}) of max |logit| from --tp 1's; every rank's slice {want_shape[1:]}; launches "
+                      f"{row['launches']}; peak {row['card_gb_peak']:.2f} GB")
+                if tp == 1:
+                    # a fresh stream's chunked prefill writes whole chunks: the
+                    # slots past its last chunk stay zero on every rank
+                    stream = engine.new_stream()
+                    stream.prefill(prompt[:100])
+                    end = -(-100 // backend.mid_prefill_chunk) * backend.mid_prefill_chunk
+                    Sl = SP_SEQ_LEN // sp
+                    for i, rank in enumerate(stream.cache[0]):
+                        for leaf in rank:
+                            data = leaf.data if cache else leaf
+                            lo = max(0, min(Sl, end - i * Sl))
+                            check(not data[:, lo:].any(), f"{label}: rank {i} wrote past slot {end}")
+                            if i == 0:
+                                check(bool(data[:, :100].any()), f"{label}: rank 0's live slots are empty")
+                    del stream
+                    row["untouched_past_slot"] = end
+                    print(f"{label}: a fresh 100-token chunked prefill left every slot from {end} on untouched")
+                if impl == "psum" and not cache:
+                    row.update(decode_timing(engine, sp_first, label))
+                out[label.removeprefix("15a ")] = row
+            if (sp, tp) == (2, 1):
+                # the f32 path (K3) on a short chunked prompt, and the CLI's generate
+                engine.cache_dtype = torch.bfloat16
+                engine._default = None
+                for eng in (dense, engine):
+                    eng.q40_path = "f32"
+                paths0 = kernel_paths()
+                res = []
+                for eng in (dense, engine):
+                    eng.reset()
+                    lg = eng.prefill(prompt[:64])
+                    first_f = int(np.argmax(lg))
+                    res.append((lg, first_f, *reference_stream(eng, first_f, 8)))
+                f32_row = {"err_rel": logit_gate("15a sp=2 --q40-path f32", res[1][0][None], res[0][0][None])}
+                f32_row.update(greedy_against("15a sp=2 --q40-path f32", [res[1][1]] + res[1][2][:-1],
+                                              [res[0][1]] + res[0][2][:-1],
+                                              np.concatenate([top2_gaps(res[0][0][None]), res[0][3]])))
+                f32_row["kernel_paths"] = moved_paths(paths0, "15a sp=2 --q40-path f32", ("q40_matmul/k3",))
+                out["sp=2 f32 path"] = f32_row
+                for eng in (dense, engine):
+                    eng.q40_path = "int8"
+                paths0 = kernel_paths()
+                cli_runs = []
+                for b in (dense_built, built):
+                    b[0].reset()
+                    cli_runs.append(cli.generate(args(sp if b is built else 1), benchmark=False, built=b))
+                prompt_tokens = cli_runs[0]["prompt_tokens"]
+                dense.reset()
+                gaps = top2_gaps(dense.forward(prompt_tokens + cli_runs[0]["tokens"][:-1])[len(prompt_tokens) - 1:])
+                out["cli generate --sp 2"] = greedy_against("15a generate --sp 2 (CLI)", cli_runs[1]["tokens"],
+                                                            cli_runs[0]["tokens"], gaps)
+                out["cli generate --sp 2"]["kernel_paths"] = moved_paths(paths0, "15a CLI --sp 2",
+                                                                         ("q40_matmul/k1_dp4a",))
+            del engine, built, backend
+        del dense, dense_built
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_phase(cli, moe, q40, coll, telemetry, model: str, tok: str) -> dict:
+    """15b: ``--ep`` at Mixtral-8x7B width over ``model`` (phase 8b's
+    MIXTRAL_LAYERS-layer file) against the ``--tp 1`` engine on the card,
+    per arm of EP_ARMS: a 64-token prompt from token ids (the dispatch
+    path: 64 % ep == 0) whose expert ids of every router call (the home
+    ranks' joined) and then logits are held to the dense engine's, then
+    SP_TOKENS greedy tokens (dense-local decode: the ep combine through the
+    arm's all-reduce) held as in 15a, ids first; the 63-token prompt
+    through the backend at its exact length (dense-local); K1's tiles on
+    every arm, K4 and K5 under ring, no plain path. An id may differ only
+    where the dense engine's top-k margin is under ROUTE_MARGIN. Then
+    ``--moe-capacity 2.0`` at ep 2: finite logits and the dropped rows
+    counted. Records decode ms/token, device busy per token and card
+    memory beside --tp 1's."""
+    from distributed_llama_tpu_torch.parallel import expert_parallel
+
+
+    def args(ep=1, tp=1):
+        return cli.build_parser().parse_args([
+            "generate", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--decode", "device",
+            "--max-seq-len", str(SEQ_LEN), "--temperature", "0", "--prompt", "hello", "--ep", str(ep),
+            "--tp", str(tp)])
+
+    orig_topk = moe.router_topk
+
+    def recording(calls):
+        def spy(cfg, xn, router):
+            vals, idx = orig_topk(cfg, xn, router)
+            p = torch.sort(moe.router_probs(cfg, xn, router), dim=-1, descending=True).values
+            k = cfg.n_active_experts
+            calls.append((idx.cpu().numpy(), (p[:, k - 1] - p[:, k]).cpu().numpy()))
+            return vals, idx
+        return spy
+
+    def run(engine):
+        """Prefill logits, the greedy tokens and every router call."""
+        calls: list = []
+        moe.router_topk = recording(calls)
+        try:
+            engine.reset()
+            logits = engine.prefill(prompt)
+            first = int(np.argmax(logits))
+            toks = [int(t) for t in engine.generate_on_device(first, SP_TOKENS - 1, 0.0)]
+        finally:
+            moe.router_topk = orig_topk
+        return logits, [first] + toks, calls
+
+    out: dict = {}
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        dense = cli.make_engine(args())[0]
+        L = dense.cfg.n_layers
+        prompt = _token_prompt(64, 17, dense.cfg.vocab_size)
+        ref_logits, ref_tokens, ref_calls = run(dense)
+        dense.rollback(len(prompt))
+        ref_gaps = np.concatenate([top2_gaps(ref_logits[None]), top2_gaps(dense.forward(ref_tokens[:-1]))])
+        dense.reset()
+        ref63 = dense.forward(prompt[:63])
+        first = int(np.argmax(ref_logits))
+        out["tp1"] = dict(card_gb=torch.cuda.memory_allocated() / 1e9, **decode_timing(dense, first, "--tp 1"))
+        print(f"--tp 1: {len(ref_calls)} router calls, smallest top-k margin "
+              f"{min(float(m.min()) for _, m in ref_calls):.3e}")
+        for ep, tp in sorted({(a[0], a[1]) for a in EP_ARMS}):
+            gc.collect()
+            torch.cuda.empty_cache()
+            built = cli.make_engine(args(ep, tp))
+            engine = built[0]
+            backend = engine.tp_backend
+            card_gb = torch.cuda.memory_allocated() / 1e9
+            for _, _, impl in (a for a in EP_ARMS if a[:2] == (ep, tp)):
+                label = f"15b ep={ep} tp={tp} {impl}"
+                backend.allreduce = impl
+                paths0 = kernel_paths()
+                coll.reset_launches()
+                q40.reset_launches()
+                moe.reset_host_reads()
+                logits, tokens, calls = run(engine)
+                # the prefill's router calls: ep home ranks per layer, joined
+                joined = [(np.concatenate([c[0] for c in calls[l * ep : (l + 1) * ep]]),
+                           np.concatenate([c[1] for c in calls[l * ep : (l + 1) * ep]])) for l in range(L)]
+                calls = joined + calls[L * ep :]
+                check(len(calls) == len(ref_calls), f"{label}: {len(calls)} router calls, want {len(ref_calls)}")
+                row = dict(ep=ep, tp=tp, allreduce=impl, router_calls=len(calls), card_gb=card_gb,
+                           host_reads=moe.host_reads["expert_ids"])
+                check(moe.host_reads["expert_ids"] == 0, f"{label}: the top-k path read expert ids")
+                # ids first: the prefill's, and each decode step's that fed the
+                # reference's token (step s feeds token s)
+                apart = next((j for j, (x, y) in enumerate(zip(tokens, ref_tokens)) if x != y), len(tokens))
+                n_cmp = L * (1 + min(apart, len(tokens) - 1))
+                differ = [(j, r) for j, ((a, _), (b, m)) in enumerate(zip(calls[:n_cmp], ref_calls))
+                          for r in np.nonzero((a != b).any(axis=-1))[0]]
+                for j, r in differ:
+                    check(ref_calls[j][1][r] <= ROUTE_MARGIN, f"{label}: expert ids differ at router call {j} row "
+                          f"{r} where --tp 1's top-k margin is {ref_calls[j][1][r]:.3e}")
+                row.update(ids_compared=n_cmp, ids_differing_near_ties=len(differ))
+                row["prefill_err_rel"] = logit_gate(f"{label} prefill", logits, ref_logits) if not differ else None
+                row.update(greedy_against(label, tokens, ref_tokens, ref_gaps))
+                row["launches"] = {**coll.launches, **q40.tile_launches}
+                want = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma")
+                if impl == "ring":
+                    want += ("all_reduce/k4_ring", "all_reduce/k5_fused")
+                row["kernel_paths"] = moved_paths(paths0, label, want)
+                print(f"{label}: the expert ids of {n_cmp} router calls equal --tp 1's ({len(differ)} rows "
+                      f"apart at margins under {ROUTE_MARGIN}); prefill logits {row['prefill_err_rel']} of max "
+                      f"|logit|; launches {row['launches']}")
+                # the dense-local path at the prompt's exact length (63 rows)
+                dense_local = []
+                orig_dl = expert_parallel._ep_dense_local
+                expert_parallel._ep_dense_local = lambda *a, **kw: dense_local.append(1) or orig_dl(*a, **kw)
+                try:
+                    caches = backend.init_cache(engine.cache_dtype)
+                    toks = torch.tensor(prompt[:63], dtype=torch.int64, device=engine.device)
+                    lg63, _ = backend.forward(engine.params, toks, caches, 0)
+                finally:
+                    expert_parallel._ep_dense_local = orig_dl
+                del caches
+                check(len(dense_local) == L, f"{label}: dense-local ran {len(dense_local)} times, want {L}")
+                row["dense_local_63_err_rel"] = logit_gate(f"{label} 63 rows dense-local", lg63.cpu().numpy(), ref63)
+                if impl == "psum":
+                    row.update(decode_timing(engine, tokens[0], label))
+                out[label.removeprefix("15b ")] = row
+            if (ep, tp) == (2, 1):
+                cfg = dataclasses.replace(engine.cfg, moe_capacity_factor=2.0)
+                engine.cfg = backend.cfg = cfg
+                ranks: list = []
+                orig_rank = moe.bucket_rank
+                moe.bucket_rank = lambda top_idx, n: ranks.append(orig_rank(top_idx, n)) or ranks[-1]
+                try:
+                    engine.reset()
+                    lg = engine.prefill(prompt)
+                finally:
+                    moe.bucket_rank = orig_rank
+                Ce = moe.bucket_capacity(2.0, len(prompt) // ep, cfg.n_active_experts, cfg.n_experts)
+                drops = sum(int((r[1] >= Ce).sum()) for r in ranks)
+                check(bool(np.isfinite(lg).all()), "15b --moe-capacity 2.0: non-finite logits")
+                out["ep=2 capacity 2.0"] = dict(capacity_rows=Ce, dropped_choices=drops, routed_choices=sum(
+                    r[1].numel() for r in ranks), err_rel_vs_drop_free=float(np.abs(lg - ref_logits).max()
+                                                                         / np.abs(ref_logits).max()))
+                print(f"15b ep=2 --moe-capacity 2.0: buckets of {Ce} rows per expert per home rank; {drops} of "
+                      f"{out['ep=2 capacity 2.0']['routed_choices']} routed choices dropped; logits finite, "
+                      f"{out['ep=2 capacity 2.0']['err_rel_vs_drop_free']:.3e} of max |logit| from the drop-free "
+                      "--tp 1's")
+                engine.cfg = backend.cfg = dataclasses.replace(cfg, moe_capacity_factor=0.0)
+            del engine, built, backend
+        del dense
+    finally:
+        moe.router_topk = orig_topk
+        telemetry.disable()
+        telemetry.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_ep_serve(server_api, label: str, model: str, tok: str, extra: list) -> dict:
+    """15c: the API server with ``extra`` (``--sp 2`` or ``--ep 2``) and
+    ``--parallel 2``: the batch-decode refusal printed, independent lanes,
+    4 greedy requests at once all 200, and each completion equal token for
+    token to the engine's single-stream greedy decode of its prompt (what
+    the CLI's generate runs)."""
+    args = server_api.build_parser().parse_args([
+        "generate", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--max-seq-len", str(SERVER_SEQ_LEN),
+        "--decode-chunk", "8", "--chat-template", "chatml", "--host", "127.0.0.1", "--port", "0", "--temperature",
+        "0", "--parallel", "2", *extra])
+    bodies = [{"messages": [{"role": "system", "content": "You are a helpful assistant."},
+                            {"role": "user", "content": f"{c} tell me about the world"}],
+               "max_tokens": SERVE_TOKENS, "temperature": 0.0, "seed": 50 + i, "stream": i % 2 == 0}
+              for i, c in enumerate("ABCD")]
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        server, state = server_api.make_server(args)
+    print(said.getvalue(), end="")
+    check("⚠️ batch decode disabled" in said.getvalue(), f"{label}: no batch-decode warning")
+    check(state.batch is None and len(state.slots) == 2, f"{label}: not two independent lanes")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        captured: list = []
+        _capture_streams(state, captured)
+        res, ms = timed(lambda: _concurrent(url, bodies))
+        check(all(r["status"] == 200 for r in res), f"{label}: {[r['status'] for r in res]}")
+        check(len(captured) == len(bodies), f"{label}: {len(captured)} decodes captured")
+        stream = state.engine.new_stream()
+        for prompt, temperature, seed, ids in captured:
+            stream.reset()
+            first = stream.prefill_device(prompt, 0.0, 0.9, seed)
+            got: list = []
+            stream.stream_decode(first, lambda p, t: got.append(t) or len(got) < len(ids), 0.0, 0.9, seed=seed,
+                                 chunk=8, limit=stream.pos + len(ids), first_prev=prompt[-1])
+            check(got == ids, f"{label}: a served completion differs from the single-stream decode of its "
+                  f"prompt: {ids} vs {got}")
+        del stream
+        print(f"{label}: 4 greedy requests on 2 independent lanes in {ms:.0f} ms, each completion "
+              f"({[len(c[3]) for c in captured]} tokens) equal to the single-stream decode of its prompt")
+        return {"requests_ms": ms, "tokens": [len(c[3]) for c in captured]}
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.close()
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sp_phases(cli, server_api, q40, coll, model: str, tok: str, summary: dict) -> None:
+    """Phase 15's K1 rows at the ring pass's per-rank rows, 15a and 15c's
+    ``--sp 2`` server over the 7B-width ``model``; results go into
+    ``summary``."""
+    from distributed_llama_tpu_torch import telemetry
+
+    t = phase(f"15. K1 at the ring pass's {SP_RING_ROWS} rows per rank (--sp 4), the Llama-2-7B shapes")
+    summary["sp_kernel_rows"] = k1_checks(q40, ts=(SP_RING_ROWS,))
+    k1_forward_rows(summary["sp_kernel_rows"])
+    t = phase(f"15a. the slice's path: --sp 2/4 and --tp 2 --sp 2 at Llama-2-7B width, {TP_LAYERS} layers, "
+              f"--max-seq-len {SP_SEQ_LEN}")
+    summary["sp"] = sp_phase(cli, q40, coll, telemetry, model, tok)
+    summary["sp_serve"] = sp_ep_serve(server_api, "15c --sp 2", model, tok, ["--sp", "2"])
+    print(f"phase 15a: {time.perf_counter() - t:.1f} s")
+
+
+def ep_phases(cli, server_api, moe, q40, coll, model: str, tok: str, summary: dict) -> None:
+    """15b and 15c's ``--ep 2`` server over the Mixtral-width ``model``;
+    results go into ``summary``."""
+    from distributed_llama_tpu_torch import telemetry
+
+    t = phase(f"15b. the slice's path: --ep 2/4 and --tp 2 --ep 2 at Mixtral-8x7B width, {MIXTRAL_LAYERS} layers")
+    summary["ep"] = ep_phase(cli, moe, q40, coll, telemetry, model, tok)
+    summary["ep_serve"] = sp_ep_serve(server_api, "15c --ep 2", model, tok, ["--ep", "2"])
+    print(f"phase 15b: {time.perf_counter() - t:.1f} s")
+
+
+def sp_ep_only(smi: str) -> None:
+    """``--sp-ep``: phase 2, then phase 15 alone over its own files: a
+    7B-width file at TP_LAYERS layers and a Mixtral-width file at
+    MIXTRAL_LAYERS (results in build/chip_smoke_sp_ep.json)."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.apps import cli
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.models import moe
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.ops import cuda_build, q40
+    from distributed_llama_tpu_torch.server import api as server_api
+
+    t_all = phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    summary: dict = {"card": smi}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, Path(tmp), TP_LAYERS)
+        sp_phases(cli, server_api, q40, coll, model, tok, summary)
+        os.remove(model)
+        spec = synthetic.mixtral_8x7b_spec(n_layers=MIXTRAL_LAYERS, seq_len=4096)
+        model = str(Path(tmp) / "mixtral_8x7b_width.m")
+        synthetic.write_random_q40_model(model, spec, seed=0)
+        tok = str(Path(tmp) / "tok_mixtral.t")
+        with open(tok, "wb") as f:
+            write_tokenizer_file(f, synthetic.synthetic_tokenizer_data(vocab_size=spec.vocab_size))
+        ep_phases(cli, server_api, moe, q40, coll, model, tok, summary)
+    summary["total_s"] = time.perf_counter() - t_all
+    summary["phase_s"] = phase_seconds(time.perf_counter())
+    out = ROOT / "build" / "chip_smoke_sp_ep.json"
+    out.write_text(json.dumps(summary, indent=1, default=str))
+    print(f"seconds by phase: {summary['phase_s']}")
+    print(f"phase 15 with its set-up: {summary['total_s']:.1f} s; details in {out}")
     print(f"card: {smi}")
 
 
@@ -5089,6 +5659,9 @@ def main() -> None:
     parser.add_argument("--tp-serve", action="store_true",
                         help="phase 14 alone (serving over tensor-parallel ranks: the per-rank kernel shapes, the "
                         "7B-width server under --tp, Mixtral-8x7B width under --tp 2 in the server, and --pod 2x2)")
+    parser.add_argument("--sp-ep", action="store_true",
+                        help="phase 15 alone (--sp at Llama-2-7B width and --ep at Mixtral-8x7B width, the ranks on "
+                        "the card, and the server under each)")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
@@ -5102,10 +5675,11 @@ def main() -> None:
                              (lambda root, smi: spill_only(smi), opts.spill),
                              (lambda root, smi: fleet_only(smi), opts.fleet),
                              (lambda root, smi: chat_only(smi), opts.chat),
-                             (lambda root, smi: tp_serve_only(smi), opts.tp_serve)) if on]
+                             (lambda root, smi: tp_serve_only(smi), opts.tp_serve),
+                             (lambda root, smi: sp_ep_only(smi), opts.sp_ep)) if on]
     if len(alone) > 1:
         parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill, --fleet, --chat, "
-                     "--tp-serve")
+                     "--tp-serve, --sp-ep")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5281,8 +5855,8 @@ def main() -> None:
         summary["k2_rows"] = k2_rows
         print(f"phase 6a: {time.perf_counter() - t:.1f} s")
 
-        # phase 7c's 8-layer file: 6c's 16-row server and phases 9 to 12
-        # and 14 run over it in the full run (their depth cut to keep the
+        # the TP_LAYERS-layer file: 6c's 16-row server and phases 9 to 12
+        # and 15a run over it in the full run (their depth cut to keep the
         # run inside its time limit; --loadgen, --faults, --spill and
         # --fleet alone keep all 32 layers); phase 5's file when it has as
         # many layers (the same seed, the same bytes)
@@ -5356,15 +5930,16 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-        if model_tp != model:
-            os.remove(model)  # room on the disk for phase 7c's and phase 8's files
         t = phase(f"7c. the slice's path: CLI generate --tp 2/4 --allreduce ring, Llama-2-7B width, "
-                  f"{TP_LAYERS} layers")
-        summary["tp"] = tp_runs(cli, llama, coll, q40, model_tp, tok)
+                  f"{MAIN_LAYERS} layers")
+        summary["tp"] = tp_runs(cli, llama, coll, q40, model, tok)
         for name in ("ring_all_reduce", "fused_matmul_ring"):
             main_launches[name] = summary["tp"]["tp2"]["launches"][name]
         print(f"phase 7c: {time.perf_counter() - t:.1f} s")
-        tp_serve_phases(cli, server_api, attn, kvc, llama, q40, coll, model_tp, tok, smi, summary)
+        tp_serve_phases(cli, server_api, attn, kvc, llama, q40, coll, model, tok, smi, summary, n_layers=MAIN_LAYERS)
+        if model_tp != model:
+            os.remove(model)  # room on the disk for phase 8's files
+        sp_phases(cli, server_api, q40, coll, model_tp, tok, summary)
         os.remove(model_tp)
 
         def after_8c(m, t_):
@@ -5373,6 +5948,7 @@ def main() -> None:
                         f"{MIXTRAL_LAYERS} layers")
             summary["moe_tp_server"] = moe_tp_server_phase(server_api, attn, kvc, llama, q40, moe, m, t_)
             print(f"phase 14b: {time.perf_counter() - t14:.1f} s")
+            ep_phases(cli, server_api, moe, q40, coll, m, t_, summary)
 
         moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, workdir, summary,
                    after_8c=after_8c)
@@ -5477,6 +6053,22 @@ def main() -> None:
         launches=tp2["main_path_launches"], max_abs_err=k2_tp["max_abs_err"],
         **{k: k2_tp[k] * N_LAYERS * 2 for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         bound_by=k2_tp["bound_by"]))
+    # phase 15's paths: K1's tensor-core tile over one ring-pass forward of
+    # one rank at --sp 4 (T=1024 at the five 7B shapes, 32 layers), its
+    # launches phase 15a's --sp 4 run; K4 at the ep combine ([1, 4096] f32
+    # over 2 ranks), its launches phase 15b's --tp 2 --ep 2 ring run
+    sp_rows = summary["sp_kernel_rows"]
+    src, replaces = KERNEL_INFO["q40_int8_mma"]
+    kernels.append(dict(
+        name="q40_int8_mma_sp_ring", route="cuda", source=src, replaces=replaces,
+        launches=summary["sp"]["sp=4 tp=1 psum"]["launches"]["mma"], max_abs_err=max(r["max_abs_err"] for r in sp_rows),
+        **{k: sum(r[k] * r["per_token"] for r in sp_rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in sp_rows) else "operations"))
+    src, replaces = KERNEL_INFO["ring_all_reduce"]
+    kernels.append(dict(name="ring_all_reduce_ep", route="cuda", source=src, replaces=replaces,
+                        launches=summary["ep"]["ep=2 tp=2 ring"]["launches"]["ring_all_reduce"],
+                        max_abs_err=k4["max_abs_err"],
+                        **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")}))
     summary["kernels"] = kernels
     end = time.perf_counter()
     summary["total_s"] = end - t_all
@@ -5491,7 +6083,7 @@ def main() -> None:
           "one batched decode step of 4 rows at the phase-6a positions, 32 launches; paged_attention_i8: "
           "one batched verify step, T=5, of 4 rows there); launches are the main path's, each counted in a run "
           f"of the depth named: phase 5 ({MAIN_LAYERS} layers) for the Q40 kernels, phase 6b ({MAIN_LAYERS}) for "
-          f"paged_attention, phase 6c ({MAIN_LAYERS}) for paged_attention_i8, phase 7c's --tp 2 run ({TP_LAYERS} "
+          f"paged_attention, phase 6c ({MAIN_LAYERS}) for paged_attention_i8, phase 7c's --tp 2 run ({MAIN_LAYERS} "
           "layers) for ring_all_reduce and fused_matmul_ring; ring_all_reduce: one call at [1, 4096] over 2 "
           f"ranks; fused_matmul_ring: one decoded token's wo and down launches at --tp 2 (T=1) at {N_LAYERS} "
           "layers, not at the depth of its launch count; the _moe entries: phase 8b's Mixtral-width path "
@@ -5503,7 +6095,11 @@ def main() -> None:
           "phase 13c's --tp 2 --allreduce ring run; q40_int8_tp_serve: one decoded token's shard launches at --tp 2 "
           f"(qkv 4096->6144, wo 2048->4096, gate_up 4096->11008, down 5504->4096, x {N_LAYERS} layers x 2 ranks, "
           "T=1), paged_attention_tp_serve: one 4-row batched decode step at 16 kv heads per rank x 2 ranks x "
-          f"{N_LAYERS} layers, their launches phase 14a's --tp 2 psum server ({TP_LAYERS} layers)")
+          f"{N_LAYERS} layers, their launches phase 14a's --tp 2 psum server ({MAIN_LAYERS} layers); "
+          f"q40_int8_mma_sp_ring: one rank's ring-pass forward at --sp 4 ({SP_RING_ROWS} rows at the five 7B "
+          f"shapes x {N_LAYERS} layers), its launches phase 15a's --sp 4 run ({TP_LAYERS} layers); "
+          "ring_all_reduce_ep: one ep combine [1, 4096] over 2 ranks, its launches phase 15b's --tp 2 --ep 2 ring "
+          f"run ({MIXTRAL_LAYERS} layers)")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,7 +12,11 @@ device stream token for token). ``--device cpu`` runs on the CPU with the
 kernels' plain PyTorch versions; the default is the card. ``--tp N`` runs
 N tensor-parallel ranks on that one device, their two all-reduces per layer
 summed by the ``--allreduce`` arm; Mixtral and Grok-1 files run under it
-too, each rank holding a hidden slice of every expert. ``--pod DATAxMODEL``
+too, each rank holding a hidden slice of every expert. ``--sp N`` cuts the
+KV cache's sequence over N ranks (a long prompt prefills in one
+ring-attention pass, the rest in 32-token chunks), ``--ep N`` gives each of
+N ranks whole experts of a MoE model; each composes with ``--tp`` on the
+one device, not with each other. ``--pod DATAxMODEL``
 builds a one-process pod (:mod:`parallel.pod`) and runs one slice of it:
 ``MODEL`` ranks over the one params tree the pod's slices share (the API
 server serves every slice); it does not compose with ``--tp``.
@@ -62,8 +66,6 @@ _CACHE_DTYPES = {"auto": None, "bf16": torch.bfloat16, "f32": torch.float32, "i8
 MODES = ("inference", "generate", "chat")
 WORKER_NOT_PORTED = ("worker mode (several hosts) is not ported yet "
                      "(ROADMAP.md Queue 1: ranks on several cards)")
-SP_EP_NOT_PORTED = ("--sp and --ep are not ported yet "
-                    "(ROADMAP.md Queue 1: sequence parallel and expert parallel)")
 
 
 def _mode(value: str) -> str:
@@ -109,8 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks (a power of two), all on --device")
-    p.add_argument("--sp", type=int, default=1, help="sequence-parallel ranks: not ported (raises above 1)")
-    p.add_argument("--ep", type=int, default=1, help="expert-parallel ranks: not ported (raises above 1)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel shards: KV cache sharded over the sequence, ring-attention prefill "
+                   "(long-context mode; composes with --tp on a 2-D tp x sp mesh)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel shards (MoE models): each shard owns n_experts/ep whole experts; prefill "
+                   "routes tokens with all_to_all dispatch/combine, decode runs local experts + psum (composes "
+                   "with --tp on a 2-D tp x ep mesh)")
     p.add_argument("--pod", type=str, default=None, metavar="DATAxMODEL",
                    help="one-process pod serving (e.g. 2x2): DATA replica slices, each MODEL tensor-parallel ranks, "
                    "all over ONE shared weights tree on --device (no per-replica weight copies). The API server runs "
@@ -159,8 +166,6 @@ def make_pod_group(args):
 
 
 def make_engine(args):
-    if getattr(args, "sp", 1) > 1 or getattr(args, "ep", 1) > 1:
-        raise NotImplementedError(SP_EP_NOT_PORTED)
     if getattr(args, "pod", None):
         # one slice of a freshly built pod (generate/inference/chat); the
         # server keeps the group itself, for replica rebuilds
@@ -172,6 +177,7 @@ def make_engine(args):
         cache_dtype=_CACHE_DTYPES[getattr(args, "cache_dtype", "auto")],
         tp=getattr(args, "tp", 1), allreduce=getattr(args, "allreduce", "psum"),
         moe_capacity_factor=getattr(args, "moe_capacity", 0.0) or 0.0,
+        sp=getattr(args, "sp", 1), ep=getattr(args, "ep", 1),
     )
     tokenizer = Tokenizer.from_file(args.tokenizer, engine.cfg.vocab_size)
     return engine, tokenizer, _make_sampler(args, engine.cfg.vocab_size)

@@ -11,10 +11,13 @@ chunk's tokens start their copy to the host when the chunk is issued
 chunk k's tokens reach the host while chunk k+1 still runs.
 
 Every stats entry covers the host time of its dispatch plus fetch. On a
-single device there is no transfer share (``transfer_ms`` is 0); under
-tensor parallelism (``tp`` > 1, :mod:`parallel.tensor_parallel`) it is the
-measured per-token time of the collective sequence, re-measured at a
-quiescent point every ``TRANSFER_REFRESH_TOKENS`` tokens.
+single device there is no transfer share (``transfer_ms`` is 0); under a
+parallel backend (tensor, sequence or expert parallelism:
+:mod:`parallel.tensor_parallel`, :mod:`parallel.context_parallel`,
+:mod:`parallel.expert_parallel`) it is the measured per-token time of the
+backend's collective sequence, paid once per dispatch the entry covers
+(the sequence-parallel chunked prefill issues several), and re-measured at
+a quiescent point every ``TRANSFER_REFRESH_TOKENS`` tokens.
 
 Telemetry: each engine binds one :class:`telemetry.EngineInstruments`
 bundle at construction (null instruments unless telemetry was enabled
@@ -216,7 +219,10 @@ class EngineStream(StreamStats):
         return self.engine.cfg
 
     def _entry(self, ms: float, n_tokens: int = 1) -> TokenStats:
-        return self.engine.split_stats(ms, n_tokens)
+        # a multi-token entry covers the prefill this thread just issued,
+        # which paid the transfer once per forward it dispatched
+        n_dispatches = self.engine.last_dispatches() if n_tokens > 1 else 1
+        return self.engine.split_stats(ms, n_tokens, n_dispatches)
 
     def reset(self) -> None:
         self._clear_stats()
@@ -240,7 +246,9 @@ class EngineStream(StreamStats):
         if self.pos + n > engine.cfg.seq_len:
             raise ValueError(f"context overflow: pos {self.pos} + {n} > {engine.cfg.seq_len}")
         padded = tokens
-        if n > 1:
+        # a backend that pads or chunks prompts itself (sequence parallelism)
+        # takes them at their exact length
+        if n > 1 and not getattr(engine.tp_backend, "prefers_exact_mid_prefill", False):
             bucket = _prefill_bucket(n)
             if self.pos + bucket > engine.cfg.seq_len:
                 bucket = n  # exact length near the context limit
@@ -537,7 +545,15 @@ class InferenceEngine:
     devices raises NotImplementedError. A MoE model runs at any ``tp``,
     each rank holding a hidden slice of every expert.
     ``moe_capacity_factor`` > 0 opts a MoE model's Q40 prefill into
-    capacity-bucketed experts (lossy: overflow rows drop)."""
+    capacity-bucketed experts (lossy: overflow rows drop).
+
+    ``sp`` > 1 cuts the KV cache's sequence over that many
+    sequence-parallel ranks (:mod:`parallel.context_parallel`: the
+    ring-attention prefill of a long prompt, the chunked prefill of the
+    rest), ``ep`` > 1 gives each of that many expert-parallel ranks whole
+    experts of a MoE model (:mod:`parallel.expert_parallel`); each composes
+    with ``tp`` on the same card, the two not with each other (ValueError).
+    Both are single-stream backends: the batch scheduler refuses them."""
 
     TRANSFER_REFRESH_TOKENS = 512
     # True for a pod slice's engine, whose params object other engines read
@@ -546,12 +562,14 @@ class InferenceEngine:
 
     def __init__(self, model_path: str, dtype="q40", max_seq_len: int | None = None,
                  device="cuda", q40_path: str = "int8", cache_dtype=None, tp: int = 1,
-                 allreduce: str = "psum", moe_capacity_factor: float = 0.0):
+                 allreduce: str = "psum", moe_capacity_factor: float = 0.0, sp: int = 1, ep: int = 1):
         from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
         from distributed_llama_tpu_torch.models.config import config_from_spec
 
         if q40_path not in PATHS:
             raise ValueError(f"unknown q40 path {q40_path!r}; expected one of {PATHS}")
+        if ep > 1 and sp > 1:
+            raise ValueError("--ep and --sp do not compose (pick one FFN/context strategy)")
         self.q40_path = q40_path
         # the instrument bundle and the fault plan, bound once: null
         # instruments unless telemetry was enabled before this engine was
@@ -566,17 +584,30 @@ class InferenceEngine:
         if isinstance(device, (list, tuple)):  # one device per rank: several cards raise
             device = tensor_parallel.rank_devices(tp, devices=device)[0]
         self.device = resolve_device(device)
-        self.tp = tp
+        self.tp, self.sp, self.ep = tp, sp, ep
+        # the parallel backend, or None on one rank: expert parallelism
+        # (optionally over tp), sequence parallelism (likewise), or tensor
+        # parallelism alone; all share the tp backend's params layout
         self.tp_backend = None
-        if tp > 1:
+        quantized = dtype == weights_lib.QUANTIZED_DTYPE
+        if ep > 1:
+            from distributed_llama_tpu_torch.parallel import expert_parallel
+
+            self.tp_backend = expert_parallel.ExpertParallelForward(
+                self.cfg, ep, tp=tp, device=self.device, quantized=quantized, allreduce=allreduce)
+        elif sp > 1:
+            from distributed_llama_tpu_torch.parallel import context_parallel
+
+            self.tp_backend = context_parallel.SequenceParallelForward(
+                self.cfg, sp, tp=tp, device=self.device, quantized=quantized, allreduce=allreduce)
+        elif tp > 1:
             self.tp_backend = tensor_parallel.TensorParallelForward(
-                self.cfg, tp, device=self.device, quantized=dtype == weights_lib.QUANTIZED_DTYPE,
-                allreduce=allreduce)
+                self.cfg, tp, device=self.device, quantized=quantized, allreduce=allreduce)
         if cache_dtype is None:
             # q40 is a weights-only format; its KV cache is bf16
             cache_dtype = torch.bfloat16 if dtype == weights_lib.QUANTIZED_DTYPE else dtype
         self.cache_dtype = cache_dtype
-        self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device, tp=tp)
+        self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device, tp=tp, ep=ep)
         reader.close()
         self._init_runtime()
 
@@ -597,7 +628,7 @@ class InferenceEngine:
         self.spec = spec
         self.cfg = cfg
         self.device = backend.devices[0]
-        self.tp = backend.tp
+        self.tp, self.sp, self.ep = backend.tp, 1, 1
         self.tp_backend = backend
         self.cache_dtype = cache_dtype
         self.params = params
@@ -664,11 +695,18 @@ class InferenceEngine:
         return sampling.decode_chunk(self.cfg, self.params, first_token, cache, pos, n_steps, temperature, topp,
                                      topk, seed32, self.q40_path)
 
-    def split_stats(self, ms: float, n_tokens: int = 1) -> TokenStats:
+    def last_dispatches(self) -> int:
+        """How many forwards the latest forward call issued on this thread
+        (the sequence-parallel chunked prefill issues several; every other
+        path one)."""
+        return getattr(self.tp_backend, "last_forward_dispatches", 1) or 1
+
+    def split_stats(self, ms: float, n_tokens: int = 1, n_dispatches: int = 1) -> TokenStats:
         """A stats entry with its transfer share: the measured collective
-        time per token (an upper bound), clamped to the entry's time."""
+        time of one token's forward (an upper bound) once per dispatch the
+        entry covers, clamped to the entry's time."""
         self._tokens += n_tokens
-        transfer = min(self._transfer_ms * n_tokens, ms)
+        transfer = min(self._transfer_ms * n_dispatches, ms)
         return TokenStats(ms, ms - transfer, transfer, n_tokens=n_tokens)
 
     def refresh_transfer(self) -> None:

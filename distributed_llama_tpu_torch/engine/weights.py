@@ -14,7 +14,11 @@ weight dtype. The router is read in f32 and stored in the weight dtype
 (bf16 under q40), as the JAX package stores it; it is multiplied in f32.
 Grok-1 layers add the ``rms_moe`` and ``rms_ffn2`` norms. Under tensor
 parallelism the router is replicated and every rank holds a hidden slice
-of every expert (:mod:`parallel.sharding`'s MoE table).
+of every expert (:mod:`parallel.sharding`'s MoE table). Under expert
+parallelism each tp rank's list of experts is the ep ranks' whole experts
+in rank order (rank j's the contiguous run [j*E/ep, (j+1)*E/ep)), so the
+same load serves it; under sequence parallelism the params are the tensor
+parallel ones, read by every sp rank.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ QUANTIZED_DTYPE = "q40"  # keep matmul weights 4-bit on the device
 
 
 def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=QUANTIZED_DTYPE,
-                device="cuda", tp: int = 1):
+                device="cuda", tp: int = 1, ep: int = 1):
     """Build the params dict on ``device`` (the card unless "cpu" is
     asked for). ``dtype`` is "q40", torch.bfloat16 or torch.float32 for the
     matmul weights. ``tp`` > 1 returns one params dict per rank, each
@@ -46,7 +50,11 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
     ranges of each source matrix (a fused qkv shard is [q_s | k_s | v_s]),
     input shards quant-block-aligned column ranges, and wcls is
     vocab-sharded when the vocab divides. The replicated leaves are one
-    tensor shared by every rank."""
+    tensor shared by every rank. ``ep`` > 1 (a MoE model whose expert count
+    it divides) gives each ep rank whole experts, each still cut over tp:
+    the tp ranks' expert lists and banks in expert order are exactly that
+    (:func:`parallel.expert_parallel.rank_expert_leaves` takes rank j's
+    run without a copy)."""
     from distributed_llama_tpu_torch.parallel import sharding
     from distributed_llama_tpu_torch.parallel.tensor_parallel import validate_tp
 
@@ -54,6 +62,10 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
     cfg = cfg or config_from_spec(reader.spec)
     quantized = dtype == QUANTIZED_DTYPE
     validate_tp(cfg, tp, quantized=quantized)
+    if ep > 1:
+        from distributed_llama_tpu_torch.parallel.expert_parallel import validate_ep
+
+        validate_ep(cfg, ep)
     table = sharding.param_rules("q40" if quantized else "layered", shard_vocab=cfg.vocab_size % tp == 0,
                                  moe=cfg.is_moe)
 
@@ -140,7 +152,7 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def params_from_jax(tree, device="cuda", tp: int = 1):
+def params_from_jax(tree, device="cuda", tp: int = 1, ep: int = 1):
     """The port's params on ``device`` (the card unless "cpu" is asked for)
     from the JAX package's ``load_params`` tree with every leaf as numpy and
     each ``QuantizedMatrix`` flattened by the caller into ``{"qs", "scales",
@@ -149,8 +161,20 @@ def params_from_jax(tree, device="cuda", tp: int = 1):
     ``tree`` is a list of one such tree per rank, each leaf the rank's shard
     of the JAX TP engine's placed array (its device's block along the mesh
     axis, or the whole array where it is replicated), and the result is the
-    per-rank params list :func:`load_params` builds for that ``tp``."""
+    per-rank params list :func:`load_params` builds for that ``tp``. With
+    ``ep`` > 1, ``tree`` is one tree per device of a JAX
+    ``ExpertParallelForward``'s (tp, ep) mesh, device (t, j) at t*ep + j:
+    each holds tp shard t of the dense leaves and ep rank j's whole experts
+    (``experts_gate_up``/``experts_down`` flattened QuantizedMatrix dicts
+    with a leading local-expert axis, or ``moe_*`` bank blocks); the ranks'
+    experts are laid end to end in expert order, as :func:`load_params`
+    builds them for ``tp`` and ``ep``."""
     device = resolve_device(device)
+    if ep > 1:
+        if len(tree) != tp * ep:
+            raise ValueError(f"{len(tree)} device trees for tp={tp} x ep={ep}")
+        ranks = [_join_expert_blocks(tree[t * ep : (t + 1) * ep]) for t in range(tp)]
+        return params_from_jax(ranks if tp > 1 else ranks[0], device, tp)
     if tp > 1:
         if len(tree) != tp:
             raise ValueError(f"{len(tree)} rank trees for tp={tp}")
@@ -169,3 +193,28 @@ def params_from_jax(tree, device="cuda", tp: int = 1):
         return _tensor(np.asarray(v), device)
 
     return conv(tree)
+
+
+def _join_expert_blocks(blocks: list):
+    """One tp rank's tree from its ep devices' trees: the first device's
+    dense leaves, and every layer's experts joined in rank order (each
+    stacked q40 block split into per-expert leaves, the f32/bf16 bank blocks
+    concatenated)."""
+    def split(m: dict) -> list:
+        # logical dims from the packed ones: the EP packs carry no padding
+        qs, scales = np.asarray(m["qs"]), np.asarray(m["scales"])
+        return [{"qs": q, "scales": sc, "n": qs.shape[-2] * 2, "d": qs.shape[-1]} for q, sc in zip(qs, scales)]
+
+    out = dict(blocks[0], layers=[])
+    for l, lp in enumerate(blocks[0]["layers"]):
+        lp = dict(lp)
+        ranks = [b["layers"][l] for b in blocks]
+        if "experts_gate_up" in lp:
+            del lp["experts_gate_up"], lp["experts_down"]
+            lp["experts"] = [{"gate_up": g, "down": d} for r in ranks
+                             for g, d in zip(split(r["experts_gate_up"]), split(r["experts_down"]))]
+        for name in ("moe_up", "moe_gate", "moe_down"):
+            if name in lp:
+                lp[name] = np.concatenate([np.asarray(r[name]) for r in ranks])
+        out["layers"].append(lp)
+    return out

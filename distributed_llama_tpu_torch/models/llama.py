@@ -226,13 +226,14 @@ def forward_tokens(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache
 
 
 def block_tail_tp(cfg: LlamaConfig, xs: list, atts: list, lps: list, path: str = "int8",
-                  impl: str = "psum", n_real: int | None = None) -> list:
+                  impl: str = "psum", n_real: int | None = None, ep: int = 1) -> list:
     """wo + all-reduce, the residual per rank (Grok-1 norms the sum with
     ``rms_ffn`` first), then the FFN up to h per rank, down + all-reduce,
     the residual per rank; or a MoE layer's experts
-    (:func:`models.moe.moe_block_tp`), whose partial sums are all-reduced.
-    One rank (lists of one) is :func:`block_tail`: its all-reduces are the
-    identity."""
+    (:func:`models.moe.moe_block_tp`), whose partial sums are all-reduced;
+    ``ep`` > 1 runs them over that many expert-parallel ranks
+    (:mod:`parallel.expert_parallel`). One rank (lists of one) is
+    :func:`block_tail`: its all-reduces are the identity."""
     from distributed_llama_tpu_torch.ops import collectives
 
     outs = collectives.matmul_all_reduce([a.to(lp["wo"].dtype) for a, lp in zip(atts, lps)],
@@ -244,7 +245,7 @@ def block_tail_tp(cfg: LlamaConfig, xs: list, atts: list, lps: list, path: str =
     if cfg.is_moe:
         from distributed_llama_tpu_torch.models import moe
 
-        return moe.moe_block_tp(cfg, xs, lps, n_real=n_real, path=path, impl=impl)
+        return moe.moe_block_tp(cfg, xs, lps, n_real=n_real, path=path, impl=impl, ep=ep)
     hs = [ffn_hidden(cfg, x, lp, path).to(lp["down"].dtype) for x, lp in zip(xs, lps)]
     outs = collectives.matmul_all_reduce(hs, [lp["down"] for lp in lps], impl, path)
     return [x + o.to(x.dtype) for x, o in zip(xs, outs)]
@@ -261,13 +262,14 @@ def _rank_paged(paged, r: int, l: int):
 
 def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
                       path: str = "int8", impl: str = "psum", n_real: int | None = None,
-                      paged=None) -> tuple[list, list]:
+                      paged=None, ep: int = 1) -> tuple[list, list]:
     """The layer loop under tensor parallelism: T tokens from ``pos``
     through every layer, attention per rank on its own heads and cache.
     ``n_real`` as in :func:`forward_tokens`; ``paged`` = (pools, table,
     matched) with one per-layer pool per rank, each rank reading its own
-    kv heads of the matched prefix through the shared table. Returns (each
-    rank's final residual stream [T, dim], caches)."""
+    kv heads of the matched prefix through the shared table; ``ep`` as in
+    :func:`block_tail_tp`. Returns (each rank's final residual stream
+    [T, dim], caches)."""
     T = tokens.shape[0]
     xs = [embed(cfg, p, tokens.to(p["embedding"].device)) for p in params]
     ropes = [p["rope_table"][pos : pos + T] for p in params]
@@ -278,7 +280,7 @@ def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, cach
             att, caches[r][l] = attention(cfg, xs[r], lp, caches[r][l], pos, ropes[r], path,
                                           paged=_rank_paged(paged, r, l))
             atts.append(att)
-        xs = block_tail_tp(cfg, xs, atts, lps, path, impl, n_real=n_real)
+        xs = block_tail_tp(cfg, xs, atts, lps, path, impl, n_real=n_real, ep=ep)
     return xs, caches
 
 
@@ -294,10 +296,13 @@ def gather_logits_tp(cfg: LlamaConfig, params: list, xs: list, path: str = "int8
 
 
 def forward_tokens_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
-                      path: str = "int8", impl: str = "psum", n_real: int | None = None, paged=None):
-    """:func:`forward_tokens` over per-rank params and caches (``paged`` as
-    in :func:`forward_hidden_tp`). Returns (logits f32 [T, vocab], caches)."""
-    xs, caches = forward_hidden_tp(cfg, params, tokens, caches, pos, path, impl, n_real=n_real, paged=paged)
+                      path: str = "int8", impl: str = "psum", n_real: int | None = None, paged=None,
+                      ep: int = 1):
+    """:func:`forward_tokens` over per-rank params and caches (``paged`` and
+    ``ep`` as in :func:`forward_hidden_tp`). Returns (logits f32 [T, vocab],
+    caches)."""
+    xs, caches = forward_hidden_tp(cfg, params, tokens, caches, pos, path, impl, n_real=n_real, paged=paged,
+                                   ep=ep)
     return gather_logits_tp(cfg, params, xs, path), caches
 
 

@@ -1,9 +1,10 @@
 """Mixture-of-experts FFN (Mixtral, Grok-1) on one device or over the
 tensor-parallel ranks.
 
-The port of the JAX package's ``models/moe.py`` without its expert-parallel
-branch: router matmul -> softmax -> top-k -> renormalized weights ->
-per-expert SwiGLU -> weighted sum of the expert outputs.
+The port of the JAX package's ``models/moe.py``: router matmul -> softmax
+-> top-k -> renormalized weights -> per-expert SwiGLU -> weighted sum of the
+expert outputs. Its expert-parallel branch (``ep`` > 1: whole experts per
+rank) lives in :mod:`parallel.expert_parallel`.
 
 * The router runs in f32: its logits are one plain f32 matrix product
   (``_true_f32_matmul`` turns TF32 off for every call), the softmax the
@@ -218,17 +219,25 @@ def _mix_buckets(cfg: LlamaConfig, lp, route, path: str = "int8") -> torch.Tenso
 
 
 def moe_ffn_tp(cfg: LlamaConfig, xns: list, lps: list, n_real: int | None = None, path: str = "int8",
-               impl: str = "psum") -> list:
+               impl: str = "psum", ep: int = 1) -> list:
     """Expert-mixed SwiGLU of each rank's normed rows xns[r] [T, dim]: the
     routing once, from rank 0's rows (every rank's are the same bytes); one
     row takes the top-k path, more rows the all-experts one (or the
     bucketed one, see :func:`_bucketed`), each rank's experts on its hidden
-    slice; then one all-reduce of the partial expert sums. Returns each
-    rank's [T, dim] f32 sum."""
+    slice; then one all-reduce of the partial expert sums. ``ep`` > 1 runs
+    the experts over that many expert-parallel ranks instead
+    (:func:`parallel.expert_parallel.ep_moe_ffn`, whatever the row count;
+    ``n_real`` unread, as the JAX package's expert-parallel forward takes
+    none), the all-reduce over the tp ranks on top. Returns each rank's
+    [T, dim] f32 sum."""
     from distributed_llama_tpu_torch.ops import collectives
 
     xn, router = xns[0], lps[0]["router"]
-    if xn.shape[0] == 1:
+    if ep > 1:
+        from distributed_llama_tpu_torch.parallel.expert_parallel import ep_moe_ffn
+
+        outs = ep_moe_ffn(cfg, xns, lps, ep, path=path, impl=impl)
+    elif xn.shape[0] == 1:
         top_vals, ids = _route_topk(cfg, xn, router)
         outs = [_mix_topk(cfg, x, lp, top_vals, ids, path) for x, lp in zip(xns, lps)]
     elif _bucketed(cfg, xn, lps[0]):
@@ -241,15 +250,16 @@ def moe_ffn_tp(cfg: LlamaConfig, xns: list, lps: list, n_real: int | None = None
 
 
 def moe_block_tp(cfg: LlamaConfig, xs: list, lps: list, n_real: int | None = None, path: str = "int8",
-                 impl: str = "psum") -> list:
+                 impl: str = "psum", ep: int = 1) -> list:
     """The FFN half of a MoE block on each rank, after the attention
     residual: Mixtral norms with ``rms_ffn`` before the experts; Grok-1
     with ``rms_moe``, and norms the all-reduced expert sum with
-    ``rms_ffn2`` (outside the reduction) before the residual add."""
+    ``rms_ffn2`` (outside the reduction) before the residual add. ``ep``
+    as in :func:`moe_ffn_tp`."""
     if cfg.arch == ArchType.GROK1:
         xns = [rmsnorm(x, lp["rms_moe"]) for x, lp in zip(xs, lps)]
-        outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl)
+        outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl, ep=ep)
         return [x + rmsnorm(o.to(x.dtype), lp["rms_ffn2"]) for x, o, lp in zip(xs, outs, lps)]
     xns = [rmsnorm(x, lp["rms_ffn"]) for x, lp in zip(xs, lps)]
-    outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl)
+    outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl, ep=ep)
     return [x + o.to(x.dtype) for x, o in zip(xs, outs)]

@@ -121,6 +121,35 @@ def fused_update_rows(leaf, k_rows: torch.Tensor, v_rows: torch.Tensor, pos: int
     return leaf
 
 
+def scatter_rows(leaf, slots, k_rows: torch.Tensor, v_rows: torch.Tensor):
+    """Masked scatter of T tokens' keys and values ([T, K, hd] each) into a
+    fused leaf, in place: row t lands at slot ``slots[t]`` (host ints). A
+    slot outside [0, S) drops its row, as the JAX package's ``mode="drop"``
+    scatter does with its out-of-bounds sentinel: the rows are filtered on
+    the host, so no index tensor ever holds an out-of-range slot (torch's
+    indexed copy raises on one on the CPU and asserts on the card). Returns
+    ``leaf``."""
+    S = leaf.shape[1]
+    keep = [(t, int(s)) for t, s in enumerate(slots) if 0 <= int(s) < S]
+    if not keep:
+        return leaf
+    idx = to_device([[t for t, _ in keep], [s for _, s in keep]], k_rows.device, torch.int64)
+    rows, dst = idx[0], idx[1]
+    _set(leaf, (slice(None), dst), _store(leaf, torch.stack([k_rows[rows], v_rows[rows]])))
+    return leaf
+
+
+def select_row_update(leaf, k_row: torch.Tensor, v_row: torch.Tensor, lpos: int, owner: bool):
+    """Owner-masked single-row write of one token's key and value ([1, K, hd]
+    each) at slot ``lpos``, in place: the leaf of the rank that owns the
+    position takes the row, every other rank's leaf keeps its bytes (the
+    JAX package's every-shard write of the row a non-owner already had).
+    Returns ``leaf``."""
+    if owner:
+        fused_update_rows(leaf, k_row, v_row, lpos)
+    return leaf
+
+
 def slice_rows(half, start: int, n: int):
     """Cache slots [start, start+n) of one half (a view)."""
     return half[start : start + n]

@@ -22,6 +22,13 @@ a hidden slice of every expert: under q40 each expert's fused gate|up pack
 is output-sharded and its down input-sharded; the f32/bf16 expert banks
 [E, d_in, d_out] cut their out dimension (:data:`BANK_OUT`: moe_up,
 moe_gate) or their in dimension (:data:`BANK_IN`: moe_down).
+
+Expert parallelism (:func:`ep_rules`) adds a second cut over the ``ep``
+ranks: whole experts, the hidden slice of each still cut over ``tp`` as
+above (the JAX package's ``ep``/``ep_q40`` layouts: experts over the
+expert axis, hidden over the model axis). Sequence parallelism cuts the
+cache's sequence axis over the ``sp`` ranks (:data:`CACHE_SEQ_AXIS`, the
+JAX ``stream_sp`` rule) and replicates every weight over them.
 """
 
 from __future__ import annotations
@@ -112,6 +119,27 @@ def param_rules(layout: str, shard_vocab: bool, moe: bool = False) -> RuleTable:
     ))
 
 
+def ep_rules(layout: str) -> RuleTable:
+    """Which leaves expert parallelism cuts over its ``ep`` ranks: every
+    expert leaf, along :data:`EXPERT` (a stacked bank's leading axis, or
+    the index of a q40 expert in its layer's ``experts`` list: rank j owns
+    experts [j*E/ep, (j+1)*E/ep)); every other leaf is replicated over ep."""
+    if layout == "q40":
+        expert = rf"{_L}/{_E}/(gate_up|down)"
+    elif layout == "layered":
+        expert = rf"{_L}/moe_(up|gate|down)"
+    else:
+        raise ValueError(f"unknown params layout {layout!r} (one of {LAYOUTS})")
+    return RuleTable(f"{layout}/ep", (Rule(expert, EXPERT), Rule(rf"(?!{expert}$).*", None)))
+
+
+# the expert axis of expert parallelism: a bank's leading axis, a q40
+# expert's list index
+EXPERT = 0
+
 # the per-layer fused cache leaf [2, S, K, hd] (and an int8 leaf's scales
-# [2, S, K, 1]) cuts its kv-head axis
+# [2, S, K, 1]) cuts its kv-head axis over tp and, under sequence
+# parallelism, its sequence axis over sp (rank i holds slots
+# [i*S/sp, (i+1)*S/sp))
 CACHE_KV_HEAD_AXIS = 2
+CACHE_SEQ_AXIS = 1

@@ -77,7 +77,68 @@ def rank_devices(tp: int, device="cuda", devices=None) -> list[torch.device]:
     return [resolve_device(device)] * tp
 
 
-class TensorParallelForward:
+def check_allreduce(allreduce: str) -> None:
+    if allreduce not in collectives.IMPLS:
+        raise ValueError(f"unknown all-reduce {allreduce!r}; expected one of {collectives.IMPLS}")
+
+
+def rank_params(params) -> list:
+    """Per-tp-rank params: the list ``load_params(tp > 1)`` returns, or the
+    one dict of ``tp`` = 1 as a list of one."""
+    return params if isinstance(params, list) else [params]
+
+
+class TransferProbeMixin:
+    """What the parallel backends share: the dispatch lock every issue goes
+    through, the single-stream decode over the backend's ``forward``, and
+    the transfer share of the engine's stats, measured by replaying the
+    backend's collective sequence (:meth:`transfer_probe`)."""
+
+    def decode_chunk(self, params, first_token, caches: list, pos: int, n_steps: int, temperature: float,
+                     topp: float, topk: int, seed32: int, path: str = "int8"):
+        """``n_steps`` forward -> sample steps, sampled on counter coins
+        keyed (seed, position) from the logits every rank holds. Returns
+        (tokens [n_steps] on the device, caches)."""
+        return sampling.decode_chunk(self.cfg, rank_params(params), first_token, caches, pos, n_steps, temperature,
+                                     topp, topk, seed32, path,
+                                     forward=lambda t, c, p: self.forward(params, t, c, p, path))
+
+    def decode_loop(self, params, first_token, caches: list, pos: int, n_steps: int, temperature: float,
+                    topp: float, seed: int = 0, topk: int = 0, path: str = "int8"):
+        """:meth:`decode_chunk` with the request seed folded here."""
+        return self.decode_chunk(params, first_token, caches, pos, n_steps, temperature, topp, topk,
+                                 prng.fold_seed(seed), path)
+
+    def _init_probe(self) -> None:
+        # serializes the issue of every call over this backend: the
+        # schedulers of a pod's slices, or the independent streams of a
+        # server without batch decode, share it (their launches and the
+        # kernels' launch counts never interleave)
+        self._dispatch_lock = lockcheck.make_lock("TransferProbeMixin._dispatch_lock")
+        # bound once: the tp.transfer site fires inside the transfer probe
+        self._faults = faults.active_plan()
+
+    def _sync(self) -> None:
+        if self.devices[0].type == "cuda":
+            torch.cuda.synchronize(self.devices[0])
+
+    def measure_transfer_ms(self, n_tokens: int = 32) -> float:
+        """Per-token collective time, replayed back to back between two
+        synchronizes after one warm-up replay (an upper bound of what the
+        forward spends in them). A failing probe raises; the ``tp.transfer``
+        site fires first (a flaky interconnect)."""
+        self._faults.fire("tp.transfer")
+        fn, args = self.transfer_probe(n_tokens)
+        with self._dispatch_lock:
+            fn(*args)
+            self._sync()
+            start = time.perf_counter()
+            fn(*args)
+            self._sync()
+            return (time.perf_counter() - start) * 1e3 / n_tokens
+
+
+class TensorParallelForward(TransferProbeMixin):
     """The tensor-parallel backend of :class:`engine.InferenceEngine`:
     forward, decode chunks, per-rank caches, the batched half and the
     transfer probe. Params and caches are per-rank lists
@@ -91,20 +152,14 @@ class TensorParallelForward:
     def __init__(self, cfg: LlamaConfig, tp: int, device="cuda", quantized: bool = False,
                  allreduce: str = "psum", devices=None):
         validate_tp(cfg, tp, quantized=quantized)
-        if allreduce not in collectives.IMPLS:
-            raise ValueError(f"unknown all-reduce {allreduce!r}; expected one of {collectives.IMPLS}")
+        check_allreduce(allreduce)
         self.cfg = cfg
         self.tp = tp
         self.quantized = quantized
         self.allreduce = allreduce
         self.devices = rank_devices(tp, device, devices)
         self.shard_vocab = cfg.vocab_size % tp == 0
-        # serializes the issue of every call over this backend: the
-        # schedulers of a pod's slices share it (their launches and the
-        # kernels' launch counts never interleave)
-        self._dispatch_lock = lockcheck.make_lock("TransferProbeMixin._dispatch_lock")
-        # bound once: the tp.transfer site fires inside the transfer probe
-        self._faults = faults.active_plan()
+        self._init_probe()
 
     @property
     def mesh_shape(self) -> dict:
@@ -121,20 +176,6 @@ class TensorParallelForward:
         with self._dispatch_lock:
             return llama.forward_tokens_tp(self.cfg, params, tokens, caches, pos, path, self.allreduce,
                                            n_real=n_real, paged=paged)
-
-    def decode_chunk(self, params: list, first_token, caches: list, pos: int, n_steps: int, temperature: float,
-                     topp: float, topk: int, seed32: int, path: str = "int8"):
-        """``n_steps`` forward -> sample steps under TP, sampled on counter
-        coins keyed (seed, position) from the replicated logits. Returns
-        (tokens [n_steps] on the device, caches)."""
-        return sampling.decode_chunk(self.cfg, params, first_token, caches, pos, n_steps, temperature, topp, topk,
-                                     seed32, path, forward=lambda t, c, p: self.forward(params, t, c, p, path))
-
-    def decode_loop(self, params: list, first_token, caches: list, pos: int, n_steps: int, temperature: float,
-                    topp: float, seed: int = 0, topk: int = 0, path: str = "int8"):
-        """:meth:`decode_chunk` with the request seed folded here."""
-        return self.decode_chunk(params, first_token, caches, pos, n_steps, temperature, topp, topk,
-                                 prng.fold_seed(seed), path)
 
     def init_cache(self, dtype=torch.bfloat16) -> list:
         """Per-rank, per-layer fused [2, S, K/tp, hd] cache leaves (int8
@@ -218,10 +259,6 @@ class TensorParallelForward:
         return self.batched_decode_chunk(params, first_tokens, slab, pos, active, n_steps, temperature, topp, topk,
                                          seeds, path, may_partition, paged=(pool, tables, matched))
 
-    def _sync(self) -> None:
-        if self.devices[0].type == "cuda":
-            torch.cuda.synchronize(self.devices[0])
-
     def transfer_probe(self, n_tokens: int = 32):
         """(fn, args) replaying one decode step's collective sequence per
         token, ``n_tokens`` times: two all-reduces of a [1, dim] f32
@@ -241,21 +278,6 @@ class TensorParallelForward:
             return xs
 
         return fn, (xs, lgs)
-
-    def measure_transfer_ms(self, n_tokens: int = 32) -> float:
-        """Per-token collective time, replayed back to back between two
-        synchronizes after one warm-up replay (an upper bound of what the
-        forward spends in them). A failing probe raises; the ``tp.transfer``
-        site fires first (a flaky interconnect)."""
-        self._faults.fire("tp.transfer")
-        fn, args = self.transfer_probe(n_tokens)
-        with self._dispatch_lock:
-            fn(*args)
-            self._sync()
-            start = time.perf_counter()
-            fn(*args)
-            self._sync()
-            return (time.perf_counter() - start) * 1e3 / n_tokens
 
     def transfer_bytes_per_token(self) -> int:
         """Payload bytes of the probed sequence per token: two [1, dim] f32

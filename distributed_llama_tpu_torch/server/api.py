@@ -3,7 +3,7 @@
 
     python -m distributed_llama_tpu_torch.server.api --model m.m --tokenizer t.t \\
         --parallel 4 [--port 9990] [--device cpu] [--telemetry] \\
-        [--tp 2 [--allreduce ring] | --pod 2x2] \\
+        [--tp 2 [--allreduce ring] | --pod 2x2] [--sp 2 | --ep 2] \\
         [--replicas 2] [--host-spill-mb 64] [--spill-disk-dir DIR] \\
         [--tenants "gold:weight=4,priority=10;free:weight=1"] [--deadline-ms 30000] \\
         [--faults "batch.row:kind=nan,row=1,count=1"] [--sdc-canary-interval-s 30] \\
@@ -37,7 +37,11 @@ every slice over ONE params tree of MODEL ranks, so a slice's rebuild never
 reloads weights; an explicit ``--replicas 1`` serves the consolidated
 one-domain pod (one replica), and a rollout's ``"weights"`` file is placed
 as a second tree over the same backend (``PodGroup.sibling``), the old tree
-freed when the rollout completes.
+freed when the rollout completes. ``--sp N`` and ``--ep N`` serve engines
+whose backends have no batched path, as in the JAX package: the scheduler
+refuses them, the server prints ``⚠️ batch decode disabled: ...`` and
+serves each lane as an independent stream, and ``--replicas`` above 1 is
+reduced to 1 with a warning.
 
 Admission is weighted-fair (:mod:`server.admission`): a request queues
 under its ``tenant`` (body field, default ``default``; ``--tenants`` sets
@@ -299,8 +303,15 @@ class ApiState:
                     int(spill_mb * (1 << 20)),
                     disk_path=os.path.join(disk_dir, "dllama-kv-spill.bin") if disk_dir and disk_mb > 0 else None,
                     disk_budget_bytes=int(disk_mb * (1 << 20)))
-        replicas = [Replica(i, *self._build_replica(i, engine=engine if i == 0 else None))
-                    for i in range(n_replicas)]
+        # replica 0 first: whether its backend has a batched path decides
+        # whether more replicas make sense, before N-1 more weight loads
+        replicas = [Replica(0, *self._build_replica(0, engine=engine))]
+        if n_replicas > 1 and replicas[0].scheduler is None:
+            # the sp/ep backends have no batched path, so no supervisable
+            # scheduler: one replica rather than pretend
+            print("⚠️ replicas reduced to 1: batch decode unavailable")
+            n_replicas = 1
+        replicas += [Replica(i, *self._build_replica(i)) for i in range(1, n_replicas)]
         aq = getattr(args, "admission_queue", None)
         self.queue_limit = max(0, int(aq)) if aq is not None else 2 * n * n_replicas
         mb = getattr(args, "max_body_bytes", None)  # 0 is a valid cap
@@ -436,21 +447,26 @@ class ApiState:
 
     def _make_scheduler(self, engine, replica_id: int):
         """One replica's BatchScheduler from the serving flags, or None for
-        independent streams (one lane on one replica, --no-batch-decode or
-        --decode host)."""
+        independent streams (one lane on one replica, --no-batch-decode,
+        --decode host, or a backend without a batched path: --sp and --ep,
+        whose refusal is printed)."""
         if not self._batch_wanted:
             return None
         from distributed_llama_tpu_torch.engine.batch import BatchScheduler
 
         args = self.args
-        return BatchScheduler(
-            engine, n_rows=self._lanes, chunk=getattr(args, "decode_chunk", 32),
-            stall_timeout_s=getattr(args, "stall_timeout_s", None),
-            prefix_cache=getattr(args, "prefix_cache", True), kv_pages=getattr(args, "kv_pages", None),
-            page_size=getattr(args, "kv_page_size", 64), prefill_chunk=getattr(args, "prefill_chunk", 256),
-            spec_draft=getattr(args, "spec_draft", 0), spec_ngram=getattr(args, "spec_ngram", 3),
-            replica_id=replica_id, spill_arena=self._spill_arena, shared_index=self._shared_index,
-        )
+        try:
+            return BatchScheduler(
+                engine, n_rows=self._lanes, chunk=getattr(args, "decode_chunk", 32),
+                stall_timeout_s=getattr(args, "stall_timeout_s", None),
+                prefix_cache=getattr(args, "prefix_cache", True), kv_pages=getattr(args, "kv_pages", None),
+                page_size=getattr(args, "kv_page_size", 64), prefill_chunk=getattr(args, "prefill_chunk", 256),
+                spec_draft=getattr(args, "spec_draft", 0), spec_ngram=getattr(args, "spec_ngram", 3),
+                replica_id=replica_id, spill_arena=self._spill_arena, shared_index=self._shared_index,
+            )
+        except ValueError as e:  # a backend without a batched path (sp/ep)
+            print(f"⚠️ batch decode disabled: {e}")
+            return None
 
     def _build_replica(self, idx: int, engine=None):
         """Build (or rebuild: the pool's supervisor calls this under the

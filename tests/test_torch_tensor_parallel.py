@@ -2,8 +2,8 @@
 sharded load (per-rank packs byte for byte, also carried from a JAX TP
 engine's placed params), the rule table, the TP engine's logits and greedy
 streams against ``InferenceEngine(tp=...)`` on the 8-device CPU mesh, the
-CLI, and what the port still refuses (ranks on several cards, ``--sp`` and
-``--ep``).
+CLI, what the port still refuses (ranks on several cards), and that
+``--sp`` and ``--ep`` build their backends through the CLI.
 
 One synthetic model (dim 512, hidden 1024, 2 layers, 8 heads, 4 kv heads,
 vocab 512, seq_len 64) is written once, Q40, and loaded by both packages
@@ -33,7 +33,7 @@ from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_f
 from distributed_llama_tpu_torch.models import config as tconfig
 from distributed_llama_tpu_torch.ops import collectives as coll
 from distributed_llama_tpu_torch.ops import q40 as tq
-from distributed_llama_tpu_torch.parallel import sharding, tensor_parallel
+from distributed_llama_tpu_torch.parallel import context_parallel, expert_parallel, sharding, tensor_parallel
 from distributed_llama_tpu_torch.quants import FloatType
 from distributed_llama_tpu_torch.server import api as server_api
 
@@ -270,7 +270,7 @@ def test_transfer_share_and_probe(engines):
     assert entry.inference_ms == pytest.approx(entry.generation_ms - entry.transfer_ms)
 
 
-def test_what_this_slice_refuses(engines, model_path):
+def test_what_this_slice_refuses(engines, model_path, tok_path, tmp_path):
     cfg = tconfig.config_from_spec(TorchReader(model_path).spec)
     with pytest.raises(NotImplementedError, match="several cards"):
         tensor_parallel.TensorParallelForward(cfg, 2, devices=["cuda:0", "cuda:1"])
@@ -280,11 +280,19 @@ def test_what_this_slice_refuses(engines, model_path):
         tensor_parallel.validate_tp(cfg, 3)
     with pytest.raises(ValueError, match="divisible by 64"):
         tensor_parallel.validate_tp(dataclasses.replace(cfg, hidden_dim=1040), 2, quantized=True)
-    # what is still refused: --sp and --ep, through the CLI and the server
-    for flag in ("--sp", "--ep"):
-        args = server_api.build_parser().parse_args(["generate", "--model", model_path, "--tokenizer", "t",
-                                                     flag, "2", "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match="sequence parallel and expert parallel"):
-            tcli.make_engine(args)
+    # --sp 2 and --ep 2 (over a MoE file) build their backends through the
+    # server's parser and the CLI's make_engine; --ep refuses a dense model
+    moe_path = str(tmp_path / "moe.m")
+    tsyn.write_synthetic_model(moe_path, tsyn.tiny_spec(arch_type=tsyn.ArchType.MIXTRAL, n_experts=4,
+                                                        n_active_experts=2, vocab_size=SPEC["vocab_size"]), seed=1)
+    for flag, path, cls in (("--sp", model_path, context_parallel.SequenceParallelForward),
+                            ("--ep", moe_path, expert_parallel.ExpertParallelForward)):
+        args = server_api.build_parser().parse_args(["generate", "--model", path, "--tokenizer", tok_path,
+                                                     flag, "2", "--device", "cpu", "--dtype", "f32"])
+        engine = tcli.make_engine(args)[0]
+        assert isinstance(engine.tp_backend, cls) and engine.tp_backend.mesh_shape == {"tp": 1, flag[2:]: 2}
+    with pytest.raises(ValueError, match="mixture-of-experts"):
+        tcli.make_engine(server_api.build_parser().parse_args(["generate", "--model", model_path, "--tokenizer",
+                                                               tok_path, "--ep", "2", "--device", "cpu"]))
     single = tensor_parallel.rank_devices(2, devices=["cpu", "cpu"])
     assert single == [torch.device("cpu")] * 2
