@@ -325,6 +325,26 @@ Phases (any failure exits non-zero):
    its prompt. Records the ring pass's ms beside the dense prefill's,
    decode ms/token, device busy per token and card memory.
 
+16. the host library and the transfer probe's telemetry (16a-b are phase
+   6b, which runs with telemetry on; 16c-d after 14c over phase 5's file):
+   (a) on 6b's idle server, the ~600-token system prompt as the server
+   renders it, encoded by the port's C++ host library (``native.py``,
+   ``csrc/host/``, built by g++ at first use) and by the plain Python
+   encode: the same ids, the median ms of each; (b) every request of 6b
+   encoded through the library (its call count moved by at least the 6
+   requests), TTFT cold and lone hit, and the cold request's TTFT split
+   from its request trace's spans (queue, placement, template and encode,
+   prefix match, prefill pieces, the rest of the prefill span, first
+   fetch, HTTP); (c) a ``--tp 2 --allreduce ring --telemetry --parallel
+   2`` server answers one request: its /metrics holds
+   ``dllama_transfer_probe_runs_total`` >= 1,
+   ``dllama_allreduce_latency_seconds`` with one observation per run and
+   ``dllama_allreduce_bytes_total`` = transfer_bytes_per_token x 32 probe
+   tokens x runs, one ``transfer_probe`` span per run, K1, K4 and K5
+   launched; (d) one Llama-2-7B layer's seven Q40 matrices read from the
+   file and dequantized to f32 by the library and by numpy, byte for byte
+   equal, GB/s of each.
+
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
@@ -332,7 +352,8 @@ one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
 ``--loadgen`` writes phase 5's files and runs phase 9 alone, ``--faults``
 phase 10 alone, ``--spill`` phase 11 alone, ``--fleet`` phase 12 alone and
 ``--chat`` phase 13 alone (with 7a's K4 rows at [1, 4096] and a Mixtral-width
-file of its own), ``--tp-serve`` phase 14 alone and ``--sp-ep`` phase 15 alone.
+file of its own), ``--tp-serve`` phase 14 alone, ``--sp-ep`` phase 15 alone and
+``--host`` phase 16 alone (with 6b's traffic, no rates).
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -591,6 +612,10 @@ EP_ARMS = ((2, 1, "psum"), (4, 1, "psum"), (2, 2, "psum"), (2, 2, "ring"))
 SP_EP_PATHS = ("q40_matmul/k1_dp4a", "q40_matmul/k1_mma", "q40_matmul/k3", "all_reduce/psum", "all_reduce/k4_ring",
                "all_reduce/k5_fused")
 SERVE_TOKENS = 16
+# phase 16: timed encodes of the ~600-token prompt, and dequant passes
+HOST_ENCODE_REPS = 20
+HOST_PLAIN_REPS = 3
+HOST_DEQUANT_REPS = 2
 SP_RING_ROWS = SP_SEQ_LEN // 4  # K1's rows per rank in the ring pass at --sp 4
 # phase 13: the converted model's depth and context; meta-llama/Llama-2-7b-hf
 # config.json's published fields, typed in (its rope theta, 10000, is the
@@ -2001,6 +2026,52 @@ def profile_4_rows(sched, tok_per_s: float, n_tok: int = 32) -> dict:
     return out
 
 
+def cold_split(state, client_ttft_ms: float) -> dict:
+    """Where a cold request's TTFT went, from the spans its request trace
+    already holds (the first finished trace, times relative to its start):
+    the queue and placement spans; the gap from placement to the prefill
+    span (the delta-prompt resolve, the chat template and the encode); the
+    prefix match and the prefill pieces inside the prefill span, and the
+    rest of it (the first token's device sampling dispatch); the first fetch
+    (from the prefill span's end to the first token's stamp, which includes
+    its SSE write when it has text); the rest to the client's first SSE
+    event (deltas the stop-string detector holds back, the HTTP before the
+    trace starts, the socket)."""
+    for _ in range(200):  # the trace is finished just after the stream's last write
+        if state.traces._done:
+            break
+        time.sleep(0.01)
+    check(bool(state.traces._done), "the cold request left no trace")
+    tree = state.traces._done[0].tree()
+    spans = [sp for a in tree["attempts"] for sp in a["spans"]]
+
+    def named(name):
+        return [sp for sp in spans if sp["name"] == name]
+
+    def end_ms(sp):
+        return (sp["ts_us"] + sp["dur_us"]) / 1e3
+
+    def dur_ms(name):
+        return sum(sp["dur_us"] for sp in named(name)) / 1e3
+
+    (prefill,) = named("prefill")
+    (placement,) = named("placement")
+    pieces = named("prefill_chunk")
+    ttft_ms = tree["ttft_s"] * 1e3
+    split = dict(queue=dur_ms("queue_wait"), placement=dur_ms("placement"),
+                 template_and_encode=prefill["ts_us"] / 1e3 - end_ms(placement), prefix_match=dur_ms("prefix_match"),
+                 prefill_pieces=dur_ms("prefill_chunk"), n_prefill_pieces=len(pieces))
+    split["prefill_rest"] = prefill["dur_us"] / 1e3 - split["prefix_match"] - split["prefill_pieces"]
+    split["first_fetch"] = ttft_ms - end_ms(prefill)
+    split["server_ttft"] = ttft_ms
+    split["to_first_event"] = client_ttft_ms - ttft_ms
+    print("cold TTFT split (ms, from its request trace): " + ", ".join(
+        f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}" for k, v in split.items()))
+    check(len(pieces) >= 1 and split["first_fetch"] >= 0 and split["template_and_encode"] >= 0,
+          f"the cold trace does not hold the expected spans: {sorted({sp['name'] for sp in spans})}")
+    return split
+
+
 def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, extra=(), spec: bool = False,
                single_stream: bool = False, built=None, replay: bool = False, hit_exact: bool = False,
                probe=None, rate_rows=(1, 4), profile_tokens: int = 32) -> dict:
@@ -2018,6 +2089,7 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
     the row counts whose aggregate decode rate is measured (the 4-row one
     also profiled over ``profile_tokens`` tokens per row; empty: a
     gate-only run). The seconds each stage took land under "stage_s"."""
+    from distributed_llama_tpu_torch import native
     from distributed_llama_tpu_torch.tokenizer import ChatItem
 
     args = server_api.build_parser().parse_args([
@@ -2087,11 +2159,14 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
 
         attn.reset_launches()  # the main path's counts start here
         q40.reset_launches()
+        encodes0 = native.launches["bpe_encode_after"]
         f0 = sched.decode_forwards
         s0 = (sched.spec_row_steps, sched.spec_drafted, sched.spec_emitted)
         status, ttft_cold, total_cold, events = _post(url, body("hello", True))
         check(status == 200 and events, "cold request failed")
         print(f"cold request: {n_prompt} prompt tokens, TTFT {ttft_cold * 1e3:.1f} ms, total {total_cold:.2f} s")
+        if state.traces is not None:  # telemetry on: where the cold TTFT went
+            out["cold_split_ms"] = cold_split(state, ttft_cold * 1e3)
         results: dict = {}
         variants = {"greedy SSE": body("hello world", True), "sampled SSE": body("world", True, 0.8, 5),
                     "greedy JSON": body("world hello", False), "sampled JSON": body("hello hello", False, 0.8, 9)}
@@ -2119,6 +2194,11 @@ def server_run(server_api, attn, kvc, llama, model: str, tok_path: str, q40, ext
         status, ttft_hit, total_hit, events = _post(url, body("hello", True, seed=2))
         check(status == 200 and events, "lone hit request failed")
         stage("traffic")
+        # every request's prompt went through the host library's encoder
+        # (Tokenizer.encode has no other path)
+        out["native_encodes"] = native.launches["bpe_encode_after"] - encodes0
+        print(f"native BPE encodes during the 6 requests: {out['native_encodes']}")
+        check(out["native_encodes"] >= 6, f"the served prompts did not run the native encoder: {out['native_encodes']}")
         launches = attn.launches[kernel]
         others = {k: v for k, v in attn.launches.items() if k != kernel and v}
         forwards = sched.decode_forwards - f0
@@ -5020,6 +5100,201 @@ def tp_serve_only(smi: str) -> None:
 
 
 # ----------------------------------------------------------------------
+# Phase 16: the host library (BPE encode, Q40 dequant) and the transfer
+# probe's telemetry
+# ----------------------------------------------------------------------
+
+
+def encode_probe(state, tok_path: str) -> dict:
+    """16a, on phase 6b's idle server: the ~600-token system prompt as the
+    server renders it, encoded by the host library and by the plain Python
+    version: the same ids; the median ms of each (HOST_ENCODE_REPS native
+    calls, HOST_PLAIN_REPS plain ones) on the card machine's host."""
+    from distributed_llama_tpu_torch.tokenizer import ChatItem
+
+    text = state.template.generate([ChatItem("system", _SERVER_SYSTEM[tok_path]), ChatItem("user", "hello")],
+                                   append_generation_prompt=True)
+    tok = state.tokenizer
+
+    def median_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ids = fn(text, add_bos=True)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), ids
+
+    native_ms, ids = median_ms(tok.encode, HOST_ENCODE_REPS)
+    plain_ms, plain = median_ms(tok.encode_plain, HOST_PLAIN_REPS)
+    check(ids == plain, "the native and plain encodes of the system prompt differ")
+    out = dict(prompt_tokens=len(ids), prompt_bytes=len(text.encode()), encode_native_ms=native_ms,
+               encode_plain_ms=plain_ms, encode_speedup=plain_ms / native_ms)
+    print(f"16a encode of the {len(ids)}-token ({out['prompt_bytes']} bytes) system prompt: native "
+          f"{native_ms:.3f} ms, plain {plain_ms:.1f} ms ({out['encode_speedup']:.0f}x), the same ids")
+    return out
+
+
+def probe_telemetry_server(server_api, coll, q40, model: str, tok: str) -> dict:
+    """16c: a --tp 2 --allreduce ring --telemetry server (telemetry on before
+    the engine binds, serve()'s order) answers one request; its /metrics
+    holds the transfer probe's three families, runs >= 1, one latency
+    observation per run, and bytes = transfer_bytes_per_token x probe
+    tokens x runs; the probe's ``transfer_probe`` span is in the ring
+    tracer; K1, K4 and K5 launched."""
+    from distributed_llama_tpu_torch import telemetry
+
+    args = server_api.build_parser().parse_args([
+        "generate", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--max-seq-len", str(SEQ_LEN),
+        "--parallel", "2", "--tp", "2", "--allreduce", "ring", "--decode-chunk", "8", "--chat-template", "chatml",
+        "--host", "127.0.0.1", "--port", "0", "--temperature", "0", "--telemetry"])
+    telemetry.reset()
+    telemetry.enable()
+    coll.reset_launches()
+    q40.reset_launches()
+    t0 = time.perf_counter()
+    server, state = server_api.make_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        print(f"--tp 2 --telemetry server up in {time.perf_counter() - t0:.1f} s")
+        status, ttft, total, events = _post(url, {"messages": [{"role": "user", "content": "hello world"}],
+                                                  "max_tokens": 8, "stream": True, "temperature": 0.0})
+        check(status == 200 and events, f"16c: the request failed ({status})")
+        m = _scrape(url)
+        backend = state.engine.tp_backend
+        n_tokens = backend.measure_transfer_ms.__defaults__[0]  # the engine's probe length
+        per_token = backend.transfer_bytes_per_token()
+        runs = m.get("dllama_transfer_probe_runs_total", 0.0)
+        got_bytes = m.get("dllama_allreduce_bytes_total")
+        count = m.get("dllama_allreduce_latency_seconds_count")
+        latency_sum = m.get("dllama_allreduce_latency_seconds_sum")
+        spans = [e for e in telemetry.TRACER.events() if e.name == "transfer_probe"]
+        launches = dict(coll.launches)
+        out = dict(runs=runs, allreduce_bytes=got_bytes, latency_count=count, latency_sum_s=latency_sum,
+                   bytes_per_token=per_token, probe_tokens=n_tokens, probe_spans=len(spans),
+                   ring_launches=launches, k1_launches=q40.launches["q40_int8"], ttft_ms=ttft * 1e3,
+                   engine_transfer_ms=state.engine._transfer_ms)
+        print(f"16c /metrics: dllama_transfer_probe_runs_total {runs}, dllama_allreduce_bytes_total {got_bytes} "
+              f"(= {per_token} B/token x {n_tokens} tokens x {runs} runs: {per_token * n_tokens * runs}), "
+              f"dllama_allreduce_latency_seconds count {count} sum {latency_sum}; {len(spans)} transfer_probe "
+              f"span(s); K4/K5 launches {launches}, K1 {out['k1_launches']}; probe {out['engine_transfer_ms']:.4f} "
+              "ms/token")
+        check(runs >= 1 and count == runs and got_bytes == per_token * n_tokens * runs and per_token > 0,
+              f"16c: the transfer probe's families are wrong: {out}")
+        check(len(spans) == runs, f"16c: {len(spans)} transfer_probe spans for {runs} probe runs")
+        check(launches["ring_all_reduce"] > 0 and launches["fused_matmul_ring"] > 0 and out["k1_launches"] > 0,
+              f"16c: K1, K4 and K5 did not all launch: {launches}, K1 {out['k1_launches']}")
+        return out
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.close()
+        telemetry.disable()
+        telemetry.reset()
+
+
+def host_dequant(model: str) -> dict:
+    """16d: one Llama-2-7B layer's seven Q40 matrices read from ``model``
+    and dequantized to f32 by the host library and by the numpy version:
+    byte for byte equal; GB/s of Q40 bytes read and of f32 bytes written
+    (best of HOST_DEQUANT_REPS for the library, one numpy pass; the file's
+    pages warm in the page cache after the first read)."""
+    from distributed_llama_tpu_torch import native, quants
+    from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
+
+    reader = ModelFileReader(model)
+    entries = [e for e in reader.entries.values() if e.name.startswith("layers.0.") and
+               e.float_type == quants.FloatType.Q40]
+    raws = [reader.raw(e.name) for e in entries]
+    n_in = sum(r.size for r in raws)
+    n_out = sum(e.n_values for e in entries) * 4
+    native.reset_launches()
+    times = []
+    for _ in range(HOST_DEQUANT_REPS):
+        t0 = time.perf_counter()
+        got = [quants.deserialize_tensor(r, quants.FloatType.Q40, e.n_values) for r, e in zip(raws, entries)]
+        times.append(time.perf_counter() - t0)
+    check(native.launches["q40_dequant_f32"] == len(entries) * HOST_DEQUANT_REPS, "16d: the dequant bypassed the library")
+    t0 = time.perf_counter()
+    want = [quants.dequantize_q40(*quants.q40_from_bytes(r, e.n_values)) for r, e in zip(raws, entries)]
+    plain_s = time.perf_counter() - t0
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(got, want)),
+          "16d: the native dequant differs from the numpy version")
+    native_s = min(times)
+    out = dict(tensors=[e.name for e in entries], q40_bytes=n_in, f32_bytes=n_out, native_s=native_s, plain_s=plain_s,
+               native_in_gb_s=n_in / native_s / 1e9, native_out_gb_s=n_out / native_s / 1e9,
+               plain_in_gb_s=n_in / plain_s / 1e9, plain_out_gb_s=n_out / plain_s / 1e9)
+    print(f"16d dequant of one 7B layer ({len(entries)} matrices, {n_in / 1e6:.1f} MB Q40 -> {n_out / 1e6:.1f} MB f32), "
+          f"byte for byte equal: native {native_s * 1e3:.1f} ms ({out['native_in_gb_s']:.2f} GB/s in, "
+          f"{out['native_out_gb_s']:.2f} GB/s out), numpy {plain_s * 1e3:.1f} ms ({out['plain_in_gb_s']:.2f} / "
+          f"{out['plain_out_gb_s']:.2f} GB/s)")
+    del got, want
+    return out
+
+
+def host_phase(server_api, coll, q40, model: str, tok: str, server_6b: dict) -> dict:
+    """Phase 16 after the 6b server ran (16a is its probe, 16b its TTFT and
+    the cold split): the --tp 2 telemetry server (16c) and the dequant of
+    one layer (16d)."""
+    out = dict(encode=server_6b["probe"], ttft_cold_ms=server_6b["ttft_cold_ms"],
+               ttft_hit_alone_ms=server_6b["ttft_hit_alone_ms"], cold_split_ms=server_6b["cold_split_ms"],
+               native_encodes=server_6b["native_encodes"])
+    split = out["cold_split_ms"]
+    print(f"16b 6b's server with the native encoder: TTFT cold {out['ttft_cold_ms']:.1f} ms, lone hit "
+          f"{out['ttft_hit_alone_ms']:.1f} ms; cold: {split['template_and_encode']:.1f} template + encode, "
+          f"{split['prefill_pieces']:.1f} in {split['n_prefill_pieces']} prefill piece(s), {split['first_fetch']:.1f} "
+          f"first fetch; {out['native_encodes']} native encodes")
+    out["telemetry_server"] = probe_telemetry_server(server_api, coll, q40, model, tok)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dequant"] = host_dequant(model)
+    return out
+
+
+def host_only(smi: str) -> None:
+    """``--host``: phase 2, then phase 16 alone over phase 5's files at
+    MAIN_LAYERS: the 6b server with telemetry (its traffic, no rates) and
+    16a as its probe, then 16c and 16d (results in
+    build/chip_smoke_host.json)."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch import telemetry
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.models import llama
+    from distributed_llama_tpu_torch.ops import attention as attn
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.ops import cuda_build, q40
+    from distributed_llama_tpu_torch.ops import kv_cache as kvc
+    from distributed_llama_tpu_torch.server import api as server_api
+
+    t_all = phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    summary: dict = {"card": smi}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, Path(tmp), MAIN_LAYERS)
+        t = phase(f"16. the host library and the transfer probe's telemetry, {MAIN_LAYERS} layers")
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            server = server_run(server_api, attn, kvc, llama, model, tok, q40, rate_rows=(),
+                                probe=lambda st: encode_probe(st, tok))
+        finally:
+            telemetry.disable()
+            telemetry.reset()
+        summary["host"] = host_phase(server_api, coll, q40, model, tok, server)
+        print(f"phase 16: {time.perf_counter() - t:.1f} s")
+    summary["total_s"] = time.perf_counter() - t_all
+    summary["phase_s"] = phase_seconds(time.perf_counter())
+    out = ROOT / "build" / "chip_smoke_host.json"
+    out.write_text(json.dumps(summary, indent=1, default=str))
+    print(f"seconds by phase: {summary['phase_s']}")
+    print(f"phase 16 with its set-up: {summary['total_s']:.1f} s; details in {out}")
+    print(f"card: {smi}")
+
+
+# ----------------------------------------------------------------------
 # Phase 15: sequence parallelism (--sp) at Llama-2-7B width and expert
 # parallelism (--ep) at Mixtral-8x7B width, the ranks on the card
 # ----------------------------------------------------------------------
@@ -5662,6 +5937,10 @@ def main() -> None:
     parser.add_argument("--sp-ep", action="store_true",
                         help="phase 15 alone (--sp at Llama-2-7B width and --ep at Mixtral-8x7B width, the ranks on "
                         "the card, and the server under each)")
+    parser.add_argument("--host", action="store_true",
+                        help="phase 16 alone (the host library's encode and Q40 dequant against their plain versions, "
+                        "the 7B-width server with the native encoder and its cold TTFT split, and a --tp 2 "
+                        "--telemetry server's transfer-probe families)")
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
@@ -5676,10 +5955,11 @@ def main() -> None:
                              (lambda root, smi: fleet_only(smi), opts.fleet),
                              (lambda root, smi: chat_only(smi), opts.chat),
                              (lambda root, smi: tp_serve_only(smi), opts.tp_serve),
-                             (lambda root, smi: sp_ep_only(smi), opts.sp_ep)) if on]
+                             (lambda root, smi: sp_ep_only(smi), opts.sp_ep),
+                             (lambda root, smi: host_only(smi), opts.host)) if on]
     if len(alone) > 1:
         parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill, --fleet, --chat, "
-                     "--tp-serve, --sp-ep")
+                     "--tp-serve, --sp-ep, --host")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5690,6 +5970,7 @@ def main() -> None:
                                                  "count": torch.cuda.device_count()}}))
         return
     sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch import telemetry
     from distributed_llama_tpu_torch.apps import cli
     from distributed_llama_tpu_torch.engine import InferenceEngine
     from distributed_llama_tpu_torch.formats import synthetic
@@ -5867,7 +6148,16 @@ def main() -> None:
                                              seed=0)
 
         t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {MAIN_LAYERS} layers")
-        summary["server"] = server_run(server_api, attn, kvc, llama, model, tok, q40)
+        # with telemetry, so the cold request's trace splits its TTFT (16b);
+        # 16a runs on the idle server
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            summary["server"] = server_run(server_api, attn, kvc, llama, model, tok, q40,
+                                           probe=lambda st: encode_probe(st, tok))
+        finally:
+            telemetry.disable()
+            telemetry.reset()
         main_launches["paged_attention"] = summary["server"]["main_path_launches"]
         print(f"phase 6b: {time.perf_counter() - t:.1f} s")
         gc.collect()
@@ -5937,6 +6227,12 @@ def main() -> None:
             main_launches[name] = summary["tp"]["tp2"]["launches"][name]
         print(f"phase 7c: {time.perf_counter() - t:.1f} s")
         tp_serve_phases(cli, server_api, attn, kvc, llama, q40, coll, model, tok, smi, summary, n_layers=MAIN_LAYERS)
+        t = phase(f"16. the slice's path: the host library (encode, Q40 dequant) and the transfer probe's telemetry, "
+                  f"{MAIN_LAYERS} layers")
+        summary["host"] = host_phase(server_api, coll, q40, model, tok, summary["server"])
+        print(f"phase 16: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         if model_tp != model:
             os.remove(model)  # room on the disk for phase 8's files
         sp_phases(cli, server_api, q40, coll, model_tp, tok, summary)

@@ -140,7 +140,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _make_sampler(args, vocab_size: int) -> Sampler:
     # wall-clock as entropy for a default sampling seed, never a duration
-    seed = args.seed if args.seed is not None else int(time.time())
+    seed = args.seed if args.seed is not None else int(time.time())  # dllama: noqa[CLK-001]
     return Sampler(vocab_size=vocab_size, temperature=args.temperature, topp=args.topp, topk=args.topk, seed=seed)
 
 

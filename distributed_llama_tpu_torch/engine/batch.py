@@ -347,7 +347,7 @@ class BatchScheduler:
         self.engine = engine
         self.b_max = n_rows
         self.chunk = int(chunk)
-        self.prefill_chunk = max(0, int(prefill_chunk or 0))
+        self.prefill_chunk = max(0, 0 if prefill_chunk is None else int(prefill_chunk))
         # replica-loss fault domain (server/replicas.py): the replica id
         # scopes the replica.* sites; health_hook(event, value) feeds the
         # pool's health walk and takes only locks ranked above this one;
@@ -729,7 +729,7 @@ class BatchScheduler:
             for pid in page_ids:
                 self._page_events[int(pid)] = ev
 
-    def _upload_page(self, pid: int, arrays: list) -> None:
+    def _upload_page_locked(self, pid: int, arrays: list) -> None:
         """Write a spilled page's host arrays into pool page ``pid`` across
         every layer, in place (the reload: the publish in reverse), the
         entry regrouped per layer and half. An entry whose layout, dtypes or
@@ -783,7 +783,10 @@ class BatchScheduler:
         def upload(pid, arrays):
             t0 = time.perf_counter()
             with self.engine._tel.span("prefix_spill_reload", page=int(pid)):
-                self._upload_page(pid, arrays)
+                # the closure runs synchronously inside prefix.reload, still
+                # under _reload_spilled_locked's cond; the AST cannot see
+                # through the callback boundary
+                self._upload_page_locked(pid, arrays)  # dllama: noqa[LCK-001]
             self.spill_uploads += 1
             self.spill_upload_s += time.perf_counter() - t0
 
@@ -934,12 +937,13 @@ class BatchScheduler:
         self.engine._tel.rows_quarantined.inc()
         flight.record(self.replica_id, "rows_quarantined", rows=[s.row], error=type(err).__name__)
 
-    def _fire_row_site_locked(self, site: str, joined: list, what: str) -> list:
-        """Fire ``site`` per joined row: a row-targeted raise retires only
-        that row (pins released), and the rows still serviceable return."""
+    def _fire_row_site_locked(self, fire, joined: list, what: str) -> list:
+        """``fire(row)`` per joined row, a site's fire: a row-targeted raise
+        retires only that row (pins released), and the rows still
+        serviceable return."""
         for s in joined:
             try:
-                self._faults.fire(site, row=s.row)
+                fire(s.row)
             except Exception as e:
                 err = faults.RowQuarantined(f"batch row retired: {what} failed for this row")
                 err.__cause__ = e
@@ -949,9 +953,12 @@ class BatchScheduler:
     def _fire_sites_locked(self, joined: list) -> list:
         """The ``engine.paged_attn`` site (a pool-enabled scheduler's chunks
         only) and the ``engine.fused_step`` site, per joined row."""
+        # each site is named at its fire() call, where FLT-001 reads it
         if self._pool is not None:
-            joined = self._fire_row_site_locked("engine.paged_attn", joined, "paged-attention dispatch")
-        return self._fire_row_site_locked("engine.fused_step", joined, "fused superstep dispatch")
+            joined = self._fire_row_site_locked(lambda row: self._faults.fire("engine.paged_attn", row=row), joined,
+                                                "paged-attention dispatch")
+        return self._fire_row_site_locked(lambda row: self._faults.fire("engine.fused_step", row=row), joined,
+                                          "fused superstep dispatch")
 
     def _fire_sdc_locked(self) -> None:
         """The ``engine.sdc`` site, per batched dispatch (``row=`` is the
@@ -1136,7 +1143,11 @@ class BatchScheduler:
         tel = self.engine._tel
 
         def on_retry(attempt, e):
-            self.retries_total += 1
+            # retry.retry_call runs on_retry synchronously on this thread,
+            # inside this frame, which holds self._cond (the fetch path's
+            # on_retry takes it for the same field); the AST cannot see
+            # through the callback boundary
+            self.retries_total += 1  # dllama: noqa[LCK-004]
             tel.dispatch_retries.inc()
 
         try:
@@ -1148,9 +1159,13 @@ class BatchScheduler:
             return None
         self._fire_sdc_locked()
         try:
-            # the one sanctioned block under this lock: the bounded
-            # retries x backoff sleep
-            retry.retry_call(lambda: self._faults.fire("batch.dispatch"), self._retry_policy, on_retry=on_retry)
+            # transient failures (an injected dispatch raise) retry on the
+            # shared backoff policy (retry.py). Briefly blocking joins is
+            # the cost of a coherent active set: the bounded retries x
+            # backoff sleep inside retry_call is the one sanctioned block
+            # under this lock.
+            retry.retry_call(  # dllama: noqa[LCK-002]
+                lambda: self._faults.fire("batch.dispatch"), self._retry_policy, on_retry=on_retry)
             return dispatch_fn()
         except Exception as error:
             self.quarantined_total += len(joined)
@@ -1317,8 +1332,16 @@ class BatchScheduler:
         def run():
             try:
                 result = (True, fn())
-            except BaseException as e:
+            except Exception as e:
                 result = (False, e)
+            except BaseException as e:
+                # an interpreter exit in the wait: the waiter raises it, and
+                # this thread ends with it too, so it is not lost when the
+                # watchdog already retired the waiter
+                with self._cond:
+                    box.append((False, e))
+                    self._cond.notify_all()
+                raise
             with self._cond:
                 box.append(result)
                 self._cond.notify_all()

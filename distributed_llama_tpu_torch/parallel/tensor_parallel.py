@@ -36,7 +36,7 @@ import time
 
 import torch
 
-from distributed_llama_tpu_torch import lockcheck, prng
+from distributed_llama_tpu_torch import lockcheck, prng, telemetry
 from distributed_llama_tpu_torch.engine import faults, integrity
 from distributed_llama_tpu_torch.models import llama, sampling
 from distributed_llama_tpu_torch.models.config import LlamaConfig
@@ -122,20 +122,40 @@ class TransferProbeMixin:
         if self.devices[0].type == "cuda":
             torch.cuda.synchronize(self.devices[0])
 
+    def _collective_tel(self) -> telemetry.CollectiveInstruments:
+        """The transfer probe's instruments, bound at the first probe (the
+        JAX mixin's bind-once hook): null ones unless telemetry was enabled
+        before it."""
+        tel = getattr(self, "_collective_tel_bundle", None)
+        if tel is None:
+            tel = telemetry.CollectiveInstruments()
+            self._collective_tel_bundle = tel
+        return tel
+
     def measure_transfer_ms(self, n_tokens: int = 32) -> float:
         """Per-token collective time, replayed back to back between two
         synchronizes after one warm-up replay (an upper bound of what the
         forward spends in them). A failing probe raises; the ``tp.transfer``
-        site fires first (a flaky interconnect)."""
+        site fires first (a flaky interconnect). The timed replay is a
+        ``transfer_probe`` span; with telemetry on each probe counts one
+        run, observes the per-token seconds and adds the bytes it stands for
+        (:meth:`transfer_bytes_per_token` x ``n_tokens``)."""
         self._faults.fire("tp.transfer")
+        tel = self._collective_tel()
         fn, args = self.transfer_probe(n_tokens)
         with self._dispatch_lock:
             fn(*args)
             self._sync()
-            start = time.perf_counter()
-            fn(*args)
-            self._sync()
-            return (time.perf_counter() - start) * 1e3 / n_tokens
+            with tel.span("transfer_probe", tokens=n_tokens):
+                start = time.perf_counter()
+                fn(*args)
+                self._sync()
+                per_token_ms = (time.perf_counter() - start) * 1e3 / n_tokens
+        if tel.enabled:
+            tel.probe_runs.inc()
+            tel.allreduce_latency.observe(per_token_ms / 1000.0)
+            tel.allreduce_bytes.inc(self.transfer_bytes_per_token() * n_tokens)
+        return per_token_ms
 
 
 class TensorParallelForward(TransferProbeMixin):

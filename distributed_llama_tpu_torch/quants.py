@@ -2,7 +2,9 @@
 
 The port's own copy of the file-format half of the JAX package's
 ``quants`` module: the same bytes, the same quantization math. Host-side
-numpy only; the device layout lives in :mod:`ops.q40`.
+numpy, and the C++ host library (:mod:`native`) for the f32 read of a Q40
+tensor, whose numpy version :func:`dequantize_q40` is the plain one; the
+device layout lives in :mod:`ops.q40`.
 
 Q40: blocks of 32 values; delta = signed absmax / -8 stored as f16;
 q = clip(floor(x/delta + 8.5), 0, 15); byte j packs value j in the low
@@ -17,6 +19,8 @@ from __future__ import annotations
 import enum
 
 import numpy as np
+
+from distributed_llama_tpu_torch import native
 
 QK = 32  # block size shared by Q40 and Q80
 Q40_BLOCK_BYTES = 2 + QK // 2  # f16 scale + 16 packed nibble bytes
@@ -170,7 +174,10 @@ def deserialize_tensor(buf: bytes | np.ndarray, float_type: FloatType, n_values:
     if float_type == FloatType.F16:
         return np.frombuffer(buf, dtype=np.float16, count=n_values).astype(np.float32)
     if float_type == FloatType.Q40:
-        return dequantize_q40(*q40_from_bytes(buf, n_values))
+        if n_values % QK != 0:
+            raise ValueError(f"length {n_values} not divisible by {QK}")
+        raw = np.frombuffer(buf, dtype=np.uint8, count=tensor_bytes(float_type, n_values))
+        return native.q40_dequant_f32(raw, n_values)
     if float_type == FloatType.Q80:
         return dequantize_q80(*q80_from_bytes(buf, n_values))
     raise ValueError(f"unsupported float type: {float_type}")

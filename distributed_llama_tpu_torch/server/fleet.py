@@ -97,7 +97,9 @@ class RolloutOrchestrator:
         if not self._ops.acquire(blocking=False):
             raise RolloutConflict("another fleet operation (rollout or scale) is in progress")
         try:
-            return self._run_locked(to_version, checksum)
+            # _ops IS held: acquired non-blocking above so a concurrent
+            # caller gets a typed 409 instead of queueing behind us.
+            return self._run_locked(to_version, checksum)  # dllama: noqa[LCK-001]
         finally:
             self._ops.release()
 
@@ -326,7 +328,9 @@ class FleetController:
             if pool._closed or getattr(self.state, "draining", False) or pool.rollout is not None:
                 self._up_streak = self._down_streak = 0
                 return None
-            return self._tick_locked(pool)
+            # _ops IS held: acquired non-blocking above so elasticity
+            # skips the tick instead of queueing behind a rollout.
+            return self._tick_locked(pool)  # dllama: noqa[LCK-001]
         finally:
             self._ops.release()
 

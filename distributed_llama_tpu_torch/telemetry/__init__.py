@@ -436,6 +436,28 @@ def note_kernel_path(kernel: str, path: str) -> None:
     child.inc()
 
 
+class CollectiveInstruments:
+    """The parallel backends' transfer-probe surface (TransferProbeMixin)."""
+
+    def __init__(self):
+        self.enabled = _enabled
+        self.span = span_factory()
+        self.allreduce_latency = histogram(
+            "dllama_allreduce_latency_seconds",
+            "Measured per-token collective (all-reduce/all-gather) cost from "
+            "the transfer probe, replayed on the real mesh",
+        )
+        self.allreduce_bytes = counter(
+            "dllama_allreduce_bytes_total",
+            "Estimated logical payload bytes moved by the collectives the "
+            "transfer probe replayed (per-token estimate x probe tokens)",
+        )
+        self.probe_runs = counter(
+            "dllama_transfer_probe_runs_total",
+            "Transfer-probe measurements taken (engine cadence: ~1/512 tokens)",
+        )
+
+
 class MeshInstruments:
     """The named-mesh topology surface (bound at engine or pod build): how
     many ranks lie along each axis and how many weight bytes are

@@ -5,9 +5,10 @@ literal passed as a span name — ``tel.span("...")`` / ``trace_span("...")``
 on the ring tracer, or ``trace.span(ctx, "...")`` / ``ctx.add_span("...")``
 on a request trace — is one of these, so a trace of either package reads
 with the same names (docs/OBSERVABILITY.md's span-name table). The tuple
-equals the JAX package's; the port does not emit ``transfer_probe`` yet:
-the transfer probe under tensor parallelism waits in ROADMAP.md.
-``placement`` is the replica pool's choice of a replica and a lane.
+equals the JAX package's; ``transfer_probe`` is the parallel backends'
+timed probe replay (``parallel/tensor_parallel.py``
+``TransferProbeMixin.measure_transfer_ms``). ``placement`` is the replica
+pool's choice of a replica and a lane.
 """
 
 from __future__ import annotations

@@ -5,8 +5,10 @@ encode (optional BOS, dummy-prefix space, UTF-8 codepoint split with byte
 fallback at +3, then greedy highest-score pair merging), piece decoding,
 the host ``Sampler`` in its counter mode, which replays the device
 sampler's stream from fetched logits, the chat-template renderers and the
-``EosDetector`` the API server streams through. Host-side Python and numpy
-only.
+``EosDetector`` the API server streams through. ``Tokenizer.encode`` runs
+the split and merge in the port's C++ host library (:mod:`native`);
+``Tokenizer.encode_plain`` is the same algorithm in Python, its plain
+version. The rest is host-side Python and numpy.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from distributed_llama_tpu_torch import prng, telemetry
+from distributed_llama_tpu_torch import native, prng, telemetry
 from distributed_llama_tpu_torch.formats.tokenizer_file import TokenizerData, read_tokenizer_file
 
 _RAW_BYTE_RE = re.compile(rb"^<0x([0-9A-Fa-f]{2})>$")
@@ -38,6 +40,9 @@ class Tokenizer:
         self._index: dict[bytes, int] = {}
         for i, tok in enumerate(self.vocab):
             self._index.setdefault(tok, i)
+        # the native handle, made at the first encode (which builds the
+        # host library if needed and raises if it cannot)
+        self._native: native.NativeBpe | None = None
 
     @classmethod
     def from_file(cls, path: str, model_vocab_size: int | None = None) -> "Tokenizer":
@@ -53,6 +58,21 @@ class Tokenizer:
         return len(self.vocab)
 
     def encode(self, text: str | bytes, add_bos: bool = False, add_eos: bool = False) -> list[int]:
+        """Token ids of ``text``: the split and merge in the host library."""
+        if isinstance(text, str):
+            text = text.encode("utf-8")
+        if self._native is None:
+            self._native = native.NativeBpe(self.vocab, self.scores)
+        tokens = [self.bos_id] if add_bos else []
+        # the dummy-prefix space token, which takes part in the merges
+        space_id = self._index.get(b" ", -1) if text else -1
+        tokens.extend(self._native.encode(text, first=space_id))
+        if add_eos:
+            tokens.append(self.eos_id)
+        return tokens
+
+    def encode_plain(self, text: str | bytes, add_bos: bool = False, add_eos: bool = False) -> list[int]:
+        """:meth:`encode` in Python: its plain version (O(n^2) merges)."""
         if isinstance(text, str):
             text = text.encode("utf-8")
         tokens: list[int] = []

@@ -58,6 +58,7 @@ from distributed_llama_tpu_torch.ops import kv_cache as tkvc
 from distributed_llama_tpu_torch.parallel import context_parallel as tcp
 from distributed_llama_tpu_torch.quants import FloatType
 from distributed_llama_tpu_torch.server import api as tapi
+from tests.torch_probe_telemetry import assert_probe_telemetry_matches_jax
 from distributed_llama_tpu_torch.tokenizer import Sampler as TorchSampler
 from distributed_llama_tpu_torch.tokenizer import Tokenizer as TorchTokenizer
 
@@ -385,6 +386,13 @@ def test_transfer_probe_and_bytes_match_jax(engines):
         assert te.tp_backend.transfer_bytes_per_token() == je._tp_engine.transfer_bytes_per_token()
         assert te._transfer_ms > 0 and te.tp_backend.measure_transfer_ms(n_tokens=2) > 0
         assert te.tp_backend.mesh_shape == {"tp": tp, "sp": sp}
+
+
+def test_transfer_probe_telemetry_matches_jax(engines):
+    """The SP backend's probe (the mixin the TP and EP backends share) is a
+    ``transfer_probe`` span and feeds the three families as JAX's does."""
+    je, te = engines("f32", 4, 1)
+    assert_probe_telemetry_matches_jax(je._tp_engine, te.tp_backend)
 
 
 def test_cli_generate_sp_prints_what_sp1_prints(tmp_path, capsys):

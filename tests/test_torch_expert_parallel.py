@@ -51,6 +51,7 @@ from distributed_llama_tpu_torch.quants import FloatType
 
 from tests.test_expert_parallel import _moe_setup
 from tests.test_torch_tensor_parallel import _leaves, _rank_trees
+from tests.torch_probe_telemetry import assert_probe_telemetry_matches_jax
 
 HARNESS_TOL = 2e-4
 F32_TOL = 1e-4  # of max |logit|
@@ -222,6 +223,13 @@ def test_f32_engine_prefill_and_decode_match_jax(engines, model, ep, tp):
     assert out[1][1] == out[0][1] and len(out[0][1]) == 8
     assert te.tp_backend.transfer_bytes_per_token() == je._tp_engine.transfer_bytes_per_token()
     assert te.tp_backend.mesh_shape == {"tp": tp, "ep": ep}
+
+
+def test_transfer_probe_telemetry_matches_jax(engines):
+    """The EP backend's probe is a ``transfer_probe`` span and feeds the
+    three families as the JAX EP backend's does."""
+    je, te = engines("f32", 2, 1)
+    assert_probe_telemetry_matches_jax(je._tp_engine, te.tp_backend)
 
 
 class Routes:

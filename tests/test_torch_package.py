@@ -59,11 +59,14 @@ def test_port_sources_exist():
                 "loadgen/__main__", "loadgen/workload", "loadgen/runner", "loadgen/report", "loadgen/selfhost",
                 "retry", "engine/faults", "server/admission", "engine/spill", "server/replicas",
                 "telemetry/flight", "lockcheck", "converter/__init__", "converter/hf", "converter/tokenizers",
-                "converter/pth", "converter/launch"):
+                "converter/pth", "converter/launch", "native", "analysis/__init__", "analysis/__main__",
+                "analysis/config", "analysis/engine", "analysis/rules/__init__"):
         assert f"distributed_llama_tpu_torch/{mod}.py" in names
     for src in ("q40_int8.cu", "q40_int8_tile.cuh", "q40_dequant.cu", "paged_attention.cu", "ring_all_reduce.cu",
                 "fused_matmul_ring.cu"):
         assert (ROOT / "distributed_llama_tpu_torch" / "csrc" / src).is_file()
+    for src in ("bpe_native.cpp", "q40_native.cpp"):
+        assert (ROOT / "distributed_llama_tpu_torch" / "csrc" / "host" / src).is_file()
 
 
 @pytest.fixture

@@ -620,12 +620,13 @@ def test_foreign_entry_is_refused_before_upload(model_path):
     s = sched.new_stream()
     cold = decode_tokens(s, PROMPT)
     entry = sched._download_page(sched._prefix.walk(PROMPT)[0].page_id)
-    with pytest.raises(ValueError, match="layout"):
-        sched._upload_page(0, entry[:-1])
-    with pytest.raises(ValueError):
-        sched._upload_page(0, [a.view(np.int16).astype(np.float32) for a in entry])
-    with pytest.raises(ValueError):
-        sched._upload_page(0, [a[:, :1] for a in entry])
+    with sched._cond:  # the upload runs under the scheduler lock
+        with pytest.raises(ValueError, match="layout"):
+            sched._upload_page_locked(0, entry[:-1])
+        with pytest.raises(ValueError):
+            sched._upload_page_locked(0, [a.view(np.int16).astype(np.float32) for a in entry])
+        with pytest.raises(ValueError):
+            sched._upload_page_locked(0, [a[:, :1] for a in entry])
     churn(s, 100)
     prefix = sched._prefix
     chain = tuple(PROMPT[:PAGE])

@@ -118,7 +118,7 @@ def test_default_buckets_and_span_names_match():
 
 
 @pytest.mark.parametrize("bundle", ["EngineInstruments", "PrefixCacheInstruments", "SamplerInstruments",
-                                    "ServerInstruments", "MeshInstruments"])
+                                    "ServerInstruments", "MeshInstruments", "CollectiveInstruments"])
 def test_instrument_bundles_keep_the_jax_names(bundle):
     """Every instrument the port binds has the JAX package's name, help
     text, kind, labels and buckets (the port binds a subset)."""

@@ -36,6 +36,7 @@ from distributed_llama_tpu_torch.ops import q40 as tq
 from distributed_llama_tpu_torch.parallel import context_parallel, expert_parallel, sharding, tensor_parallel
 from distributed_llama_tpu_torch.quants import FloatType
 from distributed_llama_tpu_torch.server import api as server_api
+from tests.torch_probe_telemetry import assert_probe_telemetry_matches_jax
 
 SPEC = dict(dim=512, hidden_dim=1024, n_layers=2, n_heads=8, n_kv_heads=4, vocab_size=512, seq_len=64)
 PROMPT = [1, 5, 9, 13, 2, 7, 11, 3, 4, 6]  # bucket 16: the prefill takes K4's arm, decode K5's
@@ -268,6 +269,13 @@ def test_transfer_share_and_probe(engines):
     entry = te.stats[-1]
     assert 0 < entry.transfer_ms <= entry.generation_ms
     assert entry.inference_ms == pytest.approx(entry.generation_ms - entry.transfer_ms)
+
+
+def test_transfer_probe_telemetry_matches_jax(engines):
+    """With telemetry on, each tp=2 probe is a ``transfer_probe`` span and
+    feeds the three collective families as the JAX backend's probe does."""
+    je, te = engines("f32", 2)
+    assert_probe_telemetry_matches_jax(je._tp_engine, te.tp_backend)
 
 
 def test_what_this_slice_refuses(engines, model_path, tok_path, tmp_path):
