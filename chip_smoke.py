@@ -300,8 +300,10 @@ Phases (any failure exits non-zero):
    after boot exceeds the pod's by one weight tree (within 10%); the
    aggregate decode rate of both.
 
-15. sequence and expert parallelism, the ranks on the card (15a after 14c
-   over phase 9's 8-layer file at ``--max-seq-len 4096``; 15b after 14b over
+15. sequence and expert parallelism, the ranks on the card (15a after 17
+   over phase 5's MAIN_LAYERS-layer file at ``--max-seq-len 4096``, since
+   phase 17 came (phase 9's TP_LAYERS-layer file before, and with
+   ``--sp-ep`` alone); 15b after 14b over
    phase 8b's Mixtral-width file; ``--sp-ep`` alone writes its own files):
    K1 at the ring pass's 1024 rows per rank (``--sp 4``) at the five 7B
    shapes, as in phase 3. (a) ``--sp 2`` (bf16, then ``--cache-dtype i8``),
@@ -345,6 +347,21 @@ Phases (any failure exits non-zero):
    file and dequantized to f32 by the library and by numpy, byte for byte
    equal, GB/s of each.
 
+17. worker mode, the tensor-parallel ranks as processes on the card (after
+   16 over phase 5's file; its hosts are this script re-run with
+   ``--host-task``, their logs under ``build/phase17/``): (a) K4 across 2
+   and 4 processes, one rank each, at [1, 16, 32 x 4096] f32: every host's
+   output bit-equal to the one-process K4 launch over the same partials and
+   to the plain version; the launch alone (queued behind a sleep kernel),
+   a call with its two barriers and the psum arm across the processes,
+   beside the bound ((n+1) R d 4 bytes over 3.35 TB/s) and the launch
+   floor; (b) ``worker --tp 2`` over two processes, ``--allreduce ring``
+   then ``psum``, 32 greedy tokens each: both hosts' ids equal each other
+   and the one-process ``--tp 2`` run of the arm, 2 x layers x (forwards +
+   the transfer probe's 2 x 32 tokens) cross-process K4 launches and no
+   K5, each process's file reads the replicated leaves plus half the
+   matmul bytes; ms/token and each process's device busy.
+
 ``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
 phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
 e.g. an earlier commit unpacked with ``git archive``, to time two designs in
@@ -353,7 +370,8 @@ one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
 phase 10 alone, ``--spill`` phase 11 alone, ``--fleet`` phase 12 alone and
 ``--chat`` phase 13 alone (with 7a's K4 rows at [1, 4096] and a Mixtral-width
 file of its own), ``--tp-serve`` phase 14 alone, ``--sp-ep`` phase 15 alone and
-``--host`` phase 16 alone (with 6b's traffic, no rates).
+``--host`` phase 16 alone (with 6b's traffic, no rates) and ``--workers``
+phase 17 alone.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -400,10 +418,12 @@ N_LAYERS = 32  # Llama-2-7B's depth: the kernel line's per-token numbers count a
 # H100 host and 1211.3 s on one ~30% slower in every phase; at 8 with phase
 # 15 added (14a and 14c at 4) 1139.2 s on a host ~13% slower than the
 # 933.3 s one. ``--loadgen``, ``--faults``, ``--spill`` and ``--fleet``
-# alone keep all 32, ``--tp-serve`` TP_LAYERS
+# alone keep all 32, ``--tp-serve`` TP_LAYERS. Phases 15a and 17 run at this
+# depth too: with phase 17 added and 15a at 8 the full run took 1104.5 s on
+# an H100 host ~25% slower than one that had taken 824.1 s without phase 17
 MAIN_LAYERS = 4
-# the depth of phase 6c's 16-row server, phases 9-12 and 15a in the full
-# run (a second file): 8 of Llama-2-7B's 32 layers
+# the depth of phase 6c's 16-row server and phases 9-12 in the full run (a
+# second file), and of 15a with ``--sp-ep`` alone: 8 of Llama-2-7B's 32 layers
 TP_LAYERS = 8
 SEQ_LEN = 1024  # --max-seq-len of the driven runs
 # the 7B main path's matmuls: name -> (n, d, launches per decoded token)
@@ -596,7 +616,7 @@ K2_TP_CASES = [(f"B4 K{32 // tp} M1", 32 // tp, 1, 128, [1900, 800, 1300, 2000],
 POD_TOKENS = 32  # 14c's streams
 POD_MEM_TOL_REL = 0.10  # 14c: the card memory a pod saves, against one weight tree's bytes
 ROUTE_MARGIN = 1e-5
-# phase 15: --sp at Llama-2-7B width over phase 9's TP_LAYERS-layer file at
+# phase 15: --sp at Llama-2-7B width over phase 5's MAIN_LAYERS-layer file at
 # Llama-2's published context: a 1100-token prompt (1100 * 4 >= 4096: one
 # ring pass, rank i running 4096/sp of its padded rows), a 300-token delta
 # after it (ceil(300/32) = 10 chunk forwards), 32 greedy tokens; the arms
@@ -5381,7 +5401,7 @@ def decode_timing(engine, first: int, label: str) -> dict:
 
 
 def sp_phase(cli, q40, coll, telemetry, model: str, tok: str) -> dict:
-    """15a: ``--sp`` at Llama-2-7B width over ``model`` (TP_LAYERS layers) at
+    """15a: ``--sp`` at Llama-2-7B width over ``model`` (MAIN_LAYERS layers) at
     ``--max-seq-len`` SP_SEQ_LEN, against the ``--tp 1`` engine on the card:
     per arm of SP_ARMS a SP_PROMPT_TOKENS-token prompt from token ids (one
     ring pass), a SP_DELTA_TOKENS-token delta after it (10 chunk forwards),
@@ -5753,16 +5773,16 @@ def sp_ep_serve(server_api, label: str, model: str, tok: str, extra: list) -> di
         torch.cuda.empty_cache()
 
 
-def sp_phases(cli, server_api, q40, coll, model: str, tok: str, summary: dict) -> None:
+def sp_phases(cli, server_api, q40, coll, model: str, tok: str, summary: dict, n_layers: int = TP_LAYERS) -> None:
     """Phase 15's K1 rows at the ring pass's per-rank rows, 15a and 15c's
-    ``--sp 2`` server over the 7B-width ``model``; results go into
-    ``summary``."""
+    ``--sp 2`` server over the 7B-width ``model`` of ``n_layers``; results
+    go into ``summary``."""
     from distributed_llama_tpu_torch import telemetry
 
     t = phase(f"15. K1 at the ring pass's {SP_RING_ROWS} rows per rank (--sp 4), the Llama-2-7B shapes")
     summary["sp_kernel_rows"] = k1_checks(q40, ts=(SP_RING_ROWS,))
     k1_forward_rows(summary["sp_kernel_rows"])
-    t = phase(f"15a. the slice's path: --sp 2/4 and --tp 2 --sp 2 at Llama-2-7B width, {TP_LAYERS} layers, "
+    t = phase(f"15a. the slice's path: --sp 2/4 and --tp 2 --sp 2 at Llama-2-7B width, {n_layers} layers, "
               f"--max-seq-len {SP_SEQ_LEN}")
     summary["sp"] = sp_phase(cli, q40, coll, telemetry, model, tok)
     summary["sp_serve"] = sp_ep_serve(server_api, "15c --sp 2", model, tok, ["--sp", "2"])
@@ -5814,6 +5834,361 @@ def sp_ep_only(smi: str) -> None:
     out.write_text(json.dumps(summary, indent=1, default=str))
     print(f"seconds by phase: {summary['phase_s']}")
     print(f"phase 15 with its set-up: {summary['total_s']:.1f} s; details in {out}")
+    print(f"card: {smi}")
+
+
+# ----------------------------------------------------------------------
+# Phase 17: worker mode, the tensor-parallel ranks as separate processes
+# on the card (K4 across processes over CUDA IPC)
+# ----------------------------------------------------------------------
+
+WORKER_HOSTS = (2, 4)  # 17a: K4 across this many processes, one rank each
+K4_IPC_ROWS = (1, 16, 32)  # 17a's payloads [R, 4096] f32: decode, prefill pieces
+K4_IPC_REPS = 20
+WORKER_TOKENS = 32  # 17b: greedy tokens of each worker run
+# the engine's transfer probe at construction: one warm-up and one timed
+# replay of PROBE_TOKENS tokens, each token 2 all-reduces per layer
+# (TransferProbeMixin.measure_transfer_ms); under ring in worker mode
+# every one is a cross-process K4 launch on the main path
+PROBE_TOKENS = 32
+HOST_TIMEOUT_S = {"k4": 180, "worker": 420}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_hosts(task: str, n: int, spec: dict, label: str) -> list:
+    """Start ``n`` processes of this script, each running ``task`` (see
+    :func:`host_task`) on ``spec`` with its host id, the process count and
+    a fresh coordinator port, and return their ``HOST_RESULT`` objects in
+    host order. Each host's output goes to ``build/phase17/LABEL.H.log``; a host
+    that fails, or the group outliving ``HOST_TIMEOUT_S[task]``, fails the
+    phase (every host is killed first)."""
+    logdir = ROOT / "build" / "phase17"
+    logdir.mkdir(parents=True, exist_ok=True)
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs, logs = [], []
+    for h in range(n):
+        arg = json.dumps({**spec, "task": task, "coordinator": coordinator, "num_hosts": n, "host_id": h})
+        logs.append(logdir / f"{label}.{h}.log")
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--host-task", arg],
+                                          stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    deadline = time.monotonic() + HOST_TIMEOUT_S[task]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for h, (p, log) in enumerate(zip(procs, logs)):
+        text = log.read_text()
+        lines = [ln for ln in text.splitlines() if ln.startswith("HOST_RESULT ")]
+        if p.returncode != 0 or not lines:
+            print(text[-6000:])
+            fail(f"phase 17 {label}: host {h} of {n} exited {p.returncode} (log {log})")
+        results.append(json.loads(lines[-1][len("HOST_RESULT "):]))
+    return results
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds per ``fn(i)``: ``reps`` eager calls queued behind
+    a sleep kernel of a few ms, so the host's issue of each launch is hidden
+    and the CUDA events around them time the device's work alone (a launch
+    over IPC-mapped memory or with an interprocess event record cannot sit
+    in a CUDA graph's capture, which ``cuda_ms`` uses)."""
+    fn(0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)  # ~5 ms at the H100's clock: longer than the reps' issue
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k4_ipc_host(spec: dict) -> dict:
+    """17a on one host of the largest group: for each n of WORKER_HOSTS
+    that takes this host, a group of n processes at its own coordinator
+    (hosts past n skip it), as :func:`k4_ipc_group`. One set of processes
+    serves every n, so each pays the processes' start once."""
+    h = spec["host_id"]
+    return {str(n): k4_ipc_group(spec["coordinators"][str(n)], n, h) for n in WORKER_HOSTS if h < n}
+
+
+def k4_ipc_group(coordinator: str, n: int, h: int) -> dict:
+    """17a in a group of ``n`` processes, as host ``h``: for each payload
+    [R, 4096], the n global ranks'
+    partials drawn from one seeded generator (every host draws them all),
+    this host's rank all-reduced by K4 across the processes, then held bit
+    for bit against the one-process K4 launch over all n partials and
+    against K4's plain version; timed: the wall time of a call with its two
+    barriers, the psum arm across the processes (the library yardstick:
+    host staging and gloo), and each host in turn, the K4 launch alone
+    over the slots in place and the one-process K4 launch over the same
+    partials (CUDA events around launches queued behind a sleep kernel:
+    :func:`queued_ms`)."""
+    import ctypes
+
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.ops import q40
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+    from distributed_llama_tpu_torch.platform import resolve_device
+
+    rows, calls = [], 0
+    with HostGroup(coordinator, n, h) as group:
+        dev = resolve_device("cuda", h)
+        coll.reset_launches()
+        for R in K4_IPC_ROWS:
+            g = torch.Generator().manual_seed(1000 * n + R)
+            parts = [torch.randn((R, DIM), generator=g).to(dev) for _ in range(n)]
+            xs = [parts[h]]
+            got = coll.all_reduce(xs, "ring", group)[0]
+            calls += 1
+            one = coll.ring_all_reduce(parts)[h]
+            plain = coll.ring_all_reduce_plain(parts)[h]
+            torch.cuda.synchronize(dev)
+            row = dict(n=n, R=R, host=h, bit_equal_one_process=bool(torch.equal(got, one)),
+                       bit_equal_plain=bool(torch.equal(got, plain)),
+                       max_abs_err=float((got - plain).abs().max().item()))
+
+            def wall_ms(impl: str) -> float:
+                group.barrier()
+                t0 = time.perf_counter()
+                for _ in range(K4_IPC_REPS):
+                    coll.all_reduce(xs, impl, group)
+                torch.cuda.synchronize(dev)
+                return (time.perf_counter() - t0) * 1e3 / K4_IPC_REPS
+
+            row["wall_ms"] = wall_ms("ring")
+            calls += K4_IPC_REPS
+            row["psum_wall_ms"] = wall_ms("psum")
+            ipc = group.ipc
+            ins = (ctypes.c_void_p * n)(*ipc.slot_pointers())
+            out = torch.empty_like(xs[0])
+            no_peers = (ctypes.c_void_p * 1)()
+            fn = coll._ipc("ring_ipc_reduce")
+            stream = torch.cuda.current_stream(dev).cuda_stream
+
+            def launch(i):
+                q40._check_launch(fn(ipc.index, ins, coll._ptrs([out]), 1, n, R, DIM, no_peers, 0,
+                                     ipc.events["done"], stream), "ring_ipc_reduce")
+
+            for turn in range(n):  # the card to one host at a time
+                group.barrier()
+                if turn == h:
+                    row["kernel_ms"] = queued_ms(launch, reps=K4_IPC_REPS)
+                    row["one_process_ms"] = queued_ms(lambda i: coll.ring_all_reduce(parts), reps=K4_IPC_REPS)
+                    row["plain_ms"] = event_ms(lambda i: coll.ring_all_reduce_plain(parts), reps=5)
+            group.barrier()
+            check(torch.equal(out, got), f"K4 across {n} processes R={R}: a launch over the slots in place differs")
+            rows.append(row)
+        row_launches = coll.launches["ring_all_reduce_ipc"]
+        check(row_launches == calls, f"K4 across processes: {row_launches} launches counted for {calls} calls")
+    return {"rows": rows, "launches": row_launches}
+
+
+def worker_host(spec: dict) -> dict:
+    """17b on one host: the CLI's ``worker`` mode at --tp 2 over phase 5's
+    7B-width file, ``--allreduce ring`` and then ``psum``, each through
+    ``cli.main`` with every launch count reset just before; then, over an
+    engine built as worker mode builds it, decode ms/token (16 greedy
+    tokens between synchronizes, after 4 warm ones) and this process's
+    device busy time from a torch.profiler trace of 4 steps."""
+    from distributed_llama_tpu_torch.apps import cli
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.ops import q40
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+
+    n, h = spec["num_hosts"], spec["host_id"]
+    base = ["worker", "--model", spec["model"], "--tokenizer", spec["tok"], "--dtype", "q40", "--decode", "device",
+            "--max-seq-len", str(SEQ_LEN), "--steps", str(spec["steps"]), "--decode-chunk", "8",
+            "--temperature", "0", "--seed", "1", "--prompt", TP_PROMPT, "--tp", "2", "--num-hosts", str(n),
+            "--host-id", str(h)]
+    runs = {}
+    for impl, port in zip(("ring", "psum"), spec["ports"]):
+        coll.reset_launches()
+        q40.reset_launches()
+        t0 = time.perf_counter()
+        res = cli.main(base + ["--allreduce", impl, "--coordinator", f"127.0.0.1:{port}"])
+        torch.cuda.synchronize()
+        runs[impl] = dict(tokens=res["tokens"], bytes_read=res["bytes_read"], forwards=res["forwards"],
+                          launches={**coll.launches, **q40.launches},
+                          total_ms=res["total_ms"], prefill_ms=res["prefill_ms"], wall_s=time.perf_counter() - t0)
+    with HostGroup(f"127.0.0.1:{spec['ports'][2]}", n, h) as group:
+        args = cli.build_parser().parse_args(base + ["--allreduce", "ring", "--coordinator", "127.0.0.1:1"])
+        engine, tokenizer, _ = cli.make_engine(args, hosts=group)
+        engine.reset()
+        first = int(engine.prefill(tokenizer.encode(TP_PROMPT, add_bos=True)).argmax())
+        engine.decode_chunk(first, 4, 0.0, 0.9)
+        torch.cuda.synchronize()
+        group.barrier()
+        t0 = time.perf_counter()
+        engine.decode_chunk(first, 16, 0.0, 0.9)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 16
+        prof = device_profile(engine, first, decode_ms, steps=4)
+        del engine
+    return {"runs": runs, "decode_ms_per_token": decode_ms, **prof}
+
+
+def host_task(spec: dict) -> None:
+    """``--host-task SPEC``: one host of a phase-17 group (a process this
+    script starts); prints its result as a ``HOST_RESULT`` line."""
+    sys.path.insert(0, str(ROOT))
+    result = {"k4": k4_ipc_host, "worker": worker_host}[spec["task"]](spec)
+    print("HOST_RESULT " + json.dumps(result), flush=True)
+
+
+def worker_phase(cli, coll, model: str, tok: str, smi: str) -> dict:
+    """Phase 17: (a) K4 across 2 and 4 processes on the card, each host's
+    output bit-equal to the one-process K4 launch and to the plain version,
+    timed against the bound ((n+1) R d 4 bytes over 3.35 TB/s: n inputs
+    read, this process's output written) and the psum arm across the
+    processes; (b) ``worker`` at 7B width, two processes of one rank each,
+    ``--allreduce ring`` then ``psum``: both hosts' greedy ids identical
+    and equal to the one-process --tp 2 run of the same arm, K4's
+    cross-process launches 2 x layers x (forwards + the transfer probe's
+    2 x PROBE_TOKENS), no K5 or one-process K4 launch, each process's file
+    reads half the matmul bytes plus the replicated leaves; ms/token and
+    each process's device busy share. Two contexts on one card time-slice:
+    no number here is a speed of worker mode on several cards."""
+    from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
+
+    out: dict = {"card": smi, "launch_floor_ms": launch_floor_ms()}
+    print(f"launch floor (one-element add, in a CUDA graph): {out['launch_floor_ms']:.5f} ms")
+    rows = []
+    t = time.perf_counter()
+    every = spawn_hosts("k4", max(WORKER_HOSTS),
+                        {"coordinators": {str(n): f"127.0.0.1:{_free_port()}" for n in WORKER_HOSTS}}, "k4")
+    for n in WORKER_HOSTS:
+        res = [hr[str(n)] for hr in every[:n]]
+        for R in K4_IPC_ROWS:
+            per_host = [next(r for r in hr["rows"] if r["R"] == R) for hr in res]
+            for r in per_host:
+                check(r["bit_equal_one_process"], f"K4 across {n} processes R={R} host {r['host']}: differs from "
+                      "the one-process K4 launch")
+                check(r["bit_equal_plain"], f"K4 across {n} processes R={R} host {r['host']}: differs from its "
+                      "plain version")
+            bound_ms = (n + 1) * R * DIM * 4 / HBM_BYTES_PER_S * 1e3
+            row = dict(kernel="ring_all_reduce_ipc", n=n, R=R, d=DIM,
+                       max_abs_err=max(r["max_abs_err"] for r in per_host),
+                       ms=statistics.mean(r["kernel_ms"] for r in per_host),
+                       ms_by_host=[r["kernel_ms"] for r in per_host],
+                       one_process_ms=statistics.mean(r["one_process_ms"] for r in per_host),
+                       wall_ms=statistics.mean(r["wall_ms"] for r in per_host),
+                       plain_ms=statistics.mean(r["plain_ms"] for r in per_host),
+                       library_ms=statistics.mean(r["psum_wall_ms"] for r in per_host),
+                       bound_ms=bound_ms, bound_by="bytes", launches_by_host=[hr["launches"] for hr in res])
+            rows.append(row)
+            print(f"K4 across {n} processes [{R}, {DIM}]: every host bit-equal to the one-process K4 and to the "
+                  f"plain version; launch {row['ms']:.4f} ms (by host {['%.4f' % v for v in row['ms_by_host']]}; "
+                  f"the one-process K4 launch {row['one_process_ms']:.4f} ms), "
+                  f"a call with its barriers {row['wall_ms']:.3f} ms, psum arm across the processes "
+                  f"{row['library_ms']:.3f} ms, plain {row['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms (bytes), "
+                  f"launch floor {out['launch_floor_ms']:.5f} ms", flush=True)
+    print(f"17a: {time.perf_counter() - t:.1f} s")
+    out["k4_rows"] = rows
+
+    # 17b: the one-process --tp 2 references in this process, then the workers
+    prompt_tokens = None
+    ref = {}
+    for impl in ("ring", "psum"):
+        argv = ["generate", "--model", model, "--tokenizer", tok, "--dtype", "q40", "--decode", "device",
+                "--max-seq-len", str(SEQ_LEN), "--decode-chunk", "8", "--temperature", "0", "--seed", "1",
+                "--prompt", TP_PROMPT, "--tp", "2", "--allreduce", impl]
+        if prompt_tokens is None:
+            built = cli.make_engine(cli.build_parser().parse_args(argv))
+            prompt_tokens = built[1].encode(TP_PROMPT, add_bos=True)
+        steps = len(prompt_tokens) + WORKER_TOKENS - 1
+        args = cli.build_parser().parse_args(argv + ["--steps", str(steps)])
+        built[0].reset()
+        built[0].tp_backend.allreduce = impl
+        ref[impl] = cli.generate(args, benchmark=False, built=built)["tokens"]
+        check(len(ref[impl]) == WORKER_TOKENS, f"one-process --tp 2 {impl}: {len(ref[impl])} tokens")
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res = spawn_hosts("worker", 2, {"model": model, "tok": tok, "steps": steps,
+                                    "ports": [_free_port() for _ in range(3)]}, "worker")
+    reader = ModelFileReader(model)
+    replicated = sum(e.nbytes for name, e in reader.entries.items() if name == "embedding" or "rms" in name)
+    matmul = sum(e.nbytes for e in reader.entries.values()) - replicated
+    n_layers = reader.spec.n_layers
+    reader.close()
+    want_bytes = replicated + matmul // 2
+    for impl in ("ring", "psum"):
+        runs = [hr["runs"][impl] for hr in res]
+        check(runs[0]["tokens"] == runs[1]["tokens"], f"worker --allreduce {impl}: the hosts' ids differ")
+        check(runs[0]["tokens"] == ref[impl], f"worker --allreduce {impl}: ids differ from the one-process --tp 2 "
+              f"run: {runs[0]['tokens']} vs {ref[impl]}")
+        for h, r in enumerate(runs):
+            lc = r["launches"]
+            want_k4 = 2 * n_layers * (r["forwards"] + 2 * PROBE_TOKENS) if impl == "ring" else 0
+            check(lc["ring_all_reduce_ipc"] == want_k4 and lc["fused_matmul_ring"] == 0
+                  and lc["ring_all_reduce"] == 0,
+                  f"worker --allreduce {impl} host {h}: launches {lc}, expected {want_k4} cross-process K4 "
+                  f"(2 x {n_layers} layers x ({r['forwards']} forwards + 2 x {PROBE_TOKENS} probe tokens)), no K5")
+            check(abs(r["bytes_read"] - want_bytes) <= 1e-3 * want_bytes,
+                  f"worker host {h}: read {r['bytes_read']} bytes, expected {want_bytes} (half the matmul bytes "
+                  "plus the replicated leaves)")
+            r["decode_ms_per_token_cli"] = (r["total_ms"] - r["prefill_ms"]) / max(1, len(r["tokens"]) - 1)
+        print(f"worker --tp 2 --allreduce {impl}: both hosts {len(runs[0]['tokens'])} ids identical and equal to the "
+              f"one-process --tp 2 run; launches host 0 {runs[0]['launches']}; {runs[0]['forwards']} forwards; "
+              f"bytes read {runs[0]['bytes_read']} and {runs[1]['bytes_read']} of {replicated + matmul} "
+              f"(expected {want_bytes}); CLI ms/token after the first {runs[0]['decode_ms_per_token_cli']:.2f} "
+              f"and {runs[1]['decode_ms_per_token_cli']:.2f}; wall {runs[0]['wall_s']:.1f} s", flush=True)
+    busy = [hr.get("device_busy_ms_per_token") for hr in res]
+    decode = [hr["decode_ms_per_token"] for hr in res]
+    card_busy = sum(busy) if all(b is not None for b in busy) else None
+    print(f"worker --tp 2 ring decode: {decode[0]:.2f} / {decode[1]:.2f} ms/token (hosts 0 / 1); device busy "
+          f"{busy} ms/token by host; the card's busy share "
+          + (f"{100 * card_busy / max(decode):.1f}%" if card_busy is not None else "not measured")
+          + " (two contexts time-slice the card)")
+    out.update(workers=res, ref_tokens=ref, want_bytes_read=want_bytes, replicated_bytes=replicated,
+               matmul_bytes=matmul, decode_ms_per_token=decode, device_busy_ms_per_token=busy,
+               card_busy_share=None if card_busy is None else card_busy / max(decode),
+               k4_ipc_launches=res[0]["runs"]["ring"]["launches"]["ring_all_reduce_ipc"])
+    print(f"17b: {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def workers_only(smi: str) -> None:
+    """``--workers``: phase 2 (the kernels), then phase 17 alone over phase
+    5's 7B-width file (results in build/chip_smoke_workers.json)."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_llama_tpu_torch.apps import cli
+    from distributed_llama_tpu_torch.formats import synthetic
+    from distributed_llama_tpu_torch.formats.tokenizer_file import write_tokenizer_file
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.ops import cuda_build
+
+    t_all = phase("2. build kernels")
+    print(f"nvcc build: {cuda_build.build():.1f} s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        model, tok = write_7b_files(synthetic, write_tokenizer_file, Path(tmp), MAIN_LAYERS)
+        t = phase(f"17. worker mode: tensor-parallel ranks as processes on the card, {MAIN_LAYERS} layers")
+        summary = worker_phase(cli, coll, model, tok, smi)
+        print(f"phase 17: {time.perf_counter() - t:.1f} s")
+    summary["total_s"] = time.perf_counter() - t_all
+    summary["phase_s"] = phase_seconds(time.perf_counter())
+    out = ROOT / "build" / "chip_smoke_workers.json"
+    out.write_text(json.dumps(summary, indent=1, default=str))
+    print(f"seconds by phase: {summary['phase_s']}")
+    print(f"phase 17 with its set-up: {summary['total_s']:.1f} s; details in {out}")
     print(f"card: {smi}")
 
 
@@ -5941,12 +6316,19 @@ def main() -> None:
                         help="phase 16 alone (the host library's encode and Q40 dequant against their plain versions, "
                         "the 7B-width server with the native encoder and its cold TTFT split, and a --tp 2 "
                         "--telemetry server's transfer-probe families)")
+    parser.add_argument("--workers", action="store_true",
+                        help="phase 17 alone (worker mode: K4 across 2 and 4 processes on the card, and two "
+                        "--tp 2 worker processes at Llama-2-7B width)")
+    parser.add_argument("--host-task", default=None, help=argparse.SUPPRESS)  # one host of a phase-17 group
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this smoke test needs a GPU", flush=True)
         sys.exit(2)
+    if opts.host_task is not None:
+        host_task(json.loads(opts.host_task))
+        return
     alone = [f for f, on in ((k1_only, opts.k1), (k2_only, opts.k2), (k3_only, opts.k3), (k5_only, opts.k5),
                              (lambda root, smi: moe_only(smi), opts.moe),
                              (lambda root, smi: loadgen_only(smi), opts.loadgen),
@@ -5956,10 +6338,11 @@ def main() -> None:
                              (lambda root, smi: chat_only(smi), opts.chat),
                              (lambda root, smi: tp_serve_only(smi), opts.tp_serve),
                              (lambda root, smi: sp_ep_only(smi), opts.sp_ep),
-                             (lambda root, smi: host_only(smi), opts.host)) if on]
+                             (lambda root, smi: host_only(smi), opts.host),
+                             (lambda root, smi: workers_only(smi), opts.workers)) if on]
     if len(alone) > 1:
         parser.error("at most one of --k1, --k2, --k3, --k5, --moe, --loadgen, --faults, --spill, --fleet, --chat, "
-                     "--tp-serve, --sp-ep, --host")
+                     "--tp-serve, --sp-ep, --host, --workers")
     if alone:
         phase("1. card")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6137,7 +6520,7 @@ def main() -> None:
         print(f"phase 6a: {time.perf_counter() - t:.1f} s")
 
         # the TP_LAYERS-layer file: 6c's 16-row server and phases 9 to 12
-        # and 15a run over it in the full run (their depth cut to keep the
+        # run over it in the full run (their depth cut to keep the
         # run inside its time limit; --loadgen, --faults, --spill and
         # --fleet alone keep all 32 layers); phase 5's file when it has as
         # many layers (the same seed, the same bytes)
@@ -6233,10 +6616,16 @@ def main() -> None:
         print(f"phase 16: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
+        t = phase(f"17. the slice's path: worker mode, tensor-parallel ranks as processes on the card (K4 across "
+                  f"processes), {MAIN_LAYERS} layers")
+        summary["workers"] = worker_phase(cli, coll, model, tok, smi)
+        print(f"phase 17: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         if model_tp != model:
-            os.remove(model)  # room on the disk for phase 8's files
-        sp_phases(cli, server_api, q40, coll, model_tp, tok, summary)
-        os.remove(model_tp)
+            os.remove(model_tp)  # room on the disk for phase 8's files
+        sp_phases(cli, server_api, q40, coll, model, tok, summary, MAIN_LAYERS)
+        os.remove(model)
 
         def after_8c(m, t_):
             moe_tp_phases(cli, moe, q40, coll, llama, synthetic, write_tokenizer_file, workdir, summary, (m, t_))
@@ -6365,6 +6754,16 @@ def main() -> None:
                         launches=summary["ep"]["ep=2 tp=2 ring"]["launches"]["ring_all_reduce"],
                         max_abs_err=k4["max_abs_err"],
                         **{k: k4[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bound_by")}))
+    # phase 17's path (worker mode, --tp 2 --allreduce ring over 2
+    # processes): K4 across processes, one call at [1, 4096] over 2 ranks,
+    # its launches host 0's in 17b's ring run
+    k4_ipc = next(r for r in summary["workers"]["k4_rows"] if r["n"] == 2 and r["R"] == 1)
+    src, replaces = KERNEL_INFO["ring_all_reduce"]
+    kernels.append(dict(name="ring_all_reduce_ipc", route="cuda", source=src,
+                        replaces=replaces + ", across processes",
+                        launches=summary["workers"]["k4_ipc_launches"],
+                        max_abs_err=max(r["max_abs_err"] for r in summary["workers"]["k4_rows"]),
+                        **{k: k4_ipc[k] for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms", "bound_by")}))
     summary["kernels"] = kernels
     end = time.perf_counter()
     summary["total_s"] = end - t_all
@@ -6393,9 +6792,13 @@ def main() -> None:
           "T=1), paged_attention_tp_serve: one 4-row batched decode step at 16 kv heads per rank x 2 ranks x "
           f"{N_LAYERS} layers, their launches phase 14a's --tp 2 psum server ({MAIN_LAYERS} layers); "
           f"q40_int8_mma_sp_ring: one rank's ring-pass forward at --sp 4 ({SP_RING_ROWS} rows at the five 7B "
-          f"shapes x {N_LAYERS} layers), its launches phase 15a's --sp 4 run ({TP_LAYERS} layers); "
+          f"shapes x {N_LAYERS} layers), its launches phase 15a's --sp 4 run ({MAIN_LAYERS} layers); "
           "ring_all_reduce_ep: one ep combine [1, 4096] over 2 ranks, its launches phase 15b's --tp 2 --ep 2 ring "
-          f"run ({MIXTRAL_LAYERS} layers)")
+          f"run ({MIXTRAL_LAYERS} layers); ring_all_reduce_ipc: K4 across 2 processes at [1, 4096], ms the "
+          "launch alone on the device, wall_ms a call with its staging and two barriers on the host's clock, "
+          "library_ms the psum arm across the processes on the host's clock (host staging and gloo): compare "
+          "library_ms with wall_ms, its launches host 0's "
+          f"in phase 17b's worker --tp 2 ring run ({MAIN_LAYERS} layers, the transfer probe's included)")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -31,8 +31,17 @@ trace to ``--trace-out``.
 the live KV cache (only the new turn's tokens; BOS only at position 0),
 the sampler re-keyed per turn, the reply streamed until the chat EOS token
 or a stop string, and ``(end of context)`` when the cache is full. The end
-of its input ends the session. ``worker`` mode (several hosts) is not
-ported.
+of its input ends the session.
+
+``worker`` is ``generate`` over several processes: every process runs the
+same command with ``--coordinator host:port --num-hosts H --host-id h``
+(host 0 serves the rendezvous), forms the group (:mod:`parallel.hosts`),
+holds ``--tp / H`` of the tensor-parallel ranks, reads only their shards
+of the `.m` file, and prints the same tokens; host 0's sampling seed is
+every host's. It writes no Chrome trace. ``--nthreads``,
+``--buffer-float-type`` and ``--weights-float-type`` are accepted for
+parity with the reference's command line and do nothing; a
+``--kv-cache-storage`` other than ``ram`` is refused.
 """
 
 from __future__ import annotations
@@ -63,20 +72,17 @@ from distributed_llama_tpu_torch.tokenizer import (
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "q40": QUANTIZED_DTYPE}
 _CACHE_DTYPES = {"auto": None, "bf16": torch.bfloat16, "f32": torch.float32, "i8": "i8"}
-MODES = ("inference", "generate", "chat")
-WORKER_NOT_PORTED = ("worker mode (several hosts) is not ported yet "
-                     "(ROADMAP.md Queue 1: ranks on several cards)")
-
-
-def _mode(value: str) -> str:
-    if value == "worker":
-        raise argparse.ArgumentTypeError(WORKER_NOT_PORTED)
-    return value
+MODES = ("inference", "generate", "chat", "worker")
+NO_COORDINATOR = ("worker mode needs --coordinator host:port, --num-hosts and --host-id "
+                  "(every host runs the same program; start the root with the same flags "
+                  "and --host-id 0)")
+NO_PROMPT = ("worker mode requires the SAME --prompt (and --steps/--tp/--seed) "
+             "as every other host: all hosts execute one SPMD program")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dllama-torch")
-    p.add_argument("mode", type=_mode, choices=MODES)
+    p.add_argument("mode", choices=MODES)
     p.add_argument("--model", required=True)
     p.add_argument("--tokenizer", required=True)
     p.add_argument("--prompt", default=None)
@@ -135,13 +141,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-out", default="dllama-trace.json", metavar="PATH",
                    help="where a --telemetry generate/inference run writes its Chrome trace-event JSON (open in "
                    "chrome://tracing or ui.perfetto.dev)")
+    # accepted for parity with the reference's command line
+    p.add_argument("--nthreads", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--buffer-float-type", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--weights-float-type", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--kv-cache-storage", default=None, help=argparse.SUPPRESS)
+    # worker mode: the process group of several hosts (parallel.hosts)
+    p.add_argument("--coordinator", default=None, help="host:port of the worker-mode rendezvous (host 0 serves it)")
+    p.add_argument("--num-hosts", type=int, default=1)
+    p.add_argument("--host-id", type=int, default=0)
     return p
 
 
-def _make_sampler(args, vocab_size: int) -> Sampler:
+def _check_kv_storage(args) -> None:
+    """The reference can keep its KV cache in disc-backed buffers; the port
+    keeps it in the card's memory, so any storage but ``ram`` is refused."""
+    storage = getattr(args, "kv_cache_storage", None)
+    if storage not in (None, "ram"):
+        raise SystemExit(
+            f"--kv-cache-storage {storage} is not supported (the KV cache lives in the card's memory); "
+            "use --cache-dtype i8 for 2x cache-memory headroom and/or --max-seq-len to bound it"
+        )
+
+
+def _default_seed(args) -> int:
     # wall-clock as entropy for a default sampling seed, never a duration
-    seed = args.seed if args.seed is not None else int(time.time())  # dllama: noqa[CLK-001]
-    return Sampler(vocab_size=vocab_size, temperature=args.temperature, topp=args.topp, topk=args.topk, seed=seed)
+    return args.seed if args.seed is not None else int(time.time())  # dllama: noqa[CLK-001]
+
+
+def _make_sampler(args, vocab_size: int) -> Sampler:
+    return Sampler(vocab_size=vocab_size, temperature=args.temperature, topp=args.topp, topk=args.topk,
+                   seed=_default_seed(args))
 
 
 def make_pod_group(args):
@@ -151,6 +181,7 @@ def make_pod_group(args):
     params; a replica rebuild never reloads the file)."""
     from distributed_llama_tpu_torch.parallel.pod import PodGroup, parse_pod
 
+    _check_kv_storage(args)
     if getattr(args, "tp", 1) > 1 or getattr(args, "sp", 1) > 1 or getattr(args, "ep", 1) > 1:
         raise SystemExit("--pod owns the whole rank layout; it does not compose with --tp/--sp/--ep (the pod's MODEL "
                          "extent IS the tensor-parallel degree)")
@@ -165,19 +196,22 @@ def make_pod_group(args):
     return group, tokenizer, _make_sampler(args, group.cfg.vocab_size)
 
 
-def make_engine(args):
+def make_engine(args, hosts=None):
+    """(engine, tokenizer, sampler) from the flags; ``hosts``: worker mode's
+    process group, over which the engine spreads its ``--tp`` ranks."""
     if getattr(args, "pod", None):
         # one slice of a freshly built pod (generate/inference/chat); the
         # server keeps the group itself, for replica rebuilds
         group, tokenizer, sampler = make_pod_group(args)
         return group.slice_engine(), tokenizer, sampler
+    _check_kv_storage(args)
     engine = InferenceEngine(
         args.model, dtype=_DTYPES[args.dtype], max_seq_len=args.max_seq_len,
         device=args.device, q40_path=args.q40_path,
         cache_dtype=_CACHE_DTYPES[getattr(args, "cache_dtype", "auto")],
         tp=getattr(args, "tp", 1), allreduce=getattr(args, "allreduce", "psum"),
         moe_capacity_factor=getattr(args, "moe_capacity", 0.0) or 0.0,
-        sp=getattr(args, "sp", 1), ep=getattr(args, "ep", 1),
+        sp=getattr(args, "sp", 1), ep=getattr(args, "ep", 1), hosts=hosts,
     )
     tokenizer = Tokenizer.from_file(args.tokenizer, engine.cfg.vocab_size)
     return engine, tokenizer, _make_sampler(args, engine.cfg.vocab_size)
@@ -374,6 +408,32 @@ def chat(args, built=None) -> dict:
     return {"turns": turns, "pos": engine.pos}
 
 
+def worker(args) -> dict:
+    """Worker mode: join the group of ``--num-hosts`` processes at
+    ``--coordinator`` as ``--host-id`` and run ``generate`` with this
+    process's share of the ``--tp`` ranks. Every host runs the same flags;
+    without ``--seed`` host 0's wall-clock seed is broadcast, so sampled
+    streams agree across hosts. Returns ``generate``'s result with
+    ``bytes_read``, the `.m` bytes this process read, ``forwards``, the
+    forwards its stream ran, and ``seed``, the sampling seed every host
+    used."""
+    if args.coordinator is None:
+        raise SystemExit(NO_COORDINATOR)
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup, local_ranks
+
+    local_ranks(args.tp, args.num_hosts, args.host_id)  # --tp a multiple of --num-hosts, before any rendezvous
+    with HostGroup(args.coordinator, args.num_hosts, args.host_id) as group:
+        # after joining, a missing prompt is a contract violation: a
+        # defaulted one would diverge from the other hosts' program
+        if args.prompt is None:
+            raise SystemExit(NO_PROMPT)
+        args.seed = group.broadcast_ints([_default_seed(args)])[0]
+        built = make_engine(args, hosts=group)
+        out = generate(args, benchmark=False, built=built)
+        out.update(bytes_read=built[0].bytes_read, forwards=built[0].default_stream.forwards, seed=args.seed)
+        return out
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     # before the engine is built: instruments bind at construction
@@ -381,6 +441,8 @@ def main(argv=None) -> dict:
         telemetry.enable()
     if args.mode == "chat":
         return chat(args)
+    if args.mode == "worker":
+        return worker(args)  # no Chrome trace, as in the JAX CLI
     out = generate(args, benchmark=args.mode == "inference")
     if telemetry.is_enabled():
         path = telemetry.export_chrome_trace(args.trace_out)

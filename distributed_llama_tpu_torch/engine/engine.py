@@ -553,7 +553,15 @@ class InferenceEngine:
     rest), ``ep`` > 1 gives each of that many expert-parallel ranks whole
     experts of a MoE model (:mod:`parallel.expert_parallel`); each composes
     with ``tp`` on the same card, the two not with each other (ValueError).
-    Both are single-stream backends: the batch scheduler refuses them."""
+    Both are single-stream backends: the batch scheduler refuses them.
+
+    ``hosts`` (a :class:`parallel.hosts.HostGroup` of several processes):
+    worker mode. The ``tp`` ranks spread over the group's processes, this
+    one running its host's run of them on its own card; the backend is
+    built before the weights, as in the JAX engine, and only this
+    process's ranks' shards are read (:attr:`bytes_read` counts the file
+    bytes the load read). ``sp`` and ``ep`` are not ported over processes
+    (NotImplementedError)."""
 
     TRANSFER_REFRESH_TOKENS = 512
     # True for a pod slice's engine, whose params object other engines read
@@ -562,7 +570,8 @@ class InferenceEngine:
 
     def __init__(self, model_path: str, dtype="q40", max_seq_len: int | None = None,
                  device="cuda", q40_path: str = "int8", cache_dtype=None, tp: int = 1,
-                 allreduce: str = "psum", moe_capacity_factor: float = 0.0, sp: int = 1, ep: int = 1):
+                 allreduce: str = "psum", moe_capacity_factor: float = 0.0, sp: int = 1, ep: int = 1,
+                 hosts=None):
         from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
         from distributed_llama_tpu_torch.models.config import config_from_spec
 
@@ -570,6 +579,12 @@ class InferenceEngine:
             raise ValueError(f"unknown q40 path {q40_path!r}; expected one of {PATHS}")
         if ep > 1 and sp > 1:
             raise ValueError("--ep and --sp do not compose (pick one FFN/context strategy)")
+        from distributed_llama_tpu_torch.ops.collectives import spans_hosts
+
+        hosts = hosts if spans_hosts(hosts) else None
+        if hosts is not None and (sp > 1 or ep > 1):
+            raise NotImplementedError("--sp and --ep in worker mode are not ported "
+                                      "(ROADMAP.md Queue 1: --sp/--ep in worker mode)")
         self.q40_path = q40_path
         # the instrument bundle and the fault plan, bound once: null
         # instruments unless telemetry was enabled before this engine was
@@ -583,7 +598,7 @@ class InferenceEngine:
 
         if isinstance(device, (list, tuple)):  # one device per rank: several cards raise
             device = tensor_parallel.rank_devices(tp, devices=device)[0]
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, None if hosts is None else hosts.host_id)
         self.tp, self.sp, self.ep = tp, sp, ep
         # the parallel backend, or None on one rank: expert parallelism
         # (optionally over tp), sequence parallelism (likewise), or tensor
@@ -602,12 +617,16 @@ class InferenceEngine:
                 self.cfg, sp, tp=tp, device=self.device, quantized=quantized, allreduce=allreduce)
         elif tp > 1:
             self.tp_backend = tensor_parallel.TensorParallelForward(
-                self.cfg, tp, device=self.device, quantized=quantized, allreduce=allreduce)
+                self.cfg, tp, device=self.device, quantized=quantized, allreduce=allreduce, hosts=hosts)
+        elif hosts is not None:
+            raise ValueError(f"worker mode needs --tp a multiple of --num-hosts {hosts.num_hosts}, got {tp}")
         if cache_dtype is None:
             # q40 is a weights-only format; its KV cache is bf16
             cache_dtype = torch.bfloat16 if dtype == weights_lib.QUANTIZED_DTYPE else dtype
         self.cache_dtype = cache_dtype
-        self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device, tp=tp, ep=ep)
+        self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device, tp=tp, ep=ep,
+                                              ranks=None if hosts is None else self.tp_backend.ranks)
+        self.bytes_read = reader.bytes_read
         reader.close()
         self._init_runtime()
 
@@ -658,7 +677,13 @@ class InferenceEngine:
         """Run the backend's transfer probe. A failed probe (a flaky
         interconnect, an injected ``tp.transfer`` fault) keeps the last
         estimate (0 before the first) instead of failing the request that
-        triggered it; the next cadence retries."""
+        triggered it; the next cadence retries. In worker mode it raises:
+        the probe's collectives span the processes, and a failure passed
+        over (an IPC open, an event, a launch) would leave the hosts'
+        collectives unpaired."""
+        if self.tp_backend.hosts is not None:
+            self._transfer_ms = self.tp_backend.measure_transfer_ms()
+            return
         try:
             self._transfer_ms = self.tp_backend.measure_transfer_ms()
         except Exception:

@@ -66,7 +66,8 @@ accepts every site name of the JAX package; the port fires these:
 ``tp.transfer``             raise/delay inside the tensor-parallel transfer
                             probe (parallel/tensor_parallel.py): the engine
                             keeps its last estimate (0 before the first)
-                            instead of failing the request that triggered it
+                            instead of failing the request that triggered it;
+                            in worker mode every host raises
 ``server.send``             raise ``BrokenPipeError`` from the SSE chunk
                             writer (``kind=disconnect``)
 ``server.rollout``          fired once per blue-green rollout move

@@ -41,7 +41,7 @@ QUANTIZED_DTYPE = "q40"  # keep matmul weights 4-bit on the device
 
 
 def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=QUANTIZED_DTYPE,
-                device="cuda", tp: int = 1, ep: int = 1):
+                device="cuda", tp: int = 1, ep: int = 1, ranks=None):
     """Build the params dict on ``device`` (the card unless "cpu" is
     asked for). ``dtype`` is "q40", torch.bfloat16 or torch.float32 for the
     matmul weights. ``tp`` > 1 returns one params dict per rank, each
@@ -54,7 +54,10 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
     it divides) gives each ep rank whole experts, each still cut over tp:
     the tp ranks' expert lists and banks in expert order are exactly that
     (:func:`parallel.expert_parallel.rank_expert_leaves` takes rank j's
-    run without a copy)."""
+    run without a copy). ``ranks``: the global tp ranks this process holds
+    (worker mode, :mod:`parallel.hosts`); only their byte ranges are read,
+    each rank built exactly as the one-process load builds it, and the
+    result is their list, in that order."""
     from distributed_llama_tpu_torch.parallel import sharding
     from distributed_llama_tpu_torch.parallel.tensor_parallel import validate_tp
 
@@ -133,14 +136,16 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
         return leaves
 
     wcls_full = matmul_leaf("wcls", ["wcls"], 0) if table.cut("wcls") is None else None
-    ranks = []
-    for s in range(tp):
+    built = []
+    for s in range(tp) if ranks is None else ranks:
+        if not 0 <= s < tp:
+            raise ValueError(f"rank {s} outside tp={tp}")
         layers = [{**{leaf: matmul_leaf(f"layers/{l}/{leaf}", [f"layers.{l}.{n}" for n in srcs], s)
                       for leaf, srcs in fused.items()}, **norms[l], **(moe_leaves(l, s) if cfg.is_moe else {})}
                   for l in range(cfg.n_layers)]
         wcls = wcls_full if wcls_full is not None else matmul_leaf("wcls", ["wcls"], s)
-        ranks.append({**shared, "layers": layers, "wcls": wcls})
-    return ranks if tp > 1 else ranks[0]
+        built.append({**shared, "layers": layers, "wcls": wcls})
+    return built if tp > 1 or ranks is not None else built[0]
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -326,9 +326,11 @@ class ModelFileReader:
                 f"file has {self.spec.file_size}"
             )
         self._mmap = np.memmap(path, dtype=np.uint8, mode="r")
+        self.bytes_read = 0  # the bytes every read below served (a sharded load reads its ranks' only)
 
     def raw(self, name: str) -> np.ndarray:
         e = self.entries[name]
+        self.bytes_read += e.nbytes
         return self._mmap[e.offset : e.offset + e.nbytes]
 
     def tensor(self, name: str) -> np.ndarray:
@@ -346,7 +348,9 @@ class ModelFileReader:
         e = self.entries[name]
         row_bytes = tensor_bytes(e.float_type, e.shape[1])
         start = e.offset + row_start * row_bytes
-        return self._mmap[start : start + (row_end - row_start) * row_bytes]
+        nbytes = (row_end - row_start) * row_bytes
+        self.bytes_read += nbytes
+        return self._mmap[start : start + nbytes]
 
     def raw_row_blocks(self, name: str, col_start: int, col_end: int) -> np.ndarray:
         """Raw bytes of a column (input-dim) range of every row, cut on
@@ -358,7 +362,9 @@ class ModelFileReader:
             raise ValueError(f"column range ({col_start},{col_end}) not {QK}-aligned")
         lo, hi = tensor_bytes(e.float_type, col_start), tensor_bytes(e.float_type, col_end)
         rows = self._mmap[e.offset : e.offset + e.nbytes].reshape(d_out, tensor_bytes(e.float_type, d_in))
-        return np.ascontiguousarray(rows[:, lo:hi])
+        out = np.ascontiguousarray(rows[:, lo:hi])
+        self.bytes_read += out.nbytes
+        return out
 
     def tensor_rows(self, name: str, row_start: int, row_end: int) -> np.ndarray:
         """f32 rows [row_start, row_end) of a matrix, reading only them."""
@@ -386,6 +392,7 @@ class ModelFileReader:
         lo, hi = tensor_bytes(e.float_type, col_start), tensor_bytes(e.float_type, col_end)
         rows = self._mmap[e.offset : e.offset + e.nbytes].reshape(d_out, tensor_bytes(e.float_type, d_in))
         buf = np.ascontiguousarray(rows[:, lo:hi])
+        self.bytes_read += buf.nbytes
         return deserialize_tensor(buf.reshape(-1), e.float_type, d_out * ncols).reshape(d_out, ncols)
 
     def close(self):

@@ -226,18 +226,20 @@ def forward_tokens(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, cache
 
 
 def block_tail_tp(cfg: LlamaConfig, xs: list, atts: list, lps: list, path: str = "int8",
-                  impl: str = "psum", n_real: int | None = None, ep: int = 1) -> list:
+                  impl: str = "psum", n_real: int | None = None, ep: int = 1, group=None) -> list:
     """wo + all-reduce, the residual per rank (Grok-1 norms the sum with
     ``rms_ffn`` first), then the FFN up to h per rank, down + all-reduce,
     the residual per rank; or a MoE layer's experts
     (:func:`models.moe.moe_block_tp`), whose partial sums are all-reduced;
     ``ep`` > 1 runs them over that many expert-parallel ranks
     (:mod:`parallel.expert_parallel`). One rank (lists of one) is
-    :func:`block_tail`: its all-reduces are the identity."""
+    :func:`block_tail`: its all-reduces are the identity. ``group``: the
+    worker-mode process group the ranks spread over (the lists hold this
+    process's ranks), or None."""
     from distributed_llama_tpu_torch.ops import collectives
 
     outs = collectives.matmul_all_reduce([a.to(lp["wo"].dtype) for a, lp in zip(atts, lps)],
-                                         [lp["wo"] for lp in lps], impl, path)
+                                         [lp["wo"] for lp in lps], impl, path, group)
     if cfg.arch == ArchType.GROK1:
         xs = [x + rmsnorm(o.to(x.dtype), lp["rms_ffn"]) for x, o, lp in zip(xs, outs, lps)]
     else:
@@ -245,9 +247,9 @@ def block_tail_tp(cfg: LlamaConfig, xs: list, atts: list, lps: list, path: str =
     if cfg.is_moe:
         from distributed_llama_tpu_torch.models import moe
 
-        return moe.moe_block_tp(cfg, xs, lps, n_real=n_real, path=path, impl=impl, ep=ep)
+        return moe.moe_block_tp(cfg, xs, lps, n_real=n_real, path=path, impl=impl, ep=ep, group=group)
     hs = [ffn_hidden(cfg, x, lp, path).to(lp["down"].dtype) for x, lp in zip(xs, lps)]
-    outs = collectives.matmul_all_reduce(hs, [lp["down"] for lp in lps], impl, path)
+    outs = collectives.matmul_all_reduce(hs, [lp["down"] for lp in lps], impl, path, group)
     return [x + o.to(x.dtype) for x, o in zip(xs, outs)]
 
 
@@ -262,14 +264,14 @@ def _rank_paged(paged, r: int, l: int):
 
 def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
                       path: str = "int8", impl: str = "psum", n_real: int | None = None,
-                      paged=None, ep: int = 1) -> tuple[list, list]:
+                      paged=None, ep: int = 1, group=None) -> tuple[list, list]:
     """The layer loop under tensor parallelism: T tokens from ``pos``
     through every layer, attention per rank on its own heads and cache.
     ``n_real`` as in :func:`forward_tokens`; ``paged`` = (pools, table,
     matched) with one per-layer pool per rank, each rank reading its own
     kv heads of the matched prefix through the shared table; ``ep`` as in
-    :func:`block_tail_tp`. Returns (each rank's final residual stream
-    [T, dim], caches)."""
+    :func:`block_tail_tp`, as is ``group``. Returns (each rank's final
+    residual stream [T, dim], caches)."""
     T = tokens.shape[0]
     xs = [embed(cfg, p, tokens.to(p["embedding"].device)) for p in params]
     ropes = [p["rope_table"][pos : pos + T] for p in params]
@@ -280,30 +282,33 @@ def forward_hidden_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, cach
             att, caches[r][l] = attention(cfg, xs[r], lp, caches[r][l], pos, ropes[r], path,
                                           paged=_rank_paged(paged, r, l))
             atts.append(att)
-        xs = block_tail_tp(cfg, xs, atts, lps, path, impl, n_real=n_real, ep=ep)
+        xs = block_tail_tp(cfg, xs, atts, lps, path, impl, n_real=n_real, ep=ep, group=group)
     return xs, caches
 
 
-def gather_logits_tp(cfg: LlamaConfig, params: list, xs: list, path: str = "int8") -> torch.Tensor:
+def gather_logits_tp(cfg: LlamaConfig, params: list, xs: list, path: str = "int8", group=None) -> torch.Tensor:
     """Final logits per rank; a vocab-sharded wcls gives each rank a slice,
-    and the all-gather is a ``torch.cat`` in rank order onto rank 0's
-    device. Returns f32 [T, vocab]."""
+    and the all-gather joins them in global rank order onto rank 0's device
+    (:func:`ops.collectives.all_gather`, across ``group``'s processes in
+    worker mode), so every process holds the same [T, vocab] and samples
+    the same token. Returns f32 [T, vocab]."""
+    from distributed_llama_tpu_torch.ops import collectives
+
     logits = [final_logits(cfg, p, x, path) for p, x in zip(params, xs)]
     if logits[0].shape[-1] == cfg.vocab_size:  # wcls replicated: every rank holds the full logits
         return logits[0]
-    dev = logits[0].device
-    return torch.cat([lg.to(dev) for lg in logits], dim=-1)
+    return collectives.all_gather(logits, group)
 
 
 def forward_tokens_tp(cfg: LlamaConfig, params: list, tokens: torch.Tensor, caches: list, pos: int,
                       path: str = "int8", impl: str = "psum", n_real: int | None = None, paged=None,
-                      ep: int = 1):
-    """:func:`forward_tokens` over per-rank params and caches (``paged`` and
-    ``ep`` as in :func:`forward_hidden_tp`). Returns (logits f32 [T, vocab],
-    caches)."""
+                      ep: int = 1, group=None):
+    """:func:`forward_tokens` over per-rank params and caches (``paged``,
+    ``ep`` and ``group`` as in :func:`forward_hidden_tp`). Returns (logits
+    f32 [T, vocab], caches)."""
     xs, caches = forward_hidden_tp(cfg, params, tokens, caches, pos, path, impl, n_real=n_real, paged=paged,
-                                   ep=ep)
-    return gather_logits_tp(cfg, params, xs, path), caches
+                                   ep=ep, group=group)
+    return gather_logits_tp(cfg, params, xs, path, group), caches
 
 
 def attention_batched(cfg: LlamaConfig, x: torch.Tensor, lp: Params, cache_l: torch.Tensor,

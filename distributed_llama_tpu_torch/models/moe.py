@@ -219,7 +219,7 @@ def _mix_buckets(cfg: LlamaConfig, lp, route, path: str = "int8") -> torch.Tenso
 
 
 def moe_ffn_tp(cfg: LlamaConfig, xns: list, lps: list, n_real: int | None = None, path: str = "int8",
-               impl: str = "psum", ep: int = 1) -> list:
+               impl: str = "psum", ep: int = 1, group=None) -> list:
     """Expert-mixed SwiGLU of each rank's normed rows xns[r] [T, dim]: the
     routing once, from rank 0's rows (every rank's are the same bytes); one
     row takes the top-k path, more rows the all-experts one (or the
@@ -228,8 +228,9 @@ def moe_ffn_tp(cfg: LlamaConfig, xns: list, lps: list, n_real: int | None = None
     the experts over that many expert-parallel ranks instead
     (:func:`parallel.expert_parallel.ep_moe_ffn`, whatever the row count;
     ``n_real`` unread, as the JAX package's expert-parallel forward takes
-    none), the all-reduce over the tp ranks on top. Returns each rank's
-    [T, dim] f32 sum."""
+    none), the all-reduce over the tp ranks on top (over ``group``'s
+    processes in worker mode, whose routing every process computes from
+    the same bytes). Returns each rank's [T, dim] f32 sum."""
     from distributed_llama_tpu_torch.ops import collectives
 
     xn, router = xns[0], lps[0]["router"]
@@ -246,20 +247,20 @@ def moe_ffn_tp(cfg: LlamaConfig, xns: list, lps: list, n_real: int | None = None
     else:
         weights = router_weights(cfg, xn, router)
         outs = [_mix_dense(cfg, x, lp, weights, path) for x, lp in zip(xns, lps)]
-    return collectives.all_reduce(outs, impl)
+    return collectives.all_reduce(outs, impl, group)
 
 
 def moe_block_tp(cfg: LlamaConfig, xs: list, lps: list, n_real: int | None = None, path: str = "int8",
-                 impl: str = "psum", ep: int = 1) -> list:
+                 impl: str = "psum", ep: int = 1, group=None) -> list:
     """The FFN half of a MoE block on each rank, after the attention
     residual: Mixtral norms with ``rms_ffn`` before the experts; Grok-1
     with ``rms_moe``, and norms the all-reduced expert sum with
     ``rms_ffn2`` (outside the reduction) before the residual add. ``ep``
-    as in :func:`moe_ffn_tp`."""
+    and ``group`` as in :func:`moe_ffn_tp`."""
     if cfg.arch == ArchType.GROK1:
         xns = [rmsnorm(x, lp["rms_moe"]) for x, lp in zip(xs, lps)]
-        outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl, ep=ep)
+        outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl, ep=ep, group=group)
         return [x + rmsnorm(o.to(x.dtype), lp["rms_ffn2"]) for x, o, lp in zip(xs, outs, lps)]
     xns = [rmsnorm(x, lp["rms_ffn"]) for x, lp in zip(xs, lps)]
-    outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl, ep=ep)
+    outs = moe_ffn_tp(cfg, xns, lps, n_real=n_real, path=path, impl=impl, ep=ep, group=group)
     return [x + o.to(x.dtype) for x, o in zip(xs, outs)]

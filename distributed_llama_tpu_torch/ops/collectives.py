@@ -22,11 +22,26 @@ computes each rank's int8 matmul tile and sums the ranks in K4's order
 without writing any rank's product to device memory; otherwise each rank
 runs its matmul and :func:`all_reduce` follows.
 
+Worker mode (:mod:`parallel.hosts`) spreads the ranks over processes: the
+seam then takes the process group, ``xs`` holds this process's ranks only
+(a contiguous run of the global ranks, host-major), and every arm gives
+the bytes the one-process run of that arm gives. ``psum`` and
+``ring_xla`` gather the partials in global rank order through the group
+(a host copy each way, the library data move XLA's psum is in the JAX
+package) and fold them as above; ``ring`` is K4 across processes over
+staging buffers the processes map into each other (:class:`IpcRing`),
+or on the CPU the same gather and K4's plain version. K5 is one launch
+reading every rank's weight shard, which one process cannot do across
+processes, so :func:`fused_ring_eligible` is False there and the ``ring``
+arm runs each rank's K1 and then K4 (K5's own contract says that is the
+same bytes).
+
 Each kernel wrapper launches its kernel for CUDA tensors or raises, counts
 the launch in :data:`launches`, and computes the kernel's plain version for
-CPU tensors. There is no fallback between arms. With telemetry on, each
-sum counts in ``dllama_kernel_path_total{kernel="all_reduce"}`` by the path
-that ran: ``k4_ring`` / ``k5_fused`` / ``psum`` / ``plain``.
+CPU tensors. There is no fallback between arms: a failed IPC open, event or
+launch raises. With telemetry on, each sum counts in
+``dllama_kernel_path_total{kernel="all_reduce"}`` by the path that ran:
+``k4_ring`` / ``k5_fused`` / ``psum`` / ``plain``.
 """
 
 from __future__ import annotations
@@ -47,7 +62,8 @@ SEVERAL_CARDS = ("tensor-parallel ranks on several cards are not ported yet "
 
 # kernel name -> launches since the last reset_launches(); a wrapper adds one
 # where it launches its CUDA kernel and nowhere else
-launches: dict[str, int] = {"ring_all_reduce": 0, "fused_matmul_ring": 0}
+# (ring_all_reduce_ipc: K4 across processes, worker mode)
+launches: dict[str, int] = {"ring_all_reduce": 0, "fused_matmul_ring": 0, "ring_all_reduce_ipc": 0}
 
 
 def reset_launches() -> None:
@@ -149,18 +165,29 @@ def ring_all_reduce(xs: list) -> list:
     return outs
 
 
-def all_reduce(xs: list, impl: str = "psum") -> list:
+def spans_hosts(group) -> bool:
+    """Whether ``group`` (a :class:`parallel.hosts.HostGroup` or None)
+    spreads the ranks over several processes."""
+    return group is not None and group.num_hosts > 1
+
+
+def all_reduce(xs: list, impl: str = "psum", group=None) -> list:
     """THE all-reduce seam: the sum over ranks of ``xs`` (one tensor per
     rank), the same bytes on every rank. One rank is the identity; a ring
     arm with a payload narrower than the rank count takes psum (the
-    deterministic shape rule of the JAX seam)."""
+    deterministic shape rule of the JAX seam). With a ``group`` spanning
+    processes, ``xs`` are this process's ranks and the sum runs over the
+    group's global ranks (the module docstring)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown all-reduce {impl!r}; expected one of {IMPLS}")
-    n = len(xs)
+    hosts = spans_hosts(group)
+    n = len(xs) * (group.num_hosts if hosts else 1)
     if n <= 1:
         return list(xs)
     if impl != "psum" and xs[0].shape[-1] < n:
         impl = "psum"
+    if hosts:
+        return _all_reduce_hosts(xs, impl, group)
     if impl == "ring":
         return ring_all_reduce(xs)
     if impl == "ring_xla":
@@ -168,6 +195,178 @@ def all_reduce(xs: list, impl: str = "psum") -> list:
         return ring_xla(xs)
     telemetry.note_kernel_path("all_reduce", "psum")
     return psum(xs)
+
+
+def _all_reduce_hosts(xs: list, impl: str, group) -> list:
+    """:func:`all_reduce` over processes: K4 across them for ``ring`` on the
+    card, else every rank's partial gathered in global rank order, folded
+    by the arm's plain function on this process's device, and this
+    process's ranks' outputs kept."""
+    if impl == "ring" and xs[0].device.type == "cuda":
+        return ring_all_reduce_ipc(xs, group)
+    every = group.gather_ranks(xs)
+    fold = {"psum": psum, "ring_xla": ring_xla, "ring": ring_all_reduce_plain}[impl]
+    telemetry.note_kernel_path("all_reduce", "psum" if impl == "psum" else "plain")
+    first = group.local_ranks(len(every)).start
+    return fold(every)[first : first + len(xs)]
+
+
+def all_gather(xs: list, group=None) -> torch.Tensor:
+    """The ranks' last-axis slices joined in global rank order, the one
+    tensor every process holds (on ``xs[0]``'s device): a ``torch.cat`` of
+    this process's ranks, or of every process's through ``group``."""
+    if spans_hosts(group):
+        xs = group.gather_ranks(xs)
+    dev = xs[0].device
+    return torch.cat([x.to(dev) for x in xs], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# K4 across processes (worker mode): one staging buffer per process, mapped
+# by its peers, and two interprocess events (csrc/ring_all_reduce.cu)
+# ---------------------------------------------------------------------------
+
+IPC_HANDLE_BYTES = 64  # cudaIpcMemHandle_t and cudaIpcEventHandle_t
+SLOT_ALIGN = 256  # each rank's slot starts on a 256-byte boundary (cudaMalloc's)
+
+
+def _ipc(symbol: str):
+    from distributed_llama_tpu_torch.ops import cuda_build
+
+    return cuda_build.function("ring_all_reduce", symbol)
+
+
+class IpcRing:
+    """This process's side of K4 across processes: a staging buffer with a
+    slot per local rank (sized for the largest payload seen so far, grown
+    by every process at the same call), its peers' buffers mapped once per
+    size, and this process's "ready" and "done" interprocess events with
+    its peers' opened. Handles travel through the group's store. Built by
+    every process together (:func:`open_ipc_ring`), closed by
+    :meth:`parallel.hosts.HostGroup.destroy`."""
+
+    def __init__(self, group, m: int, device: torch.device):
+        self.group, self.m, self.device = group, m, device
+        self.index = device.index if device.index is not None else torch.cuda.current_device()
+        self.peers = [h for h in range(group.num_hosts) if h != group.host_id]
+        self.slot_bytes, self.own, self.mapped, self._generation = 0, None, {}, 0
+        self.events, self.peer_events = {}, {}
+        for name in ("ready", "done"):
+            ev, handle = ctypes.c_void_p(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+            q40._check_launch(_ipc("ring_ipc_event_create")(self.index, ctypes.byref(ev), handle),
+                              "ring_ipc_event_create")
+            self.events[name] = ev
+            group.store_set(f"ring_ipc/event/{name}/{group.host_id}", handle.raw)
+        for name in ("ready", "done"):
+            opened = []
+            for h in self.peers:
+                ev = ctypes.c_void_p()
+                q40._check_launch(_ipc("ring_ipc_event_open")(
+                    self.index, group.store_get(f"ring_ipc/event/{name}/{h}"), ctypes.byref(ev)),
+                    "ring_ipc_event_open")
+                opened.append(ev)
+            self.peer_events[name] = (ctypes.c_void_p * len(opened))(*opened)
+
+    def _grow(self, slot_bytes: int) -> None:
+        """Every process at once: drop the old buffers once no launch reads
+        them, then allocate, export and map buffers of ``slot_bytes`` slots."""
+        if self.own is not None:
+            self._close_buffers()
+        slot_bytes = -(-slot_bytes // SLOT_ALIGN) * SLOT_ALIGN
+        own, handle = ctypes.c_void_p(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+        q40._check_launch(_ipc("ring_ipc_alloc")(self.index, self.m * slot_bytes, ctypes.byref(own), handle),
+                          "ring_ipc_alloc")
+        self.own, self.slot_bytes = own, slot_bytes
+        g = self.group
+        g.store_set(f"ring_ipc/buffer/{self._generation}/{g.host_id}", handle.raw)
+        for h in self.peers:
+            ptr = ctypes.c_void_p()
+            q40._check_launch(_ipc("ring_ipc_open")(
+                self.index, g.store_get(f"ring_ipc/buffer/{self._generation}/{h}"), ctypes.byref(ptr)),
+                "ring_ipc_open")
+            self.mapped[h] = ptr
+        self._generation += 1
+
+    def _close_buffers(self) -> None:
+        """Unmap the peers' buffers and free this process's: after this
+        process's queued work is done and every peer has passed the same
+        point (a barrier before any handle is closed, and one before any
+        buffer is freed)."""
+        torch.cuda.synchronize(self.device)
+        self.group.barrier()
+        for ptr in self.mapped.values():
+            q40._check_launch(_ipc("ring_ipc_close")(self.index, ptr), "ring_ipc_close")
+        self.mapped = {}
+        self.group.barrier()
+        q40._check_launch(_ipc("ring_ipc_free")(self.index, self.own), "ring_ipc_free")
+        self.own, self.slot_bytes = None, 0
+
+    def close(self) -> None:
+        """Free every buffer and event (every process at once)."""
+        if self.own is not None:
+            self._close_buffers()
+        for ev in [*self.peer_events.get("ready", ()), *self.peer_events.get("done", ()),
+                   *self.events.values()]:
+            q40._check_launch(_ipc("ring_ipc_event_destroy")(self.index, ev), "ring_ipc_event_destroy")
+        self.events, self.peer_events = {}, {}
+
+    def slot_pointers(self) -> list:
+        """The n global ranks' slots in global rank order: each process's m
+        slots, own or mapped."""
+        bases = {self.group.host_id: self.own.value, **{h: p.value for h, p in self.mapped.items()}}
+        return [bases[h] + j * self.slot_bytes for h in range(self.group.num_hosts) for j in range(self.m)]
+
+    def all_reduce(self, xs: list) -> list:
+        """One cross-process K4 call over this process's partials ``xs``
+        (f32 [..., d], one per local rank): stage, barrier, reduce,
+        barrier. Returns this process's outputs."""
+        nbytes = xs[0].numel() * 4
+        if nbytes > self.slot_bytes:
+            self._grow(nbytes)
+        g, d = self.group, xs[0].shape[-1]
+        n = self.m * g.num_hosts
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        q40._check_launch(_ipc("ring_ipc_stage")(
+            self.index, _ptrs(xs), self.m, self.own, self.slot_bytes, nbytes, self.peer_events["done"],
+            len(self.peers), self.events["ready"], stream), "ring_ipc_stage")
+        g.barrier()  # every peer's "ready" record is issued
+        outs = [torch.empty_like(x) for x in xs]
+        ins = (ctypes.c_void_p * n)(*self.slot_pointers())
+        q40._check_launch(_ipc("ring_ipc_reduce")(
+            self.index, ins, _ptrs(outs), self.m, n, xs[0].numel() // d, d, self.peer_events["ready"],
+            len(self.peers), self.events["done"], stream), "ring_all_reduce_ipc")
+        g.barrier()  # every peer's "done" record is issued before any stages again
+        return outs
+
+
+def open_ipc_ring(group, m: int, device: torch.device, slot_bytes: int = 0) -> IpcRing:
+    """``group``'s :class:`IpcRing` for ``m`` local ranks on ``device``, made
+    at the first call and its slots grown to at least ``slot_bytes``: every
+    process calls this together. A failed allocation, IPC open or event
+    raises."""
+    if group.ipc is None:
+        group.ipc = IpcRing(group, m, device)
+    if slot_bytes > group.ipc.slot_bytes:
+        group.ipc._grow(slot_bytes)
+    return group.ipc
+
+
+def ring_all_reduce_ipc(xs: list, group) -> list:
+    """Wrapper of K4 across processes: this process's ranks' f32 [..., d]
+    partials in, their all-reduced sums out, the bytes the one-process K4
+    launch over all the global ranks gives (every process folds every chunk
+    in :func:`ring_fold_order`). CUDA tensors only: on the CPU the seam
+    gathers and takes :func:`ring_all_reduce_plain`."""
+    xs = [x.contiguous() for x in xs]
+    dev = _check_ranks("xs", xs, torch.float32, tuple(xs[0].shape))
+    if dev.type != "cuda":
+        raise ValueError(f"ring_all_reduce_ipc: unsupported device {dev}")
+    if len(xs) * group.num_hosts > MAX_RANKS:
+        raise ValueError(f"xs: {len(xs) * group.num_hosts} ranks, at most {MAX_RANKS}")
+    outs = open_ipc_ring(group, len(xs), dev).all_reduce(xs)
+    launches["ring_all_reduce_ipc"] += 1
+    telemetry.note_kernel_path("all_reduce", "k4_ring")
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +429,7 @@ def k5_cluster_dims(n: int) -> tuple[int, int, int]:
     return tuple(dims)
 
 
-def fused_ring_eligible(xs: list, ws: list, path: str = "int8") -> bool:
+def fused_ring_eligible(xs: list, ws: list, path: str = "int8", group=None) -> bool:
     """Where K5 serves the ``ring`` arm: every rank's weight a kernel-tiled
     Q40 pack of one shape on the int8 path, T <= 8 (K1's largest token
     tile), and the output width unpadded and a multiple of 2n x 64, so that
@@ -239,7 +438,10 @@ def fused_ring_eligible(xs: list, ws: list, path: str = "int8") -> bool:
     operands by the TPU's VMEM (``_fused_ring_eligible``); the card streams
     the weights from HBM, and that bound would turn away a 7B down shard
     (11.3 MB of nibbles at tp=2) for nothing: it picks which arm serves,
-    not what is computed."""
+    not what is computed. Ranks spread over processes (``group``) are
+    never eligible: K5 is one launch over every rank's shard."""
+    if spans_hosts(group):
+        return False
     n, w0 = len(xs), ws[0]
     return (path == "int8" and n <= MAX_RANKS and xs[0].dim() == 2 and xs[0].shape[0] <= 8
             and all(isinstance(w, q40.QuantizedMatrix) and q40.kernel_eligible(w)
@@ -257,13 +459,14 @@ def fused_matmul_ring_all_reduce(xs: list, qms: list) -> list:
                              [qm.qs for qm in qms], [qm.scales for qm in qms])
 
 
-def matmul_all_reduce(xs: list, ws: list, impl: str = "psum", path: str = "int8") -> list:
+def matmul_all_reduce(xs: list, ws: list, impl: str = "psum", path: str = "int8", group=None) -> list:
     """THE matmul + all-reduce seam: sum over ranks of ``xs[r] @ ws[r]``,
     the same bytes on every rank. Under ``ring``, K5 where
     :func:`fused_ring_eligible` holds; otherwise each rank's matmul
-    (``models.llama._matmul``), then :func:`all_reduce` under ``impl``."""
+    (``models.llama._matmul``), then :func:`all_reduce` under ``impl``
+    (over ``group``'s processes where it spans several)."""
     from distributed_llama_tpu_torch.models.llama import _matmul
 
-    if impl == "ring" and len(xs) > 1 and fused_ring_eligible(xs, ws, path):
+    if impl == "ring" and len(xs) > 1 and fused_ring_eligible(xs, ws, path, group):
         return fused_matmul_ring_all_reduce(xs, ws)
-    return all_reduce([_matmul(x, w, path) for x, w in zip(xs, ws)], impl)
+    return all_reduce([_matmul(x, w, path) for x, w in zip(xs, ws)], impl, group)

@@ -38,9 +38,23 @@ KERNELS = {
     "ring_all_reduce": ("ring_all_reduce.cu", "ring_all_reduce", [_PP, _PP, _I, ctypes.c_longlong, _I, _P]),
     "fused_matmul_ring": ("fused_matmul_ring.cu", "fused_matmul_ring", [_PP] * 6 + [_I] * 4 + [_P]),
 }
+_LL = ctypes.c_longlong
+_OUT = ctypes.POINTER(ctypes.c_void_p)  # where a C function writes a pointer or handle it made
 # further C functions of a kernel library: its passes, called alone to hold
-# each against its plain version, and K5's launch shape
+# each against its plain version, K5's launch shape, and K4's cross-process
+# form (staging buffers and interprocess events shared through IPC handles)
 SYMBOLS = {
+    "ring_all_reduce": {
+        "ring_ipc_alloc": [_I, _LL, _OUT, ctypes.c_char_p],
+        "ring_ipc_open": [_I, ctypes.c_char_p, _OUT],
+        "ring_ipc_close": [_I, _P],
+        "ring_ipc_free": [_I, _P],
+        "ring_ipc_event_create": [_I, _OUT, ctypes.c_char_p],
+        "ring_ipc_event_open": [_I, ctypes.c_char_p, _OUT],
+        "ring_ipc_event_destroy": [_I, _P],
+        "ring_ipc_stage": [_I, _PP, _I, _P, _LL, _LL, _PP, _I, _P, _P],
+        "ring_ipc_reduce": [_I, _PP, _PP, _I, _I, _LL, _I, _PP, _I, _P, _P],
+    },
     "fused_matmul_ring": {"fused_matmul_ring_cluster": [_I, ctypes.POINTER(ctypes.c_int)]},
     "paged_attention": {
         "paged_attention_partials": [_P] * 14 + [_I] * 10 + [_P],

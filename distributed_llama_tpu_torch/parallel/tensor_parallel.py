@@ -16,8 +16,17 @@ Where the JAX package maps one shard to one chip of a mesh, the port keeps
 each rank as its own set of allocations (weight shards, KV cache,
 activations) on the one card that ``device`` names; the replicated leaves
 (embedding, norms, rope table) are one tensor that every rank reads. Ranks
-on several cards need peer access or events between devices, which no
-machine this port runs on yet offers to test, so asking for them raises.
+on several cards in one process need peer access or events between
+devices, which no machine this port runs on yet offers to test, so asking
+for them raises. Worker mode (``hosts``, :mod:`parallel.hosts`) spreads
+the ranks over processes instead, each holding a contiguous run of them on
+its own card (or all on one card): ``forward``, ``init_cache`` and the
+decode chunks run this process's ranks, and the per-layer sums, the MoE
+expert sum and the logits' all-gather go through :mod:`ops.collectives`
+with the group. Every process issues the same collectives in the same
+order: the forward, and the transfer probe at the engine's cadence, which
+is a function of the token stream every process shares. The batched half
+is not ported over processes and refuses them.
 
 The batched half serves :class:`engine.batch.BatchScheduler`: per-rank
 slab halves [B, S, K/tp, hd] (:meth:`TensorParallelForward.init_batch_cache`)
@@ -63,10 +72,15 @@ def validate_tp(cfg: LlamaConfig, tp: int, quantized: bool = False) -> None:
                 raise ValueError(f"q40 tp={tp} needs {name}={value} divisible by {tp * QK}")
 
 
-def rank_devices(tp: int, device="cuda", devices=None) -> list[torch.device]:
+WORKER_BATCH_NOT_PORTED = ("the batched half over worker-mode processes is not ported "
+                           "(ROADMAP.md Queue 1: serving in worker mode)")
+
+
+def rank_devices(tp: int, device="cuda", devices=None, host_id: int | None = None) -> list[torch.device]:
     """The device of every rank: ``tp`` times ``device``, or ``devices``
     when they all name one device; ranks on several devices raise
-    NotImplementedError."""
+    NotImplementedError. ``host_id``: worker mode's host, whose "cuda" is
+    its own card (:func:`platform.resolve_device`)."""
     if devices is not None:
         devices = [torch.device(d) for d in devices]
         if len({str(d) for d in devices}) > 1:
@@ -74,7 +88,7 @@ def rank_devices(tp: int, device="cuda", devices=None) -> list[torch.device]:
         if len(devices) != tp:
             raise ValueError(f"{len(devices)} devices for tp={tp}")
         device = devices[0]
-    return [resolve_device(device)] * tp
+    return [resolve_device(device, host_id)] * tp
 
 
 def check_allreduce(allreduce: str) -> None:
@@ -93,6 +107,10 @@ class TransferProbeMixin:
     through, the single-stream decode over the backend's ``forward``, and
     the transfer share of the engine's stats, measured by replaying the
     backend's collective sequence (:meth:`transfer_probe`)."""
+
+    # worker mode's process group (:class:`parallel.hosts.HostGroup`), where
+    # the backend's ranks span processes
+    hosts = None
 
     def decode_chunk(self, params, first_token, caches: list, pos: int, n_steps: int, temperature: float,
                      topp: float, topk: int, seed32: int, path: str = "int8"):
@@ -132,6 +150,26 @@ class TransferProbeMixin:
             self._collective_tel_bundle = tel
         return tel
 
+    def _fire_transfer_fault(self) -> None:
+        """The ``tp.transfer`` site. Across processes a host that left the
+        probe alone would leave its peers' collectives unpaired, so every
+        host learns whether any host's site fired, and all raise or none."""
+        if self.hosts is None:
+            self._faults.fire("tp.transfer")
+            return
+        fault = None
+        try:
+            self._faults.fire("tp.transfer")
+        except Exception as e:
+            fault = e
+        fired = self.hosts.all_gather(torch.tensor([fault is not None], dtype=torch.int64))
+        if fault is not None:
+            raise fault
+        hosts = [h for h, f in enumerate(fired) if f.item()]
+        if hosts:
+            raise RuntimeError(f"transfer probe: the tp.transfer fault fired on host(s) {hosts}; every host "
+                               "leaves the probe")
+
     def measure_transfer_ms(self, n_tokens: int = 32) -> float:
         """Per-token collective time, replayed back to back between two
         synchronizes after one warm-up replay (an upper bound of what the
@@ -139,8 +177,10 @@ class TransferProbeMixin:
         site fires first (a flaky interconnect). The timed replay is a
         ``transfer_probe`` span; with telemetry on each probe counts one
         run, observes the per-token seconds and adds the bytes it stands for
-        (:meth:`transfer_bytes_per_token` x ``n_tokens``)."""
-        self._faults.fire("tp.transfer")
+        (:meth:`transfer_bytes_per_token` x ``n_tokens``). In worker mode
+        the hosts agree first: a fault on any host raises on every host
+        before any of them issues the probe's collectives."""
+        self._fire_transfer_fault()
         tel = self._collective_tel()
         fn, args = self.transfer_probe(n_tokens)
         with self._dispatch_lock:
@@ -162,7 +202,8 @@ class TensorParallelForward(TransferProbeMixin):
     """The tensor-parallel backend of :class:`engine.InferenceEngine`:
     forward, decode chunks, per-rank caches, the batched half and the
     transfer probe. Params and caches are per-rank lists
-    (``engine.weights.load_params(tp=...)``, :meth:`init_cache`)."""
+    (``engine.weights.load_params(tp=...)``, :meth:`init_cache`); in worker
+    mode (``hosts``) they hold this process's ranks, :attr:`ranks`."""
 
     # the fewest rows a batched dispatch covers: 1, since no slab axis is
     # cut across devices here (the JAX pod raises it to its slab's rows
@@ -170,15 +211,24 @@ class TensorParallelForward(TransferProbeMixin):
     decode_bucket_floor = 1
 
     def __init__(self, cfg: LlamaConfig, tp: int, device="cuda", quantized: bool = False,
-                 allreduce: str = "psum", devices=None):
+                 allreduce: str = "psum", devices=None, hosts=None):
         validate_tp(cfg, tp, quantized=quantized)
         check_allreduce(allreduce)
         self.cfg = cfg
         self.tp = tp
         self.quantized = quantized
         self.allreduce = allreduce
-        self.devices = rank_devices(tp, device, devices)
+        self.hosts = hosts if collectives.spans_hosts(hosts) else None
+        # the global ranks this process runs: all of them, or its host's run
+        self.ranks = range(tp) if self.hosts is None else self.hosts.local_ranks(tp)
+        self.devices = rank_devices(len(self.ranks), device, devices,
+                                    None if self.hosts is None else self.hosts.host_id)
         self.shard_vocab = cfg.vocab_size % tp == 0
+        if self.hosts is not None and allreduce == "ring" and self.devices[0].type == "cuda":
+            # K4 across processes: its buffers (a token row per slot to
+            # start) and events, made by every process here, before any
+            # probe or forward issues a collective
+            collectives.open_ipc_ring(self.hosts, len(self.ranks), self.devices[0], cfg.dim * 4)
         self._init_probe()
 
     @property
@@ -195,7 +245,7 @@ class TensorParallelForward(TransferProbeMixin):
         pools, table, matched)."""
         with self._dispatch_lock:
             return llama.forward_tokens_tp(self.cfg, params, tokens, caches, pos, path, self.allreduce,
-                                           n_real=n_real, paged=paged)
+                                           n_real=n_real, paged=paged, group=self.hosts)
 
     def init_cache(self, dtype=torch.bfloat16) -> list:
         """Per-rank, per-layer fused [2, S, K/tp, hd] cache leaves (int8
@@ -209,9 +259,14 @@ class TensorParallelForward(TransferProbeMixin):
     # The batched half (engine.batch.BatchScheduler over the ranks)
     # ------------------------------------------------------------------
 
+    def _refuse_hosts(self) -> None:
+        if self.hosts is not None:
+            raise NotImplementedError(WORKER_BATCH_NOT_PORTED)
+
     def init_batch_cache(self, b_max: int, dtype=torch.bfloat16) -> list:
         """Per-rank slabs: per-layer fused [2, b_max, S, K/tp, hd] leaves
         (int8 with [2, b_max, S, K/tp, 1] scales for "i8")."""
+        self._refuse_hosts()
         cfg = self.cfg
         shape = (b_max, cfg.seq_len, cfg.n_kv_heads // self.tp, cfg.head_size)
         return [[kvc.init_fused(shape, dtype, dev) for _ in range(cfg.n_layers)] for dev in self.devices]
@@ -219,6 +274,7 @@ class TensorParallelForward(TransferProbeMixin):
     def init_page_pool(self, n_pages: int, page: int, dtype=torch.bfloat16) -> list:
         """Per-rank page pools: per-layer ``(keys, values)`` halves of
         [n_pages, page, K/tp, hd] (int8 with scales for "i8")."""
+        self._refuse_hosts()
         cfg = self.cfg
         kl = cfg.n_kv_heads // self.tp
         return [[tuple(kvc.init_page_pool_half(n_pages, page, kl, cfg.head_size, dtype, dev) for _ in range(2))
@@ -283,7 +339,8 @@ class TensorParallelForward(TransferProbeMixin):
         """(fn, args) replaying one decode step's collective sequence per
         token, ``n_tokens`` times: two all-reduces of a [1, dim] f32
         activation per layer through the same seam and arm as the forward,
-        and the vocab all-gather when wcls is sharded."""
+        and the vocab all-gather when wcls is sharded (across the processes
+        in worker mode, so every process must probe at the same point)."""
         cfg, tp = self.cfg, self.tp
         xs = [torch.ones((1, cfg.dim), dtype=torch.float32, device=d) for d in self.devices]
         lgs = [torch.ones((1, cfg.vocab_size // tp), dtype=torch.float32, device=d) for d in self.devices]
@@ -292,9 +349,9 @@ class TensorParallelForward(TransferProbeMixin):
         def fn(xs, lgs):
             for _ in range(n_tokens):
                 for _ in range(2 * cfg.n_layers):
-                    xs = [x * inv for x in collectives.all_reduce(xs, self.allreduce)]
+                    xs = [x * inv for x in collectives.all_reduce(xs, self.allreduce, self.hosts)]
                 if self.shard_vocab:
-                    torch.cat([lg.to(self.devices[0]) for lg in lgs], dim=-1)
+                    collectives.all_gather(lgs, self.hosts)
             return xs
 
         return fn, (xs, lgs)

@@ -8,9 +8,12 @@ import numpy as np
 import torch
 
 
-def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
+def resolve_device(device: str | torch.device | None = "cuda", host_id: int | None = None) -> torch.device:
     """``"cuda"`` (the default) needs a visible CUDA device and raises
-    without one; ``"cpu"`` runs the kernels' plain PyTorch versions."""
+    without one; ``"cpu"`` runs the kernels' plain PyTorch versions. In
+    worker mode (``host_id`` set) an unnumbered ``"cuda"`` is
+    ``cuda:{host_id % device_count}``: every process on the one card, or a
+    card per process, and that card becomes the process's current one."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -18,6 +21,10 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and host_id is not None:
+        if dev.index is None:
+            dev = torch.device("cuda", host_id % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     return dev
 
 

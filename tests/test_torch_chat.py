@@ -147,13 +147,30 @@ def test_chat_feeds_only_the_new_turn(monkeypatch, capsys, files):
     assert want == t2["tokens"]
 
 
-def test_chat_modes_and_worker_refusal(capsys):
+def test_chat_modes_and_worker_refusal(files):
+    """``worker`` parses as in the JAX CLI and refuses, with the JAX
+    messages, to run without ``--coordinator`` (before any rendezvous) and
+    without ``--prompt`` (after joining the group: here a group of one)."""
+    import socket
+
     parser = tcli.build_parser()
     assert parser.parse_args(["chat", "--model", "m", "--tokenizer", "t"]).mode == "chat"
-    with pytest.raises(SystemExit):
-        parser.parse_args(["worker", "--model", "m", "--tokenizer", "t"])
-    assert "ROADMAP.md Queue 1: ranks on several cards" in capsys.readouterr().err
-    assert jcli.build_parser().parse_args(["worker", "--model", "m", "--tokenizer", "t"]).mode == "worker"
+    argv = ["worker", "--model", files["f32"], "--tokenizer", files["tok"], "--device", "cpu"]
+    args = parser.parse_args(argv)
+    jargs = jcli.build_parser().parse_args(argv[:5])
+    assert (args.mode, args.coordinator, args.num_hosts, args.host_id) == (
+        jargs.mode, jargs.coordinator, jargs.num_hosts, jargs.host_id)
+    with pytest.raises(SystemExit) as want:
+        jcli.worker(jargs)
+    with pytest.raises(SystemExit) as got:
+        tcli.main(argv + ["--prompt", "hello"])
+    assert str(got.value) == str(want.value) == tcli.NO_COORDINATOR
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with pytest.raises(SystemExit) as got:
+        tcli.main(argv + ["--coordinator", f"127.0.0.1:{port}", "--num-hosts", "1", "--host-id", "0"])
+    assert str(got.value) == tcli.NO_PROMPT and "requires the SAME --prompt" in tcli.NO_PROMPT
 
 
 # ---------------------------------------------------------------------------

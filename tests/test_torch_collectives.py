@@ -191,7 +191,7 @@ def test_fused_plain_equals_unfused_plain(monkeypatch, n, T):
     unfused = coll.all_reduce([tllama._matmul(x, w) for x, w in zip(xs, qms)], "ring")
     for f, u in zip(fused, unfused):
         assert torch.equal(f, u)
-    assert coll.launches == {"ring_all_reduce": 0, "fused_matmul_ring": 0}  # the CPU launches no kernel
+    assert coll.launches == {"ring_all_reduce": 0, "fused_matmul_ring": 0, "ring_all_reduce_ipc": 0}  # the CPU launches no kernel
 
 
 def test_fused_gate_and_routing(monkeypatch):

@@ -312,7 +312,8 @@ def test_ep_combine_takes_the_all_reduce_arm(engines, monkeypatch):
     tp 1. No expert-id host read on either (the top-k path is not taken)."""
     _, te = engines("f32", 2)
     calls, orig = [], coll.all_reduce
-    monkeypatch.setattr(coll, "all_reduce", lambda xs, impl="psum": calls.append((len(xs), impl)) or orig(xs, impl))
+    monkeypatch.setattr(coll, "all_reduce",
+                        lambda xs, impl="psum", group=None: calls.append((len(xs), impl)) or orig(xs, impl, group))
     te.reset()
     tmoe.reset_host_reads()
     te.prefill(PROMPT)
