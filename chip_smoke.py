@@ -10,9 +10,10 @@ Phases (any failure exits non-zero):
 3. hold each kernel against its plain PyTorch version at the five
    Llama-2-7B matmul shapes (qkv 4096->12288, wo 4096->4096, gate_up
    4096->22016, down 11008->4096, wcls 4096->32000): K1 at T = 1, 2, 5,
-   20, 64 and 512, both of its tiles (dp4a, and the int8 tensor cores) equal
-   bit for bit to ``q40_int8_ordered_plain`` and every row of a T > 1
-   launch equal to a T = 1 launch of that row; K3 at T = 1, 2, 5, 20, 64
+   20, 64 and 512, both of its tiles (dp4a, at T = 1 its decode tile, and
+   the int8 tensor cores) equal bit for bit to ``q40_int8_ordered_plain``,
+   at T = 1 the decode tile at every plan of ``q40.K1_PLANS`` too, and every
+   row of a T > 1 launch equal to a T = 1 launch of that row; K3 at T = 1, 2, 5, 20, 64
    and 512, repeat launches bit-equal and every row of a T > 1 launch equal
    to a T = 1 launch of that row; and time each against the plain version, the library yardstick (dequantize
    + torch.matmul in bf16, and the bf16 matmul alone) and the bound (the
@@ -362,10 +363,14 @@ Phases (any failure exits non-zero):
    K5, each process's file reads the replicated leaves plus half the
    matmul bytes; ms/token and each process's device busy.
 
-``--k1`` runs phase 3's K1 part alone, ``--k3`` its K3 part, ``--k2``
-phase 6a alone and ``--k5`` phase 7b (``--root DIR``: the port under DIR,
-e.g. an earlier commit unpacked with ``git archive``, to time two designs in
-one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
+``--k1`` runs phase 3's K1 part alone, with every plan of the decode tile
+timed at every T = 1 shape the port launches (the 7B shapes, the 7B and
+Mixtral ``--tp`` shards, the MoE expert shapes); ``--k1 --root DIR`` also
+times DIR's K1 wrapper and this tree's at those shapes in turns (DIR, this,
+this, DIR), each turn a process of its own. ``--k3`` runs phase 3's K3
+part alone, ``--k2`` phase 6a alone and ``--k5`` phase 7b (``--root DIR``:
+the port under DIR, e.g. an earlier commit unpacked with ``git archive``,
+to time two designs in one call); ``--moe`` runs phase 4's MoE part and phase 8 alone;
 ``--loadgen`` writes phase 5's files and runs phase 9 alone, ``--faults``
 phase 10 alone, ``--spill`` phase 11 alone, ``--fleet`` phase 12 alone and
 ``--chat`` phase 13 alone (with 7a's K4 rows at [1, 4096] and a Mixtral-width
@@ -752,24 +757,24 @@ def _weight_copies(q40, n: int, d: int, g) -> tuple[list, list, int, int]:
     return qs, scales, n_pad, copies
 
 
-def k1_checks(q40, strict: bool = True, shapes: dict = SHAPES, ts=K1_TS) -> list:
-    """K1 at ``shapes`` (the five 7B shapes) and T in ``ts``. For this tree's port: every
+def k1_checks(q40, shapes: dict = SHAPES, ts=K1_TS, sweep: bool = False) -> list:
+    """K1 at ``shapes`` (the five 7B shapes) and T in ``ts``: every
     launch of each tile equal bit for bit to ``q40_int8_ordered_plain`` on
-    the same inputs, the wrapper's launch (the tile it picks) too, and each
-    row of a T > 1 launch equal to a T = 1 launch of that row alone; within
-    TOL_REL of the plain version; each tile timed beside the plain version,
-    the library chain (dequantize + bf16 matmul), the bf16 matmul alone and
-    the bound. For another tree's port (``strict`` False: an earlier
-    design, timed in the same call) the wrapper alone, reported against
-    the plain version."""
+    the same inputs, the wrapper's launch (the tile it picks) too, at T = 1
+    the decode tile at every plan (``q40.K1_PLANS``), and each row of a
+    T > 1 launch equal to a T = 1 launch of that row alone; within TOL_REL
+    of the plain version; each tile timed beside the plain version, the
+    library chain (dequantize + bf16 matmul), the bf16 matmul alone and the
+    bound; with ``sweep`` also the decode tile at every plan (T = 1)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    own = hasattr(q40, "q40_int8_ordered_plain")
+    plans = range(len(q40.K1_PLANS))
     rows = []
     for shape, (n, d, per_token) in shapes.items():
         qs, scales, n_pad, copies = _weight_copies(q40, n, d, g)
+        d_pad = qs[0].shape[1]
         w_bf16 = q40.dequantize_tpu(q40.QuantizedMatrix(qs[0], scales[0])).to(torch.bfloat16)
         for T in ts:
             x = torch.randn((T, n_pad), device=dev, generator=g)
@@ -779,28 +784,37 @@ def k1_checks(q40, strict: bool = True, shapes: dict = SHAPES, ts=K1_TS) -> list
             got = q40.q40_int8(*args0)
             want = q40.q40_int8_plain(*args0)
             row = dict(kernel="q40_int8", shape=shape, n=n, d=d, T=T, per_token=per_token)
-            if own:
-                ordered = q40.q40_int8_ordered_plain(*args0)
-                tiles = {tile: q40._q40_int8_launch(*args0, tile) for tile in q40.K1_TILES}
-                torch.cuda.synchronize()
-                for tile, out in tiles.items():
-                    check(torch.equal(out, ordered),
-                          f"K1 {tile} tile {shape} T={T}: differs from q40_int8_ordered_plain "
-                          f"(max abs diff {(out - ordered).abs().max().item()})")
-                check(torch.equal(got, tiles[q40.k1_tile(T)]), f"K1 {shape} T={T}: the wrapper's launch differs")
-                if T > 1:
-                    alone = torch.cat([q40._q40_int8_launch(xq[t:t + 1], sx[t:t + 1], qs[0], scales[0], "dp4a")
-                                       for t in range(T)])
-                    check(torch.equal(got, alone), f"K1 {shape} T={T}: a row differs from its T=1 launch")
-                row["tile"] = q40.k1_tile(T)
-                for tile in q40.K1_TILES:
-                    row[f"{tile}_ms"] = cuda_ms(lambda i, tile=tile: q40._q40_int8_launch(
-                        xq, sx, qs[i % copies], scales[i % copies], tile), reps=50)
+            ordered = q40.q40_int8_ordered_plain(*args0)
+            tiles = {tile: q40._q40_int8_launch(*args0, tile) for tile in q40.K1_TILES}
+            torch.cuda.synchronize()
+            for tile, out in tiles.items():
+                check(torch.equal(out, ordered),
+                      f"K1 {tile} tile {shape} T={T}: differs from q40_int8_ordered_plain "
+                      f"(max abs diff {(out - ordered).abs().max().item()})")
+            check(torch.equal(got, tiles[q40.k1_tile(T)]), f"K1 {shape} T={T}: the wrapper's launch differs")
+            if T == 1:
+                row["plan"] = q40.k1_plan(n_pad, d_pad)
+                for plan in plans:
+                    out = q40._q40_int8_launch(*args0, "dp4a", plan)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, ordered), f"K1 decode tile {shape} plan {plan}: differs from "
+                          f"q40_int8_ordered_plain (max abs diff {(out - ordered).abs().max().item()})")
+                if sweep:
+                    row["plan_ms"] = {plan: cuda_ms(lambda i, plan=plan: q40._q40_int8_launch(
+                        xq, sx, qs[i % copies], scales[i % copies], "dp4a", plan), reps=50) for plan in plans}
+            if T > 1:
+                alone = torch.cat([q40._q40_int8_launch(xq[t:t + 1], sx[t:t + 1], qs[0], scales[0], "dp4a")
+                                   for t in range(T)])
+                check(torch.equal(got, alone), f"K1 {shape} T={T}: a row differs from its T=1 launch")
+            row["tile"] = q40.k1_tile(T)
+            for tile in q40.K1_TILES:
+                row[f"{tile}_ms"] = cuda_ms(lambda i, tile=tile: q40._q40_int8_launch(
+                    xq, sx, qs[i % copies], scales[i % copies], tile), reps=50)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            gate(strict, math.isfinite(err) and err <= TOL_REL["q40_int8"] * scale,
-                 f"q40_int8 {shape} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
+            check(math.isfinite(err) and err <= TOL_REL["q40_int8"] * scale,
+                  f"q40_int8 {shape} T={T}: max abs err {err} > {TOL_REL['q40_int8']} x {scale}")
             ms = cuda_ms(lambda i: q40.q40_int8(xq, sx, qs[i % copies], scales[i % copies]), reps=50)
             plain_ms = event_ms(lambda i: q40.q40_int8_plain(*args0), reps=3)
             lib_ms = cuda_ms(lambda i: xb @ q40.dequantize_tpu(
@@ -808,13 +822,16 @@ def k1_checks(q40, strict: bool = True, shapes: dict = SHAPES, ts=K1_TS) -> list
             mm_ms = cuda_ms(lambda i: xb @ w_bf16, reps=20)
             bound_ms, bound_by = k1_bound(n_pad, d, T)
             row.update(max_abs_err=err, max_rel_err=err / max(scale, 1e-30), tol_rel=TOL_REL["q40_int8"],
-                       bit_equal_ordered_plain=own, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bf16_matmul_only_ms=mm_ms, bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
-            tiles_txt = "; ".join(f"{t} {row[f'{t}_ms']:.4f}" for t in ("dp4a", "mma") if f"{t}_ms" in row)
+            tiles_txt = "; ".join(f"{t} {row[f'{t}_ms']:.4f}" for t in q40.K1_TILES)
+            if T == 1:
+                tiles_txt += f"; plan {row['plan']}" + "".join(
+                    f", {c}: {v:.4f}" for c, v in row.get("plan_ms", {}).items())
             print(f"q40_int8     {shape:15s} T={T:3d} err {err:.3e} (rel {row['max_rel_err']:.1e} <= "
-                  f"{TOL_REL['q40_int8']:.0e}){' both tiles == ordered plain bit for bit' if own else ''} "
-                  f"kernel {ms:.4f} ms{f' ({tiles_txt})' if own else ''} plain {plain_ms:.4f} ms "
+                  f"{TOL_REL['q40_int8']:.0e}) both tiles == ordered plain bit for bit "
+                  f"kernel {ms:.4f} ms ({tiles_txt}) plain {plain_ms:.4f} ms "
                   f"library {lib_ms:.4f} ms (bf16 matmul alone {mm_ms:.4f}) bound {bound_ms:.4f} ms ({bound_by})",
                   flush=True)
         del qs, scales, w_bf16
@@ -6210,22 +6227,119 @@ def _build_alone(cuda_build, name: str, root: Path) -> None:
             print(f"  {line.strip()}")
 
 
-def k1_only(root: Path, smi: str) -> None:
-    """``--k1``: phase 3's K1 part alone, the port under ``root`` (another
-    tree, e.g. an unpacked earlier commit, to time two designs in one call:
-    its wrapper only, against the plain version). Rows go to
-    build/chip_smoke_k1.json under this script's tree."""
+# every T = 1 matmul shape the port launches, by set: --k1 checks and times
+# the decode tile at each, and times another tree's wrapper there too
+K1_T1_SETS = {"7B": SHAPES, "7B --tp shards": TP_SHARD_SHAPES, "MoE experts": MOE_SHAPES,
+              "Mixtral --tp shards": MOE_TP_SHAPES}
+K1_AB_ORDER = ("root", "this", "this", "root")  # --k1 --root: the trees' turns, each a process of its own
+
+
+def k1_times(q40) -> list:
+    """K1's wrapper at T = 1 at every shape of K1_T1_SETS (the same seeded
+    weights and rows for every tree), beside the tensor-core tile, the bf16
+    matmul alone and the bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for set_name, shapes in K1_T1_SETS.items():
+        for shape, (n, d, per_token) in shapes.items():
+            qs, scales, n_pad, copies = _weight_copies(q40, n, d, g)
+            w_bf16 = q40.dequantize_tpu(q40.QuantizedMatrix(qs[0], scales[0])).to(torch.bfloat16)
+            x = torch.randn((1, n_pad), device=dev, generator=g)
+            xq, sx = q40.quantize_q80(x)
+            xb = x.to(torch.bfloat16)
+            ms = cuda_ms(lambda i: q40.q40_int8(xq, sx, qs[i % copies], scales[i % copies]), reps=50)
+            mma_ms = cuda_ms(lambda i: q40._q40_int8_launch(xq, sx, qs[i % copies], scales[i % copies], "mma"),
+                             reps=50)
+            mm_ms = cuda_ms(lambda i: xb @ w_bf16, reps=20)
+            bound_ms, bound_by = k1_bound(n_pad, d, 1)
+            rows.append(dict(set=set_name, shape=shape, n=n, d=d, per_token=per_token, ms=ms, mma_ms=mma_ms,
+                             bf16_matmul_only_ms=mm_ms, bound_ms=bound_ms, bound_by=bound_by))
+            print(f"  {set_name:20s} {shape:22s} wrapper {ms:.4f} ms, mma tile {mma_ms:.4f}, bf16 mm {mm_ms:.4f}, "
+                  f"bound {bound_ms:.4f}", flush=True)
+            del qs, scales, w_bf16
+            torch.cuda.empty_cache()
+    return rows
+
+
+def k1_times_task(spec: dict) -> None:
+    """One turn of ``--k1 --root``: :func:`k1_times` for the port under
+    ``spec["root"]`` alone, its rows written to ``spec["out"]``."""
+    root = Path(spec["root"])
     q40 = _import_port(root, "q40")
-    _build_alone(_import_port(root, "cuda_build"), "q40_int8", root)
+    print(f"nvcc build ({root}): {_import_port(root, 'cuda_build').build(['q40_int8']):.1f} s", flush=True)
+    Path(spec["out"]).write_text(json.dumps(k1_times(q40)))
+
+
+def k1_ab(root: Path, smi: str) -> dict:
+    """This tree's K1 wrapper and ``root``'s at every T = 1 shape, in turns
+    (K1_AB_ORDER), each turn this script re-run with ``--k1-times`` so that
+    a process imports one tree's port; per shape the two turns of each tree,
+    and per set the sum over one decoded token's launches."""
+    runs = []
+    for i, which in enumerate(K1_AB_ORDER):
+        tree = root if which == "root" else ROOT
+        out = ROOT / "build" / f"chip_smoke_k1_times_{i}.json"
+        t = time.perf_counter()
+        print(f"--- turn {i}: {which} ({tree})", flush=True)
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--k1-times",
+                               json.dumps({"root": str(tree), "out": str(out)})],
+                              capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="", flush=True)
+        check(proc.returncode == 0, f"--k1-times {tree}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        runs.append(dict(tree=which, rows=json.loads(out.read_text()), s=time.perf_counter() - t))
+    table = []
+    for k, row in enumerate(runs[0]["rows"]):
+        ms = {which: [r["rows"][k]["ms"] for r in runs if r["tree"] == which] for which in ("this", "root")}
+        this_row = next(r["rows"][k] for r in runs if r["tree"] == "this")
+        table.append(dict(set=row["set"], shape=row["shape"], n=row["n"], d=row["d"], per_token=row["per_token"],
+                          this_ms=ms["this"], root_ms=ms["root"], mma_ms=[r["rows"][k]["mma_ms"] for r in runs],
+                          bf16_matmul_only_ms=[r["rows"][k]["bf16_matmul_only_ms"] for r in runs],
+                          bound_ms=row["bound_ms"], bound_by=row["bound_by"]))
+        print(f"K1 T=1 {row['set']:20s} {row['shape']:22s} this {'/'.join(f'{v:.4f}' for v in ms['this'])} ms, "
+              f"root {'/'.join(f'{v:.4f}' for v in ms['root'])}, mma tile {this_row['mma_ms']:.4f}, bf16 mm "
+              f"{this_row['bf16_matmul_only_ms']:.4f}, bound {row['bound_ms']:.4f} "
+              f"({100 * row['bound_ms'] / min(ms['this']):.0f}% of it)", flush=True)
+    sums = {}
+    for set_name in K1_T1_SETS:
+        mine = [r for r in table if r["set"] == set_name]
+        sums[set_name] = {key: [sum(r[key][j] * r["per_token"] for r in mine) for j in range(2)]
+                          for key in ("this_ms", "root_ms")}
+        sums[set_name]["bound_ms"] = sum(r["bound_ms"] * r["per_token"] for r in mine)
+        print(f"K1 T=1 {set_name} per token: this {'/'.join(f'{v:.4f}' for v in sums[set_name]['this_ms'])} ms, "
+              f"root {'/'.join(f'{v:.4f}' for v in sums[set_name]['root_ms'])}, bound "
+              f"{sums[set_name]['bound_ms']:.4f}", flush=True)
+    return dict(root=str(root), card=smi, order=list(K1_AB_ORDER), turn_s=[r["s"] for r in runs], table=table,
+                per_token=sums)
+
+
+def k1_only(root: Path, smi: str) -> None:
+    """``--k1``: phase 3's K1 part alone for this tree's port, every plan
+    of the decode tile timed at every T = 1 shape; with ``root`` another
+    tree (e.g. the parent commit unpacked with ``git archive``), both trees'
+    wrappers timed in turns at every T = 1 shape (:func:`k1_ab`). Rows go to
+    build/chip_smoke_k1.json."""
+    q40 = _import_port(ROOT, "q40")
+    _build_alone(_import_port(ROOT, "cuda_build"), "q40_int8", ROOT)
     t = phase("3. K1 vs its plain version at the Llama-2-7B shapes")
-    rows = k1_checks(q40, strict=root.resolve() == ROOT)
+    rows = k1_checks(q40, sweep=True)
     forwards = k1_forward_rows(rows)
     print(f"phase 3 (K1): {time.perf_counter() - t:.1f} s")
+    t = phase("3b. K1 at T = 1 at the --tp shards and the MoE expert shapes, every plan")
+    t1_rows = [r for shapes in K1_T1_SETS.values() if shapes is not SHAPES
+               for r in k1_checks(q40, shapes=shapes, ts=(1,), sweep=True)]
+    print(f"phase 3b: {time.perf_counter() - t:.1f} s")
+    ab = None
+    if root.resolve() != ROOT:
+        t = phase(f"3c. K1 at T = 1, this tree against {root}, in turns {K1_AB_ORDER}")
+        ab = k1_ab(root, smi)
+        print(f"phase 3c: {time.perf_counter() - t:.1f} s")
     out = ROOT / "build" / "chip_smoke_k1.json"
     out.parent.mkdir(exist_ok=True)
-    out.write_text(json.dumps({"root": str(root), "card": smi, "rows": rows, "per_forward": forwards}, indent=1))
+    out.write_text(json.dumps({"card": smi, "rows": rows, "t1_rows": t1_rows, "per_forward": forwards, "ab": ab},
+                              indent=1))
     print(f"card: {smi}")
-    print(json.dumps({"k1": forwards}))
+    print(json.dumps({"k1": forwards, "ab_per_token": ab and ab["per_token"]}))
 
 
 def k3_only(root: Path, smi: str) -> None:
@@ -6320,14 +6434,19 @@ def main() -> None:
                         help="phase 17 alone (worker mode: K4 across 2 and 4 processes on the card, and two "
                         "--tp 2 worker processes at Llama-2-7B width)")
     parser.add_argument("--host-task", default=None, help=argparse.SUPPRESS)  # one host of a phase-17 group
+    parser.add_argument("--k1-times", default=None, help=argparse.SUPPRESS)  # one tree's turn of --k1 --root
     parser.add_argument("--root", type=Path, default=ROOT,
-                        help="with --k1, --k2, --k3 or --k5: the tree whose port is imported")
+                        help="with --k2, --k3 or --k5: the tree whose port is imported; with --k1: another tree "
+                        "whose K1 is timed in turns with this one's at every T = 1 shape")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this smoke test needs a GPU", flush=True)
         sys.exit(2)
     if opts.host_task is not None:
         host_task(json.loads(opts.host_task))
+        return
+    if opts.k1_times is not None:
+        k1_times_task(json.loads(opts.k1_times))
         return
     alone = [f for f, on in ((k1_only, opts.k1), (k2_only, opts.k2), (k3_only, opts.k3), (k5_only, opts.k5),
                              (lambda root, smi: moe_only(smi), opts.moe),
@@ -6668,6 +6787,9 @@ def main() -> None:
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in mine) else "operations",
             library_ms=tot["library_ms"],
+            # the decode tile's time and bound per call at each 7B shape
+            **({"per_call_ms": {r["shape"]: r["ms"] for r in mine},
+                "per_call_bound_ms": {r["shape"]: r["bound_ms"] for r in mine}} if name == "q40_int8" else {}),
         ))
     kernels.extend(k2_entries)
     # phase 8's path (8b's CLI runs over the Mixtral-width model): K1's dp4a

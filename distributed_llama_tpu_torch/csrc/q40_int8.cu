@@ -18,17 +18,20 @@
 // (the order of f32 roundings in q40_int8_mma.cuh), so the caller chooses by
 // speed alone:
 //
-// * tile 0, dp4a (q40_int8_tile.cuh, which K5 shares): at decode (T = 1)
+// * tile 0, dp4a: at decode (T = 1) the decode tile (q40_int8_decode.cuh):
 //   the packed weight stream (half a byte per weight plus one f32 scale per
-//   32 weights) over the 3.35 TB/s memory rate bounds it; the arithmetic is
-//   about one integer operation per weight byte and token. The TPU's
-//   sequential n-tile grid axis becomes a loop inside the CTA, one CTA per
-//   64 output columns and TT <= 8 tokens; nothing carries between CTAs.
+//   32 weights) over the 3.35 TB/s memory rate bounds it; each CTA streams
+//   its 64 columns' blocks through a cp.async ring in shared memory, in
+//   pieces and stages that the host's `plan` sets per shape. Above one row,
+//   q40_int8_tile.cuh (which K5 shares): the TPU's sequential n-tile grid
+//   axis becomes a loop inside the CTA, one CTA per 64 output columns and
+//   TT <= 8 tokens; nothing carries between CTAs.
 // * tile 1, mma (q40_int8_mma.cuh): T >= 2 rows on the int8 tensor cores,
 //   one CTA of 16 slice warps per 32 output columns and up to 32 tokens,
 //   so a verify window reads the weights once; the weight stream bounds it
 //   at verify widths, the per-block f32 epilogue from a few hundred rows.
 
+#include "q40_int8_decode.cuh"
 #include "q40_int8_mma.cuh"
 #include "q40_int8_tile.cuh"
 
@@ -98,11 +101,13 @@ bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0
 // C entry point, bound with ctypes. Shapes: xq int8 [T, n_pad], sx f32
 // [T, n_pad/32], qs uint8 [n_pad/2, d_pad], scales f32 [n_pad/32, d_pad],
 // out f32 [T, d_pad]; n_pad % 64 == 0, d_pad % 64 == 0. tile 0 runs the dp4a
-// tile, tile 1 the tensor-core tile (scales 16-byte aligned).
+// tile (at T = 1 the decode tile with `plan` 0-3; xq, qs and scales 16-byte
+// aligned), tile 1 the tensor-core tile (scales 16-byte aligned); `plan` is
+// read at T = 1 on tile 0 only.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int q40_int8_matmul(const void* xq, const void* sx, const void* qs,
                                const void* scales, void* out, int T, int n_pad, int d_pad, int tile,
-                               void* stream) {
+                               int plan, void* stream) {
   if (T <= 0 || n_pad % 64 || d_pad % kColsPerCta || (tile != 0 && tile != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const int8_t*>(xq);
@@ -120,7 +125,14 @@ extern "C" int q40_int8_matmul(const void* xq, const void* sx, const void* qs,
                               : launch_mma<4, 2>(x, sxp, q, sc, o, T, n_pad, d_pad, s);
     if (err != 0) return err;
   } else if (T == 1) {
-    launch<1>(x, sxp, q, sc, o, T, n_pad, d_pad, s);
+    if (misaligned(xq) || misaligned(qs) || misaligned(scales)) return (int)cudaErrorMisalignedAddress;
+    // the plans of ops/q40.py K1_PLANS: (rows a piece, ring stages)
+    const int err = plan == 0   ? q40dec::launch<32, 4>(x, sxp, q, sc, o, n_pad, d_pad, s)
+                    : plan == 1 ? q40dec::launch<8, 8>(x, sxp, q, sc, o, n_pad, d_pad, s)
+                    : plan == 2 ? q40dec::launch<8, 4>(x, sxp, q, sc, o, n_pad, d_pad, s)
+                    : plan == 3 ? q40dec::launch<8, 3>(x, sxp, q, sc, o, n_pad, d_pad, s)
+                                : (int)cudaErrorInvalidValue;
+    if (err != 0) return err;
   } else if (T <= 4) {
     launch<4>(x, sxp, q, sc, o, T, n_pad, d_pad, s);
   } else {
@@ -128,4 +140,3 @@ extern "C" int q40_int8_matmul(const void* xq, const void* sx, const void* qs,
   }
   return (int)cudaGetLastError();
 }
-

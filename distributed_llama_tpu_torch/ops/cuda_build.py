@@ -32,7 +32,7 @@ _I = ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers, one per rank
 # kernel library name -> (source file, C function, argtypes)
 KERNELS = {
-    "q40_int8": ("q40_int8.cu", "q40_int8_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "q40_int8": ("q40_int8.cu", "q40_int8_matmul", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "q40_dequant": ("q40_dequant.cu", "q40_dequant_matmul", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "paged_attention": ("paged_attention.cu", "paged_attention", [_P] * 14 + [_I] * 10 + [_P]),
     "ring_all_reduce": ("ring_all_reduce.cu", "ring_all_reduce", [_PP, _PP, _I, ctypes.c_longlong, _I, _P]),

@@ -53,8 +53,9 @@ from distributed_llama_tpu_torch.quants import Q40_BLOCK_BYTES, QK, quantize_q40
 # where it launches its CUDA kernel and nowhere else
 launches: dict[str, int] = {"q40_int8": 0, "q40_dequant": 0}
 # K1's launches by the tile that ran (their sum is launches["q40_int8"]):
-# "dp4a" (csrc/q40_int8_tile.cuh, CUDA cores) or "mma" (csrc/q40_int8_mma.cuh,
-# int8 tensor cores)
+# "dp4a" (CUDA cores: at T = 1 the decode tile csrc/q40_int8_decode.cuh,
+# above it csrc/q40_int8_tile.cuh) or "mma" (csrc/q40_int8_mma.cuh, int8
+# tensor cores)
 tile_launches: dict[str, int] = {"dp4a": 0, "mma": 0}
 
 PATHS = ("int8", "f32")
@@ -295,20 +296,49 @@ def k1_tile(T: int) -> str:
     return "mma" if T >= K1_MMA_MIN_T else "dp4a"
 
 
-def _q40_int8_launch(xq, sx, qs, scales, tile: str) -> torch.Tensor:
+# K1's decode tile (csrc/q40_int8_decode.cuh) at T = 1: its plans, (rows of
+# a block a ring piece, ring stages), indexed by the C entry point's `plan`.
+# Their shared memory lets 1, 1, 3 and 4 CTAs share an SM
+K1_PLANS = ((32, 4), (8, 8), (8, 4), (8, 3))
+K1_COLS = 64  # output columns of a decode tile's CTA
+H100_SMS = 132
+
+
+def k1_plan(n_pad: int, d_pad: int) -> int:
+    """The plan of K1's decode tile for a [n_pad/2, d_pad] pack: whole
+    blocks in 4 stages (the most bytes in flight on each SM) while d leaves
+    at most 80 tiles of 64 columns and a slice has more than one block;
+    8-row pieces in 8 stages up to a tile per SM (and for one block a
+    slice, whose 8-row pieces overlap its only step); then 8-row pieces in
+    4 or 3 stages, 3 or 4 CTAs an SM, so that every tile is resident at
+    once. Every plan computes the same bits; the rule picked the fastest
+    plan, or one within 2% of it, at each T = 1 shape of the port (PERF.md,
+    ``chip_smoke.py --k1``)."""
+    tiles = d_pad // K1_COLS
+    if tiles <= 80 and n_pad // 64 > K1_SLICES:
+        return 0
+    if tiles <= H100_SMS:
+        return 1
+    return 2 if tiles <= 3 * H100_SMS else 3
+
+
+def _q40_int8_launch(xq, sx, qs, scales, tile: str, plan: int | None = None) -> torch.Tensor:
     """Launch K1's ``tile`` on checked CUDA operands (not counted: the
-    wrapper counts; ``chip_smoke.py`` calls this to hold each tile against
-    the plain version at any T)."""
+    wrapper counts; ``chip_smoke.py`` calls this to hold each tile, and at
+    T = 1 each plan of the decode tile, against the plain version).
+    ``plan``: an index of K1_PLANS, by default :func:`k1_plan`'s."""
     from distributed_llama_tpu_torch.ops import cuda_build
 
     T, n_pad = xq.shape
     d_pad = qs.shape[1]
+    if plan is None:
+        plan = k1_plan(n_pad, d_pad)
     fn = cuda_build.function("q40_int8")
     out = torch.empty((T, d_pad), dtype=torch.float32, device=qs.device)
     stream = torch.cuda.current_stream(qs.device).cuda_stream
     _check_launch(
         fn(xq.data_ptr(), sx.data_ptr(), qs.data_ptr(), scales.data_ptr(), out.data_ptr(),
-           T, n_pad, d_pad, K1_TILES.index(tile), stream),
+           T, n_pad, d_pad, K1_TILES.index(tile), plan, stream),
         "q40_int8",
     )
     return out
