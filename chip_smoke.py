@@ -74,7 +74,7 @@ Phases (any failure exits non-zero):
    every greedy completion's token ids equal to what a spec_draft=0
    BatchScheduler on the same engine and cache decodes for the same
    prompt; then a second server at --parallel 16 --max-seq-len 1000 (the
-   einsum attention; over phase 9's 8-layer file) with 16 concurrent
+   einsum attention; over phase 5's file) with 16 concurrent
    greedy requests, whose verify forwards reach 80 rows, held to the same
    equality;
 7. (a) hold K4, the ring all-reduce kernel, against its plain version bit
@@ -111,7 +111,7 @@ Phases (any failure exits non-zero):
    (reported, not failed: a 4-row step sums the experts in another
    order); (d) Grok-1's widths cut to 1 layer through the CLI;
 9. telemetry, request tracing and the load generator (run after 7b, over a
-   7B-width file cut to 8 layers, TP_LAYERS; ``--loadgen`` alone runs
+   7B-width file at MAIN_LAYERS, phase 5's; ``--loadgen`` alone runs
    the 7B-width file at all 32 layers): the port's API server in process with
    ``--telemetry --parallel 4 --max-seq-len 2048`` (prefix cache on,
    ``--admission-queue 24``), driven through the port's load generator's
@@ -134,7 +134,7 @@ Phases (any failure exits non-zero):
    dispatch spans (the host's issue) against the fetch spans (the wait for
    the card), and the 4-row decode step with telemetry on, a reading that
    does not fail the run;
-10. fault containment and fair admission (after 9, over phase 9's 8-layer
+10. fault containment and fair admission (after 9, over phase 5's
    file; ``--faults`` alone runs the 7B-width file at all 32 layers): one engine
    with ``--telemetry``, one server per
    fault plan (``--parallel 4 --max-seq-len 2048``, prefix cache on), each
@@ -172,7 +172,7 @@ Phases (any failure exits non-zero):
    deadline counted.
 
 11. the host spill tier and the supervised replica pool (after 10, over
-   phase 9's 8-layer file; ``--spill`` alone runs phase 5's file, all 32
+   phase 5's file; ``--spill`` alone runs the 7B-width file at all 32
    layers; ``--telemetry``): (a) a server
    with ``--parallel 4 --kv-pages 24 --host-spill-mb 2048``, bf16 then
    ``--cache-dtype i8``: a ~600-token system prompt P1 cold, again (a lone
@@ -209,7 +209,7 @@ Phases (any failure exits non-zero):
    and K2.
 
 12. the SDC canary, shadow votes, weight versions with blue-green rollout
-   and the fleet controller (after 11, over phase 9's 8-layer file;
+   and the fleet controller (after 11, over phase 5's file;
    ``--fleet`` alone runs the 7B-width file at all 32 layers): one server,
    ``--replicas 2 --parallel 2 --telemetry --sdc-shadow-rate 1.0
    --rollout-drain-s 120 --fleet-min-replicas 2 --fleet-max-replicas 3``,
@@ -303,7 +303,7 @@ Phases (any failure exits non-zero):
 
 15. sequence and expert parallelism, the ranks on the card (15a after 17
    over phase 5's MAIN_LAYERS-layer file at ``--max-seq-len 4096``, since
-   phase 17 came (phase 9's TP_LAYERS-layer file before, and with
+   phase 17 came (an 8-layer file before, and TP_LAYERS with
    ``--sp-ep`` alone); 15b after 14b over
    phase 8b's Mixtral-width file; ``--sp-ep`` alone writes its own files):
    K1 at the ring pass's 1024 rows per rank (``--sp 4``) at the five 7B
@@ -363,6 +363,29 @@ Phases (any failure exits non-zero):
    K5, each process's file reads the replicated leaves plus half the
    matmul bytes; ms/token and each process's device busy.
 
+18. ``--sp`` and ``--ep`` in worker mode, the sequence- and expert-parallel
+   ranks as 2 processes on the card (their hosts are this script re-run
+   with ``--host-task``, logs under ``build/phase18/``; each arm's
+   one-process run of the same flags in this process first): (a) after 15a
+   over phase 5's file at ``--max-seq-len`` 4096, ``worker --sp 2`` under
+   ``--allreduce ring`` (15a's 1100-token prompt in one ring pass whose K/V
+   chunks move between the processes card to card, its 300-token delta in
+   32-token chunks, 32 greedy tokens), then ``--tp 2 --sp 2`` under psum;
+   (b) after 15b over phase 8b's Mixtral-width file, ``worker --ep 2`` and
+   ``--tp 2 --ep 2`` under ring on 15b's 64-token prompt (the dispatch
+   path's all_to_alls and all_gather across the processes) and 32 greedy
+   tokens (the dense-local combine, K4 across the processes at --ep 2).
+   Each arm: under --ep each host's router ids per call equal the calls
+   its ranks make in the one-process run, checked before the logits; both
+   hosts' logits hashes and ids equal each other and the one-process run's
+   bit for bit; one ring pass; each host's file reads equal
+   ``weights.read_share`` of its ranks (under --ep 2 only its experts);
+   K1's tiles counted per host and, under ring, K4 across the processes as
+   many times as the arm's cross-process sums (no K5). Prints the ring
+   pass's ms beside the one-process one, decode ms/token and device busy
+   per host, the bytes the exchanges moved per prompt and per decoded
+   token, and each host's peak card memory.
+
 ``--k1`` runs phase 3's K1 part alone, with every plan of the decode tile
 timed at every T = 1 shape the port launches (the 7B shapes, the 7B and
 Mixtral ``--tp`` shards, the MoE expert shapes); ``--k1 --root DIR`` also
@@ -376,7 +399,7 @@ phase 10 alone, ``--spill`` phase 11 alone, ``--fleet`` phase 12 alone and
 ``--chat`` phase 13 alone (with 7a's K4 rows at [1, 4096] and a Mixtral-width
 file of its own), ``--tp-serve`` phase 14 alone, ``--sp-ep`` phase 15 alone and
 ``--host`` phase 16 alone (with 6b's traffic, no rates) and ``--workers``
-phase 17 alone.
+phases 17 and 18 alone.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -425,10 +448,13 @@ N_LAYERS = 32  # Llama-2-7B's depth: the kernel line's per-token numbers count a
 # 933.3 s one. ``--loadgen``, ``--faults``, ``--spill`` and ``--fleet``
 # alone keep all 32, ``--tp-serve`` TP_LAYERS. Phases 15a and 17 run at this
 # depth too: with phase 17 added and 15a at 8 the full run took 1104.5 s on
-# an H100 host ~25% slower than one that had taken 824.1 s without phase 17
+# an H100 host ~25% slower than one that had taken 824.1 s without phase 17.
+# Phase 6c's 16-row server and phases 9-12 too since phase 18 came: with it
+# and those at 8 layers (a second file) the run took 1068.8 s on a host
+# ~9-17% slower than the 817.9 s one
 MAIN_LAYERS = 4
-# the depth of phase 6c's 16-row server and phases 9-12 in the full run (a
-# second file), and of 15a with ``--sp-ep`` alone: 8 of Llama-2-7B's 32 layers
+# the depth of ``--tp-serve`` and of 15a with ``--sp-ep`` alone: 8 of
+# Llama-2-7B's 32 layers
 TP_LAYERS = 8
 SEQ_LEN = 1024  # --max-seq-len of the driven runs
 # the 7B main path's matmuls: name -> (n, d, launches per decoded token)
@@ -2748,7 +2774,7 @@ def _sse_text(events) -> tuple[str, str | None]:
 
 def faults_phase(server_api, attn, q40, model: str, tok_path: str, smi: str) -> dict:
     """Phase 10 (see the module docstring): fault containment and fair
-    admission in the port's server over a 7B-width model (8 layers in the
+    admission in the port's server over a 7B-width model (4 layers in the
     full run, 32 with ``--faults``). The engine loads once; each fault plan
     gets its own server (a plan binds at construction), armed after the
     server's warm-up request so its rules count the round's hits."""
@@ -3174,7 +3200,7 @@ def check_kernel_paths(before: dict, label: str, want=("q40_matmul/k1_dp4a",), a
 def spill_phase(server_api, model: str, tok_path: str, smi: str, workdir: Path, cost: bool = False) -> dict:
     """Phase 11 (see the module docstring): the host spill tier and the
     supervised replica pool in the port's server over the 7B-width model
-    (8 layers in the full run, 32 with ``--spill``); ``cost`` adds 11d
+    (4 layers in the full run, 32 with ``--spill``); ``cost`` adds 11d
     (``--spill`` only)."""
     from distributed_llama_tpu_torch import telemetry
     from distributed_llama_tpu_torch.apps.cli import make_engine
@@ -3739,7 +3765,7 @@ def fleet_phase(server_api, model: str, tok_path: str, smi: str, workdir: Path) 
     """Phase 12 (see the module docstring): the SDC canary, shadow votes,
     weight versions with blue-green rollout and the fleet controller in the
     port's server, ``--replicas 2 --parallel 2``, over the 7B-width model
-    (8 layers in the full run, 32 with ``--fleet``)."""
+    (4 layers in the full run, 32 with ``--fleet``)."""
     import copy
     import weakref
 
@@ -5868,7 +5894,7 @@ WORKER_TOKENS = 32  # 17b: greedy tokens of each worker run
 # (TransferProbeMixin.measure_transfer_ms); under ring in worker mode
 # every one is a cross-process K4 launch on the main path
 PROBE_TOKENS = 32
-HOST_TIMEOUT_S = {"k4": 180, "worker": 420}
+HOST_TIMEOUT_S = {"k4": 180, "worker": 420, "sp_ep": 420}
 
 
 def _free_port() -> int:
@@ -5879,14 +5905,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_hosts(task: str, n: int, spec: dict, label: str) -> list:
+def spawn_hosts(task: str, n: int, spec: dict, label: str, phase_no: str = "17") -> list:
     """Start ``n`` processes of this script, each running ``task`` (see
     :func:`host_task`) on ``spec`` with its host id, the process count and
     a fresh coordinator port, and return their ``HOST_RESULT`` objects in
-    host order. Each host's output goes to ``build/phase17/LABEL.H.log``; a host
+    host order. Each host's output goes to ``build/phase{phase_no}/LABEL.H.log``; a host
     that fails, or the group outliving ``HOST_TIMEOUT_S[task]``, fails the
     phase (every host is killed first)."""
-    logdir = ROOT / "build" / "phase17"
+    logdir = ROOT / "build" / f"phase{phase_no}"
     logdir.mkdir(parents=True, exist_ok=True)
     coordinator = f"127.0.0.1:{_free_port()}"
     procs, logs = [], []
@@ -5913,7 +5939,7 @@ def spawn_hosts(task: str, n: int, spec: dict, label: str) -> list:
         lines = [ln for ln in text.splitlines() if ln.startswith("HOST_RESULT ")]
         if p.returncode != 0 or not lines:
             print(text[-6000:])
-            fail(f"phase 17 {label}: host {h} of {n} exited {p.returncode} (log {log})")
+            fail(f"phase {phase_no} {label}: host {h} of {n} exited {p.returncode} (log {log})")
         results.append(json.loads(lines[-1][len("HOST_RESULT "):]))
     return results
 
@@ -6061,10 +6087,10 @@ def worker_host(spec: dict) -> dict:
 
 
 def host_task(spec: dict) -> None:
-    """``--host-task SPEC``: one host of a phase-17 group (a process this
+    """``--host-task SPEC``: one host of a phase-17 or 18 group (a process this
     script starts); prints its result as a ``HOST_RESULT`` line."""
     sys.path.insert(0, str(ROOT))
-    result = {"k4": k4_ipc_host, "worker": worker_host}[spec["task"]](spec)
+    result = {"k4": k4_ipc_host, "worker": worker_host, "sp_ep": sp_ep_host}[spec["task"]](spec)
     print("HOST_RESULT " + json.dumps(result), flush=True)
 
 
@@ -6182,9 +6208,30 @@ def worker_phase(cli, coll, model: str, tok: str, smi: str) -> dict:
     return out
 
 
+def sp_worker_phases(cli, coll, model: str, tok: str, summary: dict) -> None:
+    """Phase 18a over the 7B-width ``model``; results go into ``summary``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = phase(f"18a. the slice's path: --sp 2 and --tp 2 --sp 2 in worker mode, the ranks as 2 processes on the "
+              f"card, Llama-2-7B width, {MAIN_LAYERS} layers, --max-seq-len {SP_SEQ_LEN}")
+    summary["sp_workers"] = sp_ep_worker_phase(cli, coll, model, tok, "sp")
+    print(f"phase 18a: {time.perf_counter() - t:.1f} s")
+
+
+def ep_worker_phases(cli, coll, model: str, tok: str, summary: dict) -> None:
+    """Phase 18b over the Mixtral-width ``model``; results go into ``summary``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = phase(f"18b. the slice's path: --ep 2 and --tp 2 --ep 2 in worker mode, the ranks as 2 processes on the "
+              f"card, Mixtral-8x7B width, {MIXTRAL_LAYERS} layers")
+    summary["ep_workers"] = sp_ep_worker_phase(cli, coll, model, tok, "ep")
+    print(f"phase 18b: {time.perf_counter() - t:.1f} s")
+
+
 def workers_only(smi: str) -> None:
-    """``--workers``: phase 2 (the kernels), then phase 17 alone over phase
-    5's 7B-width file (results in build/chip_smoke_workers.json)."""
+    """``--workers``: phase 2 (the kernels), then phase 17 and 18a over
+    phase 5's 7B-width file and 18b over phase 8b's Mixtral-width file,
+    each written here (results in build/chip_smoke_workers.json)."""
     sys.path.insert(0, str(ROOT))
     from distributed_llama_tpu_torch.apps import cli
     from distributed_llama_tpu_torch.formats import synthetic
@@ -6200,13 +6247,313 @@ def workers_only(smi: str) -> None:
         t = phase(f"17. worker mode: tensor-parallel ranks as processes on the card, {MAIN_LAYERS} layers")
         summary = worker_phase(cli, coll, model, tok, smi)
         print(f"phase 17: {time.perf_counter() - t:.1f} s")
+        sp_worker_phases(cli, coll, model, tok, summary)
+        os.remove(model)
+        spec = synthetic.mixtral_8x7b_spec(n_layers=MIXTRAL_LAYERS, seq_len=4096)
+        model = str(Path(tmp) / "mixtral_8x7b_width.m")
+        synthetic.write_random_q40_model(model, spec, seed=0)
+        tok = str(Path(tmp) / "tok_mixtral.t")
+        with open(tok, "wb") as f:
+            write_tokenizer_file(f, synthetic.synthetic_tokenizer_data(vocab_size=spec.vocab_size))
+        ep_worker_phases(cli, coll, model, tok, summary)
     summary["total_s"] = time.perf_counter() - t_all
     summary["phase_s"] = phase_seconds(time.perf_counter())
     out = ROOT / "build" / "chip_smoke_workers.json"
     out.write_text(json.dumps(summary, indent=1, default=str))
     print(f"seconds by phase: {summary['phase_s']}")
-    print(f"phase 17 with its set-up: {summary['total_s']:.1f} s; details in {out}")
+    print(f"phases 17 and 18 with their set-up: {summary['total_s']:.1f} s; details in {out}")
     print(f"card: {smi}")
+
+
+# ----------------------------------------------------------------------
+# Phase 18: --sp and --ep in worker mode, the sequence- and expert-parallel
+# ranks as separate processes on the card
+# ----------------------------------------------------------------------
+
+SP_EP_WORKER_STEPS = SP_TOKENS - 1  # greedy tokens after the first, as in 15a
+EP_WORKER_PROMPT_TOKENS = 64  # 15b's prompt: the dispatch path at ep 2
+
+
+def sp_ep_arms(model: str, tok: str, vocab: int, which: str) -> list:
+    """Phase 18's arms over ``model``: 18a (``which`` "sp") ``--sp 2``
+    under ring, then ``--tp 2 --sp 2`` under psum, on 15a's prompt and
+    delta; 18b ("ep") ``--ep 2`` and ``--tp 2 --ep 2`` under ring on 15b's
+    64-token prompt. Each arm: label, the CLI flags every run shares (the
+    one-process reference's ``generate`` and the hosts' ``worker``), the
+    prompt, the delta and the greedy steps."""
+    base = ["--model", model, "--tokenizer", tok, "--dtype", "q40", "--decode", "device", "--temperature", "0",
+            "--seed", "1", "--prompt", "x"]
+    if which == "sp":
+        prompt = _token_prompt(SP_PROMPT_TOKENS, 15, vocab)
+        delta = _token_prompt(SP_DELTA_TOKENS + 1, 16, vocab)[1:]
+        base += ["--max-seq-len", str(SP_SEQ_LEN)]
+        flags = {"18a sp=2 ring": ["--sp", "2", "--allreduce", "ring"],
+                 "18a tp=2 sp=2 psum": ["--tp", "2", "--sp", "2", "--allreduce", "psum"]}
+    else:
+        prompt, delta = _token_prompt(EP_WORKER_PROMPT_TOKENS, 17, vocab), []
+        base += ["--max-seq-len", str(SEQ_LEN)]
+        flags = {"18b ep=2 ring": ["--ep", "2", "--allreduce", "ring"],
+                 "18b tp=2 ep=2 ring": ["--tp", "2", "--ep", "2", "--allreduce", "ring"]}
+    return [dict(label=label, flags=base + f, prompt=prompt, delta=delta, steps=SP_EP_WORKER_STEPS)
+            for label, f in flags.items()]
+
+
+def _count_exchanges(coll, tally: dict):
+    """Spies counting the bytes this process receives from its peers: the
+    IPC exchanges (``collectives.exchange``: the ring's rotation, the
+    partials' gather, the all_to_alls and all_gathers), K4 across the
+    processes (``collectives.ring_all_reduce_ipc``: the peers' slots it
+    reads) and the host-staged gathers (``HostGroup.gather_ranks``: the
+    psum arm and the logits' gather across processes). Returns a function
+    that removes them."""
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+
+    orig_exchange, orig_gather, orig_k4 = coll.exchange, HostGroup.gather_ranks, coll.ring_all_reduce_ipc
+
+    def k4(xs, group):
+        tally["k4_calls"] += 1
+        tally["k4_bytes"] += xs[0].numel() * 4 * len(xs) * (group.num_hosts - 1)
+        return orig_k4(xs, group)
+
+    def exchange(xs, group, picks):
+        out = orig_exchange(xs, group, picks)
+        tally["ipc_calls"] += 1
+        tally["ipc_bytes"] += sum(o.numel() * o.element_size() for (slot, _), o in zip(picks, out)
+                                  if slot // len(xs) != group.host_id)
+        return out
+
+    def gather_ranks(self, xs):
+        out = orig_gather(self, xs)
+        tally["host_calls"] += 1
+        tally["host_bytes"] += sum(o.numel() * o.element_size() for o in out) * (self.num_hosts - 1) // self.num_hosts
+        return out
+
+    coll.exchange, HostGroup.gather_ranks, coll.ring_all_reduce_ipc = exchange, gather_ranks, k4
+
+    def restore():
+        coll.exchange, HostGroup.gather_ranks, coll.ring_all_reduce_ipc = orig_exchange, orig_gather, orig_k4
+
+    return restore
+
+
+def drive_sp_ep(engine, arm: dict, coll, q40, moe, barrier=lambda: None) -> dict:
+    """One arm's drive of ``engine`` (one-process or a host's): the prompt
+    (timed: one ring pass under --sp), the delta (chunk forwards), the
+    greedy tokens on the device; every launch count and the exchange
+    tallies set to 0 just before and read just after; the router's (rows,
+    ids) per call; a hash of the prompt's last logits row and the delta's
+    logits; the exchanges' bytes per ring pass and per decoded token; the
+    peak card memory. Then the prompt once more on a reset stream, timed
+    (``prefill_again_ms``: the first pass also grows the IPC staging)."""
+    import hashlib
+
+    tally = dict.fromkeys(("ipc_calls", "ipc_bytes", "k4_calls", "k4_bytes", "host_calls", "host_bytes"), 0)
+    ids, orig_topk = [], moe.router_topk
+
+    def spy(cfg, xn, router):
+        vals, idx = orig_topk(cfg, xn, router)
+        ids.append([int(xn.shape[0]), idx.tolist()])
+        return vals, idx
+
+    restore = _count_exchanges(coll, tally)
+    moe.router_topk = spy
+    try:
+        engine.reset()
+        torch.cuda.synchronize()
+        barrier()
+        torch.cuda.reset_peak_memory_stats()
+        coll.reset_launches()
+        q40.reset_launches()
+        lp, prefill_ms = timed(lambda: engine.prefill(arm["prompt"]))
+        prefill_tally = dict(tally)
+        dispatches = [engine.last_dispatches()]
+        rows = lp[None]
+        if arm["delta"]:
+            rows = engine.forward(arm["delta"])
+            dispatches.append(engine.last_dispatches())
+        first = int(np.argmax(rows[-1]))
+        before = dict(tally)
+        toks, decode_ms = timed(lambda: [int(t) for t in engine.generate_on_device(first, arm["steps"], 0.0)])
+        steps = arm["steps"]
+        launches = {**coll.launches, **q40.launches, **{f"k1_{k}": v for k, v in q40.tile_launches.items()}}
+        forwards = engine.default_stream.forwards
+    finally:
+        moe.router_topk = orig_topk
+        restore()
+    engine.reset()
+    barrier()
+    _, again_ms = timed(lambda: engine.prefill(arm["prompt"]))
+    return dict(tokens=[first] + toks, ids=ids, dispatches=dispatches, launches=launches, forwards=forwards,
+                prefill_again_ms=again_ms,
+                logits_sha256=hashlib.sha256(lp.tobytes() + (rows.tobytes() if arm["delta"] else b"")).hexdigest(),
+                prefill_ms=prefill_ms, decode_loop_ms_per_token=decode_ms / steps,
+                prefill_exchange=prefill_tally,
+                decode_exchange_per_token={k: (tally[k] - before[k]) / steps for k in tally},
+                peak_card_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def sp_ep_host(spec: dict) -> dict:
+    """Phase 18 on one host: per arm of ``spec["arms"]`` a group of its
+    own, an engine built as the CLI's worker mode builds it
+    (``cli.make_engine(args, hosts=group)``), :func:`drive_sp_ep`, then
+    decode ms/token over 16 greedy tokens after 4 warm ones, this
+    process's device busy per token from a torch.profiler trace of 4
+    steps, and the bytes its load read."""
+    from distributed_llama_tpu_torch.apps import cli
+    from distributed_llama_tpu_torch.models import moe
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.ops import q40
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+
+    n, h = spec["num_hosts"], spec["host_id"]
+    out = {}
+    for arm, port in zip(spec["arms"], spec["ports"]):
+        address = f"127.0.0.1:{port}"
+        with HostGroup(address, n, h) as group:
+            t0 = time.perf_counter()
+            args = cli.build_parser().parse_args(["worker", *arm["flags"], "--coordinator", address,
+                                                  "--num-hosts", str(n), "--host-id", str(h)])
+            engine = cli.make_engine(args, hosts=group)[0]
+            load_s = time.perf_counter() - t0
+            row = drive_sp_ep(engine, arm, coll, q40, moe, barrier=group.barrier)
+            first = row["tokens"][-1]
+            engine.decode_chunk(first, 4, 0.0, 0.9)
+            torch.cuda.synchronize()
+            group.barrier()
+            _, ms = timed(lambda: engine.decode_chunk(first, 16, 0.0, 0.9))
+            row.update(bytes_read=engine.bytes_read, load_s=load_s, decode_ms_per_token=ms / 16,
+                       transfer_probe_ms_per_token=engine._transfer_ms,
+                       **device_profile(engine, first, ms / 16, steps=4))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[arm["label"]] = row
+    return out
+
+
+def _host_router_calls(calls: list, h: int, m: int, ep: int) -> list:
+    """Host ``h``'s router calls out of a one-process run's, where the host
+    holds ep ranks [h m, (h+1) m) of ``ep`` across the processes: a
+    dispatch forward routes each home rank's rows in a call of its own (ep
+    calls in home order per layer), the host only its homes'; single-row
+    calls (the dense-local decode) are every host's."""
+    out, run = [], 0
+    for rows, idx in calls:
+        if rows > 1:
+            if h * m <= run % ep < (h + 1) * m:
+                out.append([rows, idx])
+            run += 1
+        else:
+            out.append([rows, idx])
+    return out
+
+
+def sp_ep_worker_phase(cli, coll, model: str, tok: str, which: str) -> dict:
+    """Phase 18a (``which`` "sp": ``--sp 2`` under ring, ``--tp 2 --sp 2``
+    under psum, over phase 5's 7B-width file at ``--max-seq-len``
+    SP_SEQ_LEN) or 18b ("ep": ``--ep 2`` and ``--tp 2 --ep 2`` under ring
+    over phase 8b's Mixtral-width file): each arm's one-process run in this
+    process, then two host processes running every arm (:func:`sp_ep_host`).
+    Checked per arm: under --ep each host's router ids per call equal the
+    one-process run's calls its ranks make, before the logits; the hosts'
+    logits hashes equal each other and the one-process run's; their ids
+    equal each other and the one-process run's; under --sp one ring pass
+    and ceil(300/32) chunk forwards; each host's file reads equal
+    ``weights.read_share`` of its ranks (and experts); K1 launched on every
+    host; under ring, K4 across the processes launched as many times as
+    the arm's cross-process sums (no K5). Printed: ms/token and device
+    busy per host, the ring pass's ms beside the one-process one, the
+    exchanges' bytes per ring pass and per decoded token, peak card
+    memory. Two contexts time-slice the card: no number here is a speed of
+    worker mode on several cards."""
+    from distributed_llama_tpu_torch.engine import weights
+    from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
+    from distributed_llama_tpu_torch.models import moe
+    from distributed_llama_tpu_torch.models.config import config_from_spec
+    from distributed_llama_tpu_torch.ops import q40
+    from distributed_llama_tpu_torch.parallel.hosts import axis_runs
+
+    reader = ModelFileReader(model)
+    cfg = config_from_spec(reader.spec)
+    arms = sp_ep_arms(model, tok, cfg.vocab_size, which)
+    refs = {}
+    for arm in arms:
+        engine = cli.make_engine(cli.build_parser().parse_args(["generate", *arm["flags"]]))[0]
+        refs[arm["label"]] = drive_sp_ep(engine, arm, coll, q40, moe)
+        print(f"{arm['label']} one process: prompt of {len(arm['prompt'])} tokens {refs[arm['label']]['prefill_ms']:.1f}"
+              f" ms, {len(refs[arm['label']]['tokens'])} greedy tokens", flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    res = spawn_hosts("sp_ep", 2, {"arms": arms, "ports": [_free_port() for _ in arms]}, f"sp_ep_{which}", "18")
+    print(f"hosts: {time.perf_counter() - t:.1f} s")
+    out: dict = {}
+    for arm in arms:
+        label, ref = arm["label"], refs[arm["label"]]
+        flags = arm["flags"]
+        tp = int(flags[flags.index("--tp") + 1]) if "--tp" in flags else 1
+        axis = which
+        inner = int(flags[flags.index(f"--{axis}") + 1])
+        runs = [hr[label] for hr in res]
+        L = cfg.n_layers
+        for h, r in enumerate(runs):
+            tps, inners = axis_runs(tp, inner, 2, h, axis)
+            if axis == "ep":
+                # ids first: the router calls this host's ranks make
+                spans = len(inners) < inner
+                want_ids = _host_router_calls(ref["ids"], h, len(inners), inner) if spans else ref["ids"]
+                check(r["ids"] == want_ids, f"{label} host {h}: the router's expert ids differ from the one-process "
+                      f"run's ({len(r['ids'])} calls vs {len(want_ids)})")
+            experts = None
+            if axis == "ep" and len(inners) < inner:
+                El = cfg.n_experts // inner
+                experts = range(inners.start * El, inners.stop * El)
+            want_bytes = weights.read_share(reader, cfg, tp, tps if tp > 1 else None, experts)
+            check(r["bytes_read"] == want_bytes, f"{label} host {h}: read {r['bytes_read']} bytes of the file, "
+                  f"expected {want_bytes}")
+            r["want_bytes_read"] = want_bytes
+            lc = r["launches"]
+            check(lc["k1_dp4a"] > 0 and lc["q40_int8"] > 0, f"{label} host {h}: K1 not launched: {lc}")
+            if "ring" in label:
+                # cross-process sums under ring: at --tp 2 --ep 2 tp's two per
+                # layer per forward (wo, the expert sum); at --ep 2 the ep
+                # combine of each dense-local (decode) forward; none at --sp 2
+                # (tp 1 sums nothing); never K5 across processes
+                if axis == "sp":
+                    want_k4 = 0
+                elif tp > 1:
+                    want_k4 = 2 * L * r["forwards"]
+                else:
+                    want_k4 = L * (r["forwards"] - 1)
+                check(lc["ring_all_reduce_ipc"] == want_k4 and lc["fused_matmul_ring"] == 0,
+                      f"{label} host {h}: launches {lc}, expected {want_k4} K4 across the processes and no K5")
+        check(runs[0]["logits_sha256"] == runs[1]["logits_sha256"], f"{label}: the hosts' logits differ")
+        check(runs[0]["logits_sha256"] == ref["logits_sha256"], f"{label}: the hosts' logits differ from the "
+              "one-process run's")
+        check(runs[0]["tokens"] == runs[1]["tokens"], f"{label}: the hosts' ids differ")
+        check(runs[0]["tokens"] == ref["tokens"], f"{label}: ids differ from the one-process run: "
+              f"{runs[0]['tokens']} vs {ref['tokens']}")
+        check(runs[0]["dispatches"] == runs[1]["dispatches"] == ref["dispatches"],
+              f"{label}: dispatches {[r['dispatches'] for r in runs]} vs one process {ref['dispatches']}")
+        if axis == "sp":
+            check(ref["dispatches"] == [1, -(-SP_DELTA_TOKENS // 32)], f"{label}: dispatches {ref['dispatches']}, "
+                  "want one ring pass and the delta's chunks")
+        row = dict(one_process=ref, hosts=runs)
+        print(f"{label}: both hosts' {len(ref['tokens'])} ids and logits hash equal each other and the one-process "
+              f"run's{' (router ids first)' if axis == 'ep' else ''}; dispatches {ref['dispatches']}; bytes read "
+              f"{[r['bytes_read'] for r in runs]} (stated {[r['want_bytes_read'] for r in runs]})", flush=True)
+        for h, r in enumerate(runs):
+            busy = r.get("device_busy_ms_per_token")
+            print(f"  host {h}: prompt {r['prefill_ms']:.1f} ms, again {r['prefill_again_ms']:.1f} (one process "
+                  f"{ref['prefill_ms']:.1f}, again {ref['prefill_again_ms']:.1f} ms); decode "
+                  f"{r['decode_ms_per_token']:.2f} ms/token (device busy "
+                  f"{'not measured' if busy is None else f'{busy:.2f} ms'}); exchanges per prompt "
+                  f"{r['prefill_exchange']}, per decoded token {r['decode_exchange_per_token']}; launches "
+                  f"{r['launches']}; peak {r['peak_card_gb']:.2f} GB; load {r['load_s']:.1f} s", flush=True)
+        out[label.split(" ", 1)[1]] = row
+    reader.close()
+    return out
 
 
 def _import_port(root: Path, name: str):
@@ -6431,9 +6778,10 @@ def main() -> None:
                         "the 7B-width server with the native encoder and its cold TTFT split, and a --tp 2 "
                         "--telemetry server's transfer-probe families)")
     parser.add_argument("--workers", action="store_true",
-                        help="phase 17 alone (worker mode: K4 across 2 and 4 processes on the card, and two "
-                        "--tp 2 worker processes at Llama-2-7B width)")
-    parser.add_argument("--host-task", default=None, help=argparse.SUPPRESS)  # one host of a phase-17 group
+                        help="phases 17 and 18 alone (worker mode: K4 across 2 and 4 processes on the card, two "
+                        "--tp 2 worker processes at Llama-2-7B width, then --sp 2 and --tp 2 --sp 2 there and "
+                        "--ep 2 and --tp 2 --ep 2 at Mixtral-8x7B width)")
+    parser.add_argument("--host-task", default=None, help=argparse.SUPPRESS)  # one host of a phase-17/18 group
     parser.add_argument("--k1-times", default=None, help=argparse.SUPPRESS)  # one tree's turn of --k1 --root
     parser.add_argument("--root", type=Path, default=ROOT,
                         help="with --k2, --k3 or --k5: the tree whose port is imported; with --k1: another tree "
@@ -6638,17 +6986,6 @@ def main() -> None:
         summary["k2_rows"] = k2_rows
         print(f"phase 6a: {time.perf_counter() - t:.1f} s")
 
-        # the TP_LAYERS-layer file: 6c's 16-row server and phases 9 to 12
-        # run over it in the full run (their depth cut to keep the
-        # run inside its time limit; --loadgen, --faults, --spill and
-        # --fleet alone keep all 32 layers); phase 5's file when it has as
-        # many layers (the same seed, the same bytes)
-        model_tp = model
-        if MAIN_LAYERS != TP_LAYERS:
-            model_tp = str(workdir / "llama2_7b_width_tp.m")
-            synthetic.write_random_q40_model(model_tp, synthetic.llama2_7b_spec(n_layers=TP_LAYERS, seq_len=4096),
-                                             seed=0)
-
         t = phase(f"6b. main path: the API server, --parallel 4, prefix cache, {MAIN_LAYERS} layers")
         # with telemetry, so the cold request's trace splits its TTFT (16b);
         # 16a runs on the idle server
@@ -6672,7 +7009,7 @@ def main() -> None:
         main_launches["q40_int8_mma"] = summary["server_i8_spec"]["k1_tile_launches"]["mma"]
         gc.collect()
         torch.cuda.empty_cache()
-        summary["server_wide"] = wide_spec_run(server_api, q40, model_tp, tok)
+        summary["server_wide"] = wide_spec_run(server_api, q40, model, tok)
         print(f"phase 6c: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
@@ -6695,29 +7032,29 @@ def main() -> None:
         torch.cuda.empty_cache()
 
         t = phase(f"9. the slice's path: the load generator against the API server with --telemetry, "
-                  f"{TP_LAYERS} layers")
-        summary["loadgen"] = loadgen_phase(server_api, attn, q40, model_tp, tok, smi)
+                  f"{MAIN_LAYERS} layers")
+        summary["loadgen"] = loadgen_phase(server_api, attn, q40, model, tok, smi)
         print(f"phase 9: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 
-        t = phase(f"10. the slice's path: fault containment and fair admission in the API server, {TP_LAYERS} "
+        t = phase(f"10. the slice's path: fault containment and fair admission in the API server, {MAIN_LAYERS} "
                   "layers")
-        summary["faults"] = faults_phase(server_api, attn, q40, model_tp, tok, smi)
+        summary["faults"] = faults_phase(server_api, attn, q40, model, tok, smi)
         print(f"phase 10: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 
         t = phase(f"11. the slice's path: the host spill tier and the replica pool in the API server, "
-                  f"{TP_LAYERS} layers")
-        summary["spill"] = spill_phase(server_api, model_tp, tok, smi, workdir)
+                  f"{MAIN_LAYERS} layers")
+        summary["spill"] = spill_phase(server_api, model, tok, smi, workdir)
         print(f"phase 11: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
 
         t = phase(f"12. the slice's path: the SDC canary, shadow votes, rollout and the fleet controller in the API "
-                  f"server, {TP_LAYERS} layers")
-        summary["fleet"] = fleet_phase(server_api, model_tp, tok, smi, workdir)
+                  f"server, {MAIN_LAYERS} layers")
+        summary["fleet"] = fleet_phase(server_api, model, tok, smi, workdir)
         print(f"phase 12: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
@@ -6741,9 +7078,8 @@ def main() -> None:
         print(f"phase 17: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
-        if model_tp != model:
-            os.remove(model_tp)  # room on the disk for phase 8's files
         sp_phases(cli, server_api, q40, coll, model, tok, summary, MAIN_LAYERS)
+        sp_worker_phases(cli, coll, model, tok, summary)
         os.remove(model)
 
         def after_8c(m, t_):
@@ -6753,6 +7089,7 @@ def main() -> None:
             summary["moe_tp_server"] = moe_tp_server_phase(server_api, attn, kvc, llama, q40, moe, m, t_)
             print(f"phase 14b: {time.perf_counter() - t14:.1f} s")
             ep_phases(cli, server_api, moe, q40, coll, m, t_, summary)
+            ep_worker_phases(cli, coll, m, t_, summary)
 
         moe_phases(cli, moe, q40, attn, kvc, llama, server_api, synthetic, write_tokenizer_file, workdir, summary,
                    after_8c=after_8c)
@@ -6886,6 +7223,34 @@ def main() -> None:
                         launches=summary["workers"]["k4_ipc_launches"],
                         max_abs_err=max(r["max_abs_err"] for r in summary["workers"]["k4_rows"]),
                         **{k: k4_ipc[k] for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms", "bound_by")}))
+    # phase 18's paths (worker mode, 2 processes): K1's tensor-core tile in
+    # 18a's --sp 2 ring pass (per call the ring pass's rows at --sp 4 as in
+    # q40_int8_mma_sp_ring, one rank's forward over the five 7B shapes), its
+    # launches host 0's; K1's dp4a tile in 18b's --ep 2 decode (one decoded
+    # token's dense-local expert launches: all 8 experts' gate_up and down
+    # per layer at T=1), its launches host 0's; K4 across the processes at
+    # the --ep 2 combine ([1, 4096] over 2 processes, phase 17a's row), its
+    # launches host 0's in 18b's --ep 2 ring run
+    sp_w = summary["sp_workers"]["sp=2 ring"]["hosts"][0]["launches"]
+    ep_w = summary["ep_workers"]["ep=2 ring"]["hosts"][0]["launches"]
+    src, replaces = KERNEL_INFO["q40_int8_mma"]
+    kernels.append(dict(
+        name="q40_int8_mma_sp_worker", route="cuda", source=src, replaces=replaces, launches=sp_w["k1_mma"],
+        max_abs_err=max(r["max_abs_err"] for r in sp_rows),
+        **{k: sum(r[k] * r["per_token"] for r in sp_rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in sp_rows) else "operations"))
+    ep_rows = [r for r in moe_rows if r["kernel"] == "q40_int8" and r["T"] == 1]
+    src, replaces = KERNEL_INFO["q40_int8"]
+    kernels.append(dict(
+        name="q40_int8_ep_worker", route="cuda", source=src, replaces=replaces, launches=ep_w["k1_dp4a"],
+        max_abs_err=max(r["max_abs_err"] for r in summary["moe_kernel_rows"] if r["kernel"] == "q40_int8"),
+        **{k: sum(r[k] * 8 * MIXTRAL_LAYERS for r in ep_rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in ep_rows) else "operations"))
+    src, replaces = KERNEL_INFO["ring_all_reduce"]
+    kernels.append(dict(name="ring_all_reduce_ipc_ep_worker", route="cuda", source=src,
+                        replaces=replaces + ", across processes", launches=ep_w["ring_all_reduce_ipc"],
+                        max_abs_err=max(r["max_abs_err"] for r in summary["workers"]["k4_rows"]),
+                        **{k: k4_ipc[k] for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms", "bound_by")}))
     summary["kernels"] = kernels
     end = time.perf_counter()
     summary["total_s"] = end - t_all
@@ -6920,7 +7285,12 @@ def main() -> None:
           "launch alone on the device, wall_ms a call with its staging and two barriers on the host's clock, "
           "library_ms the psum arm across the processes on the host's clock (host staging and gloo): compare "
           "library_ms with wall_ms, its launches host 0's "
-          f"in phase 17b's worker --tp 2 ring run ({MAIN_LAYERS} layers, the transfer probe's included)")
+          f"in phase 17b's worker --tp 2 ring run ({MAIN_LAYERS} layers, the transfer probe's included); "
+          "q40_int8_mma_sp_worker: as q40_int8_mma_sp_ring, its launches host 0's in phase 18a's worker --sp 2 run "
+          f"({MAIN_LAYERS} layers); q40_int8_ep_worker: one decoded token's dense-local expert launches at "
+          f"Mixtral-8x7B width (8 experts x gate_up and down x {MIXTRAL_LAYERS} layers, T=1), its launches host 0's "
+          f"in phase 18b's worker --ep 2 ring run; ring_all_reduce_ipc_ep_worker: as ring_all_reduce_ipc, its "
+          "launches host 0's in that run")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -36,9 +36,10 @@ of its input ends the session.
 ``worker`` is ``generate`` over several processes: every process runs the
 same command with ``--coordinator host:port --num-hosts H --host-id h``
 (host 0 serves the rendezvous), forms the group (:mod:`parallel.hosts`),
-holds ``--tp / H`` of the tensor-parallel ranks, reads only their shards
-of the `.m` file, and prints the same tokens; host 0's sampling seed is
-every host's. It writes no Chrome trace. ``--nthreads``,
+holds 1/H of the ranks (``--tp``, or ``--tp`` x ``--sp`` / ``--ep`` in the
+JAX mesh's order), reads only their shards of the `.m` file (under
+``--ep`` only its ranks' experts), and prints the same tokens; host 0's
+sampling seed is every host's. It writes no Chrome trace. ``--nthreads``,
 ``--buffer-float-type`` and ``--weights-float-type`` are accepted for
 parity with the reference's command line and do nothing; a
 ``--kv-cache-storage`` other than ``ram`` is refused.
@@ -411,7 +412,8 @@ def chat(args, built=None) -> dict:
 def worker(args) -> dict:
     """Worker mode: join the group of ``--num-hosts`` processes at
     ``--coordinator`` as ``--host-id`` and run ``generate`` with this
-    process's share of the ``--tp`` ranks. Every host runs the same flags;
+    process's share of the ranks (``--tp``, with ``--sp`` or ``--ep``).
+    Every host runs the same flags;
     without ``--seed`` host 0's wall-clock seed is broadcast, so sampled
     streams agree across hosts. Returns ``generate``'s result with
     ``bytes_read``, the `.m` bytes this process read, ``forwards``, the
@@ -419,9 +421,10 @@ def worker(args) -> dict:
     used."""
     if args.coordinator is None:
         raise SystemExit(NO_COORDINATOR)
-    from distributed_llama_tpu_torch.parallel.hosts import HostGroup, local_ranks
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup, rank_placement
 
-    local_ranks(args.tp, args.num_hosts, args.host_id)  # --tp a multiple of --num-hosts, before any rendezvous
+    # the rank count a multiple of --num-hosts, before any rendezvous
+    rank_placement(args.tp, args.sp * args.ep, args.num_hosts, args.host_id)
     with HostGroup(args.coordinator, args.num_hosts, args.host_id) as group:
         # after joining, a missing prompt is a contract violation: a
         # defaulted one would diverge from the other hosts' program

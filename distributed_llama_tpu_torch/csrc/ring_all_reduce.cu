@@ -39,6 +39,14 @@
 // time-slice, and a flag spun on in device memory could stall a whole slice
 // or hang. Every process folds every chunk in the same order, so all hold
 // the same bytes.
+//
+// The sequence- and expert-parallel exchanges across processes (the ring
+// pass's rotation of K/V chunks, the gather of attention partials, the
+// expert all_to_alls and all_gather) use the same buffers and events with
+// another second half: ring_ipc_fetch waits on every peer's "ready",
+// copies the slot ranges the process needs out of the mapped buffers into
+// its own tensors (device-to-device, never through the host) and records
+// "done". The copies move bytes unchanged.
 
 #include <algorithm>
 #include <cstdint>
@@ -216,4 +224,19 @@ extern "C" int ring_ipc_reduce(int device, const void* const* ins, void* const* 
   int err = reduce(ins, outs, n, m, rows, d, stream);
   if (err != 0) return err;
   return (int)cudaEventRecord(static_cast<cudaEvent_t>(done), s);
+}
+
+// The other second half (the exchanges): the stream waits on each peer's
+// "ready" event, copies `count` ranges of `bytes` each from `srcs` (own or
+// mapped slots) to `dsts`, and records this process's "done" event.
+extern "C" int ring_ipc_fetch(int device, const void* const* srcs, void* const* dsts, int count, long long bytes,
+                              void* const* peer_ready, int n_peers, void* done, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  for (int p = 0; p < n_peers && e == cudaSuccess; ++p)
+    e = cudaStreamWaitEvent(s, static_cast<cudaEvent_t>(peer_ready[p]), 0);
+  for (int j = 0; j < count && e == cudaSuccess; ++j)
+    e = cudaMemcpyAsync(dsts[j], srcs[j], (size_t)bytes, cudaMemcpyDeviceToDevice, s);
+  if (e == cudaSuccess) e = cudaEventRecord(static_cast<cudaEvent_t>(done), s);
+  return (int)e;
 }

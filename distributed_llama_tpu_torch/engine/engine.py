@@ -556,12 +556,14 @@ class InferenceEngine:
     Both are single-stream backends: the batch scheduler refuses them.
 
     ``hosts`` (a :class:`parallel.hosts.HostGroup` of several processes):
-    worker mode. The ``tp`` ranks spread over the group's processes, this
-    one running its host's run of them on its own card; the backend is
-    built before the weights, as in the JAX engine, and only this
-    process's ranks' shards are read (:attr:`bytes_read` counts the file
-    bytes the load read). ``sp`` and ``ep`` are not ported over processes
-    (NotImplementedError)."""
+    worker mode. The ``tp`` ranks (``tp x sp``, ``tp x ep``) spread over
+    the group's processes in the JAX mesh's order
+    (:func:`parallel.hosts.rank_placement`), this one running its host's
+    run of them on its own card; the backend is built before the weights,
+    as in the JAX engine, and only this process's ranks' shards (and under
+    ``ep`` its ep ranks' experts) are read (:attr:`bytes_read` counts the
+    file bytes the load read, :func:`engine.weights.read_share` states
+    them)."""
 
     TRANSFER_REFRESH_TOKENS = 512
     # True for a pod slice's engine, whose params object other engines read
@@ -582,9 +584,6 @@ class InferenceEngine:
         from distributed_llama_tpu_torch.ops.collectives import spans_hosts
 
         hosts = hosts if spans_hosts(hosts) else None
-        if hosts is not None and (sp > 1 or ep > 1):
-            raise NotImplementedError("--sp and --ep in worker mode are not ported "
-                                      "(ROADMAP.md Queue 1: --sp/--ep in worker mode)")
         self.q40_path = q40_path
         # the instrument bundle and the fault plan, bound once: null
         # instruments unless telemetry was enabled before this engine was
@@ -609,23 +608,26 @@ class InferenceEngine:
             from distributed_llama_tpu_torch.parallel import expert_parallel
 
             self.tp_backend = expert_parallel.ExpertParallelForward(
-                self.cfg, ep, tp=tp, device=self.device, quantized=quantized, allreduce=allreduce)
+                self.cfg, ep, tp=tp, device=self.device, quantized=quantized, allreduce=allreduce, hosts=hosts)
         elif sp > 1:
             from distributed_llama_tpu_torch.parallel import context_parallel
 
             self.tp_backend = context_parallel.SequenceParallelForward(
-                self.cfg, sp, tp=tp, device=self.device, quantized=quantized, allreduce=allreduce)
+                self.cfg, sp, tp=tp, device=self.device, quantized=quantized, allreduce=allreduce, hosts=hosts)
         elif tp > 1:
             self.tp_backend = tensor_parallel.TensorParallelForward(
                 self.cfg, tp, device=self.device, quantized=quantized, allreduce=allreduce, hosts=hosts)
         elif hosts is not None:
-            raise ValueError(f"worker mode needs --tp a multiple of --num-hosts {hosts.num_hosts}, got {tp}")
+            raise ValueError(f"worker mode needs --tp (times --sp or --ep) a multiple of --num-hosts "
+                             f"{hosts.num_hosts}, got {tp}")
         if cache_dtype is None:
             # q40 is a weights-only format; its KV cache is bf16
             cache_dtype = torch.bfloat16 if dtype == weights_lib.QUANTIZED_DTYPE else dtype
         self.cache_dtype = cache_dtype
-        self.params = weights_lib.load_params(reader, self.cfg, dtype=dtype, device=self.device, tp=tp, ep=ep,
-                                              ranks=None if hosts is None else self.tp_backend.ranks)
+        self.params = weights_lib.load_params(
+            reader, self.cfg, dtype=dtype, device=self.device, tp=tp, ep=ep,
+            ranks=None if hosts is None else self.tp_backend.ranks,
+            experts=None if hosts is None or ep == 1 else self.tp_backend.local_experts)
         self.bytes_read = reader.bytes_read
         reader.close()
         self._init_runtime()

@@ -19,6 +19,13 @@ parallelism each tp rank's list of experts is the ep ranks' whole experts
 in rank order (rank j's the contiguous run [j*E/ep, (j+1)*E/ep)), so the
 same load serves it; under sequence parallelism the params are the tensor
 parallel ones, read by every sp rank.
+
+In worker mode each process reads only what its ranks need
+(:func:`read_share` states it, and ``reader.bytes_read`` counts it): its
+tp ranks' shards (``ranks``) and, under ``--ep`` with the ep axis across
+the processes, only its ep ranks' experts (``experts``). Its sp ranks
+share their tp rank's tree, so a ``--sp`` process at tp = 1 reads the
+whole file, as a JAX process of that mesh does.
 """
 
 from __future__ import annotations
@@ -40,8 +47,32 @@ Params = dict[str, Any]
 QUANTIZED_DTYPE = "q40"  # keep matmul weights 4-bit on the device
 
 
+# the matrices the tensor-parallel rule table cuts over tp (each rank reads
+# 1/tp of their bytes); wcls too where the vocab divides, the rest whole
+TP_CUT = ("q", "k", "v", "wo", "gate", "up", "down")
+
+
+def read_share(reader: ModelFileReader, cfg: LlamaConfig, tp: int = 1, ranks=None, experts=None) -> int:
+    """The `.m` bytes a :func:`load_params` of ``ranks`` (default all tp
+    ranks) and ``experts`` (default all) reads, as the sum of the file
+    entries it needs: each entry the rule table leaves whole once (the
+    embedding, the norms, the routers; wcls where the vocab does not
+    divide), each entry it cuts over tp (:data:`TP_CUT`, wcls where the
+    vocab divides) times len(ranks)/tp, and of the experts' entries only
+    those of ``experts``."""
+    n_local = tp if ranks is None else len(ranks)
+    total = 0
+    for name, e in reader.entries.items():
+        parts = name.split(".")
+        if experts is not None and len(parts) > 3 and parts[2] == "experts" and int(parts[3]) not in experts:
+            continue
+        cut = tp > 1 and (parts[-1] in TP_CUT or (name == "wcls" and cfg.vocab_size % tp == 0))
+        total += e.nbytes * n_local // tp if cut else e.nbytes
+    return total
+
+
 def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=QUANTIZED_DTYPE,
-                device="cuda", tp: int = 1, ep: int = 1, ranks=None):
+                device="cuda", tp: int = 1, ep: int = 1, ranks=None, experts=None):
     """Build the params dict on ``device`` (the card unless "cpu" is
     asked for). ``dtype`` is "q40", torch.bfloat16 or torch.float32 for the
     matmul weights. ``tp`` > 1 returns one params dict per rank, each
@@ -57,7 +88,10 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
     run without a copy). ``ranks``: the global tp ranks this process holds
     (worker mode, :mod:`parallel.hosts`); only their byte ranges are read,
     each rank built exactly as the one-process load builds it, and the
-    result is their list, in that order."""
+    result is their list, in that order. ``experts``: the run of experts
+    this process's ep ranks own (worker mode under ``--ep``); only their
+    entries are read, and each rank's expert list (or bank) holds them
+    alone, in order. The bytes read are :func:`read_share`'s."""
     from distributed_llama_tpu_torch.parallel import sharding
     from distributed_llama_tpu_torch.parallel.tensor_parallel import validate_tp
 
@@ -121,18 +155,19 @@ def load_params(reader: ModelFileReader, cfg: LlamaConfig | None = None, dtype=Q
     routers = [router(l) for l in range(cfg.n_layers)] if cfg.is_moe else []
 
     def moe_leaves(l: int, s: int) -> Params:
-        """Layer l's router and rank s's slice of every expert."""
-        experts = [f"layers.{l}.experts.{e}." for e in range(cfg.n_experts)]
+        """Layer l's router and rank s's slice of every expert (of
+        ``experts``)."""
+        names = [(e, f"layers.{l}.experts.{e}.") for e in (range(cfg.n_experts) if experts is None else experts)]
         leaves = {"router": routers[l]}
         if quantized:
             leaves["experts"] = [
                 {"gate_up": matmul_leaf(f"layers/{l}/experts/{e}/gate_up", [ep + "gate", ep + "up"], s),
                  "down": matmul_leaf(f"layers/{l}/experts/{e}/down", [ep + "down"], s)}
-                for e, ep in enumerate(experts)]
+                for e, ep in names]
         else:
             for leaf in ("up", "gate", "down"):
                 leaves[f"moe_{leaf}"] = torch.stack(
-                    [matmul_leaf(f"layers/{l}/moe_{leaf}", [ep + leaf], s, bank=True) for ep in experts])
+                    [matmul_leaf(f"layers/{l}/moe_{leaf}", [ep + leaf], s, bank=True) for _, ep in names])
         return leaves
 
     wcls_full = matmul_leaf("wcls", ["wcls"], 0) if table.cut("wcls") is None else None

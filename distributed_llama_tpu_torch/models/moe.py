@@ -228,13 +228,14 @@ def moe_ffn_tp(cfg: LlamaConfig, xns: list, lps: list, n_real: int | None = None
     the experts over that many expert-parallel ranks instead
     (:func:`parallel.expert_parallel.ep_moe_ffn`, whatever the row count;
     ``n_real`` unread, as the JAX package's expert-parallel forward takes
-    none), the all-reduce over the tp ranks on top (over ``group``'s
+    none; in worker mode ``ep`` is this process's share of the axis, an
+    ``EpRanks``), the all-reduce over the tp ranks on top (over ``group``'s
     processes in worker mode, whose routing every process computes from
     the same bytes). Returns each rank's [T, dim] f32 sum."""
     from distributed_llama_tpu_torch.ops import collectives
 
     xn, router = xns[0], lps[0]["router"]
-    if ep > 1:
+    if getattr(ep, "n", ep) > 1:
         from distributed_llama_tpu_torch.parallel.expert_parallel import ep_moe_ffn
 
         outs = ep_moe_ffn(cfg, xns, lps, ep, path=path, impl=impl)

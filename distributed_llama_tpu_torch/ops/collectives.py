@@ -36,6 +36,20 @@ processes, so :func:`fused_ring_eligible` is False there and the ``ring``
 arm runs each rank's K1 and then K4 (K5's own contract says that is the
 same bytes).
 
+The sequence- and expert-parallel backends exchange more than sums across
+processes; :func:`exchange` is the one move under all of them: every
+process stages its tensors and takes the slot ranges it needs from every
+process. On the card it runs over K4's IPC staging (:meth:`IpcRing.exchange`:
+a stage, a host barrier, device-to-device copies out of the peers' mapped
+slots, a barrier), so nothing passes through host memory, under every
+``--allreduce`` arm; on the CPU it is the group's gather through the
+host. Its forms, each the one-process list operation when ``group`` does
+not span processes and the same bytes in the same order when it does:
+:func:`ring_rotate` (the ring pass's ``ppermute``), :func:`rank_gather`
+(the attention partials before the ``pmax``/``psum`` merge, and the
+``all_gather`` of rows) and :func:`all_to_all` (the expert dispatch's two
+exchanges).
+
 Each kernel wrapper launches its kernel for CUDA tensors or raises, counts
 the launch in :data:`launches`, and computes the kernel's plain version for
 CPU tensors. There is no fallback between arms: a failed IPC open, event or
@@ -316,6 +330,46 @@ class IpcRing:
         bases = {self.group.host_id: self.own.value, **{h: p.value for h, p in self.mapped.items()}}
         return [bases[h] + j * self.slot_bytes for h in range(self.group.num_hosts) for j in range(self.m)]
 
+    def exchange(self, xs: list, picks: list) -> list:
+        """Stage this process's tensors ``xs`` (at most ``m``, one shape and
+        dtype), barrier, copy each pick (global slot, row or None; every
+        pick of one kind) out of the owning process's slot, barrier. Slots
+        of this process are returned as views of ``xs``; every other pick is
+        a new tensor holding the staged bytes."""
+        x0 = xs[0]
+        nbytes = x0.numel() * x0.element_size()
+        if len(xs) > self.m:
+            raise ValueError(f"exchange: {len(xs)} tensors, {self.m} slots")
+        if len({row is None for _, row in picks}) > 1:
+            raise ValueError("exchange: whole slots and rows in one call")
+        if nbytes > self.slot_bytes:
+            self._grow(nbytes)
+        g, m = self.group, len(xs)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        q40._check_launch(_ipc("ring_ipc_stage")(
+            self.index, _ptrs(xs), m, self.own, self.slot_bytes, nbytes, self.peer_events["done"],
+            len(self.peers), self.events["ready"], stream), "ring_ipc_stage")
+        g.barrier()  # every peer's "ready" record is issued
+        bases = {h: p.value for h, p in self.mapped.items()}
+        row_bytes = nbytes // x0.shape[0] if x0.dim() else nbytes
+        outs, srcs, dsts, size = [], [], [], nbytes
+        for slot, row in picks:
+            h, j = divmod(slot, m)
+            if h == g.host_id:
+                outs.append(xs[j] if row is None else xs[j][row])
+                continue
+            out = torch.empty(x0.shape if row is None else x0.shape[1:], dtype=x0.dtype, device=self.device)
+            srcs.append(bases[h] + j * self.slot_bytes + (0 if row is None else row * row_bytes))
+            dsts.append(out.data_ptr())
+            outs.append(out)
+            size = nbytes if row is None else row_bytes
+        q40._check_launch(_ipc("ring_ipc_fetch")(
+            self.index, (ctypes.c_void_p * max(1, len(srcs)))(*srcs), (ctypes.c_void_p * max(1, len(dsts)))(*dsts),
+            len(srcs), size, self.peer_events["ready"], len(self.peers), self.events["done"], stream),
+            "ring_ipc_fetch")
+        g.barrier()  # every peer's "done" record is issued before any stages again
+        return outs
+
     def all_reduce(self, xs: list) -> list:
         """One cross-process K4 call over this process's partials ``xs``
         (f32 [..., d], one per local rank): stage, barrier, reduce,
@@ -367,6 +421,69 @@ def ring_all_reduce_ipc(xs: list, group) -> list:
     launches["ring_all_reduce_ipc"] += 1
     telemetry.note_kernel_path("all_reduce", "k4_ring")
     return outs
+
+
+# ---------------------------------------------------------------------------
+# The sequence- and expert-parallel exchanges (worker mode: the ranks of an
+# axis spread over the group's processes, each holding a contiguous run)
+# ---------------------------------------------------------------------------
+
+
+def exchange(xs: list, group, picks: list) -> list:
+    """Every process stages its tensors ``xs`` (the same count, shape and
+    dtype on every process) and gets back, per ``(slot, row)`` of
+    ``picks``, global slot ``slot``'s tensor (host h's ``xs[j]`` is slot
+    h * len(xs) + j), or with ``row`` its entry ``row`` along the first
+    axis. The bytes move unchanged. On the card through the IPC staging
+    (:meth:`IpcRing.exchange`: device to device, no host copy; a failed
+    open, event or copy raises), on the CPU through the group's gather."""
+    xs = [x.contiguous() for x in xs]
+    dev = xs[0].device
+    if dev.type == "cuda":
+        return open_ipc_ring(group, len(xs), dev).exchange(xs, picks)
+    if dev.type != "cpu":
+        raise ValueError(f"exchange: unsupported device {dev}")
+    every = group.gather_ranks(xs)
+    return [every[slot] if row is None else every[slot][row] for slot, row in picks]
+
+
+def ring_rotate(xs: list, group=None) -> list:
+    """One step of the ring pass's ``ppermute`` (rank j sends to rank j+1,
+    rank n-1 to rank 0) over ``xs``, the ranks' entries in rank order (this
+    process's run of them with a ``group`` spanning processes): afterwards
+    rank i holds what rank i-1 held. One process: a rotation of the list.
+    Across processes the run's first entry is the previous host's last,
+    moved by :func:`exchange` (a chunk of the ring pass is S/sp rows of K
+    and V, 32 MiB per layer at 7B width and sp 2: card to card)."""
+    if not spans_hosts(group):
+        return [xs[-1]] + list(xs[:-1])
+    prev = (group.host_id - 1) % group.num_hosts
+    return exchange([xs[-1]], group, [(prev, None)]) + list(xs[:-1])
+
+
+def rank_gather(xs: list, group=None) -> list:
+    """Every rank's entry in global rank order from ``xs``, this process's
+    run of the ranks (all of them in one process, where this is the list
+    itself): the gather under the sequence-parallel merge's ``pmax`` and
+    ``psum``\\ s and under the expert dispatch's ``all_gather``, through
+    :func:`exchange`."""
+    if not spans_hosts(group):
+        return list(xs)
+    return exchange(xs, group, [(s, None) for s in range(len(xs) * group.num_hosts)])
+
+
+def all_to_all(xs: list, n: int, group=None) -> list:
+    """The ``all_to_all`` of ``n`` ranks: ``xs`` holds this process's ranks'
+    tensors (all ``n`` in one process), each indexed on its first axis by
+    the destination rank; returns for each of this process's ranks r the
+    list over source ranks s of ``x_s[r]``. One process: index moves;
+    across processes through :func:`exchange`."""
+    if not spans_hosts(group):
+        return [[xs[s][r] for s in range(n)] for r in range(n)]
+    first = group.host_id * len(xs)
+    picks = [(s, r) for r in range(first, first + len(xs)) for s in range(n)]
+    got = exchange(xs, group, picks)
+    return [got[k * n : (k + 1) * n] for k in range(len(xs))]
 
 
 # ---------------------------------------------------------------------------

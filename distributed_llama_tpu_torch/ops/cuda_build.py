@@ -54,6 +54,7 @@ SYMBOLS = {
         "ring_ipc_event_destroy": [_I, _P],
         "ring_ipc_stage": [_I, _PP, _I, _P, _LL, _LL, _PP, _I, _P, _P],
         "ring_ipc_reduce": [_I, _PP, _PP, _I, _I, _LL, _I, _PP, _I, _P, _P],
+        "ring_ipc_fetch": [_I, _PP, _PP, _I, _LL, _PP, _I, _P, _P],
     },
     "fused_matmul_ring": {"fused_matmul_ring_cluster": [_I, ctypes.POINTER(ctypes.c_int)]},
     "paged_attention": {

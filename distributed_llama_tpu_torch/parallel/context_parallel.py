@@ -30,10 +30,24 @@ by every sp rank, and computes once per tp rank what every sp rank
 computes identically: a chunk's and a decode step's embedding,
 projections, FFN and logits. Only the ring pass's token chunks, each
 rank's cache slice and its attention partials are per rank.
+
+Worker mode (``hosts``, :mod:`parallel.hosts`) spreads the ``tp x sp``
+ranks over processes in the JAX mesh's order: a process holds every sp
+rank of a run of tp ranks (the sp exchanges stay in the process, the tp
+sums and the logits' gather go through the group), or at tp = 1 a run of
+the sp ranks. Then each process computes the per-tp-rank parts itself
+(every process computes the same bytes from the same inputs), writes
+only its own cache slices, and the sp exchanges cross the processes
+through :mod:`ops.collectives`: the ring's rotation of K/V chunks
+(:func:`~ops.collectives.ring_rotate`, card to card), the gather of the
+ranks' partials before the max and two sums (:func:`~ops.collectives.rank_gather`:
+every process merges every rank's partials in rank order, so all hold the
+one-process bytes), and the gather of the ring pass's logits rows.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import torch
@@ -47,7 +61,6 @@ from distributed_llama_tpu_torch.parallel import sharding
 from distributed_llama_tpu_torch.parallel.tensor_parallel import (
     TransferProbeMixin,
     check_allreduce,
-    rank_devices,
     rank_params,
     validate_tp,
 )
@@ -59,34 +72,60 @@ from distributed_llama_tpu_torch.platform import to_device
 SP_ATT_CHUNK = 512
 
 
-def ring_attention(qs: list, ks: list, vs: list, offsets: list | None = None) -> list:
+@dataclasses.dataclass(frozen=True)
+class SpRanks:
+    """The sp ranks a process runs: ``ranks``, a run of the ``n`` global
+    ones (all of them in one process); ``group`` carries the sp exchanges
+    where the run is part of the axis, ``tp_group`` the tp collectives
+    where this process holds part of the tp axis (at most one of them is
+    set, :func:`parallel.hosts.axis_runs`)."""
+
+    n: int
+    ranks: range
+    group: object = None
+    tp_group: object = None
+
+
+def ring_attention(qs: list, ks: list, vs: list, offsets: list | None = None, ranks: range | None = None,
+                   group=None) -> list:
     """Causal blockwise attention with the sequence cut over the ranks:
     rank i's queries ``qs[i]`` [Tq, H, hd] sit at positions
     ``offsets[i]`` + 0..Tq-1 (default i*Tq), its key and value chunk
     ``ks[i]``/``vs[i]`` [Tk, K, hd] (cache dtype) at i*Tk + 0..Tk-1. At
-    step s rank i holds chunk (i - s) % n, as after s rotations of the
-    JAX package's ring (rank j sends to j+1); a chunk wholly in a rank's
-    future is the empty partial, which merges as an exact identity.
-    Returns each rank's output [Tq, H, hd] f32."""
-    n = len(qs)
-    outs = []
-    for i, q in enumerate(qs):
+    step s rank i holds chunk (i - s) % n: after every step each rank's
+    held chunk moves one rank on, the JAX ring's ``ppermute``
+    (:func:`ops.collectives.ring_rotate`: a rotation of the list in one
+    process; with ``group`` spanning processes, ``qs``/``ks``/``vs`` are
+    the ``ranks`` run this process holds, and a (K, V) pair crosses to the
+    next process card to card). A chunk wholly in a rank's future is the
+    empty partial, which merges as an exact identity. Returns each of the
+    entries' ranks' output [Tq, H, hd] f32."""
+    spans = collectives.spans_hosts(group)
+    ranks = range(len(qs)) if ranks is None else ranks
+    n = len(qs) * (group.num_hosts if spans else 1)
+    # contiguous chunks in both forms: a received chunk is a contiguous
+    # copy, and the attention must see one layout wherever a chunk came from
+    held = [torch.stack((k, v)) if spans else (k.contiguous(), v.contiguous()) for k, v in zip(ks, vs)]
+    state = []
+    for j, (i, q) in enumerate(zip(ranks, qs)):
         Tq, H, hd = q.shape
         K = ks[0].shape[1]
         dev = q.device
         qg = q.reshape(Tq, K, H // K, hd).to(torch.float32)
-        base = i * Tq if offsets is None else offsets[i]
-        q_pos = base + torch.arange(Tq, device=dev)
+        base = i * Tq if offsets is None else offsets[j]
         m = torch.full((Tq, K, H // K), float("-inf"), dtype=torch.float32, device=dev)
-        l = torch.zeros_like(m)
-        o = torch.zeros((Tq, K, H // K, hd), dtype=torch.float32, device=dev)
-        for s in range(n):
+        state.append([qg, base + torch.arange(Tq, device=dev), m, torch.zeros_like(m),
+                      torch.zeros((Tq, K, H // K, hd), dtype=torch.float32, device=dev)])
+    for s in range(n):
+        for i, st, (kc, vc) in zip(ranks, state, held):
             src = (i - s) % n
-            Tk = ks[src].shape[0]
-            k_pos = src * Tk + torch.arange(Tk, device=dev)
-            m, l, o = merge_partials(m, l, o, *chunk_attention(qg, ks[src], vs[src], q_pos, k_pos))
-        outs.append((o / torch.clamp_min(l, 1e-30)[..., None]).reshape(Tq, H, hd))
-    return outs
+            Tk = kc.shape[0]
+            k_pos = src * Tk + torch.arange(Tk, device=kc.device)
+            st[2:] = merge_partials(*st[2:], *chunk_attention(st[0], kc, vc, st[1], k_pos))
+        if s < n - 1:
+            held = collectives.ring_rotate(held, group)
+    return [(o / torch.clamp_min(l, 1e-30)[..., None]).reshape(qg.shape[0], -1, qg.shape[-1])
+            for qg, _, _, l, o in state]
 
 
 def _slice_partials(qg: torch.Tensor, keys, values, pos: int, base: int):
@@ -106,16 +145,40 @@ def _slice_partials(qg: torch.Tensor, keys, values, pos: int, base: int):
     return chunk_attention(qg, keys, values, pos + torch.arange(T, device=dev), base + torch.arange(Sl, device=dev))
 
 
-def sp_sharded_attention(q: torch.Tensor, k_slices: list, v_slices: list, pos: int) -> torch.Tensor:
+def _gather_partials(parts: list, group) -> list:
+    """Every sp rank's (max, exp-sum, output) partials in rank order from
+    this process's ranks' ``parts``: each rank's three packed as bytes into
+    one tensor, :func:`ops.collectives.rank_gather`, unpacked. The
+    partials are [T, K, M(, hd)] per layer: small, one exchange each."""
+    if not collectives.spans_hosts(group):
+        return parts
+    metas = [(t.dtype, t.shape, t.numel() * t.element_size()) for t in parts[0]]
+    packed = [torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in part]) for part in parts]
+    out = []
+    for buf in collectives.rank_gather(packed, group):
+        part, at = [], 0
+        for dtype, shape, nbytes in metas:
+            part.append(buf[at : at + nbytes].view(dtype).reshape(shape))
+            at += nbytes
+        out.append(tuple(part))
+    return out
+
+
+def sp_sharded_attention(q: torch.Tensor, k_slices: list, v_slices: list, pos: int, ranks: range | None = None,
+                         group=None) -> torch.Tensor:
     """Attention of the query rows q [Tq, H, hd] at positions pos..pos+Tq-1
     over a sequence-cut cache: rank i's slice ``k_slices[i]``/``v_slices[i]``
-    [Sl, K, hd] holds slots i*Sl..(i+1)*Sl-1. Each rank's partials, then the
-    JAX package's pmax and two psums as a max and two sums over the ranks in
-    rank order. Returns [Tq, H, hd] f32."""
+    [Sl, K, hd] holds slots i*Sl..(i+1)*Sl-1 (with ``group`` spanning
+    processes the slices are this process's ``ranks``). Each rank's
+    partials, every rank's gathered in rank order, then the JAX package's
+    pmax and two psums as a max and two sums over the ranks in rank order.
+    Returns [Tq, H, hd] f32."""
     Sl, K, hd = k_slices[0].shape
     Tq, H = q.shape[0], q.shape[1]
+    ranks = range(len(k_slices)) if ranks is None else ranks
     qg = q.reshape(Tq, K, H // K, hd).to(torch.float32)
-    parts = [_slice_partials(qg, k, v, pos, i * Sl) for i, (k, v) in enumerate(zip(k_slices, v_slices))]
+    parts = _gather_partials([_slice_partials(qg, k, v, pos, i * Sl) for i, k, v in zip(ranks, k_slices, v_slices)],
+                             group)
     g_m = parts[0][0]
     for m, _, _ in parts[1:]:
         g_m = torch.maximum(g_m, m)
@@ -127,10 +190,11 @@ def sp_sharded_attention(q: torch.Tensor, k_slices: list, v_slices: list, pos: i
     return (g_o / torch.clamp_min(g_l, 1e-30)[..., None]).reshape(Tq, H, hd)
 
 
-def sp_decode_attention(q: torch.Tensor, k_slices: list, v_slices: list, pos: int) -> torch.Tensor:
+def sp_decode_attention(q: torch.Tensor, k_slices: list, v_slices: list, pos: int, ranks: range | None = None,
+                        group=None) -> torch.Tensor:
     """One-token attention over a sequence-cut cache: the Tq = 1 case of
     :func:`sp_sharded_attention`, q [H, hd] at ``pos``. Returns [H, hd]."""
-    return sp_sharded_attention(q[None], k_slices, v_slices, pos)[0]
+    return sp_sharded_attention(q[None], k_slices, v_slices, pos, ranks, group)[0]
 
 
 class SequenceParallelForward(TransferProbeMixin):
@@ -139,7 +203,9 @@ class SequenceParallelForward(TransferProbeMixin):
     backend's (one tree per tp rank, read by every sp rank); caches are
     ``caches[t][i][l]``, tp rank t's sp slice i of layer l, a fused
     [2, S/sp, K/tp, hd] leaf (:meth:`init_cache`). A single-stream backend,
-    like the JAX package's: no batched decode."""
+    like the JAX package's: no batched decode. In worker mode (``hosts``)
+    params and caches hold this process's ranks only: tp ranks
+    :attr:`ranks` and sp ranks :attr:`sp_ranks`."""
 
     # a prompt at position 0 whose length times this reaches seq_len takes
     # the ring pass; shorter prompts and every prompt past position 0 take
@@ -147,7 +213,7 @@ class SequenceParallelForward(TransferProbeMixin):
     RING_PREFILL_FRACTION = 4
 
     def __init__(self, cfg: LlamaConfig, sp: int, tp: int = 1, device="cuda", quantized: bool = False,
-                 allreduce: str = "psum", devices=None):
+                 allreduce: str = "psum", devices=None, hosts=None):
         if cfg.seq_len % sp:
             raise ValueError(f"sp={sp} must divide seq_len={cfg.seq_len}")
         if tp > 1:
@@ -157,7 +223,9 @@ class SequenceParallelForward(TransferProbeMixin):
         self.sp = sp
         self.tp = tp
         self.allreduce = allreduce
-        self.devices = rank_devices(tp * sp, device, devices)
+        self._place_ranks(sp, "sp", hosts, device, devices, allreduce)
+        self.sp_ranks = self.inner_ranks
+        self.lay = SpRanks(sp, self.sp_ranks, self.inner_group, self.tp_group)
         # the engine must not bucket-pad prompts for this backend: it pads
         # the ring pass to seq_len and cuts the rest into fixed-width chunks
         self.prefers_exact_mid_prefill = True
@@ -191,8 +259,8 @@ class SequenceParallelForward(TransferProbeMixin):
         leaf[sharding.CACHE_SEQ_AXIS] //= self.sp
         leaf[sharding.CACHE_KV_HEAD_AXIS] //= self.tp
         dev = self.devices[0]
-        return [[[kvc.init_fused(tuple(leaf[1:]), dtype, dev) for _ in range(cfg.n_layers)] for _ in range(self.sp)]
-                for _ in range(self.tp)]
+        return [[[kvc.init_fused(tuple(leaf[1:]), dtype, dev) for _ in range(cfg.n_layers)] for _ in self.sp_ranks]
+                for _ in self.ranks]
 
     def forward(self, params, tokens: torch.Tensor, caches: list, pos: int, path: str = "int8",
                 n_real: int | None = None):
@@ -210,7 +278,7 @@ class SequenceParallelForward(TransferProbeMixin):
         self._dispatch_local.n = 1
         with self._dispatch_lock:
             if T == 1:
-                return _sp_decode_step(cfg, ranks, tokens, caches, pos, path, self.allreduce), caches
+                return _sp_decode_step(cfg, ranks, tokens, caches, pos, path, self.allreduce, self.lay), caches
             S = cfg.seq_len
             if pos != 0 or T * self.RING_PREFILL_FRACTION < S:
                 CH = self.mid_prefill_chunk
@@ -221,43 +289,48 @@ class SequenceParallelForward(TransferProbeMixin):
                     c = chunk.shape[0]
                     if c < CH:
                         chunk = torch.nn.functional.pad(chunk, (0, CH - c))
-                    rows.append(_sp_chunk_forward(cfg, ranks, chunk, caches, p, path, self.allreduce)[:c])
+                    rows.append(_sp_chunk_forward(cfg, ranks, chunk, caches, p, path, self.allreduce, self.lay)[:c])
                     p += c
                 self._dispatch_local.n = -(-T // CH)
                 return torch.cat(rows), caches
             if T != S:
                 tokens = torch.nn.functional.pad(tokens, (0, S - T))
-            return _sp_prefill(cfg, ranks, tokens, caches, path, self.allreduce), caches
+            return _sp_prefill(cfg, ranks, tokens, caches, path, self.allreduce, self.lay), caches
 
     def transfer_probe(self, n_tokens: int = 32):
         """(fn, args) replaying one decode step's merge sequence per token,
         ``n_tokens`` times: per layer and tp rank, the max and two sums over
         the sp ranks of the [1, K/tp, M] max and exp-sum partials and the
-        [1, K/tp, M, hd] output partial, plus the two [1, dim] tp
-        all-reduces through the forward's seam and arm when tp > 1."""
+        [1, K/tp, M, hd] output partial (gathered across the processes
+        first where the sp ranks span them, as the forward gathers them),
+        plus the two [1, dim] tp all-reduces through the forward's seam and
+        arm when tp > 1."""
         cfg, dev = self.cfg, self.devices[0]
         K = cfg.n_kv_heads // self.tp
         M = max(1, (cfg.n_heads // self.tp) // max(K, 1))
+        n_sp = len(self.sp_ranks)
 
         def ones(*shape):
             return torch.ones(shape, dtype=torch.float32, device=dev)
 
-        ms = [[ones(1, K, M) for _ in range(self.sp)] for _ in range(self.tp)]
-        os_ = [[ones(1, K, M, cfg.head_size) for _ in range(self.sp)] for _ in range(self.tp)]
-        zs = [ones(1, cfg.dim) for _ in range(self.tp)]
+        ms = [[ones(1, K, M) for _ in range(n_sp)] for _ in self.ranks]
+        os_ = [[ones(1, K, M, cfg.head_size) for _ in range(n_sp)] for _ in self.ranks]
+        zs = [ones(1, cfg.dim) for _ in self.ranks]
 
         def fn(ms, os_, zs):
             for _ in range(n_tokens):
                 for _ in range(cfg.n_layers):
-                    for t in range(self.tp):
-                        g_m, g_l, g_o = ms[t][0], ms[t][0] * 0.5, os_[t][0]
-                        for m, o in zip(ms[t][1:], os_[t][1:]):
-                            g_m, g_l, g_o = torch.maximum(g_m, m), g_l + m * 0.5, g_o + o
-                        ms[t] = [g_m + g_l * 1e-9] * self.sp
-                        os_[t] = [g_o * (1.0 / self.sp)] * self.sp
+                    for t in range(len(ms)):
+                        parts = _gather_partials([(m, m * 0.5, o) for m, o in zip(ms[t], os_[t])], self.lay.group)
+                        g_m, g_l, g_o = parts[0]
+                        for m, l, o in parts[1:]:
+                            g_m, g_l, g_o = torch.maximum(g_m, m), g_l + l, g_o + o
+                        ms[t] = [g_m + g_l * 1e-9] * n_sp
+                        os_[t] = [g_o * (1.0 / self.sp)] * n_sp
                     if self.tp > 1:
                         for _ in range(2):
-                            zs = [z * (1.0 / self.tp) for z in collectives.all_reduce(zs, self.allreduce)]
+                            zs = [z * (1.0 / self.tp)
+                                  for z in collectives.all_reduce(zs, self.allreduce, self.tp_group)]
             return ms, os_, zs
 
         return fn, (ms, os_, zs)
@@ -275,47 +348,49 @@ class SequenceParallelForward(TransferProbeMixin):
         return cfg.n_layers * per_layer
 
 
-def _sp_prefill(cfg: LlamaConfig, ranks: list, tokens: torch.Tensor, caches: list, path: str, impl: str):
+def _sp_prefill(cfg: LlamaConfig, ranks: list, tokens: torch.Tensor, caches: list, path: str, impl: str,
+                lay: SpRanks):
     """The ring pass over ``tokens`` [seq_len]: sp rank i runs positions
     [i*Sl, (i+1)*Sl) through every layer (its chunk is its whole cache
     slice: stored in the cache's dtype, quantized for int8, while the ring
     attends the cache-dtype rows, or the unquantized rows of an int8
     cache), the tp ranks' projections and FFN per sp rank as under tensor
-    parallelism. Returns the logits of every position [seq_len, vocab]."""
-    sp = len(caches[0])
-    Sl = tokens.shape[0] // sp
-    hd = cfg.head_size
-    xs = [[llama.embed(cfg, p, tokens[i * Sl : (i + 1) * Sl]) for p in ranks] for i in range(sp)]
-    ropes = [p["rope_table"][: sp * Sl] for p in ranks]
+    parallelism. ``lay``: the sp ranks this process runs and the groups.
+    Returns the logits of every position [seq_len, vocab], the sp ranks'
+    rows gathered in rank order."""
+    Sl = tokens.shape[0] // lay.n
+    xs = [[llama.embed(cfg, p, tokens[i * Sl : (i + 1) * Sl]) for p in ranks] for i in lay.ranks]
+    ropes = [p["rope_table"][: lay.n * Sl] for p in ranks]
     for l in range(cfg.n_layers):
         lps = [p["layers"][l] for p in ranks]
-        atts = [[None] * len(ranks) for _ in range(sp)]
+        atts = [[None] * len(ranks) for _ in lay.ranks]
         for t, lp in enumerate(lps):
             qs, ks, vs = [], [], []
-            for i in range(sp):
-                q, k, v = llama.project_qkv(cfg, lp, xs[i][t], ropes[t][i * Sl : (i + 1) * Sl], path)
-                leaf = caches[t][i][l]
+            for j, i in enumerate(lay.ranks):
+                q, k, v = llama.project_qkv(cfg, lp, xs[j][t], ropes[t][i * Sl : (i + 1) * Sl], path)
+                leaf = caches[t][j][l]
                 if not isinstance(leaf, kvc.QuantizedKV):
                     k, v = k.to(leaf.dtype), v.to(leaf.dtype)
                 kvc.fused_update_rows(leaf, k, v, 0)
                 qs.append(q.to(torch.float32))
                 ks.append(k)
                 vs.append(v)
-            for i, att in enumerate(ring_attention(qs, ks, vs)):
-                atts[i][t] = att.reshape(Sl, -1)
-        xs = [llama.block_tail_tp(cfg, xs[i], atts[i], lps, path, impl) for i in range(sp)]
-    return torch.cat([llama.gather_logits_tp(cfg, ranks, xs[i], path) for i in range(sp)])
+            for j, att in enumerate(ring_attention(qs, ks, vs, ranks=lay.ranks, group=lay.group)):
+                atts[j][t] = att.reshape(Sl, -1)
+        xs = [llama.block_tail_tp(cfg, x, att, lps, path, impl, group=lay.tp_group) for x, att in zip(xs, atts)]
+    logits = [llama.gather_logits_tp(cfg, ranks, x, path, lay.tp_group) for x in xs]
+    return torch.cat(collectives.rank_gather(logits, lay.group))
 
 
 def _sp_rows_forward(cfg: LlamaConfig, ranks: list, tokens: torch.Tensor, caches: list, pos: int, path: str,
-                     impl: str, write):
+                     impl: str, lay: SpRanks, write):
     """C tokens at positions pos..pos+C-1 against the live sequence-cut
     cache: the embedding, projections, FFN and logits once per tp rank;
-    per sp rank ``write(leaf, i, k, v)`` stores the rows it owns into its
-    slice, then the attention merges every rank's partials. The rope rows
-    are gathered at clip(position, 0, S-1): a padded chunk near the context
-    limit keeps every real row's own rope row, where a slice would shift
-    them. Returns logits [C, vocab]."""
+    per sp rank of this process ``write(leaf, i, k, v)`` stores the rows
+    it owns into its slice, then the attention merges every rank's
+    partials. The rope rows are gathered at clip(position, 0, S-1): a
+    padded chunk near the context limit keeps every real row's own rope
+    row, where a slice would shift them. Returns logits [C, vocab]."""
     C = tokens.shape[0]
     S = cfg.seq_len
     dev = tokens.device
@@ -327,17 +402,18 @@ def _sp_rows_forward(cfg: LlamaConfig, ranks: list, tokens: torch.Tensor, caches
         atts = []
         for t, lp in enumerate(lps):
             q, k, v = llama.project_qkv(cfg, lp, xs[t], ropes[t], path)
-            slices = [caches[t][i][l] for i in range(len(caches[t]))]
-            for i, leaf in enumerate(slices):
+            slices = [caches[t][j][l] for j in range(len(lay.ranks))]
+            for i, leaf in zip(lay.ranks, slices):
                 write(leaf, i, k, v)
-            att = sp_sharded_attention(q.to(torch.float32), [s[0] for s in slices], [s[1] for s in slices], pos)
+            att = sp_sharded_attention(q.to(torch.float32), [s[0] for s in slices], [s[1] for s in slices], pos,
+                                       lay.ranks, lay.group)
             atts.append(att.reshape(C, -1))
-        xs = llama.block_tail_tp(cfg, xs, atts, lps, path, impl)
-    return llama.gather_logits_tp(cfg, ranks, xs, path)
+        xs = llama.block_tail_tp(cfg, xs, atts, lps, path, impl, group=lay.tp_group)
+    return llama.gather_logits_tp(cfg, ranks, xs, path, lay.tp_group)
 
 
 def _sp_chunk_forward(cfg: LlamaConfig, ranks: list, tokens: torch.Tensor, caches: list, pos: int, path: str,
-                      impl: str):
+                      impl: str, lay: SpRanks):
     """A chunk of C tokens at pos..pos+C-1 (a chat or API delta, or a short
     first prompt): each sp rank scatters the rows it owns into its slice
     (rows of another rank, and pad rows past seq_len, are dropped), then
@@ -346,15 +422,15 @@ def _sp_chunk_forward(cfg: LlamaConfig, ranks: list, tokens: torch.Tensor, cache
         Sl = leaf.shape[1]
         kvc.scatter_rows(leaf, [pos + j - i * Sl for j in range(k.shape[0])], k, v)
 
-    return _sp_rows_forward(cfg, ranks, tokens, caches, pos, path, impl, write)
+    return _sp_rows_forward(cfg, ranks, tokens, caches, pos, path, impl, lay, write)
 
 
 def _sp_decode_step(cfg: LlamaConfig, ranks: list, tokens: torch.Tensor, caches: list, pos: int, path: str,
-                    impl: str):
+                    impl: str, lay: SpRanks):
     """One decode step at ``pos``: the new row is written on the owning sp
     rank only, then the query attends every slice."""
     def write(leaf, i, k, v):
         Sl = leaf.shape[1]
         kvc.select_row_update(leaf, k, v, min(max(pos - i * Sl, 0), Sl - 1), i * Sl <= pos < (i + 1) * Sl)
 
-    return _sp_rows_forward(cfg, ranks, tokens, caches, pos, path, impl, write)
+    return _sp_rows_forward(cfg, ranks, tokens, caches, pos, path, impl, lay, write)

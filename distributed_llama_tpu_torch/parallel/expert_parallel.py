@@ -33,9 +33,24 @@ loads (a list, no stacked copy that a kernel would slice), or views of the
 stacked f32/bf16 banks; under ``tp`` > 1 each is that tp rank's hidden
 slice. The KV cache is the tp backend's: one per tp rank, shared by the ep
 ranks (the JAX package replicates it over ep).
+
+Worker mode (``hosts``, :mod:`parallel.hosts`) spreads the ``tp x ep``
+ranks over processes in the JAX mesh's order: a process holds every ep
+rank of a run of tp ranks (the expert exchanges stay in the process, the
+tp sums go through the group), or at tp = 1 a run of the ep ranks, whose
+experts alone it reads. Then every process computes the attention, the
+dense weights and the routing itself (the same bytes on every process);
+a dispatch forward routes only its home ranks' rows, and the two
+``all_to_all`` exchanges and the ``all_gather`` cross the processes
+through :mod:`ops.collectives` (:func:`~ops.collectives.all_to_all`,
+:func:`~ops.collectives.rank_gather`: over the IPC staging, card to card,
+on the GPU); the dense-local combine is the all-reduce seam over the
+group (K4 across the processes under ``ring``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -47,11 +62,22 @@ from distributed_llama_tpu_torch.parallel import sharding
 from distributed_llama_tpu_torch.parallel.tensor_parallel import (
     TransferProbeMixin,
     check_allreduce,
-    rank_devices,
     rank_params,
     validate_tp,
 )
 from distributed_llama_tpu_torch.platform import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class EpRanks:
+    """The ep ranks a process runs: ``ranks``, a run of the ``n`` global
+    ones (all of them in one process), whose experts are the process's
+    expert list in order; ``group`` carries the expert exchanges where the
+    run is part of the axis."""
+
+    n: int
+    ranks: range
+    group: object = None
 
 
 def validate_ep(cfg: LlamaConfig, ep: int) -> None:
@@ -94,45 +120,51 @@ def ep_param_rules(quantized: bool, shard_vocab: bool) -> tuple[sharding.RuleTab
     return sharding.param_rules(layout, shard_vocab, moe=True), sharding.ep_rules(layout)
 
 
-def ep_moe_ffn(cfg: LlamaConfig, xns: list, lps: list, ep: int, path: str = "int8", impl: str = "psum") -> list:
+def ep_moe_ffn(cfg: LlamaConfig, xns: list, lps: list, ep, path: str = "int8", impl: str = "psum") -> list:
     """Expert-parallel MoE FFN of each tp rank's normed rows xns[t] [T, D]
-    (the same bytes on every tp rank) over ``ep`` ranks of whole experts.
-    Returns each tp rank's [T, D] f32, complete over the expert partition
-    (every ep exchange happens here); under tp > 1 still a hidden-slice
-    partial, which the caller all-reduces over the tp ranks."""
+    (the same bytes on every tp rank) over ``ep`` ranks of whole experts
+    (an int, or worker mode's :class:`EpRanks`: this process's run of them,
+    whose experts ``lps`` hold). Returns each tp rank's [T, D] f32,
+    complete over the expert partition (every ep exchange happens here);
+    under tp > 1 still a hidden-slice partial, which the caller all-reduces
+    over the tp ranks."""
+    lay = ep if isinstance(ep, EpRanks) else EpRanks(ep, range(ep))
     T = xns[0].shape[0]
-    if T % ep == 0 and T >= ep and T > 1:
-        return _ep_dispatch(cfg, xns, lps, ep, path)
-    return _ep_dense_local(cfg, xns, lps, ep, path, impl)
+    if T % lay.n == 0 and T >= lay.n and T > 1:
+        return _ep_dispatch(cfg, xns, lps, lay, path)
+    return _ep_dense_local(cfg, xns, lps, lay, path, impl)
 
 
-def _ep_dense_local(cfg: LlamaConfig, xns: list, lps: list, ep: int, path: str, impl: str) -> list:
+def _ep_dense_local(cfg: LlamaConfig, xns: list, lps: list, lay: EpRanks, path: str, impl: str) -> list:
     """Decode and tiny batches: every ep rank runs its local experts on all
     rows, weighted by its slice of the [T, E] router weights (computed
-    once), and one all-reduce over the ep ranks combines them."""
-    El = _n_local_experts(cfg, ep)
+    once, by every process), and one all-reduce over the ep ranks combines
+    them (over ``lay.group``'s processes in worker mode)."""
+    El = _n_local_experts(cfg, lay.n)
     weights = moe.router_weights(cfg, xns[0], lps[0]["router"])  # [T, E]
     outs = []
     for xn, lp in zip(xns, lps):
         parts = []
-        for j in range(ep):
+        for jl, j in enumerate(lay.ranks):
             out = torch.zeros(xn.shape, dtype=torch.float32, device=xn.device)
             for e in range(El):
                 g = j * El + e
-                out = out + weights[:, g : g + 1] * moe._expert_ffn(cfg, xn, local_expert_weights(lp, j, e, El),
+                out = out + weights[:, g : g + 1] * moe._expert_ffn(cfg, xn, local_expert_weights(lp, jl, e, El),
                                                                      path)
             parts.append(out)
-        outs.append(collectives.all_reduce(parts, impl)[0])
+        outs.append(collectives.all_reduce(parts, impl, lay.group)[0])
     return outs
 
 
-def _ep_dispatch(cfg: LlamaConfig, xns: list, lps: list, ep: int, path: str) -> list:
+def _ep_dispatch(cfg: LlamaConfig, xns: list, lps: list, lay: EpRanks, path: str) -> list:
     """Prefill: sort-compacted capacity buckets per home rank, the two
-    all_to_all exchanges as index moves, one FFN per owner's local expert
-    over its [ep*Ce, D] rows, the combine on the home rank and the
-    all_gather as a concatenation. The routing and the send buckets are
-    built once and serve every tp rank."""
+    all_to_all exchanges (:func:`ops.collectives.all_to_all`), one FFN per
+    owner's local expert over its [ep*Ce, D] rows, the combine on the home
+    rank and the all_gather of the homes' rows in rank order
+    (:func:`ops.collectives.rank_gather`). The routing and the send buckets
+    of this process's home ranks are built once and serve every tp rank."""
     T, D = xns[0].shape
+    ep = lay.n
     E, k = cfg.n_experts, cfg.n_active_experts
     El = _n_local_experts(cfg, ep)
     Tl = T // ep
@@ -142,7 +174,7 @@ def _ep_dispatch(cfg: LlamaConfig, xns: list, lps: list, ep: int, path: str) -> 
     factor = cfg.moe_capacity_factor if Tl >= moe.MOE_BUCKETED_MIN_T else 0.0
     Ce = moe.bucket_capacity(factor, Tl, k, E)
     routes, sends = [], []
-    for i in range(ep):
+    for i in lay.ranks:
         x_local = xns[0][i * Tl : (i + 1) * Tl]
         top_vals, top_idx = moe.router_topk(cfg, x_local, lps[0]["router"])
         flat_e, rank, t_ids = moe.bucket_rank(top_idx, E)
@@ -150,20 +182,19 @@ def _ep_dispatch(cfg: LlamaConfig, xns: list, lps: list, ep: int, path: str) -> 
         # [E, Ce, D] viewed as [ep owners, El, Ce, D]
         sends.append(moe.bucket_scatter(x_local, flat_e, rank, t_ids, E, Ce).reshape(ep, El, Ce, D))
     # all_to_all #1: owner j receives recv_j[s] = what home s sent for j's experts
-    recvs = [torch.stack([sends[s][j] for s in range(ep)]) for j in range(ep)]  # [ep, El, Ce, D]
+    recvs = [torch.stack(r) for r in collectives.all_to_all(sends, ep, lay.group)]  # [ep, El, Ce, D]
     outs = []
     for lp in lps:
-        banks = [torch.stack([moe._expert_ffn(cfg, recvs[j][:, e].reshape(ep * Ce, D),
-                                              local_expert_weights(lp, j, e, El), path)
+        banks = [torch.stack([moe._expert_ffn(cfg, recv[:, e].reshape(ep * Ce, D),
+                                              local_expert_weights(lp, jl, e, El), path)
                               for e in range(El)]).reshape(El, ep, Ce, D)
-                 for j in range(ep)]
+                 for jl, recv in enumerate(recvs)]
         # all_to_all #2: home i receives owner j's outputs for its rows, in
         # global expert order (owner, local) = j*El + e
-        combined = []
-        for i, (top_vals, top_idx, rank) in enumerate(routes):
-            back = torch.stack([banks[j][:, i] for j in range(ep)]).reshape(E, Ce, D)
-            combined.append(moe.bucket_combine(back, top_idx, rank, top_vals, Ce))
-        outs.append(torch.cat(combined))  # the all_gather, in rank order
+        backs = collectives.all_to_all([b.transpose(0, 1) for b in banks], ep, lay.group)
+        combined = [moe.bucket_combine(torch.stack(back).reshape(E, Ce, D), top_idx, rank, top_vals, Ce)
+                    for back, (top_vals, top_idx, rank) in zip(backs, routes)]
+        outs.append(torch.cat(collectives.rank_gather(combined, lay.group)))  # the all_gather, in rank order
     return outs
 
 
@@ -196,10 +227,13 @@ class ExpertParallelForward(TransferProbeMixin):
     layout, replicated over ep) and ``tp x ep`` ranks of experts, all on
     the card ``device`` names. Params and caches are the tp backend's
     (``engine.weights.load_params(tp=..., ep=...)``, :meth:`init_cache`);
-    a single-stream backend, like the JAX package's: no batched decode."""
+    a single-stream backend, like the JAX package's: no batched decode.
+    In worker mode (``hosts``) they hold this process's tp ranks
+    :attr:`ranks`, each with the experts of its ep ranks :attr:`ep_ranks`
+    (:attr:`local_experts`)."""
 
     def __init__(self, cfg: LlamaConfig, ep: int, tp: int = 1, device="cuda", quantized: bool = False,
-                 allreduce: str = "psum", devices=None):
+                 allreduce: str = "psum", devices=None, hosts=None):
         validate_ep(cfg, ep)
         if tp > 1:
             validate_tp(cfg, tp, quantized=quantized)
@@ -208,8 +242,17 @@ class ExpertParallelForward(TransferProbeMixin):
         self.ep = ep
         self.tp = tp
         self.allreduce = allreduce
-        self.devices = rank_devices(tp * ep, device, devices)
+        self._place_ranks(ep, "ep", hosts, device, devices, allreduce)
+        self.ep_ranks = self.inner_ranks
+        self.lay = EpRanks(ep, self.ep_ranks, self.inner_group)
         self._init_probe()
+
+    @property
+    def local_experts(self) -> range:
+        """The experts this process's ep ranks own, in order (all of them
+        in one process)."""
+        El = _n_local_experts(self.cfg, self.ep)
+        return range(self.ep_ranks.start * El, self.ep_ranks.stop * El)
 
     @property
     def mesh_shape(self) -> dict:
@@ -223,7 +266,7 @@ class ExpertParallelForward(TransferProbeMixin):
         package's expert-parallel forward takes no pad count."""
         with self._dispatch_lock:
             return llama.forward_tokens_tp(self.cfg, rank_params(params), tokens, caches, pos, path,
-                                           self.allreduce, ep=self.ep)
+                                           self.allreduce, ep=self.lay, group=self.tp_group)
 
     def init_cache(self, dtype=torch.bfloat16) -> list:
         """Per-tp-rank, per-layer fused [2, S, K/tp, hd] leaves (int8 with
@@ -232,26 +275,29 @@ class ExpertParallelForward(TransferProbeMixin):
         leaf = [2, cfg.seq_len, cfg.n_kv_heads, cfg.head_size]
         leaf[sharding.CACHE_KV_HEAD_AXIS] //= self.tp
         return [[kvc.init_fused(tuple(leaf[1:]), dtype, self.devices[0]) for _ in range(cfg.n_layers)]
-                for _ in range(self.tp)]
+                for _ in self.ranks]
 
     def transfer_probe(self, n_tokens: int = 32):
         """(fn, args) replaying one decode step's collective sequence per
         token, ``n_tokens`` times: per layer one all-reduce over the ep
         ranks of a [1, dim] f32 expert-partition partial (on every tp
         rank), plus the two tp all-reduces when tp > 1, each through the
-        forward's seam and arm."""
+        forward's seam and arm (across the processes where an axis spans
+        them)."""
         cfg, dev = self.cfg, self.devices[0]
-        xs = [[torch.ones((1, cfg.dim), dtype=torch.float32, device=dev) for _ in range(self.ep)]
-              for _ in range(self.tp)]
-        zs = [torch.ones((1, cfg.dim), dtype=torch.float32, device=dev) for _ in range(self.tp)]
+        xs = [[torch.ones((1, cfg.dim), dtype=torch.float32, device=dev) for _ in self.ep_ranks]
+              for _ in self.ranks]
+        zs = [torch.ones((1, cfg.dim), dtype=torch.float32, device=dev) for _ in self.ranks]
 
         def fn(xs, zs):
             for _ in range(n_tokens):
                 for _ in range(cfg.n_layers):
-                    xs = [[x * (1.0 / self.ep) for x in collectives.all_reduce(row, self.allreduce)] for row in xs]
+                    xs = [[x * (1.0 / self.ep) for x in collectives.all_reduce(row, self.allreduce, self.lay.group)]
+                          for row in xs]
                     if self.tp > 1:
                         for _ in range(2):
-                            zs = [z * (1.0 / self.tp) for z in collectives.all_reduce(zs, self.allreduce)]
+                            zs = [z * (1.0 / self.tp)
+                                  for z in collectives.all_reduce(zs, self.allreduce, self.tp_group)]
             return xs, zs
 
         return fn, (xs, zs)

@@ -1,5 +1,6 @@
-"""Worker mode's process group: the tensor-parallel ranks spread over
-several processes ("hosts"), every process running the same program.
+"""Worker mode's process group: the ranks (tensor-parallel, and with them
+sequence- or expert-parallel) spread over several processes ("hosts"),
+every process running the same program.
 
 The port's counterpart of ``jax.distributed.initialize`` as the JAX CLI's
 worker mode calls it. Host 0 serves a ``TCPStore`` at the coordinator's
@@ -14,7 +15,12 @@ Global rank order is host-major: with ``tp`` ranks over ``num_hosts``
 processes, host h holds ranks [h tp/H, (h+1) tp/H) (:meth:`HostGroup.local_ranks`),
 reads only their shards of the `.m` file, and runs them as the one-process
 backend runs its ranks; the all-reduces and the logits' all-gather go
-through :mod:`ops.collectives` with the group. On the card, ``"cuda"``
+through :mod:`ops.collectives` with the group. The composite layouts
+(``--tp`` x ``--sp``, ``--tp`` x ``--ep``) place their ranks as the JAX
+package's mesh does over ``jax.devices()`` in process order
+(:func:`rank_placement`): the flat index t * inner + i, host-major, so an
+inner axis narrower than a host's share stays inside one process and the
+tp axis spans the processes. On the card, ``"cuda"``
 resolves to ``cuda:{host_id % device_count}`` (:func:`platform.resolve_device`):
 every process on one card, or one card per process.
 
@@ -43,11 +49,47 @@ def parse_coordinator(address: str) -> tuple[str, int]:
 
 def local_ranks(tp: int, num_hosts: int, host_id: int) -> range:
     """The global tp ranks host ``host_id`` holds: a contiguous run of
-    tp / num_hosts, host-major."""
-    if tp % num_hosts:
-        raise ValueError(f"--tp {tp} must be a multiple of --num-hosts {num_hosts}")
-    m = tp // num_hosts
-    return range(host_id * m, (host_id + 1) * m)
+    tp / num_hosts, host-major (:func:`rank_placement` of tensor
+    parallelism alone)."""
+    return axis_runs(tp, 1, num_hosts, host_id, "tp")[0]
+
+
+def rank_placement(tp: int, inner: int, num_hosts: int, host_id: int) -> list[tuple[int, int]]:
+    """The (tp rank, inner rank) pairs host ``host_id`` holds on a ``tp`` x
+    ``inner`` layout (inner: the sp or ep axis; 1 for tensor parallelism
+    alone), in global order. The JAX package builds its mesh with
+    ``mesh_utils.create_device_mesh((tp, inner), jax.devices()[:tp*inner])``,
+    which lays the devices out row-major, and ``jax.devices()`` lists each
+    process's devices in process order: device (t, i) is the (t*inner +
+    i)-th, and host h holds the h-th contiguous run of tp*inner/H of them."""
+    n = tp * inner
+    if n % num_hosts:
+        named = f"--tp {tp}" if inner == 1 else f"--tp {tp} x {inner} = {n} ranks"
+        raise ValueError(f"{named} must be a multiple of --num-hosts {num_hosts}")
+    m = n // num_hosts
+    return [divmod(g, inner) for g in range(host_id * m, (host_id + 1) * m)]
+
+
+def axis_runs(tp: int, inner: int, num_hosts: int, host_id: int, axis: str) -> tuple[range, range]:
+    """Host ``host_id``'s ranks of a ``tp`` x ``inner`` layout (``axis``:
+    the inner axis's flag name, "sp" or "ep") as (its tp ranks, its inner
+    ranks), two runs whose product is :func:`rank_placement`'s pairs.
+    Either the host holds whole rows (every inner rank of a run of tp
+    ranks: the inner axis's exchanges stay in the process and the tp
+    collectives span the processes) or, at ``tp`` = 1, a run of the inner
+    ranks (the inner exchanges span the processes). A run of one tp rank's
+    inner ranks at ``tp`` > 1 would need each axis's collectives over a
+    subset of the processes: NotImplementedError."""
+    pairs = rank_placement(tp, inner, num_hosts, host_id)
+    m = len(pairs)
+    if m % inner == 0:
+        return range(pairs[0][0], pairs[0][0] + m // inner), range(inner)
+    if tp == 1 and inner % m == 0:
+        return range(1), range(pairs[0][1], pairs[0][1] + m)
+    raise NotImplementedError(
+        f"--tp {tp} --{axis} {inner} over --num-hosts {num_hosts}: each process would hold part of one tp rank's "
+        f"{axis} ranks at tp > 1, whose exchanges span a subset of the processes; not ported "
+        f"(ROADMAP.md Queue 1: --{axis} ranks of a tp rank over several processes)")
 
 
 class HostGroup:
@@ -83,6 +125,9 @@ class HostGroup:
 
     def local_ranks(self, tp: int) -> range:
         return local_ranks(tp, self.num_hosts, self.host_id)
+
+    def axis_runs(self, tp: int, inner: int, axis: str) -> tuple[range, range]:
+        return axis_runs(tp, inner, self.num_hosts, self.host_id, axis)
 
     def barrier(self) -> None:
         dist.barrier()

@@ -20,10 +20,20 @@ wait for.
   all-reduce seam under every arm and the all-gather over this host's ranks
   of seeded f32 partials (every global rank's drawn in rank order from one
   numpy generator), their outputs' bytes as uint32.
+* ``{"kind": "exchange", "n": n, "seed": s}``: the sequence- and
+  expert-parallel exchanges over this host's run of n ranks
+  (:func:`exchange_outputs` on :func:`exchange_inputs`), their outputs'
+  bytes;
+* ``{"kind": "engine", "argv": [...], "prompt": [...], "delta": [...],
+  "steps": n}``: an engine built as the CLI's worker mode builds it from
+  ``argv`` (the ``generate`` flags), driven by :func:`drive` (a prompt of
+  token ids, a delta, greedy tokens on the device); with ``"record_ids"``
+  the expert ids and row counts of every router call.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import socket
@@ -47,6 +57,74 @@ def seam_partials(tp: int, shapes: list, seed: int) -> list:
 
 def _bits(t: torch.Tensor) -> list:
     return t.contiguous().view(torch.int32).reshape(-1).tolist()
+
+
+def exchange_inputs(n: int, seed: int) -> dict:
+    """Each of n global ranks' seeded inputs of the exchange job, drawn in
+    rank order from one generator: K/V chunks [4, 2, 8] bf16 (a bf16
+    cache's rows), query rows [4, 4, 8] f32 at the chunk's positions, an
+    all_to_all send [n, 3, 5] f32 (its first axis the destination rank),
+    rows [4, 6] f32 for the all_gather; and one decode query [1, 4, 8]."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    out = {key: [] for key in ("q", "k", "v", "send", "rows")}
+    for _ in range(n):
+        out["q"].append(f32(4, 4, 8))
+        out["k"].append(f32(4, 2, 8).to(torch.bfloat16))
+        out["v"].append(f32(4, 2, 8).to(torch.bfloat16))
+        out["send"].append(f32(n, 3, 5))
+        out["rows"].append(f32(4, 6))
+    out["dq"] = f32(1, 4, 8)
+    return out
+
+
+def exchange_outputs(inp: dict, ranks: range, group) -> dict:
+    """The exchanges over ``ranks`` (this host's run; all n ranks with no
+    group): every ring rotation of the K chunks, the all_gather of the rows
+    (:func:`rank_gather`), the all_to_all of the sends, ring attention over
+    the chunks, and the decode merge of the query at position 4n-3 over
+    the chunks as cache slices. Name -> list of tensors (per local rank, or
+    the one result every process holds)."""
+    from distributed_llama_tpu_torch.ops import collectives
+    from distributed_llama_tpu_torch.parallel import context_parallel as cp
+
+    n = len(inp["k"])
+
+    def mine(key):
+        return [inp[key][i] for i in ranks]
+
+    out, held = {}, mine("k")
+    for s in range(n - 1):
+        held = collectives.ring_rotate(held, group)
+        out[f"rotate/{s}"] = held
+    out["gather"] = collectives.rank_gather(mine("rows"), group)
+    out["all_to_all"] = [torch.stack(r) for r in collectives.all_to_all(mine("send"), n, group)]
+    out["ring_attention"] = cp.ring_attention(mine("q"), mine("k"), mine("v"), ranks=ranks, group=group)
+    out["merge"] = [cp.sp_decode_attention(inp["dq"][0], mine("k"), mine("v"), 4 * n - 3, ranks, group)]
+    return out
+
+
+def drive(engine, prompt: list, delta: list, steps: int) -> dict:
+    """The phase the engine jobs share with their one-process references:
+    reset, the prompt (one ring pass under --sp when it is long enough),
+    the delta (chunk forwards), then ``steps`` greedy tokens on the device
+    after the first. Returns the ids, a hash of the prompt's last logits
+    row and the delta's logits, and each forward's dispatch count."""
+    engine.reset()
+    lp = engine.prefill(prompt)
+    dispatches = [engine.last_dispatches()]
+    rows = lp[None]
+    if delta:
+        rows = engine.forward(delta)
+        dispatches.append(engine.last_dispatches())
+    first = int(np.argmax(rows[-1]))
+    tokens = [first] + [int(t) for t in engine.generate_on_device(first, steps, 0.0)]
+    digest = hashlib.sha256(lp.tobytes() + (rows.tobytes() if delta else b"")).hexdigest()
+    return {"tokens": tokens, "logits_sha256": digest, "dispatches": dispatches,
+            "bytes_read": getattr(engine, "bytes_read", None)}
 
 
 def coordinator(jobs_path: Path, index: int, host_id: int) -> str:
@@ -83,6 +161,40 @@ def run_seam(job: dict, host_id: int, address: str) -> dict:
                 out[f"{impl}/{i}"] = [_bits(y) for y in collectives.all_reduce(xs, impl, group)]
             out[f"gather/{i}"] = _bits(collectives.all_gather(xs, group))
     return out
+
+
+def run_exchange(job: dict, host_id: int, address: str) -> dict:
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+
+    with HostGroup(address, 2, host_id) as group:
+        m = job["n"] // 2
+        got = exchange_outputs(exchange_inputs(job["n"], job["seed"]), range(host_id * m, (host_id + 1) * m), group)
+    return {k: [t.contiguous().view(torch.uint8).reshape(-1).tolist() for t in ts] for k, ts in got.items()}
+
+
+def run_engine(job: dict, host_id: int, address: str) -> dict:
+    from distributed_llama_tpu_torch.apps import cli
+    from distributed_llama_tpu_torch.models import moe
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+
+    ids, orig = [], moe.router_topk
+
+    def spy(cfg, xn, router):
+        vals, idx = orig(cfg, xn, router)
+        ids.append([xn.shape[0], idx.tolist()])
+        return vals, idx
+
+    if job.get("record_ids"):
+        moe.router_topk = spy
+    try:
+        with HostGroup(address, 2, host_id) as group:
+            args = cli.build_parser().parse_args(job["argv"] + ["--coordinator", address, "--host-id", str(host_id),
+                                                                "--num-hosts", "2"])
+            engine = cli.make_engine(args, hosts=group)[0]
+            out = drive(engine, job["prompt"], job["delta"], job["steps"])
+    finally:
+        moe.router_topk = orig
+    return {**out, "ids": ids}
 
 
 def run_cli(job: dict, host_id: int, address: str) -> dict:
@@ -128,7 +240,8 @@ def main() -> None:
     jobs = json.loads(jobs_path.read_text())
     host_id = int(sys.argv[2])
     for i, job in enumerate(jobs):
-        result = (run_seam if job["kind"] == "seam" else run_cli)(job, host_id, coordinator(jobs_path, i, host_id))
+        run = {"seam": run_seam, "exchange": run_exchange, "engine": run_engine}.get(job["kind"], run_cli)
+        result = run(job, host_id, coordinator(jobs_path, i, host_id))
         print("RESULT " + json.dumps(result), flush=True)
 
 
