@@ -384,7 +384,17 @@ Phases (any failure exits non-zero):
    many times as the arm's cross-process sums (no K5). Prints the ring
    pass's ms beside the one-process one, decode ms/token and device busy
    per host, the bytes the exchanges moved per prompt and per decoded
-   token, and each host's peak card memory.
+   token, and each host's peak card memory. (c) One tp rank's sp or ep
+   ranks over several processes: 4 processes, one (tp, inner) rank each,
+   every collective over its own mesh axis's processes (the inner axis
+   over hosts {0, 1} and {2, 3}, the tp axis over {0, 2} and {1, 3}).
+   After 18a, K4 across the tp axis's 2-of-4 sub-groups at [1|16|32,
+   4096] (each host bit-equal to the one-process K4 over its sub-group's
+   two ranks and to the plain version; the launch alone, a call with its
+   sub-group's barriers, the psum arm over the sub-group), then ``worker
+   --tp 2 --sp 2 --allreduce ring`` as 18a's arm; after 18b, ``worker --tp
+   2 --ep 2 --allreduce ring`` as 18b's. Checked and printed as 18a/18b,
+   for all 4 hosts, with the bytes received through each sub-group.
 
 ``--k1`` runs phase 3's K1 part alone, with every plan of the decode tile
 timed at every T = 1 shape the port launches (the 7B shapes, the 7B and
@@ -5972,75 +5982,86 @@ def k4_ipc_host(spec: dict) -> dict:
 
 
 def k4_ipc_group(coordinator: str, n: int, h: int) -> dict:
-    """17a in a group of ``n`` processes, as host ``h``: for each payload
-    [R, 4096], the n global ranks'
-    partials drawn from one seeded generator (every host draws them all),
-    this host's rank all-reduced by K4 across the processes, then held bit
-    for bit against the one-process K4 launch over all n partials and
-    against K4's plain version; timed: the wall time of a call with its two
-    barriers, the psum arm across the processes (the library yardstick:
-    host staging and gloo), and each host in turn, the K4 launch alone
-    over the slots in place and the one-process K4 launch over the same
-    partials (CUDA events around launches queued behind a sleep kernel:
-    :func:`queued_ms`)."""
+    """17a in a group of ``n`` processes, as host ``h``: :func:`k4_ipc_rows`
+    over the whole group, every launch counted."""
+    from distributed_llama_tpu_torch.ops import collectives as coll
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+    from distributed_llama_tpu_torch.platform import resolve_device
+
+    with HostGroup(coordinator, n, h) as group:
+        coll.reset_launches()
+        rows, calls = k4_ipc_rows(group, group, resolve_device("cuda", h), 1000 * n)
+        row_launches = coll.launches["ring_all_reduce_ipc"]
+        check(row_launches == calls, f"K4 across processes: {row_launches} launches counted for {calls} calls")
+    return {"rows": rows, "launches": row_launches}
+
+
+def k4_ipc_rows(group, world, dev, seed: int) -> tuple[list, int]:
+    """K4 across the n processes of ``group`` (the whole group, or one mesh
+    axis's sub-group of ``world``), as its host ``group.host_id``: for each
+    payload [R, 4096], the n ranks' partials drawn from one generator of
+    ``seed + R`` (every host of the group draws them all), this host's
+    rank all-reduced by K4 across the processes, then held bit for bit
+    against the one-process K4 launch over all n partials and against K4's
+    plain version; timed: the wall time of a call with its two barriers
+    (every group of ``world`` calling at once), the psum arm across the
+    group's processes (the library yardstick: host staging and gloo), and
+    each host of ``world`` in turn, the K4 launch alone over the group's
+    slots in place and the one-process K4 launch over the same partials
+    (CUDA events around launches queued behind a sleep kernel:
+    :func:`queued_ms`). Returns (the rows, the K4 calls made)."""
     import ctypes
 
     from distributed_llama_tpu_torch.ops import collectives as coll
     from distributed_llama_tpu_torch.ops import q40
-    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
-    from distributed_llama_tpu_torch.platform import resolve_device
 
+    n, h = group.num_hosts, group.host_id
     rows, calls = [], 0
-    with HostGroup(coordinator, n, h) as group:
-        dev = resolve_device("cuda", h)
-        coll.reset_launches()
-        for R in K4_IPC_ROWS:
-            g = torch.Generator().manual_seed(1000 * n + R)
-            parts = [torch.randn((R, DIM), generator=g).to(dev) for _ in range(n)]
-            xs = [parts[h]]
-            got = coll.all_reduce(xs, "ring", group)[0]
-            calls += 1
-            one = coll.ring_all_reduce(parts)[h]
-            plain = coll.ring_all_reduce_plain(parts)[h]
+    for R in K4_IPC_ROWS:
+        g = torch.Generator().manual_seed(seed + R)
+        parts = [torch.randn((R, DIM), generator=g).to(dev) for _ in range(n)]
+        xs = [parts[h]]
+        got = coll.all_reduce(xs, "ring", group)[0]
+        calls += 1
+        one = coll.ring_all_reduce(parts)[h]
+        plain = coll.ring_all_reduce_plain(parts)[h]
+        torch.cuda.synchronize(dev)
+        row = dict(n=n, R=R, host=h, world_host=world.host_id, bit_equal_one_process=bool(torch.equal(got, one)),
+                   bit_equal_plain=bool(torch.equal(got, plain)),
+                   max_abs_err=float((got - plain).abs().max().item()))
+
+        def wall_ms(impl: str) -> float:
+            world.barrier()
+            t0 = time.perf_counter()
+            for _ in range(K4_IPC_REPS):
+                coll.all_reduce(xs, impl, group)
             torch.cuda.synchronize(dev)
-            row = dict(n=n, R=R, host=h, bit_equal_one_process=bool(torch.equal(got, one)),
-                       bit_equal_plain=bool(torch.equal(got, plain)),
-                       max_abs_err=float((got - plain).abs().max().item()))
+            return (time.perf_counter() - t0) * 1e3 / K4_IPC_REPS
 
-            def wall_ms(impl: str) -> float:
-                group.barrier()
-                t0 = time.perf_counter()
-                for _ in range(K4_IPC_REPS):
-                    coll.all_reduce(xs, impl, group)
-                torch.cuda.synchronize(dev)
-                return (time.perf_counter() - t0) * 1e3 / K4_IPC_REPS
+        row["wall_ms"] = wall_ms("ring")
+        calls += K4_IPC_REPS
+        row["psum_wall_ms"] = wall_ms("psum")
+        ipc = group.ipc
+        ins = (ctypes.c_void_p * n)(*ipc.slot_pointers())
+        out = torch.empty_like(xs[0])
+        no_peers = (ctypes.c_void_p * 1)()
+        fn = coll._ipc("ring_ipc_reduce")
+        stream = torch.cuda.current_stream(dev).cuda_stream
 
-            row["wall_ms"] = wall_ms("ring")
-            calls += K4_IPC_REPS
-            row["psum_wall_ms"] = wall_ms("psum")
-            ipc = group.ipc
-            ins = (ctypes.c_void_p * n)(*ipc.slot_pointers())
-            out = torch.empty_like(xs[0])
-            no_peers = (ctypes.c_void_p * 1)()
-            fn = coll._ipc("ring_ipc_reduce")
-            stream = torch.cuda.current_stream(dev).cuda_stream
+        def launch(i):
+            q40._check_launch(fn(ipc.index, ins, coll._ptrs([out]), 1, n, R, DIM, no_peers, 0,
+                                 ipc.events["done"], stream), "ring_ipc_reduce")
 
-            def launch(i):
-                q40._check_launch(fn(ipc.index, ins, coll._ptrs([out]), 1, n, R, DIM, no_peers, 0,
-                                     ipc.events["done"], stream), "ring_ipc_reduce")
-
-            for turn in range(n):  # the card to one host at a time
-                group.barrier()
-                if turn == h:
-                    row["kernel_ms"] = queued_ms(launch, reps=K4_IPC_REPS)
-                    row["one_process_ms"] = queued_ms(lambda i: coll.ring_all_reduce(parts), reps=K4_IPC_REPS)
-                    row["plain_ms"] = event_ms(lambda i: coll.ring_all_reduce_plain(parts), reps=5)
-            group.barrier()
-            check(torch.equal(out, got), f"K4 across {n} processes R={R}: a launch over the slots in place differs")
-            rows.append(row)
-        row_launches = coll.launches["ring_all_reduce_ipc"]
-        check(row_launches == calls, f"K4 across processes: {row_launches} launches counted for {calls} calls")
-    return {"rows": rows, "launches": row_launches}
+        for turn in range(world.num_hosts):  # the card to one host at a time
+            world.barrier()
+            if turn == world.host_id:
+                row["kernel_ms"] = queued_ms(launch, reps=K4_IPC_REPS)
+                row["one_process_ms"] = queued_ms(lambda i: coll.ring_all_reduce(parts), reps=K4_IPC_REPS)
+                row["plain_ms"] = event_ms(lambda i: coll.ring_all_reduce_plain(parts), reps=5)
+        world.barrier()
+        check(torch.equal(out, got), f"K4 across {n} processes R={R}: a launch over the slots in place differs")
+        rows.append(row)
+    return rows, calls
 
 
 def worker_host(spec: dict) -> dict:
@@ -6209,23 +6230,39 @@ def worker_phase(cli, coll, model: str, tok: str, smi: str) -> dict:
 
 
 def sp_worker_phases(cli, coll, model: str, tok: str, summary: dict) -> None:
-    """Phase 18a over the 7B-width ``model``; results go into ``summary``."""
+    """Phases 18a and 18c's --sp arm over the 7B-width ``model``; results
+    go into ``summary``."""
     gc.collect()
     torch.cuda.empty_cache()
     t = phase(f"18a. the slice's path: --sp 2 and --tp 2 --sp 2 in worker mode, the ranks as 2 processes on the "
               f"card, Llama-2-7B width, {MAIN_LAYERS} layers, --max-seq-len {SP_SEQ_LEN}")
     summary["sp_workers"] = sp_ep_worker_phase(cli, coll, model, tok, "sp")
     print(f"phase 18a: {time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = phase(f"18c-sp. the slice's path: --tp 2 --sp 2 --allreduce ring in worker mode, one (tp, sp) rank per "
+              f"process, 4 processes on the card (sp exchanges over hosts {{0, 1}} and {{2, 3}}, K4 over {{0, 2}} "
+              f"and {{1, 3}}), Llama-2-7B width, {MAIN_LAYERS} layers, --max-seq-len {SP_SEQ_LEN}")
+    summary["subgroup_sp_workers"] = sp_ep_worker_phase(cli, coll, model, tok, "sp4", num_hosts=4)
+    print(f"phase 18c-sp: {time.perf_counter() - t:.1f} s")
 
 
 def ep_worker_phases(cli, coll, model: str, tok: str, summary: dict) -> None:
-    """Phase 18b over the Mixtral-width ``model``; results go into ``summary``."""
+    """Phases 18b and 18c's --ep arm over the Mixtral-width ``model``;
+    results go into ``summary``."""
     gc.collect()
     torch.cuda.empty_cache()
     t = phase(f"18b. the slice's path: --ep 2 and --tp 2 --ep 2 in worker mode, the ranks as 2 processes on the "
               f"card, Mixtral-8x7B width, {MIXTRAL_LAYERS} layers")
     summary["ep_workers"] = sp_ep_worker_phase(cli, coll, model, tok, "ep")
     print(f"phase 18b: {time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = phase(f"18c-ep. the slice's path: --tp 2 --ep 2 --allreduce ring in worker mode, one (tp, ep) rank per "
+              f"process, 4 processes on the card (expert exchanges and the combine's K4 over hosts {{0, 1}} and "
+              f"{{2, 3}}, the tp sums' K4 over {{0, 2}} and {{1, 3}}), Mixtral-8x7B width, {MIXTRAL_LAYERS} layers")
+    summary["subgroup_ep_workers"] = sp_ep_worker_phase(cli, coll, model, tok, "ep4", num_hosts=4)
+    print(f"phase 18c-ep: {time.perf_counter() - t:.1f} s")
 
 
 def workers_only(smi: str) -> None:
@@ -6278,22 +6315,28 @@ def sp_ep_arms(model: str, tok: str, vocab: int, which: str) -> list:
     """Phase 18's arms over ``model``: 18a (``which`` "sp") ``--sp 2``
     under ring, then ``--tp 2 --sp 2`` under psum, on 15a's prompt and
     delta; 18b ("ep") ``--ep 2`` and ``--tp 2 --ep 2`` under ring on 15b's
-    64-token prompt. Each arm: label, the CLI flags every run shares (the
-    one-process reference's ``generate`` and the hosts' ``worker``), the
-    prompt, the delta and the greedy steps."""
+    64-token prompt; 18c's four-process arms ("sp4": ``--tp 2 --sp 2``
+    under ring as 18a's; "ep4": ``--tp 2 --ep 2`` under ring as 18b's).
+    Each arm: label, the CLI flags every run shares (the one-process
+    reference's ``generate`` and the hosts' ``worker``), the prompt, the
+    delta and the greedy steps."""
     base = ["--model", model, "--tokenizer", tok, "--dtype", "q40", "--decode", "device", "--temperature", "0",
             "--seed", "1", "--prompt", "x"]
-    if which == "sp":
+    if which.startswith("sp"):
         prompt = _token_prompt(SP_PROMPT_TOKENS, 15, vocab)
         delta = _token_prompt(SP_DELTA_TOKENS + 1, 16, vocab)[1:]
         base += ["--max-seq-len", str(SP_SEQ_LEN)]
         flags = {"18a sp=2 ring": ["--sp", "2", "--allreduce", "ring"],
                  "18a tp=2 sp=2 psum": ["--tp", "2", "--sp", "2", "--allreduce", "psum"]}
+        if which == "sp4":
+            flags = {"18c tp=2 sp=2 ring": ["--tp", "2", "--sp", "2", "--allreduce", "ring"]}
     else:
         prompt, delta = _token_prompt(EP_WORKER_PROMPT_TOKENS, 17, vocab), []
         base += ["--max-seq-len", str(SEQ_LEN)]
         flags = {"18b ep=2 ring": ["--ep", "2", "--allreduce", "ring"],
                  "18b tp=2 ep=2 ring": ["--tp", "2", "--ep", "2", "--allreduce", "ring"]}
+        if which == "ep4":
+            flags = {"18c tp=2 ep=2 ring": ["--tp", "2", "--ep", "2", "--allreduce", "ring"]}
     return [dict(label=label, flags=base + f, prompt=prompt, delta=delta, steps=SP_EP_WORKER_STEPS)
             for label, f in flags.items()]
 
@@ -6304,34 +6347,41 @@ def _count_exchanges(coll, tally: dict):
     partials' gather, the all_to_alls and all_gathers), K4 across the
     processes (``collectives.ring_all_reduce_ipc``: the peers' slots it
     reads) and the host-staged gathers (``HostGroup.gather_ranks``: the
-    psum arm and the logits' gather across processes). Returns a function
-    that removes them."""
-    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+    psum arm and the logits' gather across processes). Each also adds to
+    a key of the group it ran over (``"KIND_bytes@[members]"``, the world
+    host ids of an axis group), so a host on two axes shows each one's.
+    Returns a function that removes them."""
+    from distributed_llama_tpu_torch.parallel import hosts
 
-    orig_exchange, orig_gather, orig_k4 = coll.exchange, HostGroup.gather_ranks, coll.ring_all_reduce_ipc
+    base = hosts._Members
+    orig_exchange, orig_gather, orig_k4 = coll.exchange, base.gather_ranks, coll.ring_all_reduce_ipc
+
+    def add(kind: str, group, nbytes: int) -> None:
+        members = getattr(group, "members", list(range(group.num_hosts)))
+        tally[f"{kind}_calls"] += 1
+        tally[f"{kind}_bytes"] += nbytes
+        key = f"{kind}_bytes@{members}"
+        tally[key] = tally.get(key, 0) + nbytes
 
     def k4(xs, group):
-        tally["k4_calls"] += 1
-        tally["k4_bytes"] += xs[0].numel() * 4 * len(xs) * (group.num_hosts - 1)
+        add("k4", group, xs[0].numel() * 4 * len(xs) * (group.num_hosts - 1))
         return orig_k4(xs, group)
 
     def exchange(xs, group, picks):
         out = orig_exchange(xs, group, picks)
-        tally["ipc_calls"] += 1
-        tally["ipc_bytes"] += sum(o.numel() * o.element_size() for (slot, _), o in zip(picks, out)
-                                  if slot // len(xs) != group.host_id)
+        add("ipc", group, sum(o.numel() * o.element_size() for (slot, _), o in zip(picks, out)
+                              if slot // len(xs) != group.host_id))
         return out
 
     def gather_ranks(self, xs):
         out = orig_gather(self, xs)
-        tally["host_calls"] += 1
-        tally["host_bytes"] += sum(o.numel() * o.element_size() for o in out) * (self.num_hosts - 1) // self.num_hosts
+        add("host", self, sum(o.numel() * o.element_size() for o in out) * (self.num_hosts - 1) // self.num_hosts)
         return out
 
-    coll.exchange, HostGroup.gather_ranks, coll.ring_all_reduce_ipc = exchange, gather_ranks, k4
+    coll.exchange, base.gather_ranks, coll.ring_all_reduce_ipc = exchange, gather_ranks, k4
 
     def restore():
-        coll.exchange, HostGroup.gather_ranks, coll.ring_all_reduce_ipc = orig_exchange, orig_gather, orig_k4
+        coll.exchange, base.gather_ranks, coll.ring_all_reduce_ipc = orig_exchange, orig_gather, orig_k4
 
     return restore
 
@@ -6388,7 +6438,7 @@ def drive_sp_ep(engine, arm: dict, coll, q40, moe, barrier=lambda: None) -> dict
                 logits_sha256=hashlib.sha256(lp.tobytes() + (rows.tobytes() if arm["delta"] else b"")).hexdigest(),
                 prefill_ms=prefill_ms, decode_loop_ms_per_token=decode_ms / steps,
                 prefill_exchange=prefill_tally,
-                decode_exchange_per_token={k: (tally[k] - before[k]) / steps for k in tally},
+                decode_exchange_per_token={k: (tally[k] - before.get(k, 0)) / steps for k in tally},
                 peak_card_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -6407,6 +6457,18 @@ def sp_ep_host(spec: dict) -> dict:
 
     n, h = spec["num_hosts"], spec["host_id"]
     out = {}
+    if spec.get("k4_subgroup"):
+        # 18c: K4 across the tp axis's 2-of-4 sub-group of --tp 2 --sp 2
+        # ({0, 2} and {1, 3}, each summing partials of its own)
+        from distributed_llama_tpu_torch.platform import resolve_device
+
+        with HostGroup(spec["k4_subgroup"], n, h) as world:
+            tp_group = world.axis_groups(2, 2)[1]
+            coll.reset_launches()
+            rows, calls = k4_ipc_rows(tp_group, world, resolve_device("cuda", h), 7000 + 100 * tp_group.members[0])
+            launched = coll.launches["ring_all_reduce_ipc"]
+            check(launched == calls, f"K4 across a sub-group: {launched} launches counted for {calls} calls")
+            out["k4_subgroup"] = {"rows": rows, "launches": launched, "members": tp_group.members}
     for arm, port in zip(spec["arms"], spec["ports"]):
         address = f"127.0.0.1:{port}"
         with HostGroup(address, n, h) as group:
@@ -6431,16 +6493,16 @@ def sp_ep_host(spec: dict) -> dict:
     return out
 
 
-def _host_router_calls(calls: list, h: int, m: int, ep: int) -> list:
-    """Host ``h``'s router calls out of a one-process run's, where the host
-    holds ep ranks [h m, (h+1) m) of ``ep`` across the processes: a
+def _host_router_calls(calls: list, inners: range, ep: int) -> list:
+    """A host's router calls out of a one-process run's, where the host
+    holds the ep ranks ``inners`` of ``ep`` across the processes: a
     dispatch forward routes each home rank's rows in a call of its own (ep
     calls in home order per layer), the host only its homes'; single-row
     calls (the dense-local decode) are every host's."""
     out, run = [], 0
     for rows, idx in calls:
         if rows > 1:
-            if h * m <= run % ep < (h + 1) * m:
+            if run % ep in inners:
                 out.append([rows, idx])
             run += 1
         else:
@@ -6448,30 +6510,33 @@ def _host_router_calls(calls: list, h: int, m: int, ep: int) -> list:
     return out
 
 
-def sp_ep_worker_phase(cli, coll, model: str, tok: str, which: str) -> dict:
+def sp_ep_worker_phase(cli, coll, model: str, tok: str, which: str, num_hosts: int = 2) -> dict:
     """Phase 18a (``which`` "sp": ``--sp 2`` under ring, ``--tp 2 --sp 2``
     under psum, over phase 5's 7B-width file at ``--max-seq-len``
-    SP_SEQ_LEN) or 18b ("ep": ``--ep 2`` and ``--tp 2 --ep 2`` under ring
-    over phase 8b's Mixtral-width file): each arm's one-process run in this
-    process, then two host processes running every arm (:func:`sp_ep_host`).
+    SP_SEQ_LEN), 18b ("ep": ``--ep 2`` and ``--tp 2 --ep 2`` under ring
+    over phase 8b's Mixtral-width file) or 18c's arms ("sp4": ``--tp 2
+    --sp 2`` under ring over the 7B file, and first K4 across the tp axis's
+    2-of-4 sub-groups, :func:`k4_ipc_rows`; "ep4": ``--tp 2 --ep 2`` under
+    ring over the Mixtral file; ``num_hosts`` 4, one (tp, inner) rank per
+    process): each arm's one-process run in this process, then
+    ``num_hosts`` host processes running every arm (:func:`sp_ep_host`).
     Checked per arm: under --ep each host's router ids per call equal the
-    one-process run's calls its ranks make, before the logits; the hosts'
-    logits hashes equal each other and the one-process run's; their ids
-    equal each other and the one-process run's; under --sp one ring pass
-    and ceil(300/32) chunk forwards; each host's file reads equal
-    ``weights.read_share`` of its ranks (and experts); K1 launched on every
-    host; under ring, K4 across the processes launched as many times as
-    the arm's cross-process sums (no K5). Printed: ms/token and device
-    busy per host, the ring pass's ms beside the one-process one, the
-    exchanges' bytes per ring pass and per decoded token, peak card
-    memory. Two contexts time-slice the card: no number here is a speed of
-    worker mode on several cards."""
+    one-process run's calls its ranks make, before the logits; every
+    host's logits hash and ids equal the one-process run's; under --sp one
+    ring pass and ceil(300/32) chunk forwards; each host's file reads
+    equal ``weights.read_share`` of its ranks (and experts); K1 launched
+    on every host; under ring, K4 across the processes launched as many
+    times as the arm's cross-process sums (no K5). Printed: ms/token and
+    device busy per host, the ring pass's ms beside the one-process one,
+    the exchanges' bytes per ring pass and per decoded token (by axis
+    group), peak card memory. Several contexts time-slice the card: no
+    number here is a speed of worker mode on several cards."""
     from distributed_llama_tpu_torch.engine import weights
     from distributed_llama_tpu_torch.formats.model_file import ModelFileReader
     from distributed_llama_tpu_torch.models import moe
     from distributed_llama_tpu_torch.models.config import config_from_spec
     from distributed_llama_tpu_torch.ops import q40
-    from distributed_llama_tpu_torch.parallel.hosts import axis_runs
+    from distributed_llama_tpu_torch.parallel.hosts import axis_members, axis_runs
 
     reader = ModelFileReader(model)
     cfg = config_from_spec(reader.spec)
@@ -6486,27 +6551,33 @@ def sp_ep_worker_phase(cli, coll, model: str, tok: str, which: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    res = spawn_hosts("sp_ep", 2, {"arms": arms, "ports": [_free_port() for _ in arms]}, f"sp_ep_{which}", "18")
+    spec = {"arms": arms, "ports": [_free_port() for _ in arms]}
+    if which == "sp4":
+        spec["k4_subgroup"] = f"127.0.0.1:{_free_port()}"
+    res = spawn_hosts("sp_ep", num_hosts, spec, f"sp_ep_{which}", "18")
     print(f"hosts: {time.perf_counter() - t:.1f} s")
     out: dict = {}
+    if which == "sp4":
+        out["k4_subgroup"] = k4_subgroup_rows(res)
+    axis = which[:2]
     for arm in arms:
         label, ref = arm["label"], refs[arm["label"]]
         flags = arm["flags"]
         tp = int(flags[flags.index("--tp") + 1]) if "--tp" in flags else 1
-        axis = which
         inner = int(flags[flags.index(f"--{axis}") + 1])
         runs = [hr[label] for hr in res]
         L = cfg.n_layers
         for h, r in enumerate(runs):
-            tps, inners = axis_runs(tp, inner, 2, h, axis)
+            tps, inners = axis_runs(tp, inner, num_hosts, h)
+            r["axis_members"] = dict(zip((axis, "tp"), axis_members(tp, inner, num_hosts, h)))
+            spans = len(inners) < inner
             if axis == "ep":
                 # ids first: the router calls this host's ranks make
-                spans = len(inners) < inner
-                want_ids = _host_router_calls(ref["ids"], h, len(inners), inner) if spans else ref["ids"]
+                want_ids = _host_router_calls(ref["ids"], inners, inner) if spans else ref["ids"]
                 check(r["ids"] == want_ids, f"{label} host {h}: the router's expert ids differ from the one-process "
                       f"run's ({len(r['ids'])} calls vs {len(want_ids)})")
             experts = None
-            if axis == "ep" and len(inners) < inner:
+            if axis == "ep" and spans:
                 El = cfg.n_experts // inner
                 experts = range(inners.start * El, inners.stop * El)
             want_bytes = weights.read_share(reader, cfg, tp, tps if tp > 1 else None, experts)
@@ -6516,44 +6587,83 @@ def sp_ep_worker_phase(cli, coll, model: str, tok: str, which: str) -> dict:
             lc = r["launches"]
             check(lc["k1_dp4a"] > 0 and lc["q40_int8"] > 0, f"{label} host {h}: K1 not launched: {lc}")
             if "ring" in label:
-                # cross-process sums under ring: at --tp 2 --ep 2 tp's two per
-                # layer per forward (wo, the expert sum); at --ep 2 the ep
-                # combine of each dense-local (decode) forward; none at --sp 2
-                # (tp 1 sums nothing); never K5 across processes
-                if axis == "sp":
-                    want_k4 = 0
-                elif tp > 1:
-                    want_k4 = 2 * L * r["forwards"]
-                else:
-                    want_k4 = L * (r["forwards"] - 1)
+                # cross-process sums under ring: at tp 2 over the tp axis's
+                # processes two per layer per forward (wo and down, or the
+                # expert sum), a chunked delta's chunks each a forward; at
+                # --ep 2 across processes the ep combine of each dense-local
+                # (decode) forward; none at --sp 2 (tp 1 sums nothing);
+                # never K5 across processes
+                chunks = sum(r["dispatches"]) + r["forwards"] - len(r["dispatches"])
+                want_k4 = 2 * L * chunks if len(tps) < tp else 0
+                if axis == "ep" and spans:
+                    want_k4 += L * (r["forwards"] - 1)
                 check(lc["ring_all_reduce_ipc"] == want_k4 and lc["fused_matmul_ring"] == 0,
                       f"{label} host {h}: launches {lc}, expected {want_k4} K4 across the processes and no K5")
-        check(runs[0]["logits_sha256"] == runs[1]["logits_sha256"], f"{label}: the hosts' logits differ")
-        check(runs[0]["logits_sha256"] == ref["logits_sha256"], f"{label}: the hosts' logits differ from the "
-              "one-process run's")
-        check(runs[0]["tokens"] == runs[1]["tokens"], f"{label}: the hosts' ids differ")
-        check(runs[0]["tokens"] == ref["tokens"], f"{label}: ids differ from the one-process run: "
-              f"{runs[0]['tokens']} vs {ref['tokens']}")
-        check(runs[0]["dispatches"] == runs[1]["dispatches"] == ref["dispatches"],
-              f"{label}: dispatches {[r['dispatches'] for r in runs]} vs one process {ref['dispatches']}")
+        for h, r in enumerate(runs):
+            check(r["logits_sha256"] == ref["logits_sha256"], f"{label} host {h}: logits differ from the one-process "
+                  "run's")
+            check(r["tokens"] == ref["tokens"], f"{label} host {h}: ids differ from the one-process run: "
+                  f"{r['tokens']} vs {ref['tokens']}")
+            check(r["dispatches"] == ref["dispatches"], f"{label} host {h}: dispatches {r['dispatches']} vs one "
+                  f"process {ref['dispatches']}")
         if axis == "sp":
             check(ref["dispatches"] == [1, -(-SP_DELTA_TOKENS // 32)], f"{label}: dispatches {ref['dispatches']}, "
                   "want one ring pass and the delta's chunks")
         row = dict(one_process=ref, hosts=runs)
-        print(f"{label}: both hosts' {len(ref['tokens'])} ids and logits hash equal each other and the one-process "
+        print(f"{label}: all {num_hosts} hosts' {len(ref['tokens'])} ids and logits hash equal the one-process "
               f"run's{' (router ids first)' if axis == 'ep' else ''}; dispatches {ref['dispatches']}; bytes read "
               f"{[r['bytes_read'] for r in runs]} (stated {[r['want_bytes_read'] for r in runs]})", flush=True)
         for h, r in enumerate(runs):
             busy = r.get("device_busy_ms_per_token")
-            print(f"  host {h}: prompt {r['prefill_ms']:.1f} ms, again {r['prefill_again_ms']:.1f} (one process "
-                  f"{ref['prefill_ms']:.1f}, again {ref['prefill_again_ms']:.1f} ms); decode "
-                  f"{r['decode_ms_per_token']:.2f} ms/token (device busy "
+            print(f"  host {h} (groups {r['axis_members']}): prompt {r['prefill_ms']:.1f} ms, again "
+                  f"{r['prefill_again_ms']:.1f} (one process {ref['prefill_ms']:.1f}, again "
+                  f"{ref['prefill_again_ms']:.1f} ms); decode {r['decode_ms_per_token']:.2f} ms/token (device busy "
                   f"{'not measured' if busy is None else f'{busy:.2f} ms'}); exchanges per prompt "
                   f"{r['prefill_exchange']}, per decoded token {r['decode_exchange_per_token']}; launches "
                   f"{r['launches']}; peak {r['peak_card_gb']:.2f} GB; load {r['load_s']:.1f} s", flush=True)
         out[label.split(" ", 1)[1]] = row
     reader.close()
     return out
+
+
+def k4_subgroup_rows(res: list) -> list:
+    """18c's K4 across the tp axis's 2-of-4 sub-groups from every host's
+    rows: each host bit-equal to the one-process K4 launch over its
+    sub-group's two partials and to the plain version; per payload the
+    launch alone, a call with its sub-group's barriers (both sub-groups
+    calling at once), the psum arm over the sub-group (host staging and
+    gloo: the library yardstick), the plain version, and the bound: 3 R d 4
+    bytes (two inputs read, this process's output written) over 3.35 TB/s."""
+    rows = []
+    subs = [hr["k4_subgroup"] for hr in res]
+    for R in K4_IPC_ROWS:
+        per_host = [next(r for r in sub["rows"] if r["R"] == R) for sub in subs]
+        for r in per_host:
+            check(r["bit_equal_one_process"], f"K4 across a 2-of-4 sub-group R={R} host {r['world_host']}: differs "
+                  "from the one-process K4 launch over its ranks")
+            check(r["bit_equal_plain"], f"K4 across a 2-of-4 sub-group R={R} host {r['world_host']}: differs from "
+                  "its plain version")
+        n = per_host[0]["n"]
+        bound_ms = (n + 1) * R * DIM * 4 / HBM_BYTES_PER_S * 1e3
+        row = dict(kernel="ring_all_reduce_ipc_subgroup", n=n, of=len(res), R=R, d=DIM,
+                   members=[sub["members"] for sub in subs],
+                   bit_equal_one_process=all(r["bit_equal_one_process"] for r in per_host),
+                   max_abs_err=max(r["max_abs_err"] for r in per_host),
+                   ms=statistics.mean(r["kernel_ms"] for r in per_host),
+                   ms_by_host=[r["kernel_ms"] for r in per_host],
+                   one_process_ms=statistics.mean(r["one_process_ms"] for r in per_host),
+                   wall_ms=statistics.mean(r["wall_ms"] for r in per_host),
+                   plain_ms=statistics.mean(r["plain_ms"] for r in per_host),
+                   library_ms=statistics.mean(r["psum_wall_ms"] for r in per_host),
+                   bound_ms=bound_ms, bound_by="bytes", launches_by_host=[sub["launches"] for sub in subs])
+        rows.append(row)
+        print(f"K4 across a {n}-of-{len(res)} sub-group [{R}, {DIM}] (groups {sorted({str(m) for m in row['members']})}):"
+              f" every host bit-equal to the one-process K4 over its sub-group's ranks and to the plain version; "
+              f"launch {row['ms']:.4f} ms (by host {['%.4f' % v for v in row['ms_by_host']]}; the one-process K4 "
+              f"launch {row['one_process_ms']:.4f} ms), a call with its sub-group's barriers {row['wall_ms']:.3f} ms, "
+              f"psum arm over the sub-group {row['library_ms']:.3f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.6f} ms (bytes)", flush=True)
+    return rows
 
 
 def _import_port(root: Path, name: str):
@@ -6780,7 +6890,8 @@ def main() -> None:
     parser.add_argument("--workers", action="store_true",
                         help="phases 17 and 18 alone (worker mode: K4 across 2 and 4 processes on the card, two "
                         "--tp 2 worker processes at Llama-2-7B width, then --sp 2 and --tp 2 --sp 2 there and "
-                        "--ep 2 and --tp 2 --ep 2 at Mixtral-8x7B width)")
+                        "--ep 2 and --tp 2 --ep 2 at Mixtral-8x7B width over 2 processes, and 18c: --tp 2 --sp 2 "
+                        "and --tp 2 --ep 2 over 4 processes, K4 across a 2-of-4 sub-group)")
     parser.add_argument("--host-task", default=None, help=argparse.SUPPRESS)  # one host of a phase-17/18 group
     parser.add_argument("--k1-times", default=None, help=argparse.SUPPRESS)  # one tree's turn of --k1 --root
     parser.add_argument("--root", type=Path, default=ROOT,
@@ -7251,6 +7362,22 @@ def main() -> None:
                         replaces=replaces + ", across processes", launches=ep_w["ring_all_reduce_ipc"],
                         max_abs_err=max(r["max_abs_err"] for r in summary["workers"]["k4_rows"]),
                         **{k: k4_ipc[k] for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms", "bound_by")}))
+    # phase 18c's path (worker mode, 4 processes, one (tp, inner) rank
+    # each): K4 across the tp axis's 2-of-4 sub-groups, one call at [1, 4096]
+    # over 2 of the 4 processes (18c's own rows, every host bit-equal to the
+    # one-process K4 over its sub-group's ranks), its launches host 0's in
+    # 18c's --tp 2 --sp 2 ring run (the tp sums) and in its --tp 2 --ep 2
+    # ring run (the tp sums and the ep combine, each over its sub-group)
+    sub_rows = summary["subgroup_sp_workers"]["k4_subgroup"]
+    k4_sub = next(r for r in sub_rows if r["R"] == 1)
+    for name, arm in (("ring_all_reduce_ipc_subgroup", summary["subgroup_sp_workers"]["tp=2 sp=2 ring"]),
+                      ("ring_all_reduce_ipc_subgroup_ep", summary["subgroup_ep_workers"]["tp=2 ep=2 ring"])):
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces + ", across a sub-group of processes",
+                            launches=arm["hosts"][0]["launches"]["ring_all_reduce_ipc"],
+                            max_abs_err=max(r["max_abs_err"] for r in sub_rows),
+                            bit_equal_one_process=all(r["bit_equal_one_process"] for r in sub_rows),
+                            **{k: k4_sub[k] for k in ("ms", "wall_ms", "plain_ms", "bound_ms", "library_ms",
+                                                       "bound_by")}))
     summary["kernels"] = kernels
     end = time.perf_counter()
     summary["total_s"] = end - t_all
@@ -7290,7 +7417,10 @@ def main() -> None:
           f"({MAIN_LAYERS} layers); q40_int8_ep_worker: one decoded token's dense-local expert launches at "
           f"Mixtral-8x7B width (8 experts x gate_up and down x {MIXTRAL_LAYERS} layers, T=1), its launches host 0's "
           f"in phase 18b's worker --ep 2 ring run; ring_all_reduce_ipc_ep_worker: as ring_all_reduce_ipc, its "
-          "launches host 0's in that run")
+          "launches host 0's in that run; ring_all_reduce_ipc_subgroup(_ep): K4 across a 2-of-4 sub-group of "
+          "processes at [1, 4096] (phase 18c's rows, times as ring_all_reduce_ipc's, library_ms the psum arm over "
+          "the sub-group), its launches host 0's in phase 18c's worker --tp 2 --sp 2 (--tp 2 --ep 2) ring run "
+          f"over 4 processes ({MAIN_LAYERS} ({MIXTRAL_LAYERS}) layers)")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

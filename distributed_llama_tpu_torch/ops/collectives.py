@@ -23,8 +23,11 @@ without writing any rank's product to device memory; otherwise each rank
 runs its matmul and :func:`all_reduce` follows.
 
 Worker mode (:mod:`parallel.hosts`) spreads the ranks over processes: the
-seam then takes the process group, ``xs`` holds this process's ranks only
-(a contiguous run of the global ranks, host-major), and every arm gives
+seam then takes the process group of the axis it sums or exchanges over
+(the whole group, or an :class:`parallel.hosts.AxisGroup` of the
+processes on one mesh axis, whose host ids, rank indices, store keys and
+IPC ring are its own), ``xs`` holds this process's ranks only
+(a contiguous run of the group's ranks, host-major), and every arm gives
 the bytes the one-process run of that arm gives. ``psum`` and
 ``ring_xla`` gather the partials in global rank order through the group
 (a host copy each way, the library data move XLA's psum is in the JAX
@@ -251,12 +254,15 @@ def _ipc(symbol: str):
 
 
 class IpcRing:
-    """This process's side of K4 across processes: a staging buffer with a
-    slot per local rank (sized for the largest payload seen so far, grown
-    by every process at the same call), its peers' buffers mapped once per
-    size, and this process's "ready" and "done" interprocess events with
-    its peers' opened. Handles travel through the group's store. Built by
-    every process together (:func:`open_ipc_ring`), closed by
+    """This process's side of K4 across the processes of ``group`` (the
+    whole worker group or one mesh axis's): a staging buffer with a slot
+    per local rank (sized for the largest payload seen so far, grown by
+    every process of the group at the same call), its peers' buffers
+    mapped once per size, and this process's "ready" and "done"
+    interprocess events with its peers' opened. Handles travel through the
+    group's store keys; slots, peers and barriers are the group's, so a
+    process on two axes holds two independent rings. Built by every
+    process of the group together (:func:`open_ipc_ring`), closed by
     :meth:`parallel.hosts.HostGroup.destroy`."""
 
     def __init__(self, group, m: int, device: torch.device):
@@ -282,8 +288,9 @@ class IpcRing:
             self.peer_events[name] = (ctypes.c_void_p * len(opened))(*opened)
 
     def _grow(self, slot_bytes: int) -> None:
-        """Every process at once: drop the old buffers once no launch reads
-        them, then allocate, export and map buffers of ``slot_bytes`` slots."""
+        """Every process of the group at once: drop the old buffers once no
+        launch reads them, then allocate, export and map buffers of
+        ``slot_bytes`` slots."""
         if self.own is not None:
             self._close_buffers()
         slot_bytes = -(-slot_bytes // SLOT_ALIGN) * SLOT_ALIGN
@@ -325,7 +332,7 @@ class IpcRing:
         self.events, self.peer_events = {}, {}
 
     def slot_pointers(self) -> list:
-        """The n global ranks' slots in global rank order: each process's m
+        """The group's n ranks' slots in its rank order: each process's m
         slots, own or mapped."""
         bases = {self.group.host_id: self.own.value, **{h: p.value for h, p in self.mapped.items()}}
         return [bases[h] + j * self.slot_bytes for h in range(self.group.num_hosts) for j in range(self.m)]

@@ -34,8 +34,11 @@ rank's cache slice and its attention partials are per rank.
 Worker mode (``hosts``, :mod:`parallel.hosts`) spreads the ``tp x sp``
 ranks over processes in the JAX mesh's order: a process holds every sp
 rank of a run of tp ranks (the sp exchanges stay in the process, the tp
-sums and the logits' gather go through the group), or at tp = 1 a run of
-the sp ranks. Then each process computes the per-tp-rank parts itself
+sums and the logits' gather go through the group), or a run of one tp
+rank's sp ranks (the sp exchanges run over that tp rank's processes, and
+at tp > 1 the tp sums and the logits' gather over the processes holding
+the same sp run: each axis its own group, :meth:`parallel.hosts.HostGroup.axis_groups`).
+Then each process computes the per-tp-rank parts of its tp ranks itself
 (every process computes the same bytes from the same inputs), writes
 only its own cache slices, and the sp exchanges cross the processes
 through :mod:`ops.collectives`: the ring's rotation of K/V chunks
@@ -77,8 +80,8 @@ class SpRanks:
     """The sp ranks a process runs: ``ranks``, a run of the ``n`` global
     ones (all of them in one process); ``group`` carries the sp exchanges
     where the run is part of the axis, ``tp_group`` the tp collectives
-    where this process holds part of the tp axis (at most one of them is
-    set, :func:`parallel.hosts.axis_runs`)."""
+    where this process holds part of the tp axis, each over its own mesh
+    axis's processes (:meth:`parallel.hosts.HostGroup.axis_groups`)."""
 
     n: int
     ranks: range
@@ -223,7 +226,7 @@ class SequenceParallelForward(TransferProbeMixin):
         self.sp = sp
         self.tp = tp
         self.allreduce = allreduce
-        self._place_ranks(sp, "sp", hosts, device, devices, allreduce)
+        self._place_ranks(sp, hosts, device, devices, allreduce)
         self.sp_ranks = self.inner_ranks
         self.lay = SpRanks(sp, self.sp_ranks, self.inner_group, self.tp_group)
         # the engine must not bucket-pad prompts for this backend: it pads

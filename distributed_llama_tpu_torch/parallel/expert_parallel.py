@@ -37,8 +37,11 @@ ranks (the JAX package replicates it over ep).
 Worker mode (``hosts``, :mod:`parallel.hosts`) spreads the ``tp x ep``
 ranks over processes in the JAX mesh's order: a process holds every ep
 rank of a run of tp ranks (the expert exchanges stay in the process, the
-tp sums go through the group), or at tp = 1 a run of the ep ranks, whose
-experts alone it reads. Then every process computes the attention, the
+tp sums go through the group), or a run of one tp rank's ep ranks, whose
+experts alone it reads (the expert exchanges and the combine run over that
+tp rank's processes, and at tp > 1 the tp sums over the processes holding
+the same ep run: each axis its own group,
+:meth:`parallel.hosts.HostGroup.axis_groups`). Then every process computes the attention, the
 dense weights and the routing itself (the same bytes on every process);
 a dispatch forward routes only its home ranks' rows, and the two
 ``all_to_all`` exchanges and the ``all_gather`` cross the processes
@@ -72,8 +75,9 @@ from distributed_llama_tpu_torch.platform import resolve_device
 class EpRanks:
     """The ep ranks a process runs: ``ranks``, a run of the ``n`` global
     ones (all of them in one process), whose experts are the process's
-    expert list in order; ``group`` carries the expert exchanges where the
-    run is part of the axis."""
+    expert list in order; ``group`` carries the expert exchanges and the
+    dense-local combine where the run is part of the axis (over the
+    processes of this process's tp rank)."""
 
     n: int
     ranks: range
@@ -242,7 +246,7 @@ class ExpertParallelForward(TransferProbeMixin):
         self.ep = ep
         self.tp = tp
         self.allreduce = allreduce
-        self._place_ranks(ep, "ep", hosts, device, devices, allreduce)
+        self._place_ranks(ep, hosts, device, devices, allreduce)
         self.ep_ranks = self.inner_ranks
         self.lay = EpRanks(ep, self.ep_ranks, self.inner_group)
         self._init_probe()

@@ -136,31 +136,33 @@ class TransferProbeMixin:
         # bound once: the tp.transfer site fires inside the transfer probe
         self._faults = faults.active_plan()
 
-    def _place_ranks(self, inner: int, axis: str, hosts, device, devices, allreduce: str) -> None:
+    def _place_ranks(self, inner: int, hosts, device, devices, allreduce: str) -> None:
         """Worker mode's placement of a ``tp`` x ``inner`` backend (the
         sequence- and expert-parallel ones): :attr:`ranks`, this process's
         tp ranks (whose weights it reads), :attr:`inner_ranks`, its ranks
-        of the inner axis, and each axis's group, None where the axis stays
-        in this process (:func:`parallel.hosts.axis_runs`); then the IPC
-        staging on the card, made by every process here before any probe
-        or forward: for the inner axis's exchanges under every arm, or for
-        K4 across processes over tp under ``ring``."""
+        of the inner axis, and each axis's group over the processes of that
+        mesh axis, None where the axis stays in this process
+        (:func:`parallel.hosts.axis_runs`, :meth:`parallel.hosts.HostGroup.axis_groups`,
+        made by every process here); then the IPC staging on the card,
+        made by every process here before any probe or forward: the inner
+        axis's for its exchanges under every arm, and the tp axis's for K4
+        across processes under ``ring``."""
         from distributed_llama_tpu_torch.ops import collectives
 
         self.hosts = hosts if collectives.spans_hosts(hosts) else None
         if self.hosts is None:
             self.ranks, self.inner_ranks = range(self.tp), range(inner)
+            self.inner_group = self.tp_group = None
         else:
-            self.ranks, self.inner_ranks = self.hosts.axis_runs(self.tp, inner, axis)
-        self.tp_group = self.hosts if len(self.ranks) < self.tp else None
-        self.inner_group = self.hosts if len(self.inner_ranks) < inner else None
+            self.ranks, self.inner_ranks = self.hosts.axis_runs(self.tp, inner)
+            self.inner_group, self.tp_group = self.hosts.axis_groups(self.tp, inner)
         self.devices = rank_devices(len(self.ranks) * len(self.inner_ranks), device, devices,
                                     None if self.hosts is None else self.hosts.host_id)
         dev = self.devices[0]
         if dev.type == "cuda" and self.inner_group is not None:
-            collectives.open_ipc_ring(self.hosts, len(self.inner_ranks), dev, self.cfg.dim * 4)
-        elif dev.type == "cuda" and self.tp_group is not None and allreduce == "ring":
-            collectives.open_ipc_ring(self.hosts, len(self.ranks), dev, self.cfg.dim * 4)
+            collectives.open_ipc_ring(self.inner_group, len(self.inner_ranks), dev, self.cfg.dim * 4)
+        if dev.type == "cuda" and self.tp_group is not None and allreduce == "ring":
+            collectives.open_ipc_ring(self.tp_group, len(self.ranks), dev, self.cfg.dim * 4)
 
     def _sync(self) -> None:
         if self.devices[0].type == "cuda":

@@ -6,7 +6,8 @@ seed 4). Two processes, each a host of the group (gloo on the CPU).
 
 * The rank placement of every composite layout equals the JAX mesh's
   device order, read from ``mesh_utils.create_device_mesh`` on the 8 CPU
-  devices, at 2 and 4 hosts (a pure function: no processes).
+  devices, at 2 and 4 hosts, and so do the processes of each named axis
+  (pure functions: no processes).
 * Each exchange over two processes (the ring rotation, the gather under
   the decode merge and the all_gather, the all_to_all, ring attention and
   the merge built on them), at 2 and 4 ranks, gives the one-process bytes
@@ -204,8 +205,10 @@ def test_placement_is_the_jax_mesh_device_order(tp, inner, axis):
     """Device (t, i) of the JAX mesh over ``jax.devices()[:tp*inner]``,
     with the devices dealt to the hosts in process order (contiguous runs,
     as ``jax.devices()`` lists each process's devices), is the pair the
-    port's placement gives that host; a rank count that is not a multiple
-    of the hosts raises with the port's wording."""
+    port's placement gives that host, and the processes of each named axis
+    (those holding the host's tp ranks on the inner axis, its inner ranks
+    on the tp axis) are :func:`axis_members`'s; a rank count that is not a
+    multiple of the hosts raises with the port's wording."""
     n = tp * inner
     mesh = mesh_utils.create_device_mesh((tp, inner), devices=jax.devices()[:n])
     index = {d.id: g for g, d in enumerate(jax.devices()[:n])}
@@ -215,17 +218,19 @@ def test_placement_is_the_jax_mesh_device_order(tp, inner, axis):
                 thosts.rank_placement(tp, inner, num_hosts, 0)
             continue
         m = n // num_hosts
+
+        def host(t, i):
+            return index[mesh[t, i].id] // m
+
         for h in range(num_hosts):
-            want = sorted((t, i) for t in range(tp) for i in range(inner) if index[mesh[t, i].id] // m == h)
+            want = sorted((t, i) for t in range(tp) for i in range(inner) if host(t, i) == h)
             got = thosts.rank_placement(tp, inner, num_hosts, h)
             assert got == want, (tp, inner, num_hosts, h)
-            try:
-                tps, inners = thosts.axis_runs(tp, inner, num_hosts, h, axis)
-            except NotImplementedError as e:
-                # one tp rank's inner ranks over several processes at tp > 1
-                assert tp > 1 and m < inner and "not ported" in str(e)
-                continue
+            tps, inners = thosts.axis_runs(tp, inner, num_hosts, h)
             assert [(t, i) for t in tps for i in inners] == got
+            axis_procs = (sorted({host(t, i) for t in tps for i in range(inner)}),
+                          sorted({host(t, i) for t in range(tp) for i in inners}))
+            assert thosts.axis_members(tp, inner, num_hosts, h) == axis_procs, (tp, inner, num_hosts, h)
 
 
 # ---------------------------------------------------------------------------
@@ -360,11 +365,13 @@ def test_probe_fault_on_one_host_raises_on_both(workers):
 
 
 def test_refusals_keep_their_messages(files):
-    """What stays refused: --sp with --ep, a layout whose tp rank's sp
-    ranks span processes at tp > 1 (before any rendezvous: the placement),
-    and a rank count that is not a multiple of the hosts."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        thosts.axis_runs(2, 2, 4, 0, "sp")
+    """What stays refused: --sp with --ep and a rank count that is not a
+    multiple of the hosts (before any rendezvous: the placement). A layout
+    whose tp rank's sp ranks span processes at tp > 1 is placed: host 0 of
+    --tp 2 --sp 2 over 4 holds (0, 0), shares sp with host 1 and tp with
+    host 2."""
+    assert thosts.axis_runs(2, 2, 4, 0) == (range(0, 1), range(0, 1))
+    assert thosts.axis_members(2, 2, 4, 0) == ([0, 1], [0, 2])
     with pytest.raises(ValueError, match="must be a multiple of --num-hosts"):
         tcli.main(_argv(files, "sp2", "worker") + ["--coordinator", "127.0.0.1:1", "--num-hosts", "4",
                                                    "--host-id", "0"])

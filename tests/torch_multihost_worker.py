@@ -3,7 +3,8 @@
     python tests/torch_multihost_worker.py JOBS.json HOST_ID
 
 runs the jobs of ``JOBS.json`` in order, each in a group of its own with
-the other host's process, and prints one ``RESULT {json}`` line per job.
+the other hosts' processes (``"num_hosts"``, 2 unless the job says), and
+prints one ``RESULT {json}`` line per job.
 Each job's coordinator port is picked when the job starts: host 0 takes a
 free port and publishes it in ``JOBS.json.port.I``, which the other hosts
 wait for.
@@ -20,6 +21,12 @@ wait for.
   all-reduce seam under every arm and the all-gather over this host's ranks
   of seeded f32 partials (every global rank's drawn in rank order from one
   numpy generator), their outputs' bytes as uint32.
+* ``{"kind": "axes", "tp": t, "inner": n, "shapes": [...], "seed": s}``: this host's axis groups of a ``t`` x ``n`` layout
+  (:meth:`HostGroup.axis_groups`), their members, the exchanges over the
+  inner axis's group (:func:`exchange_outputs` over this host's run of the
+  n ranks) and the all-reduce seam under every arm and the all-gather over
+  the tp axis's group and over the inner one (:func:`axis_partials`),
+  their outputs' bytes;
 * ``{"kind": "exchange", "n": n, "seed": s}``: the sequence- and
   expert-parallel exchanges over this host's run of n ranks
   (:func:`exchange_outputs` on :func:`exchange_inputs`), their outputs'
@@ -163,6 +170,49 @@ def run_seam(job: dict, host_id: int, address: str) -> dict:
     return out
 
 
+def axis_partials(tp: int, inner: int, shapes: list, seed: int) -> dict:
+    """The axes job's seeded f32 partials: for each inner rank i the tp
+    ranks' partials summed over the tp axis (``("tp", i)``), and for each
+    tp rank t the inner ranks' partials summed over the inner axis
+    (``("inner", t)``), each drawn by :func:`seam_partials` from a seed of
+    its own."""
+    out = {("tp", i): seam_partials(tp, shapes, seed + 100 + i) for i in range(inner)}
+    out.update({("inner", t): seam_partials(inner, shapes, seed + 200 + t) for t in range(tp)})
+    return out
+
+
+def axis_sums(partials: list, ranks: range, group) -> dict:
+    """The seam under every arm and the all-gather of ``partials`` ([shape
+    index][rank]) over ``ranks`` (this host's run; all of them with no
+    group), their outputs' bytes as uint32."""
+    from distributed_llama_tpu_torch.ops import collectives
+
+    out = {}
+    for i, parts in enumerate(partials):
+        xs = [torch.from_numpy(parts[r]) for r in ranks]
+        for impl in collectives.IMPLS:
+            out[f"{impl}/{i}"] = [_bits(y) for y in collectives.all_reduce(xs, impl, group)]
+        out[f"gather/{i}"] = _bits(collectives.all_gather(xs, group))
+    return out
+
+
+def run_axes(job: dict, host_id: int, address: str) -> dict:
+    from distributed_llama_tpu_torch.parallel.hosts import HostGroup
+
+    tp, inner = job["tp"], job["inner"]
+    with HostGroup(address, job["num_hosts"], host_id) as group:
+        tps, inners = group.axis_runs(tp, inner)
+        inner_g, tp_g = group.axis_groups(tp, inner)
+        parts = axis_partials(tp, inner, job["shapes"], job["seed"])
+        got = exchange_outputs(exchange_inputs(inner, job["seed"] + tps.start), inners, inner_g)
+        return {"members": [None if g is None else getattr(g, "members", list(range(group.num_hosts)))
+                            for g in (inner_g, tp_g)],
+                "exchange": {k: [t.contiguous().view(torch.uint8).reshape(-1).tolist() for t in ts]
+                             for k, ts in got.items()},
+                "tp": axis_sums(parts[("tp", inners.start)], tps, tp_g),
+                "inner": axis_sums(parts[("inner", tps.start)], inners, inner_g)}
+
+
 def run_exchange(job: dict, host_id: int, address: str) -> dict:
     from distributed_llama_tpu_torch.parallel.hosts import HostGroup
 
@@ -187,9 +237,10 @@ def run_engine(job: dict, host_id: int, address: str) -> dict:
     if job.get("record_ids"):
         moe.router_topk = spy
     try:
-        with HostGroup(address, 2, host_id) as group:
+        n = job.get("num_hosts", 2)
+        with HostGroup(address, n, host_id) as group:
             args = cli.build_parser().parse_args(job["argv"] + ["--coordinator", address, "--host-id", str(host_id),
-                                                                "--num-hosts", "2"])
+                                                                "--num-hosts", str(n)])
             engine = cli.make_engine(args, hosts=group)[0]
             out = drive(engine, job["prompt"], job["delta"], job["steps"])
     finally:
@@ -240,7 +291,8 @@ def main() -> None:
     jobs = json.loads(jobs_path.read_text())
     host_id = int(sys.argv[2])
     for i, job in enumerate(jobs):
-        run = {"seam": run_seam, "exchange": run_exchange, "engine": run_engine}.get(job["kind"], run_cli)
+        run = {"seam": run_seam, "exchange": run_exchange, "engine": run_engine,
+               "axes": run_axes}.get(job["kind"], run_cli)
         result = run(job, host_id, coordinator(jobs_path, i, host_id))
         print("RESULT " + json.dumps(result), flush=True)
 
